@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""Where a frame's time goes in the PyTorch port, on one CUDA card.
+
+Run from the repository root: ``python3 chip_profile.py [splat|march]``
+(default: both).  For each surface-prediction mode it drives 24 frames of
+the noisy room sweep (``make_room_sweep(cam, 24, sweep_deg=40,
+noise_seed=1)``, the frames of chip_smoke's ``march`` phase) through
+``HashSLAM(flagship_gather_config())`` and prints one JSON line with:
+
+- ``frame_ms``: per-frame time of frames 8-15, unprofiled (CUDA events
+  around ``process``, synchronised per frame);
+- ``profile``: ``torch.profiler`` over frames 16-23: device kernels and
+  copies per frame, device busy time per frame, the idle share of the
+  device against the unprofiled p50 frame, the largest entries by device
+  time, and the window-gather kernel's own entry (its duration alone, at
+  the row count the frames give it);
+- ``stages``: each stage of the step timed alone on frame 16 against a
+  copy of the state after frame 15, before the profiler is started
+  (median of 5 runs, CUDA events, synchronised): preprocess, ICP, fuse
+  (allocate / compact + touch / integrate), and the surface prediction
+  (splat, or cache build + march through chip_smoke's
+  ``march_stage_ms``, the one timer of that stage), with the
+  window-gather launches made by one fuse.
+
+It needs a CUDA card and exits nonzero without one.  The card's name and
+power limit are printed first.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+
+import numpy as np
+
+from chip_smoke import march_stage_ms, median_ms
+
+N_FRAMES = 24
+WARM, PROFILED = 8, 16        # frames [8, 16) timed, [16, 24) profiled
+
+
+def _copy_state(state):
+    """The state with its map's tensors cloned: the stage timings update
+    the copy in place and leave the run's own map alone."""
+    hmap = type(state.hmap)(*(t.clone() for t in state.hmap))
+    return state._replace(hmap=hmap)
+
+
+def _stages(torch, slam, depth_raw) -> dict:
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.ops import icp as icp_ops
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
+    from voxelhashing_demo_tpu_torch.ops import splat as splat_ops
+    from voxelhashing_demo_tpu_torch.ops import window_gather as wg
+
+    cfg, st = slam.config, _copy_state(slam.state)
+    cam, hcfg, fus = cfg.camera, cfg.hash, cfg.fusion
+    raw = hash_slam.depth_tensor(depth_raw, slam.device)
+    frame = pre_ops.preprocess(raw, cam, cfg.frontend)
+    active = hash_ops.compact_visible(st.hmap, hcfg, st.pose, cam, fus)
+    out = {
+        "preprocess": median_ms(
+            torch, lambda: pre_ops.preprocess(raw, cam, cfg.frontend)),
+        "icp": median_ms(torch, lambda: icp_ops.icp_align_pyramid(
+            frame.depth, st.model.depth, cam, cfg.icp, src_full=frame,
+            tgt_full=st.model, prior_T=st.vel)),
+        "allocate": median_ms(torch, lambda: hash_ops.allocate_from_frame(
+            st.hmap, frame, st.pose, cam, hcfg, fus, st.frame_idx)),
+        "compact_touch": median_ms(torch, lambda: hash_ops.touch_active(
+            st.hmap, hash_ops.compact_visible(st.hmap, hcfg, st.pose, cam,
+                                              fus), st.frame_idx)),
+        "integrate": median_ms(torch, lambda: hash_ops.integrate(
+            st.hmap, active, hcfg, frame.depth, st.pose, cam, fus)),
+    }
+    before = wg.LAUNCHES
+    hash_ops.fuse_frame(st.hmap, frame, st.pose, cam, hcfg, fus,
+                        st.frame_idx)
+    out["gather_launches_per_fuse"] = wg.LAUNCHES - before
+    if cfg.raycast.mode == "splat":
+        out["splat"] = median_ms(torch, lambda: splat_ops.splat_raycast(
+            st.hmap, active, hcfg, st.pose, cam, cfg.raycast, fus))
+    else:
+        out.update(march_stage_ms(torch, cfg, st, active))
+    out["active_blocks"] = int(active.count)
+    return out
+
+
+def _profile(torch, slam, depths, frame_p50_ms: float) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for d in depths:
+            slam.process(d)
+        torch.cuda.synchronize()
+    by_name, n_events, busy_us = {}, 0, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        n_events += 1
+        busy_us += us
+        cnt, tot = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (cnt + 1, tot + us)
+    n = len(depths)
+    busy_ms = busy_us / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    gather = [{"name": k[:80], "per_frame": c / n, "us_per_launch": t / c}
+              for k, (c, t) in by_name.items() if "window_gather" in k]
+    return {
+        "frames": n,
+        "window_gather": gather,
+        "device_events_per_frame": n_events / n,
+        "device_busy_ms_per_frame": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / frame_p50_ms,
+        "top": [{"name": k[:80], "per_frame": c / n,
+                 "ms_per_frame": t / 1e3 / n,
+                 "share_of_busy": t / busy_us} for k, (c, t) in top],
+    }
+
+
+def run_mode(torch, mode: str, depths) -> None:
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+
+    base = flagship_gather_config()
+    cfg = dataclasses.replace(
+        base, raycast=dataclasses.replace(base.raycast, mode=mode))
+    slam = hash_slam.HashSLAM(cfg)
+    frame_ms = []
+    for i, d in enumerate(depths[:PROFILED]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        slam.process(d)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= WARM:
+            frame_ms.append(start.elapsed_time(end))
+    p50 = float(np.percentile(frame_ms, 50))
+    stages = _stages(torch, slam, depths[PROFILED])
+    prof = _profile(torch, slam, depths[PROFILED:], p50)
+    print(json.dumps({
+        "mode": mode,
+        "tracked": sum(bool(i.tracked) for i in slam.infos),
+        "frame_ms": {"p50": p50, "max": float(np.max(frame_ms)),
+                     "frames": frame_ms},
+        "profile": prof, "stages": stages,
+    }), flush=True)
+
+
+def main(modes) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile.py needs a CUDA card; none is available",
+              file=sys.stderr)
+        return 2
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.config import CameraConfig
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0], flush=True)
+    kernels.build_all()
+    depths, _ = synthetic.make_room_sweep(CameraConfig(), N_FRAMES,
+                                          sweep_deg=40.0, noise_seed=1)
+    for mode in modes:
+        run_mode(torch, mode, depths)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:] or ["splat", "march"]))

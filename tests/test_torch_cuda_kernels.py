@@ -5,7 +5,7 @@ that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Tolerances: the window gather is bit-exact (values and covered); the
+Tolerances: both window gathers are bit-exact (values and covered); the
 frame step on the card agrees with the step on the CPU within 1e-4 m of
 pose translation per frame over 10 frames.
 """
@@ -56,6 +56,72 @@ def test_window_gather_kernel_bit_exact(cuda, spread):
     assert torch.equal(got, ref)
 
 
+def _streamed_case(rng, rows, vlen, spread, H=480, W=640):
+    v = rng.integers(0, H - spread, (rows, 1)) + rng.integers(
+        0, spread, (rows, vlen))
+    u = rng.integers(0, W - spread, (rows, 1)) + rng.integers(
+        0, spread, (rows, vlen))
+    return v, u, rng.random((rows, vlen)) > 0.15
+
+
+# (rows, row length, spread): full width; clipped; rows % 8 != 0; a row
+# length that is no multiple of 4 (scalar path); a row longer than what a
+# lane keeps in registers; a row longer than one CTA of the first kernel
+@pytest.mark.parametrize("rows,vlen,spread", [
+    (4096, 512, 120), (4096, 512, 400), (4099, 512, 120), (37, 510, 120),
+    (64, 1000, 400), (9, 4096, 300)])
+def test_streamed_kernel_bit_exact(cuda, rows, vlen, spread):
+    rng = np.random.default_rng(1)
+    depth = torch.as_tensor(rng.random((480, 640), dtype=np.float32) + 0.5,
+                            device=cuda)
+    v, u, valid = _streamed_case(rng, rows, vlen, spread)
+    vt = torch.as_tensor(v, dtype=torch.int32, device=cuda)
+    ut = torch.as_tensor(u, dtype=torch.int32, device=cuda)
+    mt = torch.as_tensor(valid, device=cuda)
+    before = wg.LAUNCHES_STREAMED
+    got, got_cov = wg.gather_depth_window_streamed(depth, vt, ut, mt)
+    assert wg.LAUNCHES_STREAMED == before + 1
+    ref, ref_cov = wg.gather_depth_window_streamed_reference(depth, vt, ut,
+                                                             mt)
+    torch.cuda.synchronize()
+    assert torch.equal(got_cov, ref_cov)
+    assert torch.equal(got, ref)
+    if spread == 400:
+        assert int(got_cov.sum()) < int(mt.sum())
+
+
+def test_streamed_kernel_unaligned_rows(cuda):
+    """Rows that do not start on a 16-byte boundary (a slice one element
+    into a buffer) take the scalar path and still agree."""
+    rng = np.random.default_rng(2)
+    depth = torch.as_tensor(rng.random((480, 640), dtype=np.float32) + 0.5,
+                            device=cuda)
+    v, u, valid = _streamed_case(rng, 16, 512, 120)
+
+    def shifted(a, dtype):
+        buf = torch.empty(a.size + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(a.shape)
+        view.copy_(torch.as_tensor(a, dtype=dtype))
+        return view
+
+    vt, ut = shifted(v, torch.int32), shifted(u, torch.int32)
+    mt = torch.as_tensor(valid, device=cuda)
+    got, got_cov = wg.gather_depth_window_streamed(depth, vt, ut, mt)
+    ref, ref_cov = wg.gather_depth_window_reference(depth, vt, ut, mt)
+    torch.cuda.synchronize()
+    assert torch.equal(got_cov, ref_cov) and torch.equal(got, ref)
+
+
+def test_streamed_mixed_devices_raise(cuda):
+    d = torch.ones((60, 80), device=cuda)
+    v = torch.zeros((8, 512), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        wg.gather_depth_window_streamed(
+            d, v, v, torch.ones_like(v, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        wg.gather_depth_window(d, v, v, torch.ones_like(v, dtype=torch.bool))
+
+
 def test_window_gather_rejects_bad_input(cuda):
     d = torch.ones((60, 80), device=cuda)
     v = torch.zeros((8, 512), dtype=torch.int64, device=cuda)
@@ -76,7 +142,7 @@ def test_frame_step_card_matches_cpu(cuda):
                                  num_blocks=4096, max_active=2048,
                                  max_new_per_frame=2048))
     depths, _ = synthetic.make_sequence(cfg.camera, 10, trans_amp=0.05,
-                                        rot_amp_deg=2.5)
+                                        rot_amp_deg=2.5, device="cpu")
     runs = []
     for dev in ("cpu", cuda):
         slam = hash_slam.HashSLAM(cfg, device=dev)

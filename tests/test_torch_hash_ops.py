@@ -73,7 +73,8 @@ def _jmap(c):
 
 
 def _tmap(c):
-    return convert.hashmap_from_numpy(c["state"], prefix="hmap")
+    return convert.hashmap_from_numpy(c["state"], device="cpu",
+                                      prefix="hmap")
 
 
 def _jframe(c):
@@ -81,7 +82,7 @@ def _jframe(c):
 
 
 def _tframe(c):
-    return convert.frame_from_numpy(c["frame"])
+    return convert.frame_from_numpy(c["frame"], device="cpu")
 
 
 def assert_maps_equal(tmap, jmap, float_atol=1e-5):
@@ -126,7 +127,7 @@ def test_insert_blocks(carried, start, max_new):
     kj = J_CAND(_jframe(c), jnp.asarray(c["pose"]),
                                   c["jc"].camera, jh, c["jc"].fusion)
     jm = _jmap(c) if start == "carried" else jho.create(jh)
-    tm = _tmap(c) if start == "carried" else tho.create(th)
+    tm = _tmap(c) if start == "carried" else tho.create(th, device="cpu")
     mj, nj = J_INSERT(jm, jh, kj, frame_idx=K)
     mt, nt = tho.insert_blocks(tm, th, tt(np.asarray(kj)), frame_idx=K)
     assert int(nt) == int(nj) and int(nj) > 0
@@ -201,7 +202,7 @@ def test_integrate_gather_dispatch(carried, monkeypatch, use_gather,
     mj = J_INTEGRATE(_jmap(c), aj, jh, _jframe(c).depth,
                        jnp.asarray(c["pose"]), c["jc"].camera,
                        c["jc"].fusion)
-    at = convert.active_from_numpy(np_tree(aj))
+    at = convert.active_from_numpy(np_tree(aj), device="cpu")
     mt = tho.integrate(_tmap(c), at, th, _tframe(c).depth, tt(c["pose"]),
                        c["tc"].camera, c["tc"].fusion)
     assert len(calls) == expect_calls
@@ -244,5 +245,5 @@ def test_free_marked_random_mask(carried):
 
 def test_create_matches(carried):
     c = carried
-    assert_maps_equal(tho.create(c["tc"].hash), jho.create(c["jc"].hash),
+    assert_maps_equal(tho.create(c["tc"].hash, device="cpu"), jho.create(c["jc"].hash),
                       float_atol=0.0)

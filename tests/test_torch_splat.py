@@ -46,8 +46,8 @@ def carried():
 
 
 def _t(c):
-    return (convert.hashmap_from_numpy(c["np_map"]),
-            convert.active_from_numpy(c["np_active"]))
+    return (convert.hashmap_from_numpy(c["np_map"], device="cpu"),
+            convert.active_from_numpy(c["np_active"], device="cpu"))
 
 
 def test_surface_filter_exact(carried):
@@ -113,7 +113,7 @@ def test_render_pose_without_blocks(carried):
     """An empty visible set splats nothing (hit fraction 0)."""
     c = carried
     tc = c["tc"]
-    tmap = tho.create(tc.hash)
+    tmap = tho.create(tc.hash, device="cpu")
     act = tho.compact_visible(tmap, tc.hash, tt(c["pose"]), tc.camera,
                               tc.fusion)
     out = tsp.splat_raycast(tmap, act, tc.hash, tt(c["pose"]), tc.camera,

@@ -1,0 +1,76 @@
+"""Accuracy references for chip_smoke.py from the JAX package on the CPU.
+
+Not a test (pytest does not collect it); run it from the repository root:
+
+    JAX_PLATFORMS=cpu python tests/torch_port_reference.py [orbit|march]
+
+``orbit``: the 20-frame noise-free orbit of chip_smoke's ``slice`` phase
+(``JAX_REFERENCE``).  ``march``: the 24-frame noisy room sweep of its
+``march`` phase (``JAX_REFERENCE_MARCH``).  The frames come from the
+PORT's synthetic module on the CPU, with the arguments chip_smoke uses,
+and go through the JAX package's ``HashSLAM`` under the flagship gather
+configuration (Pallas kernel in interpret mode), so both packages see the
+same frames.  Prints one JSON line per run: tracked frames, unaligned ATE,
+render hit fraction, active blocks at the last frame, blocks freed.  These
+are accuracy figures; nothing here is a speed.
+"""
+
+import dataclasses
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import numpy as np  # noqa: E402
+
+import __graft_entry__  # noqa: E402
+from voxelhashing_demo_tpu.models import hash_slam  # noqa: E402
+from voxelhashing_demo_tpu.utils import metrics  # noqa: E402
+from voxelhashing_demo_tpu_torch.config import CameraConfig  # noqa: E402
+from voxelhashing_demo_tpu_torch.utils import synthetic  # noqa: E402
+
+
+def _config(mode: str):
+    cfg = __graft_entry__.flagship_config()
+    return dataclasses.replace(
+        cfg,
+        hash=dataclasses.replace(cfg.hash, use_pallas_gather=True),
+        raycast=dataclasses.replace(cfg.raycast, mode=mode),
+    )
+
+
+def _run(name: str, cfg, depths, gt) -> dict:
+    slam = hash_slam.HashSLAM(cfg)
+    for d in depths:
+        slam.process(d)
+    out = {
+        "run": name, "frames": len(depths),
+        "tracked": sum(bool(i.tracked) for i in slam.infos),
+        "ate_mm": metrics.ate_rmse(slam.trajectory, gt, align=False) * 1e3,
+        "hit_frac": float(np.asarray(slam.render().hit).mean()),
+        "active_blocks": int(slam.infos[-1].blocks_active),
+        "blocks_freed": sum(int(i.blocks_freed) for i in slam.infos),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main(which) -> None:
+    cam = CameraConfig()
+    if "orbit" in which:
+        depths, gt = synthetic.make_sequence(
+            cam, 20, trans_amp=0.05, rot_amp_deg=2.5, device="cpu")
+        _run("orbit", _config("splat"), depths, gt)
+    if "march" in which:
+        depths, gt = synthetic.make_room_sweep(
+            cam, 24, sweep_deg=40.0, noise_seed=1, device="cpu")
+        _run("march", _config("march"), depths, gt)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:] or ["orbit", "march"])

@@ -124,7 +124,8 @@ class HashConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RaycastConfig:
-    """Surface prediction: splat (this package) or march (not ported)."""
+    """Surface prediction: ``mode`` "splat" (z-buffer splat of the surface
+    band) or "march" (sphere trace of a view-local dense cache)."""
 
     max_steps: int = 96
     step_scale: float = 0.9

@@ -5,7 +5,7 @@ nested structures use dotted names (``"hmap.keys"``, ``"model.depth"``).
 ``state_to_numpy`` of a port state and the same flattening of a JAX state
 (``{f"hmap.{k}": np.asarray(v) for k, v in s.hmap._asdict().items()}``
 and so on) give the same keys, so the tests can start both packages from
-one state.  Arrays are copied onto ``device``.
+one state.  Arrays are copied onto ``device`` (None: the CUDA card).
 """
 
 from __future__ import annotations
@@ -13,17 +13,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import host_array as _np
+from .device import resolve
+from .models.dense_slam import DenseSLAMState
 from .models.hash_slam import HashSLAMState
 from .ops.hash_ops import ActiveSet, HashMap
 from .ops.preprocess import Frame
+from .ops.tsdf import DenseTSDF
 
 
 def _t(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
-
-
-def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    return torch.from_numpy(np.array(a, copy=True)).to(resolve(device))
 
 
 def _sub(d: dict, prefix: str) -> dict:
@@ -65,6 +65,37 @@ def active_from_numpy(d: dict, device=None, prefix: str = "") -> ActiveSet:
 def active_to_numpy(active: ActiveSet, prefix: str = "") -> dict:
     return _prefixed({f: _np(getattr(active, f)) for f in ActiveSet._fields},
                      prefix)
+
+
+def dense_tsdf_from_numpy(d: dict, device=None,
+                          prefix: str = "") -> DenseTSDF:
+    d = _sub(d, prefix)
+    return DenseTSDF(*(_t(d[f], device) for f in DenseTSDF._fields))
+
+
+def dense_tsdf_to_numpy(tsdf: DenseTSDF, prefix: str = "") -> dict:
+    return _prefixed({f: _np(getattr(tsdf, f)) for f in DenseTSDF._fields},
+                     prefix)
+
+
+def dense_state_from_numpy(d: dict, device=None) -> DenseSLAMState:
+    """Flat ``{name: array}`` (JAX field names) -> DenseSLAMState."""
+    return DenseSLAMState(
+        tsdf=dense_tsdf_from_numpy(d, device, "tsdf"),
+        pose=_t(d["pose"], device),
+        model=frame_from_numpy(d, device, "model"),
+        frame_idx=int(d["frame_idx"]),
+    )
+
+
+def dense_state_to_numpy(state: DenseSLAMState) -> dict:
+    """DenseSLAMState -> flat ``{name: array}`` (inverse of
+    ``dense_state_from_numpy``)."""
+    out = dense_tsdf_to_numpy(state.tsdf, "tsdf")
+    out["pose"] = _np(state.pose)
+    out.update(frame_to_numpy(state.model, "model"))
+    out["frame_idx"] = np.int32(state.frame_idx)
+    return out
 
 
 def state_from_numpy(d: dict, device=None) -> HashSLAMState:

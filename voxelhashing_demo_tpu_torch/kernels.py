@@ -4,11 +4,13 @@ Each kernel file has a plain C interface.  It is compiled with nvcc into a
 shared library at first use, into ``_build/`` beside this file (listed in
 .gitignore), and loaded with ctypes.  The library's file name carries a
 hash of its source and flags, so an edited source is rebuilt.  Nothing is
-built or loaded when this module is imported.
+built or loaded when this module is imported.  ``build_all`` compiles
+every source at once, one nvcc process each.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -66,14 +68,29 @@ def build(name: str) -> Path:
     return out
 
 
-def window_gather_lib() -> ctypes.CDLL:
-    """The loaded window-gather library (built on first call)."""
-    lib = _LOADED.get("window_gather")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# source name (= its exported C function, returning int) -> argument types
+_GATHER_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+KERNELS = {
+    "window_gather": _GATHER_ARGS,
+    "window_gather_streamed": _GATHER_ARGS,
+}
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every kernel source that is not built yet, all nvcc
+    processes started together; returns {name: library path}."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS)))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first call)."""
+    lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build("window_gather")))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.window_gather.argtypes = [p, p, p, p, p, p,
-                                      i, i, i, i, i, i, p]
-        lib.window_gather.restype = ctypes.c_int
-        _LOADED["window_gather"] = lib
+        lib = ctypes.CDLL(str(build(name)))
+        fn = getattr(lib, name)
+        fn.argtypes = KERNELS[name]
+        fn.restype = ctypes.c_int
+        _LOADED[name] = lib
     return lib

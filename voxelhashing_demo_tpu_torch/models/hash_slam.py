@@ -1,11 +1,12 @@
 """Voxel-hash SLAM pipeline, the flagship model (port of
-models/hash_slam.py without streaming, the march raycaster or the scanned
-multi-frame step).
+models/hash_slam.py without streaming or the scanned multi-frame step).
 
 One frame: preprocess -> pyramid ICP (motion prior raced at the coarsest
 level) -> motion gate -> periodic GC -> allocate / compact / touch /
-integrate -> surface filter / splat / finalize -> model frame for the next
-frame's tracking.
+integrate -> surface prediction -> model frame for the next frame's
+tracking.  The surface prediction is the splat (surface filter / splat /
+finalize) or, with ``raycast.mode = "march"``, the sphere-traced march of
+a view-local dense cache (ops/hash_raycast.py).
 
 The state is preallocated tensors updated IN PLACE: the map (hundreds of
 MB at the flagship size) is written where the JAX version returns new
@@ -21,8 +22,10 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..device import resolve
 from ..geometry import se3
 from ..ops import hash_ops
+from ..ops import hash_raycast
 from ..ops import icp as icp_ops
 from ..ops import preprocess as pre_ops
 from ..ops import raycast as rc_ops
@@ -51,7 +54,9 @@ class StepInfo(NamedTuple):
 
 
 def create(config: PipelineConfig, device=None) -> HashSLAMState:
-    """Fresh state on ``device``: empty map, identity pose, empty model."""
+    """Fresh state on ``device`` (None: the CUDA card): empty map,
+    identity pose, empty model."""
+    device = resolve(device)
     cam = config.camera
     H, W = cam.height, cam.width
     f32 = dict(dtype=torch.float32, device=device)
@@ -72,10 +77,20 @@ def create(config: PipelineConfig, device=None) -> HashSLAMState:
 def _check_supported(config: PipelineConfig) -> None:
     if config.stream.enabled:
         raise NotImplementedError("streaming is not ported yet")
-    if config.raycast.mode != "splat":
-        raise NotImplementedError(
-            f"raycast mode {config.raycast.mode!r} is not ported yet "
-            "(only 'splat')")
+    if config.raycast.mode not in ("splat", "march"):
+        raise ValueError(f"unknown raycast mode {config.raycast.mode!r} "
+                         "(expected 'splat' or 'march')")
+
+
+def _predict_surface(hmap, active, pose, config: PipelineConfig):
+    """The map's surface seen from ``pose``, by the configured mode."""
+    if config.raycast.mode == "splat":
+        return splat_ops.splat_raycast(
+            hmap, active, config.hash, pose, config.camera, config.raycast,
+            config.fusion)
+    return hash_raycast.raycast_hash(
+        hmap, active, config.hash, pose, config.camera, config.raycast,
+        config.fusion, cache_dims=config.raycast.cache_dims)
 
 
 def step(state: HashSLAMState, depth_raw: torch.Tensor,
@@ -137,8 +152,7 @@ def step(state: HashSLAMState, depth_raw: torch.Tensor,
     )
 
     # --- surface prediction for the next frame's tracking ------------------
-    rc = splat_ops.splat_raycast(
-        hmap, active, hcfg, pose_new, cam, config.raycast, config.fusion)
+    rc = _predict_surface(hmap, active, pose_new, config)
     model = rc_ops.model_frame(rc)
 
     new_state = HashSLAMState(
@@ -163,7 +177,7 @@ def step(state: HashSLAMState, depth_raw: torch.Tensor,
     return new_state, info
 
 
-def _depth_tensor(depth_raw, device) -> torch.Tensor:
+def depth_tensor(depth_raw, device) -> torch.Tensor:
     """Host uint16 frame (numpy) or integer tensor -> int32 tensor on
     ``device`` (the frame is widened on the host: uint16 kernels are thin
     in torch)."""
@@ -178,28 +192,30 @@ def _depth_tensor(depth_raw, device) -> torch.Tensor:
 class HashSLAM:
     """Host-side wrapper accumulating the trajectory.
 
-    ``HashSLAM(config, device)`` owns one state on ``device``; ``process``
-    steps one raw depth frame, ``render`` predicts the surface from any
-    pose, ``trajectory`` and ``infos`` collect each frame's pose and
-    StepInfo (device tensors)."""
+    ``HashSLAM(config, device)`` owns one state on ``device`` (None: the
+    CUDA card; the CPU only when asked for); ``process`` steps one raw
+    depth frame, ``render`` predicts the surface from any pose,
+    ``trajectory`` and ``infos`` collect each frame's pose and StepInfo
+    (device tensors)."""
 
-    def __init__(self, config: PipelineConfig, device="cpu"):
+    def __init__(self, config: PipelineConfig, device=None):
         _check_supported(config)
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.state = create(config, device=self.device)
         self.trajectory = []
         self.infos = []
 
     def process(self, depth_raw) -> StepInfo:
         self.state, info = step(
-            self.state, _depth_tensor(depth_raw, self.device), self.config)
+            self.state, depth_tensor(depth_raw, self.device), self.config)
         self.trajectory.append(info.pose)
         self.infos.append(info)
         return info
 
     def render(self, pose=None) -> rc_ops.RaycastOutput:
-        """Splat the map from ``pose`` (default: the current pose)."""
+        """Predict the surface from ``pose`` (default: the current pose),
+        by the configured mode (splat or march)."""
         if pose is None:
             pose = self.state.pose
         else:
@@ -208,7 +224,4 @@ class HashSLAM:
         cfg = self.config
         active = hash_ops.compact_visible(
             self.state.hmap, cfg.hash, pose, cfg.camera, cfg.fusion)
-        return splat_ops.splat_raycast(
-            self.state.hmap, active, cfg.hash, pose, cfg.camera,
-            cfg.raycast, cfg.fusion,
-        )
+        return _predict_surface(self.state.hmap, active, pose, cfg)

@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import CameraConfig, FusionConfig, HashConfig
+from ..device import resolve
 from ..geometry import camera as cam_geom
 from ..geometry import coords, se3
 from . import window_gather
@@ -64,7 +65,8 @@ class ActiveSet(NamedTuple):
 
 
 def create(cfg: HashConfig, device=None) -> HashMap:
-    """Fresh empty map on ``device``."""
+    """Fresh empty map on ``device`` (None: the CUDA card)."""
+    device = resolve(device)
     T = cfg.table_size
     V = cfg.voxels_per_block
     i32 = dict(dtype=torch.int32, device=device)
@@ -312,6 +314,30 @@ def _jax_chunk(cfg: HashConfig) -> int:
     return C
 
 
+def project_rows(
+    blocks: torch.Tensor,    # (C, 3)
+    ptrs: torch.Tensor,      # (C,)
+    cfg: HashConfig,
+    T_cw: torch.Tensor,
+    cam: CameraConfig,
+    fusion: FusionConfig,
+):
+    """Every voxel of the given block rows projected into the image: the
+    window gather's inputs.  Returns (z (C, V) camera depth, v, u (C, V)
+    int32 pixel coords clamped in-image, in_img (C, V) bool, row_valid
+    (C,) bool)."""
+    C = ptrs.shape[0]
+    V = cfg.voxels_per_block
+    local = _local_offsets(cfg.block_size, device=blocks.device)
+    vox = coords.block2voxel(blocks, cfg.block_size)[:, None, :] + local
+    world = coords.voxel2world(vox, fusion.voxel_size)
+    pc = se3.apply(T_cw, world.reshape(-1, 3)).reshape(C, V, 3)
+    ij, in_img = cam_geom.project_nearest(pc, cam)
+    u = torch.clamp(ij[..., 0], 0, cam.width - 1)
+    v = torch.clamp(ij[..., 1], 0, cam.height - 1)
+    return pc[..., 2], v, u, in_img, ptrs != FREE_PTR
+
+
 def _integrate_rows(
     hmap: HashMap,
     blocks: torch.Tensor,    # (C, 3)
@@ -327,18 +353,8 @@ def _integrate_rows(
     The per-voxel depth read goes through the window-gather kernel exactly
     when the JAX version calls its Pallas kernel: ``use_pallas_gather`` and
     a JAX chunk size divisible by 8."""
-    C = ptrs.shape[0]
-    V = cfg.voxels_per_block
-    local = _local_offsets(cfg.block_size, device=blocks.device)
-
-    vox = coords.block2voxel(blocks, cfg.block_size)[:, None, :] + local
-    world = coords.voxel2world(vox, fusion.voxel_size)
-    pc = se3.apply(T_cw, world.reshape(-1, 3)).reshape(C, V, 3)
-    ij, in_img = cam_geom.project_nearest(pc, cam)
-
-    u = torch.clamp(ij[..., 0], 0, cam.width - 1)
-    v = torch.clamp(ij[..., 1], 0, cam.height - 1)
-    row_valid = ptrs != FREE_PTR
+    z, v, u, in_img, row_valid = project_rows(blocks, ptrs, cfg, T_cw, cam,
+                                              fusion)
     if cfg.use_pallas_gather and _jax_chunk(cfg) % 8 == 0:
         depth, in_img = window_gather.gather_depth_window(
             depth_m.contiguous(), v.contiguous(), u.contiguous(),
@@ -347,7 +363,6 @@ def _integrate_rows(
     else:
         depth = depth_m[v.long(), u.long()]
 
-    z = pc[..., 2]
     sdf = depth - z
     trunc = fusion.truncation + fusion.trunc_scale * depth
     safe_ptr = torch.clamp(ptrs, 0, hmap.tsdf.shape[0] - 1).long()
