@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where a frame's time goes in the PyTorch port, on one CUDA card.
 
-Run from the repository root: ``python3 chip_profile.py [splat|march]``
-(default: both).  For each surface-prediction mode it drives 24 frames of
+Run from the repository root: ``python3 chip_profile.py
+[splat|march|backend]`` (default: splat and march).  ``backend`` is
+described at the end.  For each surface-prediction mode it drives 24 frames of
 the noisy room sweep (``make_room_sweep(cam, 24, sweep_deg=40,
 noise_seed=1)``, the frames of chip_smoke's ``march`` phase) through
 ``HashSLAM(flagship_gather_config())`` and prints one JSON line with:
@@ -21,6 +22,13 @@ noise_seed=1)``, the frames of chip_smoke's ``march`` phase) through
   (splat, or cache build + march through chip_smoke's
   ``march_stage_ms``, the one timer of that stage), with the
   window-gather launches made by one fuse.
+
+``backend`` drives chip_smoke's backend scenario (48 noisy room-sweep
+frames with two injected drifts through ``KeyframeSLAM``) twice: once
+unprofiled for host times (per frame by class: plain, keyframe insert, BA
+event), once under ``torch.profiler`` for the device's events and busy time
+over the whole run, the idle share against the unprofiled wall time, and
+the window-gather kernel's launches.
 
 It needs a CUDA card and exits nonzero without one.  The card's name and
 power limit are printed first.
@@ -86,14 +94,19 @@ def _stages(torch, slam, depth_raw) -> dict:
     return out
 
 
-def _profile(torch, slam, depths, frame_p50_ms: float) -> dict:
+def _profile(torch, slam, depths, frame_p50_ms: float, run=None) -> dict:
+    """Profile ``run()`` (default: ``slam.process`` over ``depths``);
+    per-frame figures divide by ``len(depths)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for d in depths:
-            slam.process(d)
+        if run is None:
+            for d in depths:
+                slam.process(d)
+        else:
+            run()
         torch.cuda.synchronize()
     by_name, n_events, busy_us = {}, 0, 0.0
     for e in prof.events():
@@ -151,6 +164,57 @@ def run_mode(torch, mode: str, depths) -> None:
     }), flush=True)
 
 
+def run_backend(torch) -> None:
+    import time
+
+    import chip_smoke
+    from voxelhashing_demo_tpu_torch.models import keyframe_slam
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cfg = chip_smoke.backend_config()
+    depths, _ = synthetic.make_room_sweep(
+        cfg.camera, chip_smoke.N_BACKEND,
+        sweep_deg=chip_smoke.BACKEND_SWEEP_DEG, noise_seed=1)
+
+    def warmed():
+        slam = keyframe_slam.KeyframeSLAM(cfg)
+        slam.warm_compile(depths[0])
+        torch.cuda.synchronize()
+        return slam
+
+    def drive(slam):
+        t0 = time.perf_counter()
+        frame_ms = chip_smoke.backend_drive(torch, slam, depths)
+        slam.flush()
+        torch.cuda.synchronize()
+        return frame_ms, (time.perf_counter() - t0) * 1e3
+
+    slam = warmed()
+    frame_ms, wall_ms = drive(slam)
+    kf = {r.frame_index for r in slam.keyframes}
+    ba = {e["frame"] for e in slam.ba_events}
+    cls = {"plain": [], "keyframe_insert": [], "ba_event": []}
+    for i, ms in enumerate(frame_ms):
+        cls["ba_event" if i in ba else "keyframe_insert" if i in kf
+            else "plain"].append(ms)
+    n = len(depths)
+    second = warmed()
+    prof = _profile(torch, None, depths, wall_ms / n,
+                    run=lambda: drive(second))
+    print(json.dumps({
+        "mode": "backend", "frames": n, "wall_ms": wall_ms,
+        "keyframes": len(kf), "ba_events": len(ba),
+        "map_updates": [(e["frame"], e["rebuild_mode"],
+                         e["keyframes_reintegrated"])
+                        for e in slam.ba_events if e["map_rebuilt"]],
+        "frame_ms_by_class": {k: {"n": len(v),
+                                  "p50": float(np.median(v)),
+                                  "max": float(np.max(v))}
+                              for k, v in cls.items() if v},
+        "profile": prof,
+    }), flush=True)
+
+
 def main(modes) -> int:
     import torch
 
@@ -171,7 +235,10 @@ def main(modes) -> int:
     depths, _ = synthetic.make_room_sweep(CameraConfig(), N_FRAMES,
                                           sweep_deg=40.0, noise_seed=1)
     for mode in modes:
-        run_mode(torch, mode, depths)
+        if mode == "backend":
+            run_backend(torch)
+        else:
+            run_mode(torch, mode, depths)
     return 0
 
 

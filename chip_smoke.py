@@ -44,6 +44,25 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    frame step's own gather inputs (the last sweep frame's visible rows,
    any row count), with its launch count set to 0 just before.
 
+8. ``backend``: ``KeyframeSLAM(flagship_gather_config())`` with the
+   keyframe settings ``BACKEND_KEYFRAMES`` on 48 frames of a noisy
+   150-degree room sweep with two injected drifts (``BACKEND_INJECT``).
+   Asserts: >= 1 accepted loop edge, >= 2 BA events, the first map update
+   a full rebuild and a later one incremental with something moved, no
+   saturated reintegration, no ring overflow, every frame but frame 0
+   tracked, unaligned ATE below the frontend-only ``HashSLAM`` on the same
+   injected run and below twice the JAX figure; the first gather kernel's
+   launches, counted from 0, equal frames + keyframes fused by full
+   rebuilds + 2 x moves; the kernel equals its plain version bit for bit
+   on the gather inputs of a de-integration call; a map fused from
+   scratch from the ledger renders like the maintained one; ``optimize``
+   on a seeded ring graph at K = 64 (dense) and K = 512 (CG) agrees with
+   the CPU within 1e-4 and repeats bit for bit; one relocalization
+   attempt recovers a mid-run frame's pose within 5 cm.  Prints ms per
+   pair-ICP batch, BA solve, rebuild fuse, move, keyframe insert and
+   relocalization, host synchronisations per piece (and the Python lines
+   they come from, for a BA solve and a fuse), peak memory.
+
 Then the kernel summary line (times and bound of the ``step_rows`` case,
 the shape the main path gives the kernels; ``launches`` is the count of
 the last path that drives the kernel, ``launches_by_path`` has each
@@ -77,6 +96,36 @@ JAX_REFERENCE = {"frames": 20, "tracked": 19, "ate_mm": 3.757,
 JAX_REFERENCE_MARCH = {"frames": 24, "tracked": 23, "ate_mm": 21.857,
                        "hit_frac": 0.9845, "active_blocks": 896,
                        "blocks_freed": 0}
+# The backend phase: 48 frames of a 150-degree noisy room sweep with two
+# injected drifts (the live pose is left-multiplied by exp(twist) just
+# before the frame), through KeyframeSLAM at the flagship gather width.
+# Keyframe settings of the JAX package's drift scenario
+# (tests/test_reintegration.py) with the keyframe image at a quarter of
+# 640x480 (160x120) and the inlier gate scaled to it (800 of 80x60 there
+# -> 3200 of 160x120 here).
+N_BACKEND = 48
+BACKEND_SWEEP_DEG = 150.0
+BACKEND_INJECT = {
+    18: (0.04, -0.03, 0.025, 0.0, 2.0, 0.0),      # m, m, m, deg, deg, deg
+    34: (-0.03, 0.025, -0.02, 0.0, -1.5, 0.0),
+}
+BACKEND_KEYFRAMES = dict(
+    max_keyframes=32, max_edges=128, min_rotation_deg=5.0,
+    min_translation=0.06, icp_downsample=4, loop_radius=0.6,
+    min_loop_separation=6, min_loop_inliers=3200, max_loop_error=1e-4,
+    ba_iters=8, rebuild_map=True, rebuild_min_trans=0.03,
+    rebuild_incremental=True, sync_every=1,
+)
+# tests/torch_port_reference.py backend: the JAX KeyframeSLAM on the CPU on
+# the same frames, settings and injections
+JAX_REFERENCE_BACKEND = {
+    "frames": 48, "tracked": 47, "keyframes": 26, "edges": 79,
+    "loop_edges": 54, "ba_events": 19,
+    "ba_modes": ["full", None, None, "incremental", "incremental",
+                 "incremental", "incremental"] + [None] * 12,
+    "keyframes_reintegrated": [0, 0, 0, 6, 5, 1, 1] + [0] * 12,
+    "ate_mm": 16.453,
+}
 ATE_BOUND_MM = 7.5
 HIT_BOUND = 0.8
 PARITY_ATOL_M = 1e-4
@@ -194,25 +243,28 @@ def _bound(rows: int, vlen: int = V, height: int = H, width: int = W):
                                    else "operations")
 
 
-def gather_inputs(slam, depth_raw):
-    """The window gather's inputs as the frame step builds them for
-    ``depth_raw`` at ``slam``'s current state: the visible rows at the
-    pose (a row count no one chose), projected as integrate projects
-    them.  Returns contiguous (depth (H, W) f32, v, u (C, 512) int32,
-    valid (C, 512) bool)."""
+def gather_inputs(slam, depth_raw, pose=None):
+    """The window gather's inputs as ``integrate`` builds them for
+    ``depth_raw`` on ``slam``'s map at ``pose`` (default: the current
+    pose, as the frame step does; a keyframe's ledger pose gives the rows
+    of a de-integration call): the visible rows at the pose (a row count
+    no one chose), projected as integrate projects them.  Returns
+    contiguous (depth (H, W) f32, v, u (C, 512) int32, valid (C, 512)
+    bool)."""
     from voxelhashing_demo_tpu_torch.geometry import se3
     from voxelhashing_demo_tpu_torch.models.hash_slam import depth_tensor
     from voxelhashing_demo_tpu_torch.ops import hash_ops
     from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
 
     cfg, st = slam.config, slam.state
+    pose = st.pose if pose is None else pose
     frame = pre_ops.preprocess(depth_tensor(depth_raw, slam.device),
                                cfg.camera, cfg.frontend)
-    active = hash_ops.compact_visible(st.hmap, cfg.hash, st.pose,
+    active = hash_ops.compact_visible(st.hmap, cfg.hash, pose,
                                       cfg.camera, cfg.fusion)
     n = int(active.count)
     _, v, u, in_img, row_valid = hash_ops.project_rows(
-        active.blocks[:n], active.ptrs[:n], cfg.hash, se3.inverse(st.pose),
+        active.blocks[:n], active.ptrs[:n], cfg.hash, se3.inverse(pose),
         cfg.camera, cfg.fusion)
     return (frame.depth.contiguous(), v.contiguous(), u.contiguous(),
             (in_img & row_valid[:, None]).contiguous())
@@ -612,6 +664,361 @@ def phase_streamed_entry(torch, wg, slam, depth_raw):
     return launches
 
 
+def backend_config():
+    """flagship_gather_config() with the backend phase's keyframe
+    settings."""
+    from voxelhashing_demo_tpu_torch.config import (KeyframeConfig,
+                                                    flagship_gather_config)
+
+    return dataclasses.replace(
+        flagship_gather_config(),
+        keyframes=KeyframeConfig(**BACKEND_KEYFRAMES))
+
+
+def backend_drive(torch, slam, depths, on_frame=None):
+    """Run the backend scenario's frames through ``slam`` (a HashSLAM or a
+    KeyframeSLAM), left-multiplying the live pose by each injected drift
+    just before its frame.  Returns the per-frame host times (ms)."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+
+    frame_ms = []
+    for i, d in enumerate(depths):
+        if i in BACKEND_INJECT:
+            tw = np.array(BACKEND_INJECT[i], np.float32)
+            tw[3:] = np.deg2rad(tw[3:])
+            D = se3.exp(torch.as_tensor(tw, device=slam.device))
+            slam.state = slam.state._replace(pose=D @ slam.state.pose)
+        t0 = time.perf_counter()
+        slam.process(d)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    return frame_ms
+
+
+def sync_sites(torch, fn) -> dict:
+    """Host synchronisations (blocking device-to-host reads, ``item()``,
+    boolean-mask indexing) that one call of ``fn`` makes, from PyTorch's
+    own sync-debug warnings: ``{"file:line": count}`` of the Python lines
+    that were running, most frequent first."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{os.path.basename(w.filename)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def count_syncs(torch, fn) -> int:
+    """The number of host synchronisations one call of ``fn`` makes."""
+    return sum(sync_sites(torch, fn).values())
+
+
+def ring_graph(torch, real: int, cap: int, seed: int, chords: bool, device):
+    """Seeded ring pose graph: ``real`` poses on a circle in a graph of
+    capacity ``cap``; initial estimates integrate noisy odometry, the
+    edges measure the truth (odometry chain, the ring closure and, with
+    ``chords``, a chord every 16 poses)."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+    from voxelhashing_demo_tpu_torch.ops import pose_graph
+
+    rng = np.random.RandomState(seed)
+    ang = 2 * np.pi * np.arange(real) / real
+    xi = np.zeros((real, 6), np.float32)
+    xi[:, 0], xi[:, 2], xi[:, 4] = np.cos(ang), np.sin(ang), ang
+    gt = se3.exp(torch.from_numpy(xi)).numpy().astype(np.float64)
+
+    def rel(i, j):
+        return (np.linalg.inv(gt[i]) @ gt[j]).astype(np.float32)
+
+    noise = np.concatenate([rng.normal(0, 0.01, (real - 1, 3)),
+                            rng.normal(0, 0.005, (real - 1, 3))],
+                           axis=1).astype(np.float32)
+    steps = se3.exp(torch.from_numpy(noise)).numpy()
+    est = [gt[0].astype(np.float32)]
+    for i in range(real - 1):
+        est.append((est[-1] @ rel(i, i + 1) @ steps[i]).astype(np.float32))
+    graph = pose_graph.create(cap, 2 * cap, device=device)
+    for T in est:
+        graph = pose_graph.add_pose(graph, T)
+    pairs = [(i, i + 1) for i in range(real - 1)] + [(real - 1, 0)]
+    if chords:
+        pairs += [(i, i + real // 2)
+                  for i in range(0, real - real // 2, 16)]
+    for i, j in pairs:
+        graph = pose_graph.add_edge(graph, i, j, rel(i, j))
+    return graph
+
+
+def phase_backend_ba(torch) -> dict:
+    """``optimize`` on a seeded ring graph at K = 64 (dense) and K = 512
+    (CG): the card against the port on the CPU (poses within 1e-4), and
+    two runs on the card equal bit for bit."""
+    from voxelhashing_demo_tpu_torch.config import KeyframeConfig
+    from voxelhashing_demo_tpu_torch.ops import pose_graph
+
+    out = {}
+    for name, real, cap, solver in (("K64_dense", 64, 64, "dense"),
+                                    ("K512_cg", 128, 512, "cg")):
+        kcfg = KeyframeConfig(ba_iters=10, ba_solver=solver)
+        args = (real, cap, 7, solver == "cg")
+        cpu, _ = pose_graph.optimize(ring_graph(torch, *args, "cpu"), kcfg)
+        g = ring_graph(torch, *args, "cuda")
+        a, info = pose_graph.optimize(g, kcfg)
+        b, _ = pose_graph.optimize(g, kcfg)
+        torch.cuda.synchronize()
+        diff = float((a.poses.cpu() - cpu.poses).abs().max())
+        same = bool(torch.equal(a.poses, b.poses))
+        out[name] = {
+            "poses": real, "capacity": cap, "solver": solver,
+            "ba_iters": kcfg.ba_iters,
+            "max_pose_diff_vs_cpu": diff, "two_runs_equal_bits": same,
+            "chi2_initial": float(info.chi2_initial),
+            "chi2_final": float(info.chi2_final),
+            "solve_ms": median_ms(
+                torch, lambda: pose_graph.optimize(g, kcfg), reps=3),
+            "host_syncs": count_syncs(
+                torch, lambda: pose_graph.optimize(g, kcfg)),
+        }
+        _require(diff <= 1e-4, f"optimize {name}: card within 1e-4 of CPU")
+        _require(same, f"optimize {name}: two card runs equal bit for bit")
+        _require(out[name]["chi2_final"] < out[name]["chi2_initial"],
+                 f"optimize {name}: chi2 went down")
+    return out
+
+
+def phase_backend(torch, wg, card: str):
+    """KeyframeSLAM at the flagship gather width on the injected-drift
+    room sweep; see the module docstring."""
+    from voxelhashing_demo_tpu_torch.models import hash_slam, keyframe_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops, pose_graph
+    from voxelhashing_demo_tpu_torch.utils import metrics, synthetic
+
+    cfg = backend_config()
+    kcfg = cfg.keyframes
+    depths, gt = synthetic.make_room_sweep(
+        cfg.camera, N_BACKEND, sweep_deg=BACKEND_SWEEP_DEG, noise_seed=1)
+
+    # the same injected run without the backend
+    front = hash_slam.HashSLAM(cfg)
+    backend_drive(torch, front, depths)
+    ate_front = metrics.ate_rmse(front.trajectory, gt, align=False) * 1e3
+    del front
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slam = keyframe_slam.KeyframeSLAM(cfg)
+    slam.warm_compile(depths[0])
+    state_untouched = (slam._frame_idx == 0 and not slam.keyframes
+                       and slam.graph.num_poses == 0
+                       and int(slam.state.hmap.free_top)
+                       == cfg.hash.num_blocks)
+    wg.LAUNCHES = 0
+    frame_ms = backend_drive(torch, slam, depths)
+    traj = slam.trajectory()                  # lands all deferred work
+    launches = wg.LAUNCHES
+    peak = int(torch.cuda.max_memory_allocated())
+
+    events = slam.ba_events
+    updates = [e for e in events if e["map_rebuilt"]]
+    n_e = slam.graph.num_edges
+    edges = slam.graph.edges_ij[:n_e].cpu().numpy().tolist()
+    loop_edges = [e for e in edges if e[1] - e[0] > 1]
+    fused = sum(e["keyframes"] for e in updates
+                if e["rebuild_mode"] == "full")
+    moves = sum(e["keyframes_reintegrated"] for e in updates)
+    expected = len(depths) + fused + 2 * moves
+    tracked = [bool(i.tracked) for i in slam.infos]
+    ate = metrics.ate_rmse(traj, gt, align=False) * 1e3
+    kf_frames = [r.frame_index for r in slam.keyframes]
+    insert_ms = [1e3 * sum(t.values()) for t in slam._kf_insert_s]
+
+    # K1 on the gather inputs of one de-integration call: the rows a
+    # ledgered keyframe's depth sees at its map_pose
+    rec = next(r for r in slam.keyframes if r.map_pose is not None)
+    args = gather_inputs(slam, rec.depth_dev, torch.as_tensor(
+        rec.map_pose, device=slam.device))
+    got, got_cov = wg.gather_depth_window(*args)
+    ref, ref_cov = wg.gather_depth_window_reference(*args)
+    torch.cuda.synchronize()
+    deint_exact = bool(torch.equal(got, ref)
+                       and torch.equal(got_cov, ref_cov))
+
+    # ledger check: a map fused from scratch from the ledgered keyframes
+    # and ring entries at their final poses renders like the incrementally
+    # maintained one
+    fuse = keyframe_slam.make_fuse_only(cfg)
+    reint = keyframe_slam.make_reintegrate(cfg)
+    render = keyframe_slam.make_render_model(cfg)
+    poses = slam._poses_np
+    contributions = [
+        (r.depth_dev, poses[r.index], r.frame_index)
+        for r in slam.keyframes if r.map_pose is not None
+    ] + [(e.depth, (poses[e.kf] @ e.rel).astype(np.float32), e.frame_index)
+         for e in slam._ring]
+    ref_map = hash_ops.create(cfg.hash)
+    fuse_ms = []
+    for depth, pose, idx in contributions:
+        T = torch.as_tensor(pose, device=slam.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_map = fuse(ref_map, depth, T, idx)
+        torch.cuda.synchronize()
+        fuse_ms.append((time.perf_counter() - t0) * 1e3)
+    da = render(slam.state.hmap, slam.state.pose).depth.cpu().numpy()
+    db = render(ref_map, slam.state.pose).depth.cpu().numpy()
+    both = (da > 0) & (db > 0)
+    ledger = {
+        "contributions": len(contributions),
+        "both_frac": float(both.mean()),
+        "median_abs_diff_m": float(np.median(np.abs(da - db)[both])),
+        "coverage_maintained": float((da > 0).mean()),
+        "coverage_from_scratch": float((db > 0).mean()),
+    }
+
+    # component times and host syncs, on the scratch map and the final
+    # graph (the instance's own map is not touched)
+    depth, pose, idx = contributions[0]
+    T = torch.as_tensor(pose, device=slam.device)
+    last, cands = slam.keyframes[-1], slam.keyframes[-5:-1]
+    inits = [np.linalg.inv(poses[c.index]) @ poses[last.index]
+             for c in cands]
+
+    def pair_batch():
+        slam._run_batch("fwd", last.frame, [c.frame for c in cands], inits)
+
+    def ba_solve():
+        slam._fetch_ba(pose_graph.optimize(slam.graph, kcfg)[1])
+
+    def one_move():
+        reint(ref_map, depth, T, T, idx)
+
+    def one_fuse():
+        fuse(ref_map, depth, T, idx)
+
+    def one_insert_pre():
+        slam._kf_pre(last.depth_dev)
+
+    times = {
+        "pair_icp_batch_ms": median_ms(torch, pair_batch),
+        "pair_icp_batch_candidates": len(cands),
+        "ba_solve_ms": median_ms(torch, ba_solve),
+        "ba_capacity": int(slam.graph.poses.shape[0]),
+        "rebuild_fuse_ms": float(np.median(fuse_ms)),
+        "move_ms": median_ms(torch, one_move),
+        "keyframe_insert_ms_p50": float(np.median(insert_ms)),
+        "keyframe_insert_ms_max": float(np.max(insert_ms)),
+        "event_ba_ms_p50": float(np.median([e["ba_s"] for e in events])
+                                 * 1e3),
+        "event_map_update_ms": [round(e["rebuild_s"] * 1e3, 1)
+                                for e in updates],
+        "frame_ms_p50": float(np.percentile(frame_ms, 50)),
+        "frame_ms_max": float(np.max(frame_ms)),
+    }
+    syncs = {
+        "pair_icp_batch": count_syncs(torch, pair_batch),
+        "keyframe_preprocess": count_syncs(torch, one_insert_pre),
+        "ba_solve_and_fetch": count_syncs(torch, ba_solve),
+        "rebuild_fuse": count_syncs(torch, one_fuse),
+        "move": count_syncs(torch, one_move),
+        "render_model": count_syncs(
+            torch, lambda: render(ref_map, slam.state.pose)),
+    }
+    syncs["ba_solve_and_fetch_sites"] = sync_sites(torch, ba_solve)
+    syncs["rebuild_fuse_sites"] = sync_sites(torch, one_fuse)
+    syncs["per_keyframe_insert"] = (syncs["keyframe_preprocess"]
+                                    + syncs["pair_icp_batch"])
+    syncs["per_ba_event_plus_map_update"] = (
+        f"{syncs['ba_solve_and_fetch']} + {syncs['rebuild_fuse']} x "
+        f"keyframes (full) or {syncs['move']} x moves + 1 (incremental)"
+        f" + {syncs['render_model']} (render)")
+
+    # one relocalization attempt, last: it resets the live pose and model.
+    # Frame 24 against the last 16 keyframes, each from a raced Procrustes
+    # seed; the recovered pose is held against that frame's trajectory pose
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = slam._relocalize(hash_slam.depth_tensor(depths[24], slam.device))
+    torch.cuda.synchronize()
+    reloc = {
+        "ms": (time.perf_counter() - t0) * 1e3,
+        "candidates": min(len(slam.keyframes), kcfg.reloc_max_candidates),
+        "recovered": found is not None,
+        "dist_to_trajectory_m": (
+            float(np.linalg.norm(found[:3, 3] - traj[24][:3, 3]))
+            if found is not None else None),
+    }
+
+    ba = phase_backend_ba(torch)
+    _emit({
+        "phase": "backend", "card": card, "H": H, "W": W,
+        "frames": len(depths),
+        "sweep_deg": BACKEND_SWEEP_DEG, "inject": BACKEND_INJECT,
+        "keyframe_settings": BACKEND_KEYFRAMES,
+        "warm_compile_left_state_alone": state_untouched,
+        "tracked": sum(tracked), "keyframes": len(kf_frames),
+        "keyframe_frames": kf_frames, "edges": n_e,
+        "loop_edges": len(loop_edges),
+        "ba_events": len(events),
+        "ba_frames": [e["frame"] for e in events],
+        "ba_modes": [e["rebuild_mode"] for e in events],
+        "keyframes_reintegrated": [e["keyframes_reintegrated"]
+                                   for e in events],
+        "saturated": any(e.get("reintegration_saturated") for e in events),
+        "ring_overflow": bool(slam._ring_overflow),
+        "capacity_events": slam.capacity_events,
+        "ate_mm": ate, "ate_frontend_only_mm": ate_front,
+        "kernel_launches": launches,
+        "kernel_launches_expected": expected,
+        "launches_formula": f"{len(depths)} frames + {fused} keyframes "
+                            f"fused by full rebuilds + 2 x {moves} moves",
+        "deintegration_rows": int(args[1].shape[0]),
+        "deintegration_gather_bit_exact": deint_exact,
+        "ledger": ledger, "times": times, "host_syncs": syncs,
+        "relocalize": reloc,
+        "optimize": ba, "peak_mem_bytes": peak,
+        "jax_reference": JAX_REFERENCE_BACKEND,
+    })
+    _require(state_untouched, "warm_compile leaves the instance's state")
+    _require(len(loop_edges) >= 1, ">= 1 accepted loop edge")
+    _require(len(events) >= 2, ">= 2 BA events")
+    _require(bool(updates) and updates[0]["rebuild_mode"] == "full",
+             "the first map update is a full rebuild")
+    _require(any(e["rebuild_mode"] == "incremental"
+                 and e["keyframes_reintegrated"] > 0 for e in updates[1:]),
+             "a later map update is incremental and moves something")
+    _require(not any(e.get("reintegration_saturated") for e in events),
+             "no reintegration saturated")
+    _require(not slam._ring_overflow, "no ring overflow")
+    _require(all(tracked[1:]), "every frame but frame 0 tracked")
+    _require(all(np.isfinite(T).all() for T in traj), "finite trajectory")
+    _require(ate < ate_front,
+             "unaligned ATE with the backend below the frontend-only ATE")
+    _require(ate < 2.0 * JAX_REFERENCE_BACKEND["ate_mm"],
+             "unaligned ATE < 2x the JAX figure")
+    _require(launches == expected,
+             "K1 launches == frames + rebuild fuses + 2 x moves")
+    _require(deint_exact, "K1 == plain version on de-integration rows")
+    _require(reloc["recovered"] and reloc["dist_to_trajectory_m"] < 0.05,
+             "relocalization recovers frame 24's pose within 5 cm")
+    _require(ledger["both_frac"] > 0.5, "ledger check: renders overlap")
+    _require(ledger["median_abs_diff_m"] < cfg.fusion.voxel_size,
+             "ledger check: median depth difference < 1 voxel")
+    ca, cb = ledger["coverage_maintained"], ledger["coverage_from_scratch"]
+    _require(ca > 0.9 * cb and cb > 0.9 * ca,
+             "ledger check: coverage agrees")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -655,6 +1062,9 @@ def main() -> int:
     by_path["gather_depth_window"]["march"] = march_launches
     by_path["gather_depth_window_streamed"] = {
         "streamed_entry": phase_streamed_entry(torch, wg, slam, last_depth)}
+    del slam
+    by_path["gather_depth_window"]["backend"] = phase_backend(
+        torch, wg, smi)
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{

@@ -5,7 +5,9 @@ registered to frame 0), flagship ICP settings.
 Tolerances: the octahedral bf16 normal packing is bit-exact; its decode
 agrees within 1e-6 (the normalization differs in the last ulp); association
 masks are equal; the 6x6 system agrees within rtol 1e-4 (float sums over
-~4k pixels in another order); final transforms within 1e-5.
+~4k pixels in another order); final transforms within 1e-5.  The
+backend's additions (the matched target points of ``associate``,
+``observability``, the batched pair ICP) state theirs in the tests.
 """
 
 import dataclasses
@@ -163,3 +165,143 @@ def test_icp_align_pyramid_with_prior(setup):
     np.testing.assert_allclose(rt.transform.numpy(),
                                np.asarray(rj.transform), atol=1e-5)
     assert int(rt.iters) == int(rj.iters)
+
+
+def test_associate_with_points(setup):
+    """The fifth return, the matched target vertex map: 1e-6 against JAX
+    (the same ray formula on the same gathered depth)."""
+    jc, tc = setup["jc"], setup["tc"]
+    T = _T(5)
+    out_j = jax.jit(jicp.associate, static_argnums=(3, 4),
+                    static_argnames=("with_points",))(
+        jnp.asarray(T), setup["src_j"], setup["tgt_j"], jc.camera, jc.icp,
+        with_points=True)
+    out_t = ticp.associate(tt(T), setup["src_t"], setup["tgt_t"], tc.camera,
+                           tc.icp, with_points=True)
+    assert len(out_t) == len(out_j) == 5
+    np.testing.assert_array_equal(out_t[3].numpy(), np.asarray(out_j[3]))
+    np.testing.assert_allclose(out_t[4].numpy(), np.asarray(out_j[4]),
+                               atol=1e-6)
+    assert len(ticp.associate(tt(T), setup["src_t"], setup["tgt_t"],
+                              tc.camera, tc.icp)) == 4
+
+
+def _wall_pair(cam_j, cam_t):
+    """A flat wall seen from two poses 5 cm apart along the wall, rendered
+    by the port on the CPU; preprocessed by each package."""
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    def flat_sdf(p):
+        return 2.0 - p[..., 2]
+
+    T1 = np.asarray(jse3.exp(jnp.asarray(
+        np.array([0.05, 0, 0, 0, 0, 0], np.float32))))
+    raws = [synthetic.depth_to_raw(synthetic.render_depth(
+        tt(T), cam_t, sdf=flat_sdf), cam_t)
+        for T in (np.eye(4, dtype=np.float32), T1)]
+    pre = jax.jit(jpre.preprocess, static_argnums=(1,))
+    return ([pre(jnp.asarray(r), cam_j) for r in raws],
+            [tpre.preprocess(tt(r.astype(np.int32)), cam_t) for r in raws],
+            T1)
+
+
+def test_observability_wall_vs_structure(setup):
+    """``observability`` against JAX on a sliding-degenerate wall (~0) and
+    on the structured orbit pair (>= 1e-2): rtol 1e-3 on the structured
+    value, atol 1e-6 on the wall's."""
+    from voxelhashing_demo_tpu.config import tiny_config as jtiny
+    from voxelhashing_demo_tpu_torch.config import tiny_config as ttiny
+
+    jcfg, tcfg = jtiny(), ttiny()
+    (g0j, g1j), (g0t, g1t), T1 = _wall_pair(jcfg.camera, tcfg.camera)
+    rj = jicp.icp_align(g1j, g0j, jcfg.camera, jcfg.icp,
+                        init_T=jnp.asarray(T1))
+    rt = ticp.icp_align(g1t, g0t, tcfg.camera, tcfg.icp, init_T=tt(T1))
+    obs_j, obs_t = float(jicp.observability(rj)), float(
+        ticp.observability(rt))
+    assert float(rt.count) > 1000
+    assert obs_t < 1e-4
+    np.testing.assert_allclose(obs_t, obs_j, atol=1e-6)
+
+    # the structured pair of tests/test_loop_gating.py: two orbit frames,
+    # plain (unweighted) ICP started at the true relative pose
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    depths, poses = synthetic.make_sequence(tcfg.camera, 2, trans_amp=0.06,
+                                            rot_amp_deg=3.0, device="cpu")
+    init = (np.linalg.inv(np.asarray(poses[0]))
+            @ np.asarray(poses[1])).astype(np.float32)
+    pre = jax.jit(jpre.preprocess, static_argnums=(1,))
+    f0j, f1j = (pre(jnp.asarray(d), jcfg.camera) for d in depths)
+    f0t, f1t = (tpre.preprocess(tt(d.astype(np.int32)), tcfg.camera)
+                for d in depths)
+    sj = jicp.icp_align(f1j, f0j, jcfg.camera, jcfg.icp,
+                        init_T=jnp.asarray(init))
+    st = ticp.icp_align(f1t, f0t, tcfg.camera, tcfg.icp, init_T=tt(init))
+    s_j, s_t = float(jicp.observability(sj)), float(ticp.observability(st))
+    assert s_t > 1e-2
+    assert s_t > 100 * max(obs_t, 1e-12)
+    np.testing.assert_allclose(s_t, s_j, rtol=1e-3)
+    # a batch of JTJ stacks: the last axes are the matrix
+    stacked = ticp.ICPResult(*(torch.stack([a, b])
+                               for a, b in zip(rt, st)))
+    np.testing.assert_allclose(ticp.observability(stacked).numpy(),
+                               [obs_t, s_t], rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "rev"])
+def test_batched_pair_icp_lane_for_lane(setup, direction):
+    """The port's candidate batch against the JAX package's vmapped pair
+    ICP (padded to width 4 there with zero frames and identity starts,
+    whose lanes the port never runs): every real lane equals the unbatched
+    ``icp_align`` on that pair, iteration count included; transforms 1e-5,
+    counts equal, error and observability rtol 1e-3.  The lanes stop at
+    different iteration counts (frozen lanes in the vmapped loop)."""
+    from voxelhashing_demo_tpu.models import keyframe_slam as jkf
+
+    jc, tc = setup["jc"], setup["tc"]
+    depths = setup["depths"]
+    small_j, small_t = setup["src_j"], setup["src_t"]
+    cands_j = [J_PRE(jnp.asarray(depths[i]), jc.camera, jc.frontend)
+               for i in (0, 2, 5)]
+    cands_t = [tpre.Frame(*(tt(x) for x in f)) for f in cands_j]
+    inits = [_T(10 + i) for i in range(3)]
+    icfg_j = dataclasses.replace(jc.icp, max_iters=10)
+    icfg_t = dataclasses.replace(tc.icp, max_iters=10)
+
+    fwd, rev = jkf._make_batch_icps(jc.camera, jc.icp, 10)
+    zero = jpre.Frame(*(jnp.zeros_like(x) for x in small_j))
+    frames = tuple(cands_j) + (zero,)
+    inits_j = jnp.asarray(np.stack(inits + [np.eye(4, dtype=np.float32)]))
+    out_j = np.asarray(fwd(small_j, frames, inits_j) if direction == "fwd"
+                       else rev(frames, small_j, inits_j))
+    # the pad lane solves to identity in the JAX batch
+    np.testing.assert_allclose(out_j[3, :16].reshape(4, 4), np.eye(4),
+                               atol=1e-6)
+
+    smalls = [small_t] * 3
+    srcs, tgts = ((smalls, cands_t) if direction == "fwd"
+                  else (cands_t, smalls))
+    out_t = ticp.icp_align_batch(srcs, tgts, tc.camera, icfg_t,
+                                 [tt(T) for T in inits]).numpy()
+    assert out_t.shape == (3, 19)
+    np.testing.assert_allclose(out_t[:, :16], out_j[:3, :16], atol=1e-5)
+    np.testing.assert_array_equal(out_t[:, 17], out_j[:3, 17])
+    np.testing.assert_allclose(out_t[:, 16], out_j[:3, 16], rtol=1e-3)
+    np.testing.assert_allclose(out_t[:, 18], out_j[:3, 18], rtol=1e-3)
+
+    iters = []
+    for lane in range(3):
+        s_j, t_j = ((small_j, cands_j[lane]) if direction == "fwd"
+                    else (cands_j[lane], small_j))
+        one_j = jicp.icp_align(s_j, t_j, jc.camera, icfg_j,
+                               init_T=jnp.asarray(inits[lane]))
+        one_t = ticp.icp_align(srcs[lane], tgts[lane], tc.camera, icfg_t,
+                               init_T=tt(inits[lane]))
+        assert int(one_t.iters) == int(one_j.iters)
+        iters.append(int(one_t.iters))
+        np.testing.assert_array_equal(
+            ticp.pack_result(one_t).numpy(), out_t[lane])
+        np.testing.assert_allclose(np.asarray(one_j.transform).reshape(16),
+                                   out_j[lane, :16], atol=1e-6)
+    assert len(set(iters)) > 1, iters

@@ -62,3 +62,130 @@ def jax_sequence(cam_jax, n: int):
     depths, poses = synthetic.make_sequence(cam_jax, n, trans_amp=0.05,
                                             rot_amp_deg=2.5)
     return [np.asarray(d) for d in depths], [np.asarray(p) for p in poses]
+
+
+# --------------------------------------------------------------------------
+# the keyframe backend's parity scenario (tests/test_torch_keyframe_*.py)
+# --------------------------------------------------------------------------
+
+BACKEND_FRAMES = 24
+BACKEND_INJECT_AT = 12
+# the drift left-multiplied into the live pose before frame 12:
+# 3 / -2 / 2 cm and 1.5 degrees of yaw
+BACKEND_DRIFT_TWIST = (0.03, -0.02, 0.02, 0.0, float(np.deg2rad(1.5)), 0.0)
+BACKEND_KF = dict(
+    min_rotation_deg=2.0, min_translation=0.03, icp_downsample=2,
+    min_loop_inliers=150, max_loop_error=5e-4, loop_radius=1.0,
+    min_loop_separation=2, ba_iters=5, rebuild_min_trans=0.01,
+    sync_every=1, ba_defer_edges=1, ba_defer_frames=0, rebuild_window=64,
+    rebuild_incremental_cost=0.0,
+)
+BACKEND_DISCRETE = ("keyframe_frames", "edges", "ba_frames", "ba_modes",
+                    "moved", "tracked", "capacity", "saturated")
+# bounds of the variant runs (see assert_same_backend_run)
+BACKEND_VARIANT = dict(graph_atol=1e-3, traj_atol=2e-3)
+
+
+def backend_config(pkg: str, **overrides):
+    """tiny_flagship_gather_config with the scenario's keyframe settings
+    (and ``overrides`` on top)."""
+    cfg = tiny_flagship_gather_config(pkg)
+    kw = dict(BACKEND_KF)
+    kw.update(overrides)
+    return dataclasses.replace(
+        cfg, keyframes=dataclasses.replace(cfg.keyframes, **kw))
+
+
+def backend_frames():
+    """(uint16 frames, ground-truth poses): 24 frames of the orbit at 80x60
+    from the port's synthetic module on the CPU."""
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cam = tiny_flagship_gather_config("torch").camera
+    return synthetic.make_sequence(cam, BACKEND_FRAMES, trans_amp=0.10,
+                                   rot_amp_deg=5.0, device="cpu")
+
+
+def backend_drift():
+    """The injected drift as a (4, 4) float32 array."""
+    import torch
+
+    from voxelhashing_demo_tpu_torch.geometry import se3
+
+    return se3.exp(torch.tensor(BACKEND_DRIFT_TWIST,
+                                dtype=torch.float32)).numpy()
+
+
+def backend_inject(pkg: str, slam) -> None:
+    """Left-multiply the live pose of ``slam`` by the drift."""
+    if pkg == "jax":
+        import jax.numpy as jnp
+
+        D = jnp.asarray(backend_drift())
+    else:
+        import torch
+
+        D = torch.from_numpy(backend_drift())
+    slam.state = slam.state._replace(pose=D @ slam.state.pose)
+
+
+def backend_drive(pkg: str, depths, n=None, on_frame=None, **overrides):
+    """Run the scenario through one package's KeyframeSLAM; returns the
+    flushed slam and its trajectory."""
+    cfg = backend_config(pkg, **overrides)
+    if pkg == "jax":
+        from voxelhashing_demo_tpu.models import keyframe_slam
+
+        slam = keyframe_slam.KeyframeSLAM(cfg)
+    else:
+        from voxelhashing_demo_tpu_torch.models import keyframe_slam
+
+        slam = keyframe_slam.KeyframeSLAM(cfg, device="cpu")
+    for i, d in enumerate(depths[:n]):
+        if i == BACKEND_INJECT_AT:
+            backend_inject(pkg, slam)
+        slam.process(d)
+        if on_frame is not None:
+            on_frame(i, slam)
+    return slam, slam.trajectory()
+
+
+def backend_summary(slam, traj, gt) -> dict:
+    from voxelhashing_demo_tpu_torch.utils import metrics
+
+    n_e = int(slam.graph.num_edges)
+    return dict(
+        keyframe_frames=[r.frame_index for r in slam.keyframes],
+        edges=np.asarray(slam.graph.edges_ij)[:n_e].tolist(),
+        ba_frames=[e["frame"] for e in slam.ba_events],
+        ba_modes=[e["rebuild_mode"] for e in slam.ba_events],
+        moved=[e["keyframes_reintegrated"] for e in slam.ba_events],
+        tracked=[bool(i.tracked) for i in slam.infos],
+        capacity=slam.capacity_events,
+        saturated=slam.saturated,
+        ate=metrics.ate_rmse(traj, gt[:len(traj)], align=False),
+    )
+
+
+def assert_same_backend_run(js, jt, ts, tt_, gt, graph_atol=1e-4,
+                            traj_atol=1e-3):
+    """JAX run (js, jt) against port run (ts, tt_): discrete decisions
+    equal; graph poses within ``graph_atol``; every frame's position within
+    ``traj_atol`` m (its rotation entries within 5 x that); ATE within
+    1 mm.  The defaults are the main scenario's bounds.  The variants pass
+    looser ones (``BACKEND_VARIANT``): their corrections land at other
+    frames, the frame-to-model chain then tracks against other maps, and
+    the same float noise has more ways to grow."""
+    a, b = backend_summary(js, jt, gt), backend_summary(ts, tt_, gt)
+    for k in BACKEND_DISCRETE:
+        assert a[k] == b[k], (k, a[k], b[k])
+    np.testing.assert_allclose(ts.graph.poses.numpy(),
+                               np.asarray(js.graph.poses), atol=graph_atol)
+    for i, (x, y) in enumerate(zip(jt, tt_)):
+        x, y = np.asarray(x), np.asarray(y)
+        np.testing.assert_allclose(y[:3, 3], x[:3, 3], atol=traj_atol,
+                                   err_msg=f"frame {i} position")
+        np.testing.assert_allclose(y[:3, :3], x[:3, :3], atol=5 * traj_atol,
+                                   err_msg=f"frame {i} rotation")
+    assert abs(a["ate"] - b["ate"]) < 1e-3
+    return a, b

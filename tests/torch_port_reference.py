@@ -2,11 +2,17 @@
 
 Not a test (pytest does not collect it); run it from the repository root:
 
-    JAX_PLATFORMS=cpu python tests/torch_port_reference.py [orbit|march]
+    JAX_PLATFORMS=cpu python tests/torch_port_reference.py \\
+        [orbit|march|backend]
 
 ``orbit``: the 20-frame noise-free orbit of chip_smoke's ``slice`` phase
 (``JAX_REFERENCE``).  ``march``: the 24-frame noisy room sweep of its
-``march`` phase (``JAX_REFERENCE_MARCH``).  The frames come from the
+``march`` phase (``JAX_REFERENCE_MARCH``).  ``backend``: the 48-frame
+noisy 150-degree room sweep with two injected drifts of its ``backend``
+phase through the JAX ``KeyframeSLAM`` with chip_smoke's keyframe settings
+(``JAX_REFERENCE_BACKEND``: keyframe frame indices, edges, BA event modes,
+unaligned ATE; not run by default, it takes about a quarter of an hour).
+The frames come from the
 PORT's synthetic module on the CPU, with the arguments chip_smoke uses,
 and go through the JAX package's ``HashSLAM`` under the flagship gather
 configuration (Pallas kernel in interpret mode), so both packages see the
@@ -60,6 +66,49 @@ def _run(name: str, cfg, depths, gt) -> dict:
     return out
 
 
+def _run_backend() -> dict:
+    """chip_smoke's ``backend`` scenario through the JAX KeyframeSLAM."""
+    import chip_smoke
+    from voxelhashing_demo_tpu.config import KeyframeConfig
+    from voxelhashing_demo_tpu.geometry import se3
+    from voxelhashing_demo_tpu.models import keyframe_slam
+
+    cfg = dataclasses.replace(
+        _config("splat"),
+        keyframes=KeyframeConfig(**chip_smoke.BACKEND_KEYFRAMES))
+    depths, gt = synthetic.make_room_sweep(
+        CameraConfig(), chip_smoke.N_BACKEND,
+        sweep_deg=chip_smoke.BACKEND_SWEEP_DEG, noise_seed=1, device="cpu")
+    slam = keyframe_slam.KeyframeSLAM(cfg)
+    for i, d in enumerate(depths):
+        if i in chip_smoke.BACKEND_INJECT:
+            tw = np.array(chip_smoke.BACKEND_INJECT[i], np.float32)
+            tw[3:] = np.deg2rad(tw[3:])
+            D = se3.exp(jax.numpy.asarray(tw))
+            slam.state = slam.state._replace(pose=D @ slam.state.pose)
+        slam.process(d)
+    traj = slam.trajectory()
+    n_e = int(slam.graph.num_edges)
+    edges = np.asarray(slam.graph.edges_ij)[:n_e].tolist()
+    out = {
+        "run": "backend", "frames": len(depths),
+        "tracked": sum(bool(i.tracked) for i in slam.infos),
+        "keyframe_frames": [r.frame_index for r in slam.keyframes],
+        "edges": n_e,
+        "loop_edges": [e for e in edges if e[1] - e[0] > 1],
+        "ba_frames": [e["frame"] for e in slam.ba_events],
+        "ba_modes": [e["rebuild_mode"] for e in slam.ba_events],
+        "keyframes_reintegrated": [e["keyframes_reintegrated"]
+                                   for e in slam.ba_events],
+        "saturated": any(e.get("reintegration_saturated")
+                         for e in slam.ba_events),
+        "ring_overflow": bool(slam._ring_overflow),
+        "ate_mm": metrics.ate_rmse(traj, gt, align=False) * 1e3,
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(which) -> None:
     cam = CameraConfig()
     if "orbit" in which:
@@ -70,6 +119,8 @@ def main(which) -> None:
         depths, gt = synthetic.make_room_sweep(
             cam, 24, sweep_deg=40.0, noise_seed=1, device="cpu")
         _run("march", _config("march"), depths, gt)
+    if "backend" in which:
+        _run_backend()
 
 
 if __name__ == "__main__":

@@ -166,7 +166,9 @@ class StreamConfig:
 
 @dataclasses.dataclass(frozen=True)
 class KeyframeConfig:
-    """Keyframe pose graph and bundle adjustment (not ported yet)."""
+    """Keyframe backend (models/keyframe_slam.py, ops/pose_graph.py):
+    keyframe selection, loop gating, BA scheduling and solver, map
+    rebuild / incremental reintegration, relocalization, host batching."""
 
     max_keyframes: int = 64
     max_edges: int = 256

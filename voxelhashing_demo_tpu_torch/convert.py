@@ -18,6 +18,7 @@ from .device import resolve
 from .models.dense_slam import DenseSLAMState
 from .models.hash_slam import HashSLAMState
 from .ops.hash_ops import ActiveSet, HashMap
+from .ops.pose_graph import PoseGraph
 from .ops.preprocess import Frame
 from .ops.tsdf import DenseTSDF
 
@@ -65,6 +66,31 @@ def active_from_numpy(d: dict, device=None, prefix: str = "") -> ActiveSet:
 def active_to_numpy(active: ActiveSet, prefix: str = "") -> dict:
     return _prefixed({f: _np(getattr(active, f)) for f in ActiveSet._fields},
                      prefix)
+
+
+def pose_graph_from_numpy(d: dict, device=None,
+                          prefix: str = "") -> PoseGraph:
+    """Flat ``{name: array}`` (JAX field names) -> PoseGraph; the two
+    counts, device scalars in the JAX package, become host integers."""
+    d = _sub(d, prefix)
+    return PoseGraph(
+        poses=_t(d["poses"], device),
+        num_poses=int(d["num_poses"]),
+        edges_ij=_t(d["edges_ij"], device),
+        edges_T=_t(d["edges_T"], device),
+        edges_w=_t(d["edges_w"], device),
+        num_edges=int(d["num_edges"]),
+    )
+
+
+def pose_graph_to_numpy(graph: PoseGraph, prefix: str = "") -> dict:
+    """PoseGraph -> flat ``{name: array}`` (inverse of
+    ``pose_graph_from_numpy``; the counts come out as int32 scalars)."""
+    out = {}
+    for f in PoseGraph._fields:
+        v = getattr(graph, f)
+        out[f] = np.int32(v) if isinstance(v, int) else _np(v)
+    return _prefixed(out, prefix)
 
 
 def dense_tsdf_from_numpy(d: dict, device=None,

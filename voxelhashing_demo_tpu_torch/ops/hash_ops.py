@@ -1,5 +1,6 @@
 """Voxel block hash table as deterministic batched tensor ops (port of
-ops/hash_ops.py, main-path half).
+ops/hash_ops.py: the per-frame path and de-integration; eviction and
+restore for streaming are not ported).
 
 The map is preallocated tensors that the per-frame functions update IN
 PLACE, where the JAX version returns new arrays from a donated state
@@ -347,8 +348,16 @@ def _integrate_rows(
     T_cw: torch.Tensor,
     cam: CameraConfig,
     fusion: FusionConfig,
+    sign: int = 1,
+    max_born: int | None = None,
 ) -> HashMap:
     """Curless-Levoy fusion of the given block rows (in place).
+
+    ``sign=-1`` de-integrates: the running average is invertible below the
+    weight cap, so regenerating the same samples (same depth frame, same
+    pose) and subtracting removes that frame's contribution.  ``max_born``
+    limits the update to rows allocated at or before that frame index
+    (``HashMap.born``).
 
     The per-voxel depth read goes through the window-gather kernel exactly
     when the JAX version calls its Pallas kernel: ``use_pallas_gather`` and
@@ -372,19 +381,41 @@ def _integrate_rows(
         & (z > 0)
         & (sdf > -trunc)
     )
+    if max_born is not None:
+        valid = valid & (hmap.born[safe_ptr] <= max_born)[:, None]
     sdf = torch.minimum(torch.maximum(sdf, -trunc), trunc)
     w_new = torch.where(valid, sample_weight(depth, cam, fusion), 0.0)
 
     old_sdf = hmap.tsdf[safe_ptr]
     old_w = hmap.weight[safe_ptr]
-    w_sum = old_w + w_new
-    fused = torch.where(
-        w_new > 0,
-        (old_sdf * old_w + sdf * w_new) / torch.clamp(w_sum, min=1e-12),
-        old_sdf,
-    )
-    new_w = torch.where(
-        w_new > 0, torch.clamp(w_sum, max=fusion.max_weight), old_w)
+    if sign > 0:
+        w_sum = old_w + w_new
+        fused = torch.where(
+            w_new > 0,
+            (old_sdf * old_w + sdf * w_new) / torch.clamp(w_sum, min=1e-12),
+            old_sdf,
+        )
+        new_w = torch.where(
+            w_new > 0, torch.clamp(w_sum, max=fusion.max_weight), old_w)
+    else:
+        # inverse update; a voxel whose weight falls to ~0 returns to the
+        # unobserved state (sdf 0, weight 0)
+        w_rem = torch.clamp(old_w - w_new, min=0.0)
+        fused = torch.where(
+            w_new > 0,
+            torch.where(
+                w_rem > 1e-6,
+                (old_sdf * old_w - sdf * w_new)
+                / torch.clamp(w_rem, min=1e-12),
+                0.0,
+            ),
+            old_sdf,
+        )
+        new_w = torch.where(w_new > 0, w_rem, old_w)
+        # float error at a tiny w_rem can push the recovered value out of
+        # the band: clamp to the global truncation bound
+        tmax = fusion.truncation + fusion.trunc_scale * cam.depth_max
+        fused = torch.clamp(fused, -tmax, tmax)
 
     _set_rows(hmap.tsdf, ptrs, row_valid, fused)
     _set_rows(hmap.weight, ptrs, row_valid, new_w)
@@ -401,12 +432,16 @@ def integrate(
     T_wc: torch.Tensor,
     cam: CameraConfig,
     fusion: FusionConfig,
+    sign: int = 1,
+    max_born: int | None = None,
 ) -> HashMap:
-    """Curless-Levoy fusion over ``active[:count]`` in one pass."""
+    """Curless-Levoy fusion over ``active[:count]`` in one pass
+    (``sign=-1``: de-integration; ``max_born``: see ``_integrate_rows``).
+    Reading ``count`` is one device-to-host read."""
     n = int(active.count)
     return _integrate_rows(
         hmap, active.blocks[:n], active.ptrs[:n], cfg, depth_m,
-        se3.inverse(T_wc), cam, fusion,
+        se3.inverse(T_wc), cam, fusion, sign, max_born,
     )
 
 
@@ -508,3 +543,23 @@ def fuse_frame(
     hmap = touch_active(hmap, active, frame_idx)
     hmap = integrate(hmap, active, cfg, frame.depth, T_wc, cam, fusion)
     return hmap, active, n_alloc
+
+
+def defuse_frame(
+    hmap: HashMap,
+    frame: Frame,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    cfg: HashConfig,
+    fusion: FusionConfig,
+    frame_born: int,
+) -> HashMap:
+    """Remove a previously fused frame's contribution (in place):
+    regenerate its samples at the same pose and depth and apply the
+    inverse update to the rows that existed when it was fused (born <=
+    ``frame_born``).  Exact below the weight cap provided the visible set
+    at this pose fits ``max_active``; callers check ``ActiveSet.count``.
+    No allocation, no visibility stamping."""
+    active = compact_visible(hmap, cfg, T_wc, cam, fusion)
+    return integrate(hmap, active, cfg, frame.depth, T_wc, cam, fusion,
+                     sign=-1, max_born=int(frame_born))

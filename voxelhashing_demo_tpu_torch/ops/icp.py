@@ -128,9 +128,11 @@ def associate(
     cam: CameraConfig,
     cfg: ICPConfig,
     tgt_packed: torch.Tensor | None = None,
+    with_points: bool = False,
 ):
     """Projective data association under estimate T.  Returns
-    (p_src_transformed, n_tgt, residual, valid_mask)."""
+    (p_src_transformed, n_tgt, residual, valid_mask); with ``with_points``
+    the matched target vertex map is appended."""
     p = se3.apply(T, src.vertices)
     n_src = se3.apply_rotation(T, src.normals)
     if tgt_packed is None:
@@ -144,6 +146,8 @@ def associate(
         & (torch.sum(n_src * n_t, dim=-1) > cfg.normal_thresh)
         & (torch.abs(r) < cfg.dist_thresh)
     )
+    if with_points:
+        return p, n_t, r, valid, p_t
     return p, n_t, r, valid
 
 
@@ -225,6 +229,36 @@ def icp_align(
     return ICPResult(transform=T, error=err, count=cnt,
                      iters=torch.tensor(it, dtype=torch.int32, device=dev),
                      JTJ=JTJ)
+
+
+def observability(res: ICPResult) -> torch.Tensor:
+    """Smallest eigenvalue of the final normal matrix over the inlier
+    count: ~0 when some twist direction is unconstrained (a flat wall
+    slides), >= ~1e-2 on structured scenes.  The count is a tensor, so the
+    division is a true one, as in the JAX version."""
+    E = res.JTJ / torch.clamp(res.count, min=1.0)[..., None, None]
+    return torch.linalg.eigvalsh(E)[..., 0]
+
+
+def pack_result(res: ICPResult) -> torch.Tensor:
+    """One pair-ICP result as a (19,) row: transform (16), error, count,
+    observability."""
+    return torch.cat([res.transform.reshape(16), res.error.reshape(1),
+                      res.count.reshape(1), observability(res).reshape(1)])
+
+
+def icp_align_batch(
+    srcs, tgts, cam: CameraConfig, cfg: ICPConfig, inits,
+) -> torch.Tensor:
+    """Pair ICP over a list of candidates -> (C, 19) rows of
+    ``pack_result``.  ``srcs`` / ``tgts`` are lists of Frames of equal
+    length (one side usually the same frame repeated), ``inits`` the
+    start transforms.  Each candidate runs ``icp_align`` on its own pair
+    with its own early exit, which is what a batched loop with frozen
+    lanes computes; no padding lane is run."""
+    rows = [pack_result(icp_align(s, t, cam, cfg, init_T=i))
+            for s, t, i in zip(srcs, tgts, inits)]
+    return torch.stack(rows)
 
 
 def alignment_score_sums(
