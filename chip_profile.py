@@ -2,8 +2,8 @@
 """Where a frame's time goes in the PyTorch port, on one CUDA card.
 
 Run from the repository root: ``python3 chip_profile.py
-[splat|march|backend]`` (default: splat and march).  ``backend`` is
-described at the end.  For each surface-prediction mode it drives 24 frames of
+[splat|march|backend|stream]`` (default: splat and march).  ``backend``
+and ``stream`` are described at the end.  For each surface-prediction mode it drives 24 frames of
 the noisy room sweep (``make_room_sweep(cam, 24, sweep_deg=40,
 noise_seed=1)``, the frames of chip_smoke's ``march`` phase) through
 ``HashSLAM(flagship_gather_config())`` and prints one JSON line with:
@@ -29,6 +29,19 @@ unprofiled for host times (per frame by class: plain, keyframe insert, BA
 event), once under ``torch.profiler`` for the device's events and busy time
 over the whole run, the idle share against the unprofiled wall time, and
 the window-gather kernel's launches.
+
+``stream`` drives chip_smoke's ``stream`` regime (the 201-frame noisy
+out-and-back through the streaming ``HashSLAM`` with a 2048-block map)
+twice.  First with the streaming cycle's pieces timed on the host clock,
+the device synchronised before and after each piece: frame ms by class
+(the frame whose ``process`` runs the cycle's dispatch, the one that runs
+its completion, the rest) and, per class, the pieces (dispatch: restore,
+eviction scan, start of the copy out; completion: the wait on that copy,
+the store's take / add, the frustum query, packing and upload), the rest
+of the frame being the step.  Then, on a fresh instance, frames up to
+``STREAM_PROFILE_AT`` unprofiled and the next cycle (``interval`` frames)
+under ``torch.profiler`` frame by frame: device events and busy ms of each
+class's frame.
 
 It needs a CUDA card and exits nonzero without one.  The card's name and
 power limit are printed first.
@@ -215,6 +228,94 @@ def run_backend(torch) -> None:
     }), flush=True)
 
 
+STREAM_PROFILE_AT = 120     # the return leg: restores are running
+
+
+def run_stream(torch) -> None:
+    import time
+
+    import chip_smoke
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg = chip_smoke.stream_config(chip_smoke.STREAM)
+    s = cfg.stream
+    depths, _ = chip_smoke.out_and_back(cfg.camera)
+
+    def frame_class(slam):
+        i = len(slam.trajectory) % s.interval
+        return ("dispatch" if i == 0 else
+                "completion" if i == max(s.interval // 2, 1) else "plain")
+
+    laps = {}
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            laps.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(obj, name, wrapper)
+        return fn
+
+    slam = hash_slam.HashSLAM(cfg)
+    slam.warm_stream()
+    timed(slam, "_restore_uploaded", "dispatch.restore")
+    real_evict = timed(hash_ops, "evict_stale", "dispatch.evict")
+    timed(slam._xfer, "pull", "dispatch.copy_out_start")
+    timed(slam._xfer, "pulled", "completion.wait_copy_out")
+    timed(slam.store, "take", "completion.store_take")
+    timed(slam.store, "add", "completion.store_add")
+    timed(slam.store, "query_frustum", "completion.query")
+    timed(slam, "_pack_restore", "completion.pack_upload")
+    timed(slam, "_cycle_dispatch", "dispatch.total")
+    timed(slam, "_complete_work", "completion.total")
+    frames = {"dispatch": [], "completion": [], "plain": []}
+    try:
+        for d in depths:
+            cls = frame_class(slam)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slam.process(d)
+            torch.cuda.synchronize()
+            frames[cls].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        hash_ops.evict_stale = real_evict
+
+    def pct(v):
+        return {"n": len(v), "p50": float(np.median(v)),
+                "p99": float(np.percentile(v, 99)), "max": float(np.max(v))}
+
+    second = hash_slam.HashSLAM(cfg)
+    second.warm_stream()
+    for d in depths[:STREAM_PROFILE_AT]:
+        second.process(d)
+    torch.cuda.synchronize()
+    prof = {}
+    for d in depths[STREAM_PROFILE_AT:STREAM_PROFILE_AT + s.interval]:
+        cls = frame_class(second)
+        p = _profile(torch, second, [d], float(np.median(frames[cls])))
+        prof.setdefault(cls, []).append({
+            k: p[k] for k in ("device_events_per_frame",
+                              "device_busy_ms_per_frame",
+                              "device_idle_share", "window_gather")})
+        if cls != "plain":
+            prof[cls][-1]["top"] = p["top"][:8]
+    print(json.dumps({
+        "mode": "stream", "frames": len(depths),
+        "evicted": slam.store.total_evicted,
+        "restored": slam.store.total_restored,
+        "frame_ms_by_class": {k: pct(v) for k, v in frames.items()},
+        "pieces_ms": {k: pct(v) for k, v in sorted(laps.items())},
+        "profile_at": STREAM_PROFILE_AT, "profile": prof,
+    }), flush=True)
+
+
 def main(modes) -> int:
     import torch
 
@@ -237,6 +338,8 @@ def main(modes) -> int:
     for mode in modes:
         if mode == "backend":
             run_backend(torch)
+        elif mode == "stream":
+            run_stream(torch)
         else:
             run_mode(torch, mode, depths)
     return 0

@@ -62,6 +62,35 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    pair-ICP batch, BA solve, rebuild fuse, move, keyframe insert and
    relocalization, host synchronisations per piece (and the Python lines
    they come from, for a BA solve and a fuse), peak memory.
+9. ``stream``: out-of-core streaming, BASELINE config 5 (bench.py
+   ``_streaming_run``): the 201-frame noisy 170-degree room sweep out and
+   back through ``HashSLAM`` with a 2048-block map (``STREAM_HASH``) and
+   streaming every 8 frames at age 16, after ``warm_stream`` on a
+   throwaway instance.  Asserts: tracked frames within 2 of the JAX run's,
+   unaligned ATE below twice the JAX figure, more blocks evicted than the
+   map holds, > 100 restored, more distinct blocks on the device and in
+   the store together than the map holds; a non-streaming twin on the
+   same frames exhausts the heap, with its ATE below twice the JAX twin's
+   (it tracks no worse than the streaming run on these frames, in the JAX
+   package as here: printed as ``tracks_worse``); K1 launched once per
+   frame and equal to its plain version on the last frame's rows.
+   Prints frame ms by class (the frame that runs the cycle's dispatch, the
+   one that runs its completion, the rest), evict / restore ms (CUDA
+   events), the copies' bytes and device µs per batch, host syncs of the
+   eviction scan, a restore, a dispatch and a completion (``sync_sites``),
+   peak device memory and pinned host bytes.
+10. ``stream_backend``: the same frames through the streaming
+   ``KeyframeSLAM`` (bench.py ``_streaming_backend_run``: interval 12,
+   age 24, ``STREAM_BACKEND_KEYFRAMES`` over the flagship's keyframe
+   settings), after ``warm_compile``.  Asserts: ATE below the ``stream``
+   phase's and below twice the JAX figure, no spill overflow, restore
+   counters carried, no saturation, keyframes within one of the JAX run's,
+   K1 launches = frames + keyframes fused by full rebuilds + 2 x moves, K1
+   equal to its plain version; then a full rebuild into a fresh store: the
+   run's own or, when its BA corrections stayed under the rebuild
+   thresholds (as in the JAX run on these frames), one asked for after the
+   run (fresh store, counters carried, K1 once per keyframe).  Prints what
+   ``stream`` prints and the decisions beside the JAX run's.
 
 Then the kernel summary line (times and bound of the ``step_rows`` case,
 the shape the main path gives the kernels; ``launches`` is the count of
@@ -125,6 +154,45 @@ JAX_REFERENCE_BACKEND = {
                  "incremental", "incremental"] + [None] * 12,
     "keyframes_reintegrated": [0, 0, 0, 6, 5, 1, 1] + [0] * 12,
     "ate_mm": 16.453,
+}
+# The streaming phases: BASELINE config 5 (bench.py ``_streaming_run`` and
+# ``_streaming_backend_run``), a noisy 170-degree room sweep out and back
+# (101 frames forward, then the same frames back: 201) through a map cut
+# to 2048 blocks, about two thirds of what the sweep touches, so eviction
+# and restore stay active the whole run.
+N_STREAM_HALF = 101
+STREAM_SWEEP_DEG = 170.0
+STREAM_HASH = dict(num_buckets=8192, bucket_size=4, num_blocks=2048,
+                   max_active=2048, max_new_per_frame=2048)
+STREAM = dict(enabled=True, interval=8, max_age=16, max_evict=2048,
+              max_restore=2048)
+STREAM_BACKEND = dict(STREAM, interval=12, max_age=24)
+STREAM_BACKEND_KEYFRAMES = dict(
+    min_loop_separation=8, loop_radius=0.35, min_rotation_deg=15.0,
+    min_translation=0.25, rebuild_move_min_trans=0.02,
+    rebuild_move_min_rot_deg=1.0)
+# tests/torch_port_reference.py stream / stream_twin / stream_backend: the
+# JAX package on the CPU on the same frames and settings.  Neither run
+# rebuilds the map (the two BA corrections stay under the rebuild
+# thresholds), and the twin without streaming exhausts the heap but tracks
+# no worse than the streaming run on these frames.
+JAX_REFERENCE_STREAM = {"frames": 201, "tracked": 200, "ate_mm": 30.113,
+                        "evicted": 3060, "restored": 1617,
+                        "store_blocks": 1443, "twin_ate_mm": 29.210,
+                        "twin_min_free_blocks": 0}
+JAX_REFERENCE_STREAM_BACKEND = {
+    "frames": 201, "tracked": 200,
+    "keyframe_frames": [0, 9, 18, 27, 36, 45, 54, 63, 72, 81, 90, 99, 110,
+                        119, 128, 137, 146, 155, 164, 173, 182, 191, 200],
+    "edges": 45,
+    "loop_edges": [[6, 15], [5, 15], [6, 16], [7, 16], [5, 16], [5, 17],
+                   [6, 17], [4, 17], [4, 18], [5, 18], [3, 18], [3, 19],
+                   [4, 19], [2, 19], [2, 20], [3, 20], [1, 20], [1, 21],
+                   [2, 21], [0, 21], [0, 22], [1, 22], [2, 22]],
+    "ba_frames": [192, 201], "ba_modes": [None, None],
+    "keyframes_reintegrated": [0, 0],
+    "evicted": 2676, "restored": 1520, "store_blocks": 1156,
+    "ate_mm": 9.154,
 }
 ATE_BOUND_MM = 7.5
 HIT_BOUND = 0.8
@@ -1019,6 +1087,343 @@ def phase_backend(torch, wg, card: str):
     return launches
 
 
+def stream_config(stream: dict, keyframes: dict | None = None):
+    """flagship_gather_config() cut to the streaming phases' hash, with
+    ``stream`` (and keyframe settings on top of the flagship's)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+
+    cfg = flagship_gather_config()
+    cfg = dataclasses.replace(
+        cfg, hash=dataclasses.replace(cfg.hash, **STREAM_HASH),
+        stream=dataclasses.replace(cfg.stream, **stream))
+    if keyframes is not None:
+        cfg = dataclasses.replace(
+            cfg, keyframes=dataclasses.replace(cfg.keyframes, **keyframes))
+    return cfg
+
+
+def out_and_back(cam):
+    """The streaming phases' frames: the noisy sweep forward, then back."""
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    fwd, gt = synthetic.make_room_sweep(cam, N_STREAM_HALF,
+                                        sweep_deg=STREAM_SWEEP_DEG,
+                                        noise_seed=1)
+    return fwd + fwd[-2::-1], gt + gt[-2::-1]
+
+
+class StreamTimers:
+    """CUDA-event timers around ``hash_ops.evict_stale`` and
+    ``restore_blocks`` while installed (the streaming cycle calls them by
+    module attribute); ``ms()`` reads them after a synchronize."""
+
+    def __init__(self, torch, hash_ops):
+        self.torch, self.ops = torch, hash_ops
+        self.events = {"evict_stale": [], "restore_blocks": []}
+        self.real = {k: getattr(hash_ops, k) for k in self.events}
+
+    def __enter__(self):
+        torch = self.torch
+
+        def timed(name):
+            fn = self.real[name]
+
+            def wrapper(*a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                self.events[name].append((start, end))
+                return out
+            return wrapper
+
+        for k in self.events:
+            setattr(self.ops, k, timed(k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.ops, k, fn)
+
+    def ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        return {k: [s.elapsed_time(e) for s, e in v]
+                for k, v in self.events.items()}
+
+
+def _pcts(xs) -> dict:
+    if not len(xs):
+        return {"n": 0}
+    return {"n": len(xs), "p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "max": float(np.max(xs))}
+
+
+def stream_drive(torch, slam, inner, depths):
+    """Process ``depths`` through ``slam`` (HashSLAM or KeyframeSLAM whose
+    streaming HashSLAM is ``inner``); per-frame host ms (to the card's idle
+    after the frame) by class: the frame whose process() runs the cycle's
+    dispatch, the one that runs its completion, and the rest."""
+    s = inner.config.stream
+    by_class = {"dispatch": [], "completion": [], "plain": []}
+    for d in depths:
+        i = len(inner.trajectory) % s.interval
+        cls = ("dispatch" if i == 0 else
+               "completion" if i == max(s.interval // 2, 1) else "plain")
+        t0 = time.perf_counter()
+        slam.process(d)
+        torch.cuda.synchronize()
+        by_class[cls].append((time.perf_counter() - t0) * 1e3)
+    return by_class
+
+
+def stream_report(torch, wg, inner, last_depth, by_class, timers,
+                  launches) -> dict:
+    """The cycle's costs, transfers, syncs, memory and K1 on the rows of
+    the run's last frame, after the run (``inner`` is the streaming
+    HashSLAM)."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    s = inner.config.stream
+    log = inner._xfer.log
+    xfer = {}
+    for direction in ("d2h", "h2d"):
+        rows = [(b, ms) for d, b, ms in log if d == direction]
+        xfer[direction] = {
+            "batches": len(rows),
+            "bytes_per_batch_mean": (float(np.mean([b for b, _ in rows]))
+                                     if rows else 0.0),
+            "us_per_batch": _pcts([1e3 * ms for _, ms in rows]),
+            "bytes_total": int(sum(b for b, _ in rows)),
+        }
+    # host syncs: the eviction scan and a restore alone (on clones of the
+    # map), then one more dispatch and completion of the live cycle
+    hm = hash_ops.HashMap(*(t.clone() for t in inner.state.hmap))
+    evict = sync_sites(torch, lambda: hash_ops.evict_stale(
+        hm, inner.config.hash, inner.state.frame_idx + 1, s.max_age,
+        s.max_evict))
+    keys = np.asarray(sorted(inner.store._index)[: s.max_restore],
+                      np.int32)
+    rows = [torch.as_tensor(a, device=inner.device)
+            for a in (keys,) + inner.store.rows_for(keys)]
+    restore = sync_sites(torch, lambda: hash_ops.restore_blocks(
+        hm, inner.config.hash, rows[0], rows[1], rows[2],
+        inner.state.frame_idx, max_weight=inner.config.fusion.max_weight,
+        born_rows=rows[3]))
+    inner._cycle_complete()
+    dispatch = sync_sites(torch, inner._cycle_dispatch)
+    complete = sync_sites(torch, inner._cycle_complete)
+    # K1 against its plain version on the last frame's rows of this run
+    args = gather_inputs(inner, last_depth)
+    got, got_cov = wg.gather_depth_window(*args)
+    ref, ref_cov = wg.gather_depth_window_reference(*args)
+    torch.cuda.synchronize()
+    return {
+        "frame_ms": {k: _pcts(v) for k, v in by_class.items()},
+        "cycles": len(by_class["dispatch"]),
+        # evict_ms counts a rebuild's spill evictions too
+        "evict_ms": _pcts(timers["evict_stale"]),
+        "restore_ms": _pcts(timers["restore_blocks"]),
+        "transfers": xfer,
+        "host_syncs": {"evict_stale": evict, "restore_blocks": restore,
+                       "cycle_dispatch": dispatch,
+                       "cycle_completion": complete,
+                       "event_waits_per_cycle": 1},
+        "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+        "pinned_host_bytes": inner._xfer.pinned_bytes(),
+        "k1_launches": launches,
+        "k1_rows": int(args[1].shape[0]),
+        "k1_bit_exact": bool(torch.equal(got, ref)
+                             and torch.equal(got_cov, ref_cov)),
+    }
+
+
+def phase_stream(torch, wg, card: str):
+    """The streaming HashSLAM on the 201-frame out-and-back (BASELINE
+    config 5, bench.py ``_streaming_run``), and its non-streaming twin."""
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.utils import metrics
+
+    cfg = stream_config(STREAM)
+    depths, gt = out_and_back(cfg.camera)
+
+    warm = hash_slam.HashSLAM(cfg)
+    warm.warm_stream()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slam = hash_slam.HashSLAM(cfg)
+    wg.LAUNCHES = 0
+    with StreamTimers(torch, hash_ops) as timers:
+        by_class = stream_drive(torch, slam, slam, depths)
+        launches = wg.LAUNCHES
+        slam.stream_sync()
+        times = timers.ms()
+    ate = metrics.ate_rmse(slam.trajectory, gt, align=False) * 1e3
+    tracked = sum(bool(i.tracked) for i in slam.infos)
+    store = slam.store
+    counters = {"evicted": store.total_evicted,
+                "restored": store.total_restored,
+                "store_blocks": len(store)}
+    dev = {int(k) for k in slam.state.hmap.keys.cpu().numpy()
+           if k != hash_ops.EMPTY_KEY}
+    distinct = len(dev | set(store._index))
+    report = stream_report(torch, wg, slam, depths[-1], by_class, times,
+                           launches)
+    del slam
+
+    twin_cfg = dataclasses.replace(
+        cfg, stream=dataclasses.replace(cfg.stream, enabled=False))
+    twin = hash_slam.HashSLAM(twin_cfg)
+    for d in depths:
+        twin.process(d)
+    ate_twin = metrics.ate_rmse(twin.trajectory, gt, align=False) * 1e3
+    twin_free = min(int(i.free_blocks) for i in twin.infos)
+    twin_tracked = sum(bool(i.tracked) for i in twin.infos)
+    del twin
+
+    n = len(depths)
+    _emit({"phase": "stream", "card": card, "H": H, "W": W, "frames": n,
+           "hash": STREAM_HASH, "stream": STREAM, "tracked": tracked,
+           "ate_mm": ate, **counters, "distinct_blocks": distinct,
+           **report, "twin": {"ate_mm": ate_twin, "tracked": twin_tracked,
+                              "min_free_blocks": twin_free,
+                              "tracks_worse": ate_twin > ate},
+           "jax_reference": JAX_REFERENCE_STREAM})
+    _require(tracked >= JAX_REFERENCE_STREAM["tracked"] - 2,
+             "tracked frames within 2 of the JAX run's")
+    _require(ate < 2.0 * JAX_REFERENCE_STREAM["ate_mm"],
+             "unaligned ATE < 2x the JAX figure")
+    _require(counters["evicted"] > cfg.hash.num_blocks,
+             "evicted more blocks than the device map holds")
+    _require(counters["restored"] > 100, "> 100 blocks restored")
+    _require(distinct > cfg.hash.num_blocks,
+             "device + store hold more distinct blocks than the map")
+    _require(twin_free == 0, "the non-streaming twin exhausts the heap")
+    _require(ate_twin < 2.0 * JAX_REFERENCE_STREAM["twin_ate_mm"],
+             "the twin's ATE < 2x the JAX twin's")
+    _require(launches == n, "K1 launched once per streamed frame")
+    _require(report["k1_bit_exact"], "K1 == plain version on this run")
+    return launches, ate
+
+
+def phase_stream_backend(torch, wg, card: str, ate_stream: float):
+    """The streaming KeyframeSLAM on the same frames (BASELINE config 5,
+    bench.py ``_streaming_backend_run``)."""
+    from voxelhashing_demo_tpu_torch.models import keyframe_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.utils import metrics
+
+    cfg = stream_config(STREAM_BACKEND, STREAM_BACKEND_KEYFRAMES)
+    depths, gt = out_and_back(cfg.camera)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slam = keyframe_slam.KeyframeSLAM(cfg)
+    slam.warm_compile(depths[0])
+    d = slam._inner
+    wg.LAUNCHES = 0
+    with StreamTimers(torch, hash_ops) as timers:
+        by_class = stream_drive(torch, slam, d, depths)
+        slam.flush()
+        traj = slam.trajectory()
+        d.stream_sync()
+        launches = wg.LAUNCHES
+        times = timers.ms()
+    ate = metrics.ate_rmse(traj, gt, align=False) * 1e3
+    events = slam.ba_events
+    updates = [e for e in events if e["map_rebuilt"]]
+    full = [e for e in updates if e["rebuild_mode"] == "full"]
+    fused = sum(e["keyframes"] for e in full)
+    moves = sum(e["keyframes_reintegrated"] for e in updates)
+    expected = len(depths) + fused + 2 * moves
+    swapped = [e for e in full
+               if "stream_sync_s" in e.get("rebuild_detail", {})]
+    n_e = slam.graph.num_edges
+    edges = slam.graph.edges_ij[:n_e].cpu().numpy().tolist()
+    decisions = {
+        "keyframe_frames": [r.frame_index for r in slam.keyframes],
+        "edges": n_e,
+        "loop_edges": [e for e in edges if e[1] - e[0] > 1],
+        "ba_frames": [e["frame"] for e in events],
+        "ba_modes": [e["rebuild_mode"] for e in events],
+        "keyframes_reintegrated": [e["keyframes_reintegrated"]
+                                   for e in events],
+    }
+    ref = JAX_REFERENCE_STREAM_BACKEND
+    kf_diff = len(set(decisions["keyframe_frames"])
+                  ^ set(ref["keyframe_frames"]))
+    same = {k: decisions[k] == ref[k] for k in decisions}
+    store = d.store
+    counters = {"evicted": store.total_evicted,
+                "restored": store.total_restored,
+                "store_blocks": len(store)}
+    saturated = any(e.get("reintegration_saturated") for e in events)
+    overflow = [e for e in slam.capacity_events
+                if e["kind"] == "rebuild_spill_overflow"]
+    report = stream_report(torch, wg, d, depths[-1], by_class, times,
+                           launches)
+    # a full rebuild into a fresh store on the map the run left: the run's
+    # own, or, when its BA corrections stayed under the rebuild
+    # thresholds, one asked for here (K1 once per keyframe)
+    forced = None
+    if not swapped:
+        old_store = d.store
+        restored_before = old_store.total_restored
+        wg.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slam._rebuild_map()
+        d.stream_sync()
+        torch.cuda.synchronize()
+        forced = {"ms": (time.perf_counter() - t0) * 1e3,
+                  "keyframes": len(slam.keyframes),
+                  "k1_launches": wg.LAUNCHES,
+                  "fresh_store": d.store is not old_store,
+                  "store_blocks": len(d.store),
+                  "evicted": d.store.total_evicted,
+                  "restored": d.store.total_restored,
+                  "counters_carried": d.store.total_restored
+                  >= restored_before,
+                  "laps_s": slam._last_rebuild_detail}
+        overflow = [e for e in slam.capacity_events
+                    if e["kind"] == "rebuild_spill_overflow"]
+    _emit({"phase": "stream_backend", "card": card, "H": H, "W": W,
+           "frames": len(depths), "hash": STREAM_HASH,
+           "stream": STREAM_BACKEND,
+           "keyframe_settings": STREAM_BACKEND_KEYFRAMES,
+           "tracked": sum(bool(i.tracked) for i in slam.infos),
+           "ate_mm": ate, "ate_stream_phase_mm": ate_stream, **counters,
+           **decisions, "decisions_equal_jax": same,
+           "keyframes_differing_from_jax": kf_diff,
+           "ba_corrections_m_deg": [(e["correction_trans_m"],
+                                     e["correction_rot_deg"])
+                                    for e in events],
+           "full_rebuilds_streaming": len(swapped),
+           "rebuild_details": [e.get("rebuild_detail") for e in full],
+           "rebuild_after_run": forced,
+           "saturated": saturated, "capacity_events": slam.capacity_events,
+           "kernel_launches_expected": expected,
+           "launches_formula": f"{len(depths)} frames + {fused} keyframes "
+                               f"fused by full rebuilds + 2 x {moves} moves",
+           **report, "jax_reference": ref})
+    _require(ate < ate_stream, "ATE below the stream phase's")
+    _require(ate < 2.0 * ref["ate_mm"], "unaligned ATE < 2x the JAX figure")
+    _require(len(swapped) >= 1 or (
+        forced["fresh_store"] and forced["counters_carried"]
+        and forced["store_blocks"] > 0
+        and forced["k1_launches"] == forced["keyframes"]),
+        ">= 1 full rebuild into a fresh store (streaming mode)")
+    _require(not overflow, "no rebuild_spill_overflow")
+    _require(counters["restored"] > 0, "restore counters carried")
+    _require(not saturated, "no reintegration saturated")
+    _require(kf_diff <= 1, "keyframes within one of the JAX run's")
+    _require(launches == expected,
+             "K1 launches == frames + rebuild fuses + 2 x moves")
+    _require(report["k1_bit_exact"], "K1 == plain version on this run")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1065,6 +1470,10 @@ def main() -> int:
     del slam
     by_path["gather_depth_window"]["backend"] = phase_backend(
         torch, wg, smi)
+    launches, ate_stream = phase_stream(torch, wg, smi)
+    by_path["gather_depth_window"]["stream"] = launches
+    by_path["gather_depth_window"]["stream_backend"] = phase_stream_backend(
+        torch, wg, smi, ate_stream)
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{

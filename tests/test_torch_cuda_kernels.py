@@ -9,7 +9,8 @@ Tolerances: both window gathers are bit-exact (values and covered), on
 de-integration rows too; the frame step on the card agrees with the step on
 the CPU within 1e-4 m of pose translation per frame over 10 frames;
 ``pose_graph.optimize`` repeats bit for bit on the card and agrees with the
-CPU within 1e-4.
+CPU within 1e-4; the streaming cycle's copies (pinned buffers, side
+stream) return what was sent, bit for bit.
 """
 
 import dataclasses
@@ -373,3 +374,47 @@ def test_optimize_repeatable_on_the_card(cuda, solver):
     assert float(info.chi2_final) < float(info.chi2_initial)
     cpu, _ = pose_graph.optimize(build("cpu"), kcfg)
     assert float((a.poses.cpu() - cpu.poses).abs().max()) < 1e-4
+
+
+def test_stream_transfers_round_trip_under_churn(cuda):
+    """The streaming cycle's copies (pinned buffers, side stream, events)
+    return what was sent, while the main stream keeps allocating and
+    freeing: a copy reading memory the allocator handed out again, or a
+    pinned buffer rewritten under a running copy, would show here."""
+    from voxelhashing_demo_tpu_torch.config import tiny_config
+    from voxelhashing_demo_tpu_torch.models.hash_slam import _Transfers
+
+    cfg = tiny_config()
+    s = dataclasses.replace(cfg.stream, max_evict=64, max_restore=48)
+    xfer = _Transfers(cuda, cfg.hash, s)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    V = cfg.hash.voxels_per_block
+    for rnd in range(20):
+        rows = (torch.randint(0, 1 << 30, (64,), device=cuda,
+                              dtype=torch.int32, generator=gen),
+                torch.rand((64, V), device=cuda, generator=gen),
+                torch.rand((64, V), device=cuda, generator=gen),
+                torch.randint(0, 500, (64,), device=cuda, dtype=torch.int32,
+                              generator=gen))
+        rec_f = torch.rand(32, device=cuda, generator=gen)
+        rec_i = torch.randint(0, 9, (1 + rnd,), device=cuda,
+                              dtype=torch.int32, generator=gen)
+        want = [t.cpu() for t in rows + (rec_f, rec_i)]
+        xfer.pull(rec_f, rec_i, rows)
+        del rows, rec_f, rec_i           # the allocator may reuse them
+        junk = [torch.full((64, V), -1.0, device=cuda) for _ in range(8)]
+        got_f, got_i = xfer.pulled()
+        ev = xfer.evicted(64)
+        for a, b in zip(ev, want[:4]):
+            np.testing.assert_array_equal(a, b.numpy())
+        np.testing.assert_array_equal(got_f, want[4].numpy())
+        np.testing.assert_array_equal(got_i[:1 + rnd], want[5].numpy())
+        m = 1 + rnd * 2
+        up = tuple(a[:m] for a in ev)
+        xfer.upload(up)
+        del junk
+        got = xfer.uploaded(m)
+        for a, b in zip(got, up):
+            np.testing.assert_array_equal(a.cpu().numpy(), b)
+    assert [d for d, _, _ in xfer.log].count("d2h") == 20
+    assert xfer.pinned_bytes() > 0

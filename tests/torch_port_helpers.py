@@ -189,3 +189,114 @@ def assert_same_backend_run(js, jt, ts, tt_, gt, graph_atol=1e-4,
                                    err_msg=f"frame {i} rotation")
     assert abs(a["ate"] - b["ate"]) < 1e-3
     return a, b
+
+
+# --------------------------------------------------------------------------
+# the streaming parity scenario (tests/test_torch_streaming.py)
+# --------------------------------------------------------------------------
+
+# 1024 device blocks against the ~870 a single 80x60 view touches at 2 cm:
+# the heap runs out on the way out, and eviction (age 6) and restore stay
+# active over a 90-degree pan out and back (20 frames each way)
+STREAM_HASH = dict(num_buckets=2048, bucket_size=4, num_blocks=1024,
+                   max_active=1024, max_new_per_frame=1024)
+STREAM = dict(enabled=True, interval=2, max_age=6, max_evict=512,
+              max_restore=512)
+STREAM_HALF = 20
+STREAM_SWEEP_DEG = 90.0
+STREAM_ROWS = ("keys", "tsdf", "weight", "born")
+
+
+def stream_config(pkg: str, **stream_overrides):
+    """tiny_flagship_gather_config with the scenario's hash cut and
+    streaming on (``stream_overrides`` on top)."""
+    cfg = tiny_flagship_gather_config(pkg)
+    return dataclasses.replace(
+        cfg, hash=dataclasses.replace(cfg.hash, **STREAM_HASH),
+        stream=dataclasses.replace(cfg.stream,
+                                   **dict(STREAM, **stream_overrides)))
+
+
+def stream_frames():
+    """(uint16 numpy frames, ground-truth poses): the noise-free room sweep
+    out and back at 80x60, from the port's synthetic module on the CPU."""
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cam = tiny_flagship_gather_config("torch").camera
+    fwd, gt = synthetic.make_room_sweep(cam, STREAM_HALF,
+                                        sweep_deg=STREAM_SWEEP_DEG,
+                                        device="cpu")
+    fwd = [np.asarray(d) for d in fwd]
+    return fwd + fwd[-2::-1], gt + gt[-2::-1]
+
+
+def jax_stream_state(slam) -> dict:
+    """A JAX streaming HashSLAM's state in the layout of the port's
+    ``convert.stream_state_to_numpy`` (taken between a completion and the
+    next dispatch)."""
+    slam._join_complete()
+    assert slam._inflight is None
+    V = slam.config.hash.voxels_per_block
+    out = np_tree(slam.state)
+    for k, v in slam.store.state_arrays().items():
+        out[f"store.{k}"] = v
+    out["store.total_evicted"] = np.int64(slam.store.total_evicted)
+    out["store.total_restored"] = np.int64(slam.store.total_restored)
+    out["prefetch.keys"] = (np.zeros(0, np.int32) if slam._prefetch is None
+                            else np.asarray(slam._prefetch[0], np.int32))
+    keys = np.zeros(0, np.int32)
+    pay = np.zeros((0, 2 * V + 1), np.float32)
+    if slam._pending_evict is not None:
+        keys = np.asarray(slam._pending_evict[0])
+        pay = np.asarray(slam._pending_evict[1])
+        live = keys != int(0x7FFFFFFF)
+        keys, pay = keys[live], pay[live]
+    out.update({"pending_evict.keys": keys,
+                "pending_evict.tsdf": pay[:, :V],
+                "pending_evict.weight": pay[:, V:2 * V],
+                "pending_evict.born": pay[:, 2 * V].astype(np.int32)})
+    out["trajectory"] = np.stack(
+        [np.asarray(p) for p in slam.trajectory]).reshape(-1, 4, 4)
+    return out
+
+
+def jax_stream_from_numpy(d: dict, config):
+    """A JAX streaming HashSLAM at the state of ``d`` (the inverse of
+    ``jax_stream_state``, with the store compacted by
+    ``BlockStore.from_arrays`` as the port's loader does)."""
+    import jax.numpy as jnp
+
+    from voxelhashing_demo_tpu.models import hash_slam
+    from voxelhashing_demo_tpu.ops import hash_ops, preprocess
+    from voxelhashing_demo_tpu.utils.blockstore import BlockStore
+
+    slam = hash_slam.HashSLAM(config)
+    slam.state = hash_slam.HashSLAMState(
+        hmap=hash_ops.HashMap(**{f: jnp.asarray(d[f"hmap.{f}"])
+                                 for f in hash_ops.HashMap._fields}),
+        pose=jnp.asarray(d["pose"]),
+        model=preprocess.Frame(**{f: jnp.asarray(d[f"model.{f}"])
+                                  for f in preprocess.Frame._fields}),
+        frame_idx=jnp.int32(d["frame_idx"]),
+        vel=jnp.asarray(d["vel"]))
+    slam.store = BlockStore.from_arrays(
+        config.hash, *(np.asarray(d[f"store.{k}"]) for k in STREAM_ROWS))
+    slam.store.total_evicted = int(d["store.total_evicted"])
+    slam.store.total_restored = int(d["store.total_restored"])
+    keys = np.asarray(d["prefetch.keys"], np.int32)
+    if keys.size:
+        packed, b = slam._pack_restore(keys)
+        slam._prefetch = (keys, jnp.asarray(packed), b)
+    n = np.asarray(d["pending_evict.keys"]).shape[0]
+    if n:
+        b = hash_slam._bucket(n, config.stream.max_evict, floor=128)
+        V = config.hash.voxels_per_block
+        keys_p = np.full(b, 0x7FFFFFFF, np.int32)
+        keys_p[:n] = d["pending_evict.keys"]
+        pay = np.zeros((b, 2 * V + 1), np.float32)
+        pay[:n, :V] = d["pending_evict.tsdf"]
+        pay[:n, V:2 * V] = d["pending_evict.weight"]
+        pay[:n, 2 * V] = d["pending_evict.born"]
+        slam._pending_evict = (jnp.asarray(keys_p), jnp.asarray(pay), b)
+    slam.trajectory = [jnp.asarray(p) for p in np.asarray(d["trajectory"])]
+    return slam

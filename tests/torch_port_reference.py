@@ -3,7 +3,7 @@
 Not a test (pytest does not collect it); run it from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_port_reference.py \\
-        [orbit|march|backend]
+        [orbit|march|backend|stream|stream_twin|stream_backend]
 
 ``orbit``: the 20-frame noise-free orbit of chip_smoke's ``slice`` phase
 (``JAX_REFERENCE``).  ``march``: the 24-frame noisy room sweep of its
@@ -12,6 +12,13 @@ noisy 150-degree room sweep with two injected drifts of its ``backend``
 phase through the JAX ``KeyframeSLAM`` with chip_smoke's keyframe settings
 (``JAX_REFERENCE_BACKEND``: keyframe frame indices, edges, BA event modes,
 unaligned ATE; not run by default, it takes about a quarter of an hour).
+``stream``: the 201-frame noisy 170-degree out-and-back of its ``stream``
+phase through the JAX streaming ``HashSLAM`` (``JAX_REFERENCE_STREAM``:
+tracked frames, unaligned ATE, store counters); ``stream_twin``: the same
+frames without streaming; ``stream_backend``: the same frames through the
+streaming ``KeyframeSLAM`` of its ``stream_backend`` phase
+(``JAX_REFERENCE_STREAM_BACKEND``: the decisions too).  These three are
+asked for by name; run them in one process (the frames are made once).
 The frames come from the
 PORT's synthetic module on the CPU, with the arguments chip_smoke uses,
 and go through the JAX package's ``HashSLAM`` under the flagship gather
@@ -22,6 +29,7 @@ are accuracy figures; nothing here is a speed.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -109,6 +117,102 @@ def _run_backend() -> dict:
     return out
 
 
+def _stream_config(stream, keyframes=None):
+    """chip_smoke's streaming configuration: the flagship gather
+    configuration with the hash cut to 2048 blocks and ``stream`` on."""
+    import chip_smoke
+
+    cfg = _config("splat")
+    cfg = dataclasses.replace(
+        cfg, hash=dataclasses.replace(cfg.hash, **chip_smoke.STREAM_HASH),
+        stream=dataclasses.replace(cfg.stream, **stream))
+    if keyframes is not None:
+        cfg = dataclasses.replace(
+            cfg, keyframes=dataclasses.replace(cfg.keyframes, **keyframes))
+    return cfg
+
+
+@functools.lru_cache(maxsize=None)
+def _out_and_back():
+    """chip_smoke's streaming frames: the sweep forward, then back (made
+    once per process: the three streaming runs share them)."""
+    import chip_smoke
+
+    fwd, gt = synthetic.make_room_sweep(
+        CameraConfig(), chip_smoke.N_STREAM_HALF,
+        sweep_deg=chip_smoke.STREAM_SWEEP_DEG, noise_seed=1, device="cpu")
+    return fwd + fwd[-2::-1], gt + gt[-2::-1]
+
+
+def _progress(i: int) -> None:
+    if i % 25 == 0:
+        print(f"frame {i}", file=sys.stderr, flush=True)
+
+
+def _store_counts(store) -> dict:
+    return {"evicted": store.total_evicted, "restored": store.total_restored,
+            "store_blocks": len(store)}
+
+
+def _run_stream(twin: bool) -> dict:
+    """chip_smoke's ``stream`` phase (or its non-streaming twin)."""
+    import chip_smoke
+
+    stream = dict(chip_smoke.STREAM, enabled=not twin)
+    depths, gt = _out_and_back()
+    slam = hash_slam.HashSLAM(_stream_config(stream))
+    for i, d in enumerate(depths):
+        slam.process(d)
+        _progress(i)
+    out = {
+        "run": "stream_twin" if twin else "stream", "frames": len(depths),
+        "tracked": sum(bool(i.tracked) for i in slam.infos),
+        "ate_mm": metrics.ate_rmse(slam.trajectory, gt, align=False) * 1e3,
+        "min_free_blocks": min(int(i.free_blocks) for i in slam.infos),
+    }
+    if not twin:
+        slam.stream_sync()
+        out.update(_store_counts(slam.store))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _run_stream_backend() -> dict:
+    """chip_smoke's ``stream_backend`` phase through the JAX KeyframeSLAM."""
+    import chip_smoke
+    from voxelhashing_demo_tpu.models import keyframe_slam
+
+    depths, gt = _out_and_back()
+    slam = keyframe_slam.KeyframeSLAM(_stream_config(
+        chip_smoke.STREAM_BACKEND, chip_smoke.STREAM_BACKEND_KEYFRAMES))
+    for i, d in enumerate(depths):
+        slam.process(d)
+        _progress(i)
+    slam.flush()
+    slam._driver.stream_sync()
+    traj = slam.trajectory()
+    n_e = int(slam.graph.num_edges)
+    edges = np.asarray(slam.graph.edges_ij)[:n_e].tolist()
+    out = {
+        "run": "stream_backend", "frames": len(depths),
+        "tracked": sum(bool(i.tracked) for i in slam.infos),
+        "keyframe_frames": [r.frame_index for r in slam.keyframes],
+        "edges": n_e,
+        "loop_edges": [e for e in edges if e[1] - e[0] > 1],
+        "ba_frames": [e["frame"] for e in slam.ba_events],
+        "ba_modes": [e["rebuild_mode"] for e in slam.ba_events],
+        "keyframes_reintegrated": [e["keyframes_reintegrated"]
+                                   for e in slam.ba_events],
+        "saturated": any(e.get("reintegration_saturated")
+                         for e in slam.ba_events),
+        "capacity_events": [e["kind"] for e in slam.capacity_events],
+        **_store_counts(slam._driver.store),
+        "ate_mm": metrics.ate_rmse(traj, gt, align=False) * 1e3,
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(which) -> None:
     cam = CameraConfig()
     if "orbit" in which:
@@ -121,6 +225,12 @@ def main(which) -> None:
         _run("march", _config("march"), depths, gt)
     if "backend" in which:
         _run_backend()
+    if "stream" in which:
+        _run_stream(twin=False)
+    if "stream_twin" in which:
+        _run_stream(twin=True)
+    if "stream_backend" in which:
+        _run_stream_backend()
 
 
 if __name__ == "__main__":

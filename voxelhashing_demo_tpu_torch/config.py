@@ -154,7 +154,7 @@ class GCConfig:
 
 @dataclasses.dataclass(frozen=True)
 class StreamConfig:
-    """Out-of-frustum block streaming (not ported yet)."""
+    """Out-of-frustum block streaming to a host store (models/hash_slam)."""
 
     enabled: bool = False
     interval: int = 8

@@ -5,7 +5,8 @@ nested structures use dotted names (``"hmap.keys"``, ``"model.depth"``).
 ``state_to_numpy`` of a port state and the same flattening of a JAX state
 (``{f"hmap.{k}": np.asarray(v) for k, v in s.hmap._asdict().items()}``
 and so on) give the same keys, so the tests can start both packages from
-one state.  Arrays are copied onto ``device`` (None: the CUDA card).
+one state.  Arrays are copied onto ``device`` (None: the CUDA card), and
+copied off it: a flattened state is a snapshot.
 """
 
 from __future__ import annotations
@@ -13,14 +14,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .device import host_array as _np
-from .device import resolve
+from .device import host_array, resolve
 from .models.dense_slam import DenseSLAMState
-from .models.hash_slam import HashSLAMState
+from .models.hash_slam import HashSLAM, HashSLAMState
 from .ops.hash_ops import ActiveSet, HashMap
 from .ops.pose_graph import PoseGraph
 from .ops.preprocess import Frame
 from .ops.tsdf import DenseTSDF
+from .utils.blockstore import BlockStore
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A copy of the tensor's values: a CPU tensor's ``numpy()`` shares its
+    memory, and the map is updated in place."""
+    return np.array(host_array(t), copy=True)
 
 
 def _t(a, device) -> torch.Tensor:
@@ -145,3 +152,58 @@ def state_to_numpy(state: HashSLAMState) -> dict:
     out["frame_idx"] = np.int32(state.frame_idx)
     out["vel"] = _np(state.vel)
     return out
+
+
+STREAM_ROWS = ("keys", "tsdf", "weight", "born")
+
+
+def stream_state_to_numpy(slam: HashSLAM) -> dict:
+    """A streaming HashSLAM's state, flat by the JAX field names, taken
+    between a cycle's completion and the next dispatch: the frame state
+    (``state_to_numpy``), the store's live rows in store-row order and its
+    counters (``store.keys`` ... ``store.total_restored``), the prefetched
+    restore keys (``prefetch.keys``), the evicted rows waiting for the next
+    completion (``pending_evict.keys`` ...), and the trajectory
+    (``trajectory`` (N, 4, 4)), whose length fixes the cycle's phase."""
+    if slam._inflight is not None or slam._completing is not None:
+        raise ValueError("a cycle is in flight; carry the state after its "
+                         "completion")
+    out = state_to_numpy(slam.state)
+    out.update(_prefixed(slam.store.state_arrays(), "store"))
+    out["store.total_evicted"] = np.int64(slam.store.total_evicted)
+    out["store.total_restored"] = np.int64(slam.store.total_restored)
+    out["prefetch.keys"] = (np.zeros(0, np.int32) if slam._prefetch is None
+                            else np.asarray(slam._prefetch, np.int32))
+    V = slam.config.hash.voxels_per_block
+    pend = slam._pending_evict or (
+        np.zeros(0, np.int32), np.zeros((0, V), np.float32),
+        np.zeros((0, V), np.float32), np.zeros(0, np.int32))
+    out.update(_prefixed(dict(zip(STREAM_ROWS, pend)), "pending_evict"))
+    out["trajectory"] = np.stack(
+        [_np(p) for p in slam.trajectory]
+        or [np.zeros((0, 4, 4), np.float32)]).reshape(-1, 4, 4)
+    return out
+
+
+def stream_state_from_numpy(d: dict, config, device=None) -> HashSLAM:
+    """A streaming HashSLAM (``config.stream.enabled``) at the state of
+    ``d`` (the layout of ``stream_state_to_numpy``): the store is rebuilt
+    from its live rows (``BlockStore.from_arrays``, so its rows are
+    compacted), the prefetched batch is packed and uploaded again from it,
+    and the infos start empty."""
+    slam = HashSLAM(config, device=device)
+    slam.state = state_from_numpy(d, device)
+    st = _sub(d, "store")
+    slam.store = BlockStore.from_arrays(
+        config.hash, *(np.asarray(st[k]) for k in STREAM_ROWS))
+    slam.store.total_evicted = int(st["total_evicted"])
+    slam.store.total_restored = int(st["total_restored"])
+    keys = np.asarray(d["prefetch.keys"], np.int32)
+    if keys.size:
+        slam._pack_restore(keys)
+        slam._prefetch = keys
+    pend = _sub(d, "pending_evict")
+    if np.asarray(pend["keys"]).size:
+        slam._pending_evict = tuple(np.array(pend[k]) for k in STREAM_ROWS)
+    slam.trajectory = [_t(p, device) for p in np.asarray(d["trajectory"])]
+    return slam

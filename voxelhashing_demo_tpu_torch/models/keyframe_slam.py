@@ -1,5 +1,6 @@
 """Keyframe SLAM: voxel-hash frame-to-model tracking + pose graph BA (port
-of models/keyframe_slam.py; single device, no streaming).
+of models/keyframe_slam.py; single device, with or without out-of-core
+streaming).
 
 Composes the HashSLAM pipeline with the backend that bounds its drift:
 
@@ -19,6 +20,11 @@ Composes the HashSLAM pipeline with the backend that bounds its drift:
 - tracking-lost recovery: after a streak of failed frames the live frame
   re-registers against stored keyframes from a Procrustes seed and the
   pose, model and velocity reset.
+
+With ``config.stream.enabled`` the wrapped HashSLAM streams blocks to its
+host store; a move first restores the stored blocks of both its frustums,
+and a full rebuild streams the fresh map into a fresh store.  The wrapped
+HashSLAM is ``self._inner`` (the JAX package calls it ``_driver``).
 
 Host / device split: the frame step runs on the device; the bookkeeping
 (keyframe decisions, refs, lost streak) runs on the host against numpy
@@ -49,6 +55,7 @@ from ..ops import icp as icp_ops
 from ..ops import pose_graph
 from ..ops import preprocess as pre_ops
 from ..ops import raycast as rc_ops
+from ..utils.blockstore import BlockStore
 from . import hash_slam
 
 
@@ -696,16 +703,41 @@ class KeyframeSLAM:
         ``map_pose`` entries (placed by the last full rebuild) plus the
         ring of every frame live-fused since.  De-integration at the
         ledger pose (what was actually fused) keeps the inverse exact.
-        Returns (n_reintegrated, n_visible_set_saturations)."""
+        Returns (n_reintegrated, n_visible_set_saturations).
+
+        On a streaming map the rows a moved frame touched may sit in the
+        host store: they are restored (with their original born stamps) for
+        the old and the new frustum before the move, and stored rows that
+        could not come back (device capacity) count as saturations.  Across
+        streaming the move is exact up to the born-stamp residency caveat
+        of ``hash_ops.restore_blocks``."""
         new_poses = self._poses_np
         d = self._inner
+        streaming = d.store is not None
         n = 0
         A = self.config.hash.max_active
         # saturation count accumulated on the device: one fetch at the end
         sat_dev = torch.zeros((), dtype=torch.int32, device=self.device)
+        miss = 0   # stored keys a restore could not bring back
+
+        def restore_frustums(from_pose, to_pose):
+            nonlocal miss
+            s = self.config.stream
+            # land any deferred spill and the cycle first: the query reads
+            # the store
+            d.stream_sync()
+            for pose in (from_pose, to_pose):
+                keys = (d.store.query_frustum(
+                    np.asarray(pose, np.float32), self.config.camera,
+                    self.config.fusion, s.restore_margin_px, s.max_restore,
+                ) if len(d.store) else np.zeros(0, np.int32))
+                d._restore_keys(keys)
+                miss += sum(1 for k in keys if int(k) in d.store._index)
 
         def move(depth_dev, frame_idx, from_pose, to_pose):
             nonlocal n, sat_dev
+            if streaming:
+                restore_frustums(from_pose, to_pose)
             hmap, cnt = self._reintegrate(
                 d.state.hmap, depth_dev,
                 _pose_tensor(from_pose, self.device),
@@ -734,7 +766,7 @@ class KeyframeSLAM:
             # nothing moved: the model rendered by the last step is still
             # valid
             return 0, 0
-        n_sat = int(sat_dev)
+        n_sat = int(sat_dev) + miss
         model = self._render_model(d.state.hmap, d.state.pose)
         d.state = d.state._replace(model=model)
         return n, n_sat
@@ -743,13 +775,29 @@ class KeyframeSLAM:
         """Re-integrate every stored keyframe depth at its corrected pose
         into a fresh map, then re-render the tracking model at the
         corrected live pose.  Non-keyframe observations are dropped: a
-        thinner weight field for globally consistent geometry."""
+        thinner weight field for globally consistent geometry.
+
+        On a streaming map the old store holds geometry fused at the old
+        poses, so the rebuild streams into a FRESH store: each keyframe's
+        fuse is followed by an eviction into a device spill buffer, whose
+        rows land in the new store at the next cycle join
+        (``spill_finish_async``); an overflow of the buffer is recorded as
+        a ``rebuild_spill_overflow`` capacity event."""
         _t, _lap = _make_laps()
         # one fetch, and resync the host mirror (callers may have edited
         # the device graph)
         poses = host_array(self.graph.poses)
         self._poses_np[: self._n_poses] = poses[: self._n_poses]
         _lap("pose_fetch_s")
+        d = self._inner
+        streaming = d.store is not None
+        if streaming:
+            # an in-flight prefetch or evicted payload belongs to the OLD
+            # store
+            d.stream_sync()
+            _lap("stream_sync_s")
+            new_store = BlockStore(self.config.hash)
+            spill = d.spill_begin()
         hmap = hash_ops.create(self.config.hash, device=self.device)
         for rec in self.keyframes:
             hmap = self._fuse_only(
@@ -758,9 +806,27 @@ class KeyframeSLAM:
                 rec.frame_index,
             )
             rec.map_pose = poses[rec.index].astype(np.float32).copy()
+            if streaming:
+                hmap = d.spill_evict(hmap, rec.frame_index, spill)
         _lap("fuse_dispatch_s")
         model = self._render_model(hmap, self.state.pose)
         self.state = self.state._replace(hmap=hmap, model=model)
+        if streaming:
+            # the run's evict / restore totals survive the swap
+            new_store.total_evicted += d.store.total_evicted
+            new_store.total_restored += d.store.total_restored
+            d.store = new_store
+            frame = self._frame_idx
+
+            def _overflow(n):
+                self.capacity_events.append({
+                    "frame": frame,
+                    "kind": "rebuild_spill_overflow",
+                    "capacity": n,
+                })
+
+            d.spill_finish_async(spill, new_store, on_overflow=_overflow)
+            _lap("spill_finish_s")
         # the ledger now accounts for every contribution in the map;
         # fusions into the pre-rebuild map are gone with it
         self._ring = []
@@ -845,7 +911,8 @@ class KeyframeSLAM:
         """Touch every backend path once on scratch inputs: keyframe
         preprocess, candidate / relocalization pair ICP, the Procrustes
         seed, BA at the current graph capacity and its fetch, fuse-only /
-        reintegrate / model render.  This loads the gather kernel and the
+        reintegrate / model render, and with streaming the inner HashSLAM's
+        ``warm_stream``.  This loads the gather kernel and the
         solver and BLAS handles and sizes the allocator's pools before a
         timed run; this instance's SLAM state is not touched (``optimize``
         returns a new graph, the map work runs on a scratch map)."""
@@ -868,6 +935,7 @@ class KeyframeSLAM:
         host_array(torch.cat([
             g.poses.reshape(-1),
             torch.stack([wi.chi2_initial, wi.chi2_final])]))
+        self._inner.warm_stream()     # a no-op without streaming
         float(model.depth.reshape(-1)[0])
 
     # -- main entry ----------------------------------------------------------

@@ -1,6 +1,6 @@
 """Voxel block hash table as deterministic batched tensor ops (port of
-ops/hash_ops.py: the per-frame path and de-integration; eviction and
-restore for streaming are not ported).
+ops/hash_ops.py: the per-frame path, de-integration, and the eviction and
+restore of out-of-core streaming).
 
 The map is preallocated tensors that the per-frame functions update IN
 PLACE, where the JAX version returns new arrays from a donated state
@@ -11,8 +11,10 @@ clones its tensors first.  Functions return the map (scalars such as
 Semantics held to the JAX version:
 
 - ``.at[idx].set(..., mode="drop")`` drops out-of-bounds indices; here the
-  indices are masked first (``_set_rows``) or written into a buffer one row
-  longer whose last row is sliced off;
+  indices are masked first (``_set_rows``, which reads the mask on the
+  host), written into a buffer one row longer whose last row is sliced off,
+  or, where neither may sync the host nor copy the map (the free stack,
+  eviction and restore), redirected by ``_scatter_drop``;
 - sorts of keys and buckets are stable (``stable=True``);
 - int32 cumsums come out int64 in torch; they only index, or compare
   with int32 values (exact under type promotion);
@@ -92,6 +94,33 @@ def _set_rows(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
     scatter with the dropped indices masked out first."""
     sel = idx[keep].long()
     dst[sel] = src if not torch.is_tensor(src) else src[keep]
+
+
+def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
+                  src) -> None:
+    """dst[idx[keep]] = src[keep] (src may be a scalar), in place and
+    without reading ``keep`` on the host: every dropped entry writes again
+    what the first kept entry writes, to the same row (with none kept, row
+    0's own value back to row 0), so no row is given two different values.
+    The kept rows must be distinct, as they are in every JAX call it
+    stands for."""
+    n = idx.shape[0]
+    if n == 0:
+        return
+    idx = idx.long()
+    # one-element index tensors throughout: no value is read on the host
+    first = torch.argmax(keep.to(torch.uint8)).reshape(1)  # 0: none kept
+    any_kept = keep.index_select(0, first)
+    spare = torch.where(any_kept, idx.index_select(0, first), 0)
+    row_shape = dst.shape[1:]
+    if not torch.is_tensor(src):
+        src = torch.full((n,) + row_shape, src, dtype=dst.dtype,
+                         device=dst.device)
+    lead = (1,) + (1,) * len(row_shape)
+    fill = torch.where(any_kept.reshape(lead), src.index_select(0, first),
+                       dst.index_select(0, spare))
+    mask = keep.reshape((n,) + (1,) * len(row_shape))
+    dst[torch.where(keep, idx, spare)] = torch.where(mask, src, fill)
 
 
 # --------------------------------------------------------------------------
@@ -462,7 +491,7 @@ def _free_marked(
 
     stack_idx = hmap.free_top + stale_rank
     keep_idx = freeing & (stack_idx < hmap.free_list.shape[0])
-    _set_rows(hmap.free_list, stack_idx, keep_idx, hmap.ptrs)
+    _scatter_drop(hmap.free_list, stack_idx, keep_idx, hmap.ptrs)
 
     keys = torch.where(freeing, EMPTY_KEY, hmap.keys)
     ptrs = torch.where(freeing, FREE_PTR, hmap.ptrs)
@@ -506,6 +535,176 @@ def touch_active(hmap: HashMap, active: ActiveSet, frame_idx: int) -> HashMap:
     _set_rows(hmap.last_seen, active.ptrs, active.ptrs != FREE_PTR,
               frame_idx)
     return hmap
+
+
+# --------------------------------------------------------------------------
+# out-of-core streaming: eviction and restore
+# --------------------------------------------------------------------------
+
+def evict_stale(
+    hmap: HashMap,
+    cfg: HashConfig,
+    frame_idx: int,
+    max_age: int,
+    max_evict: int,
+) -> Tuple[HashMap, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """Evict blocks out of the frustum for more than ``max_age`` frames
+    (in place): copy their payload out and free them.
+
+    Returns (map, keys (max_evict,), tsdf (max_evict, V), weight
+    (max_evict, V), born (max_evict,), n_evicted (device scalar)); key
+    EMPTY_KEY marks padding, and the evicted rows come first, in table
+    order.  The host moves the payload into a BlockStore
+    (utils/blockstore.py) and restores it on revisit.  ``born`` rides along
+    so a restore can reinstate the row's original allocation stamp, which
+    keeps born-gated incremental reintegration (models/keyframe_slam) exact
+    across evict / restore cycles.  Unlike garbage_collect this keeps
+    well-observed geometry: weight does not gate eviction, only recency
+    does.  No host synchronization."""
+    allocated = hmap.ptrs != FREE_PTR
+    safe_ptr = torch.clamp(hmap.ptrs, 0, hmap.tsdf.shape[0] - 1).long()
+    age = frame_idx - hmap.last_seen[safe_ptr]
+    stale = allocated & (age > max_age)
+
+    # the rows _free_marked will free (same rank and cap), gathered from
+    # the table BEFORE it clears their entries; freeing leaves the payload
+    # rows themselves untouched
+    rank = torch.cumsum(stale, dim=0) - 1
+    freeing = stale & (rank < max_evict)
+    out_idx = torch.where(freeing, rank, max_evict)
+    dev = hmap.keys.device
+    out_keys = torch.full((max_evict + 1,), EMPTY_KEY, dtype=torch.int32,
+                          device=dev)
+    out_ptrs = torch.zeros((max_evict + 1,), dtype=torch.int64, device=dev)
+    out_keys[out_idx] = hmap.keys       # row max_evict collects the drops
+    out_ptrs[out_idx] = safe_ptr
+    out_keys, out_ptrs = out_keys[:max_evict], out_ptrs[:max_evict]
+    pad = out_keys == EMPTY_KEY
+    out_tsdf = torch.where(pad[:, None], 0.0, hmap.tsdf[out_ptrs])
+    out_weight = torch.where(pad[:, None], 0.0, hmap.weight[out_ptrs])
+    out_born = torch.where(pad, 0, hmap.born[out_ptrs])
+
+    hmap, _, n_evict = _free_marked(hmap, cfg, stale, max_evict)
+    return hmap, out_keys, out_tsdf, out_weight, out_born, n_evict
+
+
+def restore_blocks(
+    hmap: HashMap,
+    cfg: HashConfig,
+    keys: torch.Tensor,          # (R,) unique packed keys; EMPTY_KEY pad
+    tsdf_rows: torch.Tensor,     # (R, V)
+    weight_rows: torch.Tensor,   # (R, V)
+    frame_idx: int,
+    max_weight: float = 255.0,
+    born_rows: torch.Tensor | None = None,   # (R,) original born stamps
+) -> Tuple[HashMap, torch.Tensor]:
+    """Re-insert evicted blocks with their stored payload (in place).
+
+    Keys not in the table are inserted and their rows written verbatim
+    (bit-exact restore).  Keys already present (the block was re-allocated
+    fresh after eviction because the camera revisited before the store's
+    frustum prediction fired) are weight-MERGED (Curless-Levoy combine of
+    the two weighted averages).  Returns (map, accepted (R,) bool, in input
+    order): accepted keys are now fully on the device and the host drops
+    its copy; rejected ones (bucket overflow, heap exhaustion) stay in the
+    store for a later try.  No host synchronization.
+
+    ``born_rows`` reinstates each row's ORIGINAL allocation stamp (carried
+    out by evict_stale): inserted rows take it verbatim; merged rows take
+    the MIN of the stored and live stamps (the merged payload holds samples
+    from both histories, so de-integration gated at either epoch must
+    reach the row).  Without it born is stamped "now", which keeps the map
+    safe but makes frames fused before the eviction invisible to the born
+    gate.
+
+    RESIDENCY CAVEAT (a bounded approximation, as in the JAX package): the
+    born stamp records the row's allocation EPOCH, not its device-residency
+    history.  A frame whose frustum covered this block while it was
+    off-device (evicted, and a fresh allocation skipped, e.g.
+    max_new_per_frame exhausted) fused nothing into it, yet passes the
+    born <= frame de-integration gate once the block is restored with its
+    original stamp: de-integrating that frame then subtracts a contribution
+    that was never added.  The window is narrow (the block must be evicted
+    AND revisited AND un-allocatable in the same frames) and each
+    occurrence perturbs only that frame's per-voxel sample, but incremental
+    reintegration across streaming is therefore exact only up to
+    restore-lag frames, not bit-exact in every interleaving.  Callers that
+    need strict exactness use a full rebuild (which re-fuses from the
+    durable keyframe depths and re-stamps everything)."""
+    R = keys.shape[0]
+    N = hmap.tsdf.shape[0]
+    dev = keys.device
+
+    ptr_found, found = lookup_keys(hmap, cfg, keys)
+
+    # --- merge payload into rows that already exist ------------------------
+    m_ptr = torch.clamp(ptr_found, 0, N - 1).long()
+    old_t = hmap.tsdf[m_ptr]
+    old_w = hmap.weight[m_ptr]
+    w_sum = old_w + weight_rows
+    merged_t = torch.where(
+        weight_rows > 0,
+        (old_t * old_w + tsdf_rows * weight_rows)
+        / torch.clamp(w_sum, min=1e-12),
+        old_t,
+    )
+    merged_w = torch.clamp(w_sum, max=max_weight)
+    m_min = torch.where(merged_w > 0, torch.abs(merged_t),
+                        math.inf).amin(dim=1)
+    merged_born = (torch.minimum(hmap.born[m_ptr], born_rows)
+                   if born_rows is not None else None)
+    _scatter_drop(hmap.tsdf, m_ptr, found, merged_t)
+    _scatter_drop(hmap.weight, m_ptr, found, merged_w)
+    _scatter_drop(hmap.band_min, m_ptr, found, m_min)
+    if merged_born is not None:
+        _scatter_drop(hmap.born, m_ptr, found, merged_born)
+
+    # --- insert the genuinely new keys, payload following the sort ---------
+    want = (keys != EMPTY_KEY) & ~found
+    blocks = coords.unpack_block_key(keys, cfg.key_bits)
+    bucket = torch.where(want, coords.spatial_hash(blocks, cfg.num_buckets),
+                         cfg.num_buckets)
+    order = torch.argsort(bucket, stable=True)
+    b_sorted = bucket[order]
+    rank_sorted = _segment_rank(b_sorted)
+    valid_sorted = b_sorted < cfg.num_buckets
+
+    b_safe = torch.clamp(b_sorted, 0, cfg.num_buckets - 1).long()
+    slot_sorted = hmap.bucket_fill[b_safe] + rank_sorted
+    ok = valid_sorted & (slot_sorted < cfg.bucket_size)
+    alloc_rank = torch.cumsum(ok, dim=0) - 1
+    ok = ok & (alloc_rank < hmap.free_top)
+    n_alloc = torch.sum(ok).to(torch.int32)
+
+    new_ptrs = hmap.free_list[
+        torch.clamp(hmap.free_top - 1 - alloc_rank, 0,
+                    hmap.free_list.shape[0] - 1)
+    ]
+    table_idx = b_safe * cfg.bucket_size + torch.clamp(
+        slot_sorted, 0, cfg.bucket_size - 1)
+    _scatter_drop(hmap.keys, table_idx, ok, keys[order])
+    _scatter_drop(hmap.ptrs, table_idx, ok, new_ptrs)
+    hmap.bucket_fill.index_add_(0, b_safe, ok.to(torch.int32))
+
+    t_sorted = tsdf_rows[order]
+    w_sorted = weight_rows[order]
+    _scatter_drop(hmap.tsdf, new_ptrs, ok, t_sorted)
+    _scatter_drop(hmap.weight, new_ptrs, ok, w_sorted)
+    _scatter_drop(hmap.last_seen, new_ptrs, ok, frame_idx)
+    ins_min = torch.where(w_sorted > 0, torch.abs(t_sorted),
+                          math.inf).amin(dim=1)
+    _scatter_drop(hmap.band_min, new_ptrs, ok, ins_min)
+    # inserted rows reinstate their original allocation stamp when the
+    # store carried it; otherwise they are stamped "now"
+    _scatter_drop(hmap.born, new_ptrs, ok,
+                  born_rows[order] if born_rows is not None else frame_idx)
+    hmap.free_top.sub_(n_alloc)
+
+    # accepted mask back in input order: inserted now, or merged
+    ok_in = torch.zeros((R,), dtype=torch.bool, device=dev)
+    ok_in[order] = ok
+    return hmap, ok_in | (found & (keys != EMPTY_KEY))
 
 
 # --------------------------------------------------------------------------
