@@ -91,6 +91,26 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    thresholds (as in the JAX run on these frames), one asked for after the
    run (fresh store, counters carried, K1 once per keyframe).  Prints what
    ``stream`` prints and the decisions beside the JAX run's.
+11. ``cli``: the application layer.  The same 201 frames exported as a
+   TUM directory (``tum.export_sequence``, native codec); the first
+   N_CLI_LIBRARY through ``stream.FramePipeline`` into ``KeyframeSLAM``
+   under the CLI's ``_default_config`` with the window gather on, saved
+   with ``checkpoint.save_keyframe_slam`` (reloaded bit-exact); then
+   ``cli.main(["run", "--dataset", ..., "--backend", "keyframe",
+   "--resume", ...])`` in this process.  The stored config carries the
+   gather, so K1 runs on every resumed frame.  Asserts: K1 launches,
+   counted from 0, == resumed frames + keyframes fused by full rebuilds +
+   2 x moves; the JSON keys equal the JAX CLI's on the same frames,
+   keyframes within one of JAX's, loop edges within one keyframe's batch;
+   tracked >= all but 1; unaligned ATE < 2 x the JAX figure.  Then
+   ``render --orbit 3 --ply --mesh``, ``info`` and ``evaluate`` on the
+   outputs (exports non-empty and finite, evaluate's ATE equals the run's,
+   the run's checkpoint reloads bit-exact), the hash backend over the real
+   PNG16 fixture ``tests/fixtures/kinect_png16`` and ``demo`` on two of its
+   files (as the JAX CLI; every frame decoded by the native codec).
+   Prints the CLI's fps, frame ms p50 / p99 / max (``StageTimer`` around
+   ``process``, CUDA events), the pipeline consumer's waits, checkpoint
+   bytes and save / load seconds, peak device memory.
 
 Then the kernel summary line (times and bound of the ``step_rows`` case,
 the shape the main path gives the kernels; ``launches`` is the count of
@@ -100,7 +120,9 @@ once over the card's memory rate) and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -194,6 +216,43 @@ JAX_REFERENCE_STREAM_BACKEND = {
     "evicted": 2676, "restored": 1520, "store_blocks": 1156,
     "ate_mm": 9.154,
 }
+# The cli phase: the out-and-back frames exported as a TUM directory; the
+# first N_CLI_LIBRARY frames go through the library (FramePipeline into
+# KeyframeSLAM under the CLI's default configuration with the window
+# gather on) and are saved, and ``run --resume`` continues from there.
+N_CLI_LIBRARY = 24
+CLI_RENDER_EVERY = 50
+# tests/torch_port_reference.py cli: the JAX package's library run and CLI
+# ``run --resume`` on the CPU on the same exported frames (Pallas kernel in
+# interpret mode).  ``result`` is the CLI's JSON line (its fps is a CPU
+# figure, not a reference); loop edges are the saved graph's.
+JAX_REFERENCE_CLI = {
+    "frames": 201, "library_frames": 24, "library_keyframes": 4,
+    "result_keys": ["ate_rmse_m", "ate_rmse_unaligned_m", "backend_saturated",
+                    "ba_runs", "checkpoint", "command", "fps", "frames",
+                    "graph_capacity", "graph_edges", "keyframes",
+                    "live_frames", "renders", "rpe_rot_rmse_deg",
+                    "rpe_trans_rmse_m", "tracked_frames"],
+    "resumed_frames": 177, "tracked": 177, "keyframes": 31,
+    "graph_edges": 108, "ba_runs": 27, "loop_edges": 78, "live_frames": 3,
+    "ate_mm": 27.97,
+}
+# tests/torch_port_reference.py fixture: the JAX CLI's hash ``run`` over
+# tests/fixtures/kinect_png16 (8 real PNG16 frames, 640x480) and ``demo``
+# on its first two files, on the CPU
+JAX_REFERENCE_FIXTURE = {
+    "result_keys": ["ate_rmse_m", "ate_rmse_unaligned_m", "checkpoint",
+                    "command", "fps", "frames", "renders",
+                    "rpe_rot_rmse_deg", "rpe_trans_rmse_m",
+                    "tracked_frames"],
+    "tracked": 7, "ate_aligned_mm": 10.42,
+    "demo_occupied_blocks": 1596, "demo_icp_inliers": 98107,
+    "demo_translation_m": [-0.08174049854278564, 0.005167483352124691,
+                           0.00011866165732499212],
+}
+# one keyframe more or less moves the loop edges by at most one insert's
+# candidate batch: loop_max_batch - 1 = 3 (KeyframeConfig default)
+CLI_LOOP_EDGE_SLACK = 3
 ATE_BOUND_MM = 7.5
 HIT_BOUND = 0.8
 PARITY_ATOL_M = 1e-4
@@ -1424,6 +1483,275 @@ def phase_stream_backend(torch, wg, card: str, ate_stream: float):
     return launches
 
 
+@contextlib.contextmanager
+def _wrapped(obj, name: str, make):
+    """``obj.name`` replaced by ``make(real)`` while the block runs."""
+    real = getattr(obj, name)
+    setattr(obj, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def _counted(calls: dict, key: str):
+    def make(real):
+        def fn(*a, **k):
+            calls[key] += 1
+            return real(*a, **k)
+        return fn
+    return make
+
+
+def cli_json(cli, argv) -> dict:
+    """``cli.main(argv)`` in this process; its one JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _int_state_equal(a: dict, b: dict) -> bool:
+    """Two ``convert.state_to_numpy`` dicts: the map's integer fields and
+    the frame counter equal."""
+    keys = [f"hmap.{f}" for f in ("keys", "ptrs", "bucket_fill",
+                                  "free_list", "free_top", "last_seen",
+                                  "born")] + ["frame_idx"]
+    return all(np.array_equal(a[k], b[k]) for k in keys)
+
+
+def phase_cli(torch, wg, card: str):
+    """The application layer on the card: the out-and-back frames as a TUM
+    directory, the first N_CLI_LIBRARY through FramePipeline into
+    KeyframeSLAM (the CLI's default configuration with the window gather)
+    and saved, then ``run --resume`` through the CLI, ``render``, ``info``
+    and ``evaluate`` on its outputs, the hash backend over the real PNG16
+    fixture and ``demo`` on two of its files."""
+    import tempfile
+
+    from voxelhashing_demo_tpu_torch import cli, convert
+    from voxelhashing_demo_tpu_torch.config import CameraConfig
+    from voxelhashing_demo_tpu_torch.models import keyframe_slam
+    from voxelhashing_demo_tpu_torch.utils import checkpoint
+    from voxelhashing_demo_tpu_torch.utils import io as depth_io
+    from voxelhashing_demo_tpu_torch.utils import (pointcloud, profiling,
+                                                   stream, tum)
+
+    ref = JAX_REFERENCE_CLI
+    depths, gt = out_and_back(CameraConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    codec = {"batch": 0, "native": 0, "python": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root, \
+            _wrapped(depth_io, "read_depth_batch",
+                     _counted(codec, "batch")), \
+            _wrapped(depth_io, "_native_decode",
+                     _counted(codec, "native")), \
+            _wrapped(depth_io, "_py_decode", _counted(codec, "python")):
+        data = os.path.join(root, "tum")
+        t0 = time.perf_counter()
+        tum.export_sequence(data, depths, gt)
+        export_s = time.perf_counter() - t0
+        paths = [os.path.join(data, rel)
+                 for _, rel, _ in tum.TUMSequence(data).entries]
+
+        # the library: pipeline -> KeyframeSLAM -> checkpoint
+        cfg = cli._default_config(cli.build_parser().parse_args(["run"]))
+        cfg = dataclasses.replace(
+            cfg, hash=dataclasses.replace(cfg.hash, use_pallas_gather=True))
+        slam = keyframe_slam.KeyframeSLAM(cfg)
+        wg.LAUNCHES = 0
+        pipe = stream.FramePipeline(paths[:N_CLI_LIBRARY], W, H)
+        for d in pipe:
+            slam.process(d)
+        library = {"frames": N_CLI_LIBRARY, "k1_launches": wg.LAUNCHES,
+                   "consumer_waits": pipe.consumer_waits}
+        ck = os.path.join(root, "library.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_keyframe_slam(ck, slam)
+        library["save_s"] = time.perf_counter() - t0
+        saved = convert.state_to_numpy(slam.state)
+        library.update(keyframes=len(slam.keyframes),
+                       ba_events=len(slam.ba_events),
+                       checkpoint_bytes=os.path.getsize(ck))
+        t0 = time.perf_counter()
+        back = checkpoint.load_keyframe_slam(ck)
+        torch.cuda.synchronize()
+        library["load_s"] = time.perf_counter() - t0
+        library["reload_int_state_exact"] = _int_state_equal(
+            saved, convert.state_to_numpy(back.state))
+        n_lib_events = library["ba_events"]
+        del slam, back, pipe
+
+        # run --resume through the CLI, K1 counted from 0
+        out = os.path.join(root, "run")
+        timer = profiling.StageTimer()
+        pipes, finals = [], []
+
+        def timed(real):
+            def process(self, d):
+                with timer.stage("process"):
+                    return real(self, d)
+            return process
+
+        def recorded(real):
+            def init(self, *a, **k):
+                real(self, *a, **k)
+                pipes.append(self)
+            return init
+
+        def snapshot(real):
+            def save(path, kslam, *a, **k):
+                real(path, kslam, *a, **k)
+                finals.append((path, convert.state_to_numpy(kslam.state),
+                               list(kslam.ba_events)))
+            return save
+
+        wg.LAUNCHES = 0
+        with _wrapped(keyframe_slam.KeyframeSLAM, "process", timed), \
+                _wrapped(stream.FramePipeline, "__init__", recorded), \
+                _wrapped(checkpoint, "save_keyframe_slam", snapshot):
+            result = cli_json(cli, [
+                "run", "--dataset", data, "--backend", "keyframe",
+                "--resume", ck, "--render-last", "--render-every",
+                str(CLI_RENDER_EVERY), "--out", out])
+        launches = wg.LAUNCHES
+        timer.summary()
+        frame_ms = [1e3 * t for t in timer.records["process"]]
+        run_events = finals[-1][2][n_lib_events:]
+        updates = [e for e in run_events if e["map_rebuilt"]]
+        fused = sum(e["keyframes"] for e in updates
+                    if e["rebuild_mode"] == "full")
+        moves = sum(e["keyframes_reintegrated"] for e in updates)
+        expected = result["frames"] + fused + 2 * moves
+        map_npz = os.path.join(out, "map.npz")
+        with np.load(map_npz) as z:
+            n_e = int(z["graph.num_edges"])
+            loop_edges = sum(1 for i, j in z["graph.edges_ij"][:n_e]
+                             if j - i > 1)
+            kf_frames = z["extra.kf_frame_indices"].tolist()
+        t0 = time.perf_counter()
+        reloaded, graph = checkpoint.load_slam(map_npz)
+        torch.cuda.synchronize()
+        run_load_s = time.perf_counter() - t0
+        reload_exact = _int_state_equal(
+            finals[-1][1], convert.state_to_numpy(reloaded.state))
+        del reloaded
+
+        # render / info / evaluate on the run's outputs
+        rdir = os.path.join(root, "render")
+        render = cli_json(cli, ["render", "--checkpoint", map_npz,
+                                "--orbit", "3", "--ply", "pts.ply",
+                                "--mesh", "mesh.ply", "--out", rdir])
+        pts = pointcloud.load_ply_points(os.path.join(rdir, "pts.ply"))
+        verts = pointcloud.load_ply_points(os.path.join(rdir, "mesh.ply"))
+        pngs = [os.path.getsize(os.path.join(rdir, f))
+                for f in render["frames"]]
+        info = cli_json(cli, ["info", "--checkpoint", map_npz])
+        ev = cli_json(cli, ["evaluate", "--est",
+                            os.path.join(out, "trajectory.txt"), "--gt",
+                            os.path.join(data, "groundtruth.txt")])
+
+        # the real PNG16 fixture through the hash backend, and demo
+        before = dict(codec)
+        fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "kinect_png16")
+        fixture = cli_json(cli, ["run", "--dataset", fix, "--render-last",
+                                 "--out", os.path.join(root, "fixture")])
+        fix_traj = np.loadtxt(os.path.join(root, "fixture",
+                                           "trajectory.txt"))
+        names = sorted(os.listdir(os.path.join(fix, "depth")))[:2]
+        demo = cli_json(cli, ["demo", *(os.path.join(fix, "depth", n)
+                                        for n in names),
+                              "--out", os.path.join(root, "demo")])
+        fixture_codec = {k: codec[k] - before[k] for k in codec}
+        ck_bytes = os.path.getsize(map_npz)
+    peak = int(torch.cuda.max_memory_allocated())
+
+    ate = result["ate_rmse_unaligned_m"] * 1e3
+    kf_diff = result["keyframes"] - ref["keyframes"]
+    _emit({
+        "phase": "cli", "card": card, "H": H, "W": W,
+        "frames": len(depths), "export_s": export_s, "library": library,
+        "result": result, "fps": result["fps"],
+        "frame_ms": _pcts(frame_ms),
+        # (resumed frame, ms) of the three slowest, and each BA event's
+        # frame, solve and map-update seconds (host clock)
+        "slowest_frames": sorted(enumerate(frame_ms),
+                                 key=lambda e: -e[1])[:3],
+        "ba_events_s": [(e["frame"], e["ba_s"], e["rebuild_s"])
+                        for e in run_events],
+        "consumer_waits": [p.consumer_waits for p in pipes],
+        "pipeline_frames": [len(p) for p in pipes],
+        "k1_launches": launches, "kernel_launches_expected": expected,
+        "launches_formula": f"{result['frames']} resumed frames + {fused} "
+                            f"keyframes fused by full rebuilds + 2 x "
+                            f"{moves} moves",
+        "ba_modes": [e["rebuild_mode"] for e in run_events],
+        "keyframe_frames": kf_frames, "loop_edges": loop_edges,
+        "checkpoint": {"library_bytes": library["checkpoint_bytes"],
+                       "library_save_s": library["save_s"],
+                       "library_load_s": library["load_s"],
+                       "run_bytes": ck_bytes, "run_load_s": run_load_s,
+                       "reload_int_state_exact": reload_exact},
+        "render": render, "ply_points": len(pts), "mesh_vertices": len(verts),
+        "info": {k: v for k, v in info.items() if k != "config"},
+        "evaluate": ev, "fixture": fixture, "demo": demo,
+        "codec_calls": codec, "fixture_codec_calls": fixture_codec,
+        "peak_mem_bytes": peak, "jax_reference": ref,
+        "jax_reference_fixture": JAX_REFERENCE_FIXTURE,
+    })
+    _require(library["reload_int_state_exact"],
+             "library checkpoint reloads bit-exact")
+    _require(sorted(result) == sorted(ref["result_keys"]),
+             "run JSON keys equal the JAX CLI's")
+    _require(result["frames"] == ref["resumed_frames"],
+             "the run resumed after the library's frames")
+    _require(result["tracked_frames"] >= result["frames"] - 1,
+             "tracked >= all but 1")
+    _require(ate < 2.0 * ref["ate_mm"], "unaligned ATE < 2x the JAX figure")
+    _require(abs(kf_diff) <= 1, "keyframes within one of the JAX run's")
+    _require(abs(loop_edges - ref["loop_edges"])
+             <= CLI_LOOP_EDGE_SLACK * max(abs(kf_diff), 1),
+             "loop edges within one keyframe's batch of the JAX run's")
+    _require(launches == expected,
+             "K1 launches == resumed frames + rebuild fuses + 2 x moves")
+    _require(result.get("live_frames") == ref["live_frames"], "live views")
+    _require(reload_exact, "the run's checkpoint reloads bit-exact")
+    _require(len(render["frames"]) == 3 and min(pngs) > 0, "orbit renders")
+    _require(render["ply"]["points"] == len(pts) > 0
+             and np.isfinite(pts).all(), "point cloud non-empty, finite")
+    _require(render["mesh"]["faces"] > 0 and len(verts) > 0
+             and np.isfinite(verts).all(), "mesh non-empty, finite")
+    _require(info["frames_processed"] == len(depths)
+             and info["graph"]["keyframes"] == result["keyframes"],
+             "info reads the run's checkpoint")
+    # the trajectory and ground-truth files hold six decimals; the run's
+    # JSON rounds to five
+    _require(ev["pairs"] == len(depths) and abs(
+        ev["ate_rmse_unaligned_m"] - result["ate_rmse_unaligned_m"])
+        < 2e-5, "evaluate's ATE equals the run's")
+    fref = JAX_REFERENCE_FIXTURE
+    _require(sorted(fixture) == sorted(fref["result_keys"])
+             and fixture["frames"] == 8
+             and fixture["tracked_frames"] >= fref["tracked"]
+             and np.isfinite(fix_traj).all()
+             and fixture["ate_rmse_m"] * 1e3 < 2.0 * fref["ate_aligned_mm"],
+             "fixture run tracks as the JAX CLI (aligned ATE < 2x)")
+    # demo: the ICP of two real frames within 1 mm of the JAX package's,
+    # the fused map within 1 % of its blocks
+    _require(abs(demo["occupied_blocks"] - fref["demo_occupied_blocks"])
+             <= 0.01 * fref["demo_occupied_blocks"]
+             and np.allclose(demo["relative_translation_m"],
+                             fref["demo_translation_m"], atol=1e-3),
+             "demo on two fixture files as the JAX CLI")
+    _require(fixture_codec["batch"] >= 1 and fixture_codec["native"] >= 2
+             and codec["python"] == 0,
+             "the native codec decoded every frame")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1474,6 +1802,7 @@ def main() -> int:
     by_path["gather_depth_window"]["stream"] = launches
     by_path["gather_depth_window"]["stream_backend"] = phase_stream_backend(
         torch, wg, smi, ate_stream)
+    by_path["gather_depth_window"]["cli"] = phase_cli(torch, wg, smi)
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{

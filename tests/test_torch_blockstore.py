@@ -9,12 +9,15 @@ Everything is equal: state, answers, and the order of the answers.
 
 import numpy as np
 import pytest
+import torch
 
 from voxelhashing_demo_tpu.config import tiny_config as jtiny
 from voxelhashing_demo_tpu.utils import blockstore as jbs
 from voxelhashing_demo_tpu_torch.config import tiny_config as ttiny
 from voxelhashing_demo_tpu_torch.geometry import coords
 from voxelhashing_demo_tpu_torch.utils import blockstore as tbs
+
+torch.set_num_threads(1)
 
 EMPTY = int(jbs.EMPTY_KEY)
 

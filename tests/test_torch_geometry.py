@@ -103,6 +103,33 @@ def test_camera(cam_kw):
     np.testing.assert_array_equal(_t(ij_t)[_j(okj)], _j(ij_j)[_j(okj)])
 
 
+@pytest.mark.parametrize("cam_kw", [{}, dict(width=80, height=60, fx=64.6625,
+                                             fy=64.5625, cx=39.7, cy=29.8)])
+def test_intrinsic_matrices(cam_kw):
+    """K and K^-1 (entries rounded once from double precision): within
+    1e-6 of JAX's (in fact equal), and inverse to each other."""
+    jc, tc = JCam(**cam_kw), TCam(**cam_kw)
+    K, Ki = tcam.intrinsic_matrix(tc), tcam.inv_intrinsic_matrix(tc)
+    assert K.dtype == Ki.dtype == torch.float32 and K.shape == (3, 3)
+    np.testing.assert_allclose(_t(K), _j(jcam.intrinsic_matrix(jc)),
+                               atol=1e-6)
+    np.testing.assert_allclose(_t(Ki), _j(jcam.inv_intrinsic_matrix(jc)),
+                               atol=1e-6)
+    np.testing.assert_allclose(_t(K @ Ki), np.eye(3), atol=1e-6)
+    assert tcam.intrinsic_matrix(tc, dtype=torch.float64).dtype == \
+        torch.float64
+
+
+def test_compose():
+    A = tse3.exp(tt(_twists(11)))
+    B = tse3.exp(tt(_twists(12)))
+    jA, jB = jnp.asarray(_t(A)), jnp.asarray(_t(B))
+    np.testing.assert_allclose(_t(tse3.compose(A, B)),
+                               _j(jax.jit(jse3.compose)(jA, jB)), atol=1e-6)
+    np.testing.assert_allclose(_t(tse3.compose(A[0], B[0])),
+                               _j(jse3.compose(jA[0], jB[0])), atol=1e-6)
+
+
 def test_round_half_to_even():
     """project_nearest's rounding: exact .5 pixel coords go to even."""
     x = np.array([0.5, 1.5, 2.5, -0.5, 3.5], np.float32)

@@ -148,6 +148,29 @@ def test_lookup_keys(carried):
     assert ft[:50].all()
 
 
+def test_lookup_blocks(carried):
+    """Block coordinates: present blocks, absent ones, and coordinates
+    outside the key range (EMPTY_KEY, never found); any leading shape."""
+    from voxelhashing_demo_tpu_torch.geometry import coords as tco
+
+    c = carried
+    keys = c["state"]["hmap.keys"]
+    present = tco.unpack_block_key(
+        tt(keys[keys != tho.EMPTY_KEY][:40]), c["tc"].hash.key_bits).numpy()
+    rng = np.random.default_rng(3)
+    absent = rng.integers(-300, 300, (39, 3)).astype(np.int32)
+    out_of_range = np.array([[4000, 0, 0]], np.int32)
+    blocks = np.concatenate([present, absent, out_of_range]).reshape(
+        4, 20, 3)
+    pj, fj = jax.jit(jho.lookup_blocks, static_argnums=(1,))(
+        _jmap(c), c["jc"].hash, jnp.asarray(blocks))
+    pt, ft = tho.lookup_blocks(_tmap(c), c["tc"].hash, tt(blocks))
+    assert pt.shape == (80,)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
+    assert ft[:40].all() and not ft[-1]
+
+
 def test_compact_visible_and_touch(carried):
     c = carried
     aj = J_COMPACT(_jmap(c), c["jc"].hash, jnp.asarray(c["pose"]),

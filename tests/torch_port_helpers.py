@@ -300,3 +300,66 @@ def jax_stream_from_numpy(d: dict, config):
         slam._pending_evict = (jnp.asarray(keys_p), jnp.asarray(pay), b)
     slam.trajectory = [jnp.asarray(p) for p in np.asarray(d["trajectory"])]
     return slam
+
+
+# --------------------------------------------------------------------------
+# checkpoint parity (tests/test_torch_checkpoint*.py)
+# --------------------------------------------------------------------------
+
+# pose bound of the frames run after a load (test_torch_checkpoint.py)
+POSE_ATOL = 1e-5
+
+
+def _np(x):
+    """numpy view of a CPU tensor or a JAX / numpy array."""
+    import torch
+
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_states_equal(t_state, j_state):
+    for f in t_state.hmap._fields:
+        np.testing.assert_array_equal(_np(getattr(t_state.hmap, f)),
+                                      np.asarray(getattr(j_state.hmap, f)),
+                                      err_msg=f)
+    for f in t_state.model._fields:
+        np.testing.assert_array_equal(_np(getattr(t_state.model, f)),
+                                      np.asarray(getattr(j_state.model, f)))
+    np.testing.assert_array_equal(_np(t_state.pose), np.asarray(j_state.pose))
+    np.testing.assert_array_equal(_np(t_state.vel), np.asarray(j_state.vel))
+    assert int(t_state.frame_idx) == int(j_state.frame_idx)
+
+
+def assert_trajectories_equal(t_traj, j_traj):
+    assert len(t_traj) == len(j_traj)
+    for a, b in zip(t_traj, j_traj):
+        np.testing.assert_array_equal(_np(a), np.asarray(b))
+
+
+def assert_files_equal(a, b):
+    """Same keys, dtypes, shapes and values."""
+    with np.load(a) as za, np.load(b) as zb:
+        assert sorted(za.files) == sorted(zb.files)
+        for k in za.files:
+            assert za[k].dtype == zb[k].dtype, k
+            np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+
+
+def assert_stores_equal(t_store, j_store):
+    ta, ja = t_store.state_arrays(), j_store.state_arrays()
+    assert sorted(ta) == sorted(ja)
+    for k in ta:
+        np.testing.assert_array_equal(ta[k], ja[k], err_msg=k)
+    assert len(t_store) == len(j_store)
+
+
+def continue_both(t_slam, j_slam, frames):
+    """The next frames through both loaded slams; poses within
+    POSE_ATOL."""
+    import jax.numpy as jnp
+
+    for d in frames:
+        t = t_slam.process(d)
+        j = j_slam.process(jnp.asarray(d))
+        np.testing.assert_allclose(_np(t.pose), np.asarray(j.pose),
+                                   atol=POSE_ATOL)

@@ -3,7 +3,7 @@
 Not a test (pytest does not collect it); run it from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_port_reference.py \\
-        [orbit|march|backend|stream|stream_twin|stream_backend]
+        [orbit|march|backend|stream|stream_twin|stream_backend|cli|fixture]
 
 ``orbit``: the 20-frame noise-free orbit of chip_smoke's ``slice`` phase
 (``JAX_REFERENCE``).  ``march``: the 24-frame noisy room sweep of its
@@ -19,6 +19,16 @@ frames without streaming; ``stream_backend``: the same frames through the
 streaming ``KeyframeSLAM`` of its ``stream_backend`` phase
 (``JAX_REFERENCE_STREAM_BACKEND``: the decisions too).  These three are
 asked for by name; run them in one process (the frames are made once).
+``cli``: its ``cli`` phase through the JAX package's application layer
+(``JAX_REFERENCE_CLI``): the same frames exported as a TUM directory, the
+first ``N_CLI_LIBRARY`` through ``stream.FramePipeline`` into the
+``KeyframeSLAM`` of the CLI's default configuration with the window
+gather on, ``save_keyframe_slam``, then the JAX CLI's ``run --resume`` on
+the directory; prints the run's JSON line and the saved graph's
+keyframes and loop edges (asked for by name; about ten minutes).
+``fixture``: the JAX CLI's ``run`` (hash backend, ``--render-last``) over
+the real PNG16 fixture ``tests/fixtures/kinect_png16`` and ``demo`` on its
+first two files, as the ``cli`` phase runs them (``JAX_REFERENCE_FIXTURE``).
 The frames come from the
 PORT's synthetic module on the CPU, with the arguments chip_smoke uses,
 and go through the JAX package's ``HashSLAM`` under the flagship gather
@@ -213,6 +223,89 @@ def _run_stream_backend() -> dict:
     return out
 
 
+def _run_cli() -> dict:
+    """chip_smoke's ``cli`` phase through the JAX CLI."""
+    import contextlib
+    import io
+    import tempfile
+
+    import chip_smoke
+    from voxelhashing_demo_tpu import cli
+    from voxelhashing_demo_tpu.models import keyframe_slam
+    from voxelhashing_demo_tpu.utils import checkpoint, stream, tum
+
+    depths, gt = _out_and_back()
+    root = tempfile.mkdtemp(prefix="cli_reference_")
+    data = os.path.join(root, "tum")
+    tum.export_sequence(data, [np.asarray(d) for d in depths],
+                        [np.asarray(p) for p in gt])
+    cfg = cli._default_config(cli.build_parser().parse_args(["run"]))
+    cfg = dataclasses.replace(
+        cfg, hash=dataclasses.replace(cfg.hash, use_pallas_gather=True))
+    seq = tum.TUMSequence(data)
+    paths = [os.path.join(data, rel) for _, rel, _ in seq.entries]
+    slam = keyframe_slam.KeyframeSLAM(cfg)
+    n_lib = chip_smoke.N_CLI_LIBRARY
+    for d in stream.FramePipeline(paths[:n_lib], cfg.camera.width,
+                                  cfg.camera.height):
+        slam.process(d)
+    ck = os.path.join(root, "library.npz")
+    checkpoint.save_keyframe_slam(ck, slam)
+    library_keyframes = len(slam.keyframes)
+    out_dir = os.path.join(root, "run")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["run", "--dataset", data, "--backend", "keyframe",
+                  "--resume", ck, "--render-last", "--render-every",
+                  str(chip_smoke.CLI_RENDER_EVERY), "--out", out_dir])
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with np.load(os.path.join(out_dir, "map.npz")) as z:
+        n_e = int(z["graph.num_edges"])
+        edges = z["graph.edges_ij"][:n_e].tolist()
+        kf_frames = z["extra.kf_frame_indices"].tolist()
+    out = {
+        "run": "cli", "frames": len(depths), "library_frames": n_lib,
+        "library_keyframes": library_keyframes, "result": result,
+        "keyframe_frames": kf_frames,
+        "loop_edges": [e for e in edges if e[1] - e[0] > 1],
+        "ate_mm": result["ate_rmse_unaligned_m"] * 1e3,
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _cli_line(cli, argv) -> dict:
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _run_fixture() -> dict:
+    """chip_smoke's ``cli`` phase on the fixture through the JAX CLI."""
+    import tempfile
+
+    from voxelhashing_demo_tpu import cli
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures", "kinect_png16")
+    root = tempfile.mkdtemp(prefix="fixture_reference_")
+    names = sorted(os.listdir(os.path.join(fix, "depth")))[:2]
+    out = {
+        "run": "fixture",
+        "result": _cli_line(cli, ["run", "--dataset", fix, "--render-last",
+                                  "--out", os.path.join(root, "run")]),
+        "demo": _cli_line(cli, ["demo", *(os.path.join(fix, "depth", n)
+                                          for n in names),
+                                "--out", os.path.join(root, "demo")]),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(which) -> None:
     cam = CameraConfig()
     if "orbit" in which:
@@ -231,6 +324,10 @@ def main(which) -> None:
         _run_stream(twin=True)
     if "stream_backend" in which:
         _run_stream_backend()
+    if "cli" in which:
+        _run_cli()
+    if "fixture" in which:
+        _run_fixture()
 
 
 if __name__ == "__main__":

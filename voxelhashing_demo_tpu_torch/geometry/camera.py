@@ -9,6 +9,24 @@ from ..config import CameraConfig
 from .f32 import recip
 
 
+def intrinsic_matrix(cam: CameraConfig, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """The 3x3 pinhole matrix K."""
+    return torch.tensor(
+        [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+        dtype=dtype, device=device)
+
+
+def inv_intrinsic_matrix(cam: CameraConfig, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """K^-1, its entries computed in double precision and rounded once."""
+    return torch.tensor(
+        [[1.0 / cam.fx, 0.0, -cam.cx / cam.fx],
+         [0.0, 1.0 / cam.fy, -cam.cy / cam.fy],
+         [0.0, 0.0, 1.0]],
+        dtype=dtype, device=device)
+
+
 def pixel_rays(cam: CameraConfig, dtype=torch.float32,
                device=None) -> torch.Tensor:
     """Unnormalized camera-space rays K^-1 [u, v, 1] per pixel, (H, W, 3);

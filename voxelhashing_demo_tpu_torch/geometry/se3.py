@@ -110,6 +110,11 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Group composition A @ B."""
+    return A @ B
+
+
 def apply(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply one rigid transform (4, 4) to (..., 3) points."""
     return points @ T[:3, :3].T + T[:3, 3]

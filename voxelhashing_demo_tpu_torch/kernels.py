@@ -1,12 +1,14 @@
-"""Build and bind the hand-written CUDA kernels under ``csrc/``.
+"""Build and bind the native code under ``csrc/``.
 
-Each kernel file has a plain C interface.  It is compiled with nvcc into a
-shared library at first use, into ``_build/`` beside this file (listed in
-.gitignore), and loaded with ctypes.  The library's file name carries a
-hash of its source and flags, so an edited source is rebuilt.  Nothing is
-built or loaded when this module is imported.  ``build_all`` compiles
-every source at once, one nvcc process each.  ``function`` hands a
-wrapper its kernel's C function, bound once.
+Each source has a plain C interface.  It is compiled into a shared library
+at first use, into ``_build/`` beside this file (listed in .gitignore), and
+loaded with ctypes: the hand-written CUDA kernels (``*.cu``) with nvcc by
+``build``, the host C++ PNG codec (``depthio.cpp``, utils/io.py) with the
+host C++ compiler by ``build_host``.  A library's file name carries a hash
+of its source and flags, so an edited source is rebuilt.  Nothing is built
+or loaded when this module is imported.  ``build_all`` compiles every
+source at once, one compiler process each.  ``function`` hands a wrapper
+its kernel's C function, bound once.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
+HOST_LIBS = ("-lz",)
+HOST_SOURCES = ("depthio",)      # csrc/<name>.cpp
 
 _FUNCTIONS: dict = {}       # source name -> its bound C function
 
@@ -41,33 +46,70 @@ def nvcc() -> str:
     return found
 
 
+def host_compiler() -> str:
+    """Path of the host C++ compiler, or raise."""
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ / g++) found")
+
+
+def _library(src: Path, flags) -> Path:
+    """Content-hashed library name of ``src`` built with ``flags``."""
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
+    return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
+
+
 def library_path(name: str) -> Path:
     """Where the built library of ``csrc/<name>.cu`` lives."""
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return _library(SRC_DIR / f"{name}.cu", NVCC_FLAGS)
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library path.  Raises with nvcc's output on failure."""
-    out = library_path(name)
+def host_library_path(name: str) -> Path:
+    """Where the built library of ``csrc/<name>.cpp`` lives."""
+    return _library(SRC_DIR / f"{name}.cpp", HOST_FLAGS + HOST_LIBS)
+
+
+def _compile(out: Path, src: Path, cmd_for) -> Path:
+    """Build ``out`` from ``src`` unless it exists: ``cmd_for(tmp)`` is the
+    compiler command writing a temporary file, moved to ``out`` when it
+    succeeds.  Raises with the compiler's output on failure."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+        cmd = cmd_for(tmp)
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
-                               f"{name}.cu:\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"{Path(cmd[0]).name} failed "
+                               f"({proc.returncode}) for {src.name}:\n"
+                               f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` with nvcc unless its library is already
+    built; returns the library path."""
+    src = SRC_DIR / f"{name}.cu"
+    return _compile(library_path(name), src,
+                    lambda tmp: [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)])
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` with the host C++ compiler unless its
+    library is already built; returns the library path."""
+    src = SRC_DIR / f"{name}.cpp"
+    return _compile(host_library_path(name), src,
+                    lambda tmp: [host_compiler(), *HOST_FLAGS, "-o", tmp,
+                                 str(src), *HOST_LIBS])
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -80,10 +122,14 @@ KERNELS = {
 
 
 def build_all() -> dict[str, Path]:
-    """Compile every kernel source that is not built yet, all nvcc
-    processes started together; returns {name: library path}."""
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        return dict(zip(KERNELS, pool.map(build, KERNELS)))
+    """Compile every source that is not built yet (the CUDA kernels and
+    the host codec), all compiler processes started together; returns
+    {name: library path}."""
+    jobs = [(build, n) for n in KERNELS] + [(build_host, n)
+                                            for n in HOST_SOURCES]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = [pool.submit(fn, n) for fn, n in jobs]
+        return {n: f.result() for (_, n), f in zip(jobs, futures)}
 
 
 def function(name: str):

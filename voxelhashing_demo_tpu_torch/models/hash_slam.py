@@ -346,15 +346,36 @@ class HashSLAM:
     point: a deferred landing (``spill_finish_async``) runs there."""
 
     def __init__(self, config: PipelineConfig, device=None):
+        device = resolve(device)
+        self._setup(config, device, create(config, device=device), [],
+                    BlockStore(config.hash) if config.stream.enabled
+                    else None)
+
+    @classmethod
+    def _restore(cls, config: PipelineConfig, state: HashSLAMState,
+                 trajectory, store: BlockStore | None,
+                 device) -> "HashSLAM":
+        """A HashSLAM at a given state (checkpoint restore,
+        utils/checkpoint.py): ``trajectory`` the poses so far (tensors on
+        ``device``), ``store`` the streaming store (None: an empty one when
+        the config streams).  The streaming cycle starts quiesced and the
+        infos empty."""
+        slam = cls.__new__(cls)
+        if store is None and config.stream.enabled:
+            store = BlockStore(config.hash)
+        slam._setup(config, resolve(device), state, list(trajectory),
+                    store if config.stream.enabled else None)
+        return slam
+
+    def _setup(self, config, device, state, trajectory, store) -> None:
         _check_supported(config)
         self.config = config
-        self.device = resolve(device)
-        self.state = create(config, device=self.device)
-        self.trajectory = []
+        self.device = device
+        self.state = state
+        self.trajectory = trajectory
         self.infos = []
-        self.store = None
-        if config.stream.enabled:
-            self.store = BlockStore(config.hash)
+        self.store = store
+        if store is not None:
             self._init_stream_runtime()
 
     def _init_stream_runtime(self) -> None:

@@ -196,12 +196,32 @@ class KeyframeSLAM:
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded multi-device pipeline is not ported yet")
-        self.config = config
-        self.kcfg = config.keyframes
-        self._inner = hash_slam.HashSLAM(config, device=device)
-        self.device = self._inner.device
-        self.graph = pose_graph.create(
-            self.kcfg.max_keyframes, self.kcfg.max_edges, device=self.device)
+        inner = hash_slam.HashSLAM(config, device=device)
+        self._setup(inner, pose_graph.create(
+            config.keyframes.max_keyframes, config.keyframes.max_edges,
+            device=inner.device))
+
+    @classmethod
+    def _restore(cls, inner: hash_slam.HashSLAM,
+                 graph: pose_graph.PoseGraph) -> "KeyframeSLAM":
+        """A KeyframeSLAM around a restored HashSLAM and pose graph
+        (checkpoint restore, utils/checkpoint.py), with fresh bookkeeping
+        and the host mirrors of the graph; the caller restores the
+        keyframes, frame refs and event logs."""
+        k = cls.__new__(cls)
+        k._setup(inner, graph)
+        k._poses_np = host_array(graph.poses).astype(np.float32).copy()
+        k._n_poses = graph.num_poses
+        k._n_edges = graph.num_edges
+        return k
+
+    def _setup(self, inner: hash_slam.HashSLAM,
+               graph: pose_graph.PoseGraph) -> None:
+        self.config = inner.config
+        self.kcfg = inner.config.keyframes
+        self._inner = inner
+        self.device = inner.device
+        self.graph = graph
         self._init_runtime_state()
 
     def _init_runtime_state(self) -> None:

@@ -143,6 +143,12 @@ def lookup_keys(hmap: HashMap, cfg: HashConfig, query_keys: torch.Tensor):
     return ptr, found
 
 
+def lookup_blocks(hmap: HashMap, cfg: HashConfig, blocks: torch.Tensor):
+    """Block coords (..., 3) -> (ptr, found), flattened to (N,)."""
+    keys = coords.pack_block_key(blocks, cfg.key_bits)
+    return lookup_keys(hmap, cfg, keys.reshape(-1))
+
+
 # --------------------------------------------------------------------------
 # candidate generation
 # --------------------------------------------------------------------------
