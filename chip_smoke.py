@@ -111,11 +111,39 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    Prints the CLI's fps, frame ms p50 / p99 / max (``StageTimer`` around
    ``process``, CUDA events), the pipeline consumer's waits, checkpoint
    bytes and save / load seconds, peak device memory.
+   Last, ``run --devices N`` with more ranks than cards exits naming
+   both counts (``cli_devices``).
+12. ``nccl``: one rank over NCCL (``parallel.launch.spawn``): the
+   collective helpers (``ranks.collectives``) exact, then
+   ``ShardedHashSLAM(flagship_gather_config())`` on the slice's 12 frames,
+   K1 launched every frame.  This one-rank run is the reference partition
+   of ``sharded``.
+13. ``sharded_backend``: ``KeyframeSLAM(mesh)`` on two Gloo ranks sharing
+   the card over the first 24 frames of the backend scenario (the drift
+   before frame 18): decisions (keyframe frames, edges, BA frames, rebuild
+   modes, moves, tracked, capacity, saturation) equal on both ranks and
+   to a one-rank NCCL mesh's; unaligned ATE below twice the single-card
+   ``KeyframeSLAM``'s on the same frames; K1 launches per rank = frames +
+   rebuild fuses + 2 x moves.  Prints BA ms per solve and the staged
+   collective bytes.
+14. ``sharded``, the slice's main path: ``ShardedHashSLAM`` on two Gloo
+   ranks sharing the card at ``flagship_gather_config()`` (32 768 blocks
+   a rank) over the slice's 12 frames.  Asserts: per-frame allocated and
+   active blocks equal to the one-rank NCCL run's, poses within 5e-4 m of
+   it, replicated poses bit-identical on both ranks, unaligned ATE <
+   7.5 mm, the ranks' key sets disjoint with the one-rank map's as their
+   union, render hit fraction > 0.8, K1 launched once per frame on each
+   rank (counted from 0 in each rank) and bit-exact against its plain
+   version on each rank's own rows.  Prints per-rank frame ms p50 / max,
+   staged collective bytes and collectives per frame, peak memory per
+   rank, and the single-card ``HashSLAM`` beside it (ATE, pose gap,
+   counts: the sharded step is the JAX package's, which pools the coarse
+   ICP source by its minimum, so it is not the single-device step).
 
 Then the kernel summary line (times and bound of the ``step_rows`` case,
 the shape the main path gives the kernels; ``launches`` is the count of
-the last path that drives the kernel, ``launches_by_path`` has each
-path's own count; ``bound_ms`` is 14 bytes per voxel plus the depth image
+the last path that drives the kernel (``sharded``'s rank 0 for K1),
+``launches_by_path`` has each path's own count; ``bound_ms`` is 14 bytes per voxel plus the depth image
 once over the card's memory rate) and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
@@ -1749,7 +1777,231 @@ def phase_cli(torch, wg, card: str):
     _require(fixture_codec["batch"] >= 1 and fixture_codec["native"] >= 2
              and codec["python"] == 0,
              "the native codec decoded every frame")
+    # more ranks than cards over NCCL: refused, naming both counts
+    cards = torch.cuda.device_count()
+    try:
+        cli.main(["run", "--synthetic", "2", "--devices", str(cards + 1)])
+        refused = ""
+    except SystemExit as e:
+        refused = str(e)
+    _emit({"phase": "cli_devices", "cards": cards, "message": refused})
+    _require(f"need {cards + 1} CUDA cards" in refused
+             and f"{cards} present" in refused,
+             "run --devices N > cards exits naming both counts")
     return launches
+
+
+# The multi-device phases.  One card: two ranks share it over Gloo (each
+# collective's CUDA tensors cross the host), and a one-rank NCCL
+# group runs the same step as the reference partition.  Why the reference
+# is a one-rank mesh and not the single-card HashSLAM: the sharded step
+# (the JAX package's parallel/sharded.py) pools the coarse ICP source by
+# its minimum where the single-device step averages, and recomputes the
+# target normals from the gathered model depth, so it is not the
+# single-device step; the single-card run is printed beside it.
+SHARDED_TIMEOUT_S = 600
+SHARDED_POSE_ATOL_M = 5e-4
+N_SHARDED_BACKEND = 24
+
+
+def _rank_ms(outs, key="frame_ms") -> list:
+    return [{"p50": float(np.percentile(o[key], 50)),
+             "max": float(np.max(o[key]))} for o in outs]
+
+
+def _key_set(keys) -> set:
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    keys = np.asarray(keys)
+    return set(keys[keys != int(hash_ops.EMPTY_KEY)].tolist())
+
+
+def _collectives_ok(outs) -> bool:
+    """``ranks.collectives`` of every rank against numpy: exact."""
+    xs = [o["x"] for o in outs]
+    rows = np.concatenate([o["rows"] for o in outs])
+    n = len(outs)
+    return all(
+        np.array_equal(o["psum"], sum(xs[1:], xs[0]))
+        and np.array_equal(o["psum_int"],
+                           sum((p["ints"] for p in outs[1:]), outs[0]["ints"]))
+        and np.array_equal(o["pmin"], np.minimum.reduce(xs))
+        and np.array_equal(o["tiled"], np.concatenate(xs))
+        and np.array_equal(o["fetch"], np.concatenate(xs))
+        and np.array_equal(o["stacked"], np.stack(xs))
+        and np.array_equal(o["gather_concat"], rows)
+        and np.array_equal(o["gather_many"]["a"], rows)
+        and o["psum_host"] == sum(r + 7 for r in range(n))
+        and np.array_equal(o["owner_mask"],
+                           np.arange(2 * n) % n == o["rank"])
+        for o in outs)
+
+
+def phase_nccl(torch, frames) -> dict:
+    """One rank over NCCL: the collective helpers, then ShardedHashSLAM on
+    the slice's frames (the reference partition of ``sharded``)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.parallel import launch, ranks
+
+    (coll,) = launch.spawn(ranks.collectives, 1, "nccl", "cuda",
+                           SHARDED_TIMEOUT_S, 5)
+    helpers_ok = _collectives_ok([coll]) and coll["host_bytes"] == 0
+    (one,) = launch.spawn(ranks.run_slam, 1, "nccl", "cuda",
+                          SHARDED_TIMEOUT_S, flagship_gather_config(),
+                          frames, None, (), True)
+    _emit({"phase": "nccl", "backend": coll["backend"],
+           "helpers_ok": helpers_ok, "frames": len(one["infos"]),
+           "frame_ms": _rank_ms([one])[0],
+           "collectives_per_frame": one["collectives_per_frame"],
+           "launches": sum(one["launches"]),
+           "peak_mem_bytes": one["peak_mem_bytes"]})
+    _require(coll["backend"] == "nccl" and helpers_ok,
+             "NCCL group initializes; its collective helpers agree")
+    _require(all(k > 0 for k in one["launches"]),
+             "K1 launched on every frame over NCCL")
+    return one
+
+
+def phase_sharded(torch, card: str, frames, gt, one) -> int:
+    """Two ranks on the one card over Gloo at flagship_gather_config():
+    see the module docstring."""
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.parallel import launch, ranks
+    from voxelhashing_demo_tpu_torch.utils import metrics
+
+    cfg = flagship_gather_config()
+    coll = launch.spawn(ranks.collectives, 2, "gloo", "cuda",
+                        SHARDED_TIMEOUT_S, 5)
+    two = launch.spawn(ranks.run_slam, 2, "gloo", "cuda", SHARDED_TIMEOUT_S,
+                       cfg, frames, None, (), True)
+    single = hash_slam.HashSLAM(cfg)
+    for d in frames:
+        single.process(d)
+    s_poses = [p.cpu().numpy() for p in single.trajectory]
+    s_keys = _key_set(single.state.hmap.keys.cpu().numpy())
+    a = two[0]
+    poses = [i["pose"] for i in a["infos"]]
+    counts = {k: [[int(i[k]) for i in o["infos"]] for o in (a, one)]
+              for k in ("blocks_allocated", "blocks_active")}
+    same_counts = all(c[0] == c[1] for c in counts.values())
+    pose_diff = max(float(np.abs(p[:3, 3] - i["pose"][:3, 3]).max())
+                    for p, i in zip(poses, one["infos"]))
+    single_diff = max(float(np.abs(p[:3, 3] - q[:3, 3]).max())
+                      for p, q in zip(poses, s_poses))
+    replicated = all(np.array_equal(x["pose"], y["pose"])
+                     for x, y in zip(a["infos"], two[1]["infos"]))
+    sets = [_key_set(o["state"]["hmap.keys"]) for o in two]
+    one_keys = _key_set(one["state"]["hmap.keys"])
+    hit = float(np.concatenate([o["hit_rows"] for o in two]).mean())
+    ate = metrics.ate_rmse(poses, gt, align=False) * 1e3
+    ate_single = metrics.ate_rmse(s_poses, gt, align=False) * 1e3
+    launches = [sum(o["launches"]) for o in two]
+    helpers_ok = _collectives_ok(coll) and all(o["host_bytes"] > 0
+                                               for o in coll)
+    _emit({"phase": "sharded", "ranks": 2, "backend": "gloo",
+           "collective_helpers_ok": helpers_ok,
+           "note": "two ranks share one card; Gloo moves each "
+                   "collective's CUDA tensors through host memory",
+           "card": card,
+           "frames": len(frames), "tracked": sum(bool(i["tracked"])
+                                                 for i in a["infos"]),
+           "ate_mm": ate, "ate_single_card_mm": ate_single,
+           "ate_nccl_one_rank_mm": metrics.ate_rmse(
+               [i["pose"] for i in one["infos"]], gt, align=False) * 1e3,
+           "counts_equal_one_rank": same_counts,
+           "counts": counts["blocks_allocated"][0],
+           "counts_single_card": [int(i.blocks_allocated)
+                                  for i in single.infos],
+           "max_pose_diff_one_rank_m": pose_diff,
+           "max_pose_diff_single_card_m": single_diff,
+           "replicated_bit_identical": replicated,
+           "keys_per_rank": [len(x) for x in sets],
+           "keys_single_card": len(s_keys),
+           "hit_frac": hit, "launches_per_rank": launches,
+           "kernel_check": [o["kernel"] for o in two],
+           "frame_ms_per_rank": _rank_ms(two),
+           "collective_host_bytes_per_frame":
+               [o["collective_host_bytes_per_frame"] for o in two],
+           "collectives_per_frame": [o["collectives_per_frame"]
+                                     for o in two],
+           "peak_mem_bytes_per_rank": [o["peak_mem_bytes"] for o in two]})
+    _require(helpers_ok, "Gloo collective helpers on CUDA tensors exact")
+    _require(same_counts, "per-frame allocated / active blocks equal to "
+                          "the one-rank run's")
+    _require(pose_diff <= SHARDED_POSE_ATOL_M,
+             "poses within 5e-4 m of the one-rank run's")
+    _require(replicated, "replicated poses bit-identical on both ranks")
+    _require(ate < ATE_BOUND_MM, f"unaligned ATE < {ATE_BOUND_MM} mm")
+    _require(not (sets[0] & sets[1]) and sets[0] | sets[1] == one_keys,
+             "rank key sets disjoint, union == the one-rank map's")
+    _require(hit > HIT_BOUND, f"render hit fraction > {HIT_BOUND}")
+    _require(launches == [len(frames)] * 2
+             and all(o["launches"] == [1] * len(frames) for o in two),
+             "K1 launched once per frame on each rank")
+    _require(all(o["kernel"]["bit_exact"] and o["kernel"]["rows"] > 0
+                 for o in two), "K1 bit-exact on each rank's own rows")
+    return launches[0]
+
+
+def phase_sharded_backend(torch, card: str) -> int:
+    """KeyframeSLAM(mesh) on two Gloo ranks over the first
+    N_SHARDED_BACKEND frames of the backend scenario (the drift before
+    frame 18), against a one-rank NCCL mesh and the single-card backend."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+    from voxelhashing_demo_tpu_torch.models import keyframe_slam
+    from voxelhashing_demo_tpu_torch.parallel import launch, ranks
+    from voxelhashing_demo_tpu_torch.utils import metrics, synthetic
+
+    cfg = backend_config()
+    depths, gt = synthetic.make_room_sweep(
+        cfg.camera, N_BACKEND, sweep_deg=BACKEND_SWEEP_DEG, noise_seed=1)
+    depths = [np.asarray(d) for d in depths[:N_SHARDED_BACKEND]]
+    gt = gt[:N_SHARDED_BACKEND]
+    inject = {}
+    for i, tw in BACKEND_INJECT.items():
+        if i < N_SHARDED_BACKEND:
+            tw = np.array(tw, np.float32)
+            tw[3:] = np.deg2rad(tw[3:])
+            inject[i] = se3.exp(torch.as_tensor(tw)).numpy()
+    two = launch.spawn(ranks.run_keyframe, 2, "gloo", "cuda",
+                       SHARDED_TIMEOUT_S, cfg, depths, inject, True)
+    (one,) = launch.spawn(ranks.run_keyframe, 1, "nccl", "cuda",
+                          SHARDED_TIMEOUT_S, cfg, depths, inject, True)
+    single = keyframe_slam.KeyframeSLAM(cfg)
+    backend_drive(torch, single, depths)
+    s_traj = single.trajectory()
+    a = two[0]
+    decisions = ("keyframe_frames", "edges", "ba_frames", "ba_modes",
+                 "moved", "tracked", "capacity", "saturated")
+    same = {k: a[k] == one[k] == two[1][k] for k in decisions}
+    ate = metrics.ate_rmse(list(a["trajectory"]), gt, align=False) * 1e3
+    ate_single = metrics.ate_rmse(s_traj, gt, align=False) * 1e3
+    expected = [len(depths) + o["rebuild_fuses"] + 2 * sum(o["moved"])
+                for o in two]
+    ba_ms = [1e3 * t for t in a["ba_s"]]
+    _emit({"phase": "sharded_backend", "ranks": 2, "backend": "gloo",
+           "card": card, "frames": len(depths),
+           "decisions_equal_one_rank": same,
+           "keyframes": len(a["keyframe_frames"]),
+           "keyframes_single_card": len(single.keyframes),
+           "edges": len(a["edges"]),
+           "loop_edges": sum(1 for e in a["edges"] if e[1] - e[0] > 1),
+           "ba_modes": a["ba_modes"], "moved": a["moved"],
+           "ba_modes_single_card": [e["rebuild_mode"]
+                                    for e in single.ba_events],
+           "ate_mm": ate, "ate_single_card_mm": ate_single,
+           "launches_per_rank": [o["launches"] for o in two],
+           "launches_expected": expected,
+           "ba_ms_per_solve": ba_ms,
+           "collective_host_bytes_per_frame":
+               [o["collective_host_bytes_per_frame"] for o in two]})
+    _require(all(same.values()),
+             "decisions equal on both ranks and to the one-rank NCCL run")
+    _require(ate < 2.0 * ate_single, "ATE below twice the single card's")
+    _require([o["launches"] for o in two] == expected,
+             "K1 launches == frames + rebuild fuses + 2 x moves per rank")
+    return a["launches"]
 
 
 def main() -> int:
@@ -1803,6 +2055,19 @@ def main() -> int:
     by_path["gather_depth_window"]["stream_backend"] = phase_stream_backend(
         torch, wg, smi, ate_stream)
     by_path["gather_depth_window"]["cli"] = phase_cli(torch, wg, smi)
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    frames, gt = synthetic.make_sequence(
+        flagship_gather_config().camera, JAX_REFERENCE["frames"],
+        trans_amp=0.05, rot_amp_deg=2.5)
+    frames, gt = [np.asarray(d) for d in frames[:N_FRAMES]], gt[:N_FRAMES]
+    one = phase_nccl(torch, frames)
+    by_path["gather_depth_window"]["nccl"] = sum(one["launches"])
+    by_path["gather_depth_window"]["sharded_backend"] = (
+        phase_sharded_backend(torch, smi))
+    # the slice's main path, last: "launches" is rank 0's count
+    by_path["gather_depth_window"]["sharded"] = phase_sharded(
+        torch, smi, frames, gt, one)
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{

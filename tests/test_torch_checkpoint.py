@@ -19,8 +19,10 @@ written from a 2-device mesh: tests/test_torch_checkpoint_mesh.py; the
 helpers are in tests/torch_port_helpers.py.)
 
 Also: old files without ``last_seen`` /
-``band_min`` / ``born`` / ``vel`` take the JAX defaults; per-process
-shards raise; the JSON config, the TUM trajectory and the SDF dump are
+``band_min`` / ``born`` / ``vel`` take the JAX defaults; one device's
+per-process file (rank 0 of 1) crosses to the JAX package and back, and
+``load_slam`` refuses a mesh rank's shard (tests/test_torch_sharded_
+checkpoint.py loads those); the JSON config, the TUM trajectory and the SDF dump are
 byte-equal to the JAX package's."""
 
 import dataclasses
@@ -173,24 +175,32 @@ def test_newer_format_and_shards_raise(tmp_path, frames):
     depths, _ = frames
     slam = ths.HashSLAM(tiny_flagship_gather_config("torch"), device="cpu")
     slam.process(depths[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        tck.save_slam(str(tmp_path / "pp.npz"), slam, per_process=True)
+    # one device's per-process file: rank 0 of 1, every leaf in full; the
+    # JAX package reads it and writes the same file back
+    tck.save_slam(str(tmp_path / "pp.npz"), slam, per_process=True)
+    pp = str(tmp_path / "pp.proc0of1.npz")
+    j, _ = jck.load_slam(pp)
+    jck.save_slam(str(tmp_path / "jpp.npz"), j, per_process=True)
+    assert_files_equal(pp, str(tmp_path / "jpp.proc0of1.npz"))
+    assert_states_equal(tck.load_slam(pp, device="cpu")[0].state, j.state)
     k = tkf.KeyframeSLAM(backend_config("torch"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        tck.save_keyframe_slam(str(tmp_path / "pk.npz"), k, per_process=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        tck.load_sharded_slam(str(tmp_path / "x.npz"))
+    k.process(depths[0])
+    tck.save_keyframe_slam(str(tmp_path / "pk.npz"), k, per_process=True)
+    k2 = tck.load_keyframe_slam(str(tmp_path / "pk.proc0of1.npz"),
+                                device="cpu")
+    assert len(k2.keyframes) == len(k.keyframes) == 1
     path = str(tmp_path / "a.npz")
     tck.save_slam(path, slam)
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}
-    # a per-process shard file (the JAX package's layout): refused
+    # one rank's shard of a mesh's per-process checkpoint holds only its
+    # rows: load_slam sends it to load_sharded_slam
     shard = dict(arrays, pp_process_index=np.int64(0),
                  pp_process_count=np.int64(2),
                  pp_sharded_keys=np.frombuffer(b'["state.hmap.tsdf"]',
                                                np.uint8))
     np.savez_compressed(str(tmp_path / "shard.npz"), **shard)
-    with pytest.raises(NotImplementedError, match="per-process shard"):
+    with pytest.raises(ValueError, match="per-process shard"):
         tck.load_slam(str(tmp_path / "shard.npz"), device="cpu")
     np.savez_compressed(str(tmp_path / "v2.npz"),
                         **dict(arrays, format_version=np.int64(2)))

@@ -6,8 +6,9 @@ Tolerances: ``run --small --synthetic 8`` prints the JAX CLI's JSON keys
 unaligned ATE within 0.5 mm of JAX's on the same frames (each package
 makes its own synthetic frames; they agree to the sensor's quantization);
 ``info`` and ``render``'s counts on one checkpoint are equal in both
-packages.  (``--resume`` and the dataset detection:
-tests/test_torch_cli_resume.py.)"""
+packages; ``run --devices 2`` (two Gloo ranks) prints the JAX CLI's
+``--devices 2`` keys with an unaligned ATE within 0.5 mm of it.
+(``--resume`` and the dataset detection: tests/test_torch_cli_resume.py.)"""
 
 import contextlib
 import dataclasses
@@ -144,10 +145,34 @@ def test_default_config_equals_jax():
                                            "x"]).device == "cuda"
 
 
-def test_devices_and_bench_exit_with_their_messages():
-    with pytest.raises(SystemExit, match="ROADMAP item 14"):
-        tcli.main(["--device", "cpu", "run", "--synthetic", "2",
-                   "--devices", "2"])
+def test_devices_and_bench_exit_with_their_messages(tmp_path):
+    """``run --devices 2 --device cpu`` shards the map over two Gloo ranks
+    and prints the JAX CLI's ``--devices 2`` JSON keys, the same frame and
+    tracked counts and an unaligned ATE within 0.5 mm of it; rank 0 alone
+    writes the outputs.  Over NCCL (``--device cuda``) two ranks need two
+    cards: with fewer the command exits naming both counts.  ``bench``
+    exits with its message."""
+    args = ["--small", "run", "--synthetic", "8", "--devices", "2"]
+    outs = {}
+    for pkg, main in (("port", lambda a: tcli.main(["--device", "cpu"] + a)),
+                      ("jax", jcli.main)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(args + ["--out", str(tmp_path / pkg)])
+        outs[pkg] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    t, j = outs["port"], outs["jax"]
+    assert sorted(t) == sorted(j)
+    assert t["frames"] == j["frames"] == 8
+    assert t["tracked_frames"] == j["tracked_frames"] >= 7
+    assert abs(t["ate_rmse_unaligned_m"] - j["ate_rmse_unaligned_m"]) < 5e-4
+    for name in ("trajectory.txt", "metrics.jsonl", "map.npz"):
+        assert os.path.exists(str(tmp_path / "port" / name)), name
+    with np.load(str(tmp_path / "port" / "map.npz")) as z:
+        assert int(z["mesh_n"]) == 2
+    cards = torch.cuda.device_count()
+    with pytest.raises(SystemExit, match=f"need 2 CUDA cards.*{cards} "
+                                         "present"):
+        tcli.main(["run", "--synthetic", "2", "--devices", "2"])
     with pytest.raises(SystemExit, match="benchmark twin is not written"):
         tcli.main(["bench"])
 

@@ -211,15 +211,43 @@ def test_warm_compile_leaves_the_state_alone(frames):
         np.testing.assert_array_equal(a, b)
 
 
-def test_unsupported_options_raise():
-    """Only the sharded pipeline (``mesh=``) is refused; a streaming
-    configuration builds a streaming driver."""
+def test_unsupported_options_raise(frames):
+    """A mesh builds the sharded driver: on a one-rank mesh it decides as
+    the JAX package's ``KeyframeSLAM(mesh=make_mesh(1))`` over the first 8
+    frames (two ranks: tests/test_torch_sharded_backend.py; the sharded
+    ICP pools the source by minimum where one device averages, so a mesh
+    does not decide as one device).  A streaming configuration builds a
+    streaming driver, on one device and over a mesh (two streaming ranks
+    against JAX: tests/test_torch_sharded_streaming.py)."""
+    import jax.numpy as jnp
+
+    from voxelhashing_demo_tpu.models import keyframe_slam as jkf
+    from voxelhashing_demo_tpu.parallel import sharded as jsharded
+    from voxelhashing_demo_tpu_torch.parallel import launch, ranks
+
+    depths = [np.asarray(d) for d in frames[0]][:8]
     cfg = backend_config("torch")
-    with pytest.raises(NotImplementedError):
-        tkf.KeyframeSLAM(cfg, mesh=object(), device="cpu")
+    (one,) = launch.spawn(ranks.run_keyframe, 1, None, "cpu", 300, cfg,
+                          depths)
+    jcfg = backend_config("jax")
+    jcfg = dataclasses.replace(
+        jcfg, hash=dataclasses.replace(jcfg.hash, use_pallas_gather=False))
+    js = jkf.KeyframeSLAM(jcfg, mesh=jsharded.make_mesh(1))
+    for d in depths:
+        js.process(jnp.asarray(d))
+    traj = js.trajectory()
+    assert one["keyframe_frames"] == [r.frame_index for r in js.keyframes]
+    assert one["tracked"] == [bool(i.tracked) for i in js.infos]
+    np.testing.assert_allclose(one["trajectory"][:, :3, 3],
+                               np.stack(traj)[:, :3, 3], atol=1e-4)
     streaming = dataclasses.replace(
         cfg, stream=dataclasses.replace(cfg.stream, enabled=True))
     assert tkf.KeyframeSLAM(streaming, device="cpu")._inner.store is not None
+    # streaming over a mesh (nothing ages out in 8 frames: the same run)
+    (st,) = launch.spawn(ranks.run_keyframe, 1, None, "cpu", 300, streaming,
+                         depths)
+    assert st["keyframe_frames"] == one["keyframe_frames"]
+    np.testing.assert_array_equal(st["trajectory"], one["trajectory"])
 
 
 def test_default_device_is_the_card():

@@ -303,6 +303,41 @@ def jax_stream_from_numpy(d: dict, config):
 
 
 # --------------------------------------------------------------------------
+# the sharded stack (tests/test_torch_sharded*.py)
+# --------------------------------------------------------------------------
+
+def sharded_config(pkg: str, mode: str = "splat", gather: bool = False):
+    """tests/test_sharded.py's 80x64 ``CFG`` with the flagship's pyramid
+    ICP (4, 2, 1), for either package (see tests/test_torch_sharded.py
+    for why the pyramid)."""
+    if pkg == "jax":
+        from voxelhashing_demo_tpu import config as m
+    else:
+        from voxelhashing_demo_tpu_torch import config as m
+    return m.PipelineConfig(
+        camera=m.CameraConfig(width=80, height=64, fx=64.6, fy=64.6,
+                              cx=39.65, cy=31.8),
+        icp=m.ICPConfig(pyramid=(4, 2, 1), pyramid_iters=(8, 4, 2)),
+        fusion=m.FusionConfig(voxel_size=0.04, truncation=0.16),
+        hash=m.HashConfig(num_buckets=2048, bucket_size=4, num_blocks=2048,
+                          max_active=1024, max_new_per_frame=1024,
+                          use_pallas_gather=gather),
+        raycast=m.RaycastConfig(mode=mode, max_steps=96,
+                                cache_dims=(128, 128, 128)),
+        gc=m.GCConfig(enabled=True, interval=4),
+    )
+
+
+def sharded_frames(n: int):
+    """tests/test_sharded.py's orbit frames (uint16 numpy) at 80x64."""
+    from voxelhashing_demo_tpu.utils import synthetic
+
+    depths, _ = synthetic.make_sequence(sharded_config("jax").camera, n,
+                                        trans_amp=0.04, rot_amp_deg=2.0)
+    return [np.asarray(d) for d in depths]
+
+
+# --------------------------------------------------------------------------
 # checkpoint parity (tests/test_torch_checkpoint*.py)
 # --------------------------------------------------------------------------
 

@@ -2,6 +2,7 @@
 
 Mirrors the layout of the JAX package ``voxelhashing_demo_tpu`` (the
 reference, unchanged): ``geometry/``, ``ops/``, ``models/``, ``utils/``,
+``parallel/`` (one rank per mesh position over ``torch.distributed``),
 ``cli.py`` (``python -m voxelhashing_demo_tpu_torch``), with the JAX
 function names.  Importing this package does nothing global; the CUDA
 kernels and the host PNG codec under ``csrc/`` are built at first use

@@ -14,9 +14,13 @@
 
 The subcommands take the JAX CLI's flags and defaults and print its one
 JSON line, with the same keys.  ``--device`` (default ``cuda``) is the
-device everything runs on; ``--device cpu`` runs on the CPU.  ``bench``
-and ``run --devices N > 1`` exit with a message: the port's benchmark
-twin and the multi-GPU port are not written yet (ROADMAP items 8 and 14).
+device everything runs on; ``--device cpu`` runs on the CPU.  ``run
+--devices N`` shards the map over N ranks (parallel/sharded.py), one
+process each (parallel/launch.py): over NCCL with a CUDA card per rank
+(fewer cards exit with a message naming both counts), over Gloo with
+``--device cpu``.  Rank 0 alone writes the outputs and the JSON line.
+``bench`` exits with a message: the port's benchmark twin is not written
+yet (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -196,20 +200,40 @@ def _load_dataset(args, config):
 
 
 def cmd_run(args) -> None:
+    if args.devices <= 1:
+        _emit(_run(args))
+        return
+    from .parallel import distributed, launch
+
+    try:
+        backend = distributed.choose_backend(args.devices, None, args.device)
+    except ValueError as e:
+        raise SystemExit(f"--devices {args.devices}: {e}") from None
+    _emit(launch.spawn(_run_rank, args.devices, backend, args.device, None,
+                       args)[0])
+
+
+def _run_rank(mesh, args) -> dict:
+    """One rank of ``run --devices N`` (parallel/launch.py)."""
+    return _run(args, mesh)
+
+
+def _run(args, mesh=None) -> dict:
+    """The ``run`` command on one device or, under ``mesh``, on this rank;
+    returns the JSON line's dict.  Only rank 0 writes files."""
     import torch
 
     from .device import host_array, resolve
     from .models import hash_slam, keyframe_slam
+    from .parallel import sharded
     from .utils import checkpoint as ck
     from .utils import metrics, stream, synthetic, viz
 
-    if args.devices > 1:
-        raise SystemExit(
-            f"--devices {args.devices}: runs over several devices wait for "
-            "the multi-GPU port (ROADMAP item 14); use --devices 1")
-    device = resolve(args.device)
+    device = resolve(args.device) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
     config = _default_config(args)
-    os.makedirs(args.out, exist_ok=True)
+    if writer:
+        os.makedirs(args.out, exist_ok=True)
 
     timestamps = paths = None
     if args.dataset:
@@ -226,16 +250,20 @@ def cmd_run(args) -> None:
         # continue the restored state (gt stays whole: the final ATE
         # compares the restored + new trajectory against it)
         if args.backend == "keyframe":
-            slam = ck.load_keyframe_slam(args.resume, device=device)
+            slam = ck.load_keyframe_slam(args.resume, mesh, device=device)
             resumed_frames = len(slam._frame_refs)
         else:
-            slam, _ = ck.load_slam(args.resume, device=device)
+            slam = (ck.load_slam(args.resume, device=device)[0]
+                    if mesh is None
+                    else ck.load_sharded_slam(args.resume, mesh))
             resumed_frames = len(slam.trajectory)
         config = slam.config
         if depths is not None:
             depths = depths[resumed_frames:]
     elif args.backend == "keyframe":
-        slam = keyframe_slam.KeyframeSLAM(config, device=device)
+        slam = keyframe_slam.KeyframeSLAM(config, mesh=mesh, device=device)
+    elif mesh is not None:
+        slam = sharded.ShardedHashSLAM(config, mesh)
     else:
         slam = hash_slam.HashSLAM(config, device=device)
     cam = config.camera
@@ -245,6 +273,7 @@ def cmd_run(args) -> None:
                                       cam.height, device=device)
 
     def _save(name):
+        # every rank saves together (the shards are gathered)
         if args.backend == "keyframe":
             ck.save_keyframe_slam(os.path.join(args.out, name), slam)
         else:
@@ -269,8 +298,10 @@ def cmd_run(args) -> None:
             sat_frames.add(i)
         if args.render_every and (i + 1) % args.render_every == 0:
             name = f"live_{resumed_frames + i:05d}.png"
-            viz.write_png_rgb(os.path.join(args.out, name),
-                              viz.shade_rgb(slam.render()))
+            out = _render(slam, mesh)
+            if writer:
+                viz.write_png_rgb(os.path.join(args.out, name),
+                                  viz.shade_rgb(out))
             live_frames.append(name)
         if (
             args.checkpoint_every
@@ -306,13 +337,14 @@ def cmd_run(args) -> None:
     else:
         trajectory = (list(host_array(torch.stack(slam.trajectory)))
                       if slam.trajectory else [])
-    ck.export_trajectory_tum(
-        os.path.join(args.out, "trajectory.txt"), trajectory,
-        timestamps=timestamps[: len(trajectory)] if timestamps else None,
-    )
-    with open(os.path.join(args.out, "metrics.jsonl"), "w") as f:
-        for r in records:
-            f.write(json.dumps(r) + "\n")
+    if writer:
+        ck.export_trajectory_tum(
+            os.path.join(args.out, "trajectory.txt"), trajectory,
+            timestamps=timestamps[: len(trajectory)] if timestamps else None,
+        )
+        with open(os.path.join(args.out, "metrics.jsonl"), "w") as f:
+            for r in records:
+                f.write(json.dumps(r) + "\n")
 
     result = {
         "command": "run",
@@ -333,11 +365,14 @@ def cmd_run(args) -> None:
     # the HashSLAM's store (the keyframe backend reports none, as in JAX)
     store = getattr(slam, "store", None)
     if store is not None:
-        result["stream"] = {
-            "stored_blocks": len(store),
-            "evicted": store.total_evicted,
-            "restored": store.total_restored,
-        }
+        counts = [len(store), store.total_evicted, store.total_restored]
+        if mesh is not None:
+            # each rank holds its own store shard: report the ranks' total
+            from .parallel import distributed
+
+            counts = [distributed.psum_host(mesh, c) for c in counts]
+        result["stream"] = dict(zip(("stored_blocks", "evicted", "restored"),
+                                    counts))
     if args.backend == "keyframe":
         result["keyframes"] = len(slam.keyframes)
         result["graph_edges"] = int(slam.graph.num_edges)
@@ -357,13 +392,23 @@ def cmd_run(args) -> None:
     if live_frames:
         result["live_frames"] = len(live_frames)
     if args.render_last:
-        out = slam.render()
-        viz.write_png_rgb(os.path.join(args.out, "final.png"),
-                          viz.shade_rgb(out))
-        viz.write_png_rgb(os.path.join(args.out, "final_depth.png"),
-                          viz.depth_rgb(out.depth))
+        out = _render(slam, mesh)
+        if writer:
+            viz.write_png_rgb(os.path.join(args.out, "final.png"),
+                              viz.shade_rgb(out))
+            viz.write_png_rgb(os.path.join(args.out, "final_depth.png"),
+                              viz.depth_rgb(out.depth))
         result["renders"] = ["final.png", "final_depth.png"]
-    _emit(result)
+    return result
+
+
+def _render(slam, mesh):
+    """The live render at the current pose (the full image, assembled
+    from the ranks' rows under a mesh: every rank calls this)."""
+    from .parallel import sharded
+
+    out = slam.render()
+    return out if mesh is None else sharded.fetch_output(mesh, out)
 
 
 # --------------------------------------------------------------------------
@@ -513,7 +558,9 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="M",
                    help="keyframe insertion translation threshold (meters)")
     r.add_argument("--devices", type=int, default=1,
-                   help="devices to shard the map over (only 1 is ported)")
+                   help="devices to shard the map over, one rank each "
+                        "(NCCL: a CUDA card per rank; Gloo with --device "
+                        "cpu)")
     r.add_argument("--stream", action="store_true",
                    help="out-of-frustum block streaming to a host store "
                         "(scene size bounded by host RAM, not num_blocks)")

@@ -1,6 +1,6 @@
 """Keyframe SLAM: voxel-hash frame-to-model tracking + pose graph BA (port
-of models/keyframe_slam.py; single device, with or without out-of-core
-streaming).
+of models/keyframe_slam.py: one device, with or without out-of-core
+streaming, or the sharded pipeline over a mesh of ranks).
 
 Composes the HashSLAM pipeline with the backend that bounds its drift:
 
@@ -25,6 +25,12 @@ With ``config.stream.enabled`` the wrapped HashSLAM streams blocks to its
 host store; a move first restores the stored blocks of both its frustums,
 and a full rebuild streams the fresh map into a fresh store.  The wrapped
 HashSLAM is ``self._inner`` (the JAX package calls it ``_driver``).
+
+With a ``mesh`` (parallel/sharded.py) the frame step, the rebuild fuses,
+the moves and the model renders run sharded over the ranks, and BA runs
+edge-sharded (``optimize_graph_sharded``); the keyframe logic is the same
+on every rank, fed by replicated values, so every rank takes the same
+decisions and calls the collectives together.
 
 Host / device split: the frame step runs on the device; the bookkeeping
 (keyframe decisions, refs, lost streak) runs on the host against numpy
@@ -187,16 +193,21 @@ class KeyframeSLAM:
     """Host-side orchestrator around the frame step and BA.
 
     ``KeyframeSLAM(config, device)`` owns a ``HashSLAM`` on ``device``
-    (None: the CUDA card) and a pose graph beside it.  ``process`` steps
+    (None: the CUDA card) and a pose graph beside it;
+    ``KeyframeSLAM(config, mesh)`` owns this rank's ``ShardedHashSLAM``
+    instead (every rank of the mesh builds one and feeds it the same
+    frames).  ``process`` steps
     one raw depth frame, ``trajectory`` returns every frame's pose with all
     corrections applied, ``ba_events`` / ``capacity_events`` /
     ``relocalizations`` record what the backend did."""
 
     def __init__(self, config: PipelineConfig, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded multi-device pipeline is not ported yet")
-        inner = hash_slam.HashSLAM(config, device=device)
+        if mesh is None:
+            inner = hash_slam.HashSLAM(config, device=device)
+        else:
+            from ..parallel import sharded
+
+            inner = sharded.ShardedHashSLAM(config, mesh)
         self._setup(inner, pose_graph.create(
             config.keyframes.max_keyframes, config.keyframes.max_edges,
             device=inner.device))
@@ -215,11 +226,11 @@ class KeyframeSLAM:
         k._n_edges = graph.num_edges
         return k
 
-    def _setup(self, inner: hash_slam.HashSLAM,
-               graph: pose_graph.PoseGraph) -> None:
+    def _setup(self, inner, graph: pose_graph.PoseGraph) -> None:
         self.config = inner.config
         self.kcfg = inner.config.keyframes
         self._inner = inner
+        self.mesh = getattr(inner, "mesh", None)
         self.device = inner.device
         self.graph = graph
         self._init_runtime_state()
@@ -245,9 +256,18 @@ class KeyframeSLAM:
         self._lcam = self.config.camera.scaled(self.kcfg.icp_downsample)
         self._frame_idx = 0
         cfg = self.config
-        self._fuse_only = make_fuse_only(cfg)
-        self._render_model = make_render_model(cfg)
-        self._reintegrate = make_reintegrate(cfg)
+        if self.mesh is None:
+            self._fuse_only = make_fuse_only(cfg)
+            self._render_model = make_render_model(cfg)
+            self._reintegrate = make_reintegrate(cfg)
+        else:
+            from ..parallel import sharded
+
+            self._fuse_only = sharded.make_sharded_fuse_only(cfg, self.mesh)
+            self._render_model = sharded.make_sharded_render_model(
+                cfg, self.mesh)
+            self._reintegrate = sharded.make_sharded_reintegrate(
+                cfg, self.mesh)
         self._kf_pre = make_kf_pre(cfg.camera, cfg.frontend,
                                    self.kcfg.icp_downsample, self._lcam)
         self._pair_icfg = dataclasses.replace(
@@ -290,7 +310,20 @@ class KeyframeSLAM:
             pose=_pose_tensor(correction, self.device) @ st.pose)
 
     def _run_ba(self):
-        return pose_graph.optimize(self.graph, self.kcfg)
+        if self.mesh is None:
+            return pose_graph.optimize(self.graph, self.kcfg)
+        from ..parallel import sharded
+
+        return sharded.optimize_graph_sharded(self.graph, self.kcfg,
+                                              self.mesh)
+
+    def _new_map(self) -> hash_ops.HashMap:
+        """An empty map (this rank's shard under a mesh)."""
+        if self.mesh is None:
+            return hash_ops.create(self.config.hash, device=self.device)
+        from ..parallel import sharded
+
+        return sharded.create_map(self.config, self.mesh)
 
     # -- graph capacity -----------------------------------------------------
 
@@ -786,6 +819,13 @@ class KeyframeSLAM:
             # nothing moved: the model rendered by the last step is still
             # valid
             return 0, 0
+        if streaming and self.mesh is not None:
+            # each rank misses in its own store: the recorded count is the
+            # ranks' total, the same on every rank (n is rank-symmetric, so
+            # every rank reaches this collective)
+            from ..parallel import distributed
+
+            miss = distributed.psum_host(self.mesh, miss)
         n_sat = int(sat_dev) + miss
         model = self._render_model(d.state.hmap, d.state.pose)
         d.state = d.state._replace(model=model)
@@ -818,7 +858,7 @@ class KeyframeSLAM:
             _lap("stream_sync_s")
             new_store = BlockStore(self.config.hash)
             spill = d.spill_begin()
-        hmap = hash_ops.create(self.config.hash, device=self.device)
+        hmap = self._new_map()
         for rec in self.keyframes:
             hmap = self._fuse_only(
                 hmap, rec.depth_dev,
@@ -938,8 +978,7 @@ class KeyframeSLAM:
         returns a new graph, the map work runs on a scratch map)."""
         d = hash_slam.depth_tensor(depth_raw, self.device)
         I = torch.eye(4, dtype=torch.float32, device=self.device)
-        hm = hash_ops.create(self.config.hash, device=self.device)
-        hm = self._fuse_only(hm, d, I, 0)
+        hm = self._fuse_only(self._new_map(), d, I, 0)
         hm, wcnt = self._reintegrate(hm, d, I, I, 0)
         int(wcnt >= self.config.hash.max_active)
         model = self._render_model(hm, I)
@@ -1075,7 +1114,9 @@ class KeyframeSLAM:
         return correction
 
     def render(self, pose=None):
-        """Render the current map (default: from the current pose)."""
+        """Render the current map (default: from the current pose); under
+        a mesh, this rank's rows (``sharded.fetch_output`` assembles the
+        image)."""
         return self._inner.render(pose)
 
     def trajectory(self) -> List[np.ndarray]:

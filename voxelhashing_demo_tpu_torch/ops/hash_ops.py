@@ -127,10 +127,18 @@ def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
 # lookup
 # --------------------------------------------------------------------------
 
-def lookup_keys(hmap: HashMap, cfg: HashConfig, query_keys: torch.Tensor):
+def default_bucket_fn(cfg: HashConfig):
+    """Block coords (..., 3) -> bucket index.  The sharded path overrides
+    it with the global hash // mesh size (parallel/sharded.py)."""
+    return lambda blocks: coords.spatial_hash(blocks, cfg.num_buckets)
+
+
+def lookup_keys(hmap: HashMap, cfg: HashConfig, query_keys: torch.Tensor,
+                bucket_fn=None):
     """Vectorized probe: packed keys (N,) -> (ptr (N,), found (N,))."""
+    bucket_fn = bucket_fn or default_bucket_fn(cfg)
     blocks = coords.unpack_block_key(query_keys, cfg.key_bits)
-    base = coords.spatial_hash(blocks, cfg.num_buckets).long() * cfg.bucket_size
+    base = bucket_fn(blocks).long() * cfg.bucket_size
     ptr = torch.full(query_keys.shape, FREE_PTR, dtype=torch.int32,
                      device=query_keys.device)
     found = torch.zeros(query_keys.shape, dtype=torch.bool,
@@ -218,18 +226,21 @@ def _segment_rank(b_sorted: torch.Tensor) -> torch.Tensor:
 
 def insert_blocks(
     hmap: HashMap, cfg: HashConfig, cand_keys: torch.Tensor,
-    frame_idx: int = 0,
+    frame_idx: int = 0, bucket_fn=None,
 ) -> Tuple[HashMap, torch.Tensor]:
     """Insert up to max_new unique candidate keys (in place); returns
     (map, n_inserted).  Bucket ranks come from a segmented scan over the
     bucket-sorted keys, heap rows from a cumsum over the free stack;
-    bucket overflow and heap exhaustion drop keys deterministically."""
+    bucket overflow and heap exhaustion drop keys deterministically.
+    ``bucket_fn`` maps block coords to buckets (default: the spatial
+    hash)."""
+    bucket_fn = bucket_fn or default_bucket_fn(cfg)
     uniq = _unique_compact(cand_keys, cfg.max_new_per_frame)
-    _, found = lookup_keys(hmap, cfg, uniq)
+    _, found = lookup_keys(hmap, cfg, uniq, bucket_fn)
     new_mask = (~found) & (uniq != EMPTY_KEY)
 
     blocks = coords.unpack_block_key(uniq, cfg.key_bits)
-    bucket = coords.spatial_hash(blocks, cfg.num_buckets)
+    bucket = bucket_fn(blocks)
     bucket = torch.where(new_mask, bucket, cfg.num_buckets)
 
     order = torch.argsort(bucket, stable=True)
@@ -602,6 +613,7 @@ def restore_blocks(
     tsdf_rows: torch.Tensor,     # (R, V)
     weight_rows: torch.Tensor,   # (R, V)
     frame_idx: int,
+    bucket_fn=None,
     max_weight: float = 255.0,
     born_rows: torch.Tensor | None = None,   # (R,) original born stamps
 ) -> Tuple[HashMap, torch.Tensor]:
@@ -638,11 +650,12 @@ def restore_blocks(
     restore-lag frames, not bit-exact in every interleaving.  Callers that
     need strict exactness use a full rebuild (which re-fuses from the
     durable keyframe depths and re-stamps everything)."""
+    bucket_fn = bucket_fn or default_bucket_fn(cfg)
     R = keys.shape[0]
     N = hmap.tsdf.shape[0]
     dev = keys.device
 
-    ptr_found, found = lookup_keys(hmap, cfg, keys)
+    ptr_found, found = lookup_keys(hmap, cfg, keys, bucket_fn)
 
     # --- merge payload into rows that already exist ------------------------
     m_ptr = torch.clamp(ptr_found, 0, N - 1).long()
@@ -669,8 +682,7 @@ def restore_blocks(
     # --- insert the genuinely new keys, payload following the sort ---------
     want = (keys != EMPTY_KEY) & ~found
     blocks = coords.unpack_block_key(keys, cfg.key_bits)
-    bucket = torch.where(want, coords.spatial_hash(blocks, cfg.num_buckets),
-                         cfg.num_buckets)
+    bucket = torch.where(want, bucket_fn(blocks), cfg.num_buckets)
     order = torch.argsort(bucket, stable=True)
     b_sorted = bucket[order]
     rank_sorted = _segment_rank(b_sorted)
@@ -725,10 +737,11 @@ def allocate_from_frame(
     cfg: HashConfig,
     fusion: FusionConfig,
     frame_idx: int = 0,
+    bucket_fn=None,
 ) -> Tuple[HashMap, torch.Tensor]:
     """Per-frame allocation of the frame's truncation-band blocks."""
     cand = frame_candidate_keys(frame, T_wc, cam, cfg, fusion)
-    return insert_blocks(hmap, cfg, cand, frame_idx)
+    return insert_blocks(hmap, cfg, cand, frame_idx, bucket_fn)
 
 
 def fuse_frame(

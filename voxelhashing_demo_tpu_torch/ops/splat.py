@@ -91,6 +91,28 @@ def _splat_rows_into(
     )
 
 
+def splat_depth_estimates(
+    blocks: torch.Tensor,      # (A, 3) block coords
+    sdf_rows: torch.Tensor,    # (A, V)
+    w_rows: torch.Tensor,      # (A, V)
+    row_valid: torch.Tensor,   # (A,)
+    cfg: HashConfig,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    rc: RaycastConfig,
+    fusion: FusionConfig,
+) -> torch.Tensor:
+    """Raw splat depth (H, W) of explicit block rows (0 = no estimate):
+    the multi-device path splats each rank's rows and merges the buffers
+    with one ``pmin`` (parallel/sharded.py)."""
+    zbuf = torch.full((cam.height * cam.width + 1,), math.inf,
+                      dtype=torch.float32, device=sdf_rows.device)
+    zbuf = _splat_rows_into(zbuf, blocks, sdf_rows, w_rows, row_valid, cfg,
+                            T_wc, cam, rc, fusion)
+    depth = zbuf[:-1].reshape(cam.height, cam.width)
+    return torch.where(torch.isfinite(depth), depth, 0.0)
+
+
 def splat_depth_from_map(
     hmap: HashMap,
     active: ActiveSet,
@@ -101,17 +123,12 @@ def splat_depth_from_map(
     fusion: FusionConfig,
 ) -> torch.Tensor:
     """Raw splat depth (H, W) of ``active[:count]`` (0 = no estimate)."""
-    zbuf = torch.full((cam.height * cam.width + 1,), math.inf,
-                      dtype=torch.float32, device=hmap.tsdf.device)
     n = int(active.count)
     ptrs = active.ptrs[:n]
     safe = torch.clamp(ptrs, 0, hmap.tsdf.shape[0] - 1).long()
-    zbuf = _splat_rows_into(
-        zbuf, active.blocks[:n], hmap.tsdf[safe], hmap.weight[safe],
-        ptrs != FREE_PTR, cfg, T_wc, cam, rc, fusion,
-    )
-    depth = zbuf[:-1].reshape(cam.height, cam.width)
-    return torch.where(torch.isfinite(depth), depth, 0.0)
+    return splat_depth_estimates(
+        active.blocks[:n], hmap.tsdf[safe], hmap.weight[safe],
+        ptrs != FREE_PTR, cfg, T_wc, cam, rc, fusion)
 
 
 def finalize_depth(

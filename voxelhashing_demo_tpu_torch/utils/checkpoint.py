@@ -11,11 +11,15 @@ a keyframe backend's extras (``extra.*``).  Pure numpy on the host: the
 device state is fetched once per leaf, and restored onto ``device``
 (None: the CUDA card).
 
-A map written by a JAX device mesh (``mesh_n > 1``) loads converted to the
-single-device layout.  Per-process shard files (``save_slam(...,
-per_process=True)`` in the JAX package) and the exact multi-device resume
-(``load_sharded_slam``) wait for the multi-GPU port (ROADMAP item 14) and
-raise here.
+A sharded run (parallel/sharded.py, one rank per mesh position) saves the
+global layout, the ranks' shards concatenated in rank order, with
+``mesh_n = n``: the file the JAX package writes from the same state on an
+n-device mesh.  Every rank calls ``save_slam`` together (the shards are
+all-gathered) and rank 0 writes.  ``per_process=True`` writes one shard
+file per rank instead (``per_process_path``): its own rows of the sharded
+leaves, the replicated ones in full, no gather.  ``load_sharded_slam``
+restores a sharded run on a mesh of the same size from either; ``load_slam``
+converts a sharded file to the single-device layout.
 """
 
 from __future__ import annotations
@@ -36,9 +40,6 @@ from ..ops import preprocess as pre_ops
 from .blockstore import BlockStore, unpack_keys_np
 
 FORMAT_VERSION = 1
-
-_MULTI_GPU = ("per-process checkpoint shards and the multi-device resume "
-              "wait for the multi-GPU port (ROADMAP item 14)")
 
 
 def config_to_json(config: PipelineConfig) -> str:
@@ -68,19 +69,45 @@ def config_from_json(text: str) -> PipelineConfig:
     return PipelineConfig(**kwargs)
 
 
-def _flatten(prefix: str, tree) -> dict:
+# the state leaves a sharded run holds row-sharded over the mesh (the rest
+# are replicated)
+_SHARDED_PREFIXES = ("state.hmap.", "state.model.")
+
+
+def _flatten(prefix: str, tree, mesh=None, local: bool = False,
+             sharded_keys: Optional[list] = None) -> dict:
     """``{prefix.field: numpy}`` of a NamedTuple of tensors (nested ones
-    dotted); host integers become 0-d int32 as the JAX leaves are."""
+    dotted); host integers become 0-d int32 as the JAX leaves are.  Under
+    a ``mesh`` the sharded leaves are all-gathered to the global layout
+    (collective) or, with ``local``, kept as this rank's rows and their
+    keys appended to ``sharded_keys``."""
+    from ..parallel import distributed
+
     out = {}
     for name, leaf in zip(tree._fields, tree):
         key = f"{prefix}.{name}"
         if hasattr(leaf, "_fields"):
-            out.update(_flatten(key, leaf))
+            out.update(_flatten(key, leaf, mesh, local, sharded_keys))
         elif isinstance(leaf, int):
             out[key] = np.int32(leaf)
-        else:
+        elif mesh is None or not key.startswith(_SHARDED_PREFIXES):
             out[key] = host_array(leaf)
+        elif local:
+            out[key] = host_array(leaf)
+            sharded_keys.append(key)
+        else:
+            out[key] = distributed.fetch(mesh, leaf)
     return out
+
+
+def per_process_path(path: str, mesh=None) -> str:
+    """The shard file this rank writes and reads with ``per_process=True``
+    (rank 0 of 1 without a mesh)."""
+    import os
+
+    base, ext = os.path.splitext(path)
+    r, n = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    return f"{base}.proc{r}of{n}{ext or '.npz'}"
 
 
 def save_slam(
@@ -90,16 +117,26 @@ def save_slam(
     extra: Optional[dict] = None,
     per_process: bool = False,
 ) -> None:
-    """Checkpoint a HashSLAM (or a KeyframeSLAM's inner one, with its
-    ``graph`` and ``extra`` arrays).  A streaming map is quiesced first:
-    an in-flight evicted payload lives on neither the device map nor the
-    store yet and would be lost by a snapshot taken mid-cycle."""
-    if per_process:
-        raise NotImplementedError(_MULTI_GPU)
+    """Checkpoint a HashSLAM or a ShardedHashSLAM (or a KeyframeSLAM's
+    inner one, with its ``graph`` and ``extra`` arrays).  A streaming map
+    is quiesced first: an in-flight evicted payload lives on neither the
+    device map nor the store yet and would be lost by a snapshot taken
+    mid-cycle.  A sharded run is saved by every rank together; see the
+    module docstring for ``per_process``."""
+    mesh = getattr(slam, "mesh", None)
     if slam.store is not None:
         slam.stream_sync()
-    arrays = _flatten("state", slam.state)
-    arrays["mesh_n"] = np.int64(1)
+    sharded_keys: list = []
+    arrays = _flatten("state", slam.state, mesh, per_process, sharded_keys)
+    if per_process:
+        path = per_process_path(path, mesh)
+        arrays["pp_process_index"] = np.int64(0 if mesh is None
+                                              else mesh.rank)
+        arrays["pp_process_count"] = np.int64(1 if mesh is None
+                                              else mesh.size)
+        arrays["pp_sharded_keys"] = np.frombuffer(
+            json.dumps(sharded_keys).encode(), dtype=np.uint8)
+    arrays["mesh_n"] = np.int64(1 if mesh is None else mesh.size)
     if graph is not None:
         arrays.update(_flatten("graph", graph))
     if slam.trajectory:
@@ -110,16 +147,21 @@ def save_slam(
     )
     arrays["format_version"] = np.int64(FORMAT_VERSION)
     if slam.store is not None:
-        # the out-of-frustum half of the map (one process: nothing to
-        # gather from others)
+        # the out-of-frustum half of the map; a sharded run's global file
+        # holds the union of the ranks' stores
         store_arrays = slam.store.state_arrays()
+        if mesh is not None and not per_process:
+            from ..parallel import distributed
+
+            store_arrays = distributed.gather_concat_many(mesh, store_arrays)
         if store_arrays["keys"].shape[0]:
             for k, v in store_arrays.items():
                 arrays[f"store.{k}"] = v
     if extra:
         for k, v in extra.items():
             arrays[f"extra.{k}"] = np.asarray(v)
-    np.savez_compressed(path, **arrays)
+    if mesh is None or per_process or mesh.rank == 0:
+        np.savez_compressed(path, **arrays)
 
 
 def _sharded_map_to_single(hmap_np: dict, config: PipelineConfig, n: int,
@@ -202,9 +244,11 @@ def load_slam(
     (``mesh_n > 1``) is converted to the single-device layout."""
     device = resolve(device)
     with np.load(path) as z:
-        if "pp_sharded_keys" in z:
-            raise NotImplementedError(f"{path} is a per-process shard: "
-                                      + _MULTI_GPU)
+        if "pp_sharded_keys" in z and json.loads(
+                bytes(z["pp_sharded_keys"]).decode()):
+            raise ValueError(
+                f"{path} is a per-process shard: load it with "
+                "load_sharded_slam on the ranks that wrote it")
         version = int(z["format_version"])
         if version > FORMAT_VERSION:
             raise ValueError(f"checkpoint format {version} is newer than "
@@ -244,23 +288,101 @@ def load_slam(
                       if "trajectory" in z else [])
         slam = hash_slam.HashSLAM._restore(config, state, trajectory, store,
                                            device)
-        graph = None
-        if "graph.poses" in z:
-            graph = pose_graph.PoseGraph(
-                poses=leaf("graph.poses"),
-                num_poses=int(z["graph.num_poses"]),
-                edges_ij=leaf("graph.edges_ij"),
-                edges_T=leaf("graph.edges_T"),
-                edges_w=leaf("graph.edges_w"),
-                num_edges=int(z["graph.num_edges"]),
-            )
+        graph = _graph(z, device)
     return slam, graph
 
 
-def load_sharded_slam(path: str, mesh=None):
-    """The exact multi-device resume: not ported yet (ROADMAP item 14);
-    ``load_slam`` gives the single-device view of a sharded file."""
-    raise NotImplementedError(_MULTI_GPU)
+def _graph(z, device) -> Optional[pose_graph.PoseGraph]:
+    """The file's pose graph on ``device``, or None."""
+    if "graph.poses" not in z:
+        return None
+
+    def leaf(key):
+        return torch.from_numpy(np.array(z[key])).to(device)
+
+    return pose_graph.PoseGraph(
+        poses=leaf("graph.poses"),
+        num_poses=int(z["graph.num_poses"]),
+        edges_ij=leaf("graph.edges_ij"),
+        edges_T=leaf("graph.edges_T"),
+        edges_w=leaf("graph.edges_w"),
+        num_edges=int(z["graph.num_edges"]),
+    )
+
+
+def _sharded_file(path: str, mesh) -> str:
+    """``path``, or this rank's shard file when only that exists."""
+    import os
+
+    pp = per_process_path(path, mesh)
+    return pp if not os.path.exists(path) and os.path.exists(pp) else path
+
+
+def load_sharded_slam(path: str, mesh):
+    """Restore a sharded run on ``mesh`` (every rank calls it): each rank
+    takes its own rows of the file's global layout, or reads its own shard
+    file (``per_process_path``) when ``path`` itself is absent.  The mesh
+    must have the size the file was written from (``mesh_n``); a shard file
+    must have been written by this rank of a mesh of this size.  The
+    streaming store keeps the rows this rank owns."""
+    from ..parallel import distributed, sharded
+
+    path = _sharded_file(path, mesh)
+    n, r, device = mesh.size, mesh.rank, mesh.device
+    with np.load(path) as z:
+        config = config_from_json(bytes(z["config_json"]).decode())
+        mesh_n = int(z["mesh_n"]) if "mesh_n" in z else 1
+        if mesh_n != n:
+            raise ValueError(
+                f"checkpoint was saved from a {mesh_n}-device mesh; got "
+                f"{n} (load_slam gives the single-device view)")
+        local = set()
+        if "pp_sharded_keys" in z:
+            local = set(json.loads(bytes(z["pp_sharded_keys"]).decode()))
+            who = (int(z["pp_process_index"]), int(z["pp_process_count"]))
+            if who != (r, n):
+                raise ValueError(
+                    f"per-process shard {path} was written by rank "
+                    f"{who[0]} of {who[1]}; this is rank {r} of {n}")
+
+        def mine(key, a):
+            a = np.asarray(a)
+            if key in local:
+                return a
+            h = a.shape[0] // n
+            return a[r * h:(r + 1) * h]
+
+        def tensor(a):
+            return torch.from_numpy(np.array(a)).to(device)
+
+        hmap = hash_ops.HashMap(**{
+            k: tensor(mine(f"state.hmap.{k}", v))
+            for k, v in _hashmap_arrays(z).items()})
+        model = pre_ops.Frame(**{
+            k: tensor(mine(f"state.model.{k}", z[f"state.model.{k}"]))
+            for k in pre_ops.Frame._fields})
+        state = hash_slam.HashSLAMState(
+            hmap=hmap, pose=tensor(z["state.pose"]), model=model,
+            frame_idx=int(z["state.frame_idx"]),
+            vel=(tensor(z["state.vel"]) if "state.vel" in z
+                 else torch.eye(4, dtype=torch.float32, device=device)))
+        store = None
+        if config.stream.enabled and "store.keys" in z:
+            # a global file holds the union of the ranks' stores (a shard
+            # file this rank's own): this rank keeps the rows it owns
+            keys = np.asarray(z["store.keys"])
+            keep = distributed.owner_process_mask(mesh, sharded._owner_np(
+                unpack_keys_np(keys, config.hash.key_bits),
+                config.hash.num_buckets, n))
+            store = BlockStore.from_arrays(
+                config.hash, keys[keep], np.asarray(z["store.tsdf"])[keep],
+                np.asarray(z["store.weight"])[keep],
+                np.asarray(z["store.born"])[keep] if "store.born" in z
+                else None, born_default=state.frame_idx)
+        trajectory = ([tensor(p) for p in z["trajectory"]]
+                      if "trajectory" in z else [])
+    return sharded.ShardedHashSLAM._restore(config, mesh, state, trajectory,
+                                            store)
 
 
 def save_keyframe_slam(path: str, kslam, per_process: bool = False) -> None:
@@ -273,8 +395,6 @@ def save_keyframe_slam(path: str, kslam, per_process: bool = False) -> None:
       reconstructible,
     - the BA / capacity / relocalization logs, the saturation flag and the
       BA deferral counters (``events_json``)."""
-    if per_process:
-        raise NotImplementedError(_MULTI_GPU)
     kslam.settle()  # land in-flight work; deferred BA stays deferred
     extra = {}
     if kslam.keyframes:
@@ -308,16 +428,23 @@ def save_keyframe_slam(path: str, kslam, per_process: bool = False) -> None:
     extra["events_json"] = np.frombuffer(
         json.dumps(events).encode(), dtype=np.uint8
     )
-    save_slam(path, kslam._inner, graph=kslam.graph, extra=extra)
+    save_slam(path, kslam._inner, graph=kslam.graph, extra=extra,
+              per_process=per_process)
 
 
 def load_keyframe_slam(path: str, mesh=None, device=None):
-    """Restore a KeyframeSLAM on ``device`` (None: the CUDA card) for a
-    full-capability resume: loop closures against pre-checkpoint keyframes
-    still fire and map rebuilds still work."""
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_GPU)
-    inner, graph = load_slam(path, device=device)
+    """Restore a KeyframeSLAM on ``device`` (None: the CUDA card), or a
+    sharded one on ``mesh`` (every rank calls it; ``load_sharded_slam``),
+    for a full-capability resume: loop closures against pre-checkpoint
+    keyframes still fire and map rebuilds still work."""
+    if mesh is None:
+        inner, graph = load_slam(path, device=device)
+    else:
+        inner = load_sharded_slam(path, mesh)
+        # the graph and the extras are replicated: a shard file holds them
+        path = _sharded_file(path, mesh)
+        with np.load(path) as z:
+            graph = _graph(z, mesh.device)
     if graph is None:
         raise ValueError(f"{path} is not a keyframe checkpoint")
     k = km.KeyframeSLAM._restore(inner, graph)
