@@ -113,12 +113,26 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    bytes and save / load seconds, peak device memory.
    Last, ``run --devices N`` with more ranks than cards exits naming
    both counts (``cli_devices``).
-12. ``nccl``: one rank over NCCL (``parallel.launch.spawn``): the
+12. ``bench``: the benchmark twin (voxelhashing_demo_tpu_torch/bench.py).
+   ``cli.main(["bench", "--quick"])`` in this process (the JAX bench's
+   quick keys plus ``detail.device``, the card's nvidia-smi line), then
+   each section function at the cut frame counts of ``BENCH_SECTIONS`` at
+   ``flagship_config()`` (640x480, the gather off as in the JAX bench).
+   Asserts per section: the key set of bench.py's (``BENCH_KEYS``), every
+   fps > 0, finite ATE, the decisions equal to the JAX run's on the same
+   frames (``JAX_REFERENCE_BENCH``; keyframes within one, loop edges
+   within one insert's batch, tracked within 2, block counts within
+   0.1 %) and every ATE below twice JAX's.  Then ``_long_run`` at ``BENCH_GATHER`` under
+   ``flagship_gather_config()``: K1 launches, counted from 0, == frame
+   steps == 2 x frames + 1 + chunk, and K1 equal to its plain version on
+   the last call's rows; its decisions and ATE against JAX's as above.
+   Prints each section's line, seconds and peak device memory.
+13. ``nccl``: one rank over NCCL (``parallel.launch.spawn``): the
    collective helpers (``ranks.collectives``) exact, then
    ``ShardedHashSLAM(flagship_gather_config())`` on the slice's 12 frames,
    K1 launched every frame.  This one-rank run is the reference partition
    of ``sharded``.
-13. ``sharded_backend``: ``KeyframeSLAM(mesh)`` on two Gloo ranks sharing
+14. ``sharded_backend``: ``KeyframeSLAM(mesh)`` on two Gloo ranks sharing
    the card over the first 24 frames of the backend scenario (the drift
    before frame 18): decisions (keyframe frames, edges, BA frames, rebuild
    modes, moves, tracked, capacity, saturation) equal on both ranks and
@@ -126,7 +140,7 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    ``KeyframeSLAM``'s on the same frames; K1 launches per rank = frames +
    rebuild fuses + 2 x moves.  Prints BA ms per solve and the staged
    collective bytes.
-14. ``sharded``, the slice's main path: ``ShardedHashSLAM`` on two Gloo
+15. ``sharded``, the slice's main path: ``ShardedHashSLAM`` on two Gloo
    ranks sharing the card at ``flagship_gather_config()`` (32 768 blocks
    a rank) over the slice's 12 frames.  Asserts: per-frame allocated and
    active blocks equal to the one-rank NCCL run's, poses within 5e-4 m of
@@ -278,9 +292,103 @@ JAX_REFERENCE_FIXTURE = {
     "demo_translation_m": [-0.08174049854278564, 0.005167483352124691,
                            0.00011866165732499212],
 }
+# The bench phase: the benchmark twin (voxelhashing_demo_tpu_torch/bench.py)
+# section by section at flagship_config() (640x480, the gather off, as in
+# the JAX bench), each at a cut frame count with its workload's shape kept:
+# the backend's closed 360-degree pan in 96 frames (3.75 degrees a frame,
+# keyframes every 15 degrees, the loop closes), the out-and-back in 101.
+PER_CLOSURE = dict(ba_defer_edges=1, ba_defer_frames=0)
+BENCH_SECTIONS = {
+    "long_run": ("_long_run", dict(num_frames=64, chunk=8)),
+    "keyframe_backend": ("_backend_run", dict(num_frames=96,
+                                              warm_frames=12)),
+    "per_closure_ba_incremental": ("_backend_run", dict(
+        num_frames=96, warm_frames=8, frontend_baseline=False,
+        kf_overrides=PER_CLOSURE)),
+    "localized_micro": ("_incremental_micro", dict(num_frames=40)),
+    "streaming_beyond_capacity": ("_streaming_run", dict(num_frames=100)),
+    "streaming_plus_backend": ("_streaming_backend_run",
+                               dict(num_frames=100)),
+    "stages": ("_stage_breakdown", dict(frames=24, reps=5)),
+}
+# ``_long_run`` once more, on its frames, under flagship_gather_config():
+# K1 on every step
+BENCH_GATHER = dict(num_frames=64, chunk=8)
+# bench.py's output keys, section by section (this script may not import
+# it): the sections' own lines and the --quick line
+BACKEND_RUN_KEYS = {
+    "fps", "fps_sustained", "excluded_hitches", "frames", "sweep_deg",
+    "ate_rmse_m", "ate_aligned_m", "keyframes", "loop_edges", "ba_runs",
+    "rebuilds_full", "rebuilds_incremental", "keyframes_reintegrated",
+    "rebuild_s_full_mean", "rebuild_s_incremental_mean", "max_frame_ms",
+    "p50_frame_ms", "tracked"}
+BENCH_KEYS = {
+    "quick": {"metric", "value", "unit", "vs_baseline"},
+    "long_run": {"fps", "dispatch_mode", "fps_per_frame_dispatch",
+                 "fps_chunked", "chunk", "frames", "ate_rmse_m", "tracked",
+                 "blocks_used", "blocks_active_final"},
+    "keyframe_backend": BACKEND_RUN_KEYS | {
+        "fps_frontend_only", "ate_frontend_only_m",
+        "ate_frontend_aligned_m"},
+    "per_closure_ba_incremental": BACKEND_RUN_KEYS,
+    "localized_micro": {"keyframes", "moved", "incremental_s",
+                        "full_rebuild_s", "speedup"},
+    "streaming_beyond_capacity": {
+        "fps", "frames", "ate_rmse_m", "tracked", "device_blocks",
+        "evicted", "restored", "store_blocks_final"},
+    "streaming_plus_backend": {
+        "fps", "frames", "ate_rmse_m", "tracked", "keyframes", "loop_edges",
+        "ba_runs", "rebuilds_full", "rebuilds_incremental", "device_blocks",
+        "evicted", "restored", "store_blocks_final", "final_drain_s",
+        "fps_end_to_end"},
+    "stages": {"preprocess_ms", "icp_ms", "fuse_ms", "raycast_ms"},
+}
+# tests/torch_port_reference.py bench: the JAX bench.py's sections on the
+# CPU on the same frames at the same counts, every field but the timings
+JAX_REFERENCE_BENCH = {
+    "long_run": {"chunk": 8, "frames": 64, "ate_rmse_m": 0.11214,
+                 "tracked": 63, "blocks_used": 3698,
+                 "blocks_active_final": 949},
+    "keyframe_backend": {
+        "frames": 96, "sweep_deg": 360.0, "ate_rmse_m": 0.04363,
+        "ate_aligned_m": 0.03302, "keyframes": 24, "loop_edges": 5,
+        "ba_runs": 1, "rebuilds_full": 1, "rebuilds_incremental": 0,
+        "keyframes_reintegrated": 0, "tracked": 95,
+        "ate_frontend_only_m": 0.07745, "ate_frontend_aligned_m": 0.03441},
+    "per_closure_ba_incremental": {
+        "frames": 96, "sweep_deg": 360.0, "ate_rmse_m": 0.03843,
+        "ate_aligned_m": 0.03427, "keyframes": 24, "loop_edges": 5,
+        "ba_runs": 3, "rebuilds_full": 1, "rebuilds_incremental": 0,
+        "keyframes_reintegrated": 0, "tracked": 95},
+    "localized_micro": {"keyframes": 8, "moved": 2},
+    "streaming_beyond_capacity": {
+        "frames": 101, "ate_rmse_m": 0.06301, "tracked": 100,
+        "device_blocks": 2048, "evicted": 2278, "restored": 1282,
+        "store_blocks_final": 996},
+    "streaming_plus_backend": {
+        "frames": 101, "ate_rmse_m": 0.01804, "tracked": 100,
+        "keyframes": 21, "loop_edges": 20, "ba_runs": 2, "rebuilds_full": 1,
+        "rebuilds_incremental": 0, "device_blocks": 2048, "evicted": 4176,
+        "restored": 1076, "store_blocks_final": 2312},
+    # _long_run at BENCH_GATHER with the Pallas gather (interpret mode)
+    "gather": {"chunk": 8, "frames": 64, "ate_rmse_m": 0.11214,
+               "tracked": 63, "blocks_used": 3698,
+               "blocks_active_final": 949},
+}
 # one keyframe more or less moves the loop edges by at most one insert's
 # candidate batch: loop_max_batch - 1 = 3 (KeyframeConfig default)
 CLI_LOOP_EDGE_SLACK = 3
+# the bench phase's decisions against JAX: equal but for these (keyframes
+# within one as the cli phase; tracked frames within 2 as the stream phase)
+BENCH_SLACK = {"keyframes": 1, "loop_edges": CLI_LOOP_EDGE_SLACK,
+               "tracked": 2}
+# block counts follow each package's own trajectory at the voxel scale
+# (ROADMAP Queue 3, F2): within 0.1 % of JAX's, the share the float map
+# rows are held to (the 64-frame long run on an H100: 3 699 blocks used
+# against JAX's 3 698, ATE equal)
+BENCH_BLOCK_COUNTS = ("blocks_used", "blocks_active_final", "evicted",
+                      "restored", "store_blocks_final")
+BENCH_BLOCK_RTOL = 1e-3
 ATE_BOUND_MM = 7.5
 HIT_BOUND = 0.8
 PARITY_ATOL_M = 1e-4
@@ -1791,6 +1899,127 @@ def phase_cli(torch, wg, card: str):
     return launches
 
 
+def _bench_checks(name: str, out: dict, ref: dict | None) -> dict:
+    """A section's line against its key set and the JAX run on the same
+    frames: {check: bool}, and the decisions outside their slack."""
+    fps = {k: v for k, v in out.items() if k.startswith("fps")}
+    ates = {k: v for k, v in out.items() if k.startswith("ate_")}
+    checks = {
+        "keys": set(out) == BENCH_KEYS[name],
+        "fps": all(np.isfinite(v) and v > 0 for v in fps.values()),
+        "ate_finite": all(np.isfinite(v) for v in ates.values()),
+    }
+    off = {}
+    if ref is not None:
+        for k, want in ref.items():
+            if k.startswith("ate_"):
+                continue
+            got = out[k]
+            if isinstance(want, bool) or not isinstance(want, (int, float)):
+                same = got == want
+            else:
+                tol = BENCH_SLACK.get(k, 0)
+                if k in BENCH_BLOCK_COUNTS:
+                    tol = BENCH_BLOCK_RTOL * want
+                same = abs(got - want) <= tol
+            if not same:
+                off[k] = [got, want]
+        checks["decisions"] = not off
+        checks["ate_below_2x_jax"] = all(
+            ates[k] < 2.0 * ref[k] for k in ates if k in ref)
+    return {"checks": checks, "decisions_off": off}
+
+
+def phase_bench(torch, wg, card: str) -> int:
+    """The benchmark twin on the card: ``cli.main(["bench", "--quick"])``
+    in this process, every section of voxelhashing_demo_tpu_torch/bench.py
+    at ``BENCH_SECTIONS``' cut frame counts (full 640x480 width), then
+    ``_long_run`` at ``BENCH_GATHER`` under flagship_gather_config() with
+    K1's launches counted from 0.  Returns those launches."""
+    from voxelhashing_demo_tpu_torch import bench, cli
+    from voxelhashing_demo_tpu_torch.config import (flagship_config,
+                                                    flagship_gather_config)
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.utils import metrics, synthetic
+
+    t0 = time.perf_counter()
+    quick = cli_json(cli, ["bench", "--quick"])
+    quick_s = time.perf_counter() - t0
+    failed = []
+    if not (set(quick) == BENCH_KEYS["quick"] | {"detail"}
+            and quick["detail"] == {"device": card} and quick["value"] > 0):
+        failed.append("quick")
+
+    cfg = flagship_config()
+    sections = {}
+    for name, (fn, kw) in BENCH_SECTIONS.items():
+        args = (cfg, hash_slam, synthetic) + (
+            () if fn == "_stage_breakdown" else (metrics,))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = getattr(bench, fn)(*args, **kw)
+        ref = None if name == "stages" else JAX_REFERENCE_BENCH[name]
+        sections[name] = {
+            "args": kw, "out": out,
+            "seconds": time.perf_counter() - t0,
+            "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+            "jax_reference": ref, **_bench_checks(name, out, ref)}
+        if name == "stages" and not all(v >= 0 for v in out.values()):
+            sections[name]["checks"]["stages_nonnegative"] = False
+        if not all(sections[name]["checks"].values()):
+            failed.append(name)
+
+    # the gather run: K1 on every step, counted from 0, and on the rows of
+    # the last call (the last frame's integrate) against its plain version
+    calls = {"step": 0}
+    last = []
+
+    def record(real):
+        def fn(*a):
+            last[:] = a
+            return real(*a)
+        return fn
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wg.LAUNCHES = 0
+    with _wrapped(hash_slam, "step", _counted(calls, "step")), \
+            _wrapped(wg, "gather_depth_window", record):
+        out = bench._long_run(flagship_gather_config(), hash_slam,
+                              synthetic, metrics, **BENCH_GATHER)
+    launches = wg.LAUNCHES
+    seconds = time.perf_counter() - t0
+    n = BENCH_GATHER["num_frames"]
+    expected = 2 * n + 1 + BENCH_GATHER["chunk"]
+    got, got_cov = wg.gather_depth_window(*last)
+    want, want_cov = wg.gather_depth_window_reference(*last)
+    torch.cuda.synchronize()
+    gather = {
+        "args": BENCH_GATHER, "out": out, "seconds": seconds,
+        "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+        "steps": calls["step"], "k1_launches": launches,
+        "launches_formula": f"2 x {n} frames + 1 + {BENCH_GATHER['chunk']}"
+                            " (per-frame run, warm chunk, chunked run)",
+        "k1_rows": int(last[1].shape[0]),
+        "k1_bit_exact": bool(torch.equal(got, want)
+                             and torch.equal(got_cov, want_cov)),
+        "jax_reference": JAX_REFERENCE_BENCH["gather"],
+        **_bench_checks("long_run", out, JAX_REFERENCE_BENCH["gather"])}
+    _emit({"phase": "bench", "card": card, "H": H, "W": W,
+           "quick": quick, "quick_s": quick_s, "sections": sections,
+           "gather": gather, "failed": failed})
+    _require(not failed, f"bench sections {failed}: keys, fps > 0, finite "
+             "ATE, decisions and ATE < 2x the JAX run's")
+    _require(all(gather["checks"].values()),
+             "bench gather run: keys, fps, decisions and ATE vs JAX")
+    _require(calls["step"] == expected and launches == expected,
+             "K1 launched once per frame step of the gather run")
+    _require(gather["k1_bit_exact"], "K1 == plain version on the last rows")
+    return launches
+
+
 # The multi-device phases.  One card: two ranks share it over Gloo (each
 # collective's CUDA tensors cross the host), and a one-rank NCCL
 # group runs the same step as the reference partition.  Why the reference
@@ -2055,6 +2284,7 @@ def main() -> int:
     by_path["gather_depth_window"]["stream_backend"] = phase_stream_backend(
         torch, wg, smi, ate_stream)
     by_path["gather_depth_window"]["cli"] = phase_cli(torch, wg, smi)
+    by_path["gather_depth_window"]["bench"] = phase_bench(torch, wg, smi)
     from voxelhashing_demo_tpu_torch.utils import synthetic
 
     frames, gt = synthetic.make_sequence(

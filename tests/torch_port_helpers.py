@@ -10,6 +10,7 @@ numbers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -335,6 +336,92 @@ def sharded_frames(n: int):
     depths, _ = synthetic.make_sequence(sharded_config("jax").camera, n,
                                         trans_amp=0.04, rot_amp_deg=2.0)
     return [np.asarray(d) for d in depths]
+
+
+# --------------------------------------------------------------------------
+# the benchmark twin (tests/test_torch_bench*.py)
+# --------------------------------------------------------------------------
+
+# the bench sections' room sweeps are rendered this many times slower than
+# asked: n frames are the head of an (n x SLOW_PAN)-frame sweep, so a cut
+# run moves as little per frame (~2 degrees) as the full-length one
+SLOW_PAN = 20
+
+
+def bench_config(pkg: str):
+    """tests/test_bench_smoke.py's tiny 80x60 ``CFG`` in either package."""
+    if pkg == "jax":
+        from voxelhashing_demo_tpu import config as m
+    else:
+        from voxelhashing_demo_tpu_torch import config as m
+    return m.PipelineConfig(
+        camera=m.CameraConfig(width=80, height=60, fx=64.6625, fy=64.5625,
+                              cx=39.7, cy=29.8),
+        icp=m.ICPConfig(pyramid=(2, 1), pyramid_iters=(6, 3)),
+        fusion=m.FusionConfig(voxel_size=0.04, truncation=0.16),
+        hash=m.HashConfig(num_buckets=2048, bucket_size=4, num_blocks=2048,
+                          max_active=1024, max_new_per_frame=1024),
+        raycast=m.RaycastConfig(max_steps=48, cache_dims=(96, 96, 96)),
+        gc=m.GCConfig(enabled=True, interval=8),
+        keyframes=m.KeyframeConfig(sync_every=4, icp_downsample=2,
+                                   min_loop_inliers=100),
+    )
+
+
+def _port_synthetic():
+    """The port's synthetic module, by its import name (a test may put
+    SlowPanFrames in its place as the package's attribute)."""
+    import importlib
+
+    return importlib.import_module("voxelhashing_demo_tpu_torch.utils."
+                                   "synthetic")
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_head(cam, n: int, sweep_deg: float, noise_seed):
+    import torch
+
+    synthetic = _port_synthetic()
+    gen = (None if noise_seed is None
+           else torch.Generator().manual_seed(int(noise_seed)))
+    T0_inv = np.linalg.inv(synthetic.room_sweep_pose(0.0, sweep_deg))
+    depths, poses = [], []
+    for i in range(n):
+        T = synthetic.room_sweep_pose(i / (n * SLOW_PAN), sweep_deg)
+        d = synthetic.render_depth(torch.as_tensor(T, dtype=torch.float32),
+                                   cam, sdf=synthetic.room_sdf)
+        if gen is not None:
+            d = synthetic.add_sensor_noise(d, gen)
+        depths.append(synthetic.depth_to_raw(d, cam))
+        poses.append((T0_inv @ T).astype(np.float32))
+    return tuple(depths), tuple(poses)
+
+
+class SlowPanFrames:
+    """A ``synthetic`` module for either bench (its sections take the
+    module as an argument): ``make_room_sweep(cam, n, sweep_deg, ...)`` is
+    the port's noisy room sweep on the CPU, cut to the head of a sweep
+    ``SLOW_PAN`` times as long (made once per argument set, so both
+    benches get the same uint16 frames); ``make_sequence`` is the port's
+    orbit on the CPU."""
+
+    @staticmethod
+    def _cam(cam):
+        from voxelhashing_demo_tpu_torch.config import CameraConfig
+
+        return CameraConfig(**dataclasses.asdict(cam))
+
+    @classmethod
+    def make_room_sweep(cls, cam, num_frames, sweep_deg=360.0,
+                        noise_seed=None, device=None):
+        depths, poses = _sweep_head(cls._cam(cam), num_frames,
+                                    float(sweep_deg), noise_seed)
+        return list(depths), list(poses)
+
+    @classmethod
+    def make_sequence(cls, cam, num_frames, device=None, **kw):
+        return _port_synthetic().make_sequence(cls._cam(cam), num_frames,
+                                       device="cpu", **kw)
 
 
 # --------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Not a test (pytest does not collect it); run it from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_port_reference.py \\
-        [orbit|march|backend|stream|stream_twin|stream_backend|cli|fixture]
+        [orbit|march|backend|stream|stream_twin|stream_backend|cli|fixture|
+         bench]
 
 ``orbit``: the 20-frame noise-free orbit of chip_smoke's ``slice`` phase
 (``JAX_REFERENCE``).  ``march``: the 24-frame noisy room sweep of its
@@ -29,6 +30,10 @@ keyframes and loop edges (asked for by name; about ten minutes).
 ``fixture``: the JAX CLI's ``run`` (hash backend, ``--render-last``) over
 the real PNG16 fixture ``tests/fixtures/kinect_png16`` and ``demo`` on its
 first two files, as the ``cli`` phase runs them (``JAX_REFERENCE_FIXTURE``).
+``bench``: chip_smoke's ``bench`` phase, the JAX ``bench.py``'s sections
+at the phase's cut frame counts (``BENCH_SECTIONS``, ``BENCH_GATHER``;
+``JAX_REFERENCE_BENCH``): each section's fields but its timings (asked
+for by name).
 The frames come from the
 PORT's synthetic module on the CPU, with the arguments chip_smoke uses,
 and go through the JAX package's ``HashSLAM`` under the flagship gather
@@ -306,6 +311,54 @@ def _run_fixture() -> dict:
     return out
 
 
+class _BenchFrames:
+    """A ``synthetic`` module for the JAX bench's sections: the port's
+    room sweep on the CPU with the arguments the section passes (made once
+    per argument set: sections that share frames share them)."""
+
+    @staticmethod
+    @functools.lru_cache(maxsize=None)
+    def _sweep(cam, n, sweep_deg, noise_seed):
+        return synthetic.make_room_sweep(cam, n, sweep_deg=sweep_deg,
+                                         noise_seed=noise_seed, device="cpu")
+
+    @classmethod
+    def make_room_sweep(cls, cam, num_frames, sweep_deg=360.0,
+                        noise_seed=None):
+        depths, gt = cls._sweep(CameraConfig(**dataclasses.asdict(cam)),
+                                num_frames, float(sweep_deg), noise_seed)
+        return list(depths), list(gt)
+
+
+# timing fields of the bench's sections: CPU figures, not references
+_BENCH_TIMINGS = ("fps", "_s", "_ms", "speedup", "dispatch_mode", "hitches")
+
+
+def _run_bench() -> dict:
+    """chip_smoke's ``bench`` phase: the JAX bench.py's sections at its
+    cut frame counts (``BENCH_SECTIONS``, the stages aside: timings only),
+    on the port's frames, under ``__graft_entry__.flagship_config()``; and
+    ``_long_run`` at ``BENCH_GATHER`` with the Pallas gather on.  Prints
+    each section's non-timing fields."""
+    import bench
+    import chip_smoke
+
+    cfg = __graft_entry__.flagship_config()
+    runs = [(name, fn, cfg, kw)
+            for name, (fn, kw) in chip_smoke.BENCH_SECTIONS.items()
+            if fn != "_stage_breakdown"]
+    runs.append(("gather", "_long_run", _config("splat"),
+                 chip_smoke.BENCH_GATHER))
+    out = {}
+    for name, fn, c, kw in runs:
+        res = getattr(bench, fn)(c, hash_slam, _BenchFrames, metrics, **kw)
+        out[name] = {k: v for k, v in res.items()
+                     if not any(t in k for t in _BENCH_TIMINGS)}
+        print(json.dumps({"run": "bench", "section": name, **out[name]}),
+              flush=True)
+    return out
+
+
 def main(which) -> None:
     cam = CameraConfig()
     if "orbit" in which:
@@ -328,6 +381,8 @@ def main(which) -> None:
         _run_cli()
     if "fixture" in which:
         _run_fixture()
+    if "bench" in which:
+        _run_bench()
 
 
 if __name__ == "__main__":

@@ -19,8 +19,8 @@ device everything runs on; ``--device cpu`` runs on the CPU.  ``run
 process each (parallel/launch.py): over NCCL with a CUDA card per rank
 (fewer cards exit with a message naming both counts), over Gloo with
 ``--device cpu``.  Rank 0 alone writes the outputs and the JSON line.
-``bench`` exits with a message: the port's benchmark twin is not written
-yet (ROADMAP item 8).
+``bench [--quick]`` runs the package's benchmark (its bench.py) on
+``--device``.
 """
 
 from __future__ import annotations
@@ -509,9 +509,9 @@ def cmd_evaluate(args) -> None:
 
 
 def cmd_bench(args) -> None:
-    raise SystemExit(
-        "bench: the port's benchmark twin is not written yet (ROADMAP "
-        "item 8); bench.py runs the JAX package's benchmark")
+    from . import bench
+
+    bench.main(["--quick"] if args.quick else [], device=args.device)
 
 
 # --------------------------------------------------------------------------
@@ -604,7 +604,9 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--rpe-delta", type=int, default=1)
     e.set_defaults(fn=cmd_evaluate)
 
-    b = sub.add_parser("bench", help="the benchmark (not ported yet)")
+    b = sub.add_parser("bench", help="run the throughput benchmark")
+    b.add_argument("--quick", action="store_true",
+                   help="the steady-state loop only")
     b.set_defaults(fn=cmd_bench)
     return p
 
