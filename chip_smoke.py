@@ -6,8 +6,9 @@ It needs a CUDA card; without one (or without the repository beside it)
 it exits nonzero and prints no result.  Phases, one JSON line each:
 
 1. ``device``: the card's name and power limit (nvidia-smi).
-2. ``build``: builds every kernel source under csrc/ for sm_90a into the
-   package's _build/ directory, one nvcc process each, started together.
+2. ``build``: builds every kernel source under csrc/ (six CUDA kernels and
+   the host codec) for sm_90a into the package's _build/ directory, one
+   compiler process each, started together.
 3. ``kernel``: both window-gather kernels (one CTA per block row;
    one warp per block row, "streamed") against their plain PyTorch
    versions on the card at 480x640, V=512.  First the frame step's own
@@ -25,6 +26,21 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    kernel's device time (a CUDA graph of launches replayed, per launch;
    once on the same inputs, once on inputs rotated through more than the
    L2 cache holds), the plain version's time and the byte bound.
+3b. ``probes``: the probe tools (voxelhashing_demo_tpu_torch/tools/, the
+   port of the Pallas probes under tools/): each tool's ``main()`` once,
+   every launch count set to 0 just before and read just after (each of
+   K16 ``take_flat``, K17 ``take_along_axis``, K18
+   ``gather_window_two_step``, K19 ``integrate_chunk``, K1 and K2 must
+   launch).  At the probes' shapes (65 536 and 524 288 flat gathers from
+   640x480, take_along_axis at (512, 256) / (512, 128), the two-step
+   gather over 128 blocks x 512 x 256, one 128 x 512 integrate chunk on
+   zero rows and on rows with weight) every kernel variant equals its
+   plain version bit for bit.  Per variant: device time warm and L2-cold
+   (CUDA-graph replay), wrapper time, the plain version's and the one
+   PyTorch call's (``img.view(-1)[idx]``, ``torch.gather``); the frame
+   step with K1 off and on (``exp_landed``); the tools' own lines are
+   kept off stdout.  Bounds from the tools' own inputs, counting the
+   32-byte sectors that each gather's indices reach (``_probe_bounds``).
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
@@ -154,11 +170,14 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    counts: the sharded step is the JAX package's, which pools the coarse
    ICP source by its minimum, so it is not the single-device step).
 
-Then the kernel summary line (times and bound of the ``step_rows`` case,
-the shape the main path gives the kernels; ``launches`` is the count of
-the last path that drives the kernel (``sharded``'s rank 0 for K1),
-``launches_by_path`` has each path's own count; ``bound_ms`` is 14 bytes per voxel plus the depth image
-once over the card's memory rate) and, last, the contract line
+Then the kernel summary line: K1 and K2 with the times and bound of the
+``step_rows`` case, the shape the main path gives them (``launches`` is
+the count of the last path that drives the kernel, ``sharded``'s rank 0
+for K1; ``bound_ms`` is 14 bytes per voxel plus the depth image once over
+the card's memory rate); K16-K19 with their ``probes`` counts and the
+times of their first tool case (65 536 flat gathers; axis 0; the two-step
+gather; the integrate chunk alone), the others under ``cases``;
+``launches_by_path`` has each path's own count.  Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
 
@@ -167,6 +186,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -400,7 +420,6 @@ FP32_OPS_PER_S = 67e12
 # the function's fourth input and is counted once, whole, in _bound.
 BYTES_PER_VOXEL = 14
 OPS_PER_VOXEL = 10        # 2 min, 2 subtract, 4 compare, 2 address
-L2_BYTES = 50 * 2 ** 20
 
 KERNEL_META = {
     "gather_depth_window": {
@@ -414,7 +433,40 @@ KERNEL_META = {
             "voxelhashing_demo_tpu_torch/csrc/window_gather_streamed.cu",
         "replaces": "voxelhashing_demo_tpu/ops/pallas_gather.py:143",
     },
+    "take_flat": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/take_flat.cu",
+        "replaces": "tools/exp_pallas_integrate.py:131, "
+                    "tools/exp_pallas_integrate.py:158, "
+                    "tools/exp_pallas_vmem_gather.py:69, "
+                    "tools/exp_pallas_vmem_gather.py:89, "
+                    "tools/exp_pallas_vmem_gather.py:117, "
+                    "tools/exp_pallas_gather.py:63",
+    },
+    "take_along_axis": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/take_along.cu",
+        "replaces": "tools/exp_pallas_gather2.py:57, "
+                    "tools/exp_pallas_gather2.py:79, "
+                    "tools/exp_pallas_gather2.py:101",
+    },
+    "gather_window_two_step": {
+        "route": "cuda",
+        "source":
+            "voxelhashing_demo_tpu_torch/csrc/window_gather_two_step.cu",
+        "replaces": "tools/exp_pallas_gather2.py:145",
+    },
+    "integrate_chunk": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/integrate_chunk.cu",
+        "replaces": "tools/exp_pallas_integrate.py:209",
+    },
 }
+WINDOW_KERNELS = ("gather_depth_window", "gather_depth_window_streamed")
+# the probe tools (voxelhashing_demo_tpu_torch/tools/), in the order the
+# ``probes`` phase runs their main()
+PROBE_TOOLS = ("exp_vmem_gather", "exp_gather", "exp_gather2",
+               "exp_integrate", "exp_landed")
 
 
 def _emit(obj) -> None:
@@ -447,50 +499,6 @@ def _gather_cases(rng):
     v[:, 0], u[:, 0], valid[:, 0] = H - 1, W - 1, False
     cases.append(("invalid_corner", v, u, valid))
     return cases
-
-
-def _time_ms(torch, fn, iters: int = 50, batches: int = 5) -> float:
-    """Per-call time of ``fn`` as the host sends it (CUDA events around a
-    loop of Python calls): the wrapper's time, not the kernel's.  The
-    median of ``batches`` loops of ``iters / batches`` calls: the host is
-    shared, and one slow stretch would carry a mean."""
-    for _ in range(3):
-        fn()
-    per_batch = max(iters // batches, 1)
-    times = []
-    for _ in range(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_batch):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / per_batch)
-    return float(np.median(times))
-
-
-def _device_ms(torch, calls, replays: int = 10) -> float:
-    """Device time per call: the calls are captured into one CUDA graph
-    (no host work between launches on replay), the graph is replayed and
-    timed with CUDA events."""
-    for fn in calls[:2]:
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in calls:
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * len(calls))
 
 
 def _bound(rows: int, vlen: int = V, height: int = H, width: int = W):
@@ -548,19 +556,6 @@ def tile_rows(t, rows: int):
     """(C, V) -> (rows, V): the rows of ``t`` repeated in order."""
     reps = -(-rows // t.shape[0])
     return t.repeat(reps, 1)[:rows].contiguous()
-
-
-def _time_kernel(torch, wrapper, depth, vt, ut, mt) -> dict:
-    n_copies = L2_BYTES // (vt.numel() * 9) + 2    # inputs exceed the L2
-    copies = [(vt.clone(), ut.clone(), mt.clone()) for _ in range(n_copies)]
-    warm = [lambda: wrapper(depth, vt, ut, mt)] * 20
-    cold = [(lambda a=a, b=b, c=c: wrapper(depth, a, b, c))
-            for a, b, c in copies] * 2
-    return {
-        "ms": _device_ms(torch, warm),
-        "cold_ms": _device_ms(torch, cold),
-        "wrapper_ms": _time_ms(torch, warm[0]),
-    }
 
 
 # (rows, row length) checked untimed on both kernels (the first takes row
@@ -632,6 +627,8 @@ def _kernel_cases(torch, rng, step_args):
 
 
 def phase_kernel(torch, wg, step_args):
+    from voxelhashing_demo_tpu_torch.tools import probe
+
     rng = np.random.default_rng(0)
     kernels = (
         ("gather_depth_window", wg.gather_depth_window,
@@ -662,9 +659,10 @@ def phase_kernel(torch, wg, step_args):
             row[name] = {
                 "bit_exact": exact, "max_abs_err": err,
                 "covered": int(got_cov.sum()),
-                **_time_kernel(torch, wrapper, depth, vt, ut, mt),
-                "plain_ms": _time_ms(
-                    torch, lambda: plain(depth, vt, ut, mt), iters=10),
+                **probe.timings(lambda *a: wrapper(depth, *a),
+                                (vt, ut, mt)),
+                "plain_ms": probe.host_ms(lambda: plain(depth, vt, ut, mt),
+                                          iters=10),
             }
         (a, a_cov), (b, b_cov) = outs.values()
         _require(bool(torch.equal(a, b) and torch.equal(a_cov, b_cov)),
@@ -677,6 +675,186 @@ def phase_kernel(torch, wg, step_args):
     _emit({"phase": "kernel", "H": H, "W": W, "shape_checks": shapes,
            "cases": list(rows.values())})
     return rows, worst
+
+
+def _probe_bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by) for ``n_bytes`` moved and ``n_ops`` done."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def _sector_bytes(flat) -> int:
+    """Bytes of the distinct 32-byte sectors (8 float32) that the element
+    offsets ``flat`` reach in a buffer that starts on a sector."""
+    return 32 * np.unique(np.asarray(flat, np.int64).ravel() // 8).size
+
+
+def _probe_bounds(tools) -> dict:
+    """Each probe kernel's bound on the inputs its tool drew in this run
+    (the tools draw them from a fixed seed): every index array read once,
+    every output written once, and of each gathered source (the image,
+    K18's dv rows) only the 32-byte sectors that this data's indices
+    reach; a few integer operations per output."""
+    import torch
+
+    from voxelhashing_demo_tpu_torch.ops import integrate_chunk as ic
+
+    vm = tools["exp_vmem_gather"].inputs()
+    ga = tools["exp_gather"].inputs()
+    g2 = tools["exp_gather2"].inputs()
+    it = tools["exp_integrate"].inputs()
+    flat, in_img, _ = (t.numpy() for t in ic.project_indices(
+        torch.from_numpy(it["blocks"])))
+    out = {"take_flat": {
+        key: _probe_bound(idx.size * 8 + _sector_bytes(idx), idx.size * 4)
+        for key, idx in (("n65536", vm["idx"]), ("n524288", ga["idx"]),
+                         ("chunk", flat))}}
+    rc = vm["r"].astype(np.int64) * vm["img2"].shape[1] + vm["c"]
+    out["take_flat"]["rc"] = _probe_bound(rc.size * 12 + _sector_bytes(rc),
+                                          rc.size * 6)
+
+    def taa(src_stride, idx, axis):
+        rows, cols = np.indices(idx.shape)
+        at = (idx * src_stride + cols if axis == 0
+              else rows * src_stride + idx)
+        return _probe_bound(2 * idx.nbytes + _sector_bytes(at), idx.size * 4)
+
+    out["take_along_axis"] = {
+        "axis0": taa(g2["img"].shape[1], g2["v_idx"], 0),   # a view
+        "axis1": taa(g2["src"].shape[1], g2["u_idx"], 1),
+        "axis1b": taa(g2["src256"].shape[1], g2["u256"], 1)}
+    du = g2["du"][..., :128].astype(np.int64)
+    dv_rows = np.arange(du.shape[0] * du.shape[1]).reshape(du.shape[:2])
+    dv_at = dv_rows[..., None] * g2["dv"].shape[-1] + du
+    dv_pick = np.take_along_axis(g2["dv"], du, axis=-1).astype(np.int64)
+    img_at = ((g2["v0"][:, None, None] + dv_pick) * g2["img"].shape[1]
+              + g2["u0"][:, None, None] + du)
+    out["gather_window_two_step"] = {"full": _probe_bound(
+        2 * du.size * 4 + _sector_bytes(dv_at) + _sector_bytes(img_at)
+        + g2["v0"].nbytes + g2["u0"].nbytes, du.size * 8)}
+    n_vox = it["w_rows"].size
+    out["integrate_chunk"] = {"chunk": _probe_bound(
+        7 * 4 * n_vox + _sector_bytes(flat[in_img]), n_vox * 16)}
+    return out
+
+
+# the id each probe kernel carries in its tools' variant names
+PROBE_TAGS = {"take_flat": "K16", "take_along_axis": "K17",
+              "gather_window_two_step": "K18", "integrate_chunk": "K19"}
+# (kernel, tool, kernel variant, plain variant, library variant or None,
+# bound key): the case of each kernel that the kernels line reports first
+PROBE_MAIN_CASES = (
+    ("take_flat", "exp_vmem_gather", "take_flat flat 65k (K16; pallas_take)",
+     "plain gather 65k from 307k (XLA img[i])", "torch img.view(-1)[idx] 65k",
+     "n65536"),
+    ("take_along_axis", "exp_gather2",
+     "taa axis=0 (512,256) from (256,256) (K17)",
+     "plain taa axis=0 (512,256) from (256,256)",
+     "torch.gather taa axis=0 (512,256) from (256,256)", "axis0"),
+    ("gather_window_two_step", "exp_gather2",
+     "full per-block 2-step gather x128 blocks (K18)",
+     "plain full per-block 2-step gather x128 blocks", None, "full"),
+    ("integrate_chunk", "exp_integrate", "K19 integrate_chunk alone",
+     "plain integrate_chunk alone", None, "chunk"),
+)
+# (kernel, tool, kernel variant, plain variant, library variant, bound key)
+# of the further cases each kernel runs in its tools
+PROBE_MORE_CASES = (
+    ("take_flat", "exp_vmem_gather",
+     "take_flat (512,128) idx (K16; pallas_take2)",
+     "plain gather 65k from 307k (XLA img[i])", "torch img.view(-1)[idx] 65k",
+     "n65536"),
+    ("take_flat", "exp_vmem_gather",
+     "take_flat 2D->flat (r, c) (K16; pallas_taa)",
+     "plain gather 65k from 307k (XLA img[i])", "torch img.view(-1)[idx] 65k",
+     "rc"),
+    ("take_flat", "exp_gather", "take_flat 524k (K16; pallas_gather)",
+     "plain gather 524k from 1.2MB (XLA img[i])",
+     "torch img.view(-1)[idx] 524k", "n524288"),
+    ("take_flat", "exp_integrate", "K16 gather alone", "plain gather alone",
+     "torch img.view(-1)[idx] alone", "chunk"),
+    ("take_along_axis", "exp_gather2", "taa axis=1 (512,128) lanes (K17)",
+     "plain taa axis=1 (512,128) lanes",
+     "torch.gather taa axis=1 (512,128) lanes", "axis1"),
+    ("take_along_axis", "exp_gather2", "taa axis=1 (512,256) lanes (K17)",
+     "plain taa axis=1 (512,256) lanes",
+     "torch.gather taa axis=1 (512,256) lanes", "axis1b"),
+)
+
+
+def _probe_case(results, bounds, kname, tool, var, plain, lib, bkey):
+    got, ref = results[tool][var], results[tool][plain]
+    bound_ms, bound_by = bounds[kname][bkey]
+    return {"tool": tool, "variant": var, "ms": got["ms"],
+            "cold_ms": got["cold_ms"], "wrapper_ms": got["wrapper_ms"],
+            "plain_ms": ref["wrapper_ms"], "plain_device_ms": ref["ms"],
+            "library_ms": None if lib is None else results[tool][lib]["ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _probe_summary(results: dict, bounds: dict) -> dict:
+    """{kernel: its kernels-line fields}: the main case's times and bound,
+    the worst error over every variant that launches it, the further
+    cases."""
+    compared = {f"{t}: {v}": e for t, r in results.items()
+                for v, e in r.items() if "bit_exact" in e}
+    summary = {}
+    for case in PROBE_MAIN_CASES:
+        kname = case[0]
+        tag = re.compile(rf"\b{PROBE_TAGS[kname]}\b")
+        summary[kname] = {
+            **_probe_case(results, bounds, *case),
+            "max_abs_err": max(e["max_abs_err"]
+                               for w, e in compared.items()
+                               if tag.search(w)),
+            "cases": []}
+    for case in PROBE_MORE_CASES:
+        summary[case[0]]["cases"].append(_probe_case(results, bounds, *case))
+    return summary
+
+
+def phase_probes(torch, wg):
+    """The probe tools' main() on the card, each once, with every launch
+    count set to 0 just before and read just after; every kernel variant
+    bit-exact against its plain version (K19 on zero rows and on rows with
+    weight).  Returns ({kernel: launches}, {kernel: summary})."""
+    import importlib
+
+    from voxelhashing_demo_tpu_torch.ops import image_gather as ig
+    from voxelhashing_demo_tpu_torch.ops import integrate_chunk as ic
+
+    tools = {n: importlib.import_module(
+        f"voxelhashing_demo_tpu_torch.tools.{n}") for n in PROBE_TOOLS}
+    t0 = time.perf_counter()
+    ig.LAUNCHES_TAKE_FLAT = ig.LAUNCHES_TAKE_ALONG = 0
+    ig.LAUNCHES_TWO_STEP = ic.LAUNCHES = 0
+    wg.LAUNCHES = wg.LAUNCHES_STREAMED = 0
+    with contextlib.redirect_stdout(io.StringIO()):   # one JSON line a phase
+        results = {n: tool.main() for n, tool in tools.items()}
+    launches = {"take_flat": ig.LAUNCHES_TAKE_FLAT,
+                "take_along_axis": ig.LAUNCHES_TAKE_ALONG,
+                "gather_window_two_step": ig.LAUNCHES_TWO_STEP,
+                "integrate_chunk": ic.LAUNCHES,
+                "gather_depth_window": wg.LAUNCHES,
+                "gather_depth_window_streamed": wg.LAUNCHES_STREAMED}
+    seconds = time.perf_counter() - t0
+    for kname, n in launches.items():
+        _require(n > 0, f"{kname} launched in the probe tools")
+    compared = [(f"{t}: {v}", e["bit_exact"]) for t, r in results.items()
+                for v, e in r.items() if "bit_exact" in e]
+    for what, exact in compared:
+        _require(exact, f"{what} equals its plain version bit for bit")
+    landed = results["exp_landed"]
+    _require(landed["full step (window gather K1)"]["k1_launches"]
+             >= tools["exp_landed"].REPS
+             and landed["full step (XLA gather)"]["k1_launches"] == 0,
+             "the landed tool's step launches K1 on every timed frame "
+             "with the gather on, never with it off")
+    _emit({"phase": "probes", "seconds": seconds, "launches": launches,
+           "bit_exact_checks": len(compared), "results": results})
+    return launches, _probe_summary(results, _probe_bounds(tools))
 
 
 def _run_port(torch, cfg, depths, device):
@@ -2267,15 +2445,17 @@ def main() -> int:
     march_cfg, sweep, sweep_gt = room_sweep()
     rows, worst = phase_kernel(torch, wg, step_rows(
         flagship_gather_config(), sweep[:N_STEP_FRAMES]))
+    probe_launches, probes = phase_probes(torch, wg)
     phase_parity(torch)
     # launches per path, each counted from 0 by the phase that drives it;
     # "launches" in the summary is the last path's count
-    by_path = {"gather_depth_window": {"slice": phase_slice(torch, wg)}}
+    by_path = {k: {"probes": n} for k, n in probe_launches.items()}
+    by_path["gather_depth_window"]["slice"] = phase_slice(torch, wg)
     slam, last_depth, march_launches = phase_march(torch, wg, march_cfg,
                                                    sweep, sweep_gt)
     by_path["gather_depth_window"]["march"] = march_launches
-    by_path["gather_depth_window_streamed"] = {
-        "streamed_entry": phase_streamed_entry(torch, wg, slam, last_depth)}
+    by_path["gather_depth_window_streamed"]["streamed_entry"] = (
+        phase_streamed_entry(torch, wg, slam, last_depth))
     del slam
     by_path["gather_depth_window"]["backend"] = phase_backend(
         torch, wg, smi)
@@ -2313,7 +2493,12 @@ def main() -> int:
         "bound_ms": full["bound_ms"],
         "bound_by": full["bound_by"],
         "library_ms": None,
-    } for kname, meta in KERNEL_META.items()]})
+    } for kname, meta in ((k, KERNEL_META[k]) for k in WINDOW_KERNELS)] + [{
+        "name": kname, **KERNEL_META[kname],
+        "launches": by_path[kname]["probes"],
+        "launches_by_path": by_path[kname],
+        **probes[kname],
+    } for kname in PROBE_TAGS]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -491,3 +491,126 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
                            getattr(slam.state.hmap, f).cpu()), f
     assert torch.equal(torch.stack(back.trajectory),
                        torch.stack(slam.trajectory))
+
+
+@pytest.mark.parametrize("name", ["exp_vmem_gather", "exp_gather",
+                                  "exp_gather2", "exp_integrate"])
+def test_probe_kernels_bit_exact_at_the_probes_shapes(cuda, name):
+    """K16-K19 against their plain versions on the probe tools' own
+    inputs (K19 also on rows that already carry weight), bit for bit."""
+    import importlib
+
+    from voxelhashing_demo_tpu_torch.tools.probe import Probe, to_device
+
+    tool = importlib.import_module(
+        f"voxelhashing_demo_tpu_torch.tools.{name}")
+    probe = Probe(cuda)
+    results = tool.run(probe, to_device(tool.inputs(), cuda))
+    compared = {k: v for k, v in results.items() if "bit_exact" in v}
+    assert compared and all(v["bit_exact"] for v in compared.values()), \
+        compared
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_probe_gathers_out_of_range(cuda):
+    """The out-of-range contract (NaN) in the kernels as in the plain
+    versions: negative and too-large flat indices, (r, c) pairs, indices
+    off either axis of a strided source, and two-step columns, window rows
+    and pixels off the image."""
+    from voxelhashing_demo_tpu_torch.ops import image_gather as ig
+
+    rng = np.random.default_rng(3)
+    img = torch.as_tensor(rng.random((48, 64), dtype=np.float32),
+                          device=cuda)
+    n = img.numel()
+    idx = torch.tensor([0, -1, n - 1, n, 7, -n, 2 ** 31 - 1],
+                       dtype=torch.int32, device=cuda)
+    assert _bits_equal(ig.take_flat(img, idx),
+                       ig.take_flat_reference(img, idx))
+    r = torch.tensor([0, 47, 48, -1, 3], dtype=torch.int32, device=cuda)
+    c = torch.tensor([0, 63, 0, 5, 70], dtype=torch.int32, device=cuda)
+    assert _bits_equal(ig.take_flat(img, (r, c), cols=64),
+                       ig.take_flat_reference(img, (r, c), cols=64))
+    big = torch.as_tensor(rng.random((40, 80), dtype=np.float32),
+                          device=cuda)
+    src = big[5:37, 3:35]                                  # row stride 80
+    for axis, shape in ((0, (50, 32)), (1, (32, 45))):
+        k = torch.as_tensor(rng.integers(-3, 36, shape), dtype=torch.int32,
+                            device=cuda)
+        got = ig.take_along_axis(src, k, axis)
+        assert _bits_equal(got, ig.take_along_axis_reference(src, k, axis))
+        assert bool(torch.isnan(got).any())
+    S = 16
+    dv = torch.as_tensor(rng.integers(-2, S + 2, (3, 8, S)),
+                         dtype=torch.int32, device=cuda)
+    du = torch.as_tensor(rng.integers(-2, S + 2, (3, 8, S)),
+                         dtype=torch.int32, device=cuda)
+    v0 = torch.tensor([0, 40, -5], dtype=torch.int32, device=cuda)
+    u0 = torch.tensor([0, 55, 20], dtype=torch.int32, device=cuda)
+    for keep in (1, 5, S):
+        got = ig.gather_window_two_step(img, v0, u0, dv, du, keep)
+        assert _bits_equal(got, ig.gather_window_two_step_reference(
+            img, v0, u0, dv, du, keep))
+        assert got.shape == (3, 8, keep)
+
+
+def test_integrate_chunk_edge_voxels(cuda):
+    """K19 against its plain version on the voxels its branches split on:
+    flat indices off the image or fractional (truncated), zero and
+    negative depth, invalid voxels, sdf below -trunc and above +trunc,
+    weights at and near 255."""
+    from voxelhashing_demo_tpu_torch.ops import integrate_chunk as ic
+
+    rng = np.random.default_rng(4)
+    H, W, n = 48, 64, 4096
+    depth = rng.uniform(-0.5, 3.0, (H, W)).astype(np.float32)
+    depth[::7, ::5] = 0.0
+    flat = rng.uniform(-50, H * W + 50, n).astype(np.float32)
+    flat[::3] = np.floor(flat[::3])
+    flatw = np.stack([flat, rng.uniform(0.5, 3.0, n),
+                      (rng.random(n) > 0.2).astype(np.float32)]).astype(
+        np.float32)
+    tsdf = rng.uniform(-0.1, 0.1, (64, 64)).astype(np.float32)
+    w = rng.integers(0, 256, (64, 64)).astype(np.float32)
+    w[0, :8] = 254.0
+    t_cpu = [torch.as_tensor(a) for a in (depth, flatw, tsdf, w)]
+    t_gpu = [a.to(cuda) for a in t_cpu]
+    before = ic.LAUNCHES
+    got = ic.integrate_chunk(*t_gpu, 0.1)
+    assert ic.LAUNCHES == before + 1
+    ref = ic.integrate_chunk_reference(*t_gpu, 0.1)
+    cpu = ic.integrate_chunk(*t_cpu, 0.1)
+    for g, r, c in zip(got, ref, cpu):
+        assert _bits_equal(g, r)
+        assert _bits_equal(g.cpu(), c)
+    assert float(got[1].max()) == 255.0
+
+
+def test_probe_wrappers_count_and_refuse(cuda):
+    """One launch per wrapper call; mixed devices and wrong types raise
+    (no quiet fallback to the plain version)."""
+    from voxelhashing_demo_tpu_torch.ops import image_gather as ig
+    from voxelhashing_demo_tpu_torch.ops import integrate_chunk as ic
+
+    img = torch.rand((8, 8), device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    before = ig.LAUNCHES_TAKE_FLAT
+    ig.take_flat(img, idx)
+    assert ig.LAUNCHES_TAKE_FLAT == before + 1
+    k = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
+    before = ig.LAUNCHES_TAKE_ALONG
+    ig.take_along_axis(img, k, 0)
+    assert ig.LAUNCHES_TAKE_ALONG == before + 1
+    with pytest.raises(ValueError):
+        ig.take_flat(img.cpu(), idx)
+    with pytest.raises(ValueError):
+        ig.take_flat(img, idx.long())
+    with pytest.raises(ValueError):
+        ig.take_along_axis(img.double(), k, 0)
+    flatw = torch.zeros((3, 64), device=cuda)
+    rows = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        ic.integrate_chunk(img, flatw, rows, rows.cpu())

@@ -9,8 +9,10 @@ numbers.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+from pathlib import Path
 
 import numpy as np
 
@@ -485,3 +487,40 @@ def continue_both(t_slam, j_slam, frames):
         j = j_slam.process(jnp.asarray(d))
         np.testing.assert_allclose(_np(t.pose), np.asarray(j.pose),
                                    atol=POSE_ATOL)
+
+
+@contextlib.contextmanager
+def pallas_probe(name: str, *argv: str):
+    """Run the Pallas probe script ``tools/<name>.py`` (it executes at
+    module level) with every ``pallas_call`` in interpret mode, ``argv``
+    as its command-line switches and the repository root as the working
+    directory; yields its namespace.  The interpret switch stays on while
+    the context is open, so the probe's functions can be called again."""
+    import runpy
+    import sys
+
+    import pytest
+    from jax.experimental import pallas as pl
+
+    root = Path(__file__).resolve().parent.parent
+    pallas_call = pl.pallas_call
+
+    def interpreted(*args, **kwargs):
+        kwargs["interpret"] = True
+        return pallas_call(*args, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pl, "pallas_call", interpreted)
+        mp.setattr(sys, "argv", [f"{name}.py", *argv])
+        mp.setattr(sys, "path", list(sys.path))
+        mp.chdir(root)
+        yield runpy.run_path(str(root / "tools" / f"{name}.py"),
+                             run_name="pallas_probe")
+
+
+def assert_bits_equal(got, want):
+    """Two float32 arrays (numpy, JAX or torch) equal bit for bit."""
+    g = np.asarray(got, dtype=np.float32)
+    w = np.asarray(want, dtype=np.float32)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))

@@ -8,7 +8,8 @@ host C++ compiler by ``build_host``.  A library's file name carries a hash
 of its source and flags, so an edited source is rebuilt.  Nothing is built
 or loaded when this module is imported.  ``build_all`` compiles every
 source at once, one compiler process each.  ``function`` hands a wrapper
-its kernel's C function, bound once.
+its kernel's C function, bound once; ``launch`` calls it on the current
+stream and raises on a refused launch.
 """
 
 from __future__ import annotations
@@ -112,12 +113,24 @@ def build_host(name: str) -> Path:
                                  str(src), *HOST_LIBS])
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_float
 # source name (= its exported C function, returning int) -> argument types
+# (the stream is always last)
 _GATHER_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 KERNELS = {
     "window_gather": _GATHER_ARGS,
     "window_gather_streamed": _GATHER_ARGS,
+    # img, idx, col, out, image elements, outputs, cols
+    "take_flat": [_P, _P, _P, _P, _L, _L, _I, _P],
+    # src, idx, out, rows, cols, src rows, src cols, src row stride, axis
+    "take_along": [_P, _P, _P, _I, _I, _I, _I, _L, _I, _P],
+    # img, v0, u0, dv, du, out, H, W, blocks, rows a block, window, keep
+    "window_gather_two_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _P],
+    # depth, flatw, tsdf, weight, tsdf out, weight out, image elements,
+    # voxels, trunc
+    "integrate_chunk": [_P, _P, _P, _P, _P, _P, _L, _L, _F, _P],
 }
 
 
@@ -143,3 +156,17 @@ def function(name: str):
         fn.restype = ctypes.c_int
         _FUNCTIONS[name] = fn
     return fn
+
+
+def launch(name: str, device_index: int, *args) -> None:
+    """Call kernel ``name`` with ``args`` on the current stream of CUDA
+    device ``device_index`` (``tensor.get_device()``); raise if the launch
+    is refused."""
+    import torch
+
+    # the current stream's handle without building a Stream object (the
+    # object costs as much host time as the launch itself)
+    stream = torch._C._cuda_getCurrentRawStream(device_index)
+    err = function(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

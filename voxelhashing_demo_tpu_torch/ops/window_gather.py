@@ -152,16 +152,9 @@ def _launch(name: str, depth_m, v, u, valid, max_v):
     covered = torch.empty((C, V), dtype=torch.bool, device=v.device)
     if C == 0 or V == 0:
         return out, covered, 0
-    # the current stream's handle without building a Stream object (the
-    # object costs as much host time as the launch itself)
-    stream = torch._C._cuda_getCurrentRawStream(v.get_device())
-    err = kernels.function(name)(
-        depth_m.data_ptr(), v.data_ptr(), u.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), covered.data_ptr(), H, W, C, V, min(WIN, H),
-        min(WIN, W), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    kernels.launch(name, v.get_device(), depth_m.data_ptr(), v.data_ptr(),
+                   u.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                   covered.data_ptr(), H, W, C, V, min(WIN, H), min(WIN, W))
     return out, covered, 1
 
 
