@@ -6,9 +6,10 @@ It needs a CUDA card; without one (or without the repository beside it)
 it exits nonzero and prints no result.  Phases, one JSON line each:
 
 1. ``device``: the card's name and power limit (nvidia-smi).
-2. ``build``: builds every kernel source under csrc/ (six CUDA kernels and
-   the host codec) for sm_90a into the package's _build/ directory, one
-   compiler process each, started together.
+2. ``build``: builds every kernel source under csrc/ (six CUDA kernels,
+   the empty kernel that measures the launch floor, and the host codec)
+   for sm_90a into the package's _build/ directory, one compiler process
+   each, started together.
 3. ``kernel``: both window-gather kernels (one CTA per block row;
    one warp per block row, "streamed") against their plain PyTorch
    versions on the card at 480x640, V=512.  First the frame step's own
@@ -41,6 +42,9 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    step with K1 off and on (``exp_landed``); the tools' own lines are
    kept off stdout.  Bounds from the tools' own inputs, counting the
    32-byte sectors that each gather's indices reach (``_probe_bounds``).
+   The launch floor: the empty kernel (csrc/launch_floor.cu) through
+   ``kernels.launch``, timed like the probe kernels (``launch_floor_ms``);
+   a probe case within about 0.1 us of it is launch-bound.
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
@@ -176,7 +180,8 @@ the count of the last path that drives the kernel, ``sharded``'s rank 0
 for K1; ``bound_ms`` is 14 bytes per voxel plus the depth image once over
 the card's memory rate); K16-K19 with their ``probes`` counts and the
 times of their first tool case (65 536 flat gathers; axis 0; the two-step
-gather; the integrate chunk alone), the others under ``cases``;
+gather; the integrate chunk alone), the others under ``cases``, and the
+launch floor of this run (``floor_ms``);
 ``launches_by_path`` has each path's own count.  Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
@@ -794,10 +799,25 @@ def _probe_case(results, bounds, kname, tool, var, plain, lib, bkey):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _probe_summary(results: dict, bounds: dict) -> dict:
+def launch_floor_ms() -> float:
+    """Device time per launch of the empty kernel (csrc/launch_floor.cu)
+    through ``kernels.launch``, timed as the probe tools time every kernel
+    (a CUDA graph of 20 launches, replayed): the launch floor of that
+    harness."""
+    import torch
+
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    index = torch.cuda.current_device()
+    return probe.device_ms([lambda: kernels.launch("launch_floor", index)]
+                           * probe.WARM_CALLS)
+
+
+def _probe_summary(results: dict, bounds: dict, floor_ms: float) -> dict:
     """{kernel: its kernels-line fields}: the main case's times and bound,
-    the worst error over every variant that launches it, the further
-    cases."""
+    the launch floor, the worst error over every variant that launches
+    it, the further cases."""
     compared = {f"{t}: {v}": e for t, r in results.items()
                 for v, e in r.items() if "bit_exact" in e}
     summary = {}
@@ -806,6 +826,7 @@ def _probe_summary(results: dict, bounds: dict) -> dict:
         tag = re.compile(rf"\b{PROBE_TAGS[kname]}\b")
         summary[kname] = {
             **_probe_case(results, bounds, *case),
+            "floor_ms": floor_ms,
             "max_abs_err": max(e["max_abs_err"]
                                for w, e in compared.items()
                                if tag.search(w)),
@@ -819,7 +840,8 @@ def phase_probes(torch, wg):
     """The probe tools' main() on the card, each once, with every launch
     count set to 0 just before and read just after; every kernel variant
     bit-exact against its plain version (K19 on zero rows and on rows with
-    weight).  Returns ({kernel: launches}, {kernel: summary})."""
+    weight); the launch floor measured once.  Returns ({kernel:
+    launches}, {kernel: summary})."""
     import importlib
 
     from voxelhashing_demo_tpu_torch.ops import image_gather as ig
@@ -852,9 +874,12 @@ def phase_probes(torch, wg):
              and landed["full step (XLA gather)"]["k1_launches"] == 0,
              "the landed tool's step launches K1 on every timed frame "
              "with the gather on, never with it off")
+    floor_ms = launch_floor_ms()
     _emit({"phase": "probes", "seconds": seconds, "launches": launches,
-           "bit_exact_checks": len(compared), "results": results})
-    return launches, _probe_summary(results, _probe_bounds(tools))
+           "bit_exact_checks": len(compared), "floor_ms": floor_ms,
+           "results": results})
+    return launches, _probe_summary(results, _probe_bounds(tools),
+                                    floor_ms)
 
 
 def _run_port(torch, cfg, depths, device):

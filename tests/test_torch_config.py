@@ -63,7 +63,8 @@ _JAX_IMPORT = re.compile(
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "voxelhashing_demo_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py", "chip_profile.py", "chip_gather_compare.py"])
+) + ["chip_smoke.py", "chip_profile.py", "chip_gather_compare.py",
+   "chip_probe_compare.py"])
 def test_port_imports_no_jax(path):
     src = (ROOT / path).read_text()
     assert not _JAX_IMPORT.search(src), path

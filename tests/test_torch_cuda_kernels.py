@@ -10,7 +10,10 @@ de-integration rows too; the frame step on the card agrees with the step on
 the CPU within 1e-4 m of pose translation per frame over 10 frames;
 ``pose_graph.optimize`` repeats bit for bit on the card and agrees with the
 CPU within 1e-4; the streaming cycle's copies (pinned buffers, side
-stream) return what was sent, bit for bit.
+stream) return what was sent, bit for bit; the probe kernels K16 and K17
+equal their plain versions bit for bit over index counts, pointer
+alignments, strip widths, strided views, the direct path of a tall source
+and out-of-range indices.
 """
 
 import dataclasses
@@ -614,3 +617,142 @@ def test_probe_wrappers_count_and_refuse(cuda):
     rows = torch.zeros((8, 8), device=cuda)
     with pytest.raises(ValueError):
         ic.integrate_chunk(img, flatw, rows, rows.cpu())
+
+
+def _int32_on(cuda, a, offset: int = 0):
+    """``a`` as a contiguous int32 tensor on the card whose data starts
+    ``offset`` elements into its buffer (offset 1: not 16-byte aligned)."""
+    a = np.asarray(a, np.int32)
+    buf = torch.empty(a.size + offset, dtype=torch.int32, device=cuda)
+    view = buf[offset:].view(a.shape)
+    view.copy_(torch.as_tensor(a))
+    assert view.is_contiguous()
+    return view
+
+
+# index counts around the 4-wide groups (1, 3, 4 095, 65 537) and one that
+# takes the grid-stride loop past the CTAs an H100 holds at once; index
+# pointers aligned, one element in, and (the (r, c) form) rows and columns
+# off by different amounts
+@pytest.mark.parametrize("n", [1, 3, 4, 4095, 65537, 2_500_003])
+@pytest.mark.parametrize("form,offsets", [
+    ("flat", (0,)), ("flat", (1,)), ("rc", (0, 0)), ("rc", (1, 1)),
+    ("rc", (0, 3))])
+def test_take_flat_counts_and_alignment(cuda, n, form, offsets):
+    from voxelhashing_demo_tpu_torch.ops import image_gather as ig
+
+    rng = np.random.default_rng(n)
+    H, W = 480, 640
+    img = torch.as_tensor(rng.standard_normal((H, W), dtype=np.float32),
+                          device=cuda)
+    if form == "flat":
+        idx = _int32_on(cuda, rng.integers(-50, H * W + 50, n), offsets[0])
+        args, cols = (idx,), None
+    else:
+        r = _int32_on(cuda, rng.integers(-2, H + 2, n), offsets[0])
+        c = _int32_on(cuda, rng.integers(0, W, n), offsets[1])
+        args, cols = ((r, c),), W
+    before = ig.LAUNCHES_TAKE_FLAT
+    got = ig.take_flat(img, *args, cols)
+    assert ig.LAUNCHES_TAKE_FLAT == before + 1
+    ref = ig.take_flat_reference(img, *args, cols)
+    torch.cuda.synchronize()
+    assert got.shape == (n,)
+    assert _bits_equal(got, ref)
+    assert bool(torch.isnan(got).any()) == bool(torch.isnan(ref).any())
+
+
+def test_take_flat_empty(cuda):
+    from voxelhashing_demo_tpu_torch.ops import image_gather as ig
+
+    img = torch.rand((48, 64), device=cuda)
+    for shape in ((0,), (3, 0)):
+        idx = torch.empty(shape, dtype=torch.int32, device=cuda)
+        before = ig.LAUNCHES_TAKE_FLAT
+        assert ig.take_flat(img, idx).shape == shape
+        assert ig.take_flat(img, (idx, idx), cols=64).shape == shape
+        assert ig.LAUNCHES_TAKE_FLAT == before
+
+
+def _taa_source(cuda, rng, rows, cols, ld=None, col0=0):
+    """A (rows, cols) float32 source on the card: a view of a wider buffer
+    (row stride ``ld``, starting ``col0`` columns in) where given; a few
+    NaNs with their own payload bits among its values."""
+    ld = cols if ld is None else ld
+    vals = rng.random((rows, ld), dtype=np.float32)
+    vals.view(np.int32)[rng.random((rows, ld)) < 0.02] = 0x7FC0BEEF
+    buf = torch.as_tensor(vals, device=cuda)
+    src = buf[:, col0:col0 + cols]
+    assert src.stride() == (ld, 1)
+    return src
+
+
+# axis 0: (source rows, cols, index rows, row stride, first column):
+# cols no multiple of the 32-column strip; the probe's strided (256, 256)
+# patch of a 640-wide image; a view whose rows start off 16 bytes (ld not a
+# multiple of 4, first column 3); the tallest source the strip budget
+# stages (384 rows) and one row more (the direct path); 1 000 rows
+# (direct); one output row; one column
+TAA0_CASES = {
+    "cols70": (256, 70, 100, None, 0),
+    "probe_patch": (256, 256, 512, 640, 0),
+    "ld102_col3": (120, 64, 96, 102, 3),
+    "ld100_aligned": (300, 64, 77, 100, 0),
+    "budget384": (384, 40, 130, None, 0),
+    "direct385": (385, 40, 130, None, 0),
+    "direct1000": (1000, 64, 200, 80, 8),
+    "one_row": (40, 50, 1, None, 0),
+    "one_col": (40, 1, 37, None, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TAA0_CASES))
+def test_take_along_axis0_paths(cuda, case):
+    from voxelhashing_demo_tpu_torch.ops import image_gather as ig
+
+    src_rows, cols, rows, ld, col0 = TAA0_CASES[case]
+    rng = np.random.default_rng(len(case))
+    src = _taa_source(cuda, rng, src_rows, cols, ld, col0)
+    idx = _int32_on(cuda, rng.integers(-3, src_rows + 3, (rows, cols)))
+    before = ig.LAUNCHES_TAKE_ALONG
+    got = ig.take_along_axis(src, idx, 0)
+    assert ig.LAUNCHES_TAKE_ALONG == before + 1
+    ref = ig.take_along_axis_reference(src, idx, 0)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, cols)
+    assert _bits_equal(got, ref)
+    assert bool(torch.isnan(got).any())
+
+
+# axis 1: (rows, source cols, index cols, row stride, first column, index
+# offset): the probes' two shapes; cols no multiple of 4 (scalar path);
+# an index pointer off 16 bytes; a strided view; one row; one column; a
+# row longer than a CTA's threads take in one pass
+TAA1_CASES = {
+    "probe_128": (512, 128, 128, None, 0, 0),
+    "probe_256": (512, 256, 256, None, 0, 0),
+    "cols30": (33, 64, 30, None, 0, 0),
+    "idx_offset": (20, 64, 64, None, 0, 1),
+    "strided": (40, 60, 90, 70, 5, 0),
+    "one_row": (1, 64, 30, None, 0, 0),
+    "one_col": (30, 64, 1, None, 0, 0),
+    "long_row": (3, 2000, 1200, None, 0, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TAA1_CASES))
+def test_take_along_axis1_paths(cuda, case):
+    from voxelhashing_demo_tpu_torch.ops import image_gather as ig
+
+    rows, src_cols, cols, ld, col0, off = TAA1_CASES[case]
+    rng = np.random.default_rng(len(case) + 100)
+    src = _taa_source(cuda, rng, rows, src_cols, ld, col0)
+    idx = _int32_on(cuda, rng.integers(-3, src_cols + 3, (rows, cols)), off)
+    before = ig.LAUNCHES_TAKE_ALONG
+    got = ig.take_along_axis(src, idx, 1)
+    assert ig.LAUNCHES_TAKE_ALONG == before + 1
+    ref = ig.take_along_axis_reference(src, idx, 1)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, cols)
+    assert _bits_equal(got, ref)
+    assert bool(torch.isnan(got).any())

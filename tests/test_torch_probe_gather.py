@@ -160,3 +160,32 @@ def test_landed_tool_runs_on_the_cpu(capsys):
     assert set(out) >= {"full step (XLA gather)",
                         "full step (window gather K1)"}
     assert "device: cpu" in capsys.readouterr().out
+
+
+def test_probe_compare_cases_follow_the_tools():
+    """chip_probe_compare.py's cases are the probe tools' own inputs, and
+    its two locality cases change only the order or range of the 524 288
+    gathers; each case's wrapper on the CPU equals its plain version and
+    its bound is at least the bytes of its indices and output."""
+    import importlib
+
+    import chip_probe_compare as cpc
+    import chip_smoke
+
+    tools = {n: importlib.import_module(
+        f"voxelhashing_demo_tpu_torch.tools.{n}")
+        for n in ("probe", *chip_smoke.PROBE_TOOLS)}
+    cases = cpc.case_args(torch, tools, torch.device("cpu"))
+    assert set(cases) == set(cpc.CASES)
+    base = exp_gather.inputs()["idx"]
+    local = cases["K16 n524288 in 32 KB"][1][1].numpy()
+    assert local.max() < 8192 and local.size == base.size
+    assert np.array_equal(cases["K16 n524288 sorted"][1][1].numpy(),
+                          np.sort(base))
+    assert np.array_equal(cases["K16 n524288"][1][1].numpy(), base)
+    bounds = cpc.bounds_us(tools, cases)
+    for case, (form, args) in cases.items():
+        got = cpc.form_fn(ig, form)(*args)
+        assert_bits_equal(got, cpc.form_fn(ig, form, plain=True)(*args))
+        assert bounds[case] >= (args[1].numel() * 8
+                                / chip_smoke.HBM_BYTES_PER_S * 1e6), case

@@ -11,21 +11,44 @@
 // blocks, 2048 gathers a step) are the TPU's way to stage the image in
 // VMEM and have no counterpart here.
 //
-// Out of range: a flat index outside [0, n_img) (the (row, column) form's
-// index formed in 64 bits) gives NaN; negative indices do not wrap.  The
-// plain version (ops/image_gather.take_flat_reference) does the same.
+// Contract: int32 indices of any shape, read as a flat run of n (a
+// contiguous tensor, at any 4-byte alignment).  A flat
+// index outside [0, n_img) (the (row, column) form's index formed in 64
+// bits) gives NaN; negative indices do not wrap.  The plain version
+// (ops/image_gather.take_flat_reference) does the same.
 //
 // Bound: bytes, but the bytes are few.  Each output reads 4 bytes of index
 // (8 in the (row, column) form) and writes 4; the image (1.2 MB at
-// 640 x 480) is the only data reused, and the 50 MB L2 holds it whole, so
-// after the first touches the random reads are L2 hits, not device-memory
-// round trips.  At 65 536 gathers the byte bound (indices, output and the
-// image once) is about 0.5 us, below a launch; at 524 288 about 1.6 us.
+// 640 x 480) is the only data reused, and the 50 MB L2 holds it whole.  At
+// 65 536 gathers the byte bound (indices, output and the 32-byte sectors
+// of the image the indices reach) is 0.46 us, at 524 288 1.62 us.  What
+// the byte bound does not see: every random read is its own L1 tag lookup
+// and its own 32-byte L2 sector.  On an NVIDIA H100 80GB HBM3 at 700.00 W
+// the 524 288 uniform gathers take 5.6-5.7 us warm, about 4.7 over the
+// 0.9-1.1 us launch floor: about two SM cycles a gather.  The same gathers
+// kept inside the image's first 32 KB (L1 hits) still take 3.35, sorted
+// 2.7.  So the cost is the L1TEX path's work per divergent gather, not
+// bytes.
 //
-// Design: one thread per output, 256 threads a CTA.  Index loads and the
-// output store are coalesced; the image read goes through the read-only
-// path (__ldg).  Nothing is staged in shared memory: the image does not fit
-// a CTA's 227 KB, and the L2 already plays the part VMEM played.
+// Design: one thread per output, 256 threads a CTA, lane-consecutive
+// outputs (neighbouring voxels of a projected block read neighbouring
+// pixels: one tag serves several lanes), the image read through the
+// read-only path (__ldg).  Nothing is staged in shared memory: the image
+// does not fit a CTA's 227 KB.  These redesigns were measured against it
+// on the card above (PERF.md section 6, chip_probe_compare.py, warm unless
+// said); none was faster, so it stays:
+//   four or eight outputs a thread, 16-byte index loads and stores, one
+//     wave of CTAs: +0.14-0.45 us (+0.4 on the clustered chunk);
+//   a grid-stride loop over the resident CTAs: +0.2 at 524 288;
+//   the L1 carve-out at its maximum: a tie;
+//   the image read with an L2 evict-last policy: within 0.05;
+//   the image read past the L1 (ld.global.cg): +0.2 at 524 288, twice
+//     the time on gathers an L1 can hold;
+//   a cp.async.bulk.prefetch.L2 of the image: no gain cold at 524 288,
+//     +0.5 on the cold chunk;
+//   streaming index loads (__ldcs): a tie warm, 0.24 off the L2-cold
+//     524 288 case but 0.12 on to the cold chunk; streaming stores
+//     (__stcs): a tie; both together: +0.1 at 524 288.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -131,6 +131,8 @@ KERNELS = {
     # depth, flatw, tsdf, weight, tsdf out, weight out, image elements,
     # voxels, trunc
     "integrate_chunk": [_P, _P, _P, _P, _P, _P, _L, _L, _F, _P],
+    # an empty kernel (no arguments but the stream): the launch floor
+    "launch_floor": [_P],
 }
 
 
