@@ -43,8 +43,9 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    kept off stdout.  Bounds from the tools' own inputs, counting the
    32-byte sectors that each gather's indices reach (``_probe_bounds``).
    The launch floor: the empty kernel (csrc/launch_floor.cu) through
-   ``kernels.launch``, timed like the probe kernels (``launch_floor_ms``);
-   a probe case within about 0.1 us of it is launch-bound.
+   ``kernels.launch``, timed like the probe kernels
+   (``tools/probe.launch_floor_ms``); a probe case within about 0.1 us
+   of it is launch-bound.
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
@@ -147,12 +148,37 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    steps == 2 x frames + 1 + chunk, and K1 equal to its plain version on
    the last call's rows; its decisions and ATE against JAX's as above.
    Prints each section's line, seconds and peak device memory.
-13. ``nccl``: one rank over NCCL (``parallel.launch.spawn``): the
+13. ``entry``: ``entry()`` (voxelhashing_demo_tpu_torch/entry.py, the
+   twin of __graft_entry__.py) on the card: its ``fn`` on the zero frame
+   it returns, then the first two sweep frames; poses finite, blocks
+   allocated on the sweep frames; ms per step.
+14. ``dryrun``: ``dryrun_multichip(1)`` on one NCCL rank and
+   ``dryrun_multichip(2, backend="gloo")`` with both ranks on the card:
+   the JAX dry run's sequence and checks (sharded step, keyframe backend
+   with streaming, rebuild, incremental move, render hit > 0.1, sharded
+   BA); the ranks agree.
+15. ``roofline``: ``tools/roofline.main()`` under ``flagship_config()``
+   (K1 off, as the JAX tool) and under ``flagship_gather_config()``: the
+   five primitives (device time, CUDA-graph replay) beside the launch
+   floor, the seven stage ms, the bounds and % of bound, and beside them
+   the same model's data volumes over the card's HBM rate
+   (``hbm_bounds_ms``, ``pct_of_hbm_bound``); K1's launches
+   counted from 0 in each: none without the gather, 24 sweep frames + 21
+   integrate + 21 full-step calls with it (the ``roofline`` path); K1
+   bit-exact against its plain version on the rows of that run's last
+   call (``k1_bit_exact``).
+16. ``bench_micro``: ``tools/bench_micro.measure()``, the sixteen
+   primitives, host ms and device ms.
+17. ``scaling``: ``tools/scaling_bench`` at 640x480 over the cards
+   present (NCCL, a card per rank); with one card, two Gloo ranks on it
+   as a line of its own marked ``shared_card`` (it checks the partition,
+   not the speed of two cards).
+18. ``nccl``: one rank over NCCL (``parallel.launch.spawn``): the
    collective helpers (``ranks.collectives``) exact, then
    ``ShardedHashSLAM(flagship_gather_config())`` on the slice's 12 frames,
    K1 launched every frame.  This one-rank run is the reference partition
    of ``sharded``.
-14. ``sharded_backend``: ``KeyframeSLAM(mesh)`` on two Gloo ranks sharing
+19. ``sharded_backend``: ``KeyframeSLAM(mesh)`` on two Gloo ranks sharing
    the card over the first 24 frames of the backend scenario (the drift
    before frame 18): decisions (keyframe frames, edges, BA frames, rebuild
    modes, moves, tracked, capacity, saturation) equal on both ranks and
@@ -160,7 +186,7 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    ``KeyframeSLAM``'s on the same frames; K1 launches per rank = frames +
    rebuild fuses + 2 x moves.  Prints BA ms per solve and the staged
    collective bytes.
-15. ``sharded``, the slice's main path: ``ShardedHashSLAM`` on two Gloo
+20. ``sharded``, the slice's main path: ``ShardedHashSLAM`` on two Gloo
    ranks sharing the card at ``flagship_gather_config()`` (32 768 blocks
    a rank) over the slice's 12 frames.  Asserts: per-frame allocated and
    active blocks equal to the one-rank NCCL run's, poses within 5e-4 m of
@@ -799,21 +825,6 @@ def _probe_case(results, bounds, kname, tool, var, plain, lib, bkey):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def launch_floor_ms() -> float:
-    """Device time per launch of the empty kernel (csrc/launch_floor.cu)
-    through ``kernels.launch``, timed as the probe tools time every kernel
-    (a CUDA graph of 20 launches, replayed): the launch floor of that
-    harness."""
-    import torch
-
-    from voxelhashing_demo_tpu_torch import kernels
-    from voxelhashing_demo_tpu_torch.tools import probe
-
-    index = torch.cuda.current_device()
-    return probe.device_ms([lambda: kernels.launch("launch_floor", index)]
-                           * probe.WARM_CALLS)
-
-
 def _probe_summary(results: dict, bounds: dict, floor_ms: float) -> dict:
     """{kernel: its kernels-line fields}: the main case's times and bound,
     the launch floor, the worst error over every variant that launches
@@ -846,6 +857,7 @@ def phase_probes(torch, wg):
 
     from voxelhashing_demo_tpu_torch.ops import image_gather as ig
     from voxelhashing_demo_tpu_torch.ops import integrate_chunk as ic
+    from voxelhashing_demo_tpu_torch.tools import probe
 
     tools = {n: importlib.import_module(
         f"voxelhashing_demo_tpu_torch.tools.{n}") for n in PROBE_TOOLS}
@@ -874,7 +886,7 @@ def phase_probes(torch, wg):
              and landed["full step (XLA gather)"]["k1_launches"] == 0,
              "the landed tool's step launches K1 on every timed frame "
              "with the gather on, never with it off")
-    floor_ms = launch_floor_ms()
+    floor_ms = probe.launch_floor_ms()
     _emit({"phase": "probes", "seconds": seconds, "launches": launches,
            "bit_exact_checks": len(compared), "floor_ms": floor_ms,
            "results": results})
@@ -1833,6 +1845,17 @@ def _wrapped(obj, name: str, make):
         setattr(obj, name, real)
 
 
+def _recorded(last: list):
+    """A ``make`` for ``_wrapped``: the real function, with the arguments
+    of its last call kept in ``last``."""
+    def make(real):
+        def fn(*a):
+            last[:] = a
+            return real(*a)
+        return fn
+    return make
+
+
 def _counted(calls: dict, key: str):
     def make(real):
         def fn(*a, **k):
@@ -2177,19 +2200,12 @@ def phase_bench(torch, wg, card: str) -> int:
     # the last call (the last frame's integrate) against its plain version
     calls = {"step": 0}
     last = []
-
-    def record(real):
-        def fn(*a):
-            last[:] = a
-            return real(*a)
-        return fn
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     wg.LAUNCHES = 0
     with _wrapped(hash_slam, "step", _counted(calls, "step")), \
-            _wrapped(wg, "gather_depth_window", record):
+            _wrapped(wg, "gather_depth_window", _recorded(last)):
         out = bench._long_run(flagship_gather_config(), hash_slam,
                               synthetic, metrics, **BENCH_GATHER)
     launches = wg.LAUNCHES
@@ -2221,6 +2237,169 @@ def phase_bench(torch, wg, card: str) -> int:
              "K1 launched once per frame step of the gather run")
     _require(gather["k1_bit_exact"], "K1 == plain version on the last rows")
     return launches
+
+
+# The entry points of entry.py and the speed-of-light tools (tools/).
+N_ENTRY = 3          # entry()'s zero frame, then the first sweep frames
+
+
+def _all_finite(values) -> bool:
+    return all(isinstance(v, float) and np.isfinite(v) for v in values)
+
+
+def phase_entry(torch, card: str, sweep) -> None:
+    """``entry()`` on the card: its ``fn`` on the zero frame it returns,
+    then the first sweep frames, each step timed (host clock, the card
+    synchronised)."""
+    from voxelhashing_demo_tpu_torch import entry
+
+    fn, (state, depth) = entry.entry()
+    frames = [depth] + [torch.from_numpy(d.astype(np.int32)).cuda()
+                        for d in sweep[:N_ENTRY - 1]]
+    steps = []
+    for d in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = fn(state, d)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "pose_finite": bool(torch.isfinite(info.pose).all()),
+                      "blocks_allocated": int(info.blocks_allocated),
+                      "tracked": bool(info.tracked)})
+    _emit({"phase": "entry", "card": card, "device": str(depth.device),
+           "depth_dtype": str(depth.dtype), "steps": steps,
+           "frame_idx": state.frame_idx})
+    _require(depth.is_cuda and not bool(depth.any()),
+             "entry() gives a zero frame on the card")
+    _require(all(s["pose_finite"] for s in steps), "entry poses finite")
+    _require(all(s["blocks_allocated"] > 0 for s in steps[1:]),
+             "entry's fn allocates blocks on the sweep frames")
+    _require(state.frame_idx == N_ENTRY, "entry's fn counts its frames")
+
+
+def phase_dryrun(torch, card: str) -> None:
+    """``dryrun_multichip(1)`` on one NCCL rank, then
+    ``dryrun_multichip(2, backend="gloo")`` with both ranks on the card;
+    each raises if a check fails or the ranks disagree."""
+    from voxelhashing_demo_tpu_torch import entry
+
+    runs = {}
+    for name, n, backend in (("nccl_1", 1, None), ("gloo_2", 2, "gloo")):
+        t0 = time.perf_counter()
+        outs = entry.dryrun_multichip(n, backend=backend)
+        runs[name] = {"ranks": n, "result": outs[0],
+                      "seconds": time.perf_counter() - t0}
+    _emit({"phase": "dryrun", "card": card, **runs})
+
+
+def _roofline_ok(result: dict) -> bool:
+    from voxelhashing_demo_tpu_torch.tools import roofline
+
+    return (tuple(result["stages_ms"]) == roofline.STAGES
+            and result["n_active_blocks"] > 0
+            and _all_finite(result["primitives"].values())
+            and _all_finite(result["stages_ms"].values())
+            and _all_finite(result["bounds_ms"].values())
+            and all(v > 0 for v in result["stages_ms"].values()))
+
+
+def _roofline_hbm(roofline, config, result: dict) -> dict:
+    """The roofline model's data volumes at the card's HBM rate (its
+    ``bounds_model`` fed HBM_BYTES_PER_S in place of the eager primitives'
+    rates: a gathered element 4 bytes, a scattered one 8, value and
+    index), and each stage's % of that bound."""
+    gbps = HBM_BYTES_PER_S / 1e9
+    elem_ns = 4 / gbps
+    prim = {"gather_random_ns_per_elem": elem_ns,
+            "gather_image_ns_per_elem": elem_ns,
+            "gather_rows_GBps": gbps, "elementwise_GBps": gbps,
+            "scatter_min_256k_ms": (1 << 18) * 8 / HBM_BYTES_PER_S * 1e3}
+    bounds = roofline.bounds_model(config, prim, result["n_active_blocks"])
+    stages = result["stages_ms"]
+    return {"hbm_bounds_ms": bounds,
+            "pct_of_hbm_bound": {k: 100 * b / stages[k]
+                                 for k, b in bounds.items()}}
+
+
+def phase_roofline(torch, wg, card: str) -> int:
+    """``roofline.main()`` under flagship_config() (K1 off, as the JAX
+    tool), then under flagship_gather_config(), K1's launches counted
+    from 0 in each, and K1 on the rows of the second run's last call (the
+    last full step's integrate) against its plain version.  Returns the
+    second run's launches."""
+    from voxelhashing_demo_tpu_torch.config import (flagship_config,
+                                                    flagship_gather_config)
+    from voxelhashing_demo_tpu_torch.tools import roofline
+
+    runs, launches, last = {}, {}, []
+    t0 = time.perf_counter()
+    for name, cfg in (("flagship", flagship_config()),
+                      ("flagship_gather", flagship_gather_config())):
+        wg.LAUNCHES = 0
+        with contextlib.redirect_stdout(io.StringIO()), \
+                _wrapped(wg, "gather_depth_window", _recorded(last)):
+            runs[name] = roofline.main(config=cfg)
+        launches[name] = wg.LAUNCHES
+        runs[name].update(_roofline_hbm(roofline, cfg, runs[name]))
+    seconds = time.perf_counter() - t0
+    _require(last, "K1 called on the gather roofline")
+    got, got_cov = wg.gather_depth_window(*last)
+    want, want_cov = wg.gather_depth_window_reference(*last)
+    k1_bit_exact = bool(torch.equal(got, want)
+                        and torch.equal(got_cov, want_cov))
+    n = roofline.N_CALLS
+    expected = roofline.SWEEP_FRAMES + 2 * (n + 1)
+    _emit({"phase": "roofline", "card": card, **runs,
+           "k1_launches": launches,
+           "k1_expected": f"{expected} = {roofline.SWEEP_FRAMES} sweep "
+                          f"frames + {n + 1} integrate + {n + 1} full_step",
+           "k1_rows": int(last[1].shape[0]), "k1_bit_exact": k1_bit_exact,
+           "seconds": seconds})
+    _require(all(_roofline_ok(r) for r in runs.values()),
+             "roofline: the seven stages, finite primitives and bounds")
+    _require(launches["flagship"] == 0
+             and launches["flagship_gather"] == expected,
+             "K1 on every integrate of the gather roofline, never without")
+    _require(k1_bit_exact, "K1 == plain version on the roofline's last rows")
+    return launches["flagship_gather"]
+
+
+def phase_bench_micro(torch, card: str) -> None:
+    """``bench_micro.measure()``: the sixteen primitives, host ms and
+    device ms (CUDA-graph replay)."""
+    from voxelhashing_demo_tpu_torch.tools import bench_micro
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = bench_micro.measure()
+    _emit({"phase": "bench_micro", "card": card, "ops": out,
+           "seconds": time.perf_counter() - t0})
+    _require(len(out) == 16 and _all_finite(
+        [v["ms"] for v in out.values()]
+        + [v["device_ms"] for v in out.values()]),
+        "bench_micro: sixteen ops, finite host and device ms")
+
+
+def phase_scaling(torch, card: str) -> None:
+    """``scaling_bench`` at 640x480 over the cards present (NCCL, a card
+    per rank); with one card, two Gloo ranks on it as a line of its own,
+    marked as sharing the card."""
+    from voxelhashing_demo_tpu_torch.tools import scaling_bench
+
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        lines = scaling_bench.main(["--max-devices", str(cards)])
+    if cards == 1:
+        fps = scaling_bench.run_count(2, backend="gloo")
+        lines.append({"devices": 2, "fps": fps,
+                      "efficiency_vs_1": fps / (lines[0]["fps"] * 2),
+                      "backend": "gloo", "shared_card": True})
+    _emit({"phase": "scaling", "card": card, "cards": cards,
+           "lines": lines, "seconds": time.perf_counter() - t0})
+    _require(lines and lines[0]["devices"] == 1
+             and all(ln["fps"] > 0 for ln in lines),
+             "scaling: a line per count, fps > 0")
 
 
 # The multi-device phases.  One card: two ranks share it over Gloo (each
@@ -2490,6 +2669,12 @@ def main() -> int:
         torch, wg, smi, ate_stream)
     by_path["gather_depth_window"]["cli"] = phase_cli(torch, wg, smi)
     by_path["gather_depth_window"]["bench"] = phase_bench(torch, wg, smi)
+    phase_entry(torch, smi, sweep)
+    phase_dryrun(torch, smi)
+    by_path["gather_depth_window"]["roofline"] = phase_roofline(
+        torch, wg, smi)
+    phase_bench_micro(torch, smi)
+    phase_scaling(torch, smi)
     from voxelhashing_demo_tpu_torch.utils import synthetic
 
     frames, gt = synthetic.make_sequence(

@@ -50,6 +50,18 @@ def device_ms(calls, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * len(calls))
 
 
+def launch_floor_ms() -> float:
+    """Device time per launch of the empty kernel (csrc/launch_floor.cu)
+    through ``kernels.launch`` on the current card, timed as the probe
+    tools time every kernel (a CUDA graph of ``WARM_CALLS`` launches,
+    replayed): the launch floor of that harness."""
+    from .. import kernels
+
+    index = torch.cuda.current_device()
+    return device_ms([lambda: kernels.launch("launch_floor", index)]
+                     * WARM_CALLS)
+
+
 def host_ms(fn, iters: int = 50, batches: int = 5) -> float:
     """Per-call time of ``fn`` as the host sends it: CUDA events around a
     loop of Python calls, the median of ``batches`` loops."""

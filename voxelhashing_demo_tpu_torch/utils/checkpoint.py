@@ -311,17 +311,28 @@ def _graph(z, device) -> Optional[pose_graph.PoseGraph]:
 
 
 def _sharded_file(path: str, mesh) -> str:
-    """``path``, or this rank's shard file when only that exists."""
+    """``path``, or this rank's shard file when only that exists.  Raises
+    when both exist: a global file left beside per-process shards would
+    otherwise shadow them, whichever is newer."""
     import os
 
     pp = per_process_path(path, mesh)
-    return pp if not os.path.exists(path) and os.path.exists(pp) else path
+    if os.path.exists(pp):
+        if os.path.exists(path):
+            base, ext = os.path.splitext(path)
+            raise ValueError(
+                f"both {path} and this rank's shard file {pp} exist "
+                f"(shards: {base}.proc<rank>of<n>{ext or '.npz'}); remove "
+                "the one that is stale")
+        return pp
+    return path
 
 
 def load_sharded_slam(path: str, mesh):
     """Restore a sharded run on ``mesh`` (every rank calls it): each rank
     takes its own rows of the file's global layout, or reads its own shard
-    file (``per_process_path``) when ``path`` itself is absent.  The mesh
+    file (``per_process_path``) when ``path`` itself is absent (both
+    present raise ``ValueError``).  The mesh
     must have the size the file was written from (``mesh_n``); a shard file
     must have been written by this rank of a mesh of this size.  The
     streaming store keeps the rows this rank owns."""
