@@ -6,10 +6,10 @@ It needs a CUDA card; without one (or without the repository beside it)
 it exits nonzero and prints no result.  Phases, one JSON line each:
 
 1. ``device``: the card's name and power limit (nvidia-smi).
-2. ``build``: builds every kernel source under csrc/ (six CUDA kernels,
-   the empty kernel that measures the launch floor, and the host codec)
-   for sm_90a into the package's _build/ directory, one compiler process
-   each, started together.
+2. ``build``: builds every kernel source under csrc/ (the CUDA kernels,
+   the ICP pair K4a / K4b in icp.cu, the empty kernel that measures the
+   launch floor, and the host codec) for sm_90a into the package's _build/
+   directory, one compiler process each, started together.
 3. ``kernel``: both window-gather kernels (one CTA per block row;
    one warp per block row, "streamed") against their plain PyTorch
    versions on the card at 480x640, V=512.  First the frame step's own
@@ -46,6 +46,31 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    ``kernels.launch``, timed like the probe kernels
    (``tools/probe.launch_floor_ms``); a probe case within about 0.1 us
    of it is launch-bound.
+3c. ``icp``: the ICP kernel pair K4 (csrc/icp.cu: K4a ``icp_partials``,
+   K4b ``icp_solve_update``) on the flagship step's own inputs: the frame
+   after the first N_STEP_FRAMES room-sweep frames through
+   ``HashSLAM(flagship_gather_config())``, each ``icp_align`` call its
+   pyramid makes (L4 from the identity and from the motion prior, L2, L1:
+   the 2x-pooled source against the 640x480 target).  Per call: the
+   ``NormalSystem`` of ``normal_system`` against ``build_normal_system(
+   *associate(...))`` (rtol 1e-4, atol 1e-7; both beside the float64 sum of
+   the kernel's own per-pixel terms), K4a's partials against
+   ``_partials_reference`` (1e-5; bit-exactness printed), the score sums
+   (rtol 1e-5, counts equal), one K4b update against
+   ``_solve_update_reference`` (1e-5, state equal), then ``icp_align``
+   against ``icp_align_reference``: transforms 1e-5, error and count rtol
+   1e-3, iterations equal (a difference only as a tie: both last dnorms
+   within 1e-3 of tol2, printed); host syncs of each (0 on the kernel
+   path), launches (max_iters of each kernel).  Times: each kernel alone
+   by CUDA-graph replay, warm and L2-cold, its wrapper, its plain version,
+   the bound (24 bytes a source pixel, 8 a pixel that projects into the
+   image, the partials, over 3.35 TB/s), the launch floor and the least
+   time max(floor, bound).  Then one level's ``icp_align`` captured in a
+   CUDA graph and replayed equal to eager; the ICP stage of the step
+   (``icp_align_pyramid``), kernel against the plain versions in turns
+   plain / kernel / kernel / plain, its host syncs, K4 launches and
+   device kernels (torch.profiler); the pair-ICP batch (4 candidates at
+   the coarse level), syncs and ms, kernel and plain.
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
@@ -208,7 +233,12 @@ the card's memory rate); K16-K19 with their ``probes`` counts and the
 times of their first tool case (65 536 flat gathers; axis 0; the two-step
 gather; the integrate chunk alone), the others under ``cases``, and the
 launch floor of this run (``floor_ms``);
-``launches_by_path`` has each path's own count.  Last, the contract line
+``launches_by_path`` has each path's own count; K4a and K4b with the
+times and bound of the L1 case (the others under ``cases``), counted from
+0 on every path that runs the frame step (``parity`` through
+``roofline`` in this process, rank 0's count on ``nccl``,
+``sharded_backend`` and ``sharded``), each path failing unless both
+launched.  Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
 
@@ -892,6 +922,432 @@ def phase_probes(torch, wg):
            "results": results})
     return launches, _probe_summary(results, _probe_bounds(tools),
                                     floor_ms)
+
+
+# The flagship ICP (K4, csrc/icp.cu): the pyramid's icp_align calls on the
+# frame step's own inputs, each kernel against its plain version.
+ICP_KERNELS = ("icp_partials", "icp_solve_update")
+ICP_META = {
+    "icp_partials": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/icp.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/icp.py:136 (associate), "
+                    "voxelhashing_demo_tpu/ops/icp.py:196 "
+                    "(build_normal_system), "
+                    "voxelhashing_demo_tpu/ops/icp.py:312 "
+                    "(alignment_score_sums): fused by XLA, no Pallas kernel",
+    },
+    "icp_solve_update": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/icp.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/icp.py:233 "
+                    "(solve_normal_system), "
+                    "voxelhashing_demo_tpu/ops/icp.py:282 (the while_loop "
+                    "body's update): fused by XLA, no Pallas kernel",
+    },
+}
+ICP_SYSTEM_TOL = dict(rtol=1e-4, atol=1e-7)   # NormalSystem vs plain
+ICP_SCORE_RTOL = 1e-5
+ICP_T_ATOL = 1e-5           # transforms
+ICP_ERR_RTOL = 1e-3         # error and count of a whole loop
+ICP_TIE_RTOL = 1e-3         # a differing iteration count: dnorm vs tol2
+ICP_MAIN_CASE = "L1"        # the fine level: the largest source
+# bytes K4a must move: a source pixel's vertex and normal, the packed
+# target of each pixel that projects into the image, the partials; ~150
+# float operations a pixel (transform, project, decode, 29 products)
+K4_SRC_BYTES, K4_GATHER_BYTES, K4_OPS_PER_PIXEL = 24, 8, 150
+PAIR_BATCH = 4              # candidates of the timed pair-ICP batch
+
+
+def icp_launches() -> list:
+    """[K4a, K4b] launches counted since they were last set to 0."""
+    from voxelhashing_demo_tpu_torch.ops import icp
+
+    return [icp.LAUNCHES_PARTIALS, icp.LAUNCHES_SOLVE]
+
+
+def zero_icp_launches() -> None:
+    from voxelhashing_demo_tpu_torch.ops import icp
+
+    icp.LAUNCHES_PARTIALS = icp.LAUNCHES_SOLVE = 0
+
+
+def icp_calls(torch, cfg, depths):
+    """Run ``depths[:-1]`` through ``HashSLAM(cfg)`` and record the
+    ``icp_align`` calls that the next step's pyramid makes for
+    ``depths[-1]``: ([(name, src, tgt, lcam, lcfg, init_T)], the pyramid's
+    arguments, its keywords).  The coarsest level runs from the identity
+    and from the motion prior, then each finer level once."""
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import icp
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
+
+    slam = hash_slam.HashSLAM(cfg)
+    for d in depths[:-1]:
+        slam.process(d)
+    st = slam.state
+    frame = pre_ops.preprocess(hash_slam.depth_tensor(depths[-1],
+                                                      slam.device),
+                               cfg.camera, cfg.frontend)
+    args = (frame.depth, st.model.depth, cfg.camera, cfg.icp)
+    kw = dict(src_full=frame, tgt_full=st.model, prior_T=st.vel)
+    calls = []
+
+    def make(real):
+        def fn(src, tgt, cam, lcfg, init_T=None):
+            calls.append((src, tgt, cam, lcfg, init_T.clone()))
+            return real(src, tgt, cam, lcfg, init_T=init_T)
+        return fn
+
+    with _wrapped(icp, "icp_align", make):
+        icp.icp_align_pyramid(*args, **kw)
+    named = []
+    for k, (src, tgt, lcam, lcfg, T0) in enumerate(calls):
+        start = ("_identity", "_prior")[k] if k < 2 else ""
+        named.append((f"L{cfg.camera.width // lcam.width}{start}", src, tgt,
+                      lcam, lcfg, T0))
+    return named, args, kw
+
+
+@contextlib.contextmanager
+def plain_icp():
+    """The plain ICP in the kernels' place while the block runs:
+    ``icp_align_reference`` and the plain score sums."""
+    from voxelhashing_demo_tpu_torch.ops import icp
+
+    def score(T, src, tgt, cam, cfg, tgt_packed=None):
+        packed = icp.pack_target(tgt) if tgt_packed is None else tgt_packed
+        return icp._score_sums_reference(T, src, cam, cfg, packed)
+
+    with _wrapped(icp, "icp_align", lambda real: icp.icp_align_reference), \
+            _wrapped(icp, "alignment_score_sums", lambda real: score):
+        yield
+
+
+def _dnorms(torch, icp, src, tgt, lcam, lcfg, T0, kernel: bool) -> list:
+    """|delta|^2 of each iteration of the loop (the kernels' device loop
+    read back after each iteration, or the plain loop), for the tie rule."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+
+    T, out = T0.clone(), []
+    packed = icp.pack_target(tgt)
+    tol2 = float(np.float32(lcfg.update_tol ** 2))
+    if kernel:
+        verts, normals, packed, T = icp._kernel_inputs(T, src, packed, lcam)
+        parts = icp._partials_buffer(icp.N_SUMS, verts)
+        ist = torch.zeros(2, dtype=torch.int32, device=T.device)
+        fst = torch.empty(icp._FSTATE, dtype=torch.float32, device=T.device)
+        while not int(ist[1]):
+            icp._launch_partials(T, verts, normals, packed, lcam, lcfg,
+                                 False, ist, parts)
+            icp._launch_solve(parts, 0, T=T, istate=ist, fstate=fst,
+                              damping=lcfg.damping, tol2=tol2,
+                              max_iters=lcfg.max_iters)
+            out.append(float(fst[0]))
+        return out
+    for _ in range(lcfg.max_iters):
+        system = icp.build_normal_system(
+            *icp.associate(T, src, None, lcam, lcfg, packed),
+            lcfg.huber_delta)
+        delta = icp.solve_normal_system(system, lcfg.damping)
+        T = se3.exp(delta) @ T
+        out.append(float(torch.sum(delta * delta)))
+        if not out[-1] > tol2:
+            break
+    return out
+
+
+def _icp_bounds(torch, icp, src, lcam, T0, n_cta: int) -> dict:
+    """(bound_ms, bound_by) of K4a and K4b on this input: K4a reads each
+    source pixel's vertex and normal once, the packed target once for
+    each source-valid pixel that projects into the image, T once, and
+    writes the partials; K4b reads the partials and T and writes T and
+    the state (~600 operations of the solve and the update)."""
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+    from voxelhashing_demo_tpu_torch.geometry import se3
+
+    n_px = src.vertices.numel() // 3
+    _, inside = cam_geom.project_nearest(se3.apply(T0, src.vertices), lcam)
+    n_in = int((inside & (src.vertices[..., 2] != 0)).sum())
+    parts_bytes = icp.N_SUMS * 4 * n_cta
+    k4a = _probe_bound(K4_SRC_BYTES * n_px + K4_GATHER_BYTES * n_in + 48
+                       + parts_bytes, K4_OPS_PER_PIXEL * n_px)
+    k4b = _probe_bound(parts_bytes + 64 + 64 + 8 + 4 * icp._FSTATE,
+                       icp.N_SUMS * n_cta + 600)
+    return {"pixels": n_px, "pixels_in_image": n_in,
+            "icp_partials": k4a, "icp_solve_update": k4b}
+
+
+def _icp_case(torch, icp, probe, floor_ms, name, src, tgt, lcam, lcfg, T0):
+    """One icp_align call's inputs: K4a's system, partials and score sums,
+    K4b's update, the whole loop against icp_align_reference, host syncs,
+    launches and times."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+
+    packed = icp.pack_target(tgt)
+    verts, normals, packed, T = icp._kernel_inputs(T0, src, packed, lcam)
+    n_cta = icp._ctas(verts.numel() // 3)
+    tol2 = float(np.float32(lcfg.update_tol ** 2))
+    row = {"case": name, "source_hw": list(src.depth.shape),
+           "target_hw": [lcam.height, lcam.width],
+           "max_iters": lcfg.max_iters, "ctas": n_cta}
+
+    # K4a: the system under the start transform, against the plain version
+    # and against the kernel's own per-pixel terms summed in float64
+    got = icp.normal_system(T, src, packed, lcam, lcfg)
+    assoc = icp.associate(T, src, None, lcam, lcfg, packed)
+    want = icp.build_normal_system(*assoc, lcfg.huber_delta)
+    exact = icp._system_from_sums(icp._terms_reference(
+        T, src, packed, lcam, lcfg, False).double().sum(0))
+    fields = ("JTJ", "JTr", "error", "count")
+    sys_ok = all(bool(torch.allclose(getattr(got, f), getattr(want, f),
+                                     **ICP_SYSTEM_TOL)) for f in fields)
+    sys_err = max(float((getattr(got, f) - getattr(want, f)).abs().max())
+                  for f in fields)
+
+    def rel64(s):
+        return max(float(((getattr(s, f).double() - getattr(exact, f)).abs()
+                          / getattr(exact, f).abs().clamp(min=1e-30)).max())
+                   for f in fields)
+
+    row["system"] = {"ok": sys_ok, "max_abs_err": sys_err,
+                     "count": float(got.count),
+                     "max_rel_err_vs_float64": {"kernel": rel64(got),
+                                                "plain": rel64(want)}}
+    # K4a's partials against the in-order reference, and the score mode
+    parts = icp._partials_buffer(icp.N_SUMS, verts)
+    icp._launch_partials(T, verts, normals, packed, lcam, lcfg, False, None,
+                         parts)
+    parts_ref = icp._partials_reference(T, src, packed, lcam, lcfg)
+    sn, sd = icp.alignment_score_sums(T, src, None, lcam, lcfg, packed)
+    rn, rd = icp._score_sums_reference(T, src, lcam, lcfg, packed)
+    row["partials"] = {
+        "bit_exact": bool(torch.equal(parts, parts_ref)),
+        "close": bool(torch.allclose(parts, parts_ref, rtol=1e-5,
+                                     atol=1e-6)),
+        "max_abs_err": float((parts - parts_ref).abs().max())}
+    row["score"] = {"num": float(sn), "num_plain": float(rn),
+                    "den": float(sd), "den_plain": float(rd)}
+    # K4b: one update from the kernel's partials, against the reference
+    T1 = T.clone()
+    ist = torch.zeros(2, dtype=torch.int32, device=T.device)
+    fst = torch.zeros(icp._FSTATE, dtype=torch.float32, device=T.device)
+    icp._launch_solve(parts, 0, T=T1, istate=ist, fstate=fst,
+                      damping=lcfg.damping, tol2=tol2,
+                      max_iters=lcfg.max_iters)
+    T1r, istr, fstr = icp._solve_update_reference(
+        parts, T, torch.zeros_like(ist), torch.zeros_like(fst),
+        lcfg.damping, tol2, lcfg.max_iters)
+    row["update"] = {
+        "max_abs_err": float((T1 - T1r).abs().max()),
+        "state_equal": bool(torch.equal(ist, istr)),
+        "fstate_close": bool(torch.allclose(fst, fstr, rtol=1e-5,
+                                            atol=1e-12))}
+    # the whole loop against the plain loop
+    res = icp.icp_align(src, tgt, lcam, lcfg, init_T=T0)
+    ref = icp.icp_align_reference(src, tgt, lcam, lcfg, init_T=T0)
+    it_k, it_p = int(res.iters), int(ref.iters)
+    row["loop"] = {
+        "iters": it_k, "iters_plain": it_p,
+        "transform_max_abs_err": float((res.transform
+                                        - ref.transform).abs().max()),
+        "error": float(res.error), "error_plain": float(ref.error),
+        "count": float(res.count), "count_plain": float(ref.count)}
+    if it_k != it_p:
+        dk = _dnorms(torch, icp, src, tgt, lcam, lcfg, T0, True)
+        dp = _dnorms(torch, icp, src, tgt, lcam, lcfg, T0, False)
+        k = min(it_k, it_p) - 1
+        row["loop"]["tie"] = {"iteration": k + 1, "dnorm": dk[k],
+                              "dnorm_plain": dp[k], "tol2": tol2,
+                              "ok": all(abs(d - tol2) <= ICP_TIE_RTOL * tol2
+                                        for d in (dk[k], dp[k]))}
+    # host syncs and launches of one call, kernel and plain
+    before = icp_launches()
+    row["syncs"] = count_syncs(
+        torch, lambda: icp.icp_align(src, tgt, lcam, lcfg, init_T=T0))
+    row["launches"] = [a - b for a, b in zip(icp_launches(), before)]
+    row["syncs_plain"] = count_syncs(
+        torch,
+        lambda: icp.icp_align_reference(src, tgt, lcam, lcfg, init_T=T0))
+    # times: each kernel alone (CUDA-graph replay, warm and L2-cold), its
+    # wrapper, its plain version; the bound and the least time
+    bounds = _icp_bounds(torch, icp, src, lcam, T0, n_cta)
+    row["pixels_in_image"] = bounds["pixels_in_image"]
+    k4a = probe.timings(
+        lambda t, v, nrm, pk, pt: icp._launch_partials(
+            t, v, nrm, pk, lcam, lcfg, False, None, pt),
+        (T, verts, normals, packed, parts))
+    k4b = probe.timings(
+        lambda pt, t, i, f: icp._launch_solve(
+            pt, 0, T=t, istate=i, fstate=f, damping=lcfg.damping,
+            tol2=-1.0, max_iters=2 ** 30),
+        (parts, T.clone(), torch.zeros_like(ist), torch.zeros_like(fst)))
+    plain = {
+        "icp_partials": probe.host_ms(
+            lambda: icp.build_normal_system(
+                *icp.associate(T, src, None, lcam, lcfg, packed),
+                lcfg.huber_delta), iters=10),
+        "icp_solve_update": probe.host_ms(
+            lambda: se3.exp(icp.solve_normal_system(want, lcfg.damping))
+            @ T, iters=10)}
+    for kname, t in (("icp_partials", k4a), ("icp_solve_update", k4b)):
+        bound_ms, bound_by = bounds[kname]
+        row[kname] = {**t, "plain_ms": plain[kname], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "floor_ms": floor_ms,
+                      "least_ms": max(floor_ms, bound_ms)}
+    return row
+
+
+def _device_kernels(torch, fn) -> dict:
+    """CUDA kernels one call of ``fn`` runs, and their busy µs, from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"kernels": len(events),
+            "busy_us": sum(e.time_range.elapsed_us() for e in events)}
+
+
+def phase_icp(torch, card: str, sweep):
+    """K4 on the flagship step's own ICP inputs: the frame after the first
+    N_STEP_FRAMES room-sweep frames through ``HashSLAM(flagship_gather_
+    config())``; every level of the pyramid, the coarsest from the
+    identity and from the motion prior.  Returns {kernel: its kernels-line
+    fields}."""
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.ops import icp
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    t0 = time.perf_counter()
+    cfg = flagship_gather_config()
+    calls, args, kw = icp_calls(torch, cfg, sweep[:N_STEP_FRAMES + 1])
+    _require([c[0] for c in calls] == ["L4_identity", "L4_prior", "L2",
+                                       "L1"],
+             "the flagship pyramid's four icp_align calls")
+    floor_ms = probe.launch_floor_ms()
+    rows = [_icp_case(torch, icp, probe, floor_ms, *c) for c in calls]
+
+    # one level's icp_align captured into a CUDA graph, replayed
+    name, src, tgt, lcam, lcfg, T0 = calls[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        icp.icp_align(src, tgt, lcam, lcfg, init_T=T0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = icp.icp_align(src, tgt, lcam, lcfg, init_T=T0)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = icp.icp_align(src, tgt, lcam, lcfg, init_T=T0)
+    graph_equal = all(bool(torch.equal(a, b))
+                      for a, b in zip(captured, eager))
+
+    # the ICP stage of the step: the pyramid, kernel against plain, in
+    # turns plain / kernel / kernel / plain
+    def pyramid():
+        return icp.icp_align_pyramid(*args, **kw)
+
+    stage = {"kernel": [], "plain": []}
+    for turn in ("plain", "kernel", "kernel", "plain"):
+        if turn == "plain":
+            with plain_icp():
+                stage[turn].append(median_ms(torch, pyramid))
+        else:
+            stage[turn].append(median_ms(torch, pyramid))
+    before = icp_launches()
+    frame_syncs = count_syncs(torch, pyramid)
+    per_frame = [a - b for a, b in zip(icp_launches(), before)]
+    frame_kernels = _device_kernels(torch, pyramid)
+    with plain_icp():
+        frame_syncs_plain = count_syncs(torch, pyramid)
+        frame_kernels_plain = _device_kernels(torch, pyramid)
+    a, b = pyramid(), None
+    with plain_icp():
+        b = pyramid()
+    pyramid_err = float((a.transform - b.transform).abs().max())
+
+    # the pair-ICP batch at the keyframe resolution (the coarsest level's
+    # frames), kernel and plain
+    pair_cfg = dataclasses.replace(
+        cfg.icp, max_iters=cfg.keyframes.loop_icp_max_iters)
+    _, src4, tgt4, lcam4, _, T04 = calls[0]
+
+    def batch():
+        return icp.icp_align_batch([src4] * PAIR_BATCH, [tgt4] * PAIR_BATCH,
+                                   lcam4, pair_cfg, [T04] * PAIR_BATCH)
+
+    pair = {"candidates": PAIR_BATCH, "max_iters": pair_cfg.max_iters,
+            "syncs": count_syncs(torch, batch),
+            "ms": median_ms(torch, batch)}
+    with plain_icp():
+        pair["syncs_plain"] = count_syncs(torch, batch)
+        pair["ms_plain"] = median_ms(torch, batch)
+    pair["sync_sites"] = sync_sites(torch, batch)
+
+    _emit({"phase": "icp", "card": card, "cases": rows,
+           "graph_replay_equal_eager": graph_equal, "graph_case": name,
+           "stage_ms": stage, "stage_syncs": frame_syncs,
+           "stage_syncs_plain": frame_syncs_plain,
+           "launches_per_frame": dict(zip(ICP_KERNELS, per_frame)),
+           "stage_device_kernels": frame_kernels,
+           "stage_device_kernels_plain": frame_kernels_plain,
+           "pyramid_transform_max_abs_err": pyramid_err,
+           "pair_icp_batch": pair, "floor_ms": floor_ms,
+           "seconds": time.perf_counter() - t0})
+    for r in rows:
+        c = r["case"]
+        lp = r["loop"]
+        _require(r["system"]["ok"], f"K4 NormalSystem == plain within "
+                                    f"rtol 1e-4, atol 1e-7 ({c})")
+        _require(abs(r["score"]["num"] - r["score"]["num_plain"])
+                 <= ICP_SCORE_RTOL * abs(r["score"]["num_plain"])
+                 and r["score"]["den"] == r["score"]["den_plain"],
+                 f"K4 score sums == plain within rtol 1e-5 ({c})")
+        _require(r["partials"]["close"], f"K4a partials == the in-order "
+                                         f"reference within 1e-5 ({c})")
+        _require(r["update"]["max_abs_err"] <= ICP_T_ATOL
+                 and r["update"]["state_equal"]
+                 and r["update"]["fstate_close"],
+                 f"K4b update == the in-order reference ({c})")
+        _require(lp["transform_max_abs_err"] <= ICP_T_ATOL,
+                 f"K4 transform == plain within 1e-5 ({c})")
+        _require(abs(lp["error"] - lp["error_plain"])
+                 <= ICP_ERR_RTOL * abs(lp["error_plain"])
+                 and abs(lp["count"] - lp["count_plain"])
+                 <= ICP_ERR_RTOL * abs(lp["count_plain"]),
+                 f"K4 error and count == plain within rtol 1e-3 ({c})")
+        _require(lp["iters"] == lp["iters_plain"]
+                 or lp.get("tie", {}).get("ok", False),
+                 f"K4 iterations == plain, or a tie at tol2 ({c})")
+        _require(r["syncs"] == 0, f"icp_align syncs 0 times on the card "
+                                  f"({c})")
+        _require(r["launches"] == [r["max_iters"]] * 2,
+                 f"icp_align launches K4a and K4b max_iters times ({c})")
+    _require(graph_equal, "icp_align captured in a CUDA graph == eager")
+    _require(per_frame == [sum(r["max_iters"] for r in rows) + 2] * 2,
+             "the pyramid launches K4a / K4b once an iteration, twice for "
+             "the race's scores")
+    main = next(r for r in rows if r["case"] == ICP_MAIN_CASE)
+    summary = {}
+    for kname in ICP_KERNELS:
+        def fields(r, kname=kname):
+            return {"case": r["case"], **r[kname]}
+        summary[kname] = {
+            **fields(main),
+            "max_abs_err": max(r["system"]["max_abs_err"]
+                               if kname == "icp_partials"
+                               else r["update"]["max_abs_err"]
+                               for r in rows),
+            "library_ms": None,
+            "cases": [fields(r) for r in rows if r is not main]}
+    return summary
 
 
 def _run_port(torch, cfg, depths, device):
@@ -2465,17 +2921,21 @@ def phase_nccl(torch, frames) -> dict:
            "frame_ms": _rank_ms([one])[0],
            "collectives_per_frame": one["collectives_per_frame"],
            "launches": sum(one["launches"]),
+           "icp_launches": one["icp_launches"],
            "peak_mem_bytes": one["peak_mem_bytes"]})
     _require(coll["backend"] == "nccl" and helpers_ok,
              "NCCL group initializes; its collective helpers agree")
     _require(all(k > 0 for k in one["launches"]),
              "K1 launched on every frame over NCCL")
+    _require(all(n > 0 for n in one["icp_launches"]),
+             "K4 launched over NCCL")
     return one
 
 
-def phase_sharded(torch, card: str, frames, gt, one) -> int:
+def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
     """Two ranks on the one card over Gloo at flagship_gather_config():
-    see the module docstring."""
+    see the module docstring.  Returns rank 0's K1 launches and its
+    [K4a, K4b] launches."""
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.parallel import launch, ranks
@@ -2530,6 +2990,7 @@ def phase_sharded(torch, card: str, frames, gt, one) -> int:
            "keys_per_rank": [len(x) for x in sets],
            "keys_single_card": len(s_keys),
            "hit_frac": hit, "launches_per_rank": launches,
+           "icp_launches_per_rank": [o["icp_launches"] for o in two],
            "kernel_check": [o["kernel"] for o in two],
            "frame_ms_per_rank": _rank_ms(two),
            "collective_host_bytes_per_frame":
@@ -2552,13 +3013,16 @@ def phase_sharded(torch, card: str, frames, gt, one) -> int:
              "K1 launched once per frame on each rank")
     _require(all(o["kernel"]["bit_exact"] and o["kernel"]["rows"] > 0
                  for o in two), "K1 bit-exact on each rank's own rows")
-    return launches[0]
+    _require(all(n > 0 for o in two for n in o["icp_launches"]),
+             "K4 launched on each rank")
+    return launches[0], a["icp_launches"]
 
 
-def phase_sharded_backend(torch, card: str) -> int:
+def phase_sharded_backend(torch, card: str) -> tuple:
     """KeyframeSLAM(mesh) on two Gloo ranks over the first
     N_SHARDED_BACKEND frames of the backend scenario (the drift before
-    frame 18), against a one-rank NCCL mesh and the single-card backend."""
+    frame 18), against a one-rank NCCL mesh and the single-card backend.
+    Returns rank 0's K1 launches and its [K4a, K4b] launches."""
     from voxelhashing_demo_tpu_torch.geometry import se3
     from voxelhashing_demo_tpu_torch.models import keyframe_slam
     from voxelhashing_demo_tpu_torch.parallel import launch, ranks
@@ -2604,6 +3068,7 @@ def phase_sharded_backend(torch, card: str) -> int:
            "ate_mm": ate, "ate_single_card_mm": ate_single,
            "launches_per_rank": [o["launches"] for o in two],
            "launches_expected": expected,
+           "icp_launches_per_rank": [o["icp_launches"] for o in two],
            "ba_ms_per_solve": ba_ms,
            "collective_host_bytes_per_frame":
                [o["collective_host_bytes_per_frame"] for o in two]})
@@ -2612,7 +3077,9 @@ def phase_sharded_backend(torch, card: str) -> int:
     _require(ate < 2.0 * ate_single, "ATE below twice the single card's")
     _require([o["launches"] for o in two] == expected,
              "K1 launches == frames + rebuild fuses + 2 x moves per rank")
-    return a["launches"]
+    _require(all(n > 0 for o in two for n in o["icp_launches"]),
+             "K4 launched on each rank")
+    return a["launches"], a["icp_launches"]
 
 
 def main() -> int:
@@ -2650,29 +3117,47 @@ def main() -> int:
     rows, worst = phase_kernel(torch, wg, step_rows(
         flagship_gather_config(), sweep[:N_STEP_FRAMES]))
     probe_launches, probes = phase_probes(torch, wg)
-    phase_parity(torch)
+    icp_summary = phase_icp(torch, smi, sweep)
     # launches per path, each counted from 0 by the phase that drives it;
     # "launches" in the summary is the last path's count
     by_path = {k: {"probes": n} for k, n in probe_launches.items()}
-    by_path["gather_depth_window"]["slice"] = phase_slice(torch, wg)
-    slam, last_depth, march_launches = phase_march(torch, wg, march_cfg,
-                                                   sweep, sweep_gt)
+    by_path.update({k: {} for k in ICP_KERNELS})
+
+    def k4(path: str, run):
+        """``run()`` with K4's counts from 0, recorded under ``path``; the
+        frame step tracks on every path, so both kernels must launch."""
+        zero_icp_launches()
+        out = run()
+        counts = icp_launches()
+        for kname, n in zip(ICP_KERNELS, counts):
+            by_path[kname][path] = n
+        _require(all(n > 0 for n in counts), f"K4 launched on {path}")
+        return out
+
+    k4("parity", lambda: phase_parity(torch))
+    by_path["gather_depth_window"]["slice"] = k4(
+        "slice", lambda: phase_slice(torch, wg))
+    slam, last_depth, march_launches = k4("march", lambda: phase_march(
+        torch, wg, march_cfg, sweep, sweep_gt))
     by_path["gather_depth_window"]["march"] = march_launches
     by_path["gather_depth_window_streamed"]["streamed_entry"] = (
         phase_streamed_entry(torch, wg, slam, last_depth))
     del slam
-    by_path["gather_depth_window"]["backend"] = phase_backend(
-        torch, wg, smi)
-    launches, ate_stream = phase_stream(torch, wg, smi)
+    by_path["gather_depth_window"]["backend"] = k4(
+        "backend", lambda: phase_backend(torch, wg, smi))
+    launches, ate_stream = k4("stream", lambda: phase_stream(torch, wg, smi))
     by_path["gather_depth_window"]["stream"] = launches
-    by_path["gather_depth_window"]["stream_backend"] = phase_stream_backend(
-        torch, wg, smi, ate_stream)
-    by_path["gather_depth_window"]["cli"] = phase_cli(torch, wg, smi)
-    by_path["gather_depth_window"]["bench"] = phase_bench(torch, wg, smi)
-    phase_entry(torch, smi, sweep)
+    by_path["gather_depth_window"]["stream_backend"] = k4(
+        "stream_backend",
+        lambda: phase_stream_backend(torch, wg, smi, ate_stream))
+    by_path["gather_depth_window"]["cli"] = k4(
+        "cli", lambda: phase_cli(torch, wg, smi))
+    by_path["gather_depth_window"]["bench"] = k4(
+        "bench", lambda: phase_bench(torch, wg, smi))
+    k4("entry", lambda: phase_entry(torch, smi, sweep))
     phase_dryrun(torch, smi)
-    by_path["gather_depth_window"]["roofline"] = phase_roofline(
-        torch, wg, smi)
+    by_path["gather_depth_window"]["roofline"] = k4(
+        "roofline", lambda: phase_roofline(torch, wg, smi))
     phase_bench_micro(torch, smi)
     phase_scaling(torch, smi)
     from voxelhashing_demo_tpu_torch.utils import synthetic
@@ -2681,13 +3166,18 @@ def main() -> int:
         flagship_gather_config().camera, JAX_REFERENCE["frames"],
         trans_amp=0.05, rot_amp_deg=2.5)
     frames, gt = [np.asarray(d) for d in frames[:N_FRAMES]], gt[:N_FRAMES]
+    # rank 0's counts on the multi-rank paths
     one = phase_nccl(torch, frames)
     by_path["gather_depth_window"]["nccl"] = sum(one["launches"])
-    by_path["gather_depth_window"]["sharded_backend"] = (
-        phase_sharded_backend(torch, smi))
+    k4_ranks = {"nccl": one["icp_launches"]}
+    by_path["gather_depth_window"]["sharded_backend"], \
+        k4_ranks["sharded_backend"] = phase_sharded_backend(torch, smi)
     # the slice's main path, last: "launches" is rank 0's count
-    by_path["gather_depth_window"]["sharded"] = phase_sharded(
-        torch, smi, frames, gt, one)
+    by_path["gather_depth_window"]["sharded"], k4_ranks["sharded"] = (
+        phase_sharded(torch, smi, frames, gt, one))
+    for path, counts in k4_ranks.items():
+        for kname, n in zip(ICP_KERNELS, counts):
+            by_path[kname][path] = n
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{
@@ -2708,7 +3198,12 @@ def main() -> int:
         "launches": by_path[kname]["probes"],
         "launches_by_path": by_path[kname],
         **probes[kname],
-    } for kname in PROBE_TAGS]})
+    } for kname in PROBE_TAGS] + [{
+        "name": kname, **ICP_META[kname],
+        "launches": list(by_path[kname].values())[-1],
+        "launches_by_path": by_path[kname],
+        **icp_summary[kname],
+    } for kname in ICP_KERNELS]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0

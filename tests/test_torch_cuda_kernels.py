@@ -13,7 +13,14 @@ CPU within 1e-4; the streaming cycle's copies (pinned buffers, side
 stream) return what was sent, bit for bit; the probe kernels K16 and K17
 equal their plain versions bit for bit over index counts, pointer
 alignments, strip widths, strided views, the direct path of a tall source
-and out-of-range indices.
+and out-of-range indices.  The ICP kernels (K4) at the flagship's three
+pyramid levels: K4a's partials
+against the in-order reference within 1e-5, the score sums within rtol
+1e-5, one K4b update within 1e-5 of its plain version, the system within
+rtol 1e-5 of the float64 sum of its own terms (and within 1e-4 of the
+plain one in norm), the flagship pyramid within 1e-5 of the plain loops
+with equal iteration counts; the loop makes no host sync and replays from
+a CUDA graph bit for bit.
 """
 
 import dataclasses
@@ -756,3 +763,175 @@ def test_take_along_axis1_paths(cuda, case):
     assert got.shape == (rows, cols)
     assert _bits_equal(got, ref)
     assert bool(torch.isnan(got).any())
+
+
+# --------------------------------------------------------------------------
+# ICP (K4: csrc/icp.cu)
+# --------------------------------------------------------------------------
+
+def _icp_level(cuda, level: str):
+    """(src, tgt, cam, cfg, T0) at 640x480 from frames 6 and 5 of
+    chip_smoke.py's noisy room sweep (24 frames over 40 degrees), as the
+    flagship pyramid builds a level: "L4", "L2", or "L1" (the source
+    pooled by 2 against the full-size target)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.geometry import se3
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cfg = flagship_config()
+    cam = cfg.camera
+    depths, _ = synthetic.make_room_sweep(cam, 24, sweep_deg=40.0,
+                                          noise_seed=1, device=cuda)
+    d_src, d_tgt = (pre.depth_to_meters(
+        torch.as_tensor(np.asarray(depths[i]).astype(np.int32),
+                        device=cuda), cam)
+        for i in (6, 5))
+    factor, pool = {"L4": (4, 1), "L2": (2, 1), "L1": (1, 2)}[level]
+    lcam = cam.scaled(factor) if factor > 1 else cam
+    tgt = pre.preprocess_metric(pre.downsample_depth(d_tgt, factor), lcam)
+    if pool > 1:
+        src = pre.preprocess_metric(pre.downsample_depth_mean(d_src, pool),
+                                    cam.scaled(pool))
+    else:
+        src = pre.preprocess_metric(pre.downsample_depth(d_src, factor),
+                                    lcam)
+    T0 = se3.exp(torch.tensor([0.01, -0.004, 0.006, 0.002, -0.01, 0.003],
+                              device=cuda))
+    icfg = dataclasses.replace(cfg.icp, max_iters=8)
+    return src, tgt, lcam, icfg, T0
+
+
+@pytest.mark.parametrize("level", ["L4", "L2", "L1"])
+def test_icp_kernels_match_plain(cuda, level):
+    """One Gauss-Newton iteration at each level.  K4a's system against the
+    float64 sum of its own per-pixel terms (rtol 1e-5, atol 1e-7: the
+    fixed tree) and against ``build_normal_system(*associate(...))`` in
+    norm (1e-4 of each field's norm: cuBLAS's float32 sums err by up to
+    2e-4 on an entry that cancels, such as a JTr entry 3 000 x smaller than
+    the largest); its partials against the in-order reference (1e-5); the
+    score sums (rtol 1e-5, count equal); one K4b update against
+    ``_solve_update_reference`` (1e-5, state equal)."""
+    from voxelhashing_demo_tpu_torch.ops import icp
+
+    src, tgt, cam, cfg, T0 = _icp_level(cuda, level)
+    packed = icp.pack_target(tgt)
+    before = (icp.LAUNCHES_PARTIALS, icp.LAUNCHES_SOLVE)
+    got = icp.normal_system(T0, src, packed, cam, cfg)
+    assert (icp.LAUNCHES_PARTIALS, icp.LAUNCHES_SOLVE) == (
+        before[0] + 1, before[1] + 1)
+    want = icp.build_normal_system(
+        *icp.associate(T0, src, None, cam, cfg, packed), cfg.huber_delta)
+    assert float(want.count) > 1000
+    exact = icp._system_from_sums(icp._terms_reference(
+        T0, src, packed, cam, cfg, False).double().sum(0))
+    for name in ("JTJ", "JTr", "error", "count"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert torch.allclose(g.double(), getattr(exact, name), rtol=1e-5,
+                              atol=1e-7), name
+        assert float(torch.linalg.norm(g - w)) <= 1e-4 * float(
+            torch.linalg.norm(w)), name
+    verts, normals, packed, T = icp._kernel_inputs(T0, src, packed, cam)
+    parts = icp._partials_buffer(icp.N_SUMS, verts)
+    icp._launch_partials(T, verts, normals, packed, cam, cfg, False, None,
+                         parts)
+    ref = icp._partials_reference(T, src, packed, cam, cfg)
+    assert torch.allclose(parts, ref, rtol=1e-5, atol=1e-6)
+    num, den = icp.alignment_score_sums(T0, src, None, cam, cfg, packed)
+    rnum, rden = icp._score_sums_reference(T0, src, cam, cfg, packed)
+    assert torch.allclose(num, rnum, rtol=1e-5) and bool(den == rden)
+    tol2 = float(np.float32(cfg.update_tol ** 2))
+    T1 = T.clone()
+    ist = torch.zeros(2, dtype=torch.int32, device=cuda)
+    fst = torch.zeros(39, device=cuda)
+    icp._launch_solve(parts, 0, T=T1, istate=ist, fstate=fst,
+                      damping=cfg.damping, tol2=tol2,
+                      max_iters=cfg.max_iters)
+    T1r, istr, fstr = icp._solve_update_reference(
+        parts, T, torch.zeros_like(ist), torch.zeros_like(fst), cfg.damping,
+        tol2, cfg.max_iters)
+    assert float((T1 - T1r).abs().max()) <= 1e-5
+    assert torch.equal(ist, istr)
+
+
+def test_icp_pyramid_matches_plain(cuda, monkeypatch):
+    """The flagship pyramid (identity start, the prior raced at the
+    coarsest level) on two consecutive sweep frames, the device loops
+    against the plain loops: transform within 1e-5, iterations equal,
+    inlier count and error within rtol 1e-3 (an inlier on a gate's edge
+    may flip between the two float orders)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.geometry import se3
+    from voxelhashing_demo_tpu_torch.ops import icp
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cfg = flagship_config()
+    depths, _ = synthetic.make_room_sweep(cfg.camera, 24, sweep_deg=40.0,
+                                          noise_seed=1, device=cuda)
+    d_src, d_tgt = (pre.depth_to_meters(
+        torch.as_tensor(np.asarray(depths[i]).astype(np.int32),
+                        device=cuda), cfg.camera) for i in (6, 5))
+    prior = se3.exp(torch.tensor([0.0, 0.0, 0.0, 0.0, 0.03, 0.0],
+                                 device=cuda))
+    args = (d_src, d_tgt, cfg.camera, cfg.icp)
+    before = icp.LAUNCHES_PARTIALS
+    res = icp.icp_align_pyramid(*args, prior_T=prior)
+    assert icp.LAUNCHES_PARTIALS - before == sum(cfg.icp.pyramid_iters) + 10
+    monkeypatch.setattr(icp, "icp_align", icp.icp_align_reference)
+    monkeypatch.setattr(
+        icp, "alignment_score_sums",
+        lambda T, src, tgt, cam, c, packed=None: icp._score_sums_reference(
+            T, src, cam, c, icp.pack_target(tgt) if packed is None
+            else packed))
+    plain = icp.icp_align_pyramid(*args, prior_T=prior)
+    assert int(res.iters) == int(plain.iters)
+    assert float((res.transform - plain.transform).abs().max()) <= 1e-5
+    assert torch.allclose(res.count, plain.count, rtol=1e-3)
+    assert torch.allclose(res.error, plain.error, rtol=1e-3)
+
+
+def test_icp_align_makes_no_host_sync_and_replays_in_a_graph(cuda):
+    """The device loop reads nothing back: under sync-debug "error" mode it
+    runs; captured into a CUDA graph it replays to the eager result."""
+    from voxelhashing_demo_tpu_torch.ops import icp
+
+    src, tgt, cam, cfg, T0 = _icp_level(cuda, "L4")
+    icp.icp_align(src, tgt, cam, cfg, init_T=T0)      # built and bound
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = icp.icp_align(src, tgt, cam, cfg, init_T=T0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        icp.icp_align(src, tgt, cam, cfg, init_T=T0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = icp.icp_align(src, tgt, cam, cfg, init_T=T0)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, res):
+        assert torch.equal(a, b)
+
+
+def test_icp_refused_launch_raises(cuda, monkeypatch):
+    """A launch that CUDA refuses raises out of ``icp_align``; the plain
+    loop never runs in its place."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.ops import icp
+
+    src, tgt, cam, cfg, T0 = _icp_level(cuda, "L4")
+    monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain loop ran on CUDA tensors")
+
+    monkeypatch.setattr(icp, "icp_align_reference", no_plain)
+    with pytest.raises(RuntimeError, match="icp_partials kernel launch"):
+        icp.icp_align(src, tgt, cam, cfg, init_T=T0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        icp.normal_system(T0.cpu(), src, icp.pack_target(tgt), cam, cfg)

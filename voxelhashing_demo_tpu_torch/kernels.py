@@ -32,7 +32,7 @@ HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 HOST_LIBS = ("-lz",)
 HOST_SOURCES = ("depthio",)      # csrc/<name>.cpp
 
-_FUNCTIONS: dict = {}       # source name -> its bound C function
+_FUNCTIONS: dict = {}       # C function name -> the bound function
 
 
 def nvcc() -> str:
@@ -115,8 +115,8 @@ def build_host(name: str) -> Path:
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
     ctypes.c_float
-# source name (= its exported C function, returning int) -> argument types
-# (the stream is always last)
+# exported C function (returning int; its source is csrc/<name>.cu unless
+# SOURCES says otherwise) -> argument types (the stream is always last)
 _GATHER_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 KERNELS = {
     "window_gather": _GATHER_ARGS,
@@ -133,27 +133,43 @@ KERNELS = {
     "integrate_chunk": [_P, _P, _P, _P, _P, _P, _L, _L, _F, _P],
     # an empty kernel (no arguments but the stream): the launch floor
     "launch_floor": [_P],
+    # ICP (csrc/icp.cu): verts, normals, pixels, packed target, W, H, fx,
+    # fy, cx, cy, 1/fx, 1/fy, T, loop state, normal and distance gates,
+    # Huber delta, score mode, partials
+    "icp_partials": [_P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P,
+                     _F, _F, _F, _I, _P, _P],
+    # partials, CTAs, sums, mode, T, int state, float state, out, damping,
+    # tol2, max_iters
+    "icp_solve_update": [_P, _I, _I, _I, _P, _P, _P, _P, _F, _F, _I, _P],
 }
+# C function -> its source under csrc/, where the two names differ
+SOURCES = {"icp_partials": "icp", "icp_solve_update": "icp"}
+
+
+def source_of(name: str) -> str:
+    """The csrc/<source>.cu that exports C function ``name``."""
+    return SOURCES.get(name, name)
 
 
 def build_all() -> dict[str, Path]:
     """Compile every source that is not built yet (the CUDA kernels and
     the host codec), all compiler processes started together; returns
     {name: library path}."""
-    jobs = [(build, n) for n in KERNELS] + [(build_host, n)
-                                            for n in HOST_SOURCES]
+    cuda = sorted({source_of(n) for n in KERNELS})
+    jobs = [(build, n) for n in cuda] + [(build_host, n)
+                                         for n in HOST_SOURCES]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = [pool.submit(fn, n) for fn, n in jobs]
         return {n: f.result() for (_, n), f in zip(jobs, futures)}
 
 
 def function(name: str):
-    """The C function ``name`` of ``csrc/<name>.cu``, argument types set:
-    built, loaded and bound on the first call, the same object
+    """The C function ``name`` of its source (``source_of``), argument
+    types set: built, loaded and bound on the first call, the same object
     afterwards (it keeps its library alive)."""
     fn = _FUNCTIONS.get(name)
     if fn is None:
-        fn = getattr(ctypes.CDLL(str(build(name))), name)
+        fn = getattr(ctypes.CDLL(str(build(source_of(name)))), name)
         fn.argtypes = KERNELS[name]
         fn.restype = ctypes.c_int
         _FUNCTIONS[name] = fn

@@ -1,11 +1,26 @@
 """Point-to-plane ICP tracking by damped Gauss-Newton (port of ops/icp.py).
 
-The Gauss-Newton loop keeps the JAX version's early exit (stop once
-|delta|^2 <= update_tol^2 or after max_iters) as a host-checked Python
-loop: one device-to-host read of the update norm per iteration.
+On CUDA tensors the Gauss-Newton loop of ``icp_align`` runs on the device,
+in the hand-written kernel pair of ``csrc/icp.cu`` (K4): ``max_iters``
+times K4a ``icp_partials`` (association and each CTA's sums of the normal
+equations) and K4b ``icp_solve_update`` (the sums over the CTAs, the 6x6
+Cholesky solve, T <- exp(delta) T and the loop state).  K4b sets a done
+flag on the device when the JAX loop would stop (after ``max_iters``, or
+once |delta|^2 <= update_tol^2) and both kernels return at entry once it
+is set, so the loop makes no host read and ``iters`` stays a device
+tensor.  ``normal_system`` and ``alignment_score_sums`` run on the same
+kernels.  A launch that fails raises; nothing falls back.
 
-The 6x6 normal equations are formed and solved in float32.  The JTJ/JTr
-products run with ``torch.backends.cuda.matmul.allow_tf32 = False``
+On CPU tensors each function runs its plain version: ``icp_align_reference``
+(a host-checked Python loop, one device-to-host read of the update norm
+per iteration), ``build_normal_system(*associate(...))``,
+``_score_sums_reference``.  ``_partials_reference`` and
+``_solve_update_reference`` compute what K4a and K4b compute, tile by tile
+in the kernels' order, for the tests and the card checks.
+``LAUNCHES_PARTIALS`` and ``LAUNCHES_SOLVE`` count the kernels' launches.
+
+The plain 6x6 normal equations are formed and solved in float32.  Their
+JTJ/JTr products run with ``torch.backends.cuda.matmul.allow_tf32 = False``
 (set around the product by ``_f32_matmul``): TF32 keeps ~3 decimal digits,
 which would bend the solve.
 """
@@ -19,12 +34,25 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import CameraConfig, ICPConfig
 from ..geometry import camera as cam_geom
 from ..geometry import se3
 from ..geometry.f32 import recip
 from .preprocess import (Frame, _norm, downsample_depth,
                          downsample_depth_mean, preprocess_metric)
+
+
+LAUNCHES_PARTIALS = 0   # K4a icp_partials
+LAUNCHES_SOLVE = 0      # K4b icp_solve_update
+
+CTA_PIXELS = 256        # K4a: source pixels a CTA (csrc/icp.cu kThreads)
+N_SUMS = 29             # 21 upper-triangle JTJ, 6 JTr, error, count
+N_SCORE_SUMS = 2        # num, den
+# what K4b does with the summed partials
+_MODE_SOLVE, _MODE_SYSTEM, _MODE_SCORE = 0, 1, 2
+# K4b's float loop state: dnorm, err, count, JTJ (36)
+_FSTATE = 3 + 36
 
 
 class NormalSystem(NamedTuple):
@@ -199,14 +227,15 @@ def solve_normal_system(sys: NormalSystem, damping: float) -> torch.Tensor:
     return torch.where(ok, delta, 0.0)
 
 
-def icp_align(
+def icp_align_reference(
     src: Frame,
     tgt: Frame,
     cam: CameraConfig,
     cfg: ICPConfig,
     init_T: torch.Tensor | None = None,
 ) -> ICPResult:
-    """Align src onto tgt: returns T such that T @ src ~= tgt."""
+    """Plain version of ``icp_align``, on any device: the JAX loop as a
+    host-checked Python loop (one device-to-host read per iteration)."""
     dev = src.depth.device
     T = se3.identity(device=dev) if init_T is None else init_T
     tgt_packed = pack_target(tgt)
@@ -229,6 +258,361 @@ def icp_align(
     return ICPResult(transform=T, error=err, count=cnt,
                      iters=torch.tensor(it, dtype=torch.int32, device=dev),
                      JTJ=JTJ)
+
+
+def icp_align(
+    src: Frame,
+    tgt: Frame,
+    cam: CameraConfig,
+    cfg: ICPConfig,
+    init_T: torch.Tensor | None = None,
+) -> ICPResult:
+    """Align src onto tgt: returns T such that T @ src ~= tgt.  The
+    device loop of K4a / K4b on CUDA tensors, ``icp_align_reference`` on
+    CPU tensors."""
+    if _on_cpu(src.vertices, tgt.depth):
+        return icp_align_reference(src, tgt, cam, cfg, init_T)
+    dev = src.vertices.device
+    T = (se3.identity(device=dev) if init_T is None
+         else init_T.to(torch.float32).clone(
+             memory_format=torch.contiguous_format))
+    verts, normals, packed, T = _kernel_inputs(T, src, pack_target(tgt),
+                                               cam)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if cfg.max_iters <= 0:        # the JAX loop's initial state
+        return ICPResult(transform=T, error=torch.full((), math.inf, **f32),
+                         count=torch.zeros((), **f32),
+                         iters=torch.zeros((), dtype=torch.int32, device=dev),
+                         JTJ=torch.zeros((6, 6), **f32))
+    partials = _partials_buffer(N_SUMS, verts)
+    istate = torch.zeros(2, dtype=torch.int32, device=dev)   # it, done
+    fstate = torch.empty(_FSTATE, **f32)      # written by the first K4b
+    tol2 = float(np.float32(cfg.update_tol ** 2))
+    for _ in range(cfg.max_iters):
+        _launch_partials(T, verts, normals, packed, cam, cfg, False, istate,
+                         partials)
+        _launch_solve(partials, _MODE_SOLVE, T=T, istate=istate,
+                      fstate=fstate, damping=cfg.damping, tol2=tol2,
+                      max_iters=cfg.max_iters)
+    return ICPResult(transform=T, error=fstate[1], count=fstate[2],
+                     iters=istate[0], JTJ=fstate[3:].view(6, 6))
+
+
+def normal_system(T: torch.Tensor, src: Frame, tgt_packed: torch.Tensor,
+                  cam: CameraConfig, cfg: ICPConfig) -> NormalSystem:
+    """The Gauss-Newton system of ``src`` against the packed target under
+    ``T``: K4a and K4b's sums (no solve) on CUDA tensors,
+    ``build_normal_system(*associate(...))`` on CPU tensors."""
+    if _on_cpu(T, src.vertices, tgt_packed):
+        p, n_t, r, valid = associate(T, src, None, cam, cfg, tgt_packed)
+        return build_normal_system(p, n_t, r, valid, cfg.huber_delta)
+    verts, normals, packed, T = _kernel_inputs(T, src, tgt_packed, cam)
+    partials = _partials_buffer(N_SUMS, verts)
+    out = torch.empty(44, dtype=torch.float32, device=T.device)
+    _launch_partials(T, verts, normals, packed, cam, cfg, False, None,
+                     partials)
+    _launch_solve(partials, _MODE_SYSTEM, out=out)
+    return NormalSystem(JTJ=out[:36].view(6, 6), JTr=out[36:42],
+                        error=out[42], count=out[43])
+
+
+# --------------------------------------------------------------------------
+# the kernels' wrappers
+# --------------------------------------------------------------------------
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _kernel_inputs(T, src: Frame, tgt_packed, cam: CameraConfig):
+    """Check what K4a takes and return contiguous (vertices, normals,
+    packed target, T), or raise."""
+    dev = src.vertices.device
+    tensors = (T, src.vertices, src.normals, tgt_packed)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("ICP: T, the source frame and the packed target "
+                         "must lie on one CUDA device (or all on the CPU)")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("ICP: T, the source frame and the packed target "
+                         "must be float32")
+    hw = tuple(src.vertices.shape[:-1])
+    if (tuple(T.shape) != (4, 4) or len(hw) != 2
+            or src.vertices.shape[-1] != 3
+            or tuple(src.normals.shape) != (*hw, 3)
+            or tuple(tgt_packed.shape) != (cam.height, cam.width, 2)):
+        raise ValueError(
+            f"ICP: T (4, 4), source (H, W, 3) maps and a packed target "
+            f"({cam.height}, {cam.width}, 2) expected, got T "
+            f"{tuple(T.shape)}, vertices {tuple(src.vertices.shape)}, "
+            f"normals {tuple(src.normals.shape)}, target "
+            f"{tuple(tgt_packed.shape)}")
+    packed = tgt_packed.contiguous()
+    if packed.data_ptr() % 8:
+        raise ValueError("ICP: the packed target must be 8-byte aligned")
+    return (src.vertices.contiguous(), src.normals.contiguous(), packed,
+            T.contiguous())
+
+
+def _ctas(n_pixels: int) -> int:
+    return -(-n_pixels // CTA_PIXELS)
+
+
+def _partials_buffer(n_sums: int, verts: torch.Tensor) -> torch.Tensor:
+    return torch.empty((n_sums, _ctas(verts.numel() // 3)),
+                       dtype=torch.float32, device=verts.device)
+
+
+def _launch_partials(T, verts, normals, packed, cam: CameraConfig,
+                     cfg: ICPConfig, score: bool, istate, partials) -> None:
+    """K4a on the current stream: one column of ``partials`` a CTA; with
+    ``istate`` it returns at once when the loop's done flag is set."""
+    n = verts.numel() // 3
+    if n == 0:
+        return
+    kernels.launch(
+        "icp_partials", verts.get_device(), verts.data_ptr(),
+        normals.data_ptr(), n, packed.data_ptr(), cam.width, cam.height,
+        cam.fx, cam.fy, cam.cx, cam.cy, recip(cam.fx), recip(cam.fy),
+        T.data_ptr(), None if istate is None else istate.data_ptr(),
+        cfg.normal_thresh, cfg.dist_thresh, cfg.huber_delta, int(score),
+        partials.data_ptr())
+    global LAUNCHES_PARTIALS
+    LAUNCHES_PARTIALS += 1
+
+
+def _launch_solve(partials, mode: int, T=None, istate=None, fstate=None,
+                  out=None, damping: float = 0.0, tol2: float = 0.0,
+                  max_iters: int = 0) -> None:
+    """K4b on the current stream: sums ``partials`` over its CTAs, then
+    solves and updates (T, istate, fstate) in place, or writes the system
+    or the score sums to ``out``."""
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    kernels.launch(
+        "icp_solve_update", partials.get_device(), partials.data_ptr(),
+        partials.shape[1], partials.shape[0], mode, ptr(T), ptr(istate),
+        ptr(fstate), ptr(out), damping, tol2, max_iters)
+    global LAUNCHES_SOLVE
+    LAUNCHES_SOLVE += 1
+
+
+# --------------------------------------------------------------------------
+# what K4a / K4b compute, in their order (tests and card checks)
+# --------------------------------------------------------------------------
+
+def _rot_row(T, i: int, x, y, z):
+    return (T[i, 0] * x + T[i, 1] * y) + T[i, 2] * z
+
+
+def _terms_reference(T, src: Frame, tgt_packed, cam: CameraConfig,
+                     cfg: ICPConfig, score: bool) -> torch.Tensor:
+    """K4a's per-pixel terms, (pixels, 29) or (pixels, 2), each operation
+    rounded once in the kernel's order."""
+    x, y, z = src.vertices.reshape(-1, 3).unbind(-1)
+    px = _rot_row(T, 0, x, y, z) + T[0, 3]
+    py = _rot_row(T, 1, x, y, z) + T[1, 3]
+    pz = _rot_row(T, 2, x, y, z) + T[2, 3]
+    safe_z = torch.where(pz.abs() > 1e-12, pz, 1e-12)
+    u = px / safe_z * cam.fx + cam.cx
+    v = py / safe_z * cam.fy + cam.cy
+    # round half to even, clamped as the kernel's saturating conversion
+    # is (NaN: pixel 0)
+    ru, rv = torch.round(u), torch.round(v)
+    in_image = ((pz > 0) & (u >= 0) & (u <= cam.width - 1) & (v >= 0)
+                & (v <= cam.height - 1) & (ru >= 0) & (ru < cam.width)
+                & (rv >= 0) & (rv < cam.height))
+    uc = torch.clamp(torch.nan_to_num(ru, nan=0.0), 0, cam.width - 1)
+    vc = torch.clamp(torch.nan_to_num(rv, nan=0.0), 0, cam.height - 1)
+    g = tgt_packed.reshape(-1, 2)[vc.to(torch.int64) * cam.width
+                                  + uc.to(torch.int64)]
+    d_t = g[:, 0]
+    bits = g[:, 1].contiguous().view(torch.int32)
+    ox, oy = _bf16_from_bits(bits), _bf16_from_bits(bits >> 16)
+    oz = (1.0 - ox.abs()) - oy.abs()
+    fold = oz < 0
+    ox, oy = (torch.where(fold, (1.0 - oy.abs()) * _sign_nz(ox), ox),
+              torch.where(fold, (1.0 - ox.abs()) * _sign_nz(oy), oy))
+    ln = torch.sqrt((ox * ox + oy * oy) + oz * oz)
+    lc = torch.where(ln < 1e-12, 1e-12, ln)
+    ntx, nty, ntz = ox / lc, oy / lc, oz / lc
+    ptx = (uc - cam.cx) * recip(cam.fx) * d_t
+    pty = (vc - cam.cy) * recip(cam.fy) * d_t
+    r = ((px - ptx) * ntx + (py - pty) * nty) + (pz - d_t) * ntz
+    ar = r.abs()
+    src_valid = z != 0
+    cap = cfg.dist_thresh
+    if score:
+        matched = in_image & (d_t > 0)
+        pen = torch.where(matched, torch.where(ar > cap, cap, ar), cap)
+        return torch.stack([torch.where(src_valid, pen, 0.0),
+                            src_valid.to(torch.float32)], dim=-1)
+    sx, sy, sz = src.normals.reshape(-1, 3).unbind(-1)
+    ndot = ((_rot_row(T, 0, sx, sy, sz) * ntx
+             + _rot_row(T, 1, sx, sy, sz) * nty)
+            + _rot_row(T, 2, sx, sy, sz) * ntz)
+    valid = (src_valid & in_image & (d_t > 0) & (ndot > cfg.normal_thresh)
+             & (ar < cap))
+    w = valid.to(torch.float32)
+    if cfg.huber_delta > 0:
+        q = torch.div(torch.full_like(ar, cfg.huber_delta),
+                      torch.where(ar < 1e-12, 1e-12, ar))
+        w = w * torch.where(q > 1.0, 1.0, q)
+    ws = torch.sqrt(w)
+    J = [ntx * ws, nty * ws, ntz * ws, (py * ntz - pz * nty) * ws,
+         (pz * ntx - px * ntz) * ws, (px * nty - py * ntx) * ws]
+    rw = r * ws
+    cols = [J[a] * J[b] for a in range(6) for b in range(a, 6)]
+    cols += [J[a] * rw for a in range(6)]
+    cols += [rw * rw, valid.to(torch.float32)]
+    return torch.stack(cols, dim=-1)
+
+
+def _halve(x: torch.Tensor, width: int, dim: int) -> torch.Tensor:
+    """The shuffle-down tree over ``width`` lanes along ``dim``: lane l
+    adds lane l + off for off = width / 2, ..., 1."""
+    off = width // 2
+    while off:
+        x = x.narrow(dim, 0, off) + x.narrow(dim, off, off)
+        off //= 2
+    return x.squeeze(dim)
+
+
+def _partials_reference(T, src: Frame, tgt_packed, cam: CameraConfig,
+                        cfg: ICPConfig, score: bool = False) -> torch.Tensor:
+    """What K4a writes: (29 or 2, CTAs), each CTA's 256 pixels summed over
+    a warp's 32 lanes, then over the CTA's 8 warps, in the kernel's tree."""
+    terms = _terms_reference(T, src, tgt_packed, cam, cfg, score)
+    n, n_sums = terms.shape
+    n_cta = _ctas(n)
+    pad = n_cta * CTA_PIXELS - n
+    if pad:
+        terms = torch.cat([terms, terms.new_zeros((pad, n_sums))])
+    tiles = terms.reshape(n_cta, CTA_PIXELS // 32, 32, n_sums)
+    per_warp = _halve(tiles, 32, 2)                  # (CTAs, 8, sums)
+    return _halve(per_warp, CTA_PIXELS // 32, 1).T.contiguous()
+
+
+def _sums_reference(partials: torch.Tensor) -> torch.Tensor:
+    """K4b's sums of ``partials`` (sums, CTAs) over the CTAs: lane l of a
+    warp adds CTAs l, l + 32, ... in order, then the shuffle-down tree."""
+    n_sums, n_cta = partials.shape
+    pad = -n_cta % 32
+    if pad:
+        partials = torch.cat([partials, partials.new_zeros((n_sums, pad))],
+                             dim=1)
+    cols = partials.reshape(n_sums, -1, 32)
+    acc = partials.new_zeros((n_sums, 32))
+    for j in range(cols.shape[1]):
+        acc = acc + cols[:, j]
+    return _halve(acc, 32, 1)
+
+
+def _solve_reference(s: torch.Tensor, damping: float) -> torch.Tensor:
+    """K4b's damped 6x6 Cholesky solve of the summed system ``s`` (29,):
+    delta, or 0 when a pivot is not positive or delta is not finite."""
+    A = [[None] * 6 for _ in range(6)]
+    k = 0
+    for a in range(6):
+        for b in range(a, 6):
+            A[a][b] = A[b][a] = s[k]
+            k += 1
+    extra = torch.where(s[28] > 6, 0.0, 1.0)
+    for a in range(6):
+        A[a][a] = (A[a][a] + damping) + extra
+    L = [[None] * 6 for _ in range(6)]
+    ok = torch.ones((), dtype=torch.bool, device=s.device)
+    for j in range(6):
+        d = A[j][j]
+        for q in range(j):
+            d = d - L[j][q] * L[j][q]
+        ok = ok & (d > 0)
+        L[j][j] = torch.sqrt(d)
+        for i in range(j + 1, 6):
+            t = A[i][j]
+            for q in range(j):
+                t = t - L[i][q] * L[j][q]
+            L[i][j] = t / L[j][j]
+    y = []
+    for i in range(6):
+        t = -s[21 + i]
+        for q in range(i):
+            t = t - L[i][q] * y[q]
+        y.append(t / L[i][i])
+    delta = [None] * 6
+    for i in range(5, -1, -1):
+        t = y[i]
+        for q in range(i + 1, 6):
+            t = t - L[q][i] * delta[q]
+        delta[i] = t / L[i][i]
+    delta = torch.stack(delta)
+    ok = ok & torch.all(torch.isfinite(delta))
+    return torch.where(ok, delta, 0.0)
+
+
+def _exp_reference(xi: torch.Tensor) -> torch.Tensor:
+    """K4b's exp(xi) as a (3, 4): geometry/se3.exp in the kernel's order."""
+    w0, w1, w2 = xi[3], xi[4], xi[5]
+    theta2 = (w0 * w0 + w1 * w1) + w2 * w2
+    theta = torch.sqrt(theta2 + 1e-16)
+    small = theta2 < 1e-2
+    t4 = theta2 * theta2
+    A = torch.where(small, (1.0 - theta2 * recip(6.0)) + t4 * recip(120.0),
+                    torch.sin(theta) / theta)
+    half = 0.5 * theta
+    s_half = torch.sin(half) / half
+    B = 0.5 * s_half * s_half
+    C = torch.where(small,
+                    (1.0 / 6.0 - theta2 * recip(120.0)) + t4 * recip(5040.0),
+                    (1.0 - A) / theta2)
+    zero = torch.zeros_like(w0)
+    K = [[zero, -w2, w1], [w2, zero, -w0], [-w1, w0, zero]]
+    K2 = [[(K[i][0] * K[0][j] + K[i][1] * K[1][j]) + K[i][2] * K[2][j]
+           for j in range(3)] for i in range(3)]
+    rows = []
+    for i in range(3):
+        R = [(float(i == j) + A * K[i][j]) + B * K2[i][j] for j in range(3)]
+        V = [(float(i == j) + B * K[i][j]) + C * K2[i][j] for j in range(3)]
+        t = (V[0] * xi[0] + V[1] * xi[1]) + V[2] * xi[2]
+        rows.append(torch.stack(R + [t]))
+    return torch.stack(rows)
+
+
+def _system_from_sums(s: torch.Tensor) -> NormalSystem:
+    """The NormalSystem of K4b's 29 sums (JTJ from its upper triangle)."""
+    rows, cols = torch.triu_indices(6, 6, device=s.device)
+    JTJ = s.new_zeros((6, 6))
+    JTJ[rows, cols] = s[:21]
+    JTJ[cols, rows] = s[:21]
+    return NormalSystem(JTJ=JTJ, JTr=s[21:27], error=s[27], count=s[28])
+
+
+def _solve_update_reference(partials, T, istate, fstate, damping: float,
+                            tol2: float, max_iters: int):
+    """What K4b does in solve mode, as new tensors: (T, istate, fstate)
+    after one Gauss-Newton update from ``partials`` (29, CTAs), or the
+    inputs when the done flag is set."""
+    if int(istate[1]):
+        return T, istate, fstate
+    s = _sums_reference(partials)
+    delta = _solve_reference(s, damping)
+    E = _exp_reference(delta)
+    top = torch.stack([torch.stack([
+        ((E[i, 0] * T[0, j] + E[i, 1] * T[1, j]) + E[i, 2] * T[2, j])
+        + E[i, 3] * T[3, j] for j in range(4)]) for i in range(3)])
+    dnorm = s.new_zeros(())
+    for q in range(6):
+        dnorm = dnorm + delta[q] * delta[q]
+    count = s[28]
+    err = s[27] / torch.clamp(count, min=1.0)
+    it = int(istate[0]) + 1
+    done = not (it < max_iters and float(dnorm) > tol2)
+    istate_new = torch.tensor([it, int(done)], dtype=torch.int32,
+                              device=T.device)
+    fstate_new = torch.cat([torch.stack([dnorm, err, count]),
+                            _system_from_sums(s).JTJ.reshape(36)])
+    return torch.cat([top, T[3:]]), istate_new, fstate_new
 
 
 def observability(res: ICPResult) -> torch.Tensor:
@@ -270,9 +654,25 @@ def alignment_score_sums(
     tgt_packed: torch.Tensor | None = None,
 ):
     """(sum, count) of the clamped |point-to-plane residual| of ``T`` over
-    every source-valid pixel; unmatched pixels cost the full clamp."""
+    every source-valid pixel; unmatched pixels cost the full clamp.  K4a
+    in score mode and K4b on CUDA tensors, the plain version on CPU
+    tensors."""
     if tgt_packed is None:
         tgt_packed = pack_target(tgt)
+    if _on_cpu(T, src.vertices, tgt_packed):
+        return _score_sums_reference(T, src, cam, cfg, tgt_packed)
+    verts, normals, packed, T = _kernel_inputs(T, src, tgt_packed, cam)
+    partials = _partials_buffer(N_SCORE_SUMS, verts)
+    out = torch.empty(N_SCORE_SUMS, dtype=torch.float32, device=T.device)
+    _launch_partials(T, verts, normals, packed, cam, cfg, True, None,
+                     partials)
+    _launch_solve(partials, _MODE_SCORE, out=out)
+    return out[0], out[1]
+
+
+def _score_sums_reference(T, src: Frame, cam: CameraConfig, cfg: ICPConfig,
+                          tgt_packed: torch.Tensor):
+    """Plain version of ``alignment_score_sums``, on any device."""
     p = se3.apply(T, src.vertices)
     in_image, d_t, n_t, p_t = _gather_target(tgt_packed, p, cam)
     r = torch.sum((p - p_t) * n_t, dim=-1)

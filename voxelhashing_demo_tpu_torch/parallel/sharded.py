@@ -175,10 +175,9 @@ def _icp_level_sharded(src_l: Frame, tgt_l: Frame, lcam, cfg, mesh: Mesh,
     cnt = torch.zeros((), dtype=torch.float32, device=dev)
     JTJ = torch.zeros((6, 6), dtype=torch.float32, device=dev)
     while it < max_iters and dnorm > tol2:
-        p, n_t, r, valid = icp_ops.associate(T, src_l, tgt_l, lcam, cfg,
-                                             tgt_packed)
-        sys = _psum_system(mesh, icp_ops.build_normal_system(
-            p, n_t, r, valid, cfg.huber_delta), scale)
+        # this rank's system: K4a on the card, the plain version on the CPU
+        sys = _psum_system(mesh, icp_ops.normal_system(
+            T, src_l, tgt_packed, lcam, cfg), scale)
         delta = icp_ops.solve_normal_system(sys, cfg.damping)
         T = se3.exp(delta) @ T
         it += 1
