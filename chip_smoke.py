@@ -7,9 +7,10 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
 
 1. ``device``: the card's name and power limit (nvidia-smi).
 2. ``build``: builds every kernel source under csrc/ (the CUDA kernels,
-   the ICP pair K4a / K4b in icp.cu, the empty kernel that measures the
-   launch floor, and the host codec) for sm_90a into the package's _build/
-   directory, one compiler process each, started together.
+   the ICP kernels K4 / K4s in icp.cu, the empty kernels that measure
+   the launch and barrier floors, and the host codec) for sm_90a into the
+   package's _build/ directory, one compiler process each, started
+   together.
 3. ``kernel``: both window-gather kernels (one CTA per block row;
    one warp per block row, "streamed") against their plain PyTorch
    versions on the card at 480x640, V=512.  First the frame step's own
@@ -46,31 +47,34 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    ``kernels.launch``, timed like the probe kernels
    (``tools/probe.launch_floor_ms``); a probe case within about 0.1 us
    of it is launch-bound.
-3c. ``icp``: the ICP kernel pair K4 (csrc/icp.cu: K4a ``icp_partials``,
-   K4b ``icp_solve_update``) on the flagship step's own inputs: the frame
-   after the first N_STEP_FRAMES room-sweep frames through
-   ``HashSLAM(flagship_gather_config())``, each ``icp_align`` call its
-   pyramid makes (L4 from the identity and from the motion prior, L2, L1:
-   the 2x-pooled source against the 640x480 target).  Per call: the
-   ``NormalSystem`` of ``normal_system`` against ``build_normal_system(
-   *associate(...))`` (rtol 1e-4, atol 1e-7; both beside the float64 sum of
-   the kernel's own per-pixel terms), K4a's partials against
-   ``_partials_reference`` (1e-5; bit-exactness printed), the score sums
-   (rtol 1e-5, counts equal), one K4b update against
-   ``_solve_update_reference`` (1e-5, state equal), then ``icp_align``
-   against ``icp_align_reference``: transforms 1e-5, error and count rtol
-   1e-3, iterations equal (a difference only as a tie: both last dnorms
-   within 1e-3 of tol2, printed); host syncs of each (0 on the kernel
-   path), launches (max_iters of each kernel).  Times: each kernel alone
-   by CUDA-graph replay, warm and L2-cold, its wrapper, its plain version,
-   the bound (24 bytes a source pixel, 8 a pixel that projects into the
-   image, the partials, over 3.35 TB/s), the launch floor and the least
-   time max(floor, bound).  Then one level's ``icp_align`` captured in a
-   CUDA graph and replayed equal to eager; the ICP stage of the step
-   (``icp_align_pyramid``), kernel against the plain versions in turns
-   plain / kernel / kernel / plain, its host syncs, K4 launches and
-   device kernels (torch.profiler); the pair-ICP batch (4 candidates at
-   the coarse level), syncs and ms, kernel and plain.
+3c. ``icp``: the ICP kernels (csrc/icp.cu: K4 ``icp_gn_level``, a
+   pyramid level's whole Gauss-Newton loop in one cooperative launch for
+   C candidates; K4s ``icp_sums``, one pass of its sums) on the flagship
+   step's own inputs: the frame after the first N_STEP_FRAMES room-sweep
+   frames through ``HashSLAM(flagship_gather_config())``, each K4 launch
+   its pyramid makes (the L4 race: identity and motion-prior starts as
+   C = 2 with the score epilogue; L2; L1: the 2x-pooled source against
+   the 640x480 target).  Per launch: K4s's ``NormalSystem`` against
+   ``build_normal_system(*associate(...))`` (rtol 1e-4, atol 1e-7; both
+   beside the float64 sum of the kernel's own per-pixel terms) and bit
+   for bit against its in-order reference, the score sums likewise (rtol
+   1e-5 against plain, counts equal); the level bit for bit against the
+   frozen-lane reference ``_level_reference``, each candidate against
+   ``icp_align_reference`` (transforms 1e-5, error and count rtol 1e-3,
+   iterations equal or a printed tie at tol2) and the race's pick against
+   the plain race; host syncs (0), launches (one a level).  Times: each
+   kernel alone by CUDA-graph replay, warm and L2-cold, µs an iteration,
+   its wrapper, its plain version, the bound (24 bytes a source pixel, 8
+   an iteration for each pixel that projects into the image), the launch
+   floor and the barrier floor (csrc/launch_floor.cu's empty cooperative
+   kernel with 8 grid barriers at the level's grid), and the least time
+   max(bound, floor + barriers x barrier floor).  Then the race and a
+   level captured in one CUDA graph and replayed equal to eager; the ICP
+   stage of the step (``icp_align_pyramid``), kernel against the plain
+   versions in turns plain / kernel / kernel / plain, the host µs that
+   issue it, its host syncs, K4 launches (3) and device kernels
+   (torch.profiler); the pair-ICP batch (4 candidates at the coarse
+   level: one launch), syncs and ms, kernel and plain.
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
@@ -233,12 +237,15 @@ the card's memory rate); K16-K19 with their ``probes`` counts and the
 times of their first tool case (65 536 flat gathers; axis 0; the two-step
 gather; the integrate chunk alone), the others under ``cases``, and the
 launch floor of this run (``floor_ms``);
-``launches_by_path`` has each path's own count; K4a and K4b with the
+``launches_by_path`` has each path's own count; K4 and K4s with the
 times and bound of the L1 case (the others under ``cases``), counted from
 0 on every path that runs the frame step (``parity`` through
 ``roofline`` in this process, rank 0's count on ``nccl``,
-``sharded_backend`` and ``sharded``), each path failing unless both
-launched.  Last, the contract line
+``sharded_backend`` and ``sharded``): K4 must launch on every
+single-card path (the pyramid) and on ``sharded_backend`` (its pair-ICP
+batches), K4s on the three multi-rank paths (the sharded level's
+systems); ``launches`` is the count of the last path that drives each.
+  Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
 
@@ -924,11 +931,26 @@ def phase_probes(torch, wg):
                                     floor_ms)
 
 
-# The flagship ICP (K4, csrc/icp.cu): the pyramid's icp_align calls on the
-# frame step's own inputs, each kernel against its plain version.
-ICP_KERNELS = ("icp_partials", "icp_solve_update")
+# The flagship ICP (K4, csrc/icp.cu): the pyramid's levels on the frame
+# step's own inputs, each launch against its in-order reference and the
+# plain loop.
+ICP_KERNELS = ("icp_gn_level", "icp_sums")
 ICP_META = {
-    "icp_partials": {
+    "icp_gn_level": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/icp.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/icp.py:136 (associate), "
+                    "voxelhashing_demo_tpu/ops/icp.py:196 "
+                    "(build_normal_system), "
+                    "voxelhashing_demo_tpu/ops/icp.py:233 "
+                    "(solve_normal_system), "
+                    "voxelhashing_demo_tpu/ops/icp.py:252 (icp_align's "
+                    "while_loop), voxelhashing_demo_tpu/ops/icp.py:358 "
+                    "(pick_by_score), voxelhashing_demo_tpu/ops/icp.py:394 "
+                    "(icp_align_pyramid's raced level): fused by XLA, no "
+                    "Pallas kernel",
+    },
+    "icp_sums": {
         "route": "cuda",
         "source": "voxelhashing_demo_tpu_torch/csrc/icp.cu",
         "replaces": "voxelhashing_demo_tpu/ops/icp.py:136 (associate), "
@@ -937,14 +959,6 @@ ICP_META = {
                     "voxelhashing_demo_tpu/ops/icp.py:312 "
                     "(alignment_score_sums): fused by XLA, no Pallas kernel",
     },
-    "icp_solve_update": {
-        "route": "cuda",
-        "source": "voxelhashing_demo_tpu_torch/csrc/icp.cu",
-        "replaces": "voxelhashing_demo_tpu/ops/icp.py:233 "
-                    "(solve_normal_system), "
-                    "voxelhashing_demo_tpu/ops/icp.py:282 (the while_loop "
-                    "body's update): fused by XLA, no Pallas kernel",
-    },
 }
 ICP_SYSTEM_TOL = dict(rtol=1e-4, atol=1e-7)   # NormalSystem vs plain
 ICP_SCORE_RTOL = 1e-5
@@ -952,32 +966,34 @@ ICP_T_ATOL = 1e-5           # transforms
 ICP_ERR_RTOL = 1e-3         # error and count of a whole loop
 ICP_TIE_RTOL = 1e-3         # a differing iteration count: dnorm vs tol2
 ICP_MAIN_CASE = "L1"        # the fine level: the largest source
-# bytes K4a must move: a source pixel's vertex and normal, the packed
-# target of each pixel that projects into the image, the partials; ~150
-# float operations a pixel (transform, project, decode, 29 products)
+ICP_LEVELS = ["L4_race", "L2", "L1"]   # the pyramid's launches, in order
+# bytes K4 must move: a source pixel's vertex and normal once a level, the
+# packed target of each pixel that projects into the image once an
+# iteration; ~150 float operations a pixel an iteration
 K4_SRC_BYTES, K4_GATHER_BYTES, K4_OPS_PER_PIXEL = 24, 8, 150
 PAIR_BATCH = 4              # candidates of the timed pair-ICP batch
+BARRIER_SYNCS = 8           # grid barriers of the timed barrier floor
 
 
 def icp_launches() -> list:
-    """[K4a, K4b] launches counted since they were last set to 0."""
+    """[K4, K4s] launches counted since they were last set to 0."""
     from voxelhashing_demo_tpu_torch.ops import icp
 
-    return [icp.LAUNCHES_PARTIALS, icp.LAUNCHES_SOLVE]
+    return [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS]
 
 
 def zero_icp_launches() -> None:
     from voxelhashing_demo_tpu_torch.ops import icp
 
-    icp.LAUNCHES_PARTIALS = icp.LAUNCHES_SOLVE = 0
+    icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
 
 
 def icp_calls(torch, cfg, depths):
-    """Run ``depths[:-1]`` through ``HashSLAM(cfg)`` and record the
-    ``icp_align`` calls that the next step's pyramid makes for
-    ``depths[-1]``: ([(name, src, tgt, lcam, lcfg, init_T)], the pyramid's
-    arguments, its keywords).  The coarsest level runs from the identity
-    and from the motion prior, then each finer level once."""
+    """Run ``depths[:-1]`` through ``HashSLAM(cfg)`` and record the K4
+    launches that the next step's pyramid makes for ``depths[-1]``:
+    ([(name, srcs, tgts, lcam, lcfg, inits, race)], the pyramid's
+    arguments, its keywords).  The coarsest level races the identity
+    against the motion prior (C = 2), then each finer level runs once."""
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.ops import icp
     from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
@@ -994,25 +1010,26 @@ def icp_calls(torch, cfg, depths):
     calls = []
 
     def make(real):
-        def fn(src, tgt, cam, lcfg, init_T=None):
-            calls.append((src, tgt, cam, lcfg, init_T.clone()))
-            return real(src, tgt, cam, lcfg, init_T=init_T)
+        def fn(srcs, tgts, cam, lcfg, inits, race=False):
+            calls.append((list(srcs), list(tgts), cam, lcfg,
+                          [None if i is None else i.clone() for i in inits],
+                          race))
+            return real(srcs, tgts, cam, lcfg, inits, race)
         return fn
 
-    with _wrapped(icp, "icp_align", make):
+    with _wrapped(icp, "_align_candidates", make):
         icp.icp_align_pyramid(*args, **kw)
-    named = []
-    for k, (src, tgt, lcam, lcfg, T0) in enumerate(calls):
-        start = ("_identity", "_prior")[k] if k < 2 else ""
-        named.append((f"L{cfg.camera.width // lcam.width}{start}", src, tgt,
-                      lcam, lcfg, T0))
+    named = [(f"L{cfg.camera.width // lcam.width}" + ("_race" if race
+                                                       else ""),
+              srcs, tgts, lcam, lcfg, inits, race)
+             for srcs, tgts, lcam, lcfg, inits, race in calls]
     return named, args, kw
 
 
 @contextlib.contextmanager
 def plain_icp():
     """The plain ICP in the kernels' place while the block runs:
-    ``icp_align_reference`` and the plain score sums."""
+    ``icp_align_reference``, the plain score sums, race and batch."""
     from voxelhashing_demo_tpu_torch.ops import icp
 
     def score(T, src, tgt, cam, cfg, tgt_packed=None):
@@ -1020,31 +1037,28 @@ def plain_icp():
         return icp._score_sums_reference(T, src, cam, cfg, packed)
 
     with _wrapped(icp, "icp_align", lambda real: icp.icp_align_reference), \
-            _wrapped(icp, "alignment_score_sums", lambda real: score):
+            _wrapped(icp, "alignment_score_sums", lambda real: score), \
+            _wrapped(icp, "icp_align_raced", lambda real: icp._race_plain), \
+            _wrapped(icp, "icp_align_batch", lambda real: icp._batch_plain):
         yield
 
 
 def _dnorms(torch, icp, src, tgt, lcam, lcfg, T0, kernel: bool) -> list:
-    """|delta|^2 of each iteration of the loop (the kernels' device loop
-    read back after each iteration, or the plain loop), for the tie rule."""
+    """|delta|^2 of each iteration of the loop (K4 run with 1, 2, ...
+    iterations, or the plain loop), for the tie rule."""
     from voxelhashing_demo_tpu_torch.geometry import se3
 
-    T, out = T0.clone(), []
-    packed = icp.pack_target(tgt)
-    tol2 = float(np.float32(lcfg.update_tol ** 2))
+    out = []
     if kernel:
-        verts, normals, packed, T = icp._kernel_inputs(T, src, packed, lcam)
-        parts = icp._partials_buffer(icp.N_SUMS, verts)
-        ist = torch.zeros(2, dtype=torch.int32, device=T.device)
-        fst = torch.empty(icp._FSTATE, dtype=torch.float32, device=T.device)
-        while not int(ist[1]):
-            icp._launch_partials(T, verts, normals, packed, lcam, lcfg,
-                                 False, ist, parts)
-            icp._launch_solve(parts, 0, T=T, istate=ist, fstate=fst,
-                              damping=lcfg.damping, tol2=tol2,
-                              max_iters=lcfg.max_iters)
-            out.append(float(fst[0]))
+        for k in range(1, lcfg.max_iters + 1):
+            rows, _ = icp._align_candidates(
+                [src], [tgt], lcam, dataclasses.replace(lcfg, max_iters=k),
+                [T0])
+            out.append(float(rows[0, icp._ROW_DNORM]))
         return out
+    T = se3.identity(device=src.depth.device) if T0 is None else T0
+    packed = icp.pack_target(tgt)
+    tol2 = icp._tol2(lcfg)
     for _ in range(lcfg.max_iters):
         system = icp.build_normal_system(
             *icp.associate(T, src, None, lcam, lcfg, packed),
@@ -1057,144 +1071,171 @@ def _dnorms(torch, icp, src, tgt, lcam, lcfg, T0, kernel: bool) -> list:
     return out
 
 
-def _icp_bounds(torch, icp, src, lcam, T0, n_cta: int) -> dict:
-    """(bound_ms, bound_by) of K4a and K4b on this input: K4a reads each
-    source pixel's vertex and normal once, the packed target once for
-    each source-valid pixel that projects into the image, T once, and
-    writes the partials; K4b reads the partials and T and writes T and
-    the state (~600 operations of the solve and the update)."""
+def _in_image(torch, src, lcam, T) -> int:
+    """Source-valid pixels that project into the target image under T."""
     from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
     from voxelhashing_demo_tpu_torch.geometry import se3
 
-    n_px = src.vertices.numel() // 3
-    _, inside = cam_geom.project_nearest(se3.apply(T0, src.vertices), lcam)
-    n_in = int((inside & (src.vertices[..., 2] != 0)).sum())
-    parts_bytes = icp.N_SUMS * 4 * n_cta
-    k4a = _probe_bound(K4_SRC_BYTES * n_px + K4_GATHER_BYTES * n_in + 48
-                       + parts_bytes, K4_OPS_PER_PIXEL * n_px)
-    k4b = _probe_bound(parts_bytes + 64 + 64 + 8 + 4 * icp._FSTATE,
-                       icp.N_SUMS * n_cta + 600)
-    return {"pixels": n_px, "pixels_in_image": n_in,
-            "icp_partials": k4a, "icp_solve_update": k4b}
+    T = se3.identity(device=src.depth.device) if T is None else T
+    _, inside = cam_geom.project_nearest(se3.apply(T, src.vertices), lcam)
+    return int((inside & (src.vertices[..., 2] != 0)).sum())
 
 
-def _icp_case(torch, icp, probe, floor_ms, name, src, tgt, lcam, lcfg, T0):
-    """One icp_align call's inputs: K4a's system, partials and score sums,
-    K4b's update, the whole loop against icp_align_reference, host syncs,
-    launches and times."""
+def _loop_vs_plain(torch, icp, src, tgt, lcam, lcfg, T0, got) -> dict:
+    """One candidate's K4 result against ``icp_align_reference``."""
+    ref = icp.icp_align_reference(src, tgt, lcam, lcfg, init_T=T0)
+    it_k, it_p = int(got.iters), int(ref.iters)
+    out = {"iters": it_k, "iters_plain": it_p,
+           "transform_max_abs_err": float((got.transform
+                                           - ref.transform).abs().max()),
+           "error": float(got.error), "error_plain": float(ref.error),
+           "count": float(got.count), "count_plain": float(ref.count)}
+    if it_k != it_p:
+        dk = _dnorms(torch, icp, src, tgt, lcam, lcfg, T0, True)
+        dp = _dnorms(torch, icp, src, tgt, lcam, lcfg, T0, False)
+        k = min(it_k, it_p) - 1
+        tol2 = icp._tol2(lcfg)
+        out["tie"] = {"iteration": k + 1, "dnorm": dk[k],
+                      "dnorm_plain": dp[k], "tol2": tol2,
+                      "ok": all(abs(d - tol2) <= ICP_TIE_RTOL * tol2
+                                for d in (dk[k], dp[k]))}
+    return out
+
+
+def _icp_case(torch, icp, probe, floor_ms, barrier_ms, name, srcs, tgts,
+              lcam, lcfg, inits, race):
+    """One K4 launch of the pyramid (its candidates' inputs): K4s's system
+    and score sums at the first start, against the plain versions and
+    their in-order references; the level against ``_level_reference`` bit
+    for bit and each candidate (and a race's pick) against the plain loop;
+    host syncs, launches and times."""
     from voxelhashing_demo_tpu_torch.geometry import se3
 
+    C = len(srcs)
+    src, tgt = srcs[0], tgts[0]
     packed = icp.pack_target(tgt)
-    verts, normals, packed, T = icp._kernel_inputs(T0, src, packed, lcam)
-    n_cta = icp._ctas(verts.numel() // 3)
-    tol2 = float(np.float32(lcfg.update_tol ** 2))
-    row = {"case": name, "source_hw": list(src.depth.shape),
+    T = se3.identity(device=src.depth.device) if inits[0] is None \
+        else inits[0]
+    n = src.vertices.numel() // 3
+    n_cta = icp._ctas(n, C)
+    row = {"case": name, "candidates": C, "race": race,
+           "source_hw": list(src.depth.shape),
            "target_hw": [lcam.height, lcam.width],
-           "max_iters": lcfg.max_iters, "ctas": n_cta}
+           "max_iters": lcfg.max_iters, "ctas_per_candidate": n_cta}
 
-    # K4a: the system under the start transform, against the plain version
-    # and against the kernel's own per-pixel terms summed in float64
+    # K4s: the system and the score sums under the first start
+    before = icp_launches()
     got = icp.normal_system(T, src, packed, lcam, lcfg)
-    assoc = icp.associate(T, src, None, lcam, lcfg, packed)
-    want = icp.build_normal_system(*assoc, lcfg.huber_delta)
+    sn, sd = icp.alignment_score_sums(T, src, None, lcam, lcfg, packed)
+    sums_launches = [a - b for a, b in zip(icp_launches(), before)]
+    want = icp.build_normal_system(
+        *icp.associate(T, src, None, lcam, lcfg, packed), lcfg.huber_delta)
+    ordered = icp._system_from_sums(icp._sums_reference(
+        icp._partials_reference(T, src, packed, lcam, lcfg)))
     exact = icp._system_from_sums(icp._terms_reference(
         T, src, packed, lcam, lcfg, False).double().sum(0))
     fields = ("JTJ", "JTr", "error", "count")
-    sys_ok = all(bool(torch.allclose(getattr(got, f), getattr(want, f),
-                                     **ICP_SYSTEM_TOL)) for f in fields)
-    sys_err = max(float((getattr(got, f) - getattr(want, f)).abs().max())
-                  for f in fields)
 
     def rel64(s):
         return max(float(((getattr(s, f).double() - getattr(exact, f)).abs()
                           / getattr(exact, f).abs().clamp(min=1e-30)).max())
                    for f in fields)
 
-    row["system"] = {"ok": sys_ok, "max_abs_err": sys_err,
-                     "count": float(got.count),
-                     "max_rel_err_vs_float64": {"kernel": rel64(got),
-                                                "plain": rel64(want)}}
-    # K4a's partials against the in-order reference, and the score mode
-    parts = icp._partials_buffer(icp.N_SUMS, verts)
-    icp._launch_partials(T, verts, normals, packed, lcam, lcfg, False, None,
-                         parts)
-    parts_ref = icp._partials_reference(T, src, packed, lcam, lcfg)
-    sn, sd = icp.alignment_score_sums(T, src, None, lcam, lcfg, packed)
     rn, rd = icp._score_sums_reference(T, src, lcam, lcfg, packed)
-    row["partials"] = {
-        "bit_exact": bool(torch.equal(parts, parts_ref)),
-        "close": bool(torch.allclose(parts, parts_ref, rtol=1e-5,
-                                     atol=1e-6)),
-        "max_abs_err": float((parts - parts_ref).abs().max())}
-    row["score"] = {"num": float(sn), "num_plain": float(rn),
-                    "den": float(sd), "den_plain": float(rd)}
-    # K4b: one update from the kernel's partials, against the reference
-    T1 = T.clone()
-    ist = torch.zeros(2, dtype=torch.int32, device=T.device)
-    fst = torch.zeros(icp._FSTATE, dtype=torch.float32, device=T.device)
-    icp._launch_solve(parts, 0, T=T1, istate=ist, fstate=fst,
-                      damping=lcfg.damping, tol2=tol2,
-                      max_iters=lcfg.max_iters)
-    T1r, istr, fstr = icp._solve_update_reference(
-        parts, T, torch.zeros_like(ist), torch.zeros_like(fst),
-        lcfg.damping, tol2, lcfg.max_iters)
-    row["update"] = {
-        "max_abs_err": float((T1 - T1r).abs().max()),
-        "state_equal": bool(torch.equal(ist, istr)),
-        "fstate_close": bool(torch.allclose(fst, fstr, rtol=1e-5,
-                                            atol=1e-12))}
-    # the whole loop against the plain loop
-    res = icp.icp_align(src, tgt, lcam, lcfg, init_T=T0)
-    ref = icp.icp_align_reference(src, tgt, lcam, lcfg, init_T=T0)
-    it_k, it_p = int(res.iters), int(ref.iters)
-    row["loop"] = {
-        "iters": it_k, "iters_plain": it_p,
-        "transform_max_abs_err": float((res.transform
-                                        - ref.transform).abs().max()),
-        "error": float(res.error), "error_plain": float(ref.error),
-        "count": float(res.count), "count_plain": float(ref.count)}
-    if it_k != it_p:
-        dk = _dnorms(torch, icp, src, tgt, lcam, lcfg, T0, True)
-        dp = _dnorms(torch, icp, src, tgt, lcam, lcfg, T0, False)
-        k = min(it_k, it_p) - 1
-        row["loop"]["tie"] = {"iteration": k + 1, "dnorm": dk[k],
-                              "dnorm_plain": dp[k], "tol2": tol2,
-                              "ok": all(abs(d - tol2) <= ICP_TIE_RTOL * tol2
-                                        for d in (dk[k], dp[k]))}
-    # host syncs and launches of one call, kernel and plain
+    on, od = icp._sums_reference(icp._partials_reference(
+        T, src, packed, lcam, lcfg, score=True))
+    row["sums"] = {
+        "launches": sums_launches,
+        "ok": all(bool(torch.allclose(getattr(got, f), getattr(want, f),
+                                      **ICP_SYSTEM_TOL)) for f in fields),
+        "max_abs_err": max(float((getattr(got, f)
+                                  - getattr(want, f)).abs().max())
+                           for f in fields),
+        "bit_exact": all(probe.compare(getattr(got, f),
+                                       getattr(ordered, f))["bit_exact"]
+                         for f in fields),
+        "count": float(got.count),
+        "max_rel_err_vs_float64": {"kernel": rel64(got),
+                                   "plain": rel64(want)},
+        "score": {"num": float(sn), "num_plain": float(rn),
+                  "den": float(sd), "den_plain": float(rd),
+                  "bit_exact": probe.compare((sn, sd),
+                                             (on, od))["bit_exact"]}}
+
+    # K4: the level in one launch against the frozen-lane reference
     before = icp_launches()
+    rows, iters = icp._align_candidates(srcs, tgts, lcam, lcfg, inits, race)
+    launches = [a - b for a, b in zip(icp_launches(), before)]
+    rrows, riters = icp._level_reference(srcs, tgts, lcam, lcfg, inits,
+                                         race)
+    cmp = probe.compare(rows, rrows)
+    row["level"] = {"launches": launches,
+                    "bit_exact": cmp["bit_exact"]
+                    and bool(torch.equal(iters, riters)),
+                    "max_abs_err_vs_reference": cmp["max_abs_err"],
+                    "iters": iters.tolist()}
+    row["loop"] = [_loop_vs_plain(torch, icp, s, t, lcam, lcfg, i,
+                                  icp._row_result(rows[c], iters[c]))
+                   for c, (s, t, i) in enumerate(zip(srcs, tgts, inits))]
+    if race:
+        with plain_icp():
+            plain = icp._race_plain(src, tgt, lcam, lcfg, inits[1],
+                                    init_T=inits[0])
+        got_pick = icp._row_result(rows[C], iters[C])
+        row["pick"] = {
+            "scores": rows[:C, icp._ROW_SCORE].tolist(),
+            "kept": int(torch.equal(rows[C, :16], rows[1, :16])
+                        and not torch.equal(rows[0, :16], rows[1, :16])),
+            "iters": int(got_pick.iters), "iters_plain": int(plain.iters),
+            "transform_max_abs_err": float((got_pick.transform
+                                            - plain.transform).abs().max())}
     row["syncs"] = count_syncs(
-        torch, lambda: icp.icp_align(src, tgt, lcam, lcfg, init_T=T0))
-    row["launches"] = [a - b for a, b in zip(icp_launches(), before)]
-    row["syncs_plain"] = count_syncs(
-        torch,
-        lambda: icp.icp_align_reference(src, tgt, lcam, lcfg, init_T=T0))
+        torch, lambda: icp._align_candidates(srcs, tgts, lcam, lcfg, inits,
+                                             race))
+    row["syncs_plain"] = count_syncs(torch, lambda: [
+        icp.icp_align_reference(s, t, lcam, lcfg, init_T=i)
+        for s, t, i in zip(srcs, tgts, inits)])
+
     # times: each kernel alone (CUDA-graph replay, warm and L2-cold), its
-    # wrapper, its plain version; the bound and the least time
-    bounds = _icp_bounds(torch, icp, src, lcam, T0, n_cta)
-    row["pixels_in_image"] = bounds["pixels_in_image"]
-    k4a = probe.timings(
-        lambda t, v, nrm, pk, pt: icp._launch_partials(
-            t, v, nrm, pk, lcam, lcfg, False, None, pt),
-        (T, verts, normals, packed, parts))
-    k4b = probe.timings(
-        lambda pt, t, i, f: icp._launch_solve(
-            pt, 0, T=t, istate=i, fstate=f, damping=lcfg.damping,
-            tol2=-1.0, max_iters=2 ** 30),
-        (parts, T.clone(), torch.zeros_like(ist), torch.zeros_like(fst)))
-    plain = {
-        "icp_partials": probe.host_ms(
-            lambda: icp.build_normal_system(
-                *icp.associate(T, src, None, lcam, lcfg, packed),
-                lcfg.huber_delta), iters=10),
-        "icp_solve_update": probe.host_ms(
-            lambda: se3.exp(icp.solve_normal_system(want, lcfg.damping))
-            @ T, iters=10)}
-    for kname, t in (("icp_partials", k4a), ("icp_solve_update", k4b)):
-        bound_ms, bound_by = bounds[kname]
-        row[kname] = {**t, "plain_ms": plain[kname], "bound_ms": bound_ms,
-                      "bound_by": bound_by, "floor_ms": floor_ms,
-                      "least_ms": max(floor_ms, bound_ms)}
+    # wrapper, its plain version; the bound, the launch and barrier floors
+    entries = [icp._kernel_inputs(
+        se3.identity(device=src.depth.device) if i is None else i, s,
+        icp.pack_target(t), lcam) for s, t, i in zip(srcs, tgts, inits)]
+    flat = tuple(x for e in entries for x in e)
+
+    def level(*a):
+        return icp._launch_level([a[k:k + 4] for k in range(0, len(a), 4)],
+                                 lcam, lcfg, race)
+
+    rounds = max(int(i) for i in iters) + (0 if C == 1 and not race else 1)
+    per_c = [(_in_image(torch, s, lcam, i), int(it))
+             for s, i, it in zip(srcs, inits, iters[:C])]
+    k4 = {**probe.timings(level, flat),
+          "plain_ms": probe.host_ms(lambda: [
+              icp.icp_align_reference(s, t, lcam, lcfg, init_T=i)
+              for s, t, i in zip(srcs, tgts, inits)], iters=5),
+          "barriers": rounds, "barrier_floor_ms": barrier_ms,
+          "floor_ms": floor_ms}
+    k4["ms_per_iteration"] = k4["ms"] / max(rounds, 1)
+    k4["bound_ms"], k4["bound_by"] = _probe_bound(
+        sum(K4_SRC_BYTES * n + K4_GATHER_BYTES * n_in * (it + int(race))
+            for n_in, it in per_c) + icp.ROW * 4 * len(rows),
+        sum(K4_OPS_PER_PIXEL * n * (it + int(race)) for _, it in per_c))
+    k4["least_ms"] = max(k4["bound_ms"], floor_ms + rounds * barrier_ms)
+    sys_in = _in_image(torch, src, lcam, T)
+    k4s = {**probe.timings(
+        lambda t, v, nrm, pk: icp._launch_sums(
+            t, icp.Frame(v, nrm, src.depth), pk, lcam, lcfg, score=False),
+        (T, src.vertices, src.normals, packed)),
+        "plain_ms": probe.host_ms(lambda: icp.build_normal_system(
+            *icp.associate(T, src, None, lcam, lcfg, packed),
+            lcfg.huber_delta), iters=10),
+        "barriers": 1, "barrier_floor_ms": barrier_ms, "floor_ms": floor_ms}
+    k4s["bound_ms"], k4s["bound_by"] = _probe_bound(
+        K4_SRC_BYTES * n + K4_GATHER_BYTES * sys_in + 44 * 4,
+        K4_OPS_PER_PIXEL * n)
+    k4s["least_ms"] = max(k4s["bound_ms"], floor_ms + barrier_ms)
+    row["icp_gn_level"], row["icp_sums"] = k4, k4s
     return row
 
 
@@ -1214,12 +1255,41 @@ def _device_kernels(torch, fn) -> dict:
             "busy_us": sum(e.time_range.elapsed_us() for e in events)}
 
 
+def barrier_floor_ms(torch, kernels, ctas: int) -> float:
+    """Device time of one grid barrier among ``ctas`` CTAs of 256
+    threads: the empty cooperative kernel (csrc/launch_floor.cu) with
+    BARRIER_SYNCS barriers less the same with none, over BARRIER_SYNCS,
+    each timed like the probe kernels (CUDA-graph replay)."""
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    index = torch.cuda.current_device()
+    t = [probe.device_ms([lambda k=k: kernels.launch(
+        "grid_sync_floor", index, ctas, k)] * probe.WARM_CALLS)
+        for k in (0, BARRIER_SYNCS)]
+    return (t[1] - t[0]) / BARRIER_SYNCS
+
+
+def host_issue_us(fn, reps: int = 20) -> float:
+    """Median host µs to issue one call of ``fn`` (perf_counter around the
+    call, no synchronisation inside; the queue drains after each)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def phase_icp(torch, card: str, sweep):
     """K4 on the flagship step's own ICP inputs: the frame after the first
     N_STEP_FRAMES room-sweep frames through ``HashSLAM(flagship_gather_
-    config())``; every level of the pyramid, the coarsest from the
-    identity and from the motion prior.  Returns {kernel: its kernels-line
-    fields}."""
+    config())``; every launch of the pyramid (the coarsest level's race as
+    C = 2, then L2 and L1).  Returns {kernel: its kernels-line fields}."""
+    from voxelhashing_demo_tpu_torch import kernels
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
     from voxelhashing_demo_tpu_torch.ops import icp
     from voxelhashing_demo_tpu_torch.tools import probe
@@ -1227,25 +1297,41 @@ def phase_icp(torch, card: str, sweep):
     t0 = time.perf_counter()
     cfg = flagship_gather_config()
     calls, args, kw = icp_calls(torch, cfg, sweep[:N_STEP_FRAMES + 1])
-    _require([c[0] for c in calls] == ["L4_identity", "L4_prior", "L2",
-                                       "L1"],
-             "the flagship pyramid's four icp_align calls")
+    _require([c[0] for c in calls] == ICP_LEVELS,
+             "the flagship pyramid's three K4 launches")
     floor_ms = probe.launch_floor_ms()
-    rows = [_icp_case(torch, icp, probe, floor_ms, *c) for c in calls]
+    barriers = {}
+    for c in calls:
+        ctas = icp._ctas(c[1][0].vertices.numel() // 3, len(c[1])) * len(
+            c[1])
+        if ctas not in barriers:
+            barriers[ctas] = barrier_floor_ms(torch, kernels, ctas)
+    rows = [_icp_case(torch, icp, probe, floor_ms,
+                      barriers[icp._ctas(c[1][0].vertices.numel() // 3,
+                                         len(c[1])) * len(c[1])], *c)
+            for c in calls]
 
-    # one level's icp_align captured into a CUDA graph, replayed
-    name, src, tgt, lcam, lcfg, T0 = calls[0]
+    # a level and the race captured into a CUDA graph, replayed
+    _, srcs, tgts, lcam, lcfg, inits, _ = calls[0]
+    _, srcs2, tgts2, lcam2, lcfg2, inits2, _ = calls[1]
+
+    def captured_pair():
+        return (icp.icp_align_raced(srcs[0], tgts[0], lcam, lcfg, inits[1],
+                                    init_T=inits[0])
+                + icp.icp_align(srcs2[0], tgts2[0], lcam2, lcfg2,
+                                init_T=inits2[0]))
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        icp.icp_align(src, tgt, lcam, lcfg, init_T=T0)
+        captured_pair()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = icp.icp_align(src, tgt, lcam, lcfg, init_T=T0)
+        captured = captured_pair()
     graph.replay()
     torch.cuda.synchronize()
-    eager = icp.icp_align(src, tgt, lcam, lcfg, init_T=T0)
+    eager = captured_pair()
     graph_equal = all(bool(torch.equal(a, b))
                       for a, b in zip(captured, eager))
 
@@ -1261,6 +1347,7 @@ def phase_icp(torch, card: str, sweep):
                 stage[turn].append(median_ms(torch, pyramid))
         else:
             stage[turn].append(median_ms(torch, pyramid))
+    issue_us = host_issue_us(pyramid)
     before = icp_launches()
     frame_syncs = count_syncs(torch, pyramid)
     per_frame = [a - b for a, b in zip(icp_launches(), before)]
@@ -1277,76 +1364,95 @@ def phase_icp(torch, card: str, sweep):
     # frames), kernel and plain
     pair_cfg = dataclasses.replace(
         cfg.icp, max_iters=cfg.keyframes.loop_icp_max_iters)
-    _, src4, tgt4, lcam4, _, T04 = calls[0]
+    src4, tgt4, T04 = srcs[0], tgts[0], inits[1]
 
     def batch():
         return icp.icp_align_batch([src4] * PAIR_BATCH, [tgt4] * PAIR_BATCH,
-                                   lcam4, pair_cfg, [T04] * PAIR_BATCH)
+                                   lcam, pair_cfg, [T04] * PAIR_BATCH)
 
+    before = icp_launches()
     pair = {"candidates": PAIR_BATCH, "max_iters": pair_cfg.max_iters,
-            "syncs": count_syncs(torch, batch),
-            "ms": median_ms(torch, batch)}
+            "syncs": count_syncs(torch, batch)}
+    pair["launches"] = [a - b for a, b in zip(icp_launches(), before)]
+    pair["ms"] = median_ms(torch, batch)
     with plain_icp():
         pair["syncs_plain"] = count_syncs(torch, batch)
         pair["ms_plain"] = median_ms(torch, batch)
+        plain_rows = batch()
+    pair["transform_max_abs_err"] = float(
+        (batch()[:, :16] - plain_rows[:, :16]).abs().max())
     pair["sync_sites"] = sync_sites(torch, batch)
 
     _emit({"phase": "icp", "card": card, "cases": rows,
-           "graph_replay_equal_eager": graph_equal, "graph_case": name,
-           "stage_ms": stage, "stage_syncs": frame_syncs,
+           "graph_replay_equal_eager": graph_equal,
+           "graph_cases": ICP_LEVELS[:2],
+           "stage_ms": stage, "stage_host_issue_us": issue_us,
+           "stage_syncs": frame_syncs,
            "stage_syncs_plain": frame_syncs_plain,
            "launches_per_frame": dict(zip(ICP_KERNELS, per_frame)),
            "stage_device_kernels": frame_kernels,
            "stage_device_kernels_plain": frame_kernels_plain,
            "pyramid_transform_max_abs_err": pyramid_err,
            "pair_icp_batch": pair, "floor_ms": floor_ms,
+           "barrier_floor_ms": barriers,
            "seconds": time.perf_counter() - t0})
     for r in rows:
         c = r["case"]
-        lp = r["loop"]
-        _require(r["system"]["ok"], f"K4 NormalSystem == plain within "
-                                    f"rtol 1e-4, atol 1e-7 ({c})")
-        _require(abs(r["score"]["num"] - r["score"]["num_plain"])
-                 <= ICP_SCORE_RTOL * abs(r["score"]["num_plain"])
-                 and r["score"]["den"] == r["score"]["den_plain"],
-                 f"K4 score sums == plain within rtol 1e-5 ({c})")
-        _require(r["partials"]["close"], f"K4a partials == the in-order "
-                                         f"reference within 1e-5 ({c})")
-        _require(r["update"]["max_abs_err"] <= ICP_T_ATOL
-                 and r["update"]["state_equal"]
-                 and r["update"]["fstate_close"],
-                 f"K4b update == the in-order reference ({c})")
-        _require(lp["transform_max_abs_err"] <= ICP_T_ATOL,
-                 f"K4 transform == plain within 1e-5 ({c})")
-        _require(abs(lp["error"] - lp["error_plain"])
-                 <= ICP_ERR_RTOL * abs(lp["error_plain"])
-                 and abs(lp["count"] - lp["count_plain"])
-                 <= ICP_ERR_RTOL * abs(lp["count_plain"]),
-                 f"K4 error and count == plain within rtol 1e-3 ({c})")
-        _require(lp["iters"] == lp["iters_plain"]
-                 or lp.get("tie", {}).get("ok", False),
-                 f"K4 iterations == plain, or a tie at tol2 ({c})")
-        _require(r["syncs"] == 0, f"icp_align syncs 0 times on the card "
-                                  f"({c})")
-        _require(r["launches"] == [r["max_iters"]] * 2,
-                 f"icp_align launches K4a and K4b max_iters times ({c})")
-    _require(graph_equal, "icp_align captured in a CUDA graph == eager")
-    _require(per_frame == [sum(r["max_iters"] for r in rows) + 2] * 2,
-             "the pyramid launches K4a / K4b once an iteration, twice for "
-             "the race's scores")
+        s = r["sums"]
+        _require(s["ok"], f"K4s NormalSystem == plain within rtol 1e-4, "
+                          f"atol 1e-7 ({c})")
+        _require(s["bit_exact"] and s["score"]["bit_exact"],
+                 f"K4s system and score sums == their in-order references "
+                 f"bit for bit ({c})")
+        _require(abs(s["score"]["num"] - s["score"]["num_plain"])
+                 <= ICP_SCORE_RTOL * abs(s["score"]["num_plain"])
+                 and s["score"]["den"] == s["score"]["den_plain"],
+                 f"K4s score sums == plain within rtol 1e-5 ({c})")
+        _require(s["launches"] == [0, 2], f"K4s: one launch a sum ({c})")
+        _require(r["level"]["bit_exact"],
+                 f"K4 level == the frozen-lane in-order reference bit for "
+                 f"bit ({c})")
+        _require(r["level"]["launches"] == [1, 0], f"K4: one launch a "
+                                                   f"level ({c})")
+        for k, lp in enumerate(r["loop"]):
+            _require(lp["transform_max_abs_err"] <= ICP_T_ATOL,
+                     f"K4 transform == plain within 1e-5 ({c}, {k})")
+            _require(abs(lp["error"] - lp["error_plain"])
+                     <= ICP_ERR_RTOL * abs(lp["error_plain"])
+                     and abs(lp["count"] - lp["count_plain"])
+                     <= ICP_ERR_RTOL * abs(lp["count_plain"]),
+                     f"K4 error and count == plain within rtol 1e-3 "
+                     f"({c}, {k})")
+            _require(lp["iters"] == lp["iters_plain"]
+                     or lp.get("tie", {}).get("ok", False),
+                     f"K4 iterations == plain, or a tie at tol2 ({c}, {k})")
+        if r["race"]:
+            p = r["pick"]
+            _require(p["transform_max_abs_err"] <= ICP_T_ATOL
+                     and (p["iters"] == p["iters_plain"]
+                          or any(lp.get("tie", {}).get("ok", False)
+                                 for lp in r["loop"])),
+                     f"K4's race keeps what pick_by_score keeps ({c})")
+        _require(r["syncs"] == 0, f"a K4 level syncs 0 times ({c})")
+    _require(graph_equal, "the race and a level captured in a CUDA graph "
+                          "== eager")
+    _require(per_frame == [len(ICP_LEVELS), 0] and frame_syncs == 0,
+             "the pyramid launches K4 once a level (3), no K4s, no sync")
+    _require(pair["launches"] == [1, 0] and pair["syncs"] <= 1
+             and pair["transform_max_abs_err"] <= ICP_T_ATOL,
+             "the pair-ICP batch: one K4 launch, one sync, == plain")
     main = next(r for r in rows if r["case"] == ICP_MAIN_CASE)
     summary = {}
+    errs = {"icp_gn_level": max(lp["transform_max_abs_err"]
+                                for r in rows for lp in r["loop"]),
+            "icp_sums": max(r["sums"]["max_abs_err"] for r in rows)}
     for kname in ICP_KERNELS:
         def fields(r, kname=kname):
             return {"case": r["case"], **r[kname]}
-        summary[kname] = {
-            **fields(main),
-            "max_abs_err": max(r["system"]["max_abs_err"]
-                               if kname == "icp_partials"
-                               else r["update"]["max_abs_err"]
-                               for r in rows),
-            "library_ms": None,
-            "cases": [fields(r) for r in rows if r is not main]}
+        summary[kname] = {**fields(main), "max_abs_err": errs[kname],
+                          "library_ms": None,
+                          "cases": [fields(r) for r in rows
+                                    if r is not main]}
     return summary
 
 
@@ -2927,15 +3033,15 @@ def phase_nccl(torch, frames) -> dict:
              "NCCL group initializes; its collective helpers agree")
     _require(all(k > 0 for k in one["launches"]),
              "K1 launched on every frame over NCCL")
-    _require(all(n > 0 for n in one["icp_launches"]),
-             "K4 launched over NCCL")
+    _require(one["icp_launches"][1] > 0,
+             "K4s launched over NCCL (the sharded level's systems)")
     return one
 
 
 def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
     """Two ranks on the one card over Gloo at flagship_gather_config():
     see the module docstring.  Returns rank 0's K1 launches and its
-    [K4a, K4b] launches."""
+    [K4, K4s] launches."""
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.parallel import launch, ranks
@@ -3013,8 +3119,8 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
              "K1 launched once per frame on each rank")
     _require(all(o["kernel"]["bit_exact"] and o["kernel"]["rows"] > 0
                  for o in two), "K1 bit-exact on each rank's own rows")
-    _require(all(n > 0 for o in two for n in o["icp_launches"]),
-             "K4 launched on each rank")
+    _require(all(o["icp_launches"][1] > 0 for o in two),
+             "K4s launched on each rank (the sharded level's systems)")
     return launches[0], a["icp_launches"]
 
 
@@ -3022,7 +3128,7 @@ def phase_sharded_backend(torch, card: str) -> tuple:
     """KeyframeSLAM(mesh) on two Gloo ranks over the first
     N_SHARDED_BACKEND frames of the backend scenario (the drift before
     frame 18), against a one-rank NCCL mesh and the single-card backend.
-    Returns rank 0's K1 launches and its [K4a, K4b] launches."""
+    Returns rank 0's K1 launches and its [K4, K4s] launches."""
     from voxelhashing_demo_tpu_torch.geometry import se3
     from voxelhashing_demo_tpu_torch.models import keyframe_slam
     from voxelhashing_demo_tpu_torch.parallel import launch, ranks
@@ -3078,7 +3184,8 @@ def phase_sharded_backend(torch, card: str) -> tuple:
     _require([o["launches"] for o in two] == expected,
              "K1 launches == frames + rebuild fuses + 2 x moves per rank")
     _require(all(n > 0 for o in two for n in o["icp_launches"]),
-             "K4 launched on each rank")
+             "K4 (pair-ICP batches) and K4s (the sharded level) launched "
+             "on each rank")
     return a["launches"], a["icp_launches"]
 
 
@@ -3124,14 +3231,15 @@ def main() -> int:
     by_path.update({k: {} for k in ICP_KERNELS})
 
     def k4(path: str, run):
-        """``run()`` with K4's counts from 0, recorded under ``path``; the
-        frame step tracks on every path, so both kernels must launch."""
+        """``run()`` with the ICP kernels' counts from 0, recorded under
+        ``path``; the frame step's pyramid tracks on every path, so K4
+        must launch (K4s serves only the sharded level)."""
         zero_icp_launches()
         out = run()
         counts = icp_launches()
         for kname, n in zip(ICP_KERNELS, counts):
             by_path[kname][path] = n
-        _require(all(n > 0 for n in counts), f"K4 launched on {path}")
+        _require(counts[0] > 0, f"K4 launched on {path}")
         return out
 
     k4("parity", lambda: phase_parity(torch))
@@ -3200,7 +3308,7 @@ def main() -> int:
         **probes[kname],
     } for kname in PROBE_TAGS] + [{
         "name": kname, **ICP_META[kname],
-        "launches": list(by_path[kname].values())[-1],
+        "launches": [n for n in by_path[kname].values() if n][-1],
         "launches_by_path": by_path[kname],
         **icp_summary[kname],
     } for kname in ICP_KERNELS]})

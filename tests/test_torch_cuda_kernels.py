@@ -13,14 +13,15 @@ CPU within 1e-4; the streaming cycle's copies (pinned buffers, side
 stream) return what was sent, bit for bit; the probe kernels K16 and K17
 equal their plain versions bit for bit over index counts, pointer
 alignments, strip widths, strided views, the direct path of a tall source
-and out-of-range indices.  The ICP kernels (K4) at the flagship's three
-pyramid levels: K4a's partials
-against the in-order reference within 1e-5, the score sums within rtol
-1e-5, one K4b update within 1e-5 of its plain version, the system within
+and out-of-range indices.  The ICP kernels (K4 ``icp_gn_level``, K4s
+``icp_sums``) at the flagship's three pyramid levels: bit for bit against
+their in-order references (K4s's system and score sums, one K4 iteration,
+whole levels, the L4 race as C = 2 and a batch of 4), the system within
 rtol 1e-5 of the float64 sum of its own terms (and within 1e-4 of the
-plain one in norm), the flagship pyramid within 1e-5 of the plain loops
-with equal iteration counts; the loop makes no host sync and replays from
-a CUDA graph bit for bit.
+plain one in norm), the score sums within rtol 1e-5 of the plain ones, the
+flagship pyramid within 1e-5 of the plain loops with equal iteration
+counts in 3 launches; a level makes no host sync and replays from a CUDA
+graph bit for bit; a refused launch raises.
 """
 
 import dataclasses
@@ -804,59 +805,101 @@ def _icp_level(cuda, level: str):
 
 @pytest.mark.parametrize("level", ["L4", "L2", "L1"])
 def test_icp_kernels_match_plain(cuda, level):
-    """One Gauss-Newton iteration at each level.  K4a's system against the
-    float64 sum of its own per-pixel terms (rtol 1e-5, atol 1e-7: the
-    fixed tree) and against ``build_normal_system(*associate(...))`` in
-    norm (1e-4 of each field's norm: cuBLAS's float32 sums err by up to
-    2e-4 on an entry that cancels, such as a JTr entry 3 000 x smaller than
-    the largest); its partials against the in-order reference (1e-5); the
-    score sums (rtol 1e-5, count equal); one K4b update against
-    ``_solve_update_reference`` (1e-5, state equal)."""
+    """K4s's system against the float64 sum of its own per-pixel terms
+    (rtol 1e-5, atol 1e-7: the fixed trees) and against
+    ``build_normal_system(*associate(...))`` in norm (1e-4 of each field's
+    norm: cuBLAS's float32 sums err by up to 2e-4 on an entry that
+    cancels, such as a JTr entry 3 000 x smaller than the largest), and
+    bit for bit against its in-order reference; the score sums bit for bit
+    against theirs and within rtol 1e-5 of the plain ones (count equal);
+    one K4 iteration bit for bit against ``_level_reference``."""
     from voxelhashing_demo_tpu_torch.ops import icp
 
     src, tgt, cam, cfg, T0 = _icp_level(cuda, level)
     packed = icp.pack_target(tgt)
-    before = (icp.LAUNCHES_PARTIALS, icp.LAUNCHES_SOLVE)
+    before = (icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS)
     got = icp.normal_system(T0, src, packed, cam, cfg)
-    assert (icp.LAUNCHES_PARTIALS, icp.LAUNCHES_SOLVE) == (
-        before[0] + 1, before[1] + 1)
+    assert (icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS) == (before[0],
+                                                       before[1] + 1)
     want = icp.build_normal_system(
         *icp.associate(T0, src, None, cam, cfg, packed), cfg.huber_delta)
     assert float(want.count) > 1000
     exact = icp._system_from_sums(icp._terms_reference(
         T0, src, packed, cam, cfg, False).double().sum(0))
+    ordered = icp._system_from_sums(icp._sums_reference(
+        icp._partials_reference(T0, src, packed, cam, cfg)))
     for name in ("JTJ", "JTr", "error", "count"):
         g, w = getattr(got, name), getattr(want, name)
         assert torch.allclose(g.double(), getattr(exact, name), rtol=1e-5,
                               atol=1e-7), name
         assert float(torch.linalg.norm(g - w)) <= 1e-4 * float(
             torch.linalg.norm(w)), name
-    verts, normals, packed, T = icp._kernel_inputs(T0, src, packed, cam)
-    parts = icp._partials_buffer(icp.N_SUMS, verts)
-    icp._launch_partials(T, verts, normals, packed, cam, cfg, False, None,
-                         parts)
-    ref = icp._partials_reference(T, src, packed, cam, cfg)
-    assert torch.allclose(parts, ref, rtol=1e-5, atol=1e-6)
+        assert _bits_equal(g, getattr(ordered, name)), name
     num, den = icp.alignment_score_sums(T0, src, None, cam, cfg, packed)
     rnum, rden = icp._score_sums_reference(T0, src, cam, cfg, packed)
     assert torch.allclose(num, rnum, rtol=1e-5) and bool(den == rden)
-    tol2 = float(np.float32(cfg.update_tol ** 2))
-    T1 = T.clone()
-    ist = torch.zeros(2, dtype=torch.int32, device=cuda)
-    fst = torch.zeros(39, device=cuda)
-    icp._launch_solve(parts, 0, T=T1, istate=ist, fstate=fst,
-                      damping=cfg.damping, tol2=tol2,
-                      max_iters=cfg.max_iters)
-    T1r, istr, fstr = icp._solve_update_reference(
-        parts, T, torch.zeros_like(ist), torch.zeros_like(fst), cfg.damping,
-        tol2, cfg.max_iters)
-    assert float((T1 - T1r).abs().max()) <= 1e-5
-    assert torch.equal(ist, istr)
+    onum, oden = icp._sums_reference(icp._partials_reference(
+        T0, src, packed, cam, cfg, score=True))
+    assert _bits_equal(num, onum) and _bits_equal(den, oden)
+    one = dataclasses.replace(cfg, max_iters=1)
+    rows, iters = icp._align_candidates([src], [tgt], cam, one, [T0])
+    rrows, riters = icp._level_reference([src], [tgt], cam, one, [T0])
+    assert _bits_equal(rows, rrows) and torch.equal(iters, riters)
+
+
+@pytest.mark.parametrize("level", ["L4_race", "L4", "L2", "L1", "batch"])
+def test_icp_level_bit_exact_against_reference(cuda, level):
+    """A whole level in one K4 launch equals the frozen-lane loop of the
+    in-order references bit for bit: the L4 race (C = 2, identity and a
+    prior start, the epilogue's pick in row 2), each level from T0, and a
+    pair-ICP batch of 4 candidates from four starts."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+    from voxelhashing_demo_tpu_torch.ops import icp
+
+    src, tgt, cam, cfg, T0 = _icp_level(cuda, level.split("_")[0]
+                                        if level != "batch" else "L4")
+    race = level == "L4_race"
+    if race:
+        inits = [None, T0]
+    elif level == "batch":
+        inits = [T0, None, se3.exp(torch.tensor(
+            [0.02, 0.0, -0.01, 0.0, 0.02, 0.0], device=cuda)), T0 @ T0]
+    else:
+        inits = [T0]
+    C = len(inits)
+    before = icp.LAUNCHES_LEVEL
+    rows, iters = icp._align_candidates([src] * C, [tgt] * C, cam, cfg,
+                                        inits, race=race)
+    assert icp.LAUNCHES_LEVEL == before + 1
+    rrows, riters = icp._level_reference([src] * C, [tgt] * C, cam, cfg,
+                                         inits, race=race)
+    assert _bits_equal(rows, rrows)
+    assert torch.equal(iters, riters)
+
+
+@pytest.mark.parametrize("candidates,race", [(1, False), (2, True),
+                                             (3, False)])
+def test_icp_level_zero_iterations(cuda, candidates, race):
+    """max_iters 0: one launch returns every candidate's start state (T,
+    error inf, count 0, JTJ 0, 0 iterations), as the reference does."""
+    from voxelhashing_demo_tpu_torch.ops import icp
+
+    src, tgt, cam, cfg, T0 = _icp_level(cuda, "L4")
+    cfg = dataclasses.replace(cfg, max_iters=0)
+    inits = [T0, None, T0][:candidates]
+    rows, iters = icp._align_candidates([src] * candidates,
+                                        [tgt] * candidates, cam, cfg, inits,
+                                        race=race)
+    rrows, riters = icp._level_reference([src] * candidates,
+                                         [tgt] * candidates, cam, cfg,
+                                         inits, race=race)
+    assert _bits_equal(rows, rrows) and torch.equal(iters, riters)
+    assert not iters.any() and torch.equal(rows[0, :16].view(4, 4), T0)
 
 
 def test_icp_pyramid_matches_plain(cuda, monkeypatch):
     """The flagship pyramid (identity start, the prior raced at the
-    coarsest level) on two consecutive sweep frames, the device loops
+    coarsest level) on two consecutive sweep frames, three K4 launches
     against the plain loops: transform within 1e-5, iterations equal,
     inlier count and error within rtol 1e-3 (an inlier on a gate's edge
     may flip between the two float orders)."""
@@ -875,15 +918,17 @@ def test_icp_pyramid_matches_plain(cuda, monkeypatch):
     prior = se3.exp(torch.tensor([0.0, 0.0, 0.0, 0.0, 0.03, 0.0],
                                  device=cuda))
     args = (d_src, d_tgt, cfg.camera, cfg.icp)
-    before = icp.LAUNCHES_PARTIALS
+    before = (icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS)
     res = icp.icp_align_pyramid(*args, prior_T=prior)
-    assert icp.LAUNCHES_PARTIALS - before == sum(cfg.icp.pyramid_iters) + 10
+    assert (icp.LAUNCHES_LEVEL - before[0],
+            icp.LAUNCHES_SUMS - before[1]) == (len(cfg.icp.pyramid), 0)
     monkeypatch.setattr(icp, "icp_align", icp.icp_align_reference)
     monkeypatch.setattr(
         icp, "alignment_score_sums",
         lambda T, src, tgt, cam, c, packed=None: icp._score_sums_reference(
             T, src, cam, c, icp.pack_target(tgt) if packed is None
             else packed))
+    monkeypatch.setattr(icp, "icp_align_raced", icp._race_plain)
     plain = icp.icp_align_pyramid(*args, prior_T=prior)
     assert int(res.iters) == int(plain.iters)
     assert float((res.transform - plain.transform).abs().max()) <= 1e-5
@@ -892,8 +937,9 @@ def test_icp_pyramid_matches_plain(cuda, monkeypatch):
 
 
 def test_icp_align_makes_no_host_sync_and_replays_in_a_graph(cuda):
-    """The device loop reads nothing back: under sync-debug "error" mode it
-    runs; captured into a CUDA graph it replays to the eager result."""
+    """A level reads nothing back: under sync-debug "error" mode it runs;
+    captured into a CUDA graph (the cooperative launch as a graph node)
+    it replays to the eager result, the race too."""
     from voxelhashing_demo_tpu_torch.ops import icp
 
     src, tgt, cam, cfg, T0 = _icp_level(cuda, "L4")
@@ -902,20 +948,38 @@ def test_icp_align_makes_no_host_sync_and_replays_in_a_graph(cuda):
     torch.cuda.set_sync_debug_mode("error")
     try:
         res = icp.icp_align(src, tgt, cam, cfg, init_T=T0)
+        raced = icp.icp_align_raced(src, tgt, cam, cfg, T0)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         icp.icp_align(src, tgt, cam, cfg, init_T=T0)
+        icp.icp_align_raced(src, tgt, cam, cfg, T0)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = icp.icp_align(src, tgt, cam, cfg, init_T=T0)
+        captured_race = icp.icp_align_raced(src, tgt, cam, cfg, T0)
     graph.replay()
     torch.cuda.synchronize()
-    for a, b in zip(captured, res):
+    for a, b in zip(captured + captured_race, res + raced):
         assert torch.equal(a, b)
+
+
+def test_icp_batch_is_one_launch(cuda):
+    """``icp_align_batch`` of 4 candidates is one K4 launch; its rows
+    equal the plain version's within 1e-5 (transforms) and rtol 1e-3
+    (error, count), observability from one eigvalsh."""
+    from voxelhashing_demo_tpu_torch.ops import icp
+
+    src, tgt, cam, cfg, T0 = _icp_level(cuda, "L4")
+    before = icp.LAUNCHES_LEVEL
+    out = icp.icp_align_batch([src] * 4, [tgt] * 4, cam, cfg, [T0] * 4)
+    assert icp.LAUNCHES_LEVEL == before + 1 and out.shape == (4, 19)
+    plain = icp._batch_plain([src] * 4, [tgt] * 4, cam, cfg, [T0] * 4)
+    assert float((out[:, :16] - plain[:, :16]).abs().max()) <= 1e-5
+    assert torch.allclose(out[:, 16:18], plain[:, 16:18], rtol=1e-3)
 
 
 def test_icp_refused_launch_raises(cuda, monkeypatch):
@@ -931,7 +995,9 @@ def test_icp_refused_launch_raises(cuda, monkeypatch):
         raise AssertionError("the plain loop ran on CUDA tensors")
 
     monkeypatch.setattr(icp, "icp_align_reference", no_plain)
-    with pytest.raises(RuntimeError, match="icp_partials kernel launch"):
+    with pytest.raises(RuntimeError, match="icp_gn_level kernel launch"):
         icp.icp_align(src, tgt, cam, cfg, init_T=T0)
+    with pytest.raises(RuntimeError, match="icp_sums kernel launch"):
+        icp.normal_system(T0, src, icp.pack_target(tgt), cam, cfg)
     with pytest.raises(ValueError, match="one CUDA device"):
         icp.normal_system(T0.cpu(), src, icp.pack_target(tgt), cam, cfg)

@@ -133,17 +133,22 @@ KERNELS = {
     "integrate_chunk": [_P, _P, _P, _P, _P, _P, _L, _L, _F, _P],
     # an empty kernel (no arguments but the stream): the launch floor
     "launch_floor": [_P],
-    # ICP (csrc/icp.cu): verts, normals, pixels, packed target, W, H, fx,
-    # fy, cx, cy, 1/fx, 1/fy, T, loop state, normal and distance gates,
-    # Huber delta, score mode, partials
-    "icp_partials": [_P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P,
-                     _F, _F, _F, _I, _P, _P],
-    # partials, CTAs, sums, mode, T, int state, float state, out, damping,
-    # tol2, max_iters
-    "icp_solve_update": [_P, _I, _I, _I, _P, _P, _P, _P, _F, _F, _I, _P],
+    # empty cooperative kernel (csrc/launch_floor.cu): CTAs, grid barriers
+    "grid_sync_floor": [_I, _I, _P],
+    # ICP (csrc/icp.cu): candidate table, candidates, race, pixels, W, H,
+    # fx, fy, cx, cy, 1/fx, 1/fy, normal and distance gates, Huber delta,
+    # damping, tol2, max_iters, CTAs a candidate, partials, score partials,
+    # flags, out rows, iterations
+    "icp_gn_level": [_P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                     _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P],
+    # candidate table, score mode, pixels, W, H, fx, fy, cx, cy, 1/fx,
+    # 1/fy, normal and distance gates, Huber delta, CTAs, partials, out
+    "icp_sums": [_P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I,
+                 _P, _P, _P],
 }
 # C function -> its source under csrc/, where the two names differ
-SOURCES = {"icp_partials": "icp", "icp_solve_update": "icp"}
+SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
+           "grid_sync_floor": "launch_floor"}
 
 
 def source_of(name: str) -> str:

@@ -114,21 +114,11 @@ def step(state: HashSLAMState, depth_raw: torch.Tensor,
             frame.depth, state.model.depth, cam, config.icp,
             src_full=frame, tgt_full=state.model, prior_T=prior,
         )
+    elif prior is not None:
+        result = icp_ops.icp_align_raced(frame, state.model, cam, config.icp,
+                                         prior)
     else:
         result = icp_ops.icp_align(frame, state.model, cam, config.icp)
-        if prior is not None:
-            raced = icp_ops.icp_align(frame, state.model, cam, config.icp,
-                                      init_T=prior)
-            packed = icp_ops.pack_target(state.model)
-            sn, sd = icp_ops.alignment_score_sums(
-                raced.transform, frame, state.model, cam, config.icp, packed)
-            bn, bd = icp_ops.alignment_score_sums(
-                result.transform, frame, state.model, cam, config.icp,
-                packed)
-            result = icp_ops.pick_by_score(
-                raced, result,
-                sn / torch.clamp(sd, min=1.0), bn / torch.clamp(bd, min=1.0),
-            )
     ok = (
         model_valid
         & (result.count > 100)

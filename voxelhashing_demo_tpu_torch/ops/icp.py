@@ -1,23 +1,27 @@
 """Point-to-plane ICP tracking by damped Gauss-Newton (port of ops/icp.py).
 
-On CUDA tensors the Gauss-Newton loop of ``icp_align`` runs on the device,
-in the hand-written kernel pair of ``csrc/icp.cu`` (K4): ``max_iters``
-times K4a ``icp_partials`` (association and each CTA's sums of the normal
-equations) and K4b ``icp_solve_update`` (the sums over the CTAs, the 6x6
-Cholesky solve, T <- exp(delta) T and the loop state).  K4b sets a done
-flag on the device when the JAX loop would stop (after ``max_iters``, or
-once |delta|^2 <= update_tol^2) and both kernels return at entry once it
-is set, so the loop makes no host read and ``iters`` stays a device
-tensor.  ``normal_system`` and ``alignment_score_sums`` run on the same
-kernels.  A launch that fails raises; nothing falls back.
+On CUDA tensors a pyramid level's whole Gauss-Newton loop runs on the
+device in one cooperative launch of the hand-written kernel K4
+``icp_gn_level`` (``csrc/icp.cu``), for C candidates side by side:
+``icp_align`` is one launch (C = 1) that makes no host read, the raced
+coarsest level (``icp_align_raced``, inside ``icp_align_pyramid`` and
+``hash_slam.step``) one launch with C = 2 that scores both results and
+keeps the better (``pick_by_score``'s rule), and ``icp_align_batch`` one
+launch over its candidates (``_align_candidates`` serves all three).  A
+candidate stops when the JAX loop would (after ``max_iters``, or once
+|delta|^2 <= update_tol^2) and is then frozen; the kernel returns once all
+are done.  ``normal_system`` and ``alignment_score_sums`` run one pass of
+the same association in K4s ``icp_sums``.  A refused launch raises;
+nothing falls back.
 
 On CPU tensors each function runs its plain version: ``icp_align_reference``
 (a host-checked Python loop, one device-to-host read of the update norm
 per iteration), ``build_normal_system(*associate(...))``,
-``_score_sums_reference``.  ``_partials_reference`` and
-``_solve_update_reference`` compute what K4a and K4b compute, tile by tile
-in the kernels' order, for the tests and the card checks.
-``LAUNCHES_PARTIALS`` and ``LAUNCHES_SOLVE`` count the kernels' launches.
+``_score_sums_reference``, ``pick_by_score``.  ``_partials_reference``,
+``_sums_reference``, ``_solve_warp_reference``, ``_solve_update_reference``
+and ``_level_reference`` compute what the kernels compute, in their order,
+for the tests and the card checks.  ``LAUNCHES_LEVEL`` and
+``LAUNCHES_SUMS`` count the kernels' launches.
 
 The plain 6x6 normal equations are formed and solved in float32.  Their
 JTJ/JTr products run with ``torch.backends.cuda.matmul.allow_tf32 = False``
@@ -27,6 +31,7 @@ which would bend the solve.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import NamedTuple
@@ -43,16 +48,18 @@ from .preprocess import (Frame, _norm, downsample_depth,
                          downsample_depth_mean, preprocess_metric)
 
 
-LAUNCHES_PARTIALS = 0   # K4a icp_partials
-LAUNCHES_SOLVE = 0      # K4b icp_solve_update
+LAUNCHES_LEVEL = 0      # K4 icp_gn_level
+LAUNCHES_SUMS = 0       # K4s icp_sums
 
-CTA_PIXELS = 256        # K4a: source pixels a CTA (csrc/icp.cu kThreads)
+CTA_THREADS = 256       # csrc/icp.cu kThreads
+MAX_CTAS = 128          # CTAs a candidate (kMaxCtas)
+MAX_GRID = 256          # CTAs of all candidates, the grid rule's ceiling
+MAX_CANDIDATES = 32     # candidates a launch (kMaxCands)
 N_SUMS = 29             # 21 upper-triangle JTJ, 6 JTr, error, count
 N_SCORE_SUMS = 2        # num, den
-# what K4b does with the summed partials
-_MODE_SOLVE, _MODE_SYSTEM, _MODE_SCORE = 0, 1, 2
-# K4b's float loop state: dnorm, err, count, JTJ (36)
-_FSTATE = 3 + 36
+# a result row of K4: T (16), dnorm, error, count, score, JTJ (36)
+ROW = 56
+_ROW_DNORM, _ROW_ERR, _ROW_COUNT, _ROW_SCORE, _ROW_JTJ = 16, 17, 18, 19, 20
 
 
 class NormalSystem(NamedTuple):
@@ -227,6 +234,11 @@ def solve_normal_system(sys: NormalSystem, damping: float) -> torch.Tensor:
     return torch.where(ok, delta, 0.0)
 
 
+def _tol2(cfg: ICPConfig) -> float:
+    """The JAX loop's float32 bound on |delta|^2."""
+    return float(np.float32(cfg.update_tol ** 2))
+
+
 def icp_align_reference(
     src: Frame,
     tgt: Frame,
@@ -239,8 +251,7 @@ def icp_align_reference(
     dev = src.depth.device
     T = se3.identity(device=dev) if init_T is None else init_T
     tgt_packed = pack_target(tgt)
-    # the JAX loop compares the float32 update norm with a float32 bound
-    tol2 = float(np.float32(cfg.update_tol ** 2))
+    tol2 = _tol2(cfg)
     it = 0
     dnorm = math.inf
     err = torch.tensor(math.inf, dtype=torch.float32, device=dev)
@@ -267,51 +278,59 @@ def icp_align(
     cfg: ICPConfig,
     init_T: torch.Tensor | None = None,
 ) -> ICPResult:
-    """Align src onto tgt: returns T such that T @ src ~= tgt.  The
-    device loop of K4a / K4b on CUDA tensors, ``icp_align_reference`` on
-    CPU tensors."""
+    """Align src onto tgt: returns T such that T @ src ~= tgt.  One K4
+    launch (C = 1) on CUDA tensors, ``icp_align_reference`` on CPU
+    tensors."""
     if _on_cpu(src.vertices, tgt.depth):
         return icp_align_reference(src, tgt, cam, cfg, init_T)
-    dev = src.vertices.device
-    T = (se3.identity(device=dev) if init_T is None
-         else init_T.to(torch.float32).clone(
-             memory_format=torch.contiguous_format))
-    verts, normals, packed, T = _kernel_inputs(T, src, pack_target(tgt),
-                                               cam)
-    f32 = dict(dtype=torch.float32, device=dev)
-    if cfg.max_iters <= 0:        # the JAX loop's initial state
-        return ICPResult(transform=T, error=torch.full((), math.inf, **f32),
-                         count=torch.zeros((), **f32),
-                         iters=torch.zeros((), dtype=torch.int32, device=dev),
-                         JTJ=torch.zeros((6, 6), **f32))
-    partials = _partials_buffer(N_SUMS, verts)
-    istate = torch.zeros(2, dtype=torch.int32, device=dev)   # it, done
-    fstate = torch.empty(_FSTATE, **f32)      # written by the first K4b
-    tol2 = float(np.float32(cfg.update_tol ** 2))
-    for _ in range(cfg.max_iters):
-        _launch_partials(T, verts, normals, packed, cam, cfg, False, istate,
-                         partials)
-        _launch_solve(partials, _MODE_SOLVE, T=T, istate=istate,
-                      fstate=fstate, damping=cfg.damping, tol2=tol2,
-                      max_iters=cfg.max_iters)
-    return ICPResult(transform=T, error=fstate[1], count=fstate[2],
-                     iters=istate[0], JTJ=fstate[3:].view(6, 6))
+    rows, iters = _align_candidates([src], [tgt], cam, cfg, [init_T])
+    return _row_result(rows[0], iters[0])
+
+
+def icp_align_raced(
+    src: Frame,
+    tgt: Frame,
+    cam: CameraConfig,
+    cfg: ICPConfig,
+    prior_T: torch.Tensor,
+    init_T: torch.Tensor | None = None,
+) -> ICPResult:
+    """ICP from ``init_T`` (the identity by default) and from ``prior_T``;
+    the prior's result only when it scores strictly lower
+    (``pick_by_score``).  One K4 launch (C = 2 and the race epilogue) on
+    CUDA tensors; on CPU tensors ``_race_plain``."""
+    if _on_cpu(src.vertices, tgt.depth):
+        return _race_plain(src, tgt, cam, cfg, prior_T, init_T)
+    rows, iters = _align_candidates([src, src], [tgt, tgt], cam, cfg,
+                                    [init_T, prior_T], race=True)
+    return _row_result(rows[2], iters[2])
+
+
+def _race_plain(src: Frame, tgt: Frame, cam: CameraConfig, cfg: ICPConfig,
+                prior_T: torch.Tensor,
+                init_T: torch.Tensor | None = None) -> ICPResult:
+    """Plain version of ``icp_align_raced``: two ``icp_align`` runs, their
+    ``alignment_score_sums`` and ``pick_by_score``."""
+    result = icp_align(src, tgt, cam, cfg, init_T=init_T)
+    raced = icp_align(src, tgt, cam, cfg, init_T=prior_T)
+    packed = pack_target(tgt)
+    sn, sd = alignment_score_sums(raced.transform, src, tgt, cam, cfg,
+                                  packed)
+    bn, bd = alignment_score_sums(result.transform, src, tgt, cam, cfg,
+                                  packed)
+    return pick_by_score(raced, result, sn / torch.clamp(sd, min=1.0),
+                         bn / torch.clamp(bd, min=1.0))
 
 
 def normal_system(T: torch.Tensor, src: Frame, tgt_packed: torch.Tensor,
                   cam: CameraConfig, cfg: ICPConfig) -> NormalSystem:
     """The Gauss-Newton system of ``src`` against the packed target under
-    ``T``: K4a and K4b's sums (no solve) on CUDA tensors,
+    ``T``: K4s in system mode on CUDA tensors,
     ``build_normal_system(*associate(...))`` on CPU tensors."""
     if _on_cpu(T, src.vertices, tgt_packed):
         p, n_t, r, valid = associate(T, src, None, cam, cfg, tgt_packed)
         return build_normal_system(p, n_t, r, valid, cfg.huber_delta)
-    verts, normals, packed, T = _kernel_inputs(T, src, tgt_packed, cam)
-    partials = _partials_buffer(N_SUMS, verts)
-    out = torch.empty(44, dtype=torch.float32, device=T.device)
-    _launch_partials(T, verts, normals, packed, cam, cfg, False, None,
-                     partials)
-    _launch_solve(partials, _MODE_SYSTEM, out=out)
+    out = _launch_sums(T, src, tgt_packed, cam, cfg, score=False)
     return NormalSystem(JTJ=out[:36].view(6, 6), JTr=out[36:42],
                         error=out[42], count=out[43])
 
@@ -325,7 +344,7 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _kernel_inputs(T, src: Frame, tgt_packed, cam: CameraConfig):
-    """Check what K4a takes and return contiguous (vertices, normals,
+    """Check what K4 takes and return contiguous (vertices, normals,
     packed target, T), or raise."""
     dev = src.vertices.device
     tensors = (T, src.vertices, src.normals, tgt_packed)
@@ -353,53 +372,108 @@ def _kernel_inputs(T, src: Frame, tgt_packed, cam: CameraConfig):
             T.contiguous())
 
 
-def _ctas(n_pixels: int) -> int:
-    return -(-n_pixels // CTA_PIXELS)
+def _ctas(n_pixels: int, n_cands: int = 1) -> int:
+    """CTAs a candidate, the grid rule of csrc/icp.cu: a function of the
+    pixel count and the candidates alone."""
+    return min(-(-n_pixels // CTA_THREADS), MAX_CTAS,
+               max(1, MAX_GRID // n_cands))
 
 
-def _partials_buffer(n_sums: int, verts: torch.Tensor) -> torch.Tensor:
-    return torch.empty((n_sums, _ctas(verts.numel() // 3)),
-                       dtype=torch.float32, device=verts.device)
+def _table(entries) -> ctypes.Array:
+    """The kernel's candidate table: (vertices, normals, packed target,
+    T) pointers a candidate, as a host array."""
+    ptrs = [t.data_ptr() for entry in entries for t in entry]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _launch_partials(T, verts, normals, packed, cam: CameraConfig,
-                     cfg: ICPConfig, score: bool, istate, partials) -> None:
-    """K4a on the current stream: one column of ``partials`` a CTA; with
-    ``istate`` it returns at once when the loop's done flag is set."""
+def _align_candidates(srcs, tgts, cam: CameraConfig, cfg: ICPConfig, inits,
+                      race: bool = False):
+    """K4 over C candidates (lists of Frames and start transforms, None
+    for the identity; every source of one shape) in one launch on the
+    current stream: (rows (C + race, ROW), iters (C + race,) int32), row c
+    candidate c's T, dnorm, error, count, score and JTJ; row C of a race
+    (C = 2) the picked result.  Raises on anything the kernel does not
+    take."""
+    C = len(srcs)
+    if (not 1 <= C <= MAX_CANDIDATES or len(tgts) != C or len(inits) != C
+            or (race and C != 2)):
+        raise ValueError(f"ICP candidates: 1 to {MAX_CANDIDATES} sources, "
+                         f"as many targets and starts (2 for a race), got "
+                         f"{C}, {len(tgts)}, {len(inits)}")
+    shapes = {tuple(src.vertices.shape) for src in srcs}
+    if len(shapes) != 1:
+        raise ValueError(f"ICP candidates: every source must have one "
+                         f"shape, got {sorted(shapes)}")
+    dev = srcs[0].vertices.device
+    entries, packs = [], {}
+    for src, tgt, init in zip(srcs, tgts, inits):
+        if id(tgt) not in packs:
+            packs[id(tgt)] = pack_target(tgt)
+        T0 = (se3.identity(device=dev) if init is None
+              else init.to(torch.float32))
+        entries.append(_kernel_inputs(T0, src, packs[id(tgt)], cam))
+    return _launch_level(entries, cam, cfg, race)
+
+
+def _launch_level(entries, cam: CameraConfig, cfg: ICPConfig, race: bool):
+    """K4 on the current stream over checked (vertices, normals, packed
+    target, T) entries, one a candidate: (rows, iters)."""
+    C = len(entries)
+    verts = entries[0][0]
     n = verts.numel() // 3
-    if n == 0:
-        return
+    n_cta = _ctas(n, C)
+    n_rows = C + int(race)
+    n_part, n_score = 2 * C * N_SUMS * n_cta, C * N_SCORE_SUMS * n_cta
+    floats = torch.empty(n_part + n_score + n_rows * ROW,
+                         dtype=torch.float32, device=verts.device)
+    ints = torch.empty(2 * C + n_rows, dtype=torch.int32,
+                       device=verts.device)
+    rows = floats[n_part + n_score:].view(n_rows, ROW)
+    iters = ints[2 * C:]
     kernels.launch(
-        "icp_partials", verts.get_device(), verts.data_ptr(),
-        normals.data_ptr(), n, packed.data_ptr(), cam.width, cam.height,
-        cam.fx, cam.fy, cam.cx, cam.cy, recip(cam.fx), recip(cam.fy),
-        T.data_ptr(), None if istate is None else istate.data_ptr(),
-        cfg.normal_thresh, cfg.dist_thresh, cfg.huber_delta, int(score),
-        partials.data_ptr())
-    global LAUNCHES_PARTIALS
-    LAUNCHES_PARTIALS += 1
+        "icp_gn_level", verts.get_device(), _table(entries), C, int(race),
+        n, cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
+        recip(cam.fx), recip(cam.fy), cfg.normal_thresh, cfg.dist_thresh,
+        cfg.huber_delta, cfg.damping, _tol2(cfg), cfg.max_iters, n_cta,
+        floats.data_ptr(), floats[n_part:].data_ptr(), ints.data_ptr(),
+        rows.data_ptr(), iters.data_ptr())
+    global LAUNCHES_LEVEL
+    LAUNCHES_LEVEL += 1
+    return rows, iters
 
 
-def _launch_solve(partials, mode: int, T=None, istate=None, fstate=None,
-                  out=None, damping: float = 0.0, tol2: float = 0.0,
-                  max_iters: int = 0) -> None:
-    """K4b on the current stream: sums ``partials`` over its CTAs, then
-    solves and updates (T, istate, fstate) in place, or writes the system
-    or the score sums to ``out``."""
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+def _launch_sums(T, src: Frame, tgt_packed, cam: CameraConfig,
+                 cfg: ICPConfig, score: bool) -> torch.Tensor:
+    """K4s on the current stream: (44,) JTJ, JTr, error, count, or with
+    ``score`` (2,) num, den."""
+    verts, normals, packed, T = _kernel_inputs(T, src, tgt_packed, cam)
+    n = verts.numel() // 3
+    n_cta = _ctas(n)
+    n_sums = N_SCORE_SUMS if score else N_SUMS
+    buf = torch.empty(n_sums * n_cta + (N_SCORE_SUMS if score else 44),
+                      dtype=torch.float32, device=verts.device)
+    out = buf[n_sums * n_cta:]
     kernels.launch(
-        "icp_solve_update", partials.get_device(), partials.data_ptr(),
-        partials.shape[1], partials.shape[0], mode, ptr(T), ptr(istate),
-        ptr(fstate), ptr(out), damping, tol2, max_iters)
-    global LAUNCHES_SOLVE
-    LAUNCHES_SOLVE += 1
+        "icp_sums", verts.get_device(), _table([(verts, normals, packed, T)]),
+        int(score), n, cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
+        recip(cam.fx), recip(cam.fy), cfg.normal_thresh, cfg.dist_thresh,
+        cfg.huber_delta, n_cta, buf.data_ptr(), out.data_ptr())
+    global LAUNCHES_SUMS
+    LAUNCHES_SUMS += 1
+    return out
+
+
+def _row_result(rows: torch.Tensor, iters: torch.Tensor) -> ICPResult:
+    """The ICPResult of K4 result rows (..., ROW) and their iterations."""
+    lead = rows.shape[:-1]
+    return ICPResult(transform=rows[..., :16].reshape(*lead, 4, 4),
+                     error=rows[..., _ROW_ERR], count=rows[..., _ROW_COUNT],
+                     iters=iters,
+                     JTJ=rows[..., _ROW_JTJ:].reshape(*lead, 6, 6))
 
 
 # --------------------------------------------------------------------------
-# what K4a / K4b compute, in their order (tests and card checks)
+# what the kernels compute, in their order (tests and card checks)
 # --------------------------------------------------------------------------
 
 def _rot_row(T, i: int, x, y, z):
@@ -408,7 +482,7 @@ def _rot_row(T, i: int, x, y, z):
 
 def _terms_reference(T, src: Frame, tgt_packed, cam: CameraConfig,
                      cfg: ICPConfig, score: bool) -> torch.Tensor:
-    """K4a's per-pixel terms, (pixels, 29) or (pixels, 2), each operation
+    """K4's per-pixel terms, (pixels, 29) or (pixels, 2), each operation
     rounded once in the kernel's order."""
     x, y, z = src.vertices.reshape(-1, 3).unbind(-1)
     px = _rot_row(T, 0, x, y, z) + T[0, 3]
@@ -480,23 +554,35 @@ def _halve(x: torch.Tensor, width: int, dim: int) -> torch.Tensor:
 
 
 def _partials_reference(T, src: Frame, tgt_packed, cam: CameraConfig,
-                        cfg: ICPConfig, score: bool = False) -> torch.Tensor:
-    """What K4a writes: (29 or 2, CTAs), each CTA's 256 pixels summed over
-    a warp's 32 lanes, then over the CTA's 8 warps, in the kernel's tree."""
+                        cfg: ICPConfig, score: bool = False,
+                        n_cta: int | None = None) -> torch.Tensor:
+    """What a K4 CTA writes for one candidate: (29 or 2, CTAs).  Thread g
+    of the n_cta x 256 (``_ctas(pixels)`` CTAs by default) sums pixels g,
+    g + stride, ... in order from 0; then lane l of each warp adds the
+    CTA's threads l, l + 32, ..., l + 224 in order, and the shuffle-down
+    tree over the 32 lanes."""
     terms = _terms_reference(T, src, tgt_packed, cam, cfg, score)
     n, n_sums = terms.shape
-    n_cta = _ctas(n)
-    pad = n_cta * CTA_PIXELS - n
+    n_cta = _ctas(n) if n_cta is None else n_cta
+    stride = n_cta * CTA_THREADS
+    rounds = -(-n // stride)
+    pad = rounds * stride - n
     if pad:
         terms = torch.cat([terms, terms.new_zeros((pad, n_sums))])
-    tiles = terms.reshape(n_cta, CTA_PIXELS // 32, 32, n_sums)
-    per_warp = _halve(tiles, 32, 2)                  # (CTAs, 8, sums)
-    return _halve(per_warp, CTA_PIXELS // 32, 1).T.contiguous()
+    per_round = terms.reshape(rounds, n_cta, CTA_THREADS // 32, 32, n_sums)
+    per_thread = terms.new_zeros(per_round.shape[1:])
+    for r in range(rounds):
+        per_thread = per_thread + per_round[r]
+    per_lane = terms.new_zeros((n_cta, 32, n_sums))
+    for j in range(CTA_THREADS // 32):
+        per_lane = per_lane + per_thread[:, j]
+    return _halve(per_lane, 32, 1).T.contiguous()
 
 
 def _sums_reference(partials: torch.Tensor) -> torch.Tensor:
-    """K4b's sums of ``partials`` (sums, CTAs) over the CTAs: lane l of a
-    warp adds CTAs l, l + 32, ... in order, then the shuffle-down tree."""
+    """The sums of ``partials`` (sums, CTAs) over the CTAs, as every CTA
+    of a candidate forms them after the barrier: lane l of a warp adds
+    CTAs l, l + 32, ... in order, then the shuffle-down tree."""
     n_sums, n_cta = partials.shape
     pad = -n_cta % 32
     if pad:
@@ -509,9 +595,9 @@ def _sums_reference(partials: torch.Tensor) -> torch.Tensor:
     return _halve(acc, 32, 1)
 
 
-def _solve_reference(s: torch.Tensor, damping: float) -> torch.Tensor:
-    """K4b's damped 6x6 Cholesky solve of the summed system ``s`` (29,):
-    delta, or 0 when a pivot is not positive or delta is not finite."""
+def _damped(s: torch.Tensor, damping: float):
+    """A = JTJ + damping I (+ I when count <= 6) from the 29 sums, as a
+    6x6 list of scalars."""
     A = [[None] * 6 for _ in range(6)]
     k = 0
     for a in range(6):
@@ -521,19 +607,12 @@ def _solve_reference(s: torch.Tensor, damping: float) -> torch.Tensor:
     extra = torch.where(s[28] > 6, 0.0, 1.0)
     for a in range(6):
         A[a][a] = (A[a][a] + damping) + extra
-    L = [[None] * 6 for _ in range(6)]
-    ok = torch.ones((), dtype=torch.bool, device=s.device)
-    for j in range(6):
-        d = A[j][j]
-        for q in range(j):
-            d = d - L[j][q] * L[j][q]
-        ok = ok & (d > 0)
-        L[j][j] = torch.sqrt(d)
-        for i in range(j + 1, 6):
-            t = A[i][j]
-            for q in range(j):
-                t = t - L[i][q] * L[j][q]
-            L[i][j] = t / L[j][j]
+    return A
+
+
+def _triangular_solves(L, s: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """L y = -JTr, then L^T delta = y, row by row in ascending order;
+    delta, or 0 unless ``ok`` and delta is finite."""
     y = []
     for i in range(6):
         t = -s[21 + i]
@@ -551,8 +630,50 @@ def _solve_reference(s: torch.Tensor, damping: float) -> torch.Tensor:
     return torch.where(ok, delta, 0.0)
 
 
+def _solve_reference(s: torch.Tensor, damping: float) -> torch.Tensor:
+    """The damped 6x6 Cholesky solve of the summed system ``s`` (29,) in
+    the left-looking order (column j: its pivot and entries minus
+    L[.][q] L[j][q] for q = 0 ... j - 1): delta, or 0 when a pivot is not
+    positive or delta is not finite."""
+    A = _damped(s, damping)
+    L = [[None] * 6 for _ in range(6)]
+    ok = torch.ones((), dtype=torch.bool, device=s.device)
+    for j in range(6):
+        d = A[j][j]
+        for q in range(j):
+            d = d - L[j][q] * L[j][q]
+        ok = ok & (d > 0)
+        L[j][j] = torch.sqrt(d)
+        for i in range(j + 1, 6):
+            t = A[i][j]
+            for q in range(j):
+                t = t - L[i][q] * L[j][q]
+            L[i][j] = t / L[j][j]
+    return _triangular_solves(L, s, ok)
+
+
+def _solve_warp_reference(s: torch.Tensor, damping: float) -> torch.Tensor:
+    """K4's warp solve of ``s`` (29,): the right-looking Cholesky, one
+    lane an entry of the lower triangle (step q: the pivot's square root,
+    column q divided by it, every entry (i, j) with j > q minus
+    L[i][q] L[j][q]), then the triangular solves.  Each entry sees
+    ``_solve_reference``'s operations in its order: bit for bit equal."""
+    A = _damped(s, damping)
+    W = [[A[i][j] if i >= j else None for j in range(6)] for i in range(6)]
+    ok = torch.ones((), dtype=torch.bool, device=s.device)
+    for q in range(6):
+        ok = ok & (W[q][q] > 0)
+        W[q][q] = torch.sqrt(W[q][q])
+        for i in range(q + 1, 6):
+            W[i][q] = W[i][q] / W[q][q]
+        for j in range(q + 1, 6):
+            for i in range(j, 6):
+                W[i][j] = W[i][j] - W[i][q] * W[j][q]
+    return _triangular_solves(W, s, ok)
+
+
 def _exp_reference(xi: torch.Tensor) -> torch.Tensor:
-    """K4b's exp(xi) as a (3, 4): geometry/se3.exp in the kernel's order."""
+    """K4's exp(xi) as a (3, 4): geometry/se3.exp in the kernel's order."""
     w0, w1, w2 = xi[3], xi[4], xi[5]
     theta2 = (w0 * w0 + w1 * w1) + w2 * w2
     theta = torch.sqrt(theta2 + 1e-16)
@@ -580,7 +701,7 @@ def _exp_reference(xi: torch.Tensor) -> torch.Tensor:
 
 
 def _system_from_sums(s: torch.Tensor) -> NormalSystem:
-    """The NormalSystem of K4b's 29 sums (JTJ from its upper triangle)."""
+    """The NormalSystem of K4's 29 sums (JTJ from its upper triangle)."""
     rows, cols = torch.triu_indices(6, 6, device=s.device)
     JTJ = s.new_zeros((6, 6))
     JTJ[rows, cols] = s[:21]
@@ -590,13 +711,14 @@ def _system_from_sums(s: torch.Tensor) -> NormalSystem:
 
 def _solve_update_reference(partials, T, istate, fstate, damping: float,
                             tol2: float, max_iters: int):
-    """What K4b does in solve mode, as new tensors: (T, istate, fstate)
-    after one Gauss-Newton update from ``partials`` (29, CTAs), or the
-    inputs when the done flag is set."""
+    """One K4 iteration of a candidate after the barrier, as new tensors:
+    (T, istate, fstate) after one Gauss-Newton update from ``partials``
+    (29, CTAs), istate = (it, done), fstate = (dnorm, err, count, JTJ); or
+    the inputs when the done flag is set (a frozen candidate)."""
     if int(istate[1]):
         return T, istate, fstate
     s = _sums_reference(partials)
-    delta = _solve_reference(s, damping)
+    delta = _solve_warp_reference(s, damping)
     E = _exp_reference(delta)
     top = torch.stack([torch.stack([
         ((E[i, 0] * T[0, j] + E[i, 1] * T[1, j]) + E[i, 2] * T[2, j])
@@ -613,6 +735,65 @@ def _solve_update_reference(partials, T, istate, fstate, damping: float,
     fstate_new = torch.cat([torch.stack([dnorm, err, count]),
                             _system_from_sums(s).JTJ.reshape(36)])
     return torch.cat([top, T[3:]]), istate_new, fstate_new
+
+
+def _level_reference(srcs, tgts, cam: CameraConfig, cfg: ICPConfig, inits,
+                     race: bool = False):
+    """What one K4 launch computes, as (rows, iters) in its layout: the
+    frozen-lane loop (each candidate iterates until its own done test,
+    then keeps its state while the others go on) from
+    ``_partials_reference`` at the launch's grid and
+    ``_solve_update_reference``; with ``race`` the epilogue
+    (``_race_epilogue_reference``) on the score sums of both final
+    transforms."""
+    C = len(srcs)
+    n = srcs[0].vertices.numel() // 3
+    n_cta = _ctas(n, C)
+    dev = srcs[0].vertices.device
+    packed = [pack_target(t) for t in tgts]
+    tol2 = _tol2(cfg)
+    T = [se3.identity(device=dev) if i is None else i.to(torch.float32)
+         for i in inits]
+    istate = [torch.tensor([0, int(cfg.max_iters <= 0)], dtype=torch.int32,
+                           device=dev)] * C
+    fstate = [torch.cat([torch.tensor([math.inf, math.inf, 0.0],
+                                      device=dev),
+                         torch.zeros(36, device=dev)])] * C
+    while not all(int(s[1]) for s in istate):
+        for c in range(C):
+            if int(istate[c][1]):
+                continue
+            parts = _partials_reference(T[c], srcs[c], packed[c], cam, cfg,
+                                        n_cta=n_cta)
+            T[c], istate[c], fstate[c] = _solve_update_reference(
+                parts, T[c], istate[c], fstate[c], cfg.damping, tol2,
+                cfg.max_iters)
+    rows = torch.stack([torch.cat([T[c].reshape(16), fstate[c][:3],
+                                   fstate[c].new_zeros(1), fstate[c][3:]])
+                        for c in range(C)])
+    iters = torch.stack([s[0] for s in istate])
+    if not race:
+        return rows, iters
+    score_sums = [_sums_reference(_partials_reference(
+        T[c], srcs[c], packed[c], cam, cfg, score=True, n_cta=n_cta))
+        for c in range(C)]
+    return _race_epilogue_reference(rows, iters, score_sums)
+
+
+def _race_epilogue_reference(rows, iters, score_sums):
+    """The race's last step on the two candidates' result rows: score c =
+    num / max(den, 1); candidate 1 (the challenger) is kept only when its
+    transform and score are finite and its score is strictly lower, else
+    candidate 0 (the base).  Returns the rows with the scores in their
+    score column and the kept row appended, and the iterations likewise."""
+    scores = [num / torch.clamp(den, min=1.0) for num, den in score_sums]
+    rows = rows.clone()
+    rows[0, _ROW_SCORE], rows[1, _ROW_SCORE] = scores
+    take = bool(torch.all(torch.isfinite(rows[1, :16]))
+                & torch.isfinite(scores[1]) & (scores[1] < scores[0]))
+    k = int(take)
+    return (torch.cat([rows, rows[k:k + 1]]),
+            torch.cat([iters, iters[k:k + 1]]))
 
 
 def observability(res: ICPResult) -> torch.Tensor:
@@ -637,12 +818,28 @@ def icp_align_batch(
     """Pair ICP over a list of candidates -> (C, 19) rows of
     ``pack_result``.  ``srcs`` / ``tgts`` are lists of Frames of equal
     length (one side usually the same frame repeated), ``inits`` the
-    start transforms.  Each candidate runs ``icp_align`` on its own pair
-    with its own early exit, which is what a batched loop with frozen
-    lanes computes; no padding lane is run."""
-    rows = [pack_result(icp_align(s, t, cam, cfg, init_T=i))
-            for s, t, i in zip(srcs, tgts, inits)]
-    return torch.stack(rows)
+    start transforms.  Each candidate stops on its own early exit, which
+    is what a batched loop with frozen lanes computes.  On CUDA tensors
+    one K4 launch for up to ``MAX_CANDIDATES`` candidates (every source of
+    one shape) and one ``eigvalsh`` over the (C, 6, 6) stack; on CPU
+    tensors ``_batch_plain``."""
+    if _on_cpu(srcs[0].vertices, tgts[0].depth):
+        return _batch_plain(srcs, tgts, cam, cfg, inits)
+    rows = torch.cat([
+        _align_candidates(srcs[k:k + MAX_CANDIDATES],
+                          tgts[k:k + MAX_CANDIDATES], cam, cfg,
+                          inits[k:k + MAX_CANDIDATES])[0]
+        for k in range(0, len(srcs), MAX_CANDIDATES)])
+    res = _row_result(rows, None)
+    return torch.cat([rows[:, :16], rows[:, _ROW_ERR:_ROW_COUNT + 1],
+                      observability(res)[:, None]], dim=1)
+
+
+def _batch_plain(srcs, tgts, cam: CameraConfig, cfg: ICPConfig,
+                 inits) -> torch.Tensor:
+    """Plain version of ``icp_align_batch``: ``icp_align`` a candidate."""
+    return torch.stack([pack_result(icp_align(s, t, cam, cfg, init_T=i))
+                        for s, t, i in zip(srcs, tgts, inits)])
 
 
 def alignment_score_sums(
@@ -654,19 +851,13 @@ def alignment_score_sums(
     tgt_packed: torch.Tensor | None = None,
 ):
     """(sum, count) of the clamped |point-to-plane residual| of ``T`` over
-    every source-valid pixel; unmatched pixels cost the full clamp.  K4a
-    in score mode and K4b on CUDA tensors, the plain version on CPU
-    tensors."""
+    every source-valid pixel; unmatched pixels cost the full clamp.  K4s
+    in score mode on CUDA tensors, the plain version on CPU tensors."""
     if tgt_packed is None:
         tgt_packed = pack_target(tgt)
     if _on_cpu(T, src.vertices, tgt_packed):
         return _score_sums_reference(T, src, cam, cfg, tgt_packed)
-    verts, normals, packed, T = _kernel_inputs(T, src, tgt_packed, cam)
-    partials = _partials_buffer(N_SCORE_SUMS, verts)
-    out = torch.empty(N_SCORE_SUMS, dtype=torch.float32, device=T.device)
-    _launch_partials(T, verts, normals, packed, cam, cfg, True, None,
-                     partials)
-    _launch_solve(partials, _MODE_SCORE, out=out)
+    out = _launch_sums(T, src, tgt_packed, cam, cfg, score=True)
     return out[0], out[1]
 
 
@@ -721,8 +912,9 @@ def icp_align_pyramid(
     prior_T: torch.Tensor | None = None,
 ) -> ICPResult:
     """Coarse-to-fine ICP over a depth pyramid.  With ``prior_T`` the
-    coarsest level runs twice (identity start and prior start) and the
-    better-scoring result seeds the finer levels."""
+    coarsest level runs twice (identity start and prior start,
+    ``icp_align_raced``) and the better-scoring result seeds the finer
+    levels: on CUDA tensors one K4 launch a level."""
     dev = depth_src_m.device
     T = se3.identity(device=dev) if init_T is None else init_T
     result = None
@@ -754,17 +946,9 @@ def icp_align_pyramid(
         else:
             src = (src_full if src_full is not None
                    else preprocess_metric(depth_src_m, lcam))
-        result = icp_align(src, tgt, lcam, lcfg, init_T=T)
         if li == 0 and prior_T is not None:
-            raced = icp_align(src, tgt, lcam, lcfg, init_T=prior_T)
-            packed = pack_target(tgt)
-            sn, sd = alignment_score_sums(raced.transform, src, tgt, lcam,
-                                          lcfg, packed)
-            bn, bd = alignment_score_sums(result.transform, src, tgt, lcam,
-                                          lcfg, packed)
-            result = pick_by_score(
-                raced, result,
-                sn / torch.clamp(sd, min=1.0), bn / torch.clamp(bd, min=1.0),
-            )
+            result = icp_align_raced(src, tgt, lcam, lcfg, prior_T, init_T=T)
+        else:
+            result = icp_align(src, tgt, lcam, lcfg, init_T=T)
         T = result.transform
     return result

@@ -63,13 +63,13 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
     Returns ``infos`` (one dict of numpy per tracked frame), ``state``
     (this rank's shard, flattened as ``convert`` does), ``models`` (per
     render pose, this rank's rows), ``launches`` (window-gather launches
-    per frame), ``icp_launches`` (the ICP kernels' K4a and K4b launches
+    per frame), ``icp_launches`` (the ICP kernels' K4 and K4s launches
     over the run) and, with ``timed``, per-frame host ms on a synchronised
     clock, the peak device memory, the collective counters, the live
     render's hit mask (this rank's rows) and ``kernel_check`` on the last
     frame."""
     window_gather.LAUNCHES = 0
-    icp.LAUNCHES_PARTIALS = icp.LAUNCHES_SOLVE = 0
+    icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     launches, frame_ms, infos = [], [], []
     cuda = mesh.device.type == "cuda"
     if cuda:
@@ -97,7 +97,7 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         launches.append(window_gather.LAUNCHES - before)
     out = {"infos": infos, "launches": launches,
-           "icp_launches": [icp.LAUNCHES_PARTIALS, icp.LAUNCHES_SOLVE]}
+           "icp_launches": [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS]}
     if fed_poses is None:
         out["state"] = convert.state_to_numpy(slam.state)
         hmap = slam.state.hmap
@@ -129,15 +129,15 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     left-multiplied by its drift.  Returns the backend's decisions (keyframe frames, edges, BA
     frames, rebuild modes, moves, tracked flags, capacity events,
     saturation), the trajectory, the graph poses, this rank's map shard,
-    the window-gather and ICP-kernel launches (``icp_launches``: K4a,
-    K4b), with streaming the store counters
+    the window-gather and ICP-kernel launches (``icp_launches``: K4,
+    K4s), with streaming the store counters
     (evicted, restored, stored) summed over the ranks, and, with
     ``timed``, the host seconds of
     each BA solve and the collective counters."""
     from ..models import keyframe_slam
 
     window_gather.LAUNCHES = 0
-    icp.LAUNCHES_PARTIALS = icp.LAUNCHES_SOLVE = 0
+    icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     bytes0, coll0 = mesh.collective_host_bytes, mesh.collectives
     slam = keyframe_slam.KeyframeSLAM(config, mesh=mesh)
     for i, d in enumerate(frames):
@@ -160,7 +160,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
         "graph_poses": host_array(slam.graph.poses).copy(),
         "state": convert.hashmap_to_numpy(slam.state.hmap, "hmap"),
         "launches": window_gather.LAUNCHES,
-        "icp_launches": [icp.LAUNCHES_PARTIALS, icp.LAUNCHES_SOLVE],
+        "icp_launches": [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS],
         "rebuild_fuses": sum(e["keyframes"] for e in slam.ba_events
                              if e["rebuild_mode"] == "full"),
     }

@@ -175,7 +175,7 @@ def _icp_level_sharded(src_l: Frame, tgt_l: Frame, lcam, cfg, mesh: Mesh,
     cnt = torch.zeros((), dtype=torch.float32, device=dev)
     JTJ = torch.zeros((6, 6), dtype=torch.float32, device=dev)
     while it < max_iters and dnorm > tol2:
-        # this rank's system: K4a on the card, the plain version on the CPU
+        # this rank's system: K4s on the card, the plain version on the CPU
         sys = _psum_system(mesh, icp_ops.normal_system(
             T, src_l, tgt_packed, lcam, cfg), scale)
         delta = icp_ops.solve_normal_system(sys, cfg.damping)
