@@ -12,15 +12,18 @@ first N_STEP_FRAMES noisy sweep frames (``chip_smoke.icp_calls``): each
 level through the public entry points (``icp_align``; the coarsest
 level's race as ``icp_align_raced`` where the tree has it, else the
 composition the pyramid used before: two ``icp_align`` runs, two
-``alignment_score_sums`` and ``pick_by_score``), and the whole
-``icp_align_pyramid``.  In turns parent / this / this / parent, after a
+``alignment_score_sums`` and ``pick_by_score``), the whole
+``icp_align_pyramid`` and the frontend (``preprocess`` of the next raw
+frame).  In turns parent / this / this / parent, after a
 first turn of this tree that is not kept: per level, the device time (a
 CUDA graph of 20 calls replayed, warm L2, ``pack_target``'s plain ops
 included in both trees) and the host time as the caller pays it (CUDA
 events around a loop of Python calls), the ICP kernels' launches a call;
-per pyramid, the median ms (CUDA events, synchronised) and the host µs
-that issue it.  The trees' results are held against each other (transform
-within 1e-5, iterations equal).
+per pyramid and per frontend call, the median ms (CUDA events,
+synchronised) and the host µs that issue it, and the tree's kernel
+launches a call.  The trees' results are held against each other
+(transform within 1e-5, iterations equal; the frontend's Frame bit for
+bit).
 
 Prints the card's name and power limit, then JSON lines: the launch floor,
 one line per turn, and last each tree's times as minimum and median over
@@ -73,10 +76,17 @@ def _race(icp, src, tgt, cam, cfg, prior, init):
                              bn / torch.clamp(bd, min=1.0))
 
 
-def _launches(icp) -> int:
-    """The tree's ICP kernel launches so far, all kernels together."""
-    return sum(v for k, v in vars(icp).items()
+def _launches(module) -> int:
+    """A module's kernel launches so far, all its kernels together."""
+    return sum(v for k, v in vars(module).items()
                if k.startswith("LAUNCHES_") and isinstance(v, int))
+
+
+def _frontend(icp):
+    """The ``ops.preprocess`` module of the tree whose ``ops.icp`` is
+    ``icp``."""
+    return importlib.import_module(icp.__name__.rsplit(".", 1)[0]
+                                   + ".preprocess")
 
 
 def level_call(icp, call):
@@ -90,7 +100,8 @@ def level_call(icp, call):
 
 
 def _turn(torch, probe, label, icp, calls, pyramid_args) -> dict:
-    """Time tree ``icp`` on every level and on the pyramid."""
+    """Time tree ``icp`` on every level, on the pyramid and on the
+    frontend."""
     line = {"tree": label}
     for call in calls:
         fn = level_call(icp, call)
@@ -101,17 +112,31 @@ def _turn(torch, probe, label, icp, calls, pyramid_args) -> dict:
             "device_us": 1e3 * probe.device_ms([fn] * probe.WARM_CALLS),
             "host_us": 1e3 * probe.host_ms(fn, iters=20),
             "launches": launches}
-    args, kw = pyramid_args
+    args, kw, front_args = pyramid_args
 
     def pyramid():
         return icp.icp_align_pyramid(*args, **kw)
 
+    pre = _frontend(icp)
+
+    def frontend():
+        return pre.preprocess(*front_args)
+
+    before = _launches(pre)
+    frontend()
+    launches = _launches(pre) - before
+    line["preprocess"] = {
+        "ms": chip_smoke.median_ms(torch, frontend),
+        "host_issue_us": chip_smoke.host_issue_us(frontend),
+        "launches": launches}
+
     before = _launches(icp)
     pyramid()
+    launches = _launches(icp) - before
     line["pyramid"] = {
         "ms": chip_smoke.median_ms(torch, pyramid),
         "host_issue_us": chip_smoke.host_issue_us(pyramid),
-        "launches": _launches(icp) - before}
+        "launches": launches}
     return line
 
 
@@ -126,6 +151,7 @@ def main() -> int:
         print("chip_icp_compare.py needs a CUDA card", file=sys.stderr)
         return 2
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.ops import icp
     from voxelhashing_demo_tpu_torch.tools import probe
 
@@ -147,9 +173,16 @@ def main() -> int:
     emit({"device": smi})
     parent = _load_tree("parent_port", args.parent.resolve())
     _, sweep, _ = chip_smoke.room_sweep()
+    cfg = flagship_gather_config()
     calls, pargs, kw = chip_smoke.icp_calls(
-        torch, flagship_gather_config(),
-        sweep[:chip_smoke.N_STEP_FRAMES + 1])
+        torch, cfg, sweep[:chip_smoke.N_STEP_FRAMES + 1])
+    front_args = (hash_slam.depth_tensor(sweep[chip_smoke.N_STEP_FRAMES],
+                                         "cuda"), cfg.camera, cfg.frontend)
+    a, b = (_frontend(t).preprocess(*front_args) for t in (icp, parent))
+    same = all(bool(torch.equal(x.view(torch.int32), y.view(torch.int32)))
+               for x, y in zip(a, b))
+    emit({"case": "preprocess", "bit_equal": same})
+    chip_smoke._require(same, "preprocess: this tree == the parent")
     # the trees agree on every level before anything is timed
     for call in calls:
         a, b = level_call(icp, call)(), level_call(parent, call)()
@@ -162,10 +195,11 @@ def main() -> int:
     floors = [1e3 * probe.launch_floor_ms()]
     emit({"launch_floor_us": floors[0]})
     trees = {"this": icp, "parent": parent}
-    _turn(torch, probe, "warm-up", icp, calls, (pargs, kw))
+    _turn(torch, probe, "warm-up", icp, calls, (pargs, kw, front_args))
     readings: dict = {}
     for label in ("parent", "this", "this", "parent"):
-        line = _turn(torch, probe, label, trees[label], calls, (pargs, kw))
+        line = _turn(torch, probe, label, trees[label], calls,
+                     (pargs, kw, front_args))
         emit(line)
         for case, entry in line.items():
             if case == "tree":

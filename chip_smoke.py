@@ -7,7 +7,8 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
 
 1. ``device``: the card's name and power limit (nvidia-smi).
 2. ``build``: builds every kernel source under csrc/ (the CUDA kernels,
-   the ICP kernels K4 / K4s in icp.cu, the empty kernels that measure
+   the ICP kernels K4 / K4s in icp.cu, the frontend and pyramid kernels
+   K3a / K3b in preprocess.cu, the empty kernels that measure
    the launch and barrier floors, and the host codec) for sm_90a into the
    package's _build/ directory, one compiler process each, started
    together.
@@ -74,7 +75,21 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    versions in turns plain / kernel / kernel / plain, the host µs that
    issue it, its host syncs, K4 launches (3) and device kernels
    (torch.profiler); the pair-ICP batch (4 candidates at the coarse
-   level: one launch), syncs and ms, kernel and plain.
+   level: one launch), syncs and ms, kernel and plain.  The pyramid hands
+   K4 packed targets; the checks pack the levels' target Frames of the
+   plain chain.
+3d. ``preprocess``: the frontend and the pyramid's level inputs
+   (csrc/preprocess.cu: K3a ``preprocess_frame``, raw depth to the
+   frame's depth, vertices and normals; K3b ``pyramid_levels``, every
+   level's source Frame and packed target) on the flagship step's own
+   inputs, as ``icp`` takes them.  Each against its plain version
+   (``preprocess_reference``; ``_pyramid_reference``, the chain of plain
+   functions) bit for bit, field by field and level by level.
+   Times as ``icp``'s (CUDA-graph replay warm and L2-cold, wrapper,
+   plain, the bytes bound, launch floor and least time); the step's
+   preprocess and ICP stages, kernels against the plain versions: host ms
+   and device kernels (torch.profiler), the preprocess stage one kernel,
+   the ICP stage at most 20; one K3a and one K3b launch a step.
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
@@ -245,6 +260,10 @@ times and bound of the L1 case (the others under ``cases``), counted from
 single-card path (the pyramid) and on ``sharded_backend`` (its pair-ICP
 batches), K4s on the three multi-rank paths (the sharded level's
 systems); ``launches`` is the count of the last path that drives each.
+K3a and K3b with the times and bound of the ``preprocess`` phase,
+counted like K4 on the same paths, must launch on every one (K3a once a
+``preprocess`` call, K3b once a flagship frame and once a keyframe's
+pooled frame).
   Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
@@ -993,7 +1012,11 @@ def icp_calls(torch, cfg, depths):
     launches that the next step's pyramid makes for ``depths[-1]``:
     ([(name, srcs, tgts, lcam, lcfg, inits, race)], the pyramid's
     arguments, its keywords).  The coarsest level races the identity
-    against the motion prior (C = 2), then each finer level runs once."""
+    against the motion prior (C = 2), then each finer level runs once.
+    The pyramid hands K4 packed targets (K3b makes no target Frame), so
+    ``tgts`` are the levels' target Frames by the plain chain
+    (``preprocess_metric_reference(downsample_depth(model))``, the model
+    itself at factor 1), which pack to the same targets."""
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.ops import icp
     from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
@@ -1010,27 +1033,37 @@ def icp_calls(torch, cfg, depths):
     calls = []
 
     def make(real):
-        def fn(srcs, tgts, cam, lcfg, inits, race=False):
-            calls.append((list(srcs), list(tgts), cam, lcfg,
+        def fn(srcs, tgts, cam, lcfg, inits, race=False, packed=None):
+            calls.append((list(srcs), cam, lcfg,
                           [None if i is None else i.clone() for i in inits],
                           race))
-            return real(srcs, tgts, cam, lcfg, inits, race)
+            return real(srcs, tgts, cam, lcfg, inits, race, packed)
         return fn
+
+    def target(factor, lcam):
+        if factor == 1:
+            return st.model
+        return pre_ops.preprocess_metric_reference(
+            pre_ops.downsample_depth(st.model.depth, factor), lcam)
 
     with _wrapped(icp, "_align_candidates", make):
         icp.icp_align_pyramid(*args, **kw)
-    named = [(f"L{cfg.camera.width // lcam.width}" + ("_race" if race
-                                                       else ""),
-              srcs, tgts, lcam, lcfg, inits, race)
-             for srcs, tgts, lcam, lcfg, inits, race in calls]
+    named = []
+    for srcs, lcam, lcfg, inits, race in calls:
+        factor = cfg.camera.width // lcam.width
+        named.append((f"L{factor}" + ("_race" if race else ""), srcs,
+                      [target(factor, lcam)] * len(srcs), lcam, lcfg, inits,
+                      race))
     return named, args, kw
 
 
 @contextlib.contextmanager
 def plain_icp():
     """The plain ICP in the kernels' place while the block runs:
-    ``icp_align_reference``, the plain score sums, race and batch."""
+    ``icp_align_reference``, the plain score sums, race and batch, and
+    the plain level inputs (``_pyramid_reference``)."""
     from voxelhashing_demo_tpu_torch.ops import icp
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
 
     def score(T, src, tgt, cam, cfg, tgt_packed=None):
         packed = icp.pack_target(tgt) if tgt_packed is None else tgt_packed
@@ -1039,7 +1072,9 @@ def plain_icp():
     with _wrapped(icp, "icp_align", lambda real: icp.icp_align_reference), \
             _wrapped(icp, "alignment_score_sums", lambda real: score), \
             _wrapped(icp, "icp_align_raced", lambda real: icp._race_plain), \
-            _wrapped(icp, "icp_align_batch", lambda real: icp._batch_plain):
+            _wrapped(icp, "icp_align_batch", lambda real: icp._batch_plain), \
+            _wrapped(icp, "pyramid_inputs",
+                     lambda real: pre._pyramid_reference):
         yield
 
 
@@ -1454,6 +1489,189 @@ def phase_icp(torch, card: str, sweep):
                           "cases": [fields(r) for r in rows
                                     if r is not main]}
     return summary
+
+
+K3_KERNELS = ("preprocess_frame", "pyramid_levels")
+K3_META = {
+    "preprocess_frame": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/preprocess.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/preprocess.py:31 "
+                    "(depth_to_meters), voxelhashing_demo_tpu/ops/"
+                    "preprocess.py:86 (reject_outliers), "
+                    "voxelhashing_demo_tpu/ops/preprocess.py:118 "
+                    "(bilateral_filter), voxelhashing_demo_tpu/ops/"
+                    "preprocess.py:43 (compute_vertices), "
+                    "voxelhashing_demo_tpu/ops/preprocess.py:50 "
+                    "(compute_normals), voxelhashing_demo_tpu/ops/"
+                    "preprocess.py:151 (preprocess): fused by XLA, no "
+                    "Pallas kernel",
+    },
+    "pyramid_levels": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/preprocess.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/preprocess.py:184 "
+                    "(downsample_depth), voxelhashing_demo_tpu/ops/"
+                    "preprocess.py:210 (downsample_depth_mean), "
+                    "voxelhashing_demo_tpu/ops/preprocess.py:175 "
+                    "(preprocess_metric), voxelhashing_demo_tpu/ops/"
+                    "icp.py:118 (pack_target), voxelhashing_demo_tpu/ops/"
+                    "icp.py:77 (oct_encode_bits), voxelhashing_demo_tpu/"
+                    "ops/icp.py:438 (icp_align_pyramid's level inputs): "
+                    "fused by XLA, no Pallas kernel",
+    },
+}
+# float operations a pixel: K3a's gate, support count, vertices and
+# normals, and each bilateral tap's; K3b's a level pixel and a pooled one
+K3A_OPS_PER_PIXEL, K3A_OPS_PER_TAP = 80, 9
+K3B_OPS_PER_PIXEL, K3B_OPS_PER_POOLED = 60, 4
+K3_ICP_STAGE_KERNELS = 20     # "well below" the 407 of PR 13's stage
+
+
+def k3_launches() -> list:
+    """[K3a, K3b] launches counted since they were last set to 0."""
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    return [pre.LAUNCHES_FRAME, pre.LAUNCHES_LEVELS]
+
+
+def zero_k3_launches() -> None:
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    pre.LAUNCHES_FRAME = pre.LAUNCHES_LEVELS = 0
+
+
+@contextlib.contextmanager
+def plain_k3():
+    """The plain frontend and level inputs in K3's place while the block
+    runs."""
+    from voxelhashing_demo_tpu_torch.ops import icp
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    with _wrapped(pre, "preprocess", lambda real: pre.preprocess_reference), \
+            _wrapped(icp, "pyramid_inputs",
+                     lambda real: pre._pyramid_reference):
+        yield
+
+
+def _k3_compare(probe, got: list, plain: list) -> dict:
+    """K3 outputs (Frames and packed targets, in level order) against the
+    plain version's, bit for bit."""
+    parts = [{"shape": list((g.depth if hasattr(g, "depth") else g).shape),
+              **probe.compare(tuple(g) if hasattr(g, "depth") else g,
+                              tuple(p) if hasattr(p, "depth") else p)}
+             for g, p in zip(got, plain)]
+    return {"outputs": parts,
+            "bit_exact": all(x["bit_exact"] for x in parts),
+            "max_abs_err": max(x["max_abs_err"] for x in parts)}
+
+
+def phase_preprocess(torch, card: str, sweep) -> dict:
+    """K3a ``preprocess_frame`` and K3b ``pyramid_levels`` on the flagship
+    step's own inputs: frame N_STEP_FRAMES of the room sweep and the model
+    after the first N_STEP_FRAMES frames through ``HashSLAM(flagship_
+    gather_config())``.  Returns {kernel: its kernels-line fields}."""
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import icp
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    t0 = time.perf_counter()
+    cfg = flagship_gather_config()
+    cam, front, icfg = cfg.camera, cfg.frontend, cfg.icp
+    slam = hash_slam.HashSLAM(cfg)
+    for d in sweep[:N_STEP_FRAMES]:
+        slam.process(d)
+    st = slam.state
+    raw = hash_slam.depth_tensor(sweep[N_STEP_FRAMES], slam.device)
+
+    frame = pre.preprocess(raw, cam, front)
+    k3a_cmp = _k3_compare(probe, [frame],
+                          [pre.preprocess_reference(raw, cam, front)])
+    kw = dict(src_full=frame, tgt_full=st.model)
+    srcs, tgts = pre.pyramid_inputs(frame.depth, st.model.depth, cam, icfg,
+                                    **kw)
+    ps, pt = pre._pyramid_reference(frame.depth, st.model.depth, cam, icfg,
+                                    **kw)
+    k3b_cmp = _k3_compare(probe, srcs + tgts, ps + pt)
+
+    # each kernel alone (CUDA-graph replay, warm and L2-cold), its wrapper,
+    # its plain version; the bound from this run's shapes
+    floor_ms = probe.launch_floor_ms()
+    n = raw.numel()
+    taps = (2 * front.bilateral_radius + 1) ** 2 if front.bilateral else 0
+    k3a = {**probe.timings(lambda r: pre.preprocess(r, cam, front), (raw,)),
+           "plain_ms": probe.host_ms(
+               lambda: pre.preprocess_reference(raw, cam, front), iters=10)}
+    k3a["bound_ms"], k3a["bound_by"] = _probe_bound(
+        n * (4 + 28), n * (K3A_OPS_PER_PIXEL + taps * K3A_OPS_PER_TAP))
+
+    def levels(ds, dt, mn):
+        return pre.pyramid_inputs(ds, dt, cam, icfg, src_full=frame,
+                                  tgt_full=pre.Frame(st.model.vertices, mn,
+                                                     dt))
+
+    k3b = {**probe.timings(levels, (frame.depth, st.model.depth,
+                                    st.model.normals)),
+           "plain_ms": probe.host_ms(lambda: pre._pyramid_reference(
+               frame.depth, st.model.depth, cam, icfg, **kw), iters=10)}
+    level_hw = ([s.depth.shape for s in srcs]
+                + [t.shape[:2] for t in tgts])
+    out_bytes = 4 * (sum(7 * s.depth.numel() for s in srcs)
+                     + sum(t.numel() for t in tgts))
+    # input pixels the pools read: a level pixel's factor^2 window
+    pooled = sum(h * w * (raw.shape[0] // h) ** 2 for h, w in level_hw)
+    k3b["bound_ms"], k3b["bound_by"] = _probe_bound(
+        n * (4 + 4 + 12) + out_bytes,
+        sum(h * w for h, w in level_hw) * K3B_OPS_PER_PIXEL
+        + pooled * K3B_OPS_PER_POOLED)
+    for k in (k3a, k3b):
+        k["floor_ms"] = floor_ms
+        k["least_ms"] = max(k["bound_ms"], floor_ms)
+
+    # the step's two stages, kernels against plain: host ms, device kernels
+    def pre_stage():
+        return pre.preprocess(raw, cam, front)
+
+    def icp_stage():
+        return icp.icp_align_pyramid(frame.depth, st.model.depth, cam, icfg,
+                                     src_full=frame, tgt_full=st.model,
+                                     prior_T=st.vel)
+
+    stages = {}
+    for name, fn in (("preprocess", pre_stage), ("icp", icp_stage)):
+        stages[name] = {"host_ms": median_ms(torch, fn),
+                        "device_kernels": _device_kernels(torch, fn)}
+        with plain_k3():
+            stages[name]["host_ms_plain"] = median_ms(torch, fn)
+            stages[name]["device_kernels_plain"] = _device_kernels(torch, fn)
+    # one frame of the step: one launch of each
+    zero_k3_launches()
+    slam.process(sweep[N_STEP_FRAMES])
+    per_frame = k3_launches()
+    _emit({"phase": "preprocess", "card": card,
+           "frame_hw": list(raw.shape), "frontend": dataclasses.asdict(front),
+           "pyramid": list(icfg.pyramid),
+           "source_pools": list(icfg.source_pools),
+           "preprocess_frame": {"check": k3a_cmp, **k3a},
+           "pyramid_levels": {"check": k3b_cmp, **k3b},
+           "launches_per_frame": dict(zip(K3_KERNELS, per_frame)),
+           "stages": stages, "seconds": time.perf_counter() - t0})
+    for kname, c in (("K3a", k3a_cmp), ("K3b", k3b_cmp)):
+        _require(c["bit_exact"], f"{kname} == its plain version bit for "
+                                 f"bit, every output")
+    _require(per_frame == [1, 1], "one K3a and one K3b launch a frame")
+    _require(stages["preprocess"]["device_kernels"]["kernels"] == 1,
+             "the preprocess stage is one device kernel")
+    _require(stages["icp"]["device_kernels"]["kernels"]
+             <= K3_ICP_STAGE_KERNELS,
+             f"the ICP stage runs at most {K3_ICP_STAGE_KERNELS} device "
+             f"kernels")
+    return {kname: {"case": "step", **d, "max_abs_err": c["max_abs_err"],
+                    "library_ms": None}
+            for kname, d, c in (("preprocess_frame", k3a, k3a_cmp),
+                                ("pyramid_levels", k3b, k3b_cmp))}
 
 
 def _run_port(torch, cfg, depths, device):
@@ -3041,7 +3259,7 @@ def phase_nccl(torch, frames) -> dict:
 def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
     """Two ranks on the one card over Gloo at flagship_gather_config():
     see the module docstring.  Returns rank 0's K1 launches and its
-    [K4, K4s] launches."""
+    [K4, K4s, K3a, K3b] launches."""
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.parallel import launch, ranks
@@ -3121,14 +3339,15 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
                  for o in two), "K1 bit-exact on each rank's own rows")
     _require(all(o["icp_launches"][1] > 0 for o in two),
              "K4s launched on each rank (the sharded level's systems)")
-    return launches[0], a["icp_launches"]
+    return launches[0], a["icp_launches"] + a["k3_launches"]
 
 
 def phase_sharded_backend(torch, card: str) -> tuple:
     """KeyframeSLAM(mesh) on two Gloo ranks over the first
     N_SHARDED_BACKEND frames of the backend scenario (the drift before
     frame 18), against a one-rank NCCL mesh and the single-card backend.
-    Returns rank 0's K1 launches and its [K4, K4s] launches."""
+    Returns rank 0's K1 launches and its [K4, K4s, K3a, K3b]
+    launches."""
     from voxelhashing_demo_tpu_torch.geometry import se3
     from voxelhashing_demo_tpu_torch.models import keyframe_slam
     from voxelhashing_demo_tpu_torch.parallel import launch, ranks
@@ -3186,7 +3405,7 @@ def phase_sharded_backend(torch, card: str) -> tuple:
     _require(all(n > 0 for o in two for n in o["icp_launches"]),
              "K4 (pair-ICP batches) and K4s (the sharded level) launched "
              "on each rank")
-    return a["launches"], a["icp_launches"]
+    return a["launches"], a["icp_launches"] + a["k3_launches"]
 
 
 def main() -> int:
@@ -3225,21 +3444,26 @@ def main() -> int:
         flagship_gather_config(), sweep[:N_STEP_FRAMES]))
     probe_launches, probes = phase_probes(torch, wg)
     icp_summary = phase_icp(torch, smi, sweep)
+    k3_summary = phase_preprocess(torch, smi, sweep)
     # launches per path, each counted from 0 by the phase that drives it;
     # "launches" in the summary is the last path's count
     by_path = {k: {"probes": n} for k, n in probe_launches.items()}
-    by_path.update({k: {} for k in ICP_KERNELS})
+    by_path.update({k: {} for k in ICP_KERNELS + K3_KERNELS})
 
     def k4(path: str, run):
-        """``run()`` with the ICP kernels' counts from 0, recorded under
-        ``path``; the frame step's pyramid tracks on every path, so K4
-        must launch (K4s serves only the sharded level)."""
+        """``run()`` with the ICP and K3 kernels' counts from 0, recorded
+        under ``path``; the frame step preprocesses and its pyramid tracks
+        on every path, so K4, K3a and K3b must launch (K4s serves only the
+        sharded level)."""
         zero_icp_launches()
+        zero_k3_launches()
         out = run()
-        counts = icp_launches()
-        for kname, n in zip(ICP_KERNELS, counts):
+        counts = icp_launches() + k3_launches()
+        for kname, n in zip(ICP_KERNELS + K3_KERNELS, counts):
             by_path[kname][path] = n
         _require(counts[0] > 0, f"K4 launched on {path}")
+        _require(counts[2] > 0 and counts[3] > 0,
+                 f"K3a and K3b launched on {path}")
         return out
 
     k4("parity", lambda: phase_parity(torch))
@@ -3277,15 +3501,17 @@ def main() -> int:
     # rank 0's counts on the multi-rank paths
     one = phase_nccl(torch, frames)
     by_path["gather_depth_window"]["nccl"] = sum(one["launches"])
-    k4_ranks = {"nccl": one["icp_launches"]}
+    k4_ranks = {"nccl": one["icp_launches"] + one["k3_launches"]}
     by_path["gather_depth_window"]["sharded_backend"], \
         k4_ranks["sharded_backend"] = phase_sharded_backend(torch, smi)
     # the slice's main path, last: "launches" is rank 0's count
     by_path["gather_depth_window"]["sharded"], k4_ranks["sharded"] = (
         phase_sharded(torch, smi, frames, gt, one))
     for path, counts in k4_ranks.items():
-        for kname, n in zip(ICP_KERNELS, counts):
+        for kname, n in zip(ICP_KERNELS + K3_KERNELS, counts):
             by_path[kname][path] = n
+        _require(counts[2] > 0 and counts[3] > 0,
+                 f"K3a and K3b launched on {path} (rank 0)")
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{
@@ -3311,7 +3537,12 @@ def main() -> int:
         "launches": [n for n in by_path[kname].values() if n][-1],
         "launches_by_path": by_path[kname],
         **icp_summary[kname],
-    } for kname in ICP_KERNELS]})
+    } for kname in ICP_KERNELS] + [{
+        "name": kname, **K3_META[kname],
+        "launches": list(by_path[kname].values())[-1],
+        "launches_by_path": by_path[kname],
+        **k3_summary[kname],
+    } for kname in K3_KERNELS]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -1001,3 +1001,184 @@ def test_icp_refused_launch_raises(cuda, monkeypatch):
         icp.normal_system(T0, src, icp.pack_target(tgt), cam, cfg)
     with pytest.raises(ValueError, match="one CUDA device"):
         icp.normal_system(T0.cpu(), src, icp.pack_target(tgt), cam, cfg)
+
+
+# --------------------------------------------------------------------------
+# K3: the depth frontend (K3a) and the pyramid's level inputs (K3b)
+# --------------------------------------------------------------------------
+
+def _assert_k3_equal(got, plain, what: str):
+    """A K3 output (a Frame or a packed target) bit for bit its plain
+    version's on the card."""
+    if isinstance(got, torch.Tensor):
+        assert _bits_equal(got, plain), what
+        return
+    for name in ("depth", "vertices", "normals"):
+        assert _bits_equal(getattr(got, name), getattr(plain, name)), \
+            f"{what} {name}"
+
+
+def _k3_frame(cuda, which: str):
+    """(raw int32 depth on the card, camera): "sweep" is frame 6 of the
+    noisy room sweep at 640x480; "odd" a 37 x 53 frame whose depth edges
+    cross the border (the stencils' wrap)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+    from torch_port_helpers import depth_scene
+
+    cam = flagship_config().camera
+    if which == "sweep":
+        depths, _ = synthetic.make_room_sweep(cam, 8, sweep_deg=40.0,
+                                              noise_seed=1, device=cuda)
+        raw = torch.as_tensor(np.asarray(depths[6]).astype(np.int32),
+                              device=cuda)
+        return raw, cam
+    cam = dataclasses.replace(cam, width=53, height=37, cx=26.3, cy=17.8)
+    return torch.as_tensor(depth_scene(37, 53, seed=5).astype(np.int32),
+                           device=cuda), cam
+
+
+@pytest.mark.parametrize("which", ["sweep", "odd"])
+@pytest.mark.parametrize("outlier,bilateral,radius", [
+    (True, True, 2), (True, True, 1), (True, True, 3), (False, True, 2),
+    (True, False, 2), (False, False, 2), (None, None, None)])
+def test_preprocess_frame_matches_plain(cuda, which, outlier, bilateral,
+                                        radius):
+    """K3a with the frontend's stages on and off (None: no frontend) and
+    bilateral radius 1-3, at 640x480 and on an odd-sized frame with depth
+    edges across the border: one launch a call."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    raw, cam = _k3_frame(cuda, which)
+    front = None if outlier is None else dataclasses.replace(
+        flagship_config().frontend, outlier_reject=outlier,
+        bilateral=bilateral, bilateral_radius=radius)
+    before = pre.LAUNCHES_FRAME
+    got = pre.preprocess(raw, cam, front)
+    assert pre.LAUNCHES_FRAME == before + 1
+    _assert_k3_equal(got, pre.preprocess_reference(raw, cam, front), "K3a")
+
+
+def _k3_levels_case(cuda, case: str):
+    """(depth_src_m, depth_tgt_m, cam, icp config, keywords) of a K3b
+    case: the flagship pyramid on a preprocessed sweep frame against a
+    model Frame (nonzero at every level) with src_full / tgt_full given
+    ("flagship"), neither given ("plain"), min-pooled sources ("sharded"),
+    a (4, 2) pyramid with source pools (1, 2) ("two_level"), and the
+    flagship pyramid on the odd-sized frame ("odd")."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    cfg = flagship_config()
+    raw, cam = _k3_frame(cuda, "odd" if case == "odd" else "sweep")
+    frame = pre.preprocess(raw, cam, cfg.frontend)
+    model = pre.preprocess_reference(torch.roll(raw, (3, -5), (0, 1)), cam,
+                                     cfg.frontend)
+    icfg, kw = cfg.icp, {}
+    if case in ("flagship", "odd"):
+        kw = dict(src_full=frame, tgt_full=model)
+    elif case == "sharded":
+        kw = dict(mean_sources=False)
+    elif case == "two_level":
+        icfg = dataclasses.replace(icfg, pyramid=(4, 2), pyramid_iters=(8, 4),
+                                   source_pools=(1, 2))
+    return frame.depth, model.depth, cam, icfg, kw
+
+
+@pytest.mark.parametrize("case", ["flagship", "plain", "sharded",
+                                  "two_level", "odd"])
+def test_pyramid_levels_match_plain(cuda, case):
+    """K3b's sources and packed targets, level by level, in one launch;
+    every level of the model is nonzero."""
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    d_src, d_tgt, cam, icfg, kw = _k3_levels_case(cuda, case)
+    before = pre.LAUNCHES_LEVELS
+    srcs, tgts = pre.pyramid_inputs(d_src, d_tgt, cam, icfg, **kw)
+    assert pre.LAUNCHES_LEVELS == before + 1
+    ps, pt = pre._pyramid_reference(d_src, d_tgt, cam, icfg, **kw)
+    for k, (s, t) in enumerate(zip(srcs, tgts)):
+        assert bool((t[..., 0] > 0).any()), (case, k)
+        _assert_k3_equal(s, ps[k], f"{case} source {k}")
+        _assert_k3_equal(t, pt[k], f"{case} target {k}")
+
+
+@pytest.mark.parametrize("factor", [1, 2, 3, 4])
+def test_preprocess_metric_one_job(cuda, factor):
+    """``preprocess_metric`` on the card: one K3b job, min-pooled by
+    ``factor`` first (the keyframe pair ICP's downsample)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    raw, cam = _k3_frame(cuda, "sweep")
+    d = pre.preprocess(raw, cam, flagship_config().frontend).depth
+    lcam = cam.scaled(factor) if factor > 1 else cam
+    before = pre.LAUNCHES_LEVELS
+    got = pre.preprocess_metric(d, lcam, pool_factor=factor)
+    assert pre.LAUNCHES_LEVELS == before + 1
+    pooled = pre.downsample_depth(d, factor)
+    _assert_k3_equal(got, pre.preprocess_metric_reference(pooled, lcam),
+                     f"pool {factor}")
+
+
+def test_k3_no_sync_graph_replay_and_refusals(cuda, monkeypatch):
+    """Neither kernel reads back to the host; both replay from a CUDA
+    graph bit for bit; what the kernels do not take raises, a refused
+    launch raises, and the plain versions never run in their place."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    cfg = flagship_config()
+    raw, cam = _k3_frame(cuda, "sweep")
+    d_src, d_tgt, _, icfg, kw = _k3_levels_case(cuda, "flagship")
+
+    def both():
+        f = pre.preprocess(raw, cam, cfg.frontend)
+        s, t = pre.pyramid_inputs(d_src, d_tgt, cam, icfg, **kw)
+        return [*f, *(x for fr in s for x in fr), *t]
+
+    eager = both()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        both()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(_bits_equal(a, b) for a, b in zip(captured, eager))
+
+    with pytest.raises(ValueError, match="int32"):
+        pre.preprocess(raw.float(), cam, cfg.frontend)
+    with pytest.raises(ValueError, match="radius"):
+        pre.preprocess(raw, cam, dataclasses.replace(cfg.frontend,
+                                                     bilateral_radius=8))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pre.pyramid_inputs(d_src, d_tgt.cpu(), cam, icfg)
+    with pytest.raises(ValueError, match="float32"):
+        pre.preprocess_metric(d_src.double(), cam)
+    with pytest.raises(ValueError, match="level inputs"):
+        pre.pyramid_inputs(d_src, d_tgt, cam, dataclasses.replace(
+            icfg, pyramid=(16, 8, 4, 2, 1), pyramid_iters=(1,) * 5,
+            source_pools=(2,) * 5))
+    monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(pre, "preprocess_reference", no_plain)
+    monkeypatch.setattr(pre, "_job_reference", no_plain)
+    with pytest.raises(RuntimeError, match="preprocess_frame kernel launch"):
+        pre.preprocess(raw, cam, cfg.frontend)
+    with pytest.raises(RuntimeError, match="pyramid_levels kernel launch"):
+        pre.pyramid_inputs(d_src, d_tgt, cam, icfg, **kw)

@@ -37,6 +37,28 @@ def tiny_flagship_gather_config(pkg: str):
     )
 
 
+def depth_scene(h: int, w: int, seed: int, border_edges: bool = True):
+    """uint16 raw depth (5000 units a metre) of a tilted wall with a box in
+    front; with ``border_edges`` the first rows and columns are far and
+    the last near, so every wrapped stencil crosses a depth edge."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    d = 2.0 + 0.01 * x - 0.006 * y + 0.05 * np.sin(0.3 * x + seed)
+    box = ((y > h * 0.3) & (y < h * 0.7) & (x > w * 0.35) & (x < w * 0.65))
+    d[box] -= 0.6
+    if border_edges:
+        d[:2, :] = 3.5
+        d[:, :2] = 3.6
+        d[-2:, :] = 0.9
+        d[:, -3:] = 0.8
+    d += rng.normal(scale=0.002, size=d.shape)
+    raw = np.round(d * 5000.0).astype(np.int64)
+    raw[rng.random(raw.shape) < 0.05] = 0                       # dropouts
+    fly = rng.random(raw.shape) < 0.02                           # flying px
+    raw[fly] = rng.integers(2000, 20000, size=int(fly.sum()))
+    return np.clip(raw, 0, 65535).astype(np.uint16)
+
+
 def tt(a):
     """numpy / JAX array -> a CPU torch tensor holding its own copy."""
     import torch

@@ -145,10 +145,20 @@ KERNELS = {
     # 1/fy, normal and distance gates, Huber delta, CTAs, partials, out
     "icp_sums": [_P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I,
                  _P, _P, _P],
+    # K3a (csrc/preprocess.cu): raw, depth, vertices, normals, H, W,
+    # 1/depth_scale, depth_min, depth_max, cx, cy, 1/fx, 1/fy, outlier,
+    # band base, band quad, min support, bilateral, radius,
+    # 1/(2 sigma_depth^2), spatial weights (host)
+    "preprocess_frame": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
+                         _F, _I, _F, _F, _I, _I, _I, _F, _P, _P],
+    # K3b: job pointers, ints and floats (host, 6 each a job), jobs,
+    # edge band
+    "pyramid_levels": [_P, _P, _P, _I, _F, _P],
 }
 # C function -> its source under csrc/, where the two names differ
 SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
-           "grid_sync_floor": "launch_floor"}
+           "grid_sync_floor": "launch_floor",
+           "preprocess_frame": "preprocess", "pyramid_levels": "preprocess"}
 
 
 def source_of(name: str) -> str:

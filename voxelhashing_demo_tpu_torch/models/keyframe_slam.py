@@ -130,8 +130,8 @@ def make_kf_pre(cam, frontend, downsample: int, lcam):
         frame = pre_ops.preprocess(depth_raw, cam, frontend)
         if downsample == 1:
             return frame
-        d = pre_ops.downsample_depth(frame.depth, downsample)
-        return pre_ops.preprocess_metric(d, lcam)
+        return pre_ops.preprocess_metric(frame.depth, lcam,
+                                         pool_factor=downsample)
 
     return kf_pre
 

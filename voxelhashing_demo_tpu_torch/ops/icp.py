@@ -12,7 +12,10 @@ candidate stops when the JAX loop would (after ``max_iters``, or once
 |delta|^2 <= update_tol^2) and is then frozen; the kernel returns once all
 are done.  ``normal_system`` and ``alignment_score_sums`` run one pass of
 the same association in K4s ``icp_sums``.  A refused launch raises;
-nothing falls back.
+nothing falls back.  ``icp_align_pyramid`` takes every level's source and
+packed target from one ``preprocess.pyramid_inputs`` call (K3b on CUDA
+tensors) and hands the packed targets on (``tgt_packed`` / ``packed``),
+so no target is packed twice.
 
 On CPU tensors each function runs its plain version: ``icp_align_reference``
 (a host-checked Python loop, one device-to-host read of the update norm
@@ -44,8 +47,7 @@ from ..config import CameraConfig, ICPConfig
 from ..geometry import camera as cam_geom
 from ..geometry import se3
 from ..geometry.f32 import recip
-from .preprocess import (Frame, _norm, downsample_depth,
-                         downsample_depth_mean, preprocess_metric)
+from .preprocess import Frame, _norm, pyramid_inputs
 
 
 LAUNCHES_LEVEL = 0      # K4 icp_gn_level
@@ -241,16 +243,18 @@ def _tol2(cfg: ICPConfig) -> float:
 
 def icp_align_reference(
     src: Frame,
-    tgt: Frame,
+    tgt: Frame | None,
     cam: CameraConfig,
     cfg: ICPConfig,
     init_T: torch.Tensor | None = None,
+    tgt_packed: torch.Tensor | None = None,
 ) -> ICPResult:
     """Plain version of ``icp_align``, on any device: the JAX loop as a
     host-checked Python loop (one device-to-host read per iteration)."""
     dev = src.depth.device
     T = se3.identity(device=dev) if init_T is None else init_T
-    tgt_packed = pack_target(tgt)
+    if tgt_packed is None:
+        tgt_packed = pack_target(tgt)
     tol2 = _tol2(cfg)
     it = 0
     dnorm = math.inf
@@ -273,47 +277,58 @@ def icp_align_reference(
 
 def icp_align(
     src: Frame,
-    tgt: Frame,
+    tgt: Frame | None,
     cam: CameraConfig,
     cfg: ICPConfig,
     init_T: torch.Tensor | None = None,
+    tgt_packed: torch.Tensor | None = None,
 ) -> ICPResult:
-    """Align src onto tgt: returns T such that T @ src ~= tgt.  One K4
-    launch (C = 1) on CUDA tensors, ``icp_align_reference`` on CPU
-    tensors."""
-    if _on_cpu(src.vertices, tgt.depth):
-        return icp_align_reference(src, tgt, cam, cfg, init_T)
-    rows, iters = _align_candidates([src], [tgt], cam, cfg, [init_T])
+    """Align src onto tgt: returns T such that T @ src ~= tgt.  With
+    ``tgt_packed`` (``pack_target(tgt)``, e.g. from
+    ``preprocess.pyramid_inputs``) ``tgt`` may be None.  One K4 launch
+    (C = 1) on CUDA tensors, ``icp_align_reference`` on CPU tensors."""
+    if tgt_packed is None:
+        tgt_packed = pack_target(tgt)
+    if _on_cpu(src.vertices, tgt_packed):
+        return icp_align_reference(src, tgt, cam, cfg, init_T, tgt_packed)
+    rows, iters = _align_candidates([src], None, cam, cfg, [init_T],
+                                    packed=[tgt_packed])
     return _row_result(rows[0], iters[0])
 
 
 def icp_align_raced(
     src: Frame,
-    tgt: Frame,
+    tgt: Frame | None,
     cam: CameraConfig,
     cfg: ICPConfig,
     prior_T: torch.Tensor,
     init_T: torch.Tensor | None = None,
+    tgt_packed: torch.Tensor | None = None,
 ) -> ICPResult:
     """ICP from ``init_T`` (the identity by default) and from ``prior_T``;
     the prior's result only when it scores strictly lower
-    (``pick_by_score``).  One K4 launch (C = 2 and the race epilogue) on
-    CUDA tensors; on CPU tensors ``_race_plain``."""
-    if _on_cpu(src.vertices, tgt.depth):
-        return _race_plain(src, tgt, cam, cfg, prior_T, init_T)
-    rows, iters = _align_candidates([src, src], [tgt, tgt], cam, cfg,
-                                    [init_T, prior_T], race=True)
+    (``pick_by_score``).  ``tgt_packed`` as in ``icp_align``.  One K4
+    launch (C = 2 and the race epilogue) on CUDA tensors; on CPU tensors
+    ``_race_plain``."""
+    if tgt_packed is None:
+        tgt_packed = pack_target(tgt)
+    if _on_cpu(src.vertices, tgt_packed):
+        return _race_plain(src, tgt, cam, cfg, prior_T, init_T, tgt_packed)
+    rows, iters = _align_candidates([src, src], None, cam, cfg,
+                                    [init_T, prior_T], race=True,
+                                    packed=[tgt_packed] * 2)
     return _row_result(rows[2], iters[2])
 
 
-def _race_plain(src: Frame, tgt: Frame, cam: CameraConfig, cfg: ICPConfig,
-                prior_T: torch.Tensor,
-                init_T: torch.Tensor | None = None) -> ICPResult:
+def _race_plain(src: Frame, tgt: Frame | None, cam: CameraConfig,
+                cfg: ICPConfig, prior_T: torch.Tensor,
+                init_T: torch.Tensor | None = None,
+                tgt_packed: torch.Tensor | None = None) -> ICPResult:
     """Plain version of ``icp_align_raced``: two ``icp_align`` runs, their
     ``alignment_score_sums`` and ``pick_by_score``."""
-    result = icp_align(src, tgt, cam, cfg, init_T=init_T)
-    raced = icp_align(src, tgt, cam, cfg, init_T=prior_T)
-    packed = pack_target(tgt)
+    packed = pack_target(tgt) if tgt_packed is None else tgt_packed
+    result = icp_align(src, tgt, cam, cfg, init_T=init_T, tgt_packed=packed)
+    raced = icp_align(src, tgt, cam, cfg, init_T=prior_T, tgt_packed=packed)
     sn, sd = alignment_score_sums(raced.transform, src, tgt, cam, cfg,
                                   packed)
     bn, bd = alignment_score_sums(result.transform, src, tgt, cam, cfg,
@@ -386,32 +401,44 @@ def _table(entries) -> ctypes.Array:
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
+def _packed_targets(tgts, packed):
+    """``packed``, or each target Frame of ``tgts`` packed (a Frame that
+    recurs packed once)."""
+    if packed is not None:
+        return list(packed)
+    packs = {}
+    for tgt in tgts:
+        if id(tgt) not in packs:
+            packs[id(tgt)] = pack_target(tgt)
+    return [packs[id(tgt)] for tgt in tgts]
+
+
 def _align_candidates(srcs, tgts, cam: CameraConfig, cfg: ICPConfig, inits,
-                      race: bool = False):
+                      race: bool = False, packed=None):
     """K4 over C candidates (lists of Frames and start transforms, None
-    for the identity; every source of one shape) in one launch on the
-    current stream: (rows (C + race, ROW), iters (C + race,) int32), row c
-    candidate c's T, dnorm, error, count, score and JTJ; row C of a race
-    (C = 2) the picked result.  Raises on anything the kernel does not
-    take."""
+    for the identity; every source of one shape; the targets as Frames,
+    or already packed as ``packed`` with ``tgts`` None) in one launch on
+    the current stream: (rows (C + race, ROW), iters (C + race,) int32),
+    row c candidate c's T, dnorm, error, count, score and JTJ; row C of a
+    race (C = 2) the picked result.  Raises on anything the kernel does
+    not take."""
     C = len(srcs)
-    if (not 1 <= C <= MAX_CANDIDATES or len(tgts) != C or len(inits) != C
+    n_tgt = len(packed if tgts is None else tgts)
+    if (not 1 <= C <= MAX_CANDIDATES or n_tgt != C or len(inits) != C
             or (race and C != 2)):
         raise ValueError(f"ICP candidates: 1 to {MAX_CANDIDATES} sources, "
                          f"as many targets and starts (2 for a race), got "
-                         f"{C}, {len(tgts)}, {len(inits)}")
+                         f"{C}, {n_tgt}, {len(inits)}")
     shapes = {tuple(src.vertices.shape) for src in srcs}
     if len(shapes) != 1:
         raise ValueError(f"ICP candidates: every source must have one "
                          f"shape, got {sorted(shapes)}")
     dev = srcs[0].vertices.device
-    entries, packs = [], {}
-    for src, tgt, init in zip(srcs, tgts, inits):
-        if id(tgt) not in packs:
-            packs[id(tgt)] = pack_target(tgt)
+    entries = []
+    for src, pk, init in zip(srcs, _packed_targets(tgts, packed), inits):
         T0 = (se3.identity(device=dev) if init is None
               else init.to(torch.float32))
-        entries.append(_kernel_inputs(T0, src, packs[id(tgt)], cam))
+        entries.append(_kernel_inputs(T0, src, pk, cam))
     return _launch_level(entries, cam, cfg, race)
 
 
@@ -738,19 +765,19 @@ def _solve_update_reference(partials, T, istate, fstate, damping: float,
 
 
 def _level_reference(srcs, tgts, cam: CameraConfig, cfg: ICPConfig, inits,
-                     race: bool = False):
+                     race: bool = False, packed=None):
     """What one K4 launch computes, as (rows, iters) in its layout: the
     frozen-lane loop (each candidate iterates until its own done test,
     then keeps its state while the others go on) from
     ``_partials_reference`` at the launch's grid and
     ``_solve_update_reference``; with ``race`` the epilogue
     (``_race_epilogue_reference``) on the score sums of both final
-    transforms."""
+    transforms.  Targets as in ``_align_candidates``."""
     C = len(srcs)
     n = srcs[0].vertices.numel() // 3
     n_cta = _ctas(n, C)
     dev = srcs[0].vertices.device
-    packed = [pack_target(t) for t in tgts]
+    packed = _packed_targets(tgts, packed)
     tol2 = _tol2(cfg)
     T = [se3.identity(device=dev) if i is None else i.to(torch.float32)
          for i in inits]
@@ -911,44 +938,31 @@ def icp_align_pyramid(
     tgt_full: Frame | None = None,
     prior_T: torch.Tensor | None = None,
 ) -> ICPResult:
-    """Coarse-to-fine ICP over a depth pyramid.  With ``prior_T`` the
-    coarsest level runs twice (identity start and prior start,
-    ``icp_align_raced``) and the better-scoring result seeds the finer
-    levels: on CUDA tensors one K4 launch a level."""
+    """Coarse-to-fine ICP over a depth pyramid.  Every level's source and
+    packed target come from one ``pyramid_inputs`` call (one K3b launch on
+    CUDA tensors).  With ``prior_T`` the coarsest level runs twice
+    (identity start and prior start, ``icp_align_raced``) and the
+    better-scoring result seeds the finer levels: on CUDA tensors one K4
+    launch a level."""
     dev = depth_src_m.device
     T = se3.identity(device=dev) if init_T is None else init_T
     result = None
-    levels = sorted(set(cfg.pyramid), reverse=True)
+    n_levels = len(set(cfg.pyramid))
     iters = cfg.pyramid_iters
-    if len(iters) != len(levels):
-        iters = (cfg.max_iters,) * len(levels)
-    pools = cfg.source_pools
-    if len(pools) != len(levels):
-        pools = (1,) * len(levels)
-    for li, (factor, max_it, pool) in enumerate(zip(levels, iters, pools)):
+    if len(iters) != n_levels:
+        iters = (cfg.max_iters,) * n_levels
+    sources, packed = pyramid_inputs(depth_src_m, depth_tgt_m, cam, cfg,
+                                     src_full, tgt_full)
+    factors = sorted(set(cfg.pyramid), reverse=True)
+    for li, (factor, max_it, src, tgt_packed) in enumerate(
+            zip(factors, iters, sources, packed)):
         lcam = cam.scaled(factor) if factor > 1 else cam
         lcfg = dataclasses.replace(cfg, max_iters=max_it)
-        if factor > 1:
-            tgt = preprocess_metric(downsample_depth(depth_tgt_m, factor),
-                                    lcam)
-        else:
-            tgt = (tgt_full if tgt_full is not None
-                   else preprocess_metric(depth_tgt_m, lcam))
-        sfactor = factor * pool
-        if pool > 1:
-            src = preprocess_metric(
-                downsample_depth_mean(depth_src_m, sfactor),
-                cam.scaled(sfactor),
-            )
-        elif sfactor > 1:
-            src = preprocess_metric(downsample_depth(depth_src_m, sfactor),
-                                    cam.scaled(sfactor))
-        else:
-            src = (src_full if src_full is not None
-                   else preprocess_metric(depth_src_m, lcam))
         if li == 0 and prior_T is not None:
-            result = icp_align_raced(src, tgt, lcam, lcfg, prior_T, init_T=T)
+            result = icp_align_raced(src, None, lcam, lcfg, prior_T,
+                                     init_T=T, tgt_packed=tgt_packed)
         else:
-            result = icp_align(src, tgt, lcam, lcfg, init_T=T)
+            result = icp_align(src, None, lcam, lcfg, init_T=T,
+                               tgt_packed=tgt_packed)
         T = result.transform
     return result

@@ -15,6 +15,7 @@ import torch
 from .. import convert
 from ..device import host_array
 from ..ops import icp, window_gather
+from ..ops import preprocess as pre_ops
 from . import distributed, sharded
 
 
@@ -30,7 +31,6 @@ def kernel_check(mesh, config, hmap, depth_raw, pose) -> dict:
     value difference.  Its launch is not counted in ``LAUNCHES``."""
     from ..geometry import se3
     from ..ops import hash_ops
-    from ..ops import preprocess as pre_ops
 
     lcfg = sharded.local_hash_config(config.hash, mesh.size)
     depth = pre_ops.preprocess(_tensor(depth_raw, np.int32, mesh),
@@ -64,12 +64,13 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
     (this rank's shard, flattened as ``convert`` does), ``models`` (per
     render pose, this rank's rows), ``launches`` (window-gather launches
     per frame), ``icp_launches`` (the ICP kernels' K4 and K4s launches
-    over the run) and, with ``timed``, per-frame host ms on a synchronised
+    over the run), ``k3_launches`` (K3a and K3b's) and, with ``timed``, per-frame host ms on a synchronised
     clock, the peak device memory, the collective counters, the live
     render's hit mask (this rank's rows) and ``kernel_check`` on the last
     frame."""
     window_gather.LAUNCHES = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
+    pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     launches, frame_ms, infos = [], [], []
     cuda = mesh.device.type == "cuda"
     if cuda:
@@ -97,7 +98,8 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         launches.append(window_gather.LAUNCHES - before)
     out = {"infos": infos, "launches": launches,
-           "icp_launches": [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS]}
+           "icp_launches": [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS],
+           "k3_launches": [pre_ops.LAUNCHES_FRAME, pre_ops.LAUNCHES_LEVELS]}
     if fed_poses is None:
         out["state"] = convert.state_to_numpy(slam.state)
         hmap = slam.state.hmap
@@ -129,8 +131,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     left-multiplied by its drift.  Returns the backend's decisions (keyframe frames, edges, BA
     frames, rebuild modes, moves, tracked flags, capacity events,
     saturation), the trajectory, the graph poses, this rank's map shard,
-    the window-gather and ICP-kernel launches (``icp_launches``: K4,
-    K4s), with streaming the store counters
+    the window-gather, ICP-kernel and K3 launches (``icp_launches``: K4,
+    K4s; ``k3_launches``: K3a, K3b), with streaming the store counters
     (evicted, restored, stored) summed over the ranks, and, with
     ``timed``, the host seconds of
     each BA solve and the collective counters."""
@@ -138,6 +140,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
 
     window_gather.LAUNCHES = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
+    pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     bytes0, coll0 = mesh.collective_host_bytes, mesh.collectives
     slam = keyframe_slam.KeyframeSLAM(config, mesh=mesh)
     for i, d in enumerate(frames):
@@ -161,6 +164,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
         "state": convert.hashmap_to_numpy(slam.state.hmap, "hmap"),
         "launches": window_gather.LAUNCHES,
         "icp_launches": [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS],
+        "k3_launches": [pre_ops.LAUNCHES_FRAME, pre_ops.LAUNCHES_LEVELS],
         "rebuild_fuses": sum(e["keyframes"] for e in slam.ba_events
                              if e["rebuild_mode"] == "full"),
     }

@@ -163,12 +163,13 @@ def _source_rows(src_l: Frame, mesh: Mesh):
     return Frame(*(_rows(x, mesh) for x in src_l)), 1.0
 
 
-def _icp_level_sharded(src_l: Frame, tgt_l: Frame, lcam, cfg, mesh: Mesh,
-                       max_iters: int, T0: torch.Tensor) -> icp_ops.ICPResult:
-    """One pyramid level of row-sharded Gauss-Newton (``_source_rows``)."""
+def _icp_level_sharded(src_l: Frame, tgt_packed: torch.Tensor, lcam, cfg,
+                       mesh: Mesh, max_iters: int,
+                       T0: torch.Tensor) -> icp_ops.ICPResult:
+    """One pyramid level of row-sharded Gauss-Newton (``_source_rows``)
+    against the level's packed target."""
     src_l, scale = _source_rows(src_l, mesh)
     dev = T0.device
-    tgt_packed = icp_ops.pack_target(tgt_l)
     tol2 = float(np.float32(cfg.update_tol ** 2))
     T, it, dnorm = T0, 0, float("inf")
     err = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
@@ -190,12 +191,11 @@ def _icp_level_sharded(src_l: Frame, tgt_l: Frame, lcam, cfg, mesh: Mesh,
         iters=torch.tensor(it, dtype=torch.int32, device=dev), JTJ=JTJ)
 
 
-def _score_sums(T, src_l: Frame, tgt_l: Frame, lcam, cfg, packed,
-                mesh: Mesh):
+def _score_sums(T, src_l: Frame, lcam, cfg, packed, mesh: Mesh):
     """This rank's (num, den) of ``alignment_score_sums`` as a (2,)
     tensor, and the scale its ranks' sum takes (``_source_rows``)."""
     src_l, scale = _source_rows(src_l, mesh)
-    num, den = icp_ops.alignment_score_sums(T, src_l, tgt_l, lcam, cfg,
+    num, den = icp_ops.alignment_score_sums(T, src_l, None, lcam, cfg,
                                             packed)
     return torch.stack([num, den]), scale
 
@@ -205,34 +205,28 @@ def _icp_sharded(src: Frame, tgt_depth: torch.Tensor, cam, cfg, mesh: Mesh,
     """Coarse-to-fine row-sharded point-to-plane ICP, with the raced
     constant-velocity prior at the coarsest level.  ``src`` is replicated;
     ``tgt_depth`` is the model's full depth (all-gathered by the caller),
-    downsampled per level on every rank."""
+    downsampled per level on every rank.  The levels' inputs come from one
+    ``pyramid_inputs`` call: sources min-pooled (the JAX sharded step's
+    rule), the finest target's normals from the gathered depth."""
     levels = sorted(set(cfg.pyramid), reverse=True)
     iters = cfg.pyramid_iters
     if len(iters) != len(levels):
         iters = (cfg.max_iters,) * len(levels)
-    pools = cfg.source_pools
-    if len(pools) != len(levels):
-        pools = (1,) * len(levels)
+    sources, targets = pre_ops.pyramid_inputs(src.depth, tgt_depth, cam, cfg,
+                                              mean_sources=False)
     T = se3.identity(device=src.depth.device)
     result = None
-    for li, (factor, max_it, pool) in enumerate(zip(levels, iters, pools)):
+    for li, (factor, max_it, src_l, packed) in enumerate(
+            zip(levels, iters, sources, targets)):
         lcam = cam.scaled(factor) if factor > 1 else cam
-        sfactor = factor * pool
-        d_s = (pre_ops.downsample_depth(src.depth, sfactor) if sfactor > 1
-               else src.depth)
-        d_t = (pre_ops.downsample_depth(tgt_depth, factor) if factor > 1
-               else tgt_depth)
-        src_l = pre_ops.preprocess_metric(
-            d_s, cam.scaled(sfactor) if sfactor > 1 else cam)
-        tgt_l = pre_ops.preprocess_metric(d_t, lcam)
-        result = _icp_level_sharded(src_l, tgt_l, lcam, cfg, mesh, max_it, T)
+        result = _icp_level_sharded(src_l, packed, lcam, cfg, mesh, max_it,
+                                    T)
         if li == 0 and prior_T is not None:
-            raced = _icp_level_sharded(src_l, tgt_l, lcam, cfg, mesh, max_it,
-                                       prior_T)
-            packed = icp_ops.pack_target(tgt_l)
-            a, scale = _score_sums(raced.transform, src_l, tgt_l, lcam, cfg,
+            raced = _icp_level_sharded(src_l, packed, lcam, cfg, mesh,
+                                       max_it, prior_T)
+            a, scale = _score_sums(raced.transform, src_l, lcam, cfg,
                                    packed, mesh)
-            b, _ = _score_sums(result.transform, src_l, tgt_l, lcam, cfg,
+            b, _ = _score_sums(result.transform, src_l, lcam, cfg,
                                packed, mesh)
             # both scores' sums in one collective
             sn, sd, bn, bd = psum(mesh, torch.cat([a, b])) * scale
