@@ -8,8 +8,9 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
 1. ``device``: the card's name and power limit (nvidia-smi).
 2. ``build``: builds every kernel source under csrc/ (the CUDA kernels,
    the ICP kernels K4 / K4s in icp.cu, the frontend and pyramid kernels
-   K3a / K3b in preprocess.cu, the empty kernels that measure
-   the launch and barrier floors, and the host codec) for sm_90a into the
+   K3a / K3b in preprocess.cu, the splat kernels K8 / K9 in splat.cu,
+   the empty kernels that measure the launch and barrier floors, and the
+   host codec) for sm_90a into the
    package's _build/ directory, one compiler process each, started
    together.
 3. ``kernel``: both window-gather kernels (one CTA per block row;
@@ -90,6 +91,24 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    preprocess and ICP stages, kernels against the plain versions: host ms
    and device kernels (torch.profiler), the preprocess stage one kernel,
    the ICP stage at most 20; one K3a and one K3b launch a step.
+3e. ``splat``: the splat surface prediction (csrc/splat.cu: K8
+   ``splat_zbuffer``, the scatter-min z-buffer of the visible set with
+   ``surface_filter`` as a row's skip and the row count read on the
+   device; K9 ``splat_finalize``, hole fill, smooth, points and normals)
+   on the flagship step's own splat: the arguments of the step's
+   ``splat_raycast`` call on frame N_STEP_FRAMES of the room sweep, after
+   the first N_STEP_FRAMES frames.  K8 against
+   ``splat_depth_from_map_reference`` (with and without the band filter),
+   K9 against ``finalize_depth_reference`` on the plain raw buffer (0 for
+   none, the sharded path's input) and the pair against
+   ``splat_raycast_reference``: bit for bit, field by field (depth,
+   points, normals, hit).  Times as ``preprocess``'s (each kernel alone by
+   CUDA-graph replay, warm and L2-cold; its wrapper, the reset and K8 for
+   K8; its plain version; the bound from this run's rows and pixels; the
+   launch floor and least time); the stage (``splat_raycast``) kernel
+   against plain in turns plain / kernel / kernel / plain: host ms, host
+   µs to issue, device kernels (torch.profiler, at most 3: the reset, K8,
+   K9) and host reads (none); one K8 and one K9 launch a step.
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
@@ -263,7 +282,10 @@ systems); ``launches`` is the count of the last path that drives each.
 K3a and K3b with the times and bound of the ``preprocess`` phase,
 counted like K4 on the same paths, must launch on every one (K3a once a
 ``preprocess`` call, K3b once a flagship frame and once a keyframe's
-pooled frame).
+pooled frame).  K8 and K9 with the times and bound of the ``splat``
+phase, counted like K3 on the same paths: they must launch on every path
+that predicts by splatting and on each rank of the multi-rank paths, and
+never on ``march``.
   Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
@@ -1672,6 +1694,185 @@ def phase_preprocess(torch, card: str, sweep) -> dict:
                     "library_ms": None}
             for kname, d, c in (("preprocess_frame", k3a, k3a_cmp),
                                 ("pyramid_levels", k3b, k3b_cmp))}
+
+
+SPLAT_KERNELS = ("splat_zbuffer", "splat_finalize")
+SPLAT_META = {
+    "splat_zbuffer": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/splat.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/splat.py:252 "
+                    "(surface_filter), voxelhashing_demo_tpu/ops/splat.py:"
+                    "141 (splat_depth_from_map), voxelhashing_demo_tpu/ops/"
+                    "splat.py:84 (splat_depth_estimates), "
+                    "voxelhashing_demo_tpu/ops/splat.py:187 "
+                    "(_splat_rows_into): fused by XLA, no Pallas kernel",
+    },
+    "splat_finalize": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/splat.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/splat.py:229 "
+                    "(finalize_depth), voxelhashing_demo_tpu/ops/splat.py:"
+                    "48 (_min_fill), voxelhashing_demo_tpu/ops/splat.py:66 "
+                    "(_edge_preserving_smooth), voxelhashing_demo_tpu/"
+                    "geometry/camera.py:33 (pixel_rays), "
+                    "voxelhashing_demo_tpu/ops/preprocess.py:50 "
+                    "(compute_normals): fused by XLA, no Pallas kernel",
+    },
+}
+# float operations: K8 a voxel of a live row (the pose, 9 + 3 FMAs and
+# adds, the projection, the gates); K9 a pixel (each fill round's 9
+# minima, the smooth's 9 taps, points and the normal)
+K8_OPS_PER_VOXEL, K9_OPS_PER_PIXEL, K9_OPS_PER_ROUND = 60, 130, 12
+SPLAT_STAGE_KERNELS = 3      # a buffer reset, K8, K9
+
+
+def splat_launches() -> list:
+    """[K8, K9] launches counted since they were last set to 0."""
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    return [splat.LAUNCHES_ZBUFFER, splat.LAUNCHES_FINALIZE]
+
+
+def zero_splat_launches() -> None:
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    splat.LAUNCHES_ZBUFFER = splat.LAUNCHES_FINALIZE = 0
+
+
+def phase_splat(torch, card: str, sweep) -> dict:
+    """K8 ``splat_zbuffer`` and K9 ``splat_finalize`` on the flagship
+    step's own inputs: the map, the visible set and the pose that the
+    step's splat takes on frame N_STEP_FRAMES of the room sweep, after the
+    first N_STEP_FRAMES frames through ``HashSLAM(flagship_gather_
+    config())``.  Returns {kernel: its kernels-line fields}."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import splat
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    t0 = time.perf_counter()
+    cfg = flagship_gather_config()
+    slam = hash_slam.HashSLAM(cfg)
+    for d in sweep[:N_STEP_FRAMES]:
+        slam.process(d)
+    # one frame of the step: its splat's arguments, one launch of each
+    last = []
+    zero_splat_launches()
+    with _wrapped(splat, "splat_raycast", _recorded(last)):
+        slam.process(sweep[N_STEP_FRAMES])
+    per_frame = splat_launches()
+    hmap, active, hcfg, T_wc, cam, rc, fusion = last
+    args = tuple(last)
+    band = rc.splat_band * fusion.voxel_size
+
+    # each kernel and the pair against the plain versions, bit for bit
+    k8_raw = splat.splat_depth_from_map(*args)
+    k8_plain = splat.splat_depth_from_map_reference(*args)
+    filtered = splat.surface_filter(hmap, active, band)
+    k8_filtered = torch.nan_to_num(splat._launch_zbuffer(
+        *args, band_filter=True).view(cam.height, cam.width), posinf=0.0)
+    k8_cmp = {"unfiltered": probe.compare(k8_raw, k8_plain),
+              "filtered": probe.compare(
+                  k8_filtered, splat.splat_depth_from_map_reference(
+                      hmap, filtered, hcfg, T_wc, cam, rc, fusion))}
+    k9_cmp = probe.compare(
+        tuple(splat.finalize_depth(k8_plain, cam, rc, fusion)),
+        tuple(splat.finalize_depth_reference(k8_plain, cam, rc, fusion)))
+    pair = splat.splat_raycast(*args)
+    plain = splat.splat_raycast_reference(*args)
+    pair_cmp = {f: probe.compare(getattr(pair, f), getattr(plain, f))
+                for f in pair._fields}
+    k8_cmp["bit_exact"] = all(c["bit_exact"] for c in (
+        k8_cmp["unfiltered"], k8_cmp["filtered"]))
+    k8_cmp["max_abs_err"] = max(k8_cmp["unfiltered"]["max_abs_err"],
+                                k8_cmp["filtered"]["max_abs_err"])
+
+    # each kernel alone (CUDA-graph replay, warm and L2-cold), its wrapper
+    # (the reset and K8; K9), its plain version; bounds from this run's data
+    floor_ms = probe.launch_floor_ms()
+    index = torch.cuda.current_device()
+    rows = active.ptrs.shape[0]
+    plan = splat._zbuffer_plan(hcfg, cam, rc, fusion)
+    zbuf = torch.full((cam.height * cam.width,), float("inf"),
+                      device=T_wc.device)
+
+    def k8_alone(blocks, ptrs, count, tsdf, weight, band_min, T, zb):
+        kernels.launch("splat_zbuffer", index, blocks.data_ptr(),
+                       ptrs.data_ptr(), count.data_ptr(), tsdf.data_ptr(),
+                       weight.data_ptr(), band_min.data_ptr(), T.data_ptr(),
+                       zb.data_ptr(), rows, tsdf.shape[0], *plan, 1)
+
+    k8 = {**probe.timings(k8_alone, (active.blocks, active.ptrs,
+                                     active.count, hmap.tsdf, hmap.weight,
+                                     hmap.band_min, T_wc, zbuf)),
+          "wrapper_ms": probe.host_ms(
+              lambda: splat._launch_zbuffer(*args, band_filter=True)),
+          "plain_ms": probe.host_ms(
+              lambda: splat.splat_depth_from_map_reference(
+                  hmap, splat.surface_filter(hmap, active, band), hcfg,
+                  T_wc, cam, rc, fusion), iters=10)}
+    n = int(active.count)
+    live = int(filtered.count)
+    V = hcfg.voxels_per_block
+    px = cam.height * cam.width
+    k8["bound_ms"], k8["bound_by"] = _probe_bound(
+        n * (12 + 4 + 4) + live * V * 8 + 64 + 4 + px * 4,
+        live * V * K8_OPS_PER_VOXEL)
+    k9 = {**probe.timings(lambda d: splat.finalize_depth(d, cam, rc, fusion),
+                          (k8_plain,)),
+          "plain_ms": probe.host_ms(lambda: splat.finalize_depth_reference(
+              k8_plain, cam, rc, fusion), iters=10)}
+    k9["bound_ms"], k9["bound_by"] = _probe_bound(
+        px * (4 + 4 + 12 + 12 + 1),
+        px * (K9_OPS_PER_PIXEL + K9_OPS_PER_ROUND * rc.splat_fill_rounds))
+    for k in (k8, k9):
+        k["floor_ms"] = floor_ms
+        k["least_ms"] = max(k["bound_ms"], floor_ms)
+
+    # the stage, kernels against plain in turns plain / kernel / kernel /
+    # plain: host ms, device kernels, host reads
+    fns = {"kernel": lambda: splat.splat_raycast(*args),
+           "plain": lambda: splat.splat_raycast_reference(*args)}
+    host_ms = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        host_ms[which].append(median_ms(torch, fns[which]))
+    stage = {"host_ms": host_ms["kernel"], "host_ms_plain": host_ms["plain"],
+             "issue_us": host_issue_us(fns["kernel"]),
+             "issue_us_plain": host_issue_us(fns["plain"], reps=5)}
+    for which, fn in fns.items():
+        tag = "" if which == "kernel" else "_plain"
+        stage["device_kernels" + tag] = _device_kernels(torch, fn)
+        stage["host_reads" + tag] = sync_sites(torch, fn)
+    _emit({"phase": "splat", "card": card, "frame_hw": [cam.height,
+                                                        cam.width],
+           "rows": rows, "count": n, "live_rows": live,
+           "hit_fraction": float(pair.hit.float().mean()),
+           "fill_rounds": rc.splat_fill_rounds,
+           "splat_zbuffer": {"check": k8_cmp, **k8},
+           "splat_finalize": {"check": k9_cmp, **k9},
+           "pair_check": pair_cmp,
+           "launches_per_frame": dict(zip(SPLAT_KERNELS, per_frame)),
+           "stage": stage, "seconds": time.perf_counter() - t0})
+    _require(k8_cmp["bit_exact"], "K8 == its plain version bit for bit "
+                                  "(with and without the band filter)")
+    _require(k9_cmp["bit_exact"], "K9 == its plain version bit for bit, "
+                                  "every field")
+    _require(all(c["bit_exact"] for c in pair_cmp.values()),
+             "K8 + K9 == splat_raycast_reference bit for bit, every field")
+    _require(per_frame == [1, 1], "one K8 and one K9 launch a frame")
+    _require(stage["device_kernels"]["kernels"] <= SPLAT_STAGE_KERNELS,
+             f"the splat stage runs at most {SPLAT_STAGE_KERNELS} device "
+             f"kernels")
+    _require(not stage["host_reads"], "the splat stage reads nothing on "
+                                      "the host")
+    _require(0 < live <= n and float(pair.hit.float().mean()) > 0.5,
+             "the step's splat sees live rows and hits half the image")
+    return {kname: {"case": "step", **d, "max_abs_err": c["max_abs_err"],
+                    "library_ms": None}
+            for kname, d, c in (("splat_zbuffer", k8, k8_cmp),
+                                ("splat_finalize", k9, k9_cmp))}
 
 
 def _run_port(torch, cfg, depths, device):
@@ -3253,13 +3454,14 @@ def phase_nccl(torch, frames) -> dict:
              "K1 launched on every frame over NCCL")
     _require(one["icp_launches"][1] > 0,
              "K4s launched over NCCL (the sharded level's systems)")
+    _require(min(one["splat_launches"]) > 0, "K8 and K9 launched over NCCL")
     return one
 
 
 def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
     """Two ranks on the one card over Gloo at flagship_gather_config():
     see the module docstring.  Returns rank 0's K1 launches and its
-    [K4, K4s, K3a, K3b] launches."""
+    [K4, K4s, K3a, K3b, K8, K9] launches."""
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.parallel import launch, ranks
@@ -3339,7 +3541,10 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
                  for o in two), "K1 bit-exact on each rank's own rows")
     _require(all(o["icp_launches"][1] > 0 for o in two),
              "K4s launched on each rank (the sharded level's systems)")
-    return launches[0], a["icp_launches"] + a["k3_launches"]
+    _require(all(min(o["splat_launches"]) > 0 for o in two),
+             "K8 and K9 launched on each rank")
+    return (launches[0],
+            a["icp_launches"] + a["k3_launches"] + a["splat_launches"])
 
 
 def phase_sharded_backend(torch, card: str) -> tuple:
@@ -3405,7 +3610,10 @@ def phase_sharded_backend(torch, card: str) -> tuple:
     _require(all(n > 0 for o in two for n in o["icp_launches"]),
              "K4 (pair-ICP batches) and K4s (the sharded level) launched "
              "on each rank")
-    return a["launches"], a["icp_launches"] + a["k3_launches"]
+    _require(all(min(o["splat_launches"]) > 0 for o in two),
+             "K8 and K9 launched on each rank")
+    return (a["launches"],
+            a["icp_launches"] + a["k3_launches"] + a["splat_launches"])
 
 
 def main() -> int:
@@ -3445,25 +3653,33 @@ def main() -> int:
     probe_launches, probes = phase_probes(torch, wg)
     icp_summary = phase_icp(torch, smi, sweep)
     k3_summary = phase_preprocess(torch, smi, sweep)
+    splat_summary = phase_splat(torch, smi, sweep)
     # launches per path, each counted from 0 by the phase that drives it;
     # "launches" in the summary is the last path's count
     by_path = {k: {"probes": n} for k, n in probe_launches.items()}
-    by_path.update({k: {} for k in ICP_KERNELS + K3_KERNELS})
+    step_kernels = ICP_KERNELS + K3_KERNELS + SPLAT_KERNELS
+    by_path.update({k: {} for k in step_kernels})
 
     def k4(path: str, run):
-        """``run()`` with the ICP and K3 kernels' counts from 0, recorded
-        under ``path``; the frame step preprocesses and its pyramid tracks
-        on every path, so K4, K3a and K3b must launch (K4s serves only the
-        sharded level)."""
+        """``run()`` with the ICP, K3 and splat kernels' counts from 0,
+        recorded under ``path``; the frame step preprocesses and its
+        pyramid tracks on every path, so K4, K3a and K3b must launch (K4s
+        serves only the sharded level), and K8 and K9 on every path that
+        predicts by splatting (all but ``march``, where neither may)."""
         zero_icp_launches()
         zero_k3_launches()
+        zero_splat_launches()
         out = run()
-        counts = icp_launches() + k3_launches()
-        for kname, n in zip(ICP_KERNELS + K3_KERNELS, counts):
+        counts = icp_launches() + k3_launches() + splat_launches()
+        for kname, n in zip(step_kernels, counts):
             by_path[kname][path] = n
         _require(counts[0] > 0, f"K4 launched on {path}")
         _require(counts[2] > 0 and counts[3] > 0,
                  f"K3a and K3b launched on {path}")
+        if path == "march":
+            _require(counts[4:] == [0, 0], "no K8 / K9 launch on march")
+        else:
+            _require(min(counts[4:]) > 0, f"K8 and K9 launched on {path}")
         return out
 
     k4("parity", lambda: phase_parity(torch))
@@ -3501,17 +3717,20 @@ def main() -> int:
     # rank 0's counts on the multi-rank paths
     one = phase_nccl(torch, frames)
     by_path["gather_depth_window"]["nccl"] = sum(one["launches"])
-    k4_ranks = {"nccl": one["icp_launches"] + one["k3_launches"]}
+    k4_ranks = {"nccl": one["icp_launches"] + one["k3_launches"]
+                + one["splat_launches"]}
     by_path["gather_depth_window"]["sharded_backend"], \
         k4_ranks["sharded_backend"] = phase_sharded_backend(torch, smi)
     # the slice's main path, last: "launches" is rank 0's count
     by_path["gather_depth_window"]["sharded"], k4_ranks["sharded"] = (
         phase_sharded(torch, smi, frames, gt, one))
     for path, counts in k4_ranks.items():
-        for kname, n in zip(ICP_KERNELS + K3_KERNELS, counts):
+        for kname, n in zip(step_kernels, counts):
             by_path[kname][path] = n
         _require(counts[2] > 0 and counts[3] > 0,
                  f"K3a and K3b launched on {path} (rank 0)")
+        _require(min(counts[4:]) > 0, f"K8 and K9 launched on {path} "
+                                      f"(rank 0)")
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{
@@ -3542,7 +3761,12 @@ def main() -> int:
         "launches": list(by_path[kname].values())[-1],
         "launches_by_path": by_path[kname],
         **k3_summary[kname],
-    } for kname in K3_KERNELS]})
+    } for kname in K3_KERNELS] + [{
+        "name": kname, **SPLAT_META[kname],
+        "launches": list(by_path[kname].values())[-1],
+        "launches_by_path": by_path[kname],
+        **splat_summary[kname],
+    } for kname in SPLAT_KERNELS]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -21,7 +21,11 @@ rtol 1e-5 of the float64 sum of its own terms (and within 1e-4 of the
 plain one in norm), the score sums within rtol 1e-5 of the plain ones, the
 flagship pyramid within 1e-5 of the plain loops with equal iteration
 counts in 3 launches; a level makes no host sync and replays from a CUDA
-graph bit for bit; a refused launch raises.
+graph bit for bit; a refused launch raises.  The splat kernels (K8
+``splat_zbuffer``, K9 ``splat_finalize``) equal their plain versions bit
+for bit on every field (maps with FREE_PTR rows, band cuts and rows past
+``count``, 48 poses, the near / far gates, fill rounds 0-5, odd sizes,
+the ``pmin``-ed buffer), make no host sync and replay from a CUDA graph.
 """
 
 import dataclasses
@@ -1182,3 +1186,201 @@ def test_k3_no_sync_graph_replay_and_refusals(cuda, monkeypatch):
         pre.preprocess(raw, cam, cfg.frontend)
     with pytest.raises(RuntimeError, match="pyramid_levels kernel launch"):
         pre.pyramid_inputs(d_src, d_tgt, cam, icfg, **kw)
+
+
+# --------------------------------------------------------------------------
+# K8 / K9: the splat z-buffer and its finalize pass
+# --------------------------------------------------------------------------
+
+def _splat_cfg(size: str, **raycast):
+    """The flagship config at 640x480 ("full") or at 80x60 with a small
+    map ("tiny"), its raycast settings replaced by ``raycast``."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config, tiny_config
+
+    cfg = flagship_config()
+    if size == "tiny":
+        cfg = dataclasses.replace(cfg, camera=tiny_config().camera)
+    return dataclasses.replace(cfg, raycast=dataclasses.replace(
+        cfg.raycast, **raycast))
+
+
+def _splat_inputs(cuda, cfg, padded: bool):
+    """(map, active set, pose) of ``torch_port_helpers.splat_map_case`` on
+    the card: FREE_PTR rows inside ``count``, band_min cuts (true and
+    stale), rows past ``count`` (real rows, or padding with ``padded``)."""
+    from torch_port_helpers import splat_map_case
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    c = splat_map_case(cfg.fusion.voxel_size,
+                       cfg.raycast.splat_band * cfg.fusion.voxel_size, seed=3)
+    on = {k: torch.as_tensor(np.asarray(v), device=cuda)
+          for k, v in c.items()}
+    key = "_padded" if padded else ""
+    hmap = hash_ops.HashMap(*([None] * 5), tsdf=on["tsdf"],
+                            weight=on["weight"], last_seen=None,
+                            band_min=on["band_min"], born=None)
+    active = hash_ops.ActiveSet(blocks=on["blocks" + key],
+                                ptrs=on["ptrs" + key], count=on["count"])
+    return hmap, active, on["pose"]
+
+
+def _assert_splat_equal(got, plain, what: str):
+    """A RaycastOutput bit for bit its plain version's (hit equal)."""
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(plain, name)
+        same = torch.equal(a, b) if a.dtype == torch.bool else \
+            _bits_equal(a, b)
+        assert same, f"{what} {name}"
+
+
+@pytest.mark.parametrize("gates", [None, (1.0, 1.45)])
+@pytest.mark.parametrize("size", ["tiny", "full"])
+def test_splat_zbuffer_matches_plain(cuda, size, gates):
+    """K8 (``splat_depth_from_map``: a reset, one launch, one pass) bit
+    for bit against ``splat_depth_from_map_reference``, rows past
+    ``count`` holding real rows; with the near / far gates cutting the
+    wall on both sides."""
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    over = {} if gates is None else dict(near=gates[0], far=gates[1])
+    cfg = _splat_cfg(size, **over)
+    hmap, active, pose = _splat_inputs(cuda, cfg, padded=False)
+    args = (hmap, active, cfg.hash, pose, cfg.camera, cfg.raycast,
+            cfg.fusion)
+    before = splat.LAUNCHES_ZBUFFER
+    got = splat.splat_depth_from_map(*args)
+    assert splat.LAUNCHES_ZBUFFER == before + 1
+    plain = splat.splat_depth_from_map_reference(*args)
+    assert _bits_equal(got, plain)
+    assert int((got > 0).sum()) > 300
+
+
+def test_splat_zbuffer_over_poses(cuda):
+    """K8 bit for bit against its plain version from 48 poses around the
+    case's (the pose's inverse and the product round as torch's CUDA
+    matmul and einsum do; one differing rounding shows in most poses)."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    cfg = _splat_cfg("full")
+    hmap, active, pose = _splat_inputs(cuda, cfg, padded=False)
+    rng = np.random.default_rng(7)
+    for k in range(48):
+        xi = rng.normal(size=6) * np.array([0.05, 0.05, 0.05, 0.03, 0.03,
+                                            0.03])
+        T = se3.exp(torch.as_tensor(xi, dtype=torch.float32,
+                                    device=cuda)) @ pose
+        args = (hmap, active, cfg.hash, T, cfg.camera, cfg.raycast,
+                cfg.fusion)
+        got = splat.splat_depth_from_map(*args)
+        assert _bits_equal(got, splat.splat_depth_from_map_reference(
+            *args)), k
+        assert int((got > 0).sum()) > 300, k
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 2])
+@pytest.mark.parametrize("size", ["tiny", "full"])
+def test_splat_raycast_matches_plain(cuda, size, rounds):
+    """K8 with the band filter then K9 (``splat_raycast``) bit for bit
+    against ``splat_raycast_reference`` (``surface_filter`` and the plain
+    chain), every field, fill rounds 0-2."""
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    cfg = _splat_cfg(size, splat_fill_rounds=rounds)
+    hmap, active, pose = _splat_inputs(cuda, cfg, padded=True)
+    args = (hmap, active, cfg.hash, pose, cfg.camera, cfg.raycast,
+            cfg.fusion)
+    before = (splat.LAUNCHES_ZBUFFER, splat.LAUNCHES_FINALIZE)
+    got = splat.splat_raycast(*args)
+    assert (splat.LAUNCHES_ZBUFFER, splat.LAUNCHES_FINALIZE) == (
+        before[0] + 1, before[1] + 1)
+    _assert_splat_equal(got, splat.splat_raycast_reference(*args),
+                        f"{size} rounds {rounds}")
+    assert bool(got.hit.any())
+
+
+@pytest.mark.parametrize("pmin", [False, True])
+@pytest.mark.parametrize("rounds", [0, 1, 2, 5])
+@pytest.mark.parametrize("hw", [(60, 80), (37, 53), (480, 640)])
+def test_splat_finalize_matches_plain(cuda, hw, rounds, pmin):
+    """K9 (``finalize_depth``) bit for bit against
+    ``finalize_depth_reference`` on buffers with holes along the border
+    and in the corners (the fill's +inf padding, the smooth's wrap), the
+    multi-device path's ``pmin``-ed buffer (0 for none) too, on odd
+    sizes; a buffer with +inf for none (K8's) gives the same."""
+    from torch_port_helpers import splat_depth_case
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    h, w = hw
+    cfg = _splat_cfg("full", splat_fill_rounds=rounds)
+    cam = dataclasses.replace(cfg.camera, height=h, width=w,
+                              cx=(w - 1) / 2 + 0.3, cy=(h - 1) / 2 - 0.2)
+    raw = torch.as_tensor(splat_depth_case(h, w, seed=rounds, pmin=pmin),
+                          device=cuda)
+    before = splat.LAUNCHES_FINALIZE
+    got = splat.finalize_depth(raw, cam, cfg.raycast, cfg.fusion)
+    assert splat.LAUNCHES_FINALIZE == before + 1
+    _assert_splat_equal(got, splat.finalize_depth_reference(
+        raw, cam, cfg.raycast, cfg.fusion), f"{hw} rounds {rounds}")
+    inf = torch.where(raw > 0, raw, float("inf"))
+    _assert_splat_equal(splat.finalize_depth(inf, cam, cfg.raycast,
+                                             cfg.fusion), got, "+inf")
+
+
+def test_splat_no_sync_graph_replay_and_refusals(cuda, monkeypatch):
+    """The stage reads nothing back to the host and replays from a CUDA
+    graph bit for bit; what the kernels do not take raises, a refused
+    launch raises, and the plain versions never run in their place."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    cfg = _splat_cfg("full")
+    hmap, active, pose = _splat_inputs(cuda, cfg, padded=True)
+    args = (hmap, active, cfg.hash, pose, cfg.camera, cfg.raycast,
+            cfg.fusion)
+    eager = splat.splat_raycast(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        splat.splat_raycast(*args)
+        splat.splat_depth_from_map(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        splat.splat_raycast(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = splat.splat_raycast(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_splat_equal(captured, eager, "graph")
+
+    with pytest.raises(ValueError, match="one CUDA device"):
+        splat.splat_raycast(hmap, active, cfg.hash, pose.cpu(), cfg.camera,
+                            cfg.raycast, cfg.fusion)
+    with pytest.raises(ValueError, match="int32"):
+        splat.splat_raycast(hmap, active._replace(
+            count=active.count.long()), *args[2:])
+    with pytest.raises(ValueError, match="float32"):
+        splat.finalize_depth(eager.depth.double(), cfg.camera, cfg.raycast,
+                             cfg.fusion)
+    with pytest.raises(ValueError, match="fill rounds"):
+        splat.finalize_depth(eager.depth, cfg.camera, dataclasses.replace(
+            cfg.raycast, splat_fill_rounds=splat.MAX_FILL_ROUNDS + 1),
+            cfg.fusion)
+    monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("splat_raycast_reference", "splat_depth_from_map_reference",
+                 "finalize_depth_reference", "surface_filter"):
+        monkeypatch.setattr(splat, name, no_plain)
+    with pytest.raises(RuntimeError, match="splat_zbuffer kernel launch"):
+        splat.splat_raycast(*args)
+    with pytest.raises(RuntimeError, match="splat_finalize kernel launch"):
+        splat.finalize_depth(eager.depth, cfg.camera, cfg.raycast,
+                             cfg.fusion)

@@ -546,3 +546,118 @@ def assert_bits_equal(got, want):
     w = np.asarray(want, dtype=np.float32)
     assert g.shape == w.shape, (g.shape, w.shape)
     np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+
+
+def splat_map_case(voxel_size: float, band: float, seed: int = 0):
+    """numpy inputs of the splat z-buffer (K8 and its plain version): a
+    tilted wall 0.7-1.8 m in front of a camera that looks along +z,
+    fused as a projective TSDF into 8^3-voxel rows.
+
+    Returns {"tsdf", "weight", "band_min"} of the map's rows, {"blocks",
+    "ptrs", "count"} of an active set and "pose" (T_wc, float32 4x4).
+    The active set holds, in order: rows on the surface; every seventh
+    of them FREE_PTR inside ``count``; empty-space rows whose band_min
+    (their true one) lies at or past ``band``; "stale" rows whose
+    band_min says the same although they hold voxels inside the band
+    (surface_filter drops them, splat_depth_from_map splats them).  Past
+    ``count`` lie rows with real map rows ("ptrs"), which only the port
+    ignores by ``count``; "ptrs_padded" is the same set padded with
+    FREE_PTR there, as compact_visible pads it (the JAX package reads
+    rows past ``count`` in its last chunk)."""
+    rng = np.random.default_rng(seed)
+    bs, trunc = 8, 4 * voxel_size
+    if band > trunc:
+        raise ValueError("the empty rows' band_min (the truncation) must "
+                         "lie at or past the band")
+    ang = np.deg2rad(4.0)
+    R = np.array([[np.cos(ang), 0.0, np.sin(ang)], [0.0, 1.0, 0.0],
+                  [-np.sin(ang), 0.0, np.cos(ang)]])
+    t = np.array([0.03, -0.02, 0.01])
+    pose = np.eye(4)
+    pose[:3, :3], pose[:3, 3] = R, t
+
+    def wall(pc):                 # the wall's depth along each ray
+        return 1.2 + 0.5 * pc[..., 0] / pc[..., 2] + 0.3 * pc[..., 1] / \
+            pc[..., 2]
+
+    local = np.stack(np.meshgrid(np.arange(bs), np.arange(bs),
+                                 np.arange(bs), indexing="ij"), -1)
+    local = local.transpose(2, 1, 0, 3).reshape(-1, 3)   # x fastest
+    span = np.arange(-8, 8)
+    cand = np.stack(np.meshgrid(span, span, np.arange(2, 14),
+                                indexing="ij"), -1).reshape(-1, 3)
+    world = ((cand[:, None, :] * bs + local) * voxel_size)
+    pc = (world - t) @ R                    # camera coordinates
+    sdf_true = wall(pc) - pc[..., 2]
+    near_surface = np.abs(sdf_true).min(axis=1) < 0.5 * voxel_size
+    empty = (np.abs(sdf_true).min(axis=1) > 2 * trunc) & \
+        (pc[..., 2].min(axis=1) > 0.3)
+    surf_idx = rng.permutation(np.flatnonzero(near_surface))[:120]
+    empty_idx = rng.permutation(np.flatnonzero(empty))[:12]
+    stale_idx = surf_idx[-8:]
+    live_idx = surf_idx[:-8]
+    past_idx = rng.permutation(np.flatnonzero(near_surface
+                                              & ~np.isin(np.arange(len(cand)),
+                                                         surf_idx)))[:16]
+    order = np.concatenate([live_idx, empty_idx, stale_idx, past_idx])
+    n_rows = len(order)
+    sdf = np.clip(sdf_true[order] + rng.normal(scale=0.2 * voxel_size,
+                                               size=(n_rows, bs ** 3)),
+                  -trunc, trunc).astype(np.float32)
+    weight = rng.integers(1, 6, size=sdf.shape).astype(np.float32)
+    weight[rng.random(sdf.shape) < 0.1] = 0.0
+    weight[np.abs(sdf_true[order]) > trunc] = 0.0
+    weight[len(live_idx):len(live_idx) + len(empty_idx)] = 2.0
+    sdf[len(live_idx):len(live_idx) + len(empty_idx)] = trunc
+    band_min = np.where(weight > 0, np.abs(sdf), np.inf).min(axis=1)
+    band_min = band_min.astype(np.float32)
+    n_stale0 = len(live_idx) + len(empty_idx)
+    band_min[n_stale0:n_stale0 + len(stale_idx)] = np.float32(np.inf)
+    # the map's rows are a permutation of the set's
+    rows = rng.permutation(n_rows).astype(np.int32)
+    ptrs = rows.copy()
+    count = n_rows - len(past_idx)
+    ptrs[:count][::7] = -1
+    pad = 8
+    blocks = np.concatenate([cand[order], np.zeros((pad, 3))]).astype(
+        np.int32)
+    ptrs = np.concatenate([ptrs, np.full(pad, -1)]).astype(np.int32)
+    padded = ptrs.copy()
+    padded[count:] = -1
+    padded_blocks = blocks.copy()
+    padded_blocks[count:] = 0
+    inv = np.empty_like(rows)
+    inv[rows] = np.arange(n_rows, dtype=np.int32)
+    return {"tsdf": sdf[inv], "weight": weight[inv],
+            "band_min": band_min[inv], "blocks": blocks, "ptrs": ptrs,
+            "blocks_padded": padded_blocks, "ptrs_padded": padded,
+            "count": np.int32(count), "pose": pose.astype(np.float32)}
+
+
+def splat_depth_case(h: int, w: int, seed: int = 0, pmin: bool = False):
+    """A raw splat depth buffer (float32 (h, w), 0 = no estimate) with
+    holes: 30 % of the pixels, the top two rows, a 3x3 hole in each corner
+    and a hole run along the left column.  The right column and the
+    bottom row lie 1-2 cm nearer than the opposite border, so a fill that
+    wrapped would take them and the smooth, which wraps, averages them in.
+    ``pmin``: the element-wise minimum of two such buffers, as the
+    multi-device path merges its ranks' buffers (0 where both are 0)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    d = 1.5 + 0.0004 * x - 0.0003 * y + 0.004 * np.sin(0.7 * x + 0.3 * y)
+    d[:, -1] -= 0.012
+    d[-1, :] -= 0.018
+    d += rng.normal(scale=0.002, size=d.shape)
+    d[rng.random(d.shape) < 0.3] = 0.0
+    d[:2, :] = 0.0
+    for cy in (0, h - 3):
+        for cx in (0, w - 3):
+            d[cy:cy + 3, cx:cx + 3] = 0.0
+    d[h // 3:h // 2, 0] = 0.0
+    d = d.astype(np.float32)
+    if pmin:
+        other = splat_depth_case(h, w, seed + 1000)
+        big = np.where(d > 0, d, np.inf)
+        m = np.minimum(big, np.where(other > 0, other, np.inf))
+        d = np.where(np.isfinite(m), m, 0.0).astype(np.float32)
+    return d

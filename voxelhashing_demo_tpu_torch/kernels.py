@@ -154,11 +154,21 @@ KERNELS = {
     # K3b: job pointers, ints and floats (host, 6 each a job), jobs,
     # edge band
     "pyramid_levels": [_P, _P, _P, _I, _F, _P],
+    # K8 (csrc/splat.cu): blocks, ptrs, count, tsdf, weight, band_min,
+    # T_wc, z-buffer, rows, map rows, block size, H, W, voxel size, fx, fy,
+    # cx, cy, near, far, band, band filter
+    "splat_zbuffer": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    # K9: raw depth, depth, points, normals, hit, H, W, fill rounds, smooth
+    # sigma, cx, cy, 1/fx, 1/fy
+    "splat_finalize": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
+                       _P],
 }
 # C function -> its source under csrc/, where the two names differ
 SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
            "grid_sync_floor": "launch_floor",
-           "preprocess_frame": "preprocess", "pyramid_levels": "preprocess"}
+           "preprocess_frame": "preprocess", "pyramid_levels": "preprocess",
+           "splat_zbuffer": "splat", "splat_finalize": "splat"}
 
 
 def source_of(name: str) -> str:

@@ -6,21 +6,44 @@ edge-preserving smoothing pass finish the depth map.
 
 The scatter-min is order independent, so the one-pass walk over
 ``active[:count]`` gives the JAX version's chunked result exactly.
+
+Two hand-written kernels (``csrc/splat.cu``) serve CUDA tensors: K8
+``splat_zbuffer`` scatters the visible set's voxels into a z-buffer (the
+row count read on the device, ``surface_filter`` a row's skip), K9
+``splat_finalize`` turns a raw buffer into the ``RaycastOutput`` (fill,
+smooth, points and normals in shared memory).  ``splat_raycast`` is a
+buffer reset, K8 and K9; ``splat_depth_from_map`` a reset, K8 and one
+pass that writes 0 where nothing landed; ``finalize_depth`` K9.  None
+reads a value back to the host.  CPU tensors run the plain versions
+(``splat_raycast_reference``, ``splat_depth_from_map_reference``,
+``finalize_depth_reference``), which the tests and the card checks also
+call on the card.  A launch that the kernels do not take raises; nothing
+falls back.  ``LAUNCHES_ZBUFFER`` and ``LAUNCHES_FINALIZE`` count the
+launches.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from ..config import CameraConfig, FusionConfig, HashConfig, RaycastConfig
 from ..geometry import camera as cam_geom
 from ..geometry import coords, se3
+from ..geometry.f32 import recip
 from .hash_ops import FREE_PTR, ActiveSet, HashMap, _local_offsets, _set_rows
 from .preprocess import compute_normals
 from .raycast import RaycastOutput
+
+LAUNCHES_ZBUFFER = 0    # K8 splat_zbuffer
+LAUNCHES_FINALIZE = 0   # K9 splat_finalize
+
+MAX_FILL_ROUNDS = 16    # the hole-fill rounds K9 takes (kMaxFillRounds)
+MAX_VOXELS = 1024       # the voxels a block K8 takes (kMaxVoxels)
 
 
 def _min_fill(depth: torch.Tensor, rounds: int) -> torch.Tensor:
@@ -122,7 +145,28 @@ def splat_depth_from_map(
     rc: RaycastConfig,
     fusion: FusionConfig,
 ) -> torch.Tensor:
-    """Raw splat depth (H, W) of ``active[:count]`` (0 = no estimate)."""
+    """Raw splat depth (H, W) of ``active[:count]`` (0 = no estimate), as
+    the multi-device path ``pmin``s it: a buffer reset, K8 and one pass
+    on CUDA tensors, ``splat_depth_from_map_reference`` on CPU tensors."""
+    if hmap.tsdf.device.type == "cpu":
+        return splat_depth_from_map_reference(hmap, active, cfg, T_wc, cam,
+                                              rc, fusion)
+    zbuf = _launch_zbuffer(hmap, active, cfg, T_wc, cam, rc, fusion,
+                           band_filter=False)
+    return torch.nan_to_num(zbuf.view(cam.height, cam.width), nan=0.0,
+                            posinf=0.0, neginf=0.0)
+
+
+def splat_depth_from_map_reference(
+    hmap: HashMap,
+    active: ActiveSet,
+    cfg: HashConfig,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    rc: RaycastConfig,
+    fusion: FusionConfig,
+) -> torch.Tensor:
+    """Plain version of ``splat_depth_from_map``, on any device."""
     n = int(active.count)
     ptrs = active.ptrs[:n]
     safe = torch.clamp(ptrs, 0, hmap.tsdf.shape[0] - 1).long()
@@ -137,7 +181,23 @@ def finalize_depth(
     rc: RaycastConfig,
     fusion: FusionConfig,
 ) -> RaycastOutput:
-    """Hole fill + smoothing + vertex/normal maps from a raw splat buffer."""
+    """Hole fill + smoothing + vertex/normal maps from a raw splat buffer
+    (H, W) (0 = no estimate): one K9 launch on a CUDA tensor,
+    ``finalize_depth_reference`` on a CPU tensor.  K9 also reads a value
+    that is not finite as no estimate, so ``splat_raycast`` hands it K8's
+    buffer (+inf where nothing landed) as it is."""
+    if depth.device.type == "cpu":
+        return finalize_depth_reference(depth, cam, rc, fusion)
+    return _launch_finalize(depth, cam, rc, fusion)
+
+
+def finalize_depth_reference(
+    depth: torch.Tensor,
+    cam: CameraConfig,
+    rc: RaycastConfig,
+    fusion: FusionConfig,
+) -> RaycastOutput:
+    """Plain version of ``finalize_depth``, on any device."""
     depth = _min_fill(depth, rc.splat_fill_rounds)
     depth = _edge_preserving_smooth(
         depth, rc.splat_smooth_sigma * fusion.voxel_size)
@@ -177,7 +237,143 @@ def splat_raycast(
     rc: RaycastConfig,
     fusion: FusionConfig,
 ) -> RaycastOutput:
-    """Surface prediction of the hashed TSDF from pose ``T_wc``."""
+    """Surface prediction of the hashed TSDF from pose ``T_wc``: a buffer
+    reset, K8 (rows outside the surface band skipped) and K9 on CUDA
+    tensors, ``splat_raycast_reference`` on CPU tensors."""
+    if hmap.tsdf.device.type == "cpu":
+        return splat_raycast_reference(hmap, active, cfg, T_wc, cam, rc,
+                                       fusion)
+    zbuf = _launch_zbuffer(hmap, active, cfg, T_wc, cam, rc, fusion,
+                           band_filter=True)
+    return _launch_finalize(zbuf.view(cam.height, cam.width), cam, rc,
+                            fusion)
+
+
+def splat_raycast_reference(
+    hmap: HashMap,
+    active: ActiveSet,
+    cfg: HashConfig,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    rc: RaycastConfig,
+    fusion: FusionConfig,
+) -> RaycastOutput:
+    """Plain version of ``splat_raycast``, on any device."""
     surf = surface_filter(hmap, active, rc.splat_band * fusion.voxel_size)
-    depth = splat_depth_from_map(hmap, surf, cfg, T_wc, cam, rc, fusion)
-    return finalize_depth(depth, cam, rc, fusion)
+    depth = splat_depth_from_map_reference(hmap, surf, cfg, T_wc, cam, rc,
+                                           fusion)
+    return finalize_depth_reference(depth, cam, rc, fusion)
+
+
+# --------------------------------------------------------------------------
+# the kernels' wrappers
+# --------------------------------------------------------------------------
+
+_ZBUFFERS: dict = {}    # (device index, stream, pixels) -> K8's z-buffer
+
+
+@functools.lru_cache(maxsize=64)
+def _zbuffer_plan(cfg: HashConfig, cam: CameraConfig, rc: RaycastConfig,
+                  fusion: FusionConfig) -> tuple:
+    """K8's arguments after the pointers and row counts: block size, H, W,
+    voxel size, fx, fy, cx, cy, near, far, band; or raise."""
+    if cfg.voxels_per_block > MAX_VOXELS:
+        raise ValueError(f"splat: at most {MAX_VOXELS} voxels a block, got "
+                         f"{cfg.voxels_per_block}")
+    if not rc.near >= 0.0:
+        raise ValueError(f"splat: near >= 0 expected (the z-buffer orders "
+                         f"positive floats by their bits), got {rc.near}")
+    return (cfg.block_size, cam.height, cam.width, fusion.voxel_size,
+            cam.fx, cam.fy, cam.cx, cam.cy, rc.near, rc.far,
+            rc.splat_band * fusion.voxel_size)
+
+
+def _launch_zbuffer(hmap: HashMap, active: ActiveSet, cfg: HashConfig,
+                    T_wc: torch.Tensor, cam: CameraConfig,
+                    rc: RaycastConfig, fusion: FusionConfig,
+                    band_filter: bool) -> torch.Tensor:
+    """A reset and K8 on the current stream: the (H * W,) z-buffer of
+    ``active[:count]`` (+inf where nothing landed), the wrapper's own
+    buffer for this device and stream (valid until its next call there);
+    ``band_filter`` skips the rows that ``surface_filter`` drops.  Raises
+    on what the kernel does not take."""
+    ints = (active.blocks, active.ptrs, active.count)
+    floats = (hmap.tsdf, hmap.weight, hmap.band_min, T_wc)
+    dev = hmap.tsdf.device
+    if dev.type != "cuda" or any(t.device != dev for t in ints + floats):
+        raise ValueError("splat: the map, the active set and the pose must "
+                         "lie on one CUDA device (or all on the CPU)")
+    if (any(t.dtype != torch.int32 for t in ints)
+            or any(t.dtype != torch.float32 for t in floats)):
+        raise ValueError("splat: an int32 active set and a float32 map and "
+                         "pose expected")
+    rows, V = active.ptrs.shape[0], cfg.voxels_per_block
+    if (active.ptrs.dim() != 1 or tuple(active.blocks.shape) != (rows, 3)
+            or active.count.numel() != 1 or tuple(T_wc.shape) != (4, 4)
+            or hmap.tsdf.dim() != 2 or hmap.tsdf.shape[1] != V
+            or hmap.weight.shape != hmap.tsdf.shape
+            or tuple(hmap.band_min.shape) != (hmap.tsdf.shape[0],)):
+        raise ValueError(
+            f"splat: blocks (A, 3), ptrs (A,), one count, a (4, 4) pose and "
+            f"(N, {V}) map rows with (N,) band_min expected")
+    plan = _zbuffer_plan(cfg, cam, rc, fusion)
+    # the inputs as the kernel reads them, alive until the launch
+    ints = [t.contiguous() for t in ints]
+    floats = [t.contiguous() for t in floats]
+    index = dev.index
+    key = (index, torch._C._cuda_getCurrentRawStream(index),
+           cam.height * cam.width)
+    zbuf = _ZBUFFERS.get(key)
+    if zbuf is None:
+        zbuf = _ZBUFFERS[key] = torch.empty(key[2], dtype=torch.float32,
+                                            device=dev)
+    zbuf.fill_(math.inf)
+    kernels.launch("splat_zbuffer", index,
+                   *(t.data_ptr() for t in ints + floats), zbuf.data_ptr(),
+                   rows, hmap.tsdf.shape[0], *plan, int(band_filter))
+    global LAUNCHES_ZBUFFER
+    LAUNCHES_ZBUFFER += 1
+    return zbuf
+
+
+@functools.lru_cache(maxsize=64)
+def _finalize_plan(cam: CameraConfig, rc: RaycastConfig,
+                   fusion: FusionConfig) -> tuple:
+    """K9's arguments after the pointers and the image size: fill rounds,
+    smooth sigma, cx, cy, 1/fx, 1/fy; or raise."""
+    rounds = rc.splat_fill_rounds
+    if not 0 <= rounds <= MAX_FILL_ROUNDS:
+        raise ValueError(f"splat: fill rounds {rounds} outside the "
+                         f"kernel's 0..{MAX_FILL_ROUNDS}")
+    return (rounds, rc.splat_smooth_sigma * fusion.voxel_size, cam.cx,
+            cam.cy, recip(cam.fx), recip(cam.fy))
+
+
+def _launch_finalize(depth: torch.Tensor, cam: CameraConfig,
+                     rc: RaycastConfig,
+                     fusion: FusionConfig) -> RaycastOutput:
+    """K9 on the current stream: the RaycastOutput of a float32 (H, W) raw
+    depth on a CUDA device, or raise."""
+    H, W = cam.height, cam.width
+    if (depth.device.type != "cuda" or depth.dtype != torch.float32
+            or tuple(depth.shape) != (H, W)):
+        raise ValueError(
+            f"splat: a float32 {(H, W)} depth buffer on a CUDA device (or "
+            f"any on the CPU) expected, got {depth.dtype} "
+            f"{tuple(depth.shape)} on {depth.device}")
+    plan = _finalize_plan(cam, rc, fusion)
+    raw = depth.contiguous()
+    n = H * W
+    buf = torch.empty(7 * n, dtype=torch.float32, device=raw.device)
+    maps = ((H, W, 3), (3 * W, 3, 1))
+    out = RaycastOutput(depth=buf.as_strided((H, W), (W, 1), 0),
+                        points=buf.as_strided(*maps, n),
+                        normals=buf.as_strided(*maps, 4 * n),
+                        hit=torch.empty((H, W), dtype=torch.bool,
+                                        device=raw.device))
+    kernels.launch("splat_finalize", raw.get_device(), raw.data_ptr(),
+                   out.depth.data_ptr(), out.points.data_ptr(),
+                   out.normals.data_ptr(), out.hit.data_ptr(), H, W, *plan)
+    global LAUNCHES_FINALIZE
+    LAUNCHES_FINALIZE += 1
+    return out

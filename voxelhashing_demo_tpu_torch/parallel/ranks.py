@@ -16,6 +16,7 @@ from .. import convert
 from ..device import host_array
 from ..ops import icp, window_gather
 from ..ops import preprocess as pre_ops
+from ..ops import splat as splat_ops
 from . import distributed, sharded
 
 
@@ -64,13 +65,15 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
     (this rank's shard, flattened as ``convert`` does), ``models`` (per
     render pose, this rank's rows), ``launches`` (window-gather launches
     per frame), ``icp_launches`` (the ICP kernels' K4 and K4s launches
-    over the run), ``k3_launches`` (K3a and K3b's) and, with ``timed``, per-frame host ms on a synchronised
+    over the run), ``k3_launches`` (K3a and K3b's), ``splat_launches``
+    (K8 and K9's) and, with ``timed``, per-frame host ms on a synchronised
     clock, the peak device memory, the collective counters, the live
     render's hit mask (this rank's rows) and ``kernel_check`` on the last
     frame."""
     window_gather.LAUNCHES = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
+    splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
     launches, frame_ms, infos = [], [], []
     cuda = mesh.device.type == "cuda"
     if cuda:
@@ -99,7 +102,9 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
         launches.append(window_gather.LAUNCHES - before)
     out = {"infos": infos, "launches": launches,
            "icp_launches": [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS],
-           "k3_launches": [pre_ops.LAUNCHES_FRAME, pre_ops.LAUNCHES_LEVELS]}
+           "k3_launches": [pre_ops.LAUNCHES_FRAME, pre_ops.LAUNCHES_LEVELS],
+           "splat_launches": [splat_ops.LAUNCHES_ZBUFFER,
+                              splat_ops.LAUNCHES_FINALIZE]}
     if fed_poses is None:
         out["state"] = convert.state_to_numpy(slam.state)
         hmap = slam.state.hmap
@@ -132,7 +137,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     frames, rebuild modes, moves, tracked flags, capacity events,
     saturation), the trajectory, the graph poses, this rank's map shard,
     the window-gather, ICP-kernel and K3 launches (``icp_launches``: K4,
-    K4s; ``k3_launches``: K3a, K3b), with streaming the store counters
+    K4s; ``k3_launches``: K3a, K3b; ``splat_launches``: K8, K9), with
+    streaming the store counters
     (evicted, restored, stored) summed over the ranks, and, with
     ``timed``, the host seconds of
     each BA solve and the collective counters."""
@@ -141,6 +147,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     window_gather.LAUNCHES = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
+    splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
     bytes0, coll0 = mesh.collective_host_bytes, mesh.collectives
     slam = keyframe_slam.KeyframeSLAM(config, mesh=mesh)
     for i, d in enumerate(frames):
@@ -165,6 +172,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
         "launches": window_gather.LAUNCHES,
         "icp_launches": [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS],
         "k3_launches": [pre_ops.LAUNCHES_FRAME, pre_ops.LAUNCHES_LEVELS],
+        "splat_launches": [splat_ops.LAUNCHES_ZBUFFER,
+                           splat_ops.LAUNCHES_FINALIZE],
         "rebuild_fuses": sum(e["keyframes"] for e in slam.ba_events
                              if e["rebuild_mode"] == "full"),
     }
