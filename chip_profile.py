@@ -73,7 +73,6 @@ def _stages(torch, slam, depth_raw) -> dict:
     from voxelhashing_demo_tpu_torch.ops import icp as icp_ops
     from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
     from voxelhashing_demo_tpu_torch.ops import splat as splat_ops
-    from voxelhashing_demo_tpu_torch.ops import window_gather as wg
 
     cfg, st = slam.config, _copy_state(slam.state)
     cam, hcfg, fus = cfg.camera, cfg.hash, cfg.fusion
@@ -94,10 +93,12 @@ def _stages(torch, slam, depth_raw) -> dict:
         "integrate": median_ms(torch, lambda: hash_ops.integrate(
             st.hmap, active, hcfg, frame.depth, st.pose, cam, fus)),
     }
-    before = wg.LAUNCHES
+    before = hash_ops.LAUNCHES_INTEGRATE_WINDOW
     hash_ops.fuse_frame(st.hmap, frame, st.pose, cam, hcfg, fus,
                         st.frame_idx)
-    out["gather_launches_per_fuse"] = wg.LAUNCHES - before
+    # the window gather runs inside K7 (csrc/fuse.cu) on the card
+    out["gather_launches_per_fuse"] = (hash_ops.LAUNCHES_INTEGRATE_WINDOW
+                                       - before)
     if cfg.raycast.mode == "splat":
         out["splat"] = median_ms(torch, lambda: splat_ops.splat_raycast(
             st.hmap, active, hcfg, st.pose, cam, cfg.raycast, fus))
@@ -134,7 +135,8 @@ def _profile(torch, slam, depths, frame_p50_ms: float, run=None) -> dict:
     busy_ms = busy_us / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     gather = [{"name": k[:80], "per_frame": c / n, "us_per_launch": t / c}
-              for k, (c, t) in by_name.items() if "window_gather" in k]
+              for k, (c, t) in by_name.items()
+              if "window_gather" in k or "integrate_rows" in k]
     return {
         "frames": n,
         "window_gather": gather,

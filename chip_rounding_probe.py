@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """How PyTorch's CUDA ops round the float32 arithmetic that the splat
-kernel K8 (csrc/splat.cu) repeats, bit for bit, on the card.
+kernel K8 (csrc/splat.cu) and the fuse kernels K6 / K7 (csrc/fuse.cu)
+repeat, bit for bit, on the card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -9,7 +10,12 @@ Run from the repository root on a machine with a CUDA card:
 For each op the plain splat runs (``ops/splat.py``: ``voxel2world``, the
 (N, 3) @ (3, 3) product and its bias, ``se3.inverse``'s einsum (and
 the torch ops it may lower to), the
-projection ``x / z * fx + cx``, and the smoothing's quotient) it prints
+projection ``x / z * fx + cx``, and the smoothing's quotient) and each op
+of compaction and integration (``fuse_ops``: the block centre, the product
+at the table's and the visible rows' sizes, the frustum margin ``radius *
+fx / zm`` (a Python double over a tensor), comparisons with Python doubles,
+the truncation band, ``sample_weight`` and the running-average update and
+its inverse) it prints
 the share of outputs that each candidate order of float32 operations
 reproduces bit for bit, over ``rows`` x 512 voxels (2^20 at the default).
 A candidate is evaluated in float64 on the card and rounded to float32
@@ -171,6 +177,8 @@ def main() -> int:
     cnt = torch.randint(1, 10, (2 ** 20,), device=dev).to(torch.float32)
     result["smooth_quotient"] = {
         "div": share(acc / torch.clamp(cnt, min=1.0), dvd(acc, cnt))}
+    result.update(fuse_ops(torch, dev, rng, se3, _local_offsets, share, dots,
+                           mul, add, fma, dvd, f32))
     if dev.type == "cuda":
         torch.cuda.synchronize()
     for op, cands in result.items():
@@ -178,6 +186,133 @@ def main() -> int:
         print(f"{op:22s} best {best:12s} {cands[best]:.9f}", flush=True)
     print(json.dumps(result))
     return 0
+
+
+# the flagship's fusion constants (config.flagship_config)
+VOXEL, BLOCK, TRUNC, TRUNC_SCALE = 0.02, 8, 0.08, 0.01
+DEPTH_MIN, DEPTH_MAX, FX, MARGIN = 0.1, 4.0, 517.3, 4.0
+# row counts the fuse kernels' products run at: K6 the whole table, K7 the
+# step's ~770 visible rows and the max_active ceiling, 512 voxels a row
+FUSE_ROWS = {"k6_table": 262144, "k7_step": 770 * 512,
+             "k7_max_active": 4096 * 512}
+
+
+def fuse_ops(torch, dev, rng, se3, local_offsets, share, dots, mul, add, fma,
+             dvd, f32) -> dict:
+    """The ops that compaction (``block_in_frustum``) and integration
+    (``project_rows``, ``_integrate_rows``, ``sample_weight``) run, as
+    ops/hash_ops.py and ops/tsdf.py write them, against candidate orders
+    of float32 operations: {op: {candidate: share}}."""
+    out = {}
+
+    def c32(x: float):
+        return torch.tensor(np.float32(x), device=dev)
+
+    # block2world + half, then the (N, 3) @ (3, 3) product and its bias
+    # at the sizes K6 and K7 give it (the library may pick its kernel by N)
+    half = 0.5 * BLOCK * VOXEL
+    blocks = torch.as_tensor(rng.integers(-120, 120, (4096, 3)),
+                             dtype=torch.int32, device=dev)
+    vox = blocks * BLOCK
+    center = (vox.to(torch.int32).to(torch.float32) * VOXEL + half)
+    out["block_center"] = {"mul_add": share(center, add(mul(
+        vox.to(torch.float32), c32(VOXEL)), c32(half)))}
+    world = ((blocks[:, None, :] * BLOCK + local_offsets(BLOCK, device=dev))
+             .to(torch.float32) * VOXEL).reshape(-1, 3)
+    for k, (name, n) in enumerate(FUSE_ROWS.items()):
+        xi = rng.normal(size=6) * np.array([1.5, 1.5, 1.5, 0.8, 0.8, 0.8])
+        T_cw = se3.inverse(se3.exp(torch.as_tensor(
+            xi, dtype=torch.float32, device=dev)))
+        rows = world[:n]
+        pc = se3.apply(T_cw, rows)
+        M = T_cw[:3, :3].T
+        shares = {}
+        for j in range(3):
+            cands = dots([rows[:, i] for i in range(3)],
+                         [M[i, j] for i in range(3)])
+            for cname, c in cands.items():
+                shares.setdefault(cname, []).append(
+                    share(pc[:, j], add(c, T_cw[j, 3])))
+        out[f"matmul_plus_bias_{name}"] = {
+            c: float(np.mean(v)) for c, v in shares.items()}
+
+    # z-adaptive margin: margin_px + radius * fx / zm, the Python double
+    # radius * fx over a tensor (Tensor.__rtruediv__)
+    z = f32(torch.rand(2 ** 20, device=dev, dtype=torch.float64) * 6 - 1)
+    zm = torch.clamp(z, min=0.05)
+    rf = half * 1.7320508 * FX
+    got = MARGIN + rf / zm
+    one = c32(1.0)
+    out["margin"] = {
+        "rcp_mul_add": share(got, add(mul(dvd(one, zm), c32(rf)),
+                                      c32(MARGIN))),
+        "div_add": share(got, add(dvd(c32(rf), zm), c32(MARGIN)))}
+    out["clamp_min"] = {"max_f32": share(
+        torch.clamp(z, min=1e-6), torch.maximum(z, c32(1e-6)))}
+
+    # a float32 tensor against a Python double that float32 does not hold:
+    # the neighbours of float32(t), compared as float32 or as float64
+    cmp = {"f32": [], "f64": []}
+    for t in (DEPTH_MIN - 2 * half, DEPTH_MAX + 2 * half, 1e-6, 0.3):
+        base = np.float32(t)
+        xs = [base]
+        for _ in range(3):
+            xs = ([np.nextafter(xs[0], np.float32(-np.inf))] + xs
+                  + [np.nextafter(xs[-1], np.float32(np.inf))])
+        x = torch.as_tensor(np.array(xs, np.float32), device=dev)
+        for op in (torch.gt, torch.lt, torch.ge, torch.le):
+            got = op(x, t)
+            cmp["f32"].append(bool(torch.equal(got, op(x, c32(t)))))
+            cmp["f64"].append(bool(torch.equal(
+                got, op(x.double(), torch.tensor(t, dtype=torch.float64,
+                                                 device=dev)))))
+    out["compare_double"] = {k: float(np.mean(v)) for k, v in cmp.items()}
+
+    # trunc = truncation + trunc_scale * depth; sample_weight's chain
+    from voxelhashing_demo_tpu_torch.config import CameraConfig, FusionConfig
+    from voxelhashing_demo_tpu_torch.geometry.f32 import recip
+    from voxelhashing_demo_tpu_torch.ops.tsdf import sample_weight
+
+    depth = f32(torch.rand(2 ** 20, device=dev, dtype=torch.float64) * 4.2)
+    trunc = TRUNC + TRUNC_SCALE * depth
+    out["trunc"] = {
+        "mul_add": share(trunc, add(mul(depth, c32(TRUNC_SCALE)),
+                                    c32(TRUNC))),
+        "fma": share(trunc, fma(depth, c32(TRUNC_SCALE), c32(TRUNC)))}
+    cam = CameraConfig(depth_min=DEPTH_MIN, depth_max=DEPTH_MAX)
+    fusion = FusionConfig(voxel_size=VOXEL, truncation=TRUNC)
+    d01 = torch.clamp(mul(add(depth, c32(-DEPTH_MIN)),
+                          c32(recip(DEPTH_MAX - DEPTH_MIN))), 0.0, 1.0)
+    want = torch.maximum(mul(c32(fusion.weight_sample * 1.5),
+                             add(one, -d01)), one)
+    out["sample_weight"] = {"in_order": share(
+        sample_weight(depth, cam, fusion), want)}
+
+    # the running-average update and its inverse, as _integrate_rows
+    # writes them (four roundings and an IEEE divide, no FMA)
+    n = 2 ** 20
+    old_sdf = f32((torch.rand(n, device=dev, dtype=torch.float64) - 0.5)
+                  * 0.24)
+    old_w = f32(torch.rand(n, device=dev, dtype=torch.float64) * 300)
+    old_w = torch.where(old_w > 255, 255.0, old_w)
+    sdf = f32((torch.rand(n, device=dev, dtype=torch.float64) - 0.5) * 0.2)
+    w_new = f32(1.0 + torch.rand(n, device=dev, dtype=torch.float64) * 0.5)
+    w_sum = old_w + w_new
+    got = (old_sdf * old_w + sdf * w_new) / torch.clamp(w_sum, min=1e-12)
+    num = add(mul(old_sdf, old_w), mul(sdf, w_new))
+    out["update"] = {
+        "in_order": share(got, dvd(num, torch.maximum(
+            add(old_w, w_new), c32(1e-12)))),
+        "fma_num": share(got, dvd(fma(sdf, w_new, mul(old_sdf, old_w)),
+                                  torch.maximum(add(old_w, w_new),
+                                                c32(1e-12))))}
+    w_rem = torch.clamp(old_w - w_new, min=0.0)
+    got = (old_sdf * old_w - sdf * w_new) / torch.clamp(w_rem, min=1e-12)
+    rem = torch.maximum(add(old_w, -w_new), c32(0.0))
+    out["inverse_update"] = {"in_order": share(got, dvd(
+        add(mul(old_sdf, old_w), -mul(sdf, w_new)),
+        torch.maximum(rem, c32(1e-12))))}
+    return out
 
 
 if __name__ == "__main__":

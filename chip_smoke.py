@@ -9,8 +9,8 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
 2. ``build``: builds every kernel source under csrc/ (the CUDA kernels,
    the ICP kernels K4 / K4s in icp.cu, the frontend and pyramid kernels
    K3a / K3b in preprocess.cu, the splat kernels K8 / K9 in splat.cu,
-   the empty kernels that measure the launch and barrier floors, and the
-   host codec) for sm_90a into the
+   the fuse kernels K6 / K7 in fuse.cu, the empty kernels that measure
+   the launch and barrier floors, and the host codec) for sm_90a into the
    package's _build/ directory, one compiler process each, started
    together.
 3. ``kernel``: both window-gather kernels (one CTA per block row;
@@ -42,7 +42,8 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    plain version bit for bit.  Per variant: device time warm and L2-cold
    (CUDA-graph replay), wrapper time, the plain version's and the one
    PyTorch call's (``img.view(-1)[idx]``, ``torch.gather``); the frame
-   step with K1 off and on (``exp_landed``); the tools' own lines are
+   step with the window gather off and on (``exp_landed``: in K7 on the
+   step since K7 landed, its ``k1_launches`` K7's); the tools' own lines are
    kept off stdout.  Bounds from the tools' own inputs, counting the
    32-byte sectors that each gather's indices reach (``_probe_bounds``).
    The launch floor: the empty kernel (csrc/launch_floor.cu) through
@@ -109,16 +110,37 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    against plain in turns plain / kernel / kernel / plain: host ms, host
    µs to issue, device kernels (torch.profiler, at most 3: the reset, K8,
    K9) and host reads (none); one K8 and one K9 launch a step.
+3f. ``fuse``: visible-set compaction and integration (csrc/fuse.cu: K6
+   ``compact_visible``, the frustum test of the whole table and the
+   compaction in table order in one cooperative launch; K7
+   ``integrate_rows``, the update of the visible rows with the window
+   gather's coverage and ``touch_active``'s stamp fused in) on the
+   flagship step's own inputs: the map, frame and pose of the step's
+   ``fuse_frame`` call on frame N_STEP_FRAMES of the room sweep, after the
+   first N_STEP_FRAMES frames, the step's allocation applied to a copy.
+   K6 against ``compact_visible_reference`` (the set, its order and
+   count) and K7 against ``integrate_reference`` + ``touch_active`` in
+   both gather modes and both signs (``max_born`` gating the last two
+   frames' rows out of the de-integration), bit for bit on tsdf, weight,
+   band_min, last_seen and born.  Times as ``splat``'s (K6 warm and
+   L2-cold; K7 warm on the map, L2-cold on its live rows gathered into a
+   map of their own; wrappers; plain versions; bounds from this run's
+   table and rows; K6's least time the launch floor plus one grid
+   barrier at its grid); the stage (compact -> touch -> integrate) kernel
+   against plain in turns plain / kernel / kernel / plain: host ms, host
+   µs to issue, device kernels (exactly 2) and host reads (none); one K6
+   and one K7 launch a step.
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
 5. ``slice``: 12 synthetic 640x480 frames through
    ``HashSLAM(flagship_gather_config())`` (splat prediction); asserts the
-   kernel launched on every frame, >= 11/12 frames tracked, finite poses,
-   unaligned ATE and render hit fraction inside their bounds.
+   window gather (in K7) ran on every frame, >= 11/12 frames tracked,
+   finite poses, unaligned ATE and render hit fraction inside their
+   bounds.
 6. ``march``: 24 frames of the noisy room sweep through the same
-   configuration with ``raycast.mode = "march"``; asserts the kernel
-   launched on every frame, >= 23/24 tracked, finite poses, ATE and hit
+   configuration with ``raycast.mode = "march"``; asserts the window
+   gather (in K7) ran on every frame, >= 23/24 tracked, finite poses, ATE and hit
    fraction inside bounds set from the JAX package on the same frames;
    then ``render`` from the last pose, the surface point cloud and the
    mesh of the card's map (non-empty, finite, points on the room's
@@ -135,10 +157,10 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    a full rebuild and a later one incremental with something moved, no
    saturated reintegration, no ring overflow, every frame but frame 0
    tracked, unaligned ATE below the frontend-only ``HashSLAM`` on the same
-   injected run and below twice the JAX figure; the first gather kernel's
-   launches, counted from 0, equal frames + keyframes fused by full
-   rebuilds + 2 x moves; the kernel equals its plain version bit for bit
-   on the gather inputs of a de-integration call; a map fused from
+   injected run and below twice the JAX figure; K7's window-gather
+   launches (K1's before K7 took its work), counted from 0, equal frames
+   + keyframes fused by full rebuilds + 2 x moves; K7 equals the plain
+   integrate bit for bit on a de-integration call's rows; a map fused from
    scratch from the ledger renders like the maintained one; ``optimize``
    on a seeded ring graph at K = 64 (dense) and K = 512 (CG) agrees with
    the CPU within 1e-4 and repeats bit for bit; one relocalization
@@ -156,8 +178,8 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    the store together than the map holds; a non-streaming twin on the
    same frames exhausts the heap, with its ATE below twice the JAX twin's
    (it tracks no worse than the streaming run on these frames, in the JAX
-   package as here: printed as ``tracks_worse``); K1 launched once per
-   frame and equal to its plain version on the last frame's rows.
+   package as here: printed as ``tracks_worse``); K7's window gather once
+   per frame, K7 equal to the plain integrate on the last frame's rows.
    Prints frame ms by class (the frame that runs the cycle's dispatch, the
    one that runs its completion, the rest), evict / restore ms (CUDA
    events), the copies' bytes and device µs per batch, host syncs of the
@@ -169,11 +191,12 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    settings), after ``warm_compile``.  Asserts: ATE below the ``stream``
    phase's and below twice the JAX figure, no spill overflow, restore
    counters carried, no saturation, keyframes within one of the JAX run's,
-   K1 launches = frames + keyframes fused by full rebuilds + 2 x moves, K1
-   equal to its plain version; then a full rebuild into a fresh store: the
-   run's own or, when its BA corrections stayed under the rebuild
-   thresholds (as in the JAX run on these frames), one asked for after the
-   run (fresh store, counters carried, K1 once per keyframe).  Prints what
+   K7's window-gather launches = frames + keyframes fused by full
+   rebuilds + 2 x moves, K7 equal to the plain integrate; then a full
+   rebuild into a fresh store: the run's own or, when its BA corrections
+   stayed under the rebuild thresholds (as in the JAX run on these
+   frames), one asked for after the run (fresh store, counters carried,
+   K7 once per keyframe).  Prints what
    ``stream`` prints and the decisions beside the JAX run's.
 11. ``cli``: the application layer.  The same 201 frames exported as a
    TUM directory (``tum.export_sequence``, native codec); the first
@@ -182,9 +205,9 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    with ``checkpoint.save_keyframe_slam`` (reloaded bit-exact); then
    ``cli.main(["run", "--dataset", ..., "--backend", "keyframe",
    "--resume", ...])`` in this process.  The stored config carries the
-   gather, so K1 runs on every resumed frame.  Asserts: K1 launches,
-   counted from 0, == resumed frames + keyframes fused by full rebuilds +
-   2 x moves; the JSON keys equal the JAX CLI's on the same frames,
+   gather, so K7 does it on every resumed frame.  Asserts: K7's
+   window-gather launches, counted from 0, == resumed frames + keyframes
+   fused by full rebuilds + 2 x moves; the JSON keys equal the JAX CLI's on the same frames,
    keyframes within one of JAX's, loop edges within one keyframe's batch;
    tracked >= all but 1; unaligned ATE < 2 x the JAX figure.  Then
    ``render --orbit 3 --ply --mesh``, ``info`` and ``evaluate`` on the
@@ -206,10 +229,11 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    fps > 0, finite ATE, the decisions equal to the JAX run's on the same
    frames (``JAX_REFERENCE_BENCH``; keyframes within one, loop edges
    within one insert's batch, tracked within 2, block counts within
-   0.1 %) and every ATE below twice JAX's.  Then ``_long_run`` at ``BENCH_GATHER`` under
-   ``flagship_gather_config()``: K1 launches, counted from 0, == frame
-   steps == 2 x frames + 1 + chunk, and K1 equal to its plain version on
-   the last call's rows; its decisions and ATE against JAX's as above.
+   0.1 %) and every ATE below twice JAX's.  Then ``_long_run`` at
+   ``BENCH_GATHER`` under ``flagship_gather_config()``: K7's window-gather
+   launches, counted from 0, == frame steps == 2 x frames + 1 + chunk, and
+   K7 equal to the plain integrate on the last call's depth and pose; its
+   decisions and ATE against JAX's as above.
    Prints each section's line, seconds and peak device memory.
 13. ``entry``: ``entry()`` (voxelhashing_demo_tpu_torch/entry.py, the
    twin of __graft_entry__.py) on the card: its ``fn`` on the zero frame
@@ -221,15 +245,16 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    with streaming, rebuild, incremental move, render hit > 0.1, sharded
    BA); the ranks agree.
 15. ``roofline``: ``tools/roofline.main()`` under ``flagship_config()``
-   (K1 off, as the JAX tool) and under ``flagship_gather_config()``: the
+   (the gather off, as the JAX tool) and under ``flagship_gather_config()``:
+   the
    five primitives (device time, CUDA-graph replay) beside the launch
    floor, the seven stage ms, the bounds and % of bound, and beside them
    the same model's data volumes over the card's HBM rate
-   (``hbm_bounds_ms``, ``pct_of_hbm_bound``); K1's launches
+   (``hbm_bounds_ms``, ``pct_of_hbm_bound``); K7's window-gather launches
    counted from 0 in each: none without the gather, 24 sweep frames + 21
-   integrate + 21 full-step calls with it (the ``roofline`` path); K1
-   bit-exact against its plain version on the rows of that run's last
-   call (``k1_bit_exact``).
+   integrate + 21 full-step calls with it (the ``roofline`` path); K7
+   bit-exact against the plain integrate on that run's last call's depth
+   and pose (``k7_bit_exact``).
 16. ``bench_micro``: ``tools/bench_micro.measure()``, the sixteen
    primitives, host ms and device ms.
 17. ``scaling``: ``tools/scaling_bench`` at 640x480 over the cards
@@ -239,15 +264,15 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
 18. ``nccl``: one rank over NCCL (``parallel.launch.spawn``): the
    collective helpers (``ranks.collectives``) exact, then
    ``ShardedHashSLAM(flagship_gather_config())`` on the slice's 12 frames,
-   K1 launched every frame.  This one-rank run is the reference partition
+   K7's window gather on every frame.  This one-rank run is the reference partition
    of ``sharded``.
 19. ``sharded_backend``: ``KeyframeSLAM(mesh)`` on two Gloo ranks sharing
    the card over the first 24 frames of the backend scenario (the drift
    before frame 18): decisions (keyframe frames, edges, BA frames, rebuild
    modes, moves, tracked, capacity, saturation) equal on both ranks and
    to a one-rank NCCL mesh's; unaligned ATE below twice the single-card
-   ``KeyframeSLAM``'s on the same frames; K1 launches per rank = frames +
-   rebuild fuses + 2 x moves.  Prints BA ms per solve and the staged
+   ``KeyframeSLAM``'s on the same frames; K7's window-gather launches per
+   rank = frames + rebuild fuses + 2 x moves.  Prints BA ms per solve and the staged
    collective bytes.
 20. ``sharded``, the slice's main path: ``ShardedHashSLAM`` on two Gloo
    ranks sharing the card at ``flagship_gather_config()`` (32 768 blocks
@@ -255,19 +280,20 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    active blocks equal to the one-rank NCCL run's, poses within 5e-4 m of
    it, replicated poses bit-identical on both ranks, unaligned ATE <
    7.5 mm, the ranks' key sets disjoint with the one-rank map's as their
-   union, render hit fraction > 0.8, K1 launched once per frame on each
-   rank (counted from 0 in each rank) and bit-exact against its plain
-   version on each rank's own rows.  Prints per-rank frame ms p50 / max,
+   union, render hit fraction > 0.8, K7's window gather once per frame on
+   each rank (counted from 0 in each rank) and K7 bit-exact against the
+   plain integrate on each rank's own rows.  Prints per-rank frame ms p50 / max,
    staged collective bytes and collectives per frame, peak memory per
    rank, and the single-card ``HashSLAM`` beside it (ATE, pose gap,
    counts: the sharded step is the JAX package's, which pools the coarse
    ICP source by its minimum, so it is not the single-device step).
 
 Then the kernel summary line: K1 and K2 with the times and bound of the
-``step_rows`` case, the shape the main path gives them (``launches`` is
-the count of the last path that drives the kernel, ``sharded``'s rank 0
-for K1; ``bound_ms`` is 14 bytes per voxel plus the depth image once over
-the card's memory rate); K16-K19 with their ``probes`` counts and the
+``step_rows`` case, the rows the frame step gives the window gather
+(``launches`` is the count of the last path that drives the kernel:
+``probes`` for K1, whose work on the frame paths K7 does since K7 landed;
+``bound_ms`` is 14 bytes per voxel plus the depth image once over the
+card's memory rate); K16-K19 with their ``probes`` counts and the
 times of their first tool case (65 536 flat gathers; axis 0; the two-step
 gather; the integrate chunk alone), the others under ``cases``, and the
 launch floor of this run (``floor_ms``);
@@ -285,7 +311,10 @@ counted like K4 on the same paths, must launch on every one (K3a once a
 pooled frame).  K8 and K9 with the times and bound of the ``splat``
 phase, counted like K3 on the same paths: they must launch on every path
 that predicts by splatting and on each rank of the multi-rank paths, and
-never on ``march``.
+never on ``march``.  K6 and K7 with the times and bound of the ``fuse``
+phase, counted like K3 on the same paths: they must launch on every path
+and rank; K7's entry also carries ``launches_window_by_path``, its
+window-gather launches on each path (the former K1 gates).
   Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
@@ -441,7 +470,7 @@ BENCH_SECTIONS = {
     "stages": ("_stage_breakdown", dict(frames=24, reps=5)),
 }
 # ``_long_run`` once more, on its frames, under flagship_gather_config():
-# K1 on every step
+# the window gather (in K7) on every step
 BENCH_GATHER = dict(num_frames=64, chunk=8)
 # bench.py's output keys, section by section (this script may not import
 # it): the sections' own lines and the --quick line
@@ -659,6 +688,40 @@ def step_rows(cfg, depths, device=None):
     for d in depths:
         slam.process(d)
     return gather_inputs(slam, depths[-1])
+
+
+def k7_window() -> int:
+    """K7's launches in the window-gather mode since they were last set to
+    0: the frame step's window gather, which K1 did before K7 took its
+    work over (every gate that counted K1 on a frame path counts these)."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    return hash_ops.LAUNCHES_INTEGRATE_WINDOW
+
+
+def zero_k7_window() -> None:
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hash_ops.LAUNCHES_INTEGRATE_WINDOW = 0
+
+
+def k7_check(slam, depth_raw, pose=None, sign: int = 1,
+             max_born: int | None = None) -> dict:
+    """K7 against the plain integrate (``tools/probe.integrate_check``) on
+    the rows ``depth_raw`` fuses into ``slam``'s map at ``pose`` (default:
+    the current pose; a keyframe's ledger pose with ``sign=-1`` and its
+    ``max_born`` gives a de-integration call's rows): {"rows",
+    "bit_exact", "max_abs_err"}, its launches not counted."""
+    from voxelhashing_demo_tpu_torch.models.hash_slam import depth_tensor
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
+    from voxelhashing_demo_tpu_torch.tools.probe import integrate_check
+
+    cfg, st = slam.config, slam.state
+    pose = st.pose if pose is None else pose
+    depth = pre_ops.preprocess(depth_tensor(depth_raw, slam.device),
+                               cfg.camera, cfg.frontend).depth
+    return integrate_check(st.hmap, cfg.hash, cfg.camera, cfg.fusion, depth,
+                           pose, sign, max_born)
 
 
 def tile_rows(t, rows: int):
@@ -962,8 +1025,8 @@ def phase_probes(torch, wg):
     _require(landed["full step (window gather K1)"]["k1_launches"]
              >= tools["exp_landed"].REPS
              and landed["full step (XLA gather)"]["k1_launches"] == 0,
-             "the landed tool's step launches K1 on every timed frame "
-             "with the gather on, never with it off")
+             "the landed tool's step does the window gather (in K7) on "
+             "every timed frame with the gather on, never with it off")
     floor_ms = probe.launch_floor_ms()
     _emit({"phase": "probes", "seconds": seconds, "launches": launches,
            "bit_exact_checks": len(compared), "floor_ms": floor_ms,
@@ -1875,6 +1938,282 @@ def phase_splat(torch, card: str, sweep) -> dict:
                                 ("splat_finalize", k9, k9_cmp))}
 
 
+# The fuse kernels (csrc/fuse.cu): K6 compaction and K7 integration on
+# the flagship step's own inputs.
+FUSE_KERNELS = ("compact_visible", "integrate_rows")
+FUSE_META = {
+    "compact_visible": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/fuse.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/hash_ops.py:319 "
+                    "(block_in_frustum), voxelhashing_demo_tpu/ops/"
+                    "hash_ops.py:365 (compact_visible): fused by XLA, no "
+                    "Pallas kernel",
+    },
+    "integrate_rows": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/fuse.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/hash_ops.py:405 "
+                    "(_integrate_rows), voxelhashing_demo_tpu/ops/"
+                    "hash_ops.py:511 (integrate), voxelhashing_demo_tpu/"
+                    "ops/pallas_gather.py:88 (gather_depth_window, its "
+                    "pallas_call at :101), voxelhashing_demo_tpu/ops/"
+                    "hash_ops.py:648 (touch_active)",
+    },
+}
+# K6's least bytes on this run's table: every ptr (4 B an entry), the
+# 32-byte sectors that hold a live entry's key, the set written (block,
+# ptr: 16 B a row, its pads included) and count; ~45 integer and float
+# operations a live entry (a free entry's test is one compare)
+K6_PTR_BYTES, K6_ROW_BYTES, K6_OPS_PER_ENTRY = 4, 16, 45
+# K7's least bytes on this run's rows: each live voxel's tsdf and weight
+# read (8 B), each tsdf, weight, band_min or last_seen value that the step
+# changes written (4 B), the 32-byte sectors of the depth pixels that
+# covered voxels read, each row's block and ptr (16 B), count and pose;
+# ~70 operations a voxel (projection, window, update, reductions)
+K7_VOXEL_READ_BYTES, K7_ROW_BYTES, K7_OPS_PER_VOXEL = 8, 16, 70
+FUSE_STAGE_KERNELS = 2       # K6, K7
+
+
+def fuse_launches() -> list:
+    """[K6, K7] launches counted since they were last set to 0."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    return [hash_ops.LAUNCHES_COMPACT, hash_ops.LAUNCHES_INTEGRATE]
+
+
+def zero_fuse_launches() -> None:
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hash_ops.LAUNCHES_COMPACT = hash_ops.LAUNCHES_INTEGRATE = 0
+
+
+def _k6_bytes(base) -> int:
+    """Bytes K6 must read of the table ``base``: every ptr, and the
+    sectors of the keys of its live entries (ptr != FREE_PTR)."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    live = (base.ptrs != hash_ops.FREE_PTR).nonzero().flatten()
+    return (base.ptrs.numel() * K6_PTR_BYTES
+            + _sector_bytes(live.cpu().numpy()))
+
+
+def _k7_bytes(base, active, hcfg, depth, T_wc, cam, fusion, stamp) -> int:
+    """Bytes K7 must move for one update of ``base`` from ``active`` with
+    ``stamp`` (as its timed launch makes it): each live voxel's tsdf and
+    weight read, each map value that the plain update changes written,
+    the sectors of the depth pixels that covered voxels read, the rows'
+    block and ptr, count and pose."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.ops import window_gather as wg
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    n = int(active.count)
+    blocks, ptrs = active.blocks[:n], active.ptrs[:n]
+    after = probe.map_copy(base, probe.MAP_FIELDS)
+    hash_ops.touch_active(after, active, stamp)
+    hash_ops.integrate_reference(after, active, hcfg, depth, T_wc, cam,
+                                 fusion)
+    written = sum(int((getattr(after, f) != getattr(base, f)).sum())
+                  for f in ("tsdf", "weight", "band_min", "last_seen"))
+    _, v, u, in_img, row_valid = hash_ops.project_rows(
+        blocks, ptrs, hcfg, se3.inverse(T_wc), cam, fusion)
+    mask = in_img & row_valid[:, None]
+    if hash_ops._window_mode(hcfg):
+        mask = wg.gather_depth_window_reference(depth.contiguous(), v, u,
+                                                mask)[1]
+    pixels = (v.long() * cam.width + u.long())[mask]
+    V = hcfg.voxels_per_block
+    return (n * V * K7_VOXEL_READ_BYTES + 4 * written
+            + _sector_bytes(pixels.cpu().numpy()) + n * K7_ROW_BYTES
+            + 4 + 64)
+
+
+def phase_fuse(torch, card: str, sweep) -> dict:
+    """K6 ``compact_visible`` and K7 ``integrate_rows`` on the flagship
+    step's own inputs: the map, the frame and the pose that ``fuse_frame``
+    takes on frame N_STEP_FRAMES of the room sweep, after the first
+    N_STEP_FRAMES frames through ``HashSLAM(flagship_gather_config())``,
+    with the step's allocation applied to a copy of that map.  Returns
+    {kernel: its kernels-line fields}."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    t0 = time.perf_counter()
+    cfg = flagship_gather_config()
+    slam = hash_slam.HashSLAM(cfg)
+    for d in sweep[:N_STEP_FRAMES]:
+        slam.process(d)
+    # one frame of the step: fuse_frame's arguments, its map copied before
+    # the call; one K6 and one K7 launch
+    last = []
+
+    def record(real):
+        def fn(hmap, frame, T_wc, cam, hcfg, fusion, frame_idx=0):
+            last[:] = [probe.map_copy(hmap), frame, T_wc, cam, hcfg, fusion,
+                       frame_idx]
+            return real(hmap, frame, T_wc, cam, hcfg, fusion,
+                        frame_idx=frame_idx)
+        return fn
+
+    zero_fuse_launches()
+    with _wrapped(hash_ops, "fuse_frame", record):
+        slam.process(sweep[N_STEP_FRAMES])
+    per_frame = fuse_launches()
+    base, frame, T_wc, cam, hcfg, fusion, frame_idx = last
+    hash_ops.allocate_from_frame(base, frame, T_wc, cam, hcfg, fusion,
+                                 frame_idx=frame_idx)
+    depth = frame.depth
+    args6 = (hcfg, T_wc, cam, fusion)
+
+    # K6 and K7 against the plain versions, bit for bit: the visible set
+    # and its order; every map field after K7 in both gather modes and
+    # both signs (the max_born gate cutting the last two frames' rows out
+    # of the de-integration)
+    active = hash_ops.compact_visible_reference(base, *args6)
+    k6_cmp = probe.compare(tuple(hash_ops.compact_visible(base, *args6)),
+                           tuple(active))
+    n = int(active.count)
+    max_born = frame_idx - 2
+    k7_cmp = {
+        f"{mode}_sign{sign:+d}": probe.integrate_check(
+            base, h, cam, fusion, depth, T_wc, sign,
+            None if sign > 0 else max_born,
+            frame_idx if sign > 0 else None)
+        for mode, h in (("window", hcfg), ("plain_gather", dataclasses.replace(
+            hcfg, use_pallas_gather=False)))
+        for sign in (1, -1)}
+    k6_exact = k6_cmp["bit_exact"]
+    k7_exact = all(c["bit_exact"] and c["rows"] == n
+                   for c in k7_cmp.values())
+
+    # each kernel alone (CUDA-graph replay), warm and L2-cold, its wrapper,
+    # its plain version; bounds from this run's table and rows
+    floor_ms = probe.launch_floor_ms()
+    index = torch.cuda.current_device()
+    T, A, V = base.keys.shape[0], hcfg.max_active, hcfg.voxels_per_block
+    tiles = -(-T // hash_ops.COMPACT_TILE)
+    plan6 = hash_ops._compact_plan(hcfg, cam, fusion)
+    out6 = torch.empty(4 * A + 1 + tiles, dtype=torch.int32,
+                       device=T_wc.device)
+    p6 = out6.data_ptr()
+    outs6 = (p6, p6 + 4 * 3 * A, p6 + 4 * 4 * A, p6 + 4 * (4 * A + 1))
+
+    def k6_alone(keys, ptrs, pose):
+        kernels.launch("compact_visible", index, keys.data_ptr(),
+                       ptrs.data_ptr(), pose.data_ptr(), *outs6, T, *plan6)
+
+    k6 = {**probe.timings(k6_alone, (base.keys, base.ptrs, T_wc)),
+          "wrapper_ms": probe.host_ms(
+              lambda: hash_ops.compact_visible(base, *args6)),
+          "plain_ms": probe.host_ms(
+              lambda: hash_ops.compact_visible_reference(base, *args6),
+              iters=10)}
+    live = int((base.ptrs != hash_ops.FREE_PTR).sum())
+    k6["bound_bytes"] = _k6_bytes(base) + A * K6_ROW_BYTES + 4
+    k6["bound_ms"], k6["bound_by"] = _probe_bound(
+        k6["bound_bytes"], live * K6_OPS_PER_ENTRY + T)
+    k6["barrier_floor_ms"] = barrier_floor_ms(torch, kernels, tiles)
+    k6["least_ms"] = max(k6["bound_ms"], floor_ms + k6["barrier_floor_ms"])
+
+    head, tail = hash_ops._integrate_plan(hcfg, cam, fusion)
+
+    def k7_alone(blocks, ptrs, count, tsdf, weight, band_min, born,
+                 last_seen, d, pose):
+        kernels.launch("integrate_rows", index, blocks.data_ptr(),
+                       ptrs.data_ptr(), count.data_ptr(), tsdf.data_ptr(),
+                       weight.data_ptr(), band_min.data_ptr(),
+                       born.data_ptr(), last_seen.data_ptr(), d.data_ptr(),
+                       pose.data_ptr(), A, tsdf.shape[0], *head, 1, 0, 0, 1,
+                       frame_idx, *tail)
+
+    m = probe.map_copy(base)
+    on_map = (active.blocks, active.ptrs, active.count, m.tsdf, m.weight,
+              m.band_min, m.born, m.last_seen, depth, T_wc)
+    # L2-cold: the live rows alone, gathered into a map of their own (the
+    # whole map is too large for ``probe.cold_args`` to rotate)
+    rows = active.ptrs[:n].long()
+    own = torch.full((A,), hash_ops.FREE_PTR, dtype=torch.int32,
+                     device=T_wc.device)
+    own[:n] = torch.arange(n, dtype=torch.int32, device=T_wc.device)
+    gathered = (active.blocks, own, active.count, m.tsdf[rows],
+                m.weight[rows], m.band_min[rows], m.born[rows],
+                m.last_seen[rows], depth, T_wc)
+    k7 = {"ms": probe.device_ms([lambda: k7_alone(*on_map)]
+                                * probe.WARM_CALLS),
+          "cold_ms": probe.timings(k7_alone, gathered)["cold_ms"],
+          "wrapper_ms": probe.host_ms(lambda: hash_ops.integrate(
+              m, active, hcfg, depth, T_wc, cam, fusion, stamp=frame_idx)),
+          "plain_ms": probe.host_ms(lambda: hash_ops.integrate_reference(
+              hash_ops.touch_active(m, active, frame_idx), active, hcfg,
+              depth, T_wc, cam, fusion), iters=10)}
+    k7["bound_bytes"] = _k7_bytes(base, active, hcfg, depth, T_wc, cam,
+                                  fusion, frame_idx)
+    k7["bound_ms"], k7["bound_by"] = _probe_bound(
+        k7["bound_bytes"], n * V * K7_OPS_PER_VOXEL)
+    for k in (k6, k7):
+        k["floor_ms"] = floor_ms
+    k7["least_ms"] = max(k7["bound_ms"], floor_ms)
+
+    # the stage (compact -> touch -> integrate), kernels against plain in
+    # turns plain / kernel / kernel / plain: host ms, device kernels, host
+    # reads
+    maps = {"kernel": probe.map_copy(base), "plain": probe.map_copy(base)}
+
+    def kernel_stage():
+        mk = maps["kernel"]
+        a = hash_ops.compact_visible(mk, *args6)
+        hash_ops.integrate(mk, a, hcfg, depth, T_wc, cam, fusion,
+                           stamp=frame_idx)
+
+    def plain_stage():
+        mp = maps["plain"]
+        a = hash_ops.compact_visible_reference(mp, *args6)
+        hash_ops.touch_active(mp, a, frame_idx)
+        hash_ops.integrate_reference(mp, a, hcfg, depth, T_wc, cam, fusion)
+
+    fns = {"kernel": kernel_stage, "plain": plain_stage}
+    host_ms = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        host_ms[which].append(median_ms(torch, fns[which]))
+    stage = {"host_ms": host_ms["kernel"], "host_ms_plain": host_ms["plain"],
+             "issue_us": host_issue_us(fns["kernel"]),
+             "issue_us_plain": host_issue_us(fns["plain"], reps=5)}
+    for which, fn in fns.items():
+        tag = "" if which == "kernel" else "_plain"
+        stage["device_kernels" + tag] = _device_kernels(torch, fn)
+        stage["host_reads" + tag] = sync_sites(torch, fn)
+    _emit({"phase": "fuse", "card": card,
+           "frame_hw": [cam.height, cam.width], "table": T,
+           "max_active": A, "count": n, "frame_idx": frame_idx,
+           "max_born": max_born,
+           "compact_visible": {"check": k6_cmp, **k6},
+           "integrate_rows": {"checks": k7_cmp, **k7},
+           "launches_per_frame": dict(zip(FUSE_KERNELS, per_frame)),
+           "stage": stage, "seconds": time.perf_counter() - t0})
+    _require(k6_exact, "K6 == its plain version bit for bit (the visible "
+                       "set, its order and count)")
+    _require(k7_exact, "K7 == the plain integrate (+ touch_active) bit for "
+                       "bit, every field, both gather modes and both signs")
+    _require(per_frame == [1, 1], "one K6 and one K7 launch a frame")
+    _require(stage["device_kernels"]["kernels"] == FUSE_STAGE_KERNELS,
+             f"compact + touch + integrate run {FUSE_STAGE_KERNELS} device "
+             f"kernels")
+    _require(not stage["host_reads"], "compact + touch + integrate read "
+                                      "nothing on the host")
+    _require(0 < n < A, "the step's visible set is neither empty nor capped")
+    k7_err = max(c["max_abs_err"] for c in k7_cmp.values())
+    return {"compact_visible": {"case": "step", **k6,
+                                "max_abs_err": k6_cmp["max_abs_err"],
+                                "library_ms": None},
+            "integrate_rows": {"case": "step", **k7, "max_abs_err": k7_err,
+                               "library_ms": None}}
+
+
 def _run_port(torch, cfg, depths, device):
     from voxelhashing_demo_tpu_torch.models import hash_slam
 
@@ -1912,13 +2251,13 @@ def phase_parity(torch):
     _require(diff <= PARITY_ATOL_M, "card pose within 1e-4 m of CPU pose")
 
 
-def _drive(torch, wg, slam, depths):
-    """Process the frames; returns (per-frame ms, K1 launches per frame).
-    The launch count starts at 0 here."""
-    wg.LAUNCHES = 0
+def _drive(torch, slam, depths):
+    """Process the frames; returns (per-frame ms, K7's window-gather
+    launches per frame).  The launch count starts at 0 here."""
+    zero_k7_window()
     frame_ms, launches = [], []
     for d in depths:
-        before = wg.LAUNCHES
+        before = k7_window()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1926,7 +2265,7 @@ def _drive(torch, wg, slam, depths):
         end.record()
         torch.cuda.synchronize()
         frame_ms.append(start.elapsed_time(end))
-        launches.append(wg.LAUNCHES - before)
+        launches.append(k7_window() - before)
     return frame_ms, launches
 
 
@@ -1955,7 +2294,7 @@ def _check_run(stats: dict, hit: float, ate_bound_mm: float,
                hit_bound: float) -> None:
     n = stats["frames"]
     _require(all(k > 0 for k in stats["launches_per_frame"]),
-             "kernel launched on every integrating frame")
+             "K7 (window gather) launched on every integrating frame")
     _require(stats["tracked"] >= n - 1, f">= {n - 1}/{n} frames tracked")
     _require(stats["finite_poses"], "finite poses")
     _require(stats["ate_mm"] < ate_bound_mm,
@@ -1963,7 +2302,7 @@ def _check_run(stats: dict, hit: float, ate_bound_mm: float,
     _require(hit > hit_bound, f"render hit fraction > {hit_bound}")
 
 
-def phase_slice(torch, wg):
+def phase_slice(torch):
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.utils import synthetic
@@ -1977,7 +2316,7 @@ def phase_slice(torch, wg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     slam = hash_slam.HashSLAM(cfg)
-    frame_ms, launches = _drive(torch, wg, slam, depths)
+    frame_ms, launches = _drive(torch, slam, depths)
     hit = float(slam.render().hit.float().mean())
     stats = _run_stats(slam, gt, frame_ms, launches)
     _emit({"phase": "slice", "H": H, "W": W, **stats, "hit_frac": hit,
@@ -2035,7 +2374,7 @@ def room_sweep():
     return cfg, depths, gt
 
 
-def phase_march(torch, wg, cfg, depths, gt):
+def phase_march(torch, cfg, depths, gt):
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.ops import hash_ops
     from voxelhashing_demo_tpu_torch.utils import (meshing, pointcloud,
@@ -2044,7 +2383,7 @@ def phase_march(torch, wg, cfg, depths, gt):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     slam = hash_slam.HashSLAM(cfg)
-    frame_ms, launches = _drive(torch, wg, slam, depths)
+    frame_ms, launches = _drive(torch, slam, depths)
     stats = _run_stats(slam, gt, frame_ms, launches)
     peak = int(torch.cuda.max_memory_allocated())
 
@@ -2255,7 +2594,7 @@ def phase_backend_ba(torch) -> dict:
     return out
 
 
-def phase_backend(torch, wg, card: str):
+def phase_backend(torch, card: str):
     """KeyframeSLAM at the flagship gather width on the injected-drift
     room sweep; see the module docstring."""
     from voxelhashing_demo_tpu_torch.models import hash_slam, keyframe_slam
@@ -2281,10 +2620,10 @@ def phase_backend(torch, wg, card: str):
                        and slam.graph.num_poses == 0
                        and int(slam.state.hmap.free_top)
                        == cfg.hash.num_blocks)
-    wg.LAUNCHES = 0
+    zero_k7_window()
     frame_ms = backend_drive(torch, slam, depths)
     traj = slam.trajectory()                  # lands all deferred work
-    launches = wg.LAUNCHES
+    launches = k7_window()
     peak = int(torch.cuda.max_memory_allocated())
 
     events = slam.ba_events
@@ -2301,16 +2640,13 @@ def phase_backend(torch, wg, card: str):
     kf_frames = [r.frame_index for r in slam.keyframes]
     insert_ms = [1e3 * sum(t.values()) for t in slam._kf_insert_s]
 
-    # K1 on the gather inputs of one de-integration call: the rows a
-    # ledgered keyframe's depth sees at its map_pose
+    # K7 on one de-integration call: the rows a ledgered keyframe's depth
+    # sees at its map_pose, sign -1, gated at its frame
     rec = next(r for r in slam.keyframes if r.map_pose is not None)
-    args = gather_inputs(slam, rec.depth_dev, torch.as_tensor(
-        rec.map_pose, device=slam.device))
-    got, got_cov = wg.gather_depth_window(*args)
-    ref, ref_cov = wg.gather_depth_window_reference(*args)
-    torch.cuda.synchronize()
-    deint_exact = bool(torch.equal(got, ref)
-                       and torch.equal(got_cov, ref_cov))
+    deint = k7_check(slam, rec.depth_dev, torch.as_tensor(
+        rec.map_pose, device=slam.device), sign=-1,
+        max_born=int(rec.frame_index))
+    deint_exact = deint["bit_exact"] and deint["rows"] > 0
 
     # ledger check: a map fused from scratch from the ledgered keyframes
     # and ring entries at their final poses renders like the incrementally
@@ -2440,8 +2776,8 @@ def phase_backend(torch, wg, card: str):
         "kernel_launches_expected": expected,
         "launches_formula": f"{len(depths)} frames + {fused} keyframes "
                             f"fused by full rebuilds + 2 x {moves} moves",
-        "deintegration_rows": int(args[1].shape[0]),
-        "deintegration_gather_bit_exact": deint_exact,
+        "deintegration_rows": deint["rows"],
+        "deintegration_k7_bit_exact": deint_exact,
         "ledger": ledger, "times": times, "host_syncs": syncs,
         "relocalize": reloc,
         "optimize": ba, "peak_mem_bytes": peak,
@@ -2464,9 +2800,9 @@ def phase_backend(torch, wg, card: str):
              "unaligned ATE with the backend below the frontend-only ATE")
     _require(ate < 2.0 * JAX_REFERENCE_BACKEND["ate_mm"],
              "unaligned ATE < 2x the JAX figure")
-    _require(launches == expected,
-             "K1 launches == frames + rebuild fuses + 2 x moves")
-    _require(deint_exact, "K1 == plain version on de-integration rows")
+    _require(launches == expected, "K7 (window gather) launches == frames "
+             "+ rebuild fuses + 2 x moves")
+    _require(deint_exact, "K7 == plain integrate on de-integration rows")
     _require(reloc["recovered"] and reloc["dist_to_trajectory_m"] < 0.05,
              "relocalization recovers frame 24's pose within 5 cm")
     _require(ledger["both_frac"] > 0.5, "ledger check: renders overlap")
@@ -2568,9 +2904,9 @@ def stream_drive(torch, slam, inner, depths):
     return by_class
 
 
-def stream_report(torch, wg, inner, last_depth, by_class, timers,
+def stream_report(torch, inner, last_depth, by_class, timers,
                   launches) -> dict:
-    """The cycle's costs, transfers, syncs, memory and K1 on the rows of
+    """The cycle's costs, transfers, syncs, memory and K7 on the rows of
     the run's last frame, after the run (``inner`` is the streaming
     HashSLAM)."""
     from voxelhashing_demo_tpu_torch.ops import hash_ops
@@ -2604,11 +2940,8 @@ def stream_report(torch, wg, inner, last_depth, by_class, timers,
     inner._cycle_complete()
     dispatch = sync_sites(torch, inner._cycle_dispatch)
     complete = sync_sites(torch, inner._cycle_complete)
-    # K1 against its plain version on the last frame's rows of this run
-    args = gather_inputs(inner, last_depth)
-    got, got_cov = wg.gather_depth_window(*args)
-    ref, ref_cov = wg.gather_depth_window_reference(*args)
-    torch.cuda.synchronize()
+    # K7 against the plain integrate on the last frame's rows of this run
+    check = k7_check(inner, last_depth)
     return {
         "frame_ms": {k: _pcts(v) for k, v in by_class.items()},
         "cycles": len(by_class["dispatch"]),
@@ -2622,14 +2955,13 @@ def stream_report(torch, wg, inner, last_depth, by_class, timers,
                        "event_waits_per_cycle": 1},
         "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
         "pinned_host_bytes": inner._xfer.pinned_bytes(),
-        "k1_launches": launches,
-        "k1_rows": int(args[1].shape[0]),
-        "k1_bit_exact": bool(torch.equal(got, ref)
-                             and torch.equal(got_cov, ref_cov)),
+        "k7_window_launches": launches,
+        "k7_rows": check["rows"],
+        "k7_bit_exact": check["bit_exact"],
     }
 
 
-def phase_stream(torch, wg, card: str):
+def phase_stream(torch, card: str):
     """The streaming HashSLAM on the 201-frame out-and-back (BASELINE
     config 5, bench.py ``_streaming_run``), and its non-streaming twin."""
     from voxelhashing_demo_tpu_torch.models import hash_slam
@@ -2645,10 +2977,10 @@ def phase_stream(torch, wg, card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     slam = hash_slam.HashSLAM(cfg)
-    wg.LAUNCHES = 0
+    zero_k7_window()
     with StreamTimers(torch, hash_ops) as timers:
         by_class = stream_drive(torch, slam, slam, depths)
-        launches = wg.LAUNCHES
+        launches = k7_window()
         slam.stream_sync()
         times = timers.ms()
     ate = metrics.ate_rmse(slam.trajectory, gt, align=False) * 1e3
@@ -2660,7 +2992,7 @@ def phase_stream(torch, wg, card: str):
     dev = {int(k) for k in slam.state.hmap.keys.cpu().numpy()
            if k != hash_ops.EMPTY_KEY}
     distinct = len(dev | set(store._index))
-    report = stream_report(torch, wg, slam, depths[-1], by_class, times,
+    report = stream_report(torch, slam, depths[-1], by_class, times,
                            launches)
     del slam
 
@@ -2694,12 +3026,13 @@ def phase_stream(torch, wg, card: str):
     _require(twin_free == 0, "the non-streaming twin exhausts the heap")
     _require(ate_twin < 2.0 * JAX_REFERENCE_STREAM["twin_ate_mm"],
              "the twin's ATE < 2x the JAX twin's")
-    _require(launches == n, "K1 launched once per streamed frame")
-    _require(report["k1_bit_exact"], "K1 == plain version on this run")
+    _require(launches == n,
+             "K7 (window gather) launched once per streamed frame")
+    _require(report["k7_bit_exact"], "K7 == plain integrate on this run")
     return launches, ate
 
 
-def phase_stream_backend(torch, wg, card: str, ate_stream: float):
+def phase_stream_backend(torch, card: str, ate_stream: float):
     """The streaming KeyframeSLAM on the same frames (BASELINE config 5,
     bench.py ``_streaming_backend_run``)."""
     from voxelhashing_demo_tpu_torch.models import keyframe_slam
@@ -2713,13 +3046,13 @@ def phase_stream_backend(torch, wg, card: str, ate_stream: float):
     slam = keyframe_slam.KeyframeSLAM(cfg)
     slam.warm_compile(depths[0])
     d = slam._inner
-    wg.LAUNCHES = 0
+    zero_k7_window()
     with StreamTimers(torch, hash_ops) as timers:
         by_class = stream_drive(torch, slam, d, depths)
         slam.flush()
         traj = slam.trajectory()
         d.stream_sync()
-        launches = wg.LAUNCHES
+        launches = k7_window()
         times = timers.ms()
     ate = metrics.ate_rmse(traj, gt, align=False) * 1e3
     events = slam.ba_events
@@ -2752,16 +3085,16 @@ def phase_stream_backend(torch, wg, card: str, ate_stream: float):
     saturated = any(e.get("reintegration_saturated") for e in events)
     overflow = [e for e in slam.capacity_events
                 if e["kind"] == "rebuild_spill_overflow"]
-    report = stream_report(torch, wg, d, depths[-1], by_class, times,
+    report = stream_report(torch, d, depths[-1], by_class, times,
                            launches)
     # a full rebuild into a fresh store on the map the run left: the run's
     # own, or, when its BA corrections stayed under the rebuild
-    # thresholds, one asked for here (K1 once per keyframe)
+    # thresholds, one asked for here (K7 once per keyframe)
     forced = None
     if not swapped:
         old_store = d.store
         restored_before = old_store.total_restored
-        wg.LAUNCHES = 0
+        zero_k7_window()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         slam._rebuild_map()
@@ -2769,7 +3102,7 @@ def phase_stream_backend(torch, wg, card: str, ate_stream: float):
         torch.cuda.synchronize()
         forced = {"ms": (time.perf_counter() - t0) * 1e3,
                   "keyframes": len(slam.keyframes),
-                  "k1_launches": wg.LAUNCHES,
+                  "k7_window_launches": k7_window(),
                   "fresh_store": d.store is not old_store,
                   "store_blocks": len(d.store),
                   "evicted": d.store.total_evicted,
@@ -2803,15 +3136,15 @@ def phase_stream_backend(torch, wg, card: str, ate_stream: float):
     _require(len(swapped) >= 1 or (
         forced["fresh_store"] and forced["counters_carried"]
         and forced["store_blocks"] > 0
-        and forced["k1_launches"] == forced["keyframes"]),
+        and forced["k7_window_launches"] == forced["keyframes"]),
         ">= 1 full rebuild into a fresh store (streaming mode)")
     _require(not overflow, "no rebuild_spill_overflow")
     _require(counters["restored"] > 0, "restore counters carried")
     _require(not saturated, "no reintegration saturated")
     _require(kf_diff <= 1, "keyframes within one of the JAX run's")
-    _require(launches == expected,
-             "K1 launches == frames + rebuild fuses + 2 x moves")
-    _require(report["k1_bit_exact"], "K1 == plain version on this run")
+    _require(launches == expected, "K7 (window gather) launches == frames "
+             "+ rebuild fuses + 2 x moves")
+    _require(report["k7_bit_exact"], "K7 == plain integrate on this run")
     return launches
 
 
@@ -2830,9 +3163,9 @@ def _recorded(last: list):
     """A ``make`` for ``_wrapped``: the real function, with the arguments
     of its last call kept in ``last``."""
     def make(real):
-        def fn(*a):
+        def fn(*a, **k):
             last[:] = a
-            return real(*a)
+            return real(*a, **k)
         return fn
     return make
 
@@ -2863,7 +3196,7 @@ def _int_state_equal(a: dict, b: dict) -> bool:
     return all(np.array_equal(a[k], b[k]) for k in keys)
 
 
-def phase_cli(torch, wg, card: str):
+def phase_cli(torch, card: str):
     """The application layer on the card: the out-and-back frames as a TUM
     directory, the first N_CLI_LIBRARY through FramePipeline into
     KeyframeSLAM (the CLI's default configuration with the window gather)
@@ -2903,11 +3236,12 @@ def phase_cli(torch, wg, card: str):
         cfg = dataclasses.replace(
             cfg, hash=dataclasses.replace(cfg.hash, use_pallas_gather=True))
         slam = keyframe_slam.KeyframeSLAM(cfg)
-        wg.LAUNCHES = 0
+        zero_k7_window()
         pipe = stream.FramePipeline(paths[:N_CLI_LIBRARY], W, H)
         for d in pipe:
             slam.process(d)
-        library = {"frames": N_CLI_LIBRARY, "k1_launches": wg.LAUNCHES,
+        library = {"frames": N_CLI_LIBRARY,
+                   "k7_window_launches": k7_window(),
                    "consumer_waits": pipe.consumer_waits}
         ck = os.path.join(root, "library.npz")
         torch.cuda.synchronize()
@@ -2927,7 +3261,7 @@ def phase_cli(torch, wg, card: str):
         n_lib_events = library["ba_events"]
         del slam, back, pipe
 
-        # run --resume through the CLI, K1 counted from 0
+        # run --resume through the CLI, K7 counted from 0
         out = os.path.join(root, "run")
         timer = profiling.StageTimer()
         pipes, finals = [], []
@@ -2951,7 +3285,7 @@ def phase_cli(torch, wg, card: str):
                                list(kslam.ba_events)))
             return save
 
-        wg.LAUNCHES = 0
+        zero_k7_window()
         with _wrapped(keyframe_slam.KeyframeSLAM, "process", timed), \
                 _wrapped(stream.FramePipeline, "__init__", recorded), \
                 _wrapped(checkpoint, "save_keyframe_slam", snapshot):
@@ -2959,7 +3293,7 @@ def phase_cli(torch, wg, card: str):
                 "run", "--dataset", data, "--backend", "keyframe",
                 "--resume", ck, "--render-last", "--render-every",
                 str(CLI_RENDER_EVERY), "--out", out])
-        launches = wg.LAUNCHES
+        launches = k7_window()
         timer.summary()
         frame_ms = [1e3 * t for t in timer.records["process"]]
         run_events = finals[-1][2][n_lib_events:]
@@ -3027,7 +3361,8 @@ def phase_cli(torch, wg, card: str):
                         for e in run_events],
         "consumer_waits": [p.consumer_waits for p in pipes],
         "pipeline_frames": [len(p) for p in pipes],
-        "k1_launches": launches, "kernel_launches_expected": expected,
+        "k7_window_launches": launches,
+        "kernel_launches_expected": expected,
         "launches_formula": f"{result['frames']} resumed frames + {fused} "
                             f"keyframes fused by full rebuilds + 2 x "
                             f"{moves} moves",
@@ -3058,8 +3393,8 @@ def phase_cli(torch, wg, card: str):
     _require(abs(loop_edges - ref["loop_edges"])
              <= CLI_LOOP_EDGE_SLACK * max(abs(kf_diff), 1),
              "loop edges within one keyframe's batch of the JAX run's")
-    _require(launches == expected,
-             "K1 launches == resumed frames + rebuild fuses + 2 x moves")
+    _require(launches == expected, "K7 (window gather) launches == resumed "
+             "frames + rebuild fuses + 2 x moves")
     _require(result.get("live_frames") == ref["live_frames"], "live views")
     _require(reload_exact, "the run's checkpoint reloads bit-exact")
     _require(len(render["frames"]) == 3 and min(pngs) > 0, "orbit renders")
@@ -3137,16 +3472,18 @@ def _bench_checks(name: str, out: dict, ref: dict | None) -> dict:
     return {"checks": checks, "decisions_off": off}
 
 
-def phase_bench(torch, wg, card: str) -> int:
+def phase_bench(torch, card: str) -> int:
     """The benchmark twin on the card: ``cli.main(["bench", "--quick"])``
     in this process, every section of voxelhashing_demo_tpu_torch/bench.py
     at ``BENCH_SECTIONS``' cut frame counts (full 640x480 width), then
     ``_long_run`` at ``BENCH_GATHER`` under flagship_gather_config() with
-    K1's launches counted from 0.  Returns those launches."""
+    K7's window-gather launches counted from 0.  Returns those launches."""
     from voxelhashing_demo_tpu_torch import bench, cli
     from voxelhashing_demo_tpu_torch.config import (flagship_config,
                                                     flagship_gather_config)
     from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.tools.probe import integrate_check
     from voxelhashing_demo_tpu_torch.utils import metrics, synthetic
 
     t0 = time.perf_counter()
@@ -3177,34 +3514,32 @@ def phase_bench(torch, wg, card: str) -> int:
         if not all(sections[name]["checks"].values()):
             failed.append(name)
 
-    # the gather run: K1 on every step, counted from 0, and on the rows of
-    # the last call (the last frame's integrate) against its plain version
+    # the gather run: K7 in the window mode on every step, counted from 0,
+    # and against the plain integrate on the depth and pose of the last
+    # call (the last frame's integrate)
     calls = {"step": 0}
     last = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    wg.LAUNCHES = 0
+    zero_k7_window()
     with _wrapped(hash_slam, "step", _counted(calls, "step")), \
-            _wrapped(wg, "gather_depth_window", _recorded(last)):
+            _wrapped(hash_ops, "integrate", _recorded(last)):
         out = bench._long_run(flagship_gather_config(), hash_slam,
                               synthetic, metrics, **BENCH_GATHER)
-    launches = wg.LAUNCHES
+    launches = k7_window()
     seconds = time.perf_counter() - t0
     n = BENCH_GATHER["num_frames"]
     expected = 2 * n + 1 + BENCH_GATHER["chunk"]
-    got, got_cov = wg.gather_depth_window(*last)
-    want, want_cov = wg.gather_depth_window_reference(*last)
-    torch.cuda.synchronize()
+    hmap, _, hcfg, depth, pose, cam, fusion = last
+    check = integrate_check(hmap, hcfg, cam, fusion, depth, pose)
     gather = {
         "args": BENCH_GATHER, "out": out, "seconds": seconds,
         "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
-        "steps": calls["step"], "k1_launches": launches,
+        "steps": calls["step"], "k7_window_launches": launches,
         "launches_formula": f"2 x {n} frames + 1 + {BENCH_GATHER['chunk']}"
                             " (per-frame run, warm chunk, chunked run)",
-        "k1_rows": int(last[1].shape[0]),
-        "k1_bit_exact": bool(torch.equal(got, want)
-                             and torch.equal(got_cov, want_cov)),
+        "k7_rows": check["rows"], "k7_bit_exact": check["bit_exact"],
         "jax_reference": JAX_REFERENCE_BENCH["gather"],
         **_bench_checks("long_run", out, JAX_REFERENCE_BENCH["gather"])}
     _emit({"phase": "bench", "card": card, "H": H, "W": W,
@@ -3215,8 +3550,10 @@ def phase_bench(torch, wg, card: str) -> int:
     _require(all(gather["checks"].values()),
              "bench gather run: keys, fps, decisions and ATE vs JAX")
     _require(calls["step"] == expected and launches == expected,
-             "K1 launched once per frame step of the gather run")
-    _require(gather["k1_bit_exact"], "K1 == plain version on the last rows")
+             "K7 (window gather) launched once per frame step of the "
+             "gather run")
+    _require(gather["k7_bit_exact"] and check["rows"] > 0,
+             "K7 == plain integrate on the last call's rows")
     return launches
 
 
@@ -3302,46 +3639,49 @@ def _roofline_hbm(roofline, config, result: dict) -> dict:
                                  for k, b in bounds.items()}}
 
 
-def phase_roofline(torch, wg, card: str) -> int:
-    """``roofline.main()`` under flagship_config() (K1 off, as the JAX
-    tool), then under flagship_gather_config(), K1's launches counted
-    from 0 in each, and K1 on the rows of the second run's last call (the
-    last full step's integrate) against its plain version.  Returns the
-    second run's launches."""
+def phase_roofline(torch, card: str) -> int:
+    """``roofline.main()`` under flagship_config() (the window gather off,
+    as the JAX tool), then under flagship_gather_config(), K7's
+    window-gather launches counted from 0 in each, and K7 against the
+    plain integrate on the depth and pose of the second run's last call
+    (the last full step's integrate).  Returns the second run's
+    launches."""
     from voxelhashing_demo_tpu_torch.config import (flagship_config,
                                                     flagship_gather_config)
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
     from voxelhashing_demo_tpu_torch.tools import roofline
+    from voxelhashing_demo_tpu_torch.tools.probe import integrate_check
 
     runs, launches, last = {}, {}, []
     t0 = time.perf_counter()
     for name, cfg in (("flagship", flagship_config()),
                       ("flagship_gather", flagship_gather_config())):
-        wg.LAUNCHES = 0
+        zero_k7_window()
         with contextlib.redirect_stdout(io.StringIO()), \
-                _wrapped(wg, "gather_depth_window", _recorded(last)):
+                _wrapped(hash_ops, "integrate", _recorded(last)):
             runs[name] = roofline.main(config=cfg)
-        launches[name] = wg.LAUNCHES
+        launches[name] = k7_window()
         runs[name].update(_roofline_hbm(roofline, cfg, runs[name]))
     seconds = time.perf_counter() - t0
-    _require(last, "K1 called on the gather roofline")
-    got, got_cov = wg.gather_depth_window(*last)
-    want, want_cov = wg.gather_depth_window_reference(*last)
-    k1_bit_exact = bool(torch.equal(got, want)
-                        and torch.equal(got_cov, want_cov))
+    _require(last, "integrate called on the gather roofline")
+    hmap, _, hcfg, depth, pose, cam, fusion = last
+    check = integrate_check(hmap, hcfg, cam, fusion, depth, pose)
     n = roofline.N_CALLS
     expected = roofline.SWEEP_FRAMES + 2 * (n + 1)
     _emit({"phase": "roofline", "card": card, **runs,
-           "k1_launches": launches,
-           "k1_expected": f"{expected} = {roofline.SWEEP_FRAMES} sweep "
+           "k7_window_launches": launches,
+           "k7_expected": f"{expected} = {roofline.SWEEP_FRAMES} sweep "
                           f"frames + {n + 1} integrate + {n + 1} full_step",
-           "k1_rows": int(last[1].shape[0]), "k1_bit_exact": k1_bit_exact,
+           "k7_rows": check["rows"], "k7_bit_exact": check["bit_exact"],
            "seconds": seconds})
     _require(all(_roofline_ok(r) for r in runs.values()),
              "roofline: the seven stages, finite primitives and bounds")
     _require(launches["flagship"] == 0
              and launches["flagship_gather"] == expected,
-             "K1 on every integrate of the gather roofline, never without")
-    _require(k1_bit_exact, "K1 == plain version on the roofline's last rows")
+             "K7 (window gather) on every integrate of the gather "
+             "roofline, never without")
+    _require(check["bit_exact"] and check["rows"] > 0,
+             "K7 == plain integrate on the roofline's last call")
     return launches["flagship_gather"]
 
 
@@ -3447,21 +3787,23 @@ def phase_nccl(torch, frames) -> dict:
            "collectives_per_frame": one["collectives_per_frame"],
            "launches": sum(one["launches"]),
            "icp_launches": one["icp_launches"],
+           "fuse_launches": one["fuse_launches"],
            "peak_mem_bytes": one["peak_mem_bytes"]})
     _require(coll["backend"] == "nccl" and helpers_ok,
              "NCCL group initializes; its collective helpers agree")
     _require(all(k > 0 for k in one["launches"]),
-             "K1 launched on every frame over NCCL")
+             "K7 (window gather) launched on every frame over NCCL")
     _require(one["icp_launches"][1] > 0,
              "K4s launched over NCCL (the sharded level's systems)")
     _require(min(one["splat_launches"]) > 0, "K8 and K9 launched over NCCL")
+    _require(min(one["fuse_launches"]) > 0, "K6 and K7 launched over NCCL")
     return one
 
 
 def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
     """Two ranks on the one card over Gloo at flagship_gather_config():
-    see the module docstring.  Returns rank 0's K1 launches and its
-    [K4, K4s, K3a, K3b, K8, K9] launches."""
+    see the module docstring.  Returns rank 0's K7 window-gather launches
+    and its [K4, K4s, K3a, K3b, K8, K9, K6, K7] launches."""
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.parallel import launch, ranks
@@ -3517,6 +3859,7 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
            "keys_single_card": len(s_keys),
            "hit_frac": hit, "launches_per_rank": launches,
            "icp_launches_per_rank": [o["icp_launches"] for o in two],
+           "fuse_launches_per_rank": [o["fuse_launches"] for o in two],
            "kernel_check": [o["kernel"] for o in two],
            "frame_ms_per_rank": _rank_ms(two),
            "collective_host_bytes_per_frame":
@@ -3536,23 +3879,27 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
     _require(hit > HIT_BOUND, f"render hit fraction > {HIT_BOUND}")
     _require(launches == [len(frames)] * 2
              and all(o["launches"] == [1] * len(frames) for o in two),
-             "K1 launched once per frame on each rank")
+             "K7 (window gather) launched once per frame on each rank")
     _require(all(o["kernel"]["bit_exact"] and o["kernel"]["rows"] > 0
-                 for o in two), "K1 bit-exact on each rank's own rows")
+                 for o in two),
+             "K7 bit-exact against the plain integrate on each rank's own "
+             "rows")
     _require(all(o["icp_launches"][1] > 0 for o in two),
              "K4s launched on each rank (the sharded level's systems)")
     _require(all(min(o["splat_launches"]) > 0 for o in two),
              "K8 and K9 launched on each rank")
-    return (launches[0],
-            a["icp_launches"] + a["k3_launches"] + a["splat_launches"])
+    _require(all(min(o["fuse_launches"]) > 0 for o in two),
+             "K6 and K7 launched on each rank")
+    return (launches[0], a["icp_launches"] + a["k3_launches"]
+            + a["splat_launches"] + a["fuse_launches"])
 
 
 def phase_sharded_backend(torch, card: str) -> tuple:
     """KeyframeSLAM(mesh) on two Gloo ranks over the first
     N_SHARDED_BACKEND frames of the backend scenario (the drift before
     frame 18), against a one-rank NCCL mesh and the single-card backend.
-    Returns rank 0's K1 launches and its [K4, K4s, K3a, K3b]
-    launches."""
+    Returns rank 0's K7 window-gather launches and its [K4, K4s, K3a,
+    K3b, K8, K9, K6, K7] launches."""
     from voxelhashing_demo_tpu_torch.geometry import se3
     from voxelhashing_demo_tpu_torch.models import keyframe_slam
     from voxelhashing_demo_tpu_torch.parallel import launch, ranks
@@ -3599,6 +3946,7 @@ def phase_sharded_backend(torch, card: str) -> tuple:
            "launches_per_rank": [o["launches"] for o in two],
            "launches_expected": expected,
            "icp_launches_per_rank": [o["icp_launches"] for o in two],
+           "fuse_launches_per_rank": [o["fuse_launches"] for o in two],
            "ba_ms_per_solve": ba_ms,
            "collective_host_bytes_per_frame":
                [o["collective_host_bytes_per_frame"] for o in two]})
@@ -3606,14 +3954,17 @@ def phase_sharded_backend(torch, card: str) -> tuple:
              "decisions equal on both ranks and to the one-rank NCCL run")
     _require(ate < 2.0 * ate_single, "ATE below twice the single card's")
     _require([o["launches"] for o in two] == expected,
-             "K1 launches == frames + rebuild fuses + 2 x moves per rank")
+             "K7 (window gather) launches == frames + rebuild fuses + 2 x "
+             "moves per rank")
     _require(all(n > 0 for o in two for n in o["icp_launches"]),
              "K4 (pair-ICP batches) and K4s (the sharded level) launched "
              "on each rank")
     _require(all(min(o["splat_launches"]) > 0 for o in two),
              "K8 and K9 launched on each rank")
-    return (a["launches"],
-            a["icp_launches"] + a["k3_launches"] + a["splat_launches"])
+    _require(all(min(o["fuse_launches"]) > 0 for o in two),
+             "K6 and K7 launched on each rank")
+    return (a["launches"], a["icp_launches"] + a["k3_launches"]
+            + a["splat_launches"] + a["fuse_launches"])
 
 
 def main() -> int:
@@ -3654,58 +4005,63 @@ def main() -> int:
     icp_summary = phase_icp(torch, smi, sweep)
     k3_summary = phase_preprocess(torch, smi, sweep)
     splat_summary = phase_splat(torch, smi, sweep)
+    fuse_summary = phase_fuse(torch, smi, sweep)
     # launches per path, each counted from 0 by the phase that drives it;
-    # "launches" in the summary is the last path's count
+    # "launches" in the summary is the last path's count.  K1 runs on no
+    # frame path since K7 took over its work: the frame paths' window
+    # gathers are K7's window-mode launches (``window_by_path``)
     by_path = {k: {"probes": n} for k, n in probe_launches.items()}
-    step_kernels = ICP_KERNELS + K3_KERNELS + SPLAT_KERNELS
+    step_kernels = ICP_KERNELS + K3_KERNELS + SPLAT_KERNELS + FUSE_KERNELS
     by_path.update({k: {} for k in step_kernels})
+    window_by_path = {}
 
     def k4(path: str, run):
-        """``run()`` with the ICP, K3 and splat kernels' counts from 0,
-        recorded under ``path``; the frame step preprocesses and its
-        pyramid tracks on every path, so K4, K3a and K3b must launch (K4s
-        serves only the sharded level), and K8 and K9 on every path that
-        predicts by splatting (all but ``march``, where neither may)."""
+        """``run()`` with the ICP, K3, splat and fuse kernels' counts from
+        0, recorded under ``path``; the frame step preprocesses, its
+        pyramid tracks and it fuses on every path, so K4, K3a, K3b, K6 and
+        K7 must launch (K4s serves only the sharded level), and K8 and K9
+        on every path that predicts by splatting (all but ``march``, where
+        neither may)."""
         zero_icp_launches()
         zero_k3_launches()
         zero_splat_launches()
+        zero_fuse_launches()
         out = run()
-        counts = icp_launches() + k3_launches() + splat_launches()
+        counts = (icp_launches() + k3_launches() + splat_launches()
+                  + fuse_launches())
         for kname, n in zip(step_kernels, counts):
             by_path[kname][path] = n
         _require(counts[0] > 0, f"K4 launched on {path}")
         _require(counts[2] > 0 and counts[3] > 0,
                  f"K3a and K3b launched on {path}")
         if path == "march":
-            _require(counts[4:] == [0, 0], "no K8 / K9 launch on march")
+            _require(counts[4:6] == [0, 0], "no K8 / K9 launch on march")
         else:
-            _require(min(counts[4:]) > 0, f"K8 and K9 launched on {path}")
+            _require(min(counts[4:6]) > 0, f"K8 and K9 launched on {path}")
+        _require(min(counts[6:8]) > 0, f"K6 and K7 launched on {path}")
         return out
 
     k4("parity", lambda: phase_parity(torch))
-    by_path["gather_depth_window"]["slice"] = k4(
-        "slice", lambda: phase_slice(torch, wg))
+    window_by_path["slice"] = k4("slice", lambda: phase_slice(torch))
     slam, last_depth, march_launches = k4("march", lambda: phase_march(
-        torch, wg, march_cfg, sweep, sweep_gt))
-    by_path["gather_depth_window"]["march"] = march_launches
+        torch, march_cfg, sweep, sweep_gt))
+    window_by_path["march"] = march_launches
     by_path["gather_depth_window_streamed"]["streamed_entry"] = (
         phase_streamed_entry(torch, wg, slam, last_depth))
     del slam
-    by_path["gather_depth_window"]["backend"] = k4(
-        "backend", lambda: phase_backend(torch, wg, smi))
-    launches, ate_stream = k4("stream", lambda: phase_stream(torch, wg, smi))
-    by_path["gather_depth_window"]["stream"] = launches
-    by_path["gather_depth_window"]["stream_backend"] = k4(
+    window_by_path["backend"] = k4("backend",
+                                   lambda: phase_backend(torch, smi))
+    launches, ate_stream = k4("stream", lambda: phase_stream(torch, smi))
+    window_by_path["stream"] = launches
+    window_by_path["stream_backend"] = k4(
         "stream_backend",
-        lambda: phase_stream_backend(torch, wg, smi, ate_stream))
-    by_path["gather_depth_window"]["cli"] = k4(
-        "cli", lambda: phase_cli(torch, wg, smi))
-    by_path["gather_depth_window"]["bench"] = k4(
-        "bench", lambda: phase_bench(torch, wg, smi))
+        lambda: phase_stream_backend(torch, smi, ate_stream))
+    window_by_path["cli"] = k4("cli", lambda: phase_cli(torch, smi))
+    window_by_path["bench"] = k4("bench", lambda: phase_bench(torch, smi))
     k4("entry", lambda: phase_entry(torch, smi, sweep))
     phase_dryrun(torch, smi)
-    by_path["gather_depth_window"]["roofline"] = k4(
-        "roofline", lambda: phase_roofline(torch, wg, smi))
+    window_by_path["roofline"] = k4("roofline",
+                                    lambda: phase_roofline(torch, smi))
     phase_bench_micro(torch, smi)
     phase_scaling(torch, smi)
     from voxelhashing_demo_tpu_torch.utils import synthetic
@@ -3716,21 +4072,23 @@ def main() -> int:
     frames, gt = [np.asarray(d) for d in frames[:N_FRAMES]], gt[:N_FRAMES]
     # rank 0's counts on the multi-rank paths
     one = phase_nccl(torch, frames)
-    by_path["gather_depth_window"]["nccl"] = sum(one["launches"])
+    window_by_path["nccl"] = sum(one["launches"])
     k4_ranks = {"nccl": one["icp_launches"] + one["k3_launches"]
-                + one["splat_launches"]}
-    by_path["gather_depth_window"]["sharded_backend"], \
-        k4_ranks["sharded_backend"] = phase_sharded_backend(torch, smi)
+                + one["splat_launches"] + one["fuse_launches"]}
+    window_by_path["sharded_backend"], k4_ranks["sharded_backend"] = (
+        phase_sharded_backend(torch, smi))
     # the slice's main path, last: "launches" is rank 0's count
-    by_path["gather_depth_window"]["sharded"], k4_ranks["sharded"] = (
+    window_by_path["sharded"], k4_ranks["sharded"] = (
         phase_sharded(torch, smi, frames, gt, one))
     for path, counts in k4_ranks.items():
         for kname, n in zip(step_kernels, counts):
             by_path[kname][path] = n
         _require(counts[2] > 0 and counts[3] > 0,
                  f"K3a and K3b launched on {path} (rank 0)")
-        _require(min(counts[4:]) > 0, f"K8 and K9 launched on {path} "
-                                      f"(rank 0)")
+        _require(min(counts[4:6]) > 0, f"K8 and K9 launched on {path} "
+                                       f"(rank 0)")
+        _require(min(counts[6:8]) > 0, f"K6 and K7 launched on {path} "
+                                       f"(rank 0)")
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{
@@ -3766,7 +4124,14 @@ def main() -> int:
         "launches": list(by_path[kname].values())[-1],
         "launches_by_path": by_path[kname],
         **splat_summary[kname],
-    } for kname in SPLAT_KERNELS]})
+    } for kname in SPLAT_KERNELS] + [{
+        "name": kname, **FUSE_META[kname],
+        "launches": list(by_path[kname].values())[-1],
+        "launches_by_path": by_path[kname],
+        **({"launches_window_by_path": window_by_path}
+           if kname == "integrate_rows" else {}),
+        **fuse_summary[kname],
+    } for kname in FUSE_KERNELS]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0

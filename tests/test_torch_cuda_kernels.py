@@ -26,6 +26,15 @@ graph bit for bit; a refused launch raises.  The splat kernels (K8
 for bit on every field (maps with FREE_PTR rows, band cuts and rows past
 ``count``, 48 poses, the near / far gates, fill rounds 0-5, odd sizes,
 the ``pmin``-ed buffer), make no host sync and replay from a CUDA graph.
+The fuse kernels (K6 ``compact_visible``, K7 ``integrate_rows``) equal
+their plain versions bit for bit: the visible set, its order and count
+from 48 poses of a room sweep, on a set that overflows ``max_active`` and
+on a table of more tiles than the card holds CTAs; tsdf, weight,
+band_min, born and last_seen after an update in both gather modes and
+both signs (the ``max_born`` gate, rows at the weight cap, near-range
+rows the window clips, block size 4); the frame's compact -> touch ->
+integrate makes no host sync, ``fuse_frame`` none outside allocation, and
+both replay from a CUDA graph; a refused build or launch raises.
 """
 
 import dataclasses
@@ -310,8 +319,9 @@ def test_first_kernel_on_deintegration_rows(cuda):
     """The gather inputs of a de-integration call: the rows an earlier
     frame's depth sees at the pose it was fused at, on a map that has
     grown since.  Bit-exact against the plain version, and the move
-    (``make_reintegrate``: sign -1 at the old pose, +1 at the new) launches
-    the kernel exactly twice."""
+    (``make_reintegrate``: sign -1 at the old pose, +1 at the new) does
+    the window gather's work exactly twice (inside K7, the integrate
+    kernel, since the gather was fused into it)."""
     from voxelhashing_demo_tpu_torch.geometry import se3
     from voxelhashing_demo_tpu_torch.models import hash_slam, keyframe_slam
     from voxelhashing_demo_tpu_torch.ops import hash_ops
@@ -341,12 +351,12 @@ def test_first_kernel_on_deintegration_rows(cuda):
 
     new_pose = se3.exp(torch.tensor([0.01, 0.0, -0.01, 0.0, 0.01, 0.0],
                                     device=cuda)) @ old_pose
-    before = wg.LAUNCHES
+    before = hash_ops.LAUNCHES_INTEGRATE_WINDOW
     w_before = hmap.weight.clone()
     hmap, cnt = keyframe_slam.make_reintegrate(cfg)(
         hmap, depth_raw, old_pose, new_pose, 2)
     torch.cuda.synchronize()
-    assert wg.LAUNCHES == before + 2
+    assert hash_ops.LAUNCHES_INTEGRATE_WINDOW == before + 2
     assert 0 < int(cnt) < cfg.hash.max_active
     assert not torch.equal(hmap.weight, w_before)
 
@@ -1384,3 +1394,321 @@ def test_splat_no_sync_graph_replay_and_refusals(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="splat_finalize kernel launch"):
         splat.finalize_depth(eager.depth, cfg.camera, cfg.raycast,
                              cfg.fusion)
+
+
+# --------------------------------------------------------------------------
+# K6 / K7: visible-set compaction and integration
+# --------------------------------------------------------------------------
+
+FUSE_FRAMES = 6          # room-sweep frames that grow the map
+MAP_FIELDS = ("tsdf", "weight", "band_min", "born", "last_seen")
+
+
+@pytest.fixture(scope="module")
+def fuse_case():
+    """(config, map, pose, the sweep's 48 poses, the next frame): a
+    flagship map grown on the card by ``HashSLAM(flagship_gather_config())``
+    over FUSE_FRAMES noisy room-sweep frames, and the preprocessed Frame
+    of the sweep's next frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cfg = flagship_gather_config()
+    depths, gt = synthetic.make_room_sweep(cfg.camera, 48, sweep_deg=150.0,
+                                           noise_seed=1)
+    slam = hash_slam.HashSLAM(cfg)
+    for d in depths[:FUSE_FRAMES]:
+        slam.process(d)
+    frame = pre_ops.preprocess(
+        hash_slam.depth_tensor(depths[FUSE_FRAMES], slam.device),
+        cfg.camera, cfg.frontend)
+    poses = [torch.as_tensor(np.asarray(p), dtype=torch.float32,
+                             device="cuda") for p in gt]
+    return cfg, slam.state.hmap, slam.state.pose, poses, frame
+
+
+def _map_clone(hmap):
+    return hmap._replace(**{f: getattr(hmap, f).clone() for f in (
+        "keys", "ptrs", "bucket_fill", "free_list", "free_top") + MAP_FIELDS})
+
+
+def _assert_active_equal(got, want, what: str):
+    assert int(got.count) == int(want.count), what
+    assert torch.equal(got.ptrs, want.ptrs), what
+    assert torch.equal(got.blocks, want.blocks), what
+
+
+def _assert_map_equal(got, want, what: str):
+    for f in MAP_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        same = _bits_equal(a, b) if a.dtype == torch.float32 else \
+            torch.equal(a, b)
+        assert same, f"{what}: {f}"
+
+
+def test_compact_visible_matches_plain_over_poses(fuse_case):
+    """K6 bit for bit against ``compact_visible_reference`` (blocks, ptrs,
+    count, and so the order) at each of the sweep's 48 poses, one launch
+    each; rows past the count are padding."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, _, poses, _ = fuse_case
+    seen = 0
+    for k, T in enumerate(poses):
+        args = (hmap, cfg.hash, T, cfg.camera, cfg.fusion)
+        before = hash_ops.LAUNCHES_COMPACT
+        got = hash_ops.compact_visible(*args)
+        assert hash_ops.LAUNCHES_COMPACT == before + 1
+        want = hash_ops.compact_visible_reference(*args)
+        _assert_active_equal(got, want, f"pose {k}")
+        n = int(got.count)
+        assert bool((got.ptrs[n:] == hash_ops.FREE_PTR).all()), k
+        assert not bool(got.blocks[n:].any()), k
+        seen += n > 0
+    assert seen >= 6
+
+
+def test_compact_visible_overflow(fuse_case):
+    """More visible entries than ``max_active``: the count is capped and
+    the set holds the first ``max_active`` in table order, as the plain
+    version's; a fresh output on every call."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, _, _ = fuse_case
+    small = dataclasses.replace(cfg.hash, max_active=100)
+    full = hash_ops.compact_visible_reference(hmap, cfg.hash, pose,
+                                              cfg.camera, cfg.fusion)
+    assert int(full.count) > 100
+    args = (hmap, small, pose, cfg.camera, cfg.fusion)
+    got = hash_ops.compact_visible(*args)
+    _assert_active_equal(got, hash_ops.compact_visible_reference(*args),
+                         "overflow")
+    assert int(got.count) == 100
+    assert torch.equal(got.ptrs, full.ptrs[:100])
+    again = hash_ops.compact_visible(*args)
+    assert again.ptrs.data_ptr() != got.ptrs.data_ptr()
+
+
+def test_compact_visible_table_larger_than_the_grid(fuse_case):
+    """A table of 2^21 entries is 1 024 tiles, more than the card holds
+    CTAs at once: each CTA tests its tiles again after the grid barrier
+    instead of keeping them in registers.  Bit for bit against the plain
+    version, and overflowing max_active."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, _, pose, _, _ = fuse_case
+    rng = np.random.default_rng(11)
+    big = dataclasses.replace(cfg.hash, num_buckets=2 ** 19)
+    T = big.table_size
+    blocks = np.stack([rng.integers(-24, 24, T), rng.integers(-24, 24, T),
+                       rng.integers(-3, 30, T)], -1)
+    b = blocks + (1 << (big.key_bits - 1))
+    keys = ((b[:, 0] << (2 * big.key_bits)) | (b[:, 1] << big.key_bits)
+            | b[:, 2]).astype(np.int32)
+    ptrs = rng.integers(0, big.num_blocks, T).astype(np.int32)
+    free = rng.random(T) < 0.3
+    keys[free], ptrs[free] = hash_ops.EMPTY_KEY, hash_ops.FREE_PTR
+    hmap = hash_ops.HashMap(
+        keys=torch.as_tensor(keys, device="cuda"),
+        ptrs=torch.as_tensor(ptrs, device="cuda"), **{
+            f: None for f in hash_ops.HashMap._fields if f not in (
+                "keys", "ptrs")})
+    for A in (big.max_active, 64):
+        h = dataclasses.replace(big, max_active=A)
+        args = (hmap, h, pose, cfg.camera, cfg.fusion)
+        got = hash_ops.compact_visible(*args)
+        want = hash_ops.compact_visible_reference(*args)
+        _assert_active_equal(got, want, f"max_active {A}")
+        assert int(want.count) == A, A
+
+
+def test_integrate_small_blocks(cuda):
+    """K7 at block size 4 (64 voxels a row, most of a CTA idle) and at the
+    tiny camera, both signs, bit for bit against the plain integrate on a
+    map grown on the card at that block size."""
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    base = _tiny_gather_config()
+    cfg = dataclasses.replace(base, hash=dataclasses.replace(
+        base.hash, block_size=4))
+    depths, _ = synthetic.make_sequence(cfg.camera, 4, trans_amp=0.05,
+                                        rot_amp_deg=2.5, device="cpu")
+    slam = hash_slam.HashSLAM(cfg, device=cuda)
+    for d in depths[:3]:
+        slam.process(d)
+    depth = pre_ops.preprocess(hash_slam.depth_tensor(depths[3], cuda),
+                               cfg.camera, cfg.frontend).depth
+    for sign, max_born, stamp in ((1, None, 5), (-1, 1, None)):
+        got, want, active = _integrate_pair(cfg, slam.state.hmap,
+                                            slam.state.pose, depth, sign,
+                                            max_born, stamp)
+        _assert_map_equal(got, want, f"block size 4, sign {sign}")
+        assert int(active.count) > 0
+
+
+def _integrate_pair(cfg, hmap, pose, depth, sign, max_born, stamp):
+    """(kernel map, plain map) after one update from copies of ``hmap``:
+    ``integrate`` against ``integrate_reference`` and ``touch_active``."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    got, want = _map_clone(hmap), _map_clone(hmap)
+    active = hash_ops.compact_visible(got, cfg.hash, pose, cfg.camera,
+                                      cfg.fusion)
+    before = (hash_ops.LAUNCHES_INTEGRATE, hash_ops.LAUNCHES_INTEGRATE_WINDOW)
+    hash_ops.integrate(got, active, cfg.hash, depth, pose, cfg.camera,
+                       cfg.fusion, sign=sign, max_born=max_born, stamp=stamp)
+    window = int(hash_ops._window_mode(cfg.hash))
+    assert (hash_ops.LAUNCHES_INTEGRATE,
+            hash_ops.LAUNCHES_INTEGRATE_WINDOW) == (before[0] + 1,
+                                                    before[1] + window)
+    if stamp is not None:
+        hash_ops.touch_active(want, active, stamp)
+    hash_ops.integrate_reference(want, active, cfg.hash, depth, pose,
+                                 cfg.camera, cfg.fusion, sign, max_born)
+    return got, want, active
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("window", [True, False])
+def test_integrate_matches_plain(fuse_case, window, sign):
+    """K7 bit for bit against ``integrate_reference`` (+ ``touch_active``
+    with a stamp) on every map field: both gather modes, both signs, the
+    ``max_born`` gate cutting rows out, rows at the weight cap, at the
+    step's pose and at a pose 0.9 m closer to the wall, where the window
+    clips near-range rows."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+
+    cfg, hmap, pose, _, frame = fuse_case
+    depth = frame.depth
+    cfg = dataclasses.replace(cfg, hash=dataclasses.replace(
+        cfg.hash, use_pallas_gather=window))
+    hmap = _map_clone(hmap)
+    hmap.weight[::7] = torch.where(hmap.weight[::7] > 0, 254.75, 0.0)
+    closer = pose @ se3.exp(torch.tensor([0.0, 0.0, 0.9, 0.0, 0.0, 0.0],
+                                         device=pose.device))
+    max_born = FUSE_FRAMES // 2 if sign < 0 else None
+    stamp = 41 if sign > 0 else None
+    for name, T in (("step", pose), ("closer", closer)):
+        got, want, active = _integrate_pair(cfg, hmap, T, depth, sign,
+                                            max_born, stamp)
+        _assert_map_equal(got, want, f"{name} window={window} sign={sign}")
+        assert int(active.count) > 0, name
+        assert not torch.equal(got.weight, hmap.weight), name
+        if stamp is not None:
+            n = int(active.count)
+            rows = active.ptrs[:n].long()
+            assert bool((got.last_seen[rows] == stamp).all()), name
+
+
+def test_fuse_no_sync_and_graph_replay(fuse_case, monkeypatch):
+    """compact -> touch -> integrate (K6, K7 with the stamp) reads nothing
+    on the host, ``fuse_frame`` nothing outside allocation, and K6 + K7
+    captured in a CUDA graph replay what they do eagerly, bit for bit."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, _, frame = fuse_case
+
+    def stage(m):
+        a = hash_ops.compact_visible(m, cfg.hash, pose, cfg.camera,
+                                     cfg.fusion)
+        hash_ops.integrate(m, a, cfg.hash, frame.depth, pose, cfg.camera,
+                           cfg.fusion, stamp=9)
+
+    eager = _map_clone(hmap)
+    stage(eager)
+    torch.cuda.synchronize()
+    m = _map_clone(hmap)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stage(m)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_map_equal(m, eager, "no-sync run")
+
+    real_alloc = hash_ops.allocate_from_frame
+
+    def alloc_may_sync(*a, **k):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real_alloc(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(hash_ops, "allocate_from_frame", alloc_may_sync)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hash_ops.fuse_frame(_map_clone(hmap), frame, pose, cfg.camera,
+                            cfg.hash, cfg.fusion, frame_idx=9)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    g = _map_clone(hmap)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        stage(g)
+    torch.cuda.current_stream().wait_stream(side)
+    for f in MAP_FIELDS:
+        getattr(g, f).copy_(getattr(hmap, f))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stage(g)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_map_equal(g, eager, "graph")
+
+
+def test_fuse_refusals(fuse_case, monkeypatch):
+    """What the kernels do not take raises; a refused build and a refused
+    launch raise; the plain versions never run in their place."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, _, frame = fuse_case
+    hmap = _map_clone(hmap)
+    active = hash_ops.compact_visible(hmap, cfg.hash, pose, cfg.camera,
+                                      cfg.fusion)
+    args = (cfg.hash, frame.depth, pose, cfg.camera, cfg.fusion)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        hash_ops.compact_visible(hmap, cfg.hash, pose.cpu(), cfg.camera,
+                                 cfg.fusion)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        hash_ops.integrate(hmap, active, cfg.hash, frame.depth.cpu(),
+                           *args[2:])
+    with pytest.raises(ValueError, match="int32"):
+        hash_ops.integrate(hmap, active._replace(count=active.count.long()),
+                           *args)
+    with pytest.raises(ValueError, match="depth"):
+        hash_ops.integrate(hmap, active, cfg.hash, frame.depth[1:],
+                           *args[2:])
+    with pytest.raises(ValueError, match="voxels a block"):
+        hash_ops.integrate(hmap, active, dataclasses.replace(
+            cfg.hash, block_size=16), *args[1:])
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("compact_visible_reference", "integrate_reference",
+                 "_integrate_rows", "block_in_frustum", "touch_active"):
+        monkeypatch.setattr(hash_ops, name, no_plain)
+    monkeypatch.setattr(kernels, "_FUNCTIONS", {})
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(kernels, "build", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        hash_ops.compact_visible(hmap, cfg.hash, pose, cfg.camera,
+                                 cfg.fusion)
+    monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="compact_visible kernel launch"):
+        hash_ops.compact_visible(hmap, cfg.hash, pose, cfg.camera,
+                                 cfg.fusion)
+    with pytest.raises(RuntimeError, match="integrate_rows kernel launch"):
+        hash_ops.integrate(hmap, active, *args, stamp=3)

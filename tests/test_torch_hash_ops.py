@@ -213,13 +213,14 @@ def test_integrate_gather_dispatch(carried, monkeypatch, use_gather,
     th = dataclasses.replace(c["tc"].hash, use_pallas_gather=use_gather,
                              max_active=max_active)
     calls = []
-    real = window_gather.gather_depth_window
+    real = window_gather.gather_depth_window_reference
 
     def counting(*a):
         calls.append(1)
         return real(*a)
 
-    monkeypatch.setattr(window_gather, "gather_depth_window", counting)
+    monkeypatch.setattr(window_gather, "gather_depth_window_reference",
+                        counting)
     aj = J_COMPACT(_jmap(c), jh, jnp.asarray(c["pose"]),
                              c["jc"].camera, c["jc"].fusion)
     mj = J_INTEGRATE(_jmap(c), aj, jh, _jframe(c).depth,

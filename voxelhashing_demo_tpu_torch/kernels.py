@@ -163,12 +163,28 @@ KERNELS = {
     # sigma, cx, cy, 1/fx, 1/fy
     "splat_finalize": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                        _P],
+    # K6 (csrc/fuse.cu): keys, ptrs, T_wc, blocks, ptrs and count out,
+    # scratch, table size, max_active, key bits, block size, voxel size,
+    # half a block, fx, fy, cx, cy, width, height, margin, radius * fx,
+    # radius * fy, near, far
+    "compact_visible": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # K7: blocks, ptrs, count, tsdf, weight, band_min, born, last_seen,
+    # depth, T_wc, rows, map rows, block size, H, W, window h and w,
+    # window, sign, born gate, max_born, stamp on, stamp, falloff, voxel
+    # size, fx, fy, cx, cy, truncation, its depth scale, weight_sample,
+    # weight_sample * 1.5, depth_min, 1 / (depth_max - depth_min),
+    # max_weight, the inverse update's clamp
+    "integrate_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
 }
 # C function -> its source under csrc/, where the two names differ
 SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
            "grid_sync_floor": "launch_floor",
            "preprocess_frame": "preprocess", "pyramid_levels": "preprocess",
-           "splat_zbuffer": "splat", "splat_finalize": "splat"}
+           "splat_zbuffer": "splat", "splat_finalize": "splat",
+           "compact_visible": "fuse", "integrate_rows": "fuse"}
 
 
 def source_of(name: str) -> str:

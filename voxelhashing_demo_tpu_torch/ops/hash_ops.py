@@ -23,25 +23,51 @@ Semantics held to the JAX version:
 Integrate and splat walk ``active[:count]`` in one pass instead of the
 JAX version's ``integrate_chunk`` chunks: rows are distinct, so the result
 is the same.
+
+Two hand-written kernels (``csrc/fuse.cu``) serve CUDA tensors: K6
+``compact_visible`` (the frustum test of the whole table and the
+compaction in table order, one cooperative launch, the count left on the
+device) and K7 ``integrate_rows`` (the update of ``active[:count]`` with
+the window gather's coverage and ``touch_active``'s stamp fused in).  On
+CUDA tensors ``compact_visible`` is K6 and ``integrate`` K7, so the frame's
+compact -> touch -> integrate (``fuse_frame``: ``integrate(...,
+stamp=frame_idx)``) is two launches and no host read; CPU tensors run the
+plain versions ``compact_visible_reference`` and ``integrate_reference``
+(with ``touch_active`` for a stamp), which the tests and the card checks
+also call on the card.  What the kernels do not take raises; nothing
+falls back.  ``LAUNCHES_COMPACT``, ``LAUNCHES_INTEGRATE`` and
+``LAUNCHES_INTEGRATE_WINDOW`` (K7 in the window-gather mode, the work of
+the window gather K1 on the frame step) count the launches.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import kernels
 from ..config import CameraConfig, FusionConfig, HashConfig
 from ..device import resolve
 from ..geometry import camera as cam_geom
 from ..geometry import coords, se3
+from ..geometry.f32 import recip
 from . import window_gather
 from .preprocess import Frame, _norm
 from .tsdf import sample_weight
 
 FREE_PTR = -1
 EMPTY_KEY = coords.EMPTY_KEY
+
+LAUNCHES_COMPACT = 0            # K6 compact_visible
+LAUNCHES_INTEGRATE = 0          # K7 integrate_rows, either gather mode
+LAUNCHES_INTEGRATE_WINDOW = 0   # K7 in the window-gather mode
+
+MAX_VOXELS = 1024       # the voxels a block K7 takes (kMaxVoxels)
+COMPACT_TILE = 2048     # table entries a K6 tile (kTile)
+MAX_KEY_BITS = 10       # three coordinates in a non-negative int32 key
 
 
 class HashMap(NamedTuple):
@@ -282,13 +308,16 @@ def insert_blocks(
 # visible-set compaction
 # --------------------------------------------------------------------------
 
+FRUSTUM_MARGIN_PX = 4.0   # block_in_frustum's margin as compaction uses it
+
+
 def block_in_frustum(
     blocks: torch.Tensor,
     T_wc: torch.Tensor,
     cam: CameraConfig,
     cfg: HashConfig,
     fusion: FusionConfig,
-    margin_px: float = 4.0,
+    margin_px: float = FRUSTUM_MARGIN_PX,
 ) -> torch.Tensor:
     """Conservative frustum test of block centers with a z-adaptive pixel
     margin (the block's projected bounding-sphere radius)."""
@@ -324,7 +353,23 @@ def compact_visible(
     fusion: FusionConfig,
 ) -> ActiveSet:
     """Stream-compact allocated, in-frustum entries (in table order) into a
-    padded ActiveSet."""
+    padded ActiveSet (rows past ``count`` hold 0 / FREE_PTR): one K6
+    launch on CUDA tensors, whose outputs are fresh tensors on every call
+    and whose count stays on the device; ``compact_visible_reference`` on
+    CPU tensors."""
+    if hmap.keys.device.type == "cpu":
+        return compact_visible_reference(hmap, cfg, T_wc, cam, fusion)
+    return _launch_compact(hmap, cfg, T_wc, cam, fusion)
+
+
+def compact_visible_reference(
+    hmap: HashMap,
+    cfg: HashConfig,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    fusion: FusionConfig,
+) -> ActiveSet:
+    """Plain version of ``compact_visible``, on any device."""
     blocks_all = coords.unpack_block_key(hmap.keys, cfg.key_bits)
     mask = (hmap.ptrs != FREE_PTR) & block_in_frustum(
         blocks_all, T_wc, cam, cfg, fusion)
@@ -359,6 +404,13 @@ def _jax_chunk(cfg: HashConfig) -> int:
     while A % C:
         C //= 2
     return C
+
+
+def _window_mode(cfg: HashConfig) -> bool:
+    """The integrate depth read goes through the window gather exactly
+    when the JAX version calls its Pallas kernel: ``use_pallas_gather``
+    and a JAX chunk size divisible by 8."""
+    return cfg.use_pallas_gather and _jax_chunk(cfg) % 8 == 0
 
 
 def project_rows(
@@ -405,14 +457,14 @@ def _integrate_rows(
     limits the update to rows allocated at or before that frame index
     (``HashMap.born``).
 
-    The per-voxel depth read goes through the window-gather kernel exactly
-    when the JAX version calls its Pallas kernel: ``use_pallas_gather`` and
-    a JAX chunk size divisible by 8."""
+    The per-voxel depth read goes through the window gather's plain
+    version under ``_window_mode``, on any device: this body is the plain
+    twin that K7 is held against, so it launches no kernel."""
     z, v, u, in_img, row_valid = project_rows(blocks, ptrs, cfg, T_cw, cam,
                                               fusion)
-    if cfg.use_pallas_gather and _jax_chunk(cfg) % 8 == 0:
+    if _window_mode(cfg):
         # v, u and the mask are fresh results, contiguous as they are
-        depth, in_img = window_gather.gather_depth_window(
+        depth, in_img = window_gather.gather_depth_window_reference(
             depth_m.contiguous(), v, u, in_img & row_valid[:, None])
     else:
         depth = depth_m[v.long(), u.long()]
@@ -480,10 +532,37 @@ def integrate(
     fusion: FusionConfig,
     sign: int = 1,
     max_born: int | None = None,
+    stamp: int | None = None,
 ) -> HashMap:
     """Curless-Levoy fusion over ``active[:count]`` in one pass
-    (``sign=-1``: de-integration; ``max_born``: see ``_integrate_rows``).
-    Reading ``count`` is one device-to-host read."""
+    (``sign=-1``: de-integration; ``max_born``: see ``_integrate_rows``);
+    with ``stamp``, ``touch_active(hmap, active, stamp)`` too (integration
+    never reads ``last_seen``, so the order of the two is free).  One K7
+    launch on CUDA tensors (no host read; the window gather's coverage
+    inside it under ``_window_mode``); ``touch_active`` and
+    ``integrate_reference`` on CPU tensors."""
+    if hmap.tsdf.device.type == "cpu":
+        if stamp is not None:
+            touch_active(hmap, active, stamp)
+        return integrate_reference(hmap, active, cfg, depth_m, T_wc, cam,
+                                   fusion, sign, max_born)
+    return _launch_integrate(hmap, active, cfg, depth_m, T_wc, cam, fusion,
+                             sign, max_born, stamp)
+
+
+def integrate_reference(
+    hmap: HashMap,
+    active: ActiveSet,
+    cfg: HashConfig,
+    depth_m: torch.Tensor,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    fusion: FusionConfig,
+    sign: int = 1,
+    max_born: int | None = None,
+) -> HashMap:
+    """Plain version of ``integrate`` (no stamp), on any device.  Reading
+    ``count`` is one device-to-host read."""
     n = int(active.count)
     return _integrate_rows(
         hmap, active.blocks[:n], active.ptrs[:n], cfg, depth_m,
@@ -548,9 +627,10 @@ def garbage_collect(
 
 
 def touch_active(hmap: HashMap, active: ActiveSet, frame_idx: int) -> HashMap:
-    """Stamp the visible set's rows with the current frame index."""
-    _set_rows(hmap.last_seen, active.ptrs, active.ptrs != FREE_PTR,
-              frame_idx)
+    """Stamp the visible set's rows with the current frame index (the
+    set's rows are distinct, so the scatter reads nothing on the host)."""
+    _scatter_drop(hmap.last_seen, active.ptrs, active.ptrs != FREE_PTR,
+                  frame_idx)
     return hmap
 
 
@@ -753,13 +833,14 @@ def fuse_frame(
     fusion: FusionConfig,
     frame_idx: int = 0,
 ) -> Tuple[HashMap, ActiveSet, torch.Tensor]:
-    """alloc -> compact -> touch -> integrate.  Returns (map, active_set,
+    """alloc -> compact -> touch -> integrate (on CUDA tensors the last
+    three are K6 and K7 with the stamp).  Returns (map, active_set,
     n_allocated)."""
     hmap, n_alloc = allocate_from_frame(
         hmap, frame, T_wc, cam, cfg, fusion, frame_idx=frame_idx)
     active = compact_visible(hmap, cfg, T_wc, cam, fusion)
-    hmap = touch_active(hmap, active, frame_idx)
-    hmap = integrate(hmap, active, cfg, frame.depth, T_wc, cam, fusion)
+    hmap = integrate(hmap, active, cfg, frame.depth, T_wc, cam, fusion,
+                     stamp=frame_idx)
     return hmap, active, n_alloc
 
 
@@ -781,3 +862,145 @@ def defuse_frame(
     active = compact_visible(hmap, cfg, T_wc, cam, fusion)
     return integrate(hmap, active, cfg, frame.depth, T_wc, cam, fusion,
                      sign=-1, max_born=int(frame_born))
+
+
+# --------------------------------------------------------------------------
+# the kernels' wrappers (csrc/fuse.cu)
+# --------------------------------------------------------------------------
+
+def _on_cuda(dev: torch.device, *tensors) -> bool:
+    return dev.type == "cuda" and all(t.device == dev for t in tensors)
+
+
+@functools.lru_cache(maxsize=64)
+def _compact_plan(cfg: HashConfig, cam: CameraConfig,
+                  fusion: FusionConfig) -> tuple:
+    """K6's arguments after the pointers and the table size: max_active,
+    key bits, block size, then ``block_in_frustum``'s constants as the
+    plain version computes them in Python doubles (voxel size, half a
+    block, fx, fy, cx, cy, width, height, margin, radius * fx, radius *
+    fy, near, far); or raise."""
+    if not 1 <= cfg.key_bits <= MAX_KEY_BITS:
+        raise ValueError(f"compact_visible: key bits 1..{MAX_KEY_BITS} "
+                         f"expected, got {cfg.key_bits}")
+    half = 0.5 * cfg.block_size * fusion.voxel_size
+    radius = half * 1.7320508
+    return (cfg.max_active, cfg.key_bits, cfg.block_size, fusion.voxel_size,
+            half, cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width),
+            float(cam.height), FRUSTUM_MARGIN_PX, radius * cam.fx,
+            radius * cam.fy, cam.depth_min - 2.0 * half,
+            cam.depth_max + 2.0 * half)
+
+
+def _launch_compact(hmap: HashMap, cfg: HashConfig, T_wc: torch.Tensor,
+                    cam: CameraConfig, fusion: FusionConfig) -> ActiveSet:
+    """K6 on the current stream: a fresh ActiveSet (its three tensors and
+    the kernel's per-tile scratch share one allocation), or raise."""
+    keys, ptrs = hmap.keys, hmap.ptrs
+    dev = keys.device
+    if not _on_cuda(dev, ptrs, T_wc):
+        raise ValueError("compact_visible: the table and the pose must lie "
+                         "on one CUDA device (or all on the CPU)")
+    if (keys.dtype != torch.int32 or ptrs.dtype != torch.int32
+            or T_wc.dtype != torch.float32):
+        raise ValueError("compact_visible: int32 keys and ptrs and a "
+                         "float32 pose expected")
+    T = keys.shape[0]
+    if (keys.dim() != 1 or ptrs.shape != keys.shape or T < 1
+            or tuple(T_wc.shape) != (4, 4)):
+        raise ValueError("compact_visible: (T,) keys and ptrs and a (4, 4) "
+                         "pose expected")
+    plan = _compact_plan(cfg, cam, fusion)
+    A = cfg.max_active
+    keys, ptrs, pose = keys.contiguous(), ptrs.contiguous(), \
+        T_wc.contiguous()
+    buf = torch.empty(4 * A + 1 + -(-T // COMPACT_TILE), dtype=torch.int32,
+                      device=dev)
+    out = ActiveSet(blocks=buf[:3 * A].view(A, 3), ptrs=buf[3 * A:4 * A],
+                    count=buf[4 * A])
+    kernels.launch("compact_visible", keys.get_device(), keys.data_ptr(),
+                   ptrs.data_ptr(), pose.data_ptr(), out.blocks.data_ptr(),
+                   out.ptrs.data_ptr(), out.count.data_ptr(),
+                   buf[4 * A + 1:].data_ptr(), T, *plan)
+    global LAUNCHES_COMPACT
+    LAUNCHES_COMPACT += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _integrate_plan(cfg: HashConfig, cam: CameraConfig,
+                    fusion: FusionConfig) -> tuple:
+    """K7's constant arguments, as two tuples around the per-call ones:
+    (block size, H, W, the window's h and w, window mode) and (falloff,
+    voxel size, fx, fy, cx, cy, truncation, its depth scale,
+    weight_sample, weight_sample * 1.5, depth_min, recip(depth_max -
+    depth_min), max_weight, the inverse update's clamp) as the plain
+    version computes them in Python doubles; or raise."""
+    if cfg.voxels_per_block > MAX_VOXELS:
+        raise ValueError(f"integrate: at most {MAX_VOXELS} voxels a block, "
+                         f"got {cfg.voxels_per_block}")
+    wh, ww = window_gather._win(cam.height, cam.width)
+    head = (cfg.block_size, cam.height, cam.width, wh, ww,
+            int(_window_mode(cfg)))
+    tail = (int(fusion.depth_weight_falloff), fusion.voxel_size, cam.fx,
+            cam.fy, cam.cx, cam.cy, fusion.truncation, fusion.trunc_scale,
+            fusion.weight_sample, fusion.weight_sample * 1.5, cam.depth_min,
+            recip(cam.depth_max - cam.depth_min), fusion.max_weight,
+            fusion.truncation + fusion.trunc_scale * cam.depth_max)
+    return head, tail
+
+
+def _launch_integrate(hmap: HashMap, active: ActiveSet, cfg: HashConfig,
+                      depth_m: torch.Tensor, T_wc: torch.Tensor,
+                      cam: CameraConfig, fusion: FusionConfig, sign: int,
+                      max_born: int | None, stamp: int | None) -> HashMap:
+    """K7 on the current stream, the map updated in place; or raise."""
+    ints = (active.blocks, active.ptrs, active.count)
+    floats = (depth_m, T_wc)
+    rows_f = (hmap.tsdf, hmap.weight, hmap.band_min)
+    rows_i = (hmap.born, hmap.last_seen)
+    dev = hmap.tsdf.device
+    if not _on_cuda(dev, *ints, *floats, *rows_f, *rows_i):
+        raise ValueError("integrate: the map, the active set, the depth and "
+                         "the pose must lie on one CUDA device (or all on "
+                         "the CPU)")
+    if (any(t.dtype != torch.int32 for t in ints + rows_i)
+            or any(t.dtype != torch.float32 for t in floats + rows_f)):
+        raise ValueError("integrate: an int32 active set, born and "
+                         "last_seen, and float32 map rows, depth and pose "
+                         "expected")
+    head, tail = _integrate_plan(cfg, cam, fusion)
+    rows, V, N = active.ptrs.shape[0], cfg.voxels_per_block, \
+        hmap.tsdf.shape[0]
+    if (active.ptrs.dim() != 1 or tuple(active.blocks.shape) != (rows, 3)
+            or active.count.numel() != 1 or tuple(T_wc.shape) != (4, 4)
+            or tuple(depth_m.shape) != (cam.height, cam.width)
+            or hmap.tsdf.dim() != 2 or hmap.tsdf.shape[1] != V
+            or hmap.weight.shape != hmap.tsdf.shape
+            or any(tuple(t.shape) != (N,) for t in (hmap.band_min,)
+                   + rows_i)):
+        raise ValueError(
+            f"integrate: blocks (A, 3), ptrs (A,), one count, a (4, 4) pose, "
+            f"a {(cam.height, cam.width)} depth and (N, {V}) map rows with "
+            f"(N,) band_min, born and last_seen expected")
+    if not all(t.is_contiguous() for t in rows_f + rows_i):
+        raise ValueError("integrate: the map's rows must be contiguous (they "
+                         "are updated in place)")
+    if sign not in (1, -1):
+        raise ValueError(f"integrate: sign +1 or -1 expected, got {sign}")
+    ints = [t.contiguous() for t in ints]
+    floats = [t.contiguous() for t in floats]
+    blocks, ptrs, count = ints
+    depth, pose = floats
+    kernels.launch(
+        "integrate_rows", dev.index, blocks.data_ptr(), ptrs.data_ptr(),
+        count.data_ptr(), hmap.tsdf.data_ptr(), hmap.weight.data_ptr(),
+        hmap.band_min.data_ptr(), hmap.born.data_ptr(),
+        hmap.last_seen.data_ptr(), depth.data_ptr(), pose.data_ptr(), rows,
+        N, *head, sign, int(max_born is not None),
+        0 if max_born is None else int(max_born), int(stamp is not None),
+        0 if stamp is None else int(stamp), *tail)
+    global LAUNCHES_INTEGRATE, LAUNCHES_INTEGRATE_WINDOW
+    LAUNCHES_INTEGRATE += 1
+    LAUNCHES_INTEGRATE_WINDOW += head[-1]
+    return hmap

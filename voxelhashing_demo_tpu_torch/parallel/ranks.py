@@ -14,7 +14,7 @@ import torch
 
 from .. import convert
 from ..device import host_array
-from ..ops import icp, window_gather
+from ..ops import hash_ops, icp
 from ..ops import preprocess as pre_ops
 from ..ops import splat as splat_ops
 from . import distributed, sharded
@@ -25,33 +25,19 @@ def _tensor(a, dtype, mesh) -> torch.Tensor:
 
 
 def kernel_check(mesh, config, hmap, depth_raw, pose) -> dict:
-    """The window gather (K1) against its plain version on this rank's
-    own rows: the visible rows of ``hmap`` at ``pose``, projected as
-    ``integrate`` projects them for ``depth_raw``.  Returns the row count,
-    whether values and covered masks are bit-exact, and the largest
-    value difference.  Its launch is not counted in ``LAUNCHES``."""
-    from ..geometry import se3
-    from ..ops import hash_ops
+    """The integrate kernel (K7, which does the window gather's work on the
+    frame step) against the plain integrate on this rank's own rows
+    (``tools/probe.integrate_check``: the visible rows of ``hmap`` at
+    ``pose`` fused with ``depth_raw``).  Returns the row count, whether
+    tsdf, weight and band_min are bit-exact, and the largest tsdf
+    difference.  Its launches are not counted."""
+    from ..tools.probe import integrate_check
 
     lcfg = sharded.local_hash_config(config.hash, mesh.size)
     depth = pre_ops.preprocess(_tensor(depth_raw, np.int32, mesh),
                                config.camera, config.frontend).depth
-    active = hash_ops.compact_visible(hmap, lcfg, pose, config.camera,
-                                      config.fusion)
-    n = int(active.count)
-    _, v, u, in_img, row_valid = hash_ops.project_rows(
-        active.blocks[:n], active.ptrs[:n], lcfg, se3.inverse(pose),
-        config.camera, config.fusion)
-    args = (depth.contiguous(), v.contiguous(), u.contiguous(),
-            (in_img & row_valid[:, None]).contiguous())
-    launches = window_gather.LAUNCHES
-    val, cov = window_gather.gather_depth_window(*args)
-    window_gather.LAUNCHES = launches
-    ref_val, ref_cov = window_gather.gather_depth_window_reference(*args)
-    return {"rows": n,
-            "bit_exact": bool(torch.equal(val, ref_val)
-                              and torch.equal(cov, ref_cov)),
-            "max_abs_err": float((val - ref_val).abs().max()) if n else 0.0}
+    return integrate_check(hmap, lcfg, config.camera, config.fusion, depth,
+                           pose)
 
 
 def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
@@ -63,14 +49,15 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
 
     Returns ``infos`` (one dict of numpy per tracked frame), ``state``
     (this rank's shard, flattened as ``convert`` does), ``models`` (per
-    render pose, this rank's rows), ``launches`` (window-gather launches
-    per frame), ``icp_launches`` (the ICP kernels' K4 and K4s launches
-    over the run), ``k3_launches`` (K3a and K3b's), ``splat_launches``
-    (K8 and K9's) and, with ``timed``, per-frame host ms on a synchronised
-    clock, the peak device memory, the collective counters, the live
-    render's hit mask (this rank's rows) and ``kernel_check`` on the last
-    frame."""
-    window_gather.LAUNCHES = 0
+    render pose, this rank's rows), ``launches`` (K7's window-gather
+    launches per frame), ``icp_launches`` (the ICP kernels' K4 and K4s
+    launches over the run), ``k3_launches`` (K3a and K3b's),
+    ``splat_launches`` (K8 and K9's), ``fuse_launches`` (K6 and K7's)
+    and, with ``timed``, per-frame host ms on a synchronised clock, the
+    peak device memory, the collective counters, the live render's hit
+    mask (this rank's rows) and ``kernel_check`` on the last frame."""
+    hash_ops.LAUNCHES_INTEGRATE_WINDOW = 0
+    hash_ops.LAUNCHES_COMPACT = hash_ops.LAUNCHES_INTEGRATE = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
@@ -85,7 +72,7 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
         hmap = sharded.create_map(config, mesh)
     bytes0, coll0 = mesh.collective_host_bytes, mesh.collectives
     for i, d in enumerate(frames):
-        before = window_gather.LAUNCHES
+        before = hash_ops.LAUNCHES_INTEGRATE_WINDOW
         if cuda:
             torch.cuda.synchronize(mesh.device)
         t0 = time.perf_counter()
@@ -99,12 +86,14 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
         if cuda:
             torch.cuda.synchronize(mesh.device)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-        launches.append(window_gather.LAUNCHES - before)
+        launches.append(hash_ops.LAUNCHES_INTEGRATE_WINDOW - before)
     out = {"infos": infos, "launches": launches,
            "icp_launches": [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS],
            "k3_launches": [pre_ops.LAUNCHES_FRAME, pre_ops.LAUNCHES_LEVELS],
            "splat_launches": [splat_ops.LAUNCHES_ZBUFFER,
-                              splat_ops.LAUNCHES_FINALIZE]}
+                              splat_ops.LAUNCHES_FINALIZE],
+           "fuse_launches": [hash_ops.LAUNCHES_COMPACT,
+                             hash_ops.LAUNCHES_INTEGRATE]}
     if fed_poses is None:
         out["state"] = convert.state_to_numpy(slam.state)
         hmap = slam.state.hmap
@@ -136,15 +125,17 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     left-multiplied by its drift.  Returns the backend's decisions (keyframe frames, edges, BA
     frames, rebuild modes, moves, tracked flags, capacity events,
     saturation), the trajectory, the graph poses, this rank's map shard,
-    the window-gather, ICP-kernel and K3 launches (``icp_launches``: K4,
-    K4s; ``k3_launches``: K3a, K3b; ``splat_launches``: K8, K9), with
+    K7's window-gather launches, the kernels' launches (``icp_launches``:
+    K4, K4s; ``k3_launches``: K3a, K3b; ``splat_launches``: K8, K9;
+    ``fuse_launches``: K6, K7), with
     streaming the store counters
     (evicted, restored, stored) summed over the ranks, and, with
     ``timed``, the host seconds of
     each BA solve and the collective counters."""
     from ..models import keyframe_slam
 
-    window_gather.LAUNCHES = 0
+    hash_ops.LAUNCHES_INTEGRATE_WINDOW = 0
+    hash_ops.LAUNCHES_COMPACT = hash_ops.LAUNCHES_INTEGRATE = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
@@ -169,11 +160,13 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
         "trajectory": np.stack(traj),
         "graph_poses": host_array(slam.graph.poses).copy(),
         "state": convert.hashmap_to_numpy(slam.state.hmap, "hmap"),
-        "launches": window_gather.LAUNCHES,
+        "launches": hash_ops.LAUNCHES_INTEGRATE_WINDOW,
         "icp_launches": [icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS],
         "k3_launches": [pre_ops.LAUNCHES_FRAME, pre_ops.LAUNCHES_LEVELS],
         "splat_launches": [splat_ops.LAUNCHES_ZBUFFER,
                            splat_ops.LAUNCHES_FINALIZE],
+        "fuse_launches": [hash_ops.LAUNCHES_COMPACT,
+                          hash_ops.LAUNCHES_INTEGRATE],
         "rebuild_fuses": sum(e["keyframes"] for e in slam.ba_events
                              if e["rebuild_mode"] == "full"),
     }

@@ -287,8 +287,8 @@ def _route(cand: torch.Tensor, lcfg: HashConfig, config: PipelineConfig,
 def _fuse_local(hmap, frame: Frame, pose, frame_idx: int, lcfg, config,
                 mesh: Mesh, bucket_fn):
     """Owner-routed allocation, then the local compact / touch /
-    integrate (the window gather runs in ``integrate``).  Returns (map,
-    active set, n_allocated)."""
+    integrate (the window gather and the stamp run in ``integrate``: K6
+    and K7 on the card).  Returns (map, active set, n_allocated)."""
     cam = config.camera
     cand = hash_ops.frame_candidate_keys(frame, pose, cam, lcfg,
                                          config.fusion)
@@ -296,9 +296,8 @@ def _fuse_local(hmap, frame: Frame, pose, frame_idx: int, lcfg, config,
         hmap, lcfg, _route(cand, lcfg, config, mesh), frame_idx,
         bucket_fn=bucket_fn)
     active = hash_ops.compact_visible(hmap, lcfg, pose, cam, config.fusion)
-    hmap = hash_ops.touch_active(hmap, active, frame_idx)
     hmap = hash_ops.integrate(hmap, active, lcfg, frame.depth, pose, cam,
-                              config.fusion)
+                              config.fusion, stamp=frame_idx)
     return hmap, active, n_alloc
 
 

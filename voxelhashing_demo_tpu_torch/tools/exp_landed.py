@@ -11,7 +11,10 @@ then the frame step with the gather kernel off and on.
 - ``HashSLAM`` on 24 noisy room-sweep frames under ``flagship_config()``
   with ``use_pallas_gather`` off and on, then 20 timed frames (host clock
   around ``process``, the card synchronised), as the probe times its
-  donated-state step.
+  donated-state step.  On the card the step's window gather is no longer
+  K1: it runs inside the integrate kernel K7 (``csrc/fuse.cu``), so the
+  JAX tool's ``k1_launches`` key counts K7's launches in the window-gather
+  mode (``hash_ops.LAUNCHES_INTEGRATE_WINDOW``).
 
 Run on the card: ``python -m voxelhashing_demo_tpu_torch.tools.exp_landed``.
 """
@@ -24,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from ..ops import hash_ops
 from ..ops import window_gather as wg
 from .probe import Probe, compare, to_device
 
@@ -75,7 +79,7 @@ def gather_section(probe: Probe, a: dict) -> dict:
 def step_section(probe: Probe, config=None) -> dict:
     """The frame step under ``config`` (None: the flagship) with the
     gather off and on: {label: {ms, fps, k1_launches}} (host clock; "not
-    measured" on the CPU)."""
+    measured" on the CPU; ``k1_launches``: K7's window-gather launches)."""
     from ..config import flagship_config
     from ..models import hash_slam
     from ..utils import synthetic
@@ -91,7 +95,7 @@ def step_section(probe: Probe, config=None) -> dict:
         slam = hash_slam.HashSLAM(cfg, device=probe.device)
         for d in depths:
             slam.process(d)
-        before = wg.LAUNCHES
+        before = hash_ops.LAUNCHES_INTEGRATE_WINDOW
         if probe.card:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -100,7 +104,8 @@ def step_section(probe: Probe, config=None) -> dict:
         if probe.card:
             torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / REPS
-        entry = {"k1_launches": wg.LAUNCHES - before}
+        entry = {"k1_launches":
+                 hash_ops.LAUNCHES_INTEGRATE_WINDOW - before}
         if probe.card:
             entry.update(ms=dt * 1e3, fps=1.0 / dt)
             print(f"{label:52s} {dt * 1e3:9.3f} ms  ({1.0 / dt:.1f} fps)",

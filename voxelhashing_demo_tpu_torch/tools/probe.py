@@ -128,6 +128,50 @@ def compare(got, ref) -> dict:
     return {"bit_exact": exact, "max_abs_err": err}
 
 
+MAP_FIELDS = ("tsdf", "weight", "band_min", "born", "last_seen")
+
+
+def map_copy(hmap, fields=None):
+    """``hmap`` with ``fields`` (default: all) cloned, the rest shared."""
+    return hmap._replace(**{f: getattr(hmap, f).clone()
+                            for f in (hmap._fields if fields is None
+                                      else fields)})
+
+
+def integrate_check(hmap, hcfg, cam, fusion, depth_m, pose, sign: int = 1,
+                    max_born: int | None = None,
+                    stamp: int | None = None) -> dict:
+    """The integrate kernel K7 (``hash_ops.integrate``; on the frame step
+    it does the window gather's work) against ``integrate_reference``
+    (after ``touch_active`` with ``stamp``) on the visible rows of
+    ``hmap`` at ``pose`` for the metric ``depth_m``, each into its own
+    copy of the map's rows; the launches it makes are not counted in the
+    ``hash_ops`` counters.  Returns the row count, each map field's
+    bit-exactness (``fields``), whether all are bit-exact, and the largest
+    tsdf or weight difference."""
+    from ..ops import hash_ops
+
+    counts = (hash_ops.LAUNCHES_COMPACT, hash_ops.LAUNCHES_INTEGRATE,
+              hash_ops.LAUNCHES_INTEGRATE_WINDOW)
+    active = hash_ops.compact_visible(hmap, hcfg, pose, cam, fusion)
+    got, ref = map_copy(hmap, MAP_FIELDS), map_copy(hmap, MAP_FIELDS)
+    hash_ops.integrate(got, active, hcfg, depth_m, pose, cam, fusion,
+                       sign=sign, max_born=max_born, stamp=stamp)
+    (hash_ops.LAUNCHES_COMPACT, hash_ops.LAUNCHES_INTEGRATE,
+     hash_ops.LAUNCHES_INTEGRATE_WINDOW) = counts
+    if stamp is not None:
+        hash_ops.touch_active(ref, active, stamp)
+    hash_ops.integrate_reference(ref, active, hcfg, depth_m, pose, cam,
+                                 fusion, sign, max_born)
+    fields = {f: torch.equal(getattr(got, f), getattr(ref, f))
+              for f in MAP_FIELDS}
+    return {"rows": int(active.count), "bit_exact": all(fields.values()),
+            "fields": fields,
+            "max_abs_err": max(float((getattr(got, f) - getattr(ref, f))
+                                     .abs().max()) for f in ("tsdf",
+                                                             "weight"))}
+
+
 def to_device(arrays: dict, device) -> dict:
     """numpy arrays -> tensors on ``device``, same dtypes."""
     return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
