@@ -15,7 +15,10 @@ of compaction and integration (``fuse_ops``: the block centre, the product
 at the table's and the visible rows' sizes, the frustum margin ``radius *
 fx / zm`` (a Python double over a tensor), comparisons with Python doubles,
 the truncation band, ``sample_weight`` and the running-average update and
-its inverse) it prints
+its inverse) and of the candidate keys of allocation (``alloc_ops``: the
+ray's norm on a strided frame, its reciprocal, ``torch.linspace``, the
+band sample, ``se3.apply``'s product at the candidate counts of the
+configs, ``world2voxel``) it prints
 the share of outputs that each candidate order of float32 operations
 reproduces bit for bit, over ``rows`` x 512 voxels (2^20 at the default).
 A candidate is evaluated in float64 on the card and rounded to float32
@@ -179,6 +182,8 @@ def main() -> int:
         "div": share(acc / torch.clamp(cnt, min=1.0), dvd(acc, cnt))}
     result.update(fuse_ops(torch, dev, rng, se3, _local_offsets, share, dots,
                            mul, add, fma, dvd, f32))
+    result.update(alloc_ops(torch, dev, rng, se3, share, dots, mul, add, fma,
+                            dvd, f32))
     if dev.type == "cuda":
         torch.cuda.synchronize()
     for op, cands in result.items():
@@ -312,6 +317,107 @@ def fuse_ops(torch, dev, rng, se3, local_offsets, share, dots, mul, add, fma,
     out["inverse_update"] = {"in_order": share(got, dvd(
         add(mul(old_sdf, old_w), -mul(sdf, w_new)),
         torch.maximum(rem, c32(1e-12))))}
+    return out
+
+
+# candidate keys a frame: band steps x strided pixels, at 80x60 stride 1,
+# 640x480 stride 3 (the flagship), stride 2 (the CLI) and stride 1
+ALLOC_ROWS = {"tiny_s1": 3 * 60 * 80, "flagship_s3": 3 * 160 * 214,
+              "cli_s2": 3 * 240 * 320, "full_s1": 3 * 480 * 640}
+
+
+def alloc_ops(torch, dev, rng, se3, share, dots, mul, add, fma, dvd,
+              f32) -> dict:
+    """The ops of ``frame_candidate_keys_reference`` (ops/hash_ops.py) on
+    a strided 640x480 vertex map and at the candidate counts of the
+    configs, against candidate orders of float32 operations: {op:
+    {candidate: share}}."""
+    from voxelhashing_demo_tpu_torch.geometry import coords
+    from voxelhashing_demo_tpu_torch.geometry.f32 import recip
+
+    out = {}
+
+    def c32(x: float):
+        return torch.tensor(np.float32(x), device=dev)
+
+    # a vertex map as the frontend gives it: z in 0.3-4 m, x and y the
+    # back-projection through the flagship camera; the stride-3 view
+    H, W, fx, fy, cx, cy = 480, 640, 517.3, 516.5, 318.6, 255.3
+    z = f32(0.3 + torch.rand(H, W, device=dev, dtype=torch.float64) * 3.7)
+    v, u = torch.meshgrid(torch.arange(H, device=dev),
+                          torch.arange(W, device=dev), indexing="ij")
+    verts = torch.stack([f32((u - cx) / fx) * z, f32((v - cy) / fy) * z, z],
+                        -1)
+    for stride in (1, 3):
+        x = verts[::stride, ::stride]
+        sq = x * x
+        got = torch.sum(sq, dim=-1)
+        out[f"norm_sum_s{stride}"] = {
+            "x0x2_x1": share(got, add(add(sq[..., 0], sq[..., 2]),
+                                      sq[..., 1])),
+            "x0x1_x2": share(got, add(add(sq[..., 0], sq[..., 1]),
+                                      sq[..., 2]))}
+    x = verts[::3, ::3]
+    ray_len = torch.sqrt(torch.sum(x * x, dim=-1))
+    got = 1.0 / torch.clamp(ray_len, min=1e-9)
+    out["inv_len"] = {"rcp": share(got, dvd(c32(1.0), torch.maximum(
+        ray_len, c32(1e-9))))}
+
+    # torch.linspace(-1, 1, n): its CUDA kernel's start + step * i below
+    # the halfway index and end - step * (n - 1 - i) from it, fused or not
+    lin = {"fma": [], "mul_add": []}
+    for n in range(2, 17):
+        got = torch.linspace(-1.0, 1.0, n, dtype=torch.float32, device=dev)
+        step = dvd(c32(2.0), c32(n - 1))
+        i = torch.arange(n, device=dev).to(torch.float32)
+        low = i < n // 2
+        one = c32(1.0)
+        want_fma = torch.where(low, fma(step, i, -one),
+                               fma(-step, (n - 1) - i, one))
+        want_ma = torch.where(low, add(mul(step, i), -one),
+                              add(-mul(step, (n - 1) - i), one))
+        lin["fma"].append(bool(torch.equal(got.view(torch.int32),
+                                           want_fma.view(torch.int32))))
+        lin["mul_add"].append(bool(torch.equal(got.view(torch.int32),
+                                               want_ma.view(torch.int32))))
+    out["linspace"] = {k: float(np.mean(v)) for k, v in lin.items()}
+
+    # the band sample verts + ray_dir * (step * trunc) and world2voxel's
+    # p * recip(voxel) + -0.5 / 0.5, truncated
+    d = x[..., 2]
+    inv = 1.0 / torch.clamp(ray_len, min=1e-9)
+    ray = x * inv[..., None]
+    trunc = 0.08 + 0.01 * d
+    st = -1.0 * trunc
+    got = x + ray * st[..., None]
+    out["band_sample"] = {"in_order": share(got, add(x, mul(
+        ray, st[..., None])))}
+    p = got * recip(0.02)
+    vox = coords.world2voxel(got, 0.02)
+    want = torch.trunc(add(mul(got, c32(recip(0.02))),
+                           torch.where(p >= 0, c32(0.5), c32(-0.5))))
+    out["world2voxel"] = {"mul_add_trunc": float(
+        (vox == want.to(torch.int32)).float().mean())}
+
+    # se3.apply(T_wc, samples): the (M, 3) @ (3, 3)^T product and + t at
+    # each config's candidate count
+    pts_all = f32((torch.rand(ALLOC_ROWS["full_s1"], 3, device=dev,
+                              dtype=torch.float64) - 0.5) * 8)
+    for name, n in ALLOC_ROWS.items():
+        xi = rng.normal(size=6) * np.array([1.5, 1.5, 1.5, 0.8, 0.8, 0.8])
+        T = se3.exp(torch.as_tensor(xi, dtype=torch.float32, device=dev))
+        rows = pts_all[:n]
+        pc = se3.apply(T, rows)
+        M = T[:3, :3].T
+        shares = {}
+        for j in range(3):
+            cands = dots([rows[:, i] for i in range(3)],
+                         [M[i, j] for i in range(3)])
+            for cname, c in cands.items():
+                shares.setdefault(cname, []).append(
+                    share(pc[:, j], add(c, T[j, 3])))
+        out[f"apply_{name}"] = {c: float(np.mean(v))
+                                for c, v in shares.items()}
     return out
 
 

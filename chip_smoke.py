@@ -9,7 +9,8 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
 2. ``build``: builds every kernel source under csrc/ (the CUDA kernels,
    the ICP kernels K4 / K4s in icp.cu, the frontend and pyramid kernels
    K3a / K3b in preprocess.cu, the splat kernels K8 / K9 in splat.cu,
-   the fuse kernels K6 / K7 in fuse.cu, the empty kernels that measure
+   the fuse kernels K6 / K7 in fuse.cu, the allocation kernels K5a / K5b
+   in alloc.cu, the empty kernels that measure
    the launch and barrier floors, and the host codec) for sm_90a into the
    package's _build/ directory, one compiler process each, started
    together.
@@ -130,6 +131,30 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    against plain in turns plain / kernel / kernel / plain: host ms, host
    µs to issue, device kernels (exactly 2) and host reads (none); one K6
    and one K7 launch a step.
+3g. ``alloc``: block allocation (csrc/alloc.cu: K5a ``alloc_candidates``,
+   the frame's candidate keys; K5b ``insert_blocks``, unique, cap, probe,
+   bucket rank, free-list pop, scatter and row reset in one cooperative
+   launch) on the flagship step's own ``allocate_from_frame`` call on
+   frame N_STEP_FRAMES of the room sweep, its map copied before the call.
+   K5a against ``frame_candidate_keys_reference`` bit for bit; K5b against
+   ``insert_blocks_reference`` on every map field and n_alloc, bit for
+   bit, in four cases: the step's map; max_new_per_frame cut to
+   ALLOC_CAP (the cap path); free_top below the new keys (the heap runs
+   dry mid-bucket); a table of ALLOC_FULL_BUCKETS buckets filled to 3 and
+   4 by the candidates of a shifted pose (the in-bucket rank overflows).
+   The distinct keys U and n_alloc of the step's frame.  Times: K5a warm
+   and L2-cold (CUDA-graph replay), K5b warm and L2-cold (a CUDA graph of
+   launches on copies of the map's integer state, restored before each
+   replay), wrappers, plain versions, bounds from this run's keys and
+   rows, least times (the launch floor; plus 3 grid barriers for K5b);
+   the stage (``allocate_from_frame``) kernel against plain in turns
+   plain / kernel / kernel / plain: host ms, host µs to issue, device
+   kernels (exactly 2) and host reads (none); ``fuse_frame``'s host reads
+   (none; 16 before K5); one K5a and one K5b launch a step.  Then K10's
+   work before it is written: ``garbage_collect`` on the flagship's GC
+   frame (frame 15 of the sweep), its device kernels, device µs and host
+   ms; and the whole step's host reads and device kernels on the next
+   frame (what stands between the step and a CUDA graph).
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
@@ -314,7 +339,9 @@ that predicts by splatting and on each rank of the multi-rank paths, and
 never on ``march``.  K6 and K7 with the times and bound of the ``fuse``
 phase, counted like K3 on the same paths: they must launch on every path
 and rank; K7's entry also carries ``launches_window_by_path``, its
-window-gather launches on each path (the former K1 gates).
+window-gather launches on each path (the former K1 gates).  K5a and K5b
+with the times and bound of the ``alloc`` phase, counted like K3 on the
+same paths: they must launch on every path and rank.
   Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
@@ -2129,7 +2156,7 @@ def phase_fuse(torch, card: str, sweep) -> dict:
                        weight.data_ptr(), band_min.data_ptr(),
                        born.data_ptr(), last_seen.data_ptr(), d.data_ptr(),
                        pose.data_ptr(), A, tsdf.shape[0], *head, 1, 0, 0, 1,
-                       frame_idx, *tail)
+                       frame_idx, None, *tail)
 
     m = probe.map_copy(base)
     on_map = (active.blocks, active.ptrs, active.count, m.tsdf, m.weight,
@@ -2212,6 +2239,412 @@ def phase_fuse(torch, card: str, sweep) -> dict:
                                 "library_ms": None},
             "integrate_rows": {"case": "step", **k7, "max_abs_err": k7_err,
                                "library_ms": None}}
+
+
+# The allocation kernels (csrc/alloc.cu): K5a the frame's candidate keys
+# and K5b their insert, on the flagship step's own inputs.
+ALLOC_KERNELS = ("alloc_candidates", "insert_blocks")
+ALLOC_META = {
+    "alloc_candidates": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/alloc.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/hash_ops.py:151 "
+                    "(frame_candidate_keys): fused by XLA, no Pallas kernel",
+    },
+    "insert_blocks": {
+        "route": "cuda",
+        "source": "voxelhashing_demo_tpu_torch/csrc/alloc.cu",
+        "replaces": "voxelhashing_demo_tpu/ops/hash_ops.py:200 "
+                    "(_unique_compact), voxelhashing_demo_tpu/ops/"
+                    "hash_ops.py:218 (insert_blocks), voxelhashing_demo_tpu/"
+                    "ops/hash_ops.py:118 (lookup_keys): fused by XLA, no "
+                    "Pallas kernel",
+    },
+}
+ALLOC_BARRIERS = 3           # K5b's grid barriers
+ALLOC_STAGE_KERNELS = 2      # K5a, K5b
+ALLOC_CAP = 256              # max_new_per_frame of the cap case
+ALLOC_FULL_BUCKETS = 1024    # buckets of the rank-overflow case's table
+ALLOC_WARM_COPIES = 8        # K5b's timed launches on L2-resident state
+ALLOC_COLD_COPIES = 32       # ... on state rotated through more than L2
+ALLOC_INT_FIELDS = ("keys", "ptrs", "bucket_fill", "free_top")
+# K5a's least bytes: a strided pixel's depth and vertex (16 B) read, a key
+# (4 B) written, the pose; ~45 float and integer operations a key
+K5A_PIXEL_BYTES, K5A_OPS = 16, 45
+# K5b: ~30 integer operations a candidate key (the dedupe), ~60 a kept
+# key (hash, probe, rank); its bytes in ``_alloc_stats``
+K5B_KEY_OPS, K5B_KEPT_OPS = 30, 60
+
+
+def alloc_launches() -> list:
+    """[K5a, K5b] launches counted since they were last set to 0."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    return [hash_ops.LAUNCHES_ALLOC_CANDIDATES, hash_ops.LAUNCHES_INSERT]
+
+
+def zero_alloc_launches() -> None:
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hash_ops.LAUNCHES_ALLOC_CANDIDATES = hash_ops.LAUNCHES_INSERT = 0
+
+
+def _restore(dst, src, fields=ALLOC_INT_FIELDS) -> None:
+    """``dst``'s ``fields`` copied back from ``src`` (on the device)."""
+    for f in fields:
+        getattr(dst, f).copy_(getattr(src, f))
+
+
+def _prepped_ms(torch, fn, prep, reps: int = 5) -> float:
+    """Median ms of ``fn`` (CUDA events around the call, synchronised),
+    ``prep()`` run and drained before each call, outside the timing."""
+    times = []
+    for _ in range(reps + 1):
+        prep()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
+
+
+def _alloc_stats(torch, base, hcfg, cand, n_alloc: int) -> dict:
+    """The distinct keys U, the kept (the cap) and the new ones, the
+    buckets they probe, and the bytes K5b must move for one insert of
+    ``cand`` into ``base`` that takes ``n_alloc`` rows: each candidate
+    key read; each probed bucket's slots and fill; for each new row a
+    free-list entry read, its key, ptr and row (2 V floats, band_min,
+    last_seen, born) written; the fills it changes, free_top and
+    n_alloc."""
+    from voxelhashing_demo_tpu_torch.geometry import coords
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    uniq = torch.unique(cand[cand != hash_ops.EMPTY_KEY])
+    kept = uniq[:hcfg.max_new_per_frame]
+    _, found = hash_ops.lookup_keys(base, hcfg, kept)
+    bucket = hash_ops.default_bucket_fn(hcfg)(
+        coords.unpack_block_key(kept, hcfg.key_bits))
+    probed = int(torch.unique(bucket).numel())
+    filled = int(torch.unique(bucket[~found]).numel())
+    V = hcfg.voxels_per_block
+    nbytes = (cand.numel() * 4 + probed * 4 * (hcfg.bucket_size + 1)
+              + n_alloc * (4 + 8 + 4 * (2 * V + 3)) + 4 * filled + 8)
+    return {"U": int(uniq.numel()), "kept": int(kept.numel()),
+            "new": int((~found).sum()), "buckets_probed": probed,
+            "bound_bytes": nbytes,
+            "ops": cand.numel() * K5B_KEY_OPS + kept.numel() * K5B_KEPT_OPS}
+
+
+def _k5b_graph(torch, launch, base, rows, copies: int, reps: int) -> tuple:
+    """K5b alone: ``copies`` launches, each on its own copy of ``base``'s
+    integer state (``rows``' rows shared), captured into one CUDA graph;
+    the copies restored before each of ``reps`` replays.  Returns (device
+    ms per launch, the first copy after the last replay)."""
+    maps = [rows._replace(**{f: getattr(base, f).clone()
+                             for f in ALLOC_INT_FIELDS})
+            for _ in range(copies)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(maps[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for m in maps:
+            launch(m)
+
+    def prep():
+        for m in maps:
+            _restore(m, base)
+
+    ms = _prepped_ms(torch, graph.replay, prep, reps) / copies
+    return ms, maps[0]
+
+
+def _gc_cost(torch, slam, sweep) -> dict:
+    """K10's work before it is written: ``garbage_collect`` as the step
+    calls it on the run's first GC frame (frame ``interval - 1``), on the
+    map as the step handed it over, its integer state restored before
+    each call: device
+    kernels and their busy µs (torch.profiler), host ms (CUDA events
+    around the call), host reads, the blocks it frees and the bytes it
+    must move."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    gc = slam.config.gc
+    frame = slam.state.frame_idx
+    while frame % gc.interval != gc.interval - 1:
+        slam.process(sweep[frame])
+        frame += 1
+    last = []
+
+    def record(real):
+        def fn(hmap, *a, **k):
+            last[:] = [probe.map_copy(hmap), *a]
+            return real(hmap, *a, **k)
+        return fn
+
+    with _wrapped(hash_ops, "garbage_collect", record):
+        slam.process(sweep[frame])
+    base, hcfg, min_weight, max_free = last[:4]
+    fields = ALLOC_INT_FIELDS + ("free_list",)
+    work = base._replace(**{f: getattr(base, f).clone() for f in fields})
+
+    def run():
+        return hash_ops.garbage_collect(work, hcfg, min_weight, max_free,
+                                        frame_idx=frame, min_age=gc.min_age)
+
+    def prep():
+        _restore(work, base, fields)
+
+    host_ms = _prepped_ms(torch, run, prep)
+    prep()
+    kern = _device_kernels(torch, run)
+    prep()
+    reads = sync_sites(torch, run)
+    prep()
+    n_freed = int(run()[1])
+    # every ptr and key read, the weight rows and last_seen of the live
+    # entries; the table, the fills and the pushed free-list entries written
+    live = int((base.ptrs != hash_ops.FREE_PTR).sum())
+    T = base.keys.numel()
+    nbytes = (16 * T + live * (4 * hcfg.voxels_per_block + 4)
+              + 4 * hcfg.num_buckets + 4 * n_freed + 4)
+    return {"frame": frame, "live_entries": live, "freed": n_freed,
+            "host_ms": host_ms, "device_kernels": kern["kernels"],
+            "device_us": kern["busy_us"], "host_reads": reads,
+            "bound_bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_alloc(torch, card: str, sweep) -> dict:
+    """K5a ``alloc_candidates`` and K5b ``insert_blocks`` on the flagship
+    step's own inputs: the map, frame and pose that ``allocate_from_frame``
+    takes on frame N_STEP_FRAMES of the room sweep, after the first
+    N_STEP_FRAMES frames through ``HashSLAM(flagship_gather_config())``,
+    its map copied before the call; then ``garbage_collect`` on the same
+    run's first GC frame (K10's cost).  Returns {kernel: its kernels-line
+    fields}."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.geometry.f32 import recip
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    t0 = time.perf_counter()
+    cfg = flagship_gather_config()
+    slam = hash_slam.HashSLAM(cfg)
+    for d in sweep[:N_STEP_FRAMES]:
+        slam.process(d)
+    # one frame of the step: allocate_from_frame's arguments, its map
+    # copied before the call; one K5a and one K5b launch
+    last = []
+
+    def record(real):
+        def fn(hmap, frame, T_wc, cam, hcfg, fusion, frame_idx=0,
+               bucket_fn=None):
+            last[:] = [probe.map_copy(hmap), frame, T_wc, cam, hcfg, fusion,
+                       frame_idx]
+            return real(hmap, frame, T_wc, cam, hcfg, fusion,
+                        frame_idx=frame_idx, bucket_fn=bucket_fn)
+        return fn
+
+    zero_alloc_launches()
+    with _wrapped(hash_ops, "allocate_from_frame", record):
+        slam.process(sweep[N_STEP_FRAMES])
+    per_frame = alloc_launches()
+    base, frame, T_wc, cam, hcfg, fusion, frame_idx = last
+    cargs = (frame, T_wc, cam, hcfg, fusion)
+
+    # K5a and K5b against the plain versions, bit for bit: every map field
+    # and n_alloc, in the four cases
+    cand = hash_ops.frame_candidate_keys_reference(*cargs)
+    k5a_cmp = probe.compare(hash_ops.frame_candidate_keys(*cargs), cand)
+
+    def insert_case(m0, h):
+        got, want = probe.map_copy(m0), probe.map_copy(m0)
+        _, n_got = hash_ops.insert_blocks(got, h, cand, frame_idx)
+        _, n_want = hash_ops.insert_blocks_reference(want, h, cand,
+                                                     frame_idx)
+        fields = {f: bool(torch.equal(getattr(got, f), getattr(want, f)))
+                  for f in base._fields}
+        fields["n_alloc"] = int(n_got) == int(n_want)
+        stats = _alloc_stats(torch, m0, h, cand, int(n_want))
+        return {"bit_exact": all(fields.values()), "fields": fields,
+                "n_alloc": int(n_want), "free_top_before": int(m0.free_top),
+                **{k: stats[k] for k in ("U", "kept", "new",
+                                         "buckets_probed")}}
+
+    cases = {"step": insert_case(base, hcfg)}
+    cases["cap"] = insert_case(base, dataclasses.replace(
+        hcfg, max_new_per_frame=ALLOC_CAP))
+    heap = probe.map_copy(base)
+    heap.free_top.fill_(max(cases["step"]["n_alloc"] // 2, 1))
+    cases["heap"] = insert_case(heap, hcfg)
+    del heap
+    full_cfg = dataclasses.replace(hcfg, num_buckets=ALLOC_FULL_BUCKETS)
+    full = hash_ops.create(full_cfg)
+    shifted = T_wc.clone()
+    shifted[:3, 3] += torch.tensor([0.3, 0.1, -0.2], device=T_wc.device)
+    hash_ops.insert_blocks_reference(
+        full, full_cfg, hash_ops.frame_candidate_keys_reference(
+            frame, shifted, cam, full_cfg, fusion), frame_idx - 1)
+    fills = [int((full.bucket_fill == k).sum()) for k in range(5)]
+    cases["full_buckets"] = {**insert_case(full, full_cfg),
+                             "fills_0_to_4": fills}
+    del full
+    torch.cuda.empty_cache()
+    k5b_exact = all(c["bit_exact"] for c in cases.values())
+    step = cases["step"]
+
+    # each kernel alone (CUDA graphs), warm and L2-cold, its wrapper, its
+    # plain version; bounds from this run's frame, keys and rows
+    floor_ms = probe.launch_floor_ms()
+    index = torch.cuda.current_device()
+    H_, W_ = frame.depth.shape
+    s = hcfg.candidate_stride
+    out5a = torch.empty_like(cand)
+
+    def k5a_alone(verts, depth, pose):
+        kernels.launch("alloc_candidates", index, verts.data_ptr(),
+                       depth.data_ptr(), pose.data_ptr(), out5a.data_ptr(),
+                       H_, W_, s, hcfg.band_steps, hcfg.key_bits,
+                       hcfg.block_size, fusion.truncation,
+                       fusion.trunc_scale, recip(fusion.voxel_size))
+
+    k5a = {**probe.timings(k5a_alone, (frame.vertices.contiguous(),
+                                       frame.depth.contiguous(), T_wc)),
+           "wrapper_ms": probe.host_ms(
+               lambda: hash_ops.frame_candidate_keys(*cargs)),
+           "plain_ms": probe.host_ms(
+               lambda: hash_ops.frame_candidate_keys_reference(*cargs),
+               iters=10)}
+    rays = -(-H_ // s) * -(-W_ // s)
+    k5a["bound_bytes"] = rays * K5A_PIXEL_BYTES + cand.numel() * 4 + 64
+    k5a["bound_ms"], k5a["bound_by"] = _probe_bound(
+        k5a["bound_bytes"], cand.numel() * K5A_OPS)
+    k5a["least_ms"] = max(k5a["bound_ms"], floor_ms)
+
+    rows = probe.map_copy(base, probe.MAP_FIELDS)
+    want = probe.map_copy(base, ALLOC_INT_FIELDS)
+    hash_ops.insert_blocks_reference(want, hcfg, cand, frame_idx)
+
+    def k5b_alone(m):
+        hash_ops.insert_blocks(m, hcfg, cand, frame_idx)
+
+    warm_ms, replayed = _k5b_graph(torch, k5b_alone, base, rows,
+                                   ALLOC_WARM_COPIES, probe.WARM_CALLS // 2)
+    cold_ms, _ = _k5b_graph(torch, k5b_alone, base, rows,
+                            ALLOC_COLD_COPIES, 5)
+    replay_exact = all(bool(torch.equal(getattr(replayed, f),
+                                        getattr(want, f)))
+                       for f in ALLOC_INT_FIELDS)
+    work = rows._replace(**{f: getattr(base, f).clone()
+                            for f in ALLOC_INT_FIELDS})
+
+    def prep():
+        _restore(work, base)
+
+    k5b = {"ms": warm_ms, "cold_ms": cold_ms,
+           "wrapper_ms": probe.host_ms(lambda: k5b_alone(work)),
+           "plain_ms": _prepped_ms(torch, lambda: hash_ops.
+                                   insert_blocks_reference(
+                                       work, hcfg, cand, frame_idx), prep),
+           "graph_replay_bit_exact": replay_exact}
+    stats = _alloc_stats(torch, base, hcfg, cand, step["n_alloc"])
+    k5b["bound_bytes"] = stats["bound_bytes"]
+    k5b["bound_ms"], k5b["bound_by"] = _probe_bound(stats["bound_bytes"],
+                                                    stats["ops"])
+    ctas = min(-(-cand.numel() // 1024),
+               torch.cuda.get_device_properties(index).multi_processor_count)
+    k5b["barrier_floor_ms"] = barrier_floor_ms(torch, kernels, ctas)
+    k5b["barriers"] = ALLOC_BARRIERS
+    k5b["least_ms"] = max(k5b["bound_ms"], floor_ms
+                          + ALLOC_BARRIERS * k5b["barrier_floor_ms"])
+    for k in (k5a, k5b):
+        k["floor_ms"] = floor_ms
+
+    # the stage (allocate_from_frame), kernels against plain in turns
+    # plain / kernel / kernel / plain, each on its own map copy restored
+    # before each call: host ms, µs to issue, device kernels, host reads
+    maps = {"kernel": probe.map_copy(base), "plain": probe.map_copy(base)}
+    fns = {"kernel": lambda: hash_ops.allocate_from_frame(
+               maps["kernel"], *cargs, frame_idx=frame_idx),
+           "plain": lambda: hash_ops.insert_blocks_reference(
+               maps["plain"], hcfg,
+               hash_ops.frame_candidate_keys_reference(*cargs), frame_idx)}
+    preps = {w: (lambda w=w: _restore(maps[w], base)) for w in maps}
+    host_ms = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        host_ms[which].append(_prepped_ms(torch, fns[which], preps[which]))
+    stage = {"host_ms": host_ms["kernel"], "host_ms_plain": host_ms["plain"]}
+    for which, fn in fns.items():
+        tag = "" if which == "kernel" else "_plain"
+        stage["issue_us" + tag] = host_issue_us(
+            fn, reps=20 if which == "kernel" else 5)
+        preps[which]()
+        stage["device_kernels" + tag] = _device_kernels(torch, fn)
+        preps[which]()
+        stage["host_reads" + tag] = sync_sites(torch, fn)
+    whole = probe.map_copy(base)
+    fuse_reads = sync_sites(torch, lambda: hash_ops.fuse_frame(
+        whole, *cargs, frame_idx=frame_idx))
+    gc_cost = _gc_cost(torch, slam, sweep)
+    # what stands between the whole step and a CUDA graph: its host reads
+    # and device kernels on the next sweep frame
+    depth_next = hash_slam.depth_tensor(sweep[slam.state.frame_idx],
+                                        slam.device)
+
+    def whole_step():
+        hash_slam.step(slam.state, depth_next, cfg)
+
+    step_reads = sync_sites(torch, whole_step)
+    step_kernels = _device_kernels(torch, whole_step)
+
+    _emit({"phase": "alloc", "card": card,
+           "frame_hw": [cam.height, cam.width], "frame_idx": frame_idx,
+           "candidates": cand.numel(), "U": step["U"],
+           "n_alloc": step["n_alloc"], "max_new": hcfg.max_new_per_frame,
+           "alloc_candidates": {"check": k5a_cmp, **k5a},
+           "insert_blocks": {"cases": cases, **k5b},
+           "launches_per_frame": dict(zip(ALLOC_KERNELS, per_frame)),
+           "stage": stage, "fuse_frame_host_reads": fuse_reads,
+           "garbage_collect": gc_cost, "step_host_reads": step_reads,
+           "step_device_kernels": step_kernels,
+           "seconds": time.perf_counter() - t0})
+    _require(k5a_cmp["bit_exact"], "K5a == frame_candidate_keys_reference "
+                                   "bit for bit")
+    _require(k5b_exact, "K5b == insert_blocks_reference bit for bit, every "
+                        "map field and n_alloc, in every case")
+    _require(replay_exact, "K5b replayed from a CUDA graph == the plain "
+                           "insert")
+    _require(step["n_alloc"] > 0 and step["new"] > 0,
+             "the step's frame allocates")
+    _require(cases["cap"]["U"] > ALLOC_CAP
+             and cases["cap"]["kept"] == ALLOC_CAP, "the cap case caps")
+    _require(cases["heap"]["n_alloc"] == cases["heap"]["free_top_before"]
+             < cases["step"]["n_alloc"], "the heap case runs the heap dry")
+    _require(min(fills[3:]) > 0 and cases["full_buckets"]["n_alloc"]
+             < cases["full_buckets"]["new"],
+             "the full-bucket case has buckets at 3 and 4 and drops keys")
+    _require(per_frame == [1, 1], "one K5a and one K5b launch a frame")
+    _require(stage["device_kernels"]["kernels"] == ALLOC_STAGE_KERNELS,
+             f"allocate_from_frame runs {ALLOC_STAGE_KERNELS} device kernels")
+    _require(not stage["host_reads"], "allocate_from_frame reads nothing on "
+                                      "the host")
+    _require(not fuse_reads, "fuse_frame reads nothing on the host")
+    return {"alloc_candidates": {"case": "step", **k5a,
+                                 "max_abs_err": k5a_cmp["max_abs_err"],
+                                 "library_ms": None},
+            "insert_blocks": {"case": "step", **k5b,
+                              "max_abs_err": 0.0 if k5b_exact
+                              else float("inf"), "library_ms": None}}
 
 
 def _run_port(torch, cfg, depths, device):
@@ -3788,6 +4221,7 @@ def phase_nccl(torch, frames) -> dict:
            "launches": sum(one["launches"]),
            "icp_launches": one["icp_launches"],
            "fuse_launches": one["fuse_launches"],
+           "alloc_launches": one["alloc_launches"],
            "peak_mem_bytes": one["peak_mem_bytes"]})
     _require(coll["backend"] == "nccl" and helpers_ok,
              "NCCL group initializes; its collective helpers agree")
@@ -3797,6 +4231,8 @@ def phase_nccl(torch, frames) -> dict:
              "K4s launched over NCCL (the sharded level's systems)")
     _require(min(one["splat_launches"]) > 0, "K8 and K9 launched over NCCL")
     _require(min(one["fuse_launches"]) > 0, "K6 and K7 launched over NCCL")
+    _require(min(one["alloc_launches"]) > 0, "K5a and K5b launched over "
+                                             "NCCL")
     return one
 
 
@@ -3860,6 +4296,7 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
            "hit_frac": hit, "launches_per_rank": launches,
            "icp_launches_per_rank": [o["icp_launches"] for o in two],
            "fuse_launches_per_rank": [o["fuse_launches"] for o in two],
+           "alloc_launches_per_rank": [o["alloc_launches"] for o in two],
            "kernel_check": [o["kernel"] for o in two],
            "frame_ms_per_rank": _rank_ms(two),
            "collective_host_bytes_per_frame":
@@ -3890,8 +4327,11 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
              "K8 and K9 launched on each rank")
     _require(all(min(o["fuse_launches"]) > 0 for o in two),
              "K6 and K7 launched on each rank")
+    _require(all(min(o["alloc_launches"]) > 0 for o in two),
+             "K5a and K5b launched on each rank")
     return (launches[0], a["icp_launches"] + a["k3_launches"]
-            + a["splat_launches"] + a["fuse_launches"])
+            + a["splat_launches"] + a["fuse_launches"]
+            + a["alloc_launches"])
 
 
 def phase_sharded_backend(torch, card: str) -> tuple:
@@ -3947,6 +4387,7 @@ def phase_sharded_backend(torch, card: str) -> tuple:
            "launches_expected": expected,
            "icp_launches_per_rank": [o["icp_launches"] for o in two],
            "fuse_launches_per_rank": [o["fuse_launches"] for o in two],
+           "alloc_launches_per_rank": [o["alloc_launches"] for o in two],
            "ba_ms_per_solve": ba_ms,
            "collective_host_bytes_per_frame":
                [o["collective_host_bytes_per_frame"] for o in two]})
@@ -3963,8 +4404,11 @@ def phase_sharded_backend(torch, card: str) -> tuple:
              "K8 and K9 launched on each rank")
     _require(all(min(o["fuse_launches"]) > 0 for o in two),
              "K6 and K7 launched on each rank")
+    _require(all(min(o["alloc_launches"]) > 0 for o in two),
+             "K5a and K5b launched on each rank")
     return (a["launches"], a["icp_launches"] + a["k3_launches"]
-            + a["splat_launches"] + a["fuse_launches"])
+            + a["splat_launches"] + a["fuse_launches"]
+            + a["alloc_launches"])
 
 
 def main() -> int:
@@ -4006,29 +4450,32 @@ def main() -> int:
     k3_summary = phase_preprocess(torch, smi, sweep)
     splat_summary = phase_splat(torch, smi, sweep)
     fuse_summary = phase_fuse(torch, smi, sweep)
+    alloc_summary = phase_alloc(torch, smi, sweep)
     # launches per path, each counted from 0 by the phase that drives it;
     # "launches" in the summary is the last path's count.  K1 runs on no
     # frame path since K7 took over its work: the frame paths' window
     # gathers are K7's window-mode launches (``window_by_path``)
     by_path = {k: {"probes": n} for k, n in probe_launches.items()}
-    step_kernels = ICP_KERNELS + K3_KERNELS + SPLAT_KERNELS + FUSE_KERNELS
+    step_kernels = (ICP_KERNELS + K3_KERNELS + SPLAT_KERNELS + FUSE_KERNELS
+                    + ALLOC_KERNELS)
     by_path.update({k: {} for k in step_kernels})
     window_by_path = {}
 
     def k4(path: str, run):
-        """``run()`` with the ICP, K3, splat and fuse kernels' counts from
-        0, recorded under ``path``; the frame step preprocesses, its
-        pyramid tracks and it fuses on every path, so K4, K3a, K3b, K6 and
-        K7 must launch (K4s serves only the sharded level), and K8 and K9
-        on every path that predicts by splatting (all but ``march``, where
-        neither may)."""
+        """``run()`` with the ICP, K3, splat, fuse and allocation kernels'
+        counts from 0, recorded under ``path``; the frame step
+        preprocesses, its pyramid tracks, it allocates and it fuses on
+        every path, so K4, K3a, K3b, K5a, K5b, K6 and K7 must launch (K4s
+        serves only the sharded level), and K8 and K9 on every path that
+        predicts by splatting (all but ``march``, where neither may)."""
         zero_icp_launches()
         zero_k3_launches()
         zero_splat_launches()
         zero_fuse_launches()
+        zero_alloc_launches()
         out = run()
         counts = (icp_launches() + k3_launches() + splat_launches()
-                  + fuse_launches())
+                  + fuse_launches() + alloc_launches())
         for kname, n in zip(step_kernels, counts):
             by_path[kname][path] = n
         _require(counts[0] > 0, f"K4 launched on {path}")
@@ -4039,6 +4486,7 @@ def main() -> int:
         else:
             _require(min(counts[4:6]) > 0, f"K8 and K9 launched on {path}")
         _require(min(counts[6:8]) > 0, f"K6 and K7 launched on {path}")
+        _require(min(counts[8:10]) > 0, f"K5a and K5b launched on {path}")
         return out
 
     k4("parity", lambda: phase_parity(torch))
@@ -4074,7 +4522,8 @@ def main() -> int:
     one = phase_nccl(torch, frames)
     window_by_path["nccl"] = sum(one["launches"])
     k4_ranks = {"nccl": one["icp_launches"] + one["k3_launches"]
-                + one["splat_launches"] + one["fuse_launches"]}
+                + one["splat_launches"] + one["fuse_launches"]
+                + one["alloc_launches"]}
     window_by_path["sharded_backend"], k4_ranks["sharded_backend"] = (
         phase_sharded_backend(torch, smi))
     # the slice's main path, last: "launches" is rank 0's count
@@ -4089,6 +4538,8 @@ def main() -> int:
                                        f"(rank 0)")
         _require(min(counts[6:8]) > 0, f"K6 and K7 launched on {path} "
                                        f"(rank 0)")
+        _require(min(counts[8:10]) > 0, f"K5a and K5b launched on {path} "
+                                        f"(rank 0)")
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{
@@ -4131,7 +4582,12 @@ def main() -> int:
         **({"launches_window_by_path": window_by_path}
            if kname == "integrate_rows" else {}),
         **fuse_summary[kname],
-    } for kname in FUSE_KERNELS]})
+    } for kname in FUSE_KERNELS] + [{
+        "name": kname, **ALLOC_META[kname],
+        "launches": list(by_path[kname].values())[-1],
+        "launches_by_path": by_path[kname],
+        **alloc_summary[kname],
+    } for kname in ALLOC_KERNELS]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -34,7 +34,18 @@ band_min, born and last_seen after an update in both gather modes and
 both signs (the ``max_born`` gate, rows at the weight cap, near-range
 rows the window clips, block size 4); the frame's compact -> touch ->
 integrate makes no host sync, ``fuse_frame`` none outside allocation, and
-both replay from a CUDA graph; a refused build or launch raises.
+both replay from a CUDA graph; a refused build or launch raises.  The
+allocation kernels (K5a ``alloc_candidates``, K5b ``insert_blocks``) equal
+their plain versions bit for bit: the candidate keys at 48 poses of a
+room sweep and past the key range, strides 1-3 and band steps 1-7; every
+map field and n_alloc after an insert of the step's keys at four poses
+(the step's map, the cap, a heap run dry, a 512-bucket table filled to 3
+and 4), of random key sets of 100 to 60 000 distinct keys (the cap path
+above 4 096; three runs equal), of the sharded step's owner-routed keys
+with ``BucketHash(num_buckets, 2)``; the stamp as an int and as a 0-d
+tensor alike (K5b and K7); ``allocate_from_frame`` and ``fuse_frame``
+make no host sync, and K5a + K5b replay from a CUDA graph; what they do
+not take and a refused launch raise, and no plain version runs instead.
 """
 
 import dataclasses
@@ -1712,3 +1723,267 @@ def test_fuse_refusals(fuse_case, monkeypatch):
                                  cfg.fusion)
     with pytest.raises(RuntimeError, match="integrate_rows kernel launch"):
         hash_ops.integrate(hmap, active, *args, stamp=3)
+
+
+# --------------------------------------------------------------------------
+# K5a / K5b: block allocation
+# --------------------------------------------------------------------------
+
+ALL_FIELDS = ("keys", "ptrs", "bucket_fill", "free_list", "free_top") + \
+    MAP_FIELDS
+
+
+def _assert_all_fields_equal(got, want, what: str):
+    for f in ALL_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        same = _bits_equal(a, b) if a.dtype == torch.float32 else \
+            torch.equal(a, b)
+        assert same, f"{what}: {f}"
+
+
+def _insert_pair(hcfg, hmap, cand, stamp=7, bucket_fn=None):
+    """(kernel map, plain map, kernel n_alloc, plain n_alloc) after one
+    insert of ``cand`` into copies of ``hmap``, one K5b launch."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    got, want = _map_clone(hmap), _map_clone(hmap)
+    before = hash_ops.LAUNCHES_INSERT
+    _, n_got = hash_ops.insert_blocks(got, hcfg, cand, stamp, bucket_fn)
+    assert hash_ops.LAUNCHES_INSERT == before + 1
+    _, n_want = hash_ops.insert_blocks_reference(want, hcfg, cand, stamp,
+                                                 bucket_fn)
+    return got, want, n_got, n_want
+
+
+def _pose_far(pose):
+    """``pose`` moved 90 m along x: most band blocks leave the key range."""
+    far = pose.clone()
+    far[0, 3] += 90.0
+    return far
+
+
+def test_candidate_keys_match_plain(fuse_case):
+    """K5a bit for bit against ``frame_candidate_keys_reference``: the
+    step's frame at the sweep's 48 poses and at a pose whose blocks leave
+    the key range; strides 1, 2, 3 and band steps 1, 3, 4, 5, 7; one
+    launch a call, a fresh output each."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, _, pose, poses, frame = fuse_case
+    args = (cfg.camera, cfg.hash, cfg.fusion)
+    for k, T in enumerate(poses + [pose, _pose_far(pose)]):
+        before = hash_ops.LAUNCHES_ALLOC_CANDIDATES
+        got = hash_ops.frame_candidate_keys(frame, T, *args)
+        assert hash_ops.LAUNCHES_ALLOC_CANDIDATES == before + 1
+        want = hash_ops.frame_candidate_keys_reference(frame, T, *args)
+        assert torch.equal(got, want), f"pose {k}"
+    far = hash_ops.frame_candidate_keys(frame, _pose_far(pose), *args)
+    assert bool((far == hash_ops.EMPTY_KEY).any())
+    for stride, steps in ((1, 3), (2, 5), (3, 1), (3, 4), (3, 7)):
+        h = dataclasses.replace(cfg.hash, candidate_stride=stride,
+                                band_steps=steps)
+        got = hash_ops.frame_candidate_keys(frame, pose, cfg.camera, h,
+                                            cfg.fusion)
+        want = hash_ops.frame_candidate_keys_reference(
+            frame, pose, cfg.camera, h, cfg.fusion)
+        assert torch.equal(got, want), (stride, steps)
+    again = hash_ops.frame_candidate_keys(frame, pose, *args)
+    assert again.data_ptr() != got.data_ptr()
+
+
+@pytest.mark.parametrize("case", ["step", "cap", "heap", "full_buckets"])
+def test_insert_blocks_matches_plain(fuse_case, case):
+    """K5b bit for bit against ``insert_blocks_reference`` on every map
+    field and n_alloc, the step's candidates at four of the sweep's poses:
+    into the step's map; with max_new_per_frame cut to 256 (the cap);
+    with free_top below the new keys (the heap runs dry mid-bucket); into
+    a table of 512 buckets already filled to 3 and 4 by another pose (the
+    in-bucket rank overflows)."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, poses, frame = fuse_case
+    hcfg = cfg.hash
+    if case == "cap":
+        hcfg = dataclasses.replace(hcfg, max_new_per_frame=256)
+    if case == "full_buckets":
+        hcfg = dataclasses.replace(hcfg, num_buckets=512)
+        hmap = hash_ops.create(hcfg, device="cuda")
+        hash_ops.insert_blocks_reference(hmap, hcfg, hash_ops.
+                                         frame_candidate_keys_reference(
+                                             frame, poses[20], cfg.camera,
+                                             hcfg, cfg.fusion), 3)
+        assert bool((hmap.bucket_fill == 3).any())
+        assert bool((hmap.bucket_fill == 4).any())
+    for T in (pose, poses[0], poses[12], poses[30]):
+        cand = hash_ops.frame_candidate_keys_reference(frame, T, cfg.camera,
+                                                       hcfg, cfg.fusion)
+        m = hmap
+        if case == "heap":
+            probe = _map_clone(hmap)
+            _, n = hash_ops.insert_blocks_reference(probe, hcfg, cand, 7)
+            m = _map_clone(hmap)
+            m.free_top.fill_(max(int(n) // 2, 1))
+        got, want, n_got, n_want = _insert_pair(hcfg, m, cand)
+        _assert_all_fields_equal(got, want, case)
+        assert int(n_got) == int(n_want), case
+    assert int(n_want) > 0
+
+
+@pytest.mark.parametrize("unique", [100, 3000, 4096, 4097, 20000, 60000])
+def test_insert_blocks_random_keys(cuda, unique):
+    """K5b bit for bit against the plain version on ``unique`` distinct
+    random keys, each repeated 1-4 times in a shuffled array with
+    EMPTY_KEY and a tenth of them negative (compared as signed int32),
+    into a map that holds some of them already; U above max_new takes
+    the cap path.  Three runs give the same map (the atomics' order does
+    not show)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hcfg = flagship_config().hash
+    rng = np.random.default_rng(unique)
+    keys = rng.choice(2 ** 30, unique, replace=False).astype(np.int64)
+    neg = rng.random(unique) < 0.1
+    keys[neg] = -keys[neg] - 1
+    keys = keys.astype(np.int32)
+    cand = np.concatenate([np.repeat(keys, rng.integers(1, 5, unique)),
+                           np.full(unique // 3, hash_ops.EMPTY_KEY,
+                                   np.int32)])
+    rng.shuffle(cand)
+    hmap = hash_ops.create(hcfg, device="cuda")
+    pre = torch.as_tensor(keys[rng.random(unique) < 0.2], device="cuda")
+    hash_ops.insert_blocks_reference(hmap, hcfg, pre, 2)
+    cand = torch.as_tensor(cand, device="cuda")
+    runs = [_insert_pair(hcfg, hmap, cand) for _ in range(3)]
+    for got, want, n_got, n_want in runs:
+        _assert_all_fields_equal(got, want, f"U={unique}")
+        assert int(n_got) == int(n_want)
+        _assert_all_fields_equal(got, runs[0][0], "repeat")
+    assert int(runs[0][3]) > 0
+
+
+def test_insert_blocks_sharded_bucket(fuse_case):
+    """K5b with ``BucketHash(num_buckets, 2)`` (the sharded step's
+    owner-local bucket) on the keys rank 1 of two owns, into a half-size
+    table, bit for bit against the plain version."""
+    from voxelhashing_demo_tpu_torch.geometry import coords
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, _, pose, _, frame = fuse_case
+    g = cfg.hash
+    local = dataclasses.replace(
+        g, num_buckets=g.num_buckets // 2, num_blocks=g.num_blocks // 2,
+        max_new_per_frame=g.max_new_per_frame // 2)
+    cand = hash_ops.frame_candidate_keys(frame, pose, cfg.camera, local,
+                                         cfg.fusion)
+    blocks = coords.unpack_block_key(cand, g.key_bits)
+    mine = (coords.spatial_hash(blocks, g.num_buckets) % 2 == 1) & (
+        cand != hash_ops.EMPTY_KEY)
+    routed = torch.where(mine, cand, hash_ops.EMPTY_KEY)
+    fn = hash_ops.BucketHash(g.num_buckets, 2)
+    hmap = hash_ops.create(local, device="cuda")
+    got, want, n_got, n_want = _insert_pair(local, hmap, routed, 4, fn)
+    _assert_all_fields_equal(got, want, "sharded")
+    assert int(n_got) == int(n_want) > 0
+
+
+def test_stamp_from_a_device_scalar(fuse_case):
+    """K5b and K7 stamp the same rows with an int and with a 0-d int32
+    tensor on the card."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, _, frame = fuse_case
+    cand = hash_ops.frame_candidate_keys(frame, pose, cfg.camera, cfg.hash,
+                                         cfg.fusion)
+    stamp = torch.tensor(23, dtype=torch.int32, device="cuda")
+    a, b = _map_clone(hmap), _map_clone(hmap)
+    hash_ops.insert_blocks(a, cfg.hash, cand, 23)
+    hash_ops.insert_blocks(b, cfg.hash, cand, stamp)
+    _assert_all_fields_equal(a, b, "insert stamp")
+    for m, s in ((a, 23), (b, stamp)):
+        active = hash_ops.compact_visible(m, cfg.hash, pose, cfg.camera,
+                                          cfg.fusion)
+        hash_ops.integrate(m, active, cfg.hash, frame.depth, pose,
+                           cfg.camera, cfg.fusion, stamp=s)
+    _assert_all_fields_equal(a, b, "integrate stamp")
+    assert bool((a.last_seen == 23).any())
+
+
+def test_alloc_no_sync_and_graph_replay(fuse_case):
+    """``allocate_from_frame`` (K5a, K5b) and ``fuse_frame`` (K5a, K5b,
+    K6, K7) read nothing on the host; K5a + K5b captured in a CUDA graph
+    replay what they do eagerly, bit for bit."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, _, frame = fuse_case
+    args = (frame, pose, cfg.camera, cfg.hash, cfg.fusion)
+    eager = _map_clone(hmap)
+    _, n_eager = hash_ops.allocate_from_frame(eager, *args, frame_idx=9)
+    torch.cuda.synchronize()
+    a, f = _map_clone(hmap), _map_clone(hmap)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hash_ops.allocate_from_frame(a, *args, frame_idx=9)
+        hash_ops.fuse_frame(f, *args, frame_idx=9)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_all_fields_equal(a, eager, "no-sync run")
+    g = _map_clone(hmap)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hash_ops.allocate_from_frame(_map_clone(hmap), *args, frame_idx=9)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, n_graph = hash_ops.allocate_from_frame(g, *args, frame_idx=9)
+    for fld in ALL_FIELDS:
+        getattr(g, fld).copy_(getattr(hmap, fld))
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_all_fields_equal(g, eager, "graph")
+    assert int(n_graph) == int(n_eager) > 0
+
+
+def test_alloc_refusals(fuse_case, monkeypatch):
+    """What K5a and K5b do not take raises (a bucket function that is not
+    a BucketHash, max_new past one CTA's shared memory, tensors on two
+    devices, a stamp tensor of another type); a refused launch raises; the
+    plain versions never run in their place."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.geometry import coords
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, _, frame = fuse_case
+    hmap = _map_clone(hmap)
+    cand = hash_ops.frame_candidate_keys(frame, pose, cfg.camera, cfg.hash,
+                                         cfg.fusion)
+    with pytest.raises(ValueError, match="BucketHash"):
+        hash_ops.insert_blocks(hmap, cfg.hash, cand, 1, lambda b: coords.
+                               spatial_hash(b, cfg.hash.num_buckets))
+    with pytest.raises(ValueError, match="max_new_per_frame"):
+        hash_ops.insert_blocks(hmap, dataclasses.replace(
+            cfg.hash, max_new_per_frame=4097), cand, 1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        hash_ops.insert_blocks(hmap, cfg.hash, cand.cpu(), 1)
+    with pytest.raises(ValueError, match="stamp"):
+        hash_ops.insert_blocks(hmap, cfg.hash, cand, torch.tensor(
+            1, dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        hash_ops.frame_candidate_keys(frame, pose.cpu(), cfg.camera,
+                                      cfg.hash, cfg.fusion)
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("frame_candidate_keys_reference", "insert_blocks_reference",
+                 "_unique_compact", "lookup_keys", "_set_rows"):
+        monkeypatch.setattr(hash_ops, name, no_plain)
+    hash_ops.allocate_from_frame(hmap, frame, pose, cfg.camera, cfg.hash,
+                                 cfg.fusion, frame_idx=2)
+    monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="alloc_candidates kernel launch"):
+        hash_ops.frame_candidate_keys(frame, pose, cfg.camera, cfg.hash,
+                                      cfg.fusion)
+    with pytest.raises(RuntimeError, match="insert_blocks kernel launch"):
+        hash_ops.insert_blocks(hmap, cfg.hash, cand, 1)

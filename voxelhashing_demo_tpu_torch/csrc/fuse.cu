@@ -328,6 +328,7 @@ struct IntegrateParams {
   int sign;                // +1 integrate, -1 de-integrate
   int gate_born, max_born; // rows with born > max_born take no sample
   int stamp_on, stamp;     // last_seen[ptr] = stamp
+  const int* stamp_ptr;    // () the stamp on the device, or null: `stamp`
   int falloff;             // FusionConfig.depth_weight_falloff
   // float32 of the plain version's Python doubles: voxel size, camera,
   // truncation and its depth scale, weight_sample, weight_sample * 1.5,
@@ -351,6 +352,7 @@ integrate_rows_kernel(const __grid_constant__ IntegrateParams P) {
   __shared__ float red_b[2][kWarps7];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int count = min(__ldg(P.count), P.rows);
+  const int stamp = P.stamp_ptr ? __ldg(P.stamp_ptr) : P.stamp;
   const Pose pose = load_pose(P.T_wc);
   const float fW1 = static_cast<float>(P.W - 1), fH1 = static_cast<float>(P.H - 1);
   int parity = 0;
@@ -472,7 +474,7 @@ integrate_rows_kernel(const __grid_constant__ IntegrateParams P) {
 #pragma unroll
       for (int w = 0; w < kWarps7; ++w) bmin = fminf(bmin, red_b[parity][w]);
       P.band_min[row] = bmin;
-      if (P.stamp_on) P.last_seen[row] = P.stamp;
+      if (P.stamp_on) P.last_seen[row] = stamp;
     }
   }
 }
@@ -558,14 +560,16 @@ extern "C" int compact_visible(const int* keys, const int* ptrs,
 // K7.  Fuse depth (H, W) at pose T_wc into the map rows of
 // active[:count] (sign +1) or take it out (sign -1), rows born after
 // max_born gated out when gate_born; window: K1's coverage rule with a
-// (wh, ww) window; stamp_on: last_seen[ptr] = stamp.  rows: the active
+// (wh, ww) window; stamp_on: last_seen[ptr] = stamp (*stamp_ptr when it is
+// not null).  rows: the active
 // set's padded length (the grid is launched before the count is known).
 extern "C" int integrate_rows(
     const int* blocks, const int* ptrs, const int* count, float* tsdf,
     float* weight, float* band_min, const int* born, int* last_seen,
     const float* depth, const float* T_wc, int rows, int n_map_rows,
     int block_size, int H, int W, int wh, int ww, int window, int sign,
-    int gate_born, int max_born, int stamp_on, int stamp, int falloff,
+    int gate_born, int max_born, int stamp_on, int stamp,
+    const int* stamp_ptr, int falloff,
     float voxel_size, float fx, float fy, float cx, float cy, float trunc,
     float trunc_scale, float w_sample, float w_sample15, float dmin,
     float rdrange, float max_weight, float tmax, void* stream) {
@@ -599,6 +603,7 @@ extern "C" int integrate_rows(
   P.max_born = max_born;
   P.stamp_on = stamp_on != 0;
   P.stamp = stamp;
+  P.stamp_ptr = stamp_ptr;
   P.falloff = falloff != 0;
   P.voxel_size = voxel_size;
   P.fx = fx;

@@ -171,20 +171,33 @@ KERNELS = {
                         _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     # K7: blocks, ptrs, count, tsdf, weight, band_min, born, last_seen,
     # depth, T_wc, rows, map rows, block size, H, W, window h and w,
-    # window, sign, born gate, max_born, stamp on, stamp, falloff, voxel
-    # size, fx, fy, cx, cy, truncation, its depth scale, weight_sample,
-    # weight_sample * 1.5, depth_min, 1 / (depth_max - depth_min),
-    # max_weight, the inverse update's clamp
+    # window, sign, born gate, max_born, stamp on, stamp, the stamp on the
+    # device (or None), falloff, voxel size, fx, fy, cx, cy, truncation,
+    # its depth scale, weight_sample, weight_sample * 1.5, depth_min,
+    # 1 / (depth_max - depth_min), max_weight, the inverse update's clamp
     "integrate_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _F,
+                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # K5a (csrc/alloc.cu): vertices, depth, T_wc, keys out, H, W, stride,
+    # band steps, key bits, block size, truncation, its depth scale,
+    # recip(voxel size)
+    "alloc_candidates": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                         _F, _P],
+    # K5b: candidate keys, table keys, ptrs, bucket_fill, free_list,
+    # free_top, tsdf, weight, last_seen, band_min, born, n_alloc out, the
+    # stamp on the device (or None), scratch, keys, set bits, buckets,
+    # slots a bucket, map rows, voxels a row, key bits, the hash's buckets
+    # and divisor, max_new, stamp
+    "insert_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 # C function -> its source under csrc/, where the two names differ
 SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
            "grid_sync_floor": "launch_floor",
            "preprocess_frame": "preprocess", "pyramid_levels": "preprocess",
            "splat_zbuffer": "splat", "splat_finalize": "splat",
-           "compact_visible": "fuse", "integrate_rows": "fuse"}
+           "compact_visible": "fuse", "integrate_rows": "fuse",
+           "alloc_candidates": "alloc", "insert_blocks": "alloc"}
 
 
 def source_of(name: str) -> str:

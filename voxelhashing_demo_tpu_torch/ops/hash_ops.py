@@ -38,10 +38,24 @@ also call on the card.  What the kernels do not take raises; nothing
 falls back.  ``LAUNCHES_COMPACT``, ``LAUNCHES_INTEGRATE`` and
 ``LAUNCHES_INTEGRATE_WINDOW`` (K7 in the window-gather mode, the work of
 the window gather K1 on the frame step) count the launches.
+
+Two more (``csrc/alloc.cu``) allocate: K5a ``alloc_candidates`` (the
+frame's candidate keys) and K5b ``insert_blocks`` (unique, cap, probe,
+bucket rank, free-list pop and scatter in one cooperative launch, the
+count left on the device).  On CUDA tensors ``frame_candidate_keys`` is
+K5a and ``insert_blocks`` K5b, so ``allocate_from_frame`` is two launches
+and no host read, and ``fuse_frame`` four; CPU tensors run the plain
+versions ``frame_candidate_keys_reference`` and
+``insert_blocks_reference``.  K5b takes its bucket function as a
+``BucketHash``; any other callable raises there.
+``LAUNCHES_ALLOC_CANDIDATES`` and ``LAUNCHES_INSERT`` count the launches.
+K5b and K7 take their stamp as an int or as a 0-d int32 tensor on the
+card, read by the kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import NamedTuple, Tuple
@@ -64,10 +78,13 @@ EMPTY_KEY = coords.EMPTY_KEY
 LAUNCHES_COMPACT = 0            # K6 compact_visible
 LAUNCHES_INTEGRATE = 0          # K7 integrate_rows, either gather mode
 LAUNCHES_INTEGRATE_WINDOW = 0   # K7 in the window-gather mode
+LAUNCHES_ALLOC_CANDIDATES = 0   # K5a alloc_candidates
+LAUNCHES_INSERT = 0             # K5b insert_blocks
 
 MAX_VOXELS = 1024       # the voxels a block K7 takes (kMaxVoxels)
 COMPACT_TILE = 2048     # table entries a K6 tile (kTile)
 MAX_KEY_BITS = 10       # three coordinates in a non-negative int32 key
+MAX_NEW = 4096          # the new keys K5b sorts in one CTA (kMaxNew)
 
 
 class HashMap(NamedTuple):
@@ -116,18 +133,21 @@ def create(cfg: HashConfig, device=None) -> HashMap:
 
 def _set_rows(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
               src) -> None:
-    """dst[idx[keep]] = src[keep] (src may be a scalar): the ``mode="drop"``
-    scatter with the dropped indices masked out first."""
+    """dst[idx[keep]] = src[keep] (src may be a scalar or a 0-d tensor):
+    the ``mode="drop"`` scatter with the dropped indices masked out
+    first."""
     sel = idx[keep].long()
-    dst[sel] = src if not torch.is_tensor(src) else src[keep]
+    dst[sel] = src if not torch.is_tensor(src) or src.dim() == 0 \
+        else src[keep]
 
 
 def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
                   src) -> None:
-    """dst[idx[keep]] = src[keep] (src may be a scalar), in place and
-    without reading ``keep`` on the host: every dropped entry writes again
-    what the first kept entry writes, to the same row (with none kept, row
-    0's own value back to row 0), so no row is given two different values.
+    """dst[idx[keep]] = src[keep] (src may be a scalar or a 0-d tensor),
+    in place and without reading ``keep`` on the host: every dropped entry
+    writes again what the first kept entry writes, to the same row (with
+    none kept, row 0's own value back to row 0), so no row is given two
+    different values.
     The kept rows must be distinct, as they are in every JAX call it
     stands for."""
     n = idx.shape[0]
@@ -142,6 +162,8 @@ def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
     if not torch.is_tensor(src):
         src = torch.full((n,) + row_shape, src, dtype=dst.dtype,
                          device=dst.device)
+    elif src.dim() == 0:
+        src = src.to(dst.dtype).expand((n,) + row_shape)
     lead = (1,) + (1,) * len(row_shape)
     fill = torch.where(any_kept.reshape(lead), src.index_select(0, first),
                        dst.index_select(0, spare))
@@ -153,10 +175,24 @@ def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
 # lookup
 # --------------------------------------------------------------------------
 
-def default_bucket_fn(cfg: HashConfig):
-    """Block coords (..., 3) -> bucket index.  The sharded path overrides
-    it with the global hash // mesh size (parallel/sharded.py)."""
-    return lambda blocks: coords.spatial_hash(blocks, cfg.num_buckets)
+@dataclasses.dataclass(frozen=True)
+class BucketHash:
+    """Block coords (..., 3) -> bucket index: ``spatial_hash(blocks,
+    num_buckets) // divisor``.  The table's own buckets take divisor 1;
+    the sharded step's owner-local bucket is the global hash // mesh size
+    (parallel/sharded.py).  A value, not a closure, so that K5b can take
+    it as two integers."""
+
+    num_buckets: int
+    divisor: int
+
+    def __call__(self, blocks: torch.Tensor) -> torch.Tensor:
+        return coords.spatial_hash(blocks, self.num_buckets) // self.divisor
+
+
+def default_bucket_fn(cfg: HashConfig) -> BucketHash:
+    """The table's bucket function: the spatial hash over its buckets."""
+    return BucketHash(cfg.num_buckets, 1)
 
 
 def lookup_keys(hmap: HashMap, cfg: HashConfig, query_keys: torch.Tensor,
@@ -196,8 +232,22 @@ def frame_candidate_keys(
 ) -> torch.Tensor:
     """Packed block keys touched by the frame's truncation band:
     ``band_steps`` samples along each (strided) pixel ray spanning
-    +-truncation around the measured surface.  Invalid rays give EMPTY_KEY.
-    """
+    +-truncation around the measured surface, a flat (band, h, w) int32
+    array; invalid rays give EMPTY_KEY.  One K5a launch on CUDA tensors
+    (a fresh output); ``frame_candidate_keys_reference`` on CPU tensors."""
+    if frame.depth.device.type == "cpu":
+        return frame_candidate_keys_reference(frame, T_wc, cam, cfg, fusion)
+    return _launch_candidates(frame, T_wc, cfg, fusion)
+
+
+def frame_candidate_keys_reference(
+    frame: Frame,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    cfg: HashConfig,
+    fusion: FusionConfig,
+) -> torch.Tensor:
+    """Plain version of ``frame_candidate_keys``, on any device."""
     stride = cfg.candidate_stride
     verts = frame.vertices[::stride, ::stride]
     depth = frame.depth[::stride, ::stride]
@@ -252,14 +302,29 @@ def _segment_rank(b_sorted: torch.Tensor) -> torch.Tensor:
 
 def insert_blocks(
     hmap: HashMap, cfg: HashConfig, cand_keys: torch.Tensor,
-    frame_idx: int = 0, bucket_fn=None,
+    frame_idx: int | torch.Tensor = 0, bucket_fn=None,
 ) -> Tuple[HashMap, torch.Tensor]:
     """Insert up to max_new unique candidate keys (in place); returns
-    (map, n_inserted).  Bucket ranks come from a segmented scan over the
-    bucket-sorted keys, heap rows from a cumsum over the free stack;
-    bucket overflow and heap exhaustion drop keys deterministically.
-    ``bucket_fn`` maps block coords to buckets (default: the spatial
-    hash)."""
+    (map, n_inserted as a 0-d int32 tensor).  The new rows are stamped
+    ``frame_idx`` (an int or a 0-d int32 tensor).  ``bucket_fn`` maps
+    block coords to buckets (default: ``default_bucket_fn``).  One K5b
+    launch on CUDA tensors (no host read; ``bucket_fn`` a ``BucketHash``);
+    ``insert_blocks_reference`` on CPU tensors."""
+    if hmap.keys.device.type == "cpu":
+        return insert_blocks_reference(hmap, cfg, cand_keys, frame_idx,
+                                       bucket_fn)
+    return _launch_insert(hmap, cfg, cand_keys, frame_idx, bucket_fn)
+
+
+def insert_blocks_reference(
+    hmap: HashMap, cfg: HashConfig, cand_keys: torch.Tensor,
+    frame_idx: int | torch.Tensor = 0, bucket_fn=None,
+) -> Tuple[HashMap, torch.Tensor]:
+    """Plain version of ``insert_blocks``, on any device.  Bucket ranks
+    come from a segmented scan over the bucket-sorted keys, heap rows
+    from a cumsum over the free stack; bucket overflow and heap
+    exhaustion drop keys deterministically.  Its masked scatters read the
+    host (``_set_rows``)."""
     bucket_fn = bucket_fn or default_bucket_fn(cfg)
     uniq = _unique_compact(cand_keys, cfg.max_new_per_frame)
     _, found = lookup_keys(hmap, cfg, uniq, bucket_fn)
@@ -532,11 +597,12 @@ def integrate(
     fusion: FusionConfig,
     sign: int = 1,
     max_born: int | None = None,
-    stamp: int | None = None,
+    stamp: int | torch.Tensor | None = None,
 ) -> HashMap:
     """Curless-Levoy fusion over ``active[:count]`` in one pass
     (``sign=-1``: de-integration; ``max_born``: see ``_integrate_rows``);
-    with ``stamp``, ``touch_active(hmap, active, stamp)`` too (integration
+    with ``stamp`` (an int or a 0-d int32 tensor),
+    ``touch_active(hmap, active, stamp)`` too (integration
     never reads ``last_seen``, so the order of the two is free).  One K7
     launch on CUDA tensors (no host read; the window gather's coverage
     inside it under ``_window_mode``); ``touch_active`` and
@@ -819,7 +885,8 @@ def allocate_from_frame(
     frame_idx: int = 0,
     bucket_fn=None,
 ) -> Tuple[HashMap, torch.Tensor]:
-    """Per-frame allocation of the frame's truncation-band blocks."""
+    """Per-frame allocation of the frame's truncation-band blocks (on
+    CUDA tensors K5a then K5b, no host read)."""
     cand = frame_candidate_keys(frame, T_wc, cam, cfg, fusion)
     return insert_blocks(hmap, cfg, cand, frame_idx, bucket_fn)
 
@@ -833,9 +900,9 @@ def fuse_frame(
     fusion: FusionConfig,
     frame_idx: int = 0,
 ) -> Tuple[HashMap, ActiveSet, torch.Tensor]:
-    """alloc -> compact -> touch -> integrate (on CUDA tensors the last
-    three are K6 and K7 with the stamp).  Returns (map, active_set,
-    n_allocated)."""
+    """alloc -> compact -> touch -> integrate (on CUDA tensors K5a, K5b,
+    K6 and K7 with the stamp: four launches, no host read).  Returns (map,
+    active_set, n_allocated)."""
     hmap, n_alloc = allocate_from_frame(
         hmap, frame, T_wc, cam, cfg, fusion, frame_idx=frame_idx)
     active = compact_visible(hmap, cfg, T_wc, cam, fusion)
@@ -953,7 +1020,8 @@ def _integrate_plan(cfg: HashConfig, cam: CameraConfig,
 def _launch_integrate(hmap: HashMap, active: ActiveSet, cfg: HashConfig,
                       depth_m: torch.Tensor, T_wc: torch.Tensor,
                       cam: CameraConfig, fusion: FusionConfig, sign: int,
-                      max_born: int | None, stamp: int | None) -> HashMap:
+                      max_born: int | None,
+                      stamp: int | torch.Tensor | None) -> HashMap:
     """K7 on the current stream, the map updated in place; or raise."""
     ints = (active.blocks, active.ptrs, active.count)
     floats = (depth_m, T_wc)
@@ -988,6 +1056,7 @@ def _launch_integrate(hmap: HashMap, active: ActiveSet, cfg: HashConfig,
                          "are updated in place)")
     if sign not in (1, -1):
         raise ValueError(f"integrate: sign +1 or -1 expected, got {sign}")
+    stamp_ptr, stamp_int = _stamp_arg(stamp, dev, "integrate")
     ints = [t.contiguous() for t in ints]
     floats = [t.contiguous() for t in floats]
     blocks, ptrs, count = ints
@@ -999,8 +1068,132 @@ def _launch_integrate(hmap: HashMap, active: ActiveSet, cfg: HashConfig,
         hmap.last_seen.data_ptr(), depth.data_ptr(), pose.data_ptr(), rows,
         N, *head, sign, int(max_born is not None),
         0 if max_born is None else int(max_born), int(stamp is not None),
-        0 if stamp is None else int(stamp), *tail)
+        stamp_int, stamp_ptr, *tail)
     global LAUNCHES_INTEGRATE, LAUNCHES_INTEGRATE_WINDOW
     LAUNCHES_INTEGRATE += 1
     LAUNCHES_INTEGRATE_WINDOW += head[-1]
     return hmap
+
+
+# --------------------------------------------------------------------------
+# the allocation kernels' wrappers (csrc/alloc.cu)
+# --------------------------------------------------------------------------
+
+def _stamp_arg(stamp, dev: torch.device, what: str) -> tuple:
+    """(pointer or None, int) of a stamp given as an int (or None: 0) or as
+    a 0-d int32 tensor on ``dev``, which the kernel reads; or raise."""
+    if not torch.is_tensor(stamp):
+        return None, 0 if stamp is None else int(stamp)
+    if (stamp.device != dev or stamp.dtype != torch.int32
+            or stamp.numel() != 1):
+        raise ValueError(f"{what}: a stamp tensor must be one int32 on the "
+                         f"map's CUDA device")
+    return stamp.data_ptr(), 0
+
+
+def _launch_candidates(frame: Frame, T_wc: torch.Tensor, cfg: HashConfig,
+                       fusion: FusionConfig) -> torch.Tensor:
+    """K5a on the current stream: a fresh (band_steps * h * w,) key array,
+    or raise."""
+    verts, depth = frame.vertices, frame.depth
+    dev = depth.device
+    if not _on_cuda(dev, verts, T_wc):
+        raise ValueError("frame_candidate_keys: the frame and the pose must "
+                         "lie on one CUDA device (or all on the CPU)")
+    if any(t.dtype != torch.float32 for t in (verts, depth, T_wc)):
+        raise ValueError("frame_candidate_keys: float32 vertices, depth and "
+                         "pose expected")
+    if (depth.dim() != 2 or tuple(verts.shape) != tuple(depth.shape) + (3,)
+            or tuple(T_wc.shape) != (4, 4) or depth.numel() == 0):
+        raise ValueError("frame_candidate_keys: (H, W, 3) vertices, an (H, "
+                         "W) depth and a (4, 4) pose expected")
+    if not 1 <= cfg.key_bits <= MAX_KEY_BITS:
+        raise ValueError(f"frame_candidate_keys: key bits 1..{MAX_KEY_BITS} "
+                         f"expected, got {cfg.key_bits}")
+    H, W = depth.shape
+    s = cfg.candidate_stride
+    out = torch.empty(cfg.band_steps * (-(-H // s)) * (-(-W // s)),
+                      dtype=torch.int32, device=dev)
+    verts, depth, pose = (t.contiguous() for t in (verts, depth, T_wc))
+    kernels.launch("alloc_candidates", dev.index, verts.data_ptr(),
+                   depth.data_ptr(), pose.data_ptr(), out.data_ptr(), H, W,
+                   s, cfg.band_steps, cfg.key_bits, cfg.block_size,
+                   fusion.truncation, fusion.trunc_scale,
+                   recip(fusion.voxel_size))
+    global LAUNCHES_ALLOC_CANDIDATES
+    LAUNCHES_ALLOC_CANDIDATES += 1
+    return out
+
+
+def _insert_plan(cfg: HashConfig, bucket_fn) -> tuple:
+    """K5b's constant arguments after the map rows' sizes: key bits, the
+    hash's buckets and divisor, max_new; or raise."""
+    fn = bucket_fn or default_bucket_fn(cfg)
+    if not isinstance(fn, BucketHash):
+        raise ValueError("insert_blocks: on the card the bucket function "
+                         "must be a hash_ops.BucketHash, got "
+                         f"{type(fn).__name__}")
+    if fn.num_buckets < 1 or fn.divisor < 1:
+        raise ValueError(f"insert_blocks: {fn}: num_buckets and divisor "
+                         f"must be positive")
+    if not 0 <= cfg.max_new_per_frame <= MAX_NEW:
+        raise ValueError(f"insert_blocks: max_new_per_frame 0..{MAX_NEW} "
+                         f"(one CTA's shared memory), got "
+                         f"{cfg.max_new_per_frame}")
+    if not 1 <= cfg.key_bits <= MAX_KEY_BITS:
+        raise ValueError(f"insert_blocks: key bits 1..{MAX_KEY_BITS} "
+                         f"expected, got {cfg.key_bits}")
+    return (cfg.key_bits, fn.num_buckets, fn.divisor, cfg.max_new_per_frame)
+
+
+def _launch_insert(hmap: HashMap, cfg: HashConfig, cand_keys: torch.Tensor,
+                   frame_idx, bucket_fn) -> Tuple[HashMap, torch.Tensor]:
+    """K5b on the current stream, the map updated in place: (map, a fresh
+    0-d int32 n_alloc); or raise."""
+    plan = _insert_plan(cfg, bucket_fn)
+    dev = hmap.keys.device
+    ints = (hmap.keys, hmap.ptrs, hmap.bucket_fill, hmap.free_list,
+            hmap.free_top, hmap.last_seen, hmap.born, cand_keys)
+    floats = (hmap.tsdf, hmap.weight, hmap.band_min)
+    if not _on_cuda(dev, *ints, *floats):
+        raise ValueError("insert_blocks: the map and the keys must lie on "
+                         "one CUDA device (or all on the CPU)")
+    if (any(t.dtype != torch.int32 for t in ints)
+            or any(t.dtype != torch.float32 for t in floats)):
+        raise ValueError("insert_blocks: int32 keys and integer map state "
+                         "and float32 map rows expected")
+    S, nb = cfg.bucket_size, cfg.num_buckets
+    N, V = hmap.tsdf.shape[0], cfg.voxels_per_block
+    if (cand_keys.dim() != 1 or tuple(hmap.keys.shape) != (nb * S,)
+            or hmap.ptrs.shape != hmap.keys.shape
+            or tuple(hmap.bucket_fill.shape) != (nb,)
+            or hmap.free_top.numel() != 1
+            or tuple(hmap.tsdf.shape) != (N, V) or N < 1
+            or hmap.weight.shape != hmap.tsdf.shape
+            or any(tuple(t.shape) != (N,) for t in (
+                hmap.free_list, hmap.last_seen, hmap.band_min, hmap.born))):
+        raise ValueError(
+            f"insert_blocks: (M,) keys, a ({nb * S},) table, ({nb},) "
+            f"bucket_fill, one free_top and (N, {V}) map rows with (N,) "
+            f"free_list, last_seen, band_min and born expected")
+    if not all(t.is_contiguous() for t in ints[:-1] + floats):
+        raise ValueError("insert_blocks: the map must be contiguous (it is "
+                         "updated in place)")
+    stamp_ptr, stamp_int = _stamp_arg(frame_idx, dev, "insert_blocks")
+    M = cand_keys.shape[0]
+    set_bits = max(2, (2 * M - 1).bit_length())     # 2^bits >= 2 M
+    cand = cand_keys.contiguous()
+    scratch = torch.empty((1 << set_bits) + M + cfg.max_new_per_frame + 1,
+                          dtype=torch.int32, device=dev)
+    n_alloc = torch.empty((), dtype=torch.int32, device=dev)
+    kernels.launch("insert_blocks", dev.index, cand.data_ptr(),
+                   hmap.keys.data_ptr(), hmap.ptrs.data_ptr(),
+                   hmap.bucket_fill.data_ptr(), hmap.free_list.data_ptr(),
+                   hmap.free_top.data_ptr(), hmap.tsdf.data_ptr(),
+                   hmap.weight.data_ptr(), hmap.last_seen.data_ptr(),
+                   hmap.band_min.data_ptr(), hmap.born.data_ptr(),
+                   n_alloc.data_ptr(), stamp_ptr, scratch.data_ptr(), M,
+                   set_bits, nb, S, N, V, *plan, stamp_int)
+    global LAUNCHES_INSERT
+    LAUNCHES_INSERT += 1
+    return hmap, n_alloc

@@ -52,12 +52,14 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
     render pose, this rank's rows), ``launches`` (K7's window-gather
     launches per frame), ``icp_launches`` (the ICP kernels' K4 and K4s
     launches over the run), ``k3_launches`` (K3a and K3b's),
-    ``splat_launches`` (K8 and K9's), ``fuse_launches`` (K6 and K7's)
-    and, with ``timed``, per-frame host ms on a synchronised clock, the
-    peak device memory, the collective counters, the live render's hit
-    mask (this rank's rows) and ``kernel_check`` on the last frame."""
+    ``splat_launches`` (K8 and K9's), ``fuse_launches`` (K6 and K7's),
+    ``alloc_launches`` (K5a and K5b's) and, with ``timed``, per-frame
+    host ms on a synchronised clock, the peak device memory, the
+    collective counters, the live render's hit mask (this rank's rows)
+    and ``kernel_check`` on the last frame."""
     hash_ops.LAUNCHES_INTEGRATE_WINDOW = 0
     hash_ops.LAUNCHES_COMPACT = hash_ops.LAUNCHES_INTEGRATE = 0
+    hash_ops.LAUNCHES_ALLOC_CANDIDATES = hash_ops.LAUNCHES_INSERT = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
@@ -93,7 +95,9 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
            "splat_launches": [splat_ops.LAUNCHES_ZBUFFER,
                               splat_ops.LAUNCHES_FINALIZE],
            "fuse_launches": [hash_ops.LAUNCHES_COMPACT,
-                             hash_ops.LAUNCHES_INTEGRATE]}
+                             hash_ops.LAUNCHES_INTEGRATE],
+           "alloc_launches": [hash_ops.LAUNCHES_ALLOC_CANDIDATES,
+                              hash_ops.LAUNCHES_INSERT]}
     if fed_poses is None:
         out["state"] = convert.state_to_numpy(slam.state)
         hmap = slam.state.hmap
@@ -127,7 +131,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     saturation), the trajectory, the graph poses, this rank's map shard,
     K7's window-gather launches, the kernels' launches (``icp_launches``:
     K4, K4s; ``k3_launches``: K3a, K3b; ``splat_launches``: K8, K9;
-    ``fuse_launches``: K6, K7), with
+    ``fuse_launches``: K6, K7; ``alloc_launches``: K5a, K5b), with
     streaming the store counters
     (evicted, restored, stored) summed over the ranks, and, with
     ``timed``, the host seconds of
@@ -136,6 +140,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
 
     hash_ops.LAUNCHES_INTEGRATE_WINDOW = 0
     hash_ops.LAUNCHES_COMPACT = hash_ops.LAUNCHES_INTEGRATE = 0
+    hash_ops.LAUNCHES_ALLOC_CANDIDATES = hash_ops.LAUNCHES_INSERT = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
@@ -167,6 +172,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
                            splat_ops.LAUNCHES_FINALIZE],
         "fuse_launches": [hash_ops.LAUNCHES_COMPACT,
                           hash_ops.LAUNCHES_INTEGRATE],
+        "alloc_launches": [hash_ops.LAUNCHES_ALLOC_CANDIDATES,
+                           hash_ops.LAUNCHES_INSERT],
         "rebuild_fuses": sum(e["keyframes"] for e in slam.ba_events
                              if e["rebuild_mode"] == "full"),
     }

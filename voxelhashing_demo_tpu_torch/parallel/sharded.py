@@ -97,10 +97,10 @@ def _owner(blocks: torch.Tensor, cfg: HashConfig, n: int) -> torch.Tensor:
     return coords.spatial_hash(blocks, cfg.num_buckets) % n
 
 
-def _local_bucket_fn(cfg: HashConfig, n: int):
+def _local_bucket_fn(cfg: HashConfig, n: int) -> hash_ops.BucketHash:
     """The owner-local bucket: global bucket // n (valid only for keys
-    already routed to their owner)."""
-    return lambda blocks: coords.spatial_hash(blocks, cfg.num_buckets) // n
+    already routed to their owner); a ``BucketHash``, which K5b takes."""
+    return hash_ops.BucketHash(cfg.num_buckets, n)
 
 
 def _rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
