@@ -13,11 +13,18 @@ builds its kernels, runs its own ``chip_smoke.py`` ``slice`` phase (12
 flagship 640x480 frames through ``HashSLAM(flagship_gather_config())``:
 ATE, p50 and max frame ms) and its own ``tools/roofline.measure_stages``
 under ``flagship_gather_config()`` (host ms of each stage of the step
-after 24 noisy sweep frames).  One JSON line a turn, then the summary as
-the last line: each tree's ATEs (equal bit for bit between the trees when
-their kernels are bit-exact against the same plain versions), and its
-p50 and stage ms as min / median over its turns.  ``--log FILE`` keeps
-every line.
+after 24 noisy sweep frames), then its own ``preprocess`` and ``alloc``
+phases (K3a ``preprocess_frame`` and K5b ``insert_blocks`` on the step's
+own inputs: warm and L2-cold device µs, each checked bit for bit against
+its plain version by the phase: device µs of a CUDA-graph replay over
+its launches) and, measured by the same code in both trees
+(``WRAPPERS``), the two wrappers' host µs to issue a call and the two
+kernels' own device µs a launch by torch.profiler, launched one by one,
+queued back to back and from a CUDA graph.  One JSON
+line a turn, then the summary as the last line: each tree's ATEs (equal
+bit for bit between the trees when their kernels are bit-exact against
+the same plain versions), and its p50, stage ms and kernel µs as min /
+median over its turns.  ``--log FILE`` keeps every line.
 """
 
 import argparse
@@ -29,11 +36,127 @@ import sys
 import numpy as np
 
 TURNS = ("parent", "this", "this", "parent")
-TIMEOUT_S = 600
+TIMEOUT_S = 900
+KERNELS = ("preprocess_frame", "insert_blocks")    # K3a, K5b
+
+# on the step's inputs, by the same code for every tree (only the APIs
+# that both trees have): the wrappers' host µs to issue one call (the
+# median of 50, synchronised before each), and each kernel's own device
+# µs a launch (torch.profiler, min and median over 8 launches; K5b's each
+# on a copy of the map's integer state, restored first) in three modes:
+# "isolated" (the queue drained before each call, as the host-bound step
+# launches them), "queued" (every call queued behind a ~1 ms sleep kernel,
+# so the launches run back to back) and "graph" (one CUDA graph of the 8,
+# replayed); with CUDA events around the queued launches, over their
+# count; and K5b's keys there (M, the distinct U, the new ones).  These
+# inputs are frame N_STEP_FRAMES's depth at the pose the step starts it
+# from, on the map before it: not the step's own allocation, whose pose
+# ICP has moved (that is the ``alloc`` phase's)
+WRAPPERS = r"""
+def _own_us(torch, name, fn, restore):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):              # a first profile has come back empty
+        restore()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and name in e.name)
+        if us:
+            break
+    return {"min": us[0], "median": float(np.median(us))}
+
+
+def _modes(torch, name, calls, restore):
+    def isolated():
+        for c in calls:
+            c()
+            torch.cuda.synchronize()
+
+    def queued():
+        torch.cuda._sleep(2_000_000)
+        for c in calls:
+            c()
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls[0]()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for c in calls:
+                c()
+    torch.cuda.current_stream().wait_stream(side)
+    out = {m: _own_us(torch, name, fn, restore) for m, fn in (
+        ("isolated", isolated), ("queued", queued),
+        ("graph", graph.replay))}
+    restore()
+    torch.cuda._sleep(2_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for c in calls:
+        c()
+    b.record()
+    torch.cuda.synchronize()
+    out["queued_events"] = 1e3 * a.elapsed_time(b) / len(calls)
+    return out
+
+
+def wrapper_us(torch, cs, sweep):
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    cfg = flagship_gather_config()
+    slam = hash_slam.HashSLAM(cfg)
+    for d in sweep[:cs.N_STEP_FRAMES]:
+        slam.process(d)
+    raw = hash_slam.depth_tensor(sweep[cs.N_STEP_FRAMES], slam.device)
+    cam, front = cfg.camera, cfg.frontend
+    frame = pre.preprocess(raw, cam, front)
+    cand = hash_ops.frame_candidate_keys(frame, slam.state.pose, cam,
+                                         cfg.hash, cfg.fusion)
+    m = probe.map_copy(slam.state.hmap)
+    reps = 50
+    issue = {"preprocess_frame": cs.host_issue_us(
+                 lambda: pre.preprocess(raw, cam, front), reps=reps),
+             "insert_blocks": cs.host_issue_us(
+                 lambda: hash_ops.insert_blocks(m, cfg.hash, cand, 7),
+                 reps=reps)}
+    ints = ("keys", "ptrs", "bucket_fill", "free_top")    # rows shared
+    maps = [probe.map_copy(slam.state.hmap, ints) for _ in range(8)]
+
+    def restore():
+        for x in maps:
+            for f in ints:
+                getattr(x, f).copy_(getattr(slam.state.hmap, f))
+
+    own = {"preprocess_frame": _modes(
+               torch, "preprocess_frame",
+               [lambda: pre.preprocess(raw, cam, front)] * len(maps),
+               lambda: None),
+           "insert_blocks": _modes(
+               torch, "insert_blocks",
+               [lambda x=x: hash_ops.insert_blocks(x, cfg.hash, cand, 7)
+                for x in maps], restore)}
+    uniq = torch.unique(cand[cand != hash_ops.EMPTY_KEY])
+    _, found = hash_ops.lookup_keys(slam.state.hmap, cfg.hash, uniq)
+    keys = {"M": cand.numel(), "U": uniq.numel(),
+            "new": int((~found).sum())}
+    return issue, own, keys
+"""
 
 CHILD = r"""
 import json, sys
 sys.path.insert(0, ".")
+import numpy as np
 import torch
 import chip_smoke as cs
 from voxelhashing_demo_tpu_torch import kernels
@@ -45,6 +168,20 @@ cs.phase_slice(torch)
 stages, n_active = roofline.measure_stages(flagship_gather_config(), "cuda")
 print(json.dumps({"phase": "roofline_stages", "stages_ms": stages,
                   "n_active_blocks": n_active}), flush=True)
+sweep = cs.room_sweep()[1]
+k3 = cs.phase_preprocess(torch, "", sweep)
+k5 = cs.phase_alloc(torch, "", sweep)
+us = {k: {"us": 1e3 * d[k]["ms"], "cold_us": 1e3 * d[k]["cold_ms"]}
+      for k, d in (("preprocess_frame", k3), ("insert_blocks", k5))}
+""" + WRAPPERS + r"""
+issue, own, keys = wrapper_us(torch, cs, sweep)
+us["insert_blocks"]["keys"] = keys
+for k in us:
+    us[k]["issue_us"] = issue[k]
+    us[k]["queued_events_us"] = own[k].pop("queued_events")
+    for mode, v in own[k].items():
+        us[k][mode + "_us"] = v["median"]
+print(json.dumps({"phase": "k3a_k5b", "kernels": us}), flush=True)
 """
 
 
@@ -65,7 +202,10 @@ def _turn(tree: str) -> dict:
             "frame_ms_p50": s["frame_ms_p50"],
             "frame_ms_max": s["frame_ms_max"],
             "blocks_allocated": s["blocks_allocated"],
-            "stages_ms": lines["roofline_stages"]["stages_ms"]}
+            "stages_ms": lines["roofline_stages"]["stages_ms"],
+            "kernels": lines["k3a_k5b"]["kernels"],
+            "k5b_graph_copies": lines.get("alloc", {}).get(
+                "insert_blocks", {}).get("graph_copies")}
 
 
 def _spread(xs) -> dict:
@@ -109,7 +249,12 @@ def main() -> int:
             "ate_mm": [r["ate_mm"] for r in rs],
             "frame_ms_p50": _spread([r["frame_ms_p50"] for r in rs]),
             "stages_ms": {s: _spread([r["stages_ms"][s] for r in rs])
-                          for s in stages}}
+                          for s in stages},
+            "kernels": {k: {f: _spread([r["kernels"][k][f] for r in rs])
+                            for f in ("us", "cold_us", "issue_us",
+                                      "isolated_us", "queued_us",
+                                      "graph_us", "queued_events_us")}
+                        for k in KERNELS}}
     ates = summary["parent"]["ate_mm"] + summary["this"]["ate_mm"]
     summary["ate_equal_bit_for_bit"] = len(set(ates)) == 1
     emit({"summary": summary, "device": smi})

@@ -89,9 +89,10 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    (``preprocess_reference``; ``_pyramid_reference``, the chain of plain
    functions) bit for bit, field by field and level by level.
    Times as ``icp``'s (CUDA-graph replay warm and L2-cold, wrapper,
-   plain, the bytes bound, launch floor and least time); the step's
-   preprocess and ICP stages, kernels against the plain versions: host ms
-   and device kernels (torch.profiler), the preprocess stage one kernel,
+   plain, the bytes bound, launch floor and least time), and K3a's host
+   µs to issue a call; the step's preprocess and ICP stages, kernels
+   against the plain versions: host ms and device kernels
+   (torch.profiler), the preprocess stage one kernel,
    the ICP stage at most 20; one K3a and one K3b launch a step.
 3e. ``splat``: the splat surface prediction (csrc/splat.cu: K8
    ``splat_zbuffer``, the scatter-min z-buffer of the visible set with
@@ -144,11 +145,16 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    4 by the candidates of a shifted pose (the in-bucket rank overflows).
    The distinct keys U and n_alloc of the step's frame.  Times: K5a warm
    and L2-cold (CUDA-graph replay), K5b warm and L2-cold (a CUDA graph of
-   launches on copies of the map's integer state, restored before each
-   replay), wrappers, plain versions, bounds from this run's keys and
-   rows, least times (the launch floor; plus 3 grid barriers for K5b);
-   the stage (``allocate_from_frame``) kernel against plain in turns
-   plain / kernel / kernel / plain: host ms, host µs to issue, device
+   8 or 32 launches on copies of the map's integer state, restored before
+   each replay, captured on the warm-up's stream; CUDA events around one
+   replay, over its launches) and, with a graph of 1 launch, its own
+   device µs a launch by torch.profiler in each (what a replay's fixed
+   cost adds to the events' time), wrappers and K5b's host µs
+   to issue a call, plain versions, bounds from this run's keys and
+   rows, least times (the launch floor; plus one grid barrier for K5b's
+   grid-wide arrival); every K5b scratch left clean (its counts 0, its
+   set empty); the stage (``allocate_from_frame``) kernel against plain in
+   turns plain / kernel / kernel / plain: host ms, host µs to issue, device
    kernels (exactly 2) and host reads (none); ``fuse_frame``'s host reads
    (none; 16 before K5); one K5a and one K5b launch a step.  Then K10's
    work before it is written: ``garbage_collect`` on the flagship's GC
@@ -1386,18 +1392,30 @@ def _icp_case(torch, icp, probe, floor_ms, barrier_ms, name, srcs, tgts,
     return row
 
 
-def _device_kernels(torch, fn) -> dict:
-    """CUDA kernels one call of ``fn`` runs, and their busy µs, from
-    torch.profiler."""
+def _cuda_events(torch, fn) -> list:
+    """torch.profiler's CUDA events of one call of ``fn``.  A profile that
+    saw none is taken again, once: a profile on the card has come back
+    empty while the call launched its kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(2):
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return events
+
+
+def _device_kernels(torch, fn) -> dict:
+    """CUDA kernels one call of ``fn`` runs, and their busy µs, from
+    torch.profiler."""
+    events = _cuda_events(torch, fn)
     return {"kernels": len(events),
             "busy_us": sum(e.time_range.elapsed_us() for e in events)}
 
@@ -1638,6 +1656,7 @@ K3_META = {
 K3A_OPS_PER_PIXEL, K3A_OPS_PER_TAP = 80, 9
 K3B_OPS_PER_PIXEL, K3B_OPS_PER_POOLED = 60, 4
 K3_ICP_STAGE_KERNELS = 20     # "well below" the 407 of PR 13's stage
+WRAPPER_REPS = 50             # calls behind a wrapper's host_issue_us
 
 
 def k3_launches() -> list:
@@ -1714,6 +1733,8 @@ def phase_preprocess(torch, card: str, sweep) -> dict:
     n = raw.numel()
     taps = (2 * front.bilateral_radius + 1) ** 2 if front.bilateral else 0
     k3a = {**probe.timings(lambda r: pre.preprocess(r, cam, front), (raw,)),
+           "host_issue_us": host_issue_us(
+               lambda: pre.preprocess(raw, cam, front), reps=WRAPPER_REPS),
            "plain_ms": probe.host_ms(
                lambda: pre.preprocess_reference(raw, cam, front), iters=10)}
     k3a["bound_ms"], k3a["bound_by"] = _probe_bound(
@@ -2261,7 +2282,7 @@ ALLOC_META = {
                     "Pallas kernel",
     },
 }
-ALLOC_BARRIERS = 3           # K5b's grid barriers
+ALLOC_BARRIERS = 1           # K5b's grid-wide arrival (a barrier's cost)
 ALLOC_STAGE_KERNELS = 2      # K5a, K5b
 ALLOC_CAP = 256              # max_new_per_frame of the cap case
 ALLOC_FULL_BUCKETS = 1024    # buckets of the rank-overflow case's table
@@ -2339,11 +2360,40 @@ def _alloc_stats(torch, base, hcfg, cand, n_alloc: int) -> dict:
             "ops": cand.numel() * K5B_KEY_OPS + kept.numel() * K5B_KEPT_OPS}
 
 
-def _k5b_graph(torch, launch, base, rows, copies: int, reps: int) -> tuple:
+def _scratch_state(torch) -> dict:
+    """K5b's persistent scratches after the phase's launches: how many,
+    and whether each is as every launch must leave it (its counts 0, its
+    set EMPTY_KEY)."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    torch.cuda.synchronize()
+    clean = []
+    for t, capacity, set_bits in hash_ops._INSERT_SCRATCH.values():
+        hdr, st = hash_ops.insert_scratch_parts(t, capacity, set_bits)
+        clean.append(bool((hdr == 0).all())
+                     and bool((st == hash_ops.EMPTY_KEY).all()))
+    return {"scratches": len(clean), "clean": bool(clean) and all(clean)}
+
+
+def _kernel_us(torch, fn, name: str) -> dict:
+    """Device µs a launch of the kernels whose name holds ``name`` in one
+    call of ``fn`` (torch.profiler's CUDA events): their count, min and
+    median (None when the profiler saw none)."""
+    us = [e.time_range.elapsed_us() for e in _cuda_events(torch, fn)
+          if name in e.name]
+    return {"launches": len(us),
+            "min_us": float(np.min(us)) if us else None,
+            "median_us": float(np.median(us)) if us else None}
+
+
+def _k5b_graph(torch, launch, base, rows, copies: int, reps: int) -> dict:
     """K5b alone: ``copies`` launches, each on its own copy of ``base``'s
     integer state (``rows``' rows shared), captured into one CUDA graph;
-    the copies restored before each of ``reps`` replays.  Returns (device
-    ms per launch, the first copy after the last replay)."""
+    the copies restored before each of ``reps`` replays.  Returns {"ms":
+    device ms per launch (CUDA events around one replay, over
+    ``copies``), "kernel_us": K5b's own device µs a launch in one replay,
+    and "eager_kernel_us" in the same launches made one by one (the
+    profiler's), "replayed": the first copy after the last replay}."""
     maps = [rows._replace(**{f: getattr(base, f).clone()
                              for f in ALLOC_INT_FIELDS})
             for _ in range(copies)]
@@ -2352,8 +2402,10 @@ def _k5b_graph(torch, launch, base, rows, copies: int, reps: int) -> tuple:
     with torch.cuda.stream(side):
         launch(maps[0])
     torch.cuda.current_stream().wait_stream(side)
+    # captured on the warm-up's stream, whose K5b scratch exists already
+    # (a capture that finds none takes its own, filled in every replay)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for m in maps:
             launch(m)
 
@@ -2362,7 +2414,15 @@ def _k5b_graph(torch, launch, base, rows, copies: int, reps: int) -> tuple:
             _restore(m, base)
 
     ms = _prepped_ms(torch, graph.replay, prep, reps) / copies
-    return ms, maps[0]
+    prep()
+    kernel_us = _kernel_us(torch, graph.replay, "insert_blocks")
+    prep()
+    eager_us = _kernel_us(torch, lambda: [launch(m) for m in maps],
+                          "insert_blocks")
+    prep()
+    graph.replay()
+    return {"ms": ms, "kernel_us": kernel_us, "eager_kernel_us": eager_us,
+            "replayed": maps[0]}
 
 
 def _gc_cost(torch, slam, sweep) -> dict:
@@ -2538,13 +2598,18 @@ def phase_alloc(torch, card: str, sweep) -> dict:
     def k5b_alone(m):
         hash_ops.insert_blocks(m, hcfg, cand, frame_idx)
 
-    warm_ms, replayed = _k5b_graph(torch, k5b_alone, base, rows,
-                                   ALLOC_WARM_COPIES, probe.WARM_CALLS // 2)
-    cold_ms, _ = _k5b_graph(torch, k5b_alone, base, rows,
-                            ALLOC_COLD_COPIES, 5)
-    replay_exact = all(bool(torch.equal(getattr(replayed, f),
+    # ms: CUDA events around one replay of a graph of ALLOC_WARM_COPIES
+    # (ALLOC_COLD_COPIES) launches, over its launches, so a replay's fixed
+    # cost is spread over 8 (32) of them; the kernel's own time is the
+    # profiler's, and a graph of one launch shows the fixed cost whole
+    graphs = {n: _k5b_graph(torch, k5b_alone, base, rows, n,
+                            probe.WARM_CALLS // 2 if n < 32 else 5)
+              for n in (1, ALLOC_WARM_COPIES, ALLOC_COLD_COPIES)}
+    warm_ms = graphs[ALLOC_WARM_COPIES]["ms"]
+    cold_ms = graphs[ALLOC_COLD_COPIES]["ms"]
+    replay_exact = all(bool(torch.equal(getattr(g["replayed"], f),
                                         getattr(want, f)))
-                       for f in ALLOC_INT_FIELDS)
+                       for g in graphs.values() for f in ALLOC_INT_FIELDS)
     work = rows._replace(**{f: getattr(base, f).clone()
                             for f in ALLOC_INT_FIELDS})
 
@@ -2553,10 +2618,15 @@ def phase_alloc(torch, card: str, sweep) -> dict:
 
     k5b = {"ms": warm_ms, "cold_ms": cold_ms,
            "wrapper_ms": probe.host_ms(lambda: k5b_alone(work)),
+           "host_issue_us": host_issue_us(lambda: k5b_alone(work),
+                                          reps=WRAPPER_REPS),
            "plain_ms": _prepped_ms(torch, lambda: hash_ops.
                                    insert_blocks_reference(
                                        work, hcfg, cand, frame_idx), prep),
-           "graph_replay_bit_exact": replay_exact}
+           "graph_replay_bit_exact": replay_exact,
+           "graph_copies": {str(n): {k: g[k] for k in (
+               "ms", "kernel_us", "eager_kernel_us")}
+               for n, g in graphs.items()}}
     stats = _alloc_stats(torch, base, hcfg, cand, step["n_alloc"])
     k5b["bound_bytes"] = stats["bound_bytes"]
     k5b["bound_ms"], k5b["bound_by"] = _probe_bound(stats["bound_bytes"],
@@ -2606,6 +2676,7 @@ def phase_alloc(torch, card: str, sweep) -> dict:
 
     step_reads = sync_sites(torch, whole_step)
     step_kernels = _device_kernels(torch, whole_step)
+    scratch = _scratch_state(torch)
 
     _emit({"phase": "alloc", "card": card,
            "frame_hw": [cam.height, cam.width], "frame_idx": frame_idx,
@@ -2616,12 +2687,14 @@ def phase_alloc(torch, card: str, sweep) -> dict:
            "launches_per_frame": dict(zip(ALLOC_KERNELS, per_frame)),
            "stage": stage, "fuse_frame_host_reads": fuse_reads,
            "garbage_collect": gc_cost, "step_host_reads": step_reads,
-           "step_device_kernels": step_kernels,
+           "step_device_kernels": step_kernels, "k5b_scratch": scratch,
            "seconds": time.perf_counter() - t0})
     _require(k5a_cmp["bit_exact"], "K5a == frame_candidate_keys_reference "
                                    "bit for bit")
     _require(k5b_exact, "K5b == insert_blocks_reference bit for bit, every "
                         "map field and n_alloc, in every case")
+    _require(scratch["clean"], "every K5b scratch left clean (counts 0, "
+                               "set empty)")
     _require(replay_exact, "K5b replayed from a CUDA graph == the plain "
                            "insert")
     _require(step["n_alloc"] > 0 and step["new"] > 0,

@@ -12,9 +12,12 @@ a 256-bucket table whose buckets a first insert filled to 3 and 4 (the
 in-bucket rank overflows); free_top below the new keys (the heap runs dry
 mid-bucket); the sharded step's owner-local ``BucketHash(num_buckets,
 2)`` on keys routed to rank 1 of two, against JAX's ``_local_bucket_fn``;
-random keys with duplicates, EMPTY_KEY and negative values; the stamp as
-an int and as a 0-d tensor.  On CPU tensors the public functions run
-exactly these plain versions.
+random keys with duplicates, EMPTY_KEY and negative values; U = max_new
+and max_new + 1; every key already in the table, and every key new; a run
+of inserts whose key counts grow and shrink; the stamp as an int and as a
+0-d tensor.  On CPU tensors the public functions run exactly these plain
+versions.  K5b's persistent scratch: its size and growth, and its layout
+against csrc/alloc.cu.
 
 Tolerances (PERF.md §2's tiers): everything here is integer state or rows
 that allocation writes whole (zeros, inf), so all of it is bit-exact.  The
@@ -352,3 +355,150 @@ def test_kernel_arguments_match_the_sources():
                 assert p.startswith("float") == (t is kernels._F), (name, p)
     assert re.search(r"constexpr int kMaxNew = (\d+);", src).group(1) == \
         str(tho.MAX_NEW)
+
+
+def _random_keys(rng, U: int, repeats: int = 4) -> tuple:
+    """(U distinct random keys, a tenth negative; those keys each 1 to
+    ``repeats`` times, shuffled with EMPTY_KEY) as int32 numpy arrays."""
+    keys = rng.choice(2 ** 30, U, replace=False).astype(np.int64)
+    neg = rng.random(U) < 0.1
+    keys[neg] = -keys[neg] - 1
+    keys = keys.astype(np.int32)
+    cand = np.concatenate([np.repeat(keys, rng.integers(1, repeats + 1, U)),
+                           np.full(U // 3 + 1, tho.EMPTY_KEY, np.int32)])
+    rng.shuffle(cand)
+    return keys, cand
+
+
+@pytest.mark.parametrize("over", [0, 1])
+def test_insert_at_the_cap(over):
+    """U = max_new (no cap: every distinct key kept) and U = max_new + 1
+    (the cap drops exactly the largest key in signed order), into a map
+    that holds some of the keys: K5b takes its cap path only in the
+    second case."""
+    max_new = 300
+    jc, tc = _cfgs(max_new_per_frame=max_new)
+    rng = np.random.default_rng(40 + over)
+    keys, cand = _random_keys(rng, max_new + over)
+    jm, tm = _maps(jc, tc, rng)
+    jm, tm, _, _ = _insert_both(jc, tc, jm, tm, keys[:40], stamp=2)
+    jm, tm, nj, nt = _insert_both(jc, tc, jm, tm, cand)
+    _assert_maps_equal(tm, jm)
+    kept = np.sort(keys)[:max_new]
+    pre = set(keys[:40].tolist())
+    assert nt == nj == sum(int(k) not in pre for k in kept)
+    largest = int(np.sort(keys)[-1])
+    stored = set(tm.keys.numpy().tolist())
+    assert (largest in stored) == (not over or largest in pre)
+
+
+@pytest.mark.parametrize("which", ["all_existing", "all_new"])
+def test_insert_all_existing_or_all_new(which):
+    """Every candidate key already in the table (nothing allocated,
+    nothing changes) and every key new (each one allocated), against
+    JAX."""
+    jc, tc = _cfgs(max_new_per_frame=2048)
+    rng = np.random.default_rng(50)
+    keys, cand = _random_keys(rng, 700)
+    jm, tm = _maps(jc, tc, rng)
+    if which == "all_existing":
+        jm, tm, _, _ = _insert_both(jc, tc, jm, tm, keys, stamp=2)
+        before = {f: getattr(tm, f).clone() for f in FIELDS}
+    jm, tm, nj, nt = _insert_both(jc, tc, jm, tm, cand)
+    _assert_maps_equal(tm, jm)
+    if which == "all_existing":
+        assert nt == nj == 0
+        for f in FIELDS:
+            assert torch.equal(getattr(tm, f), before[f]), f
+    else:
+        assert nt == nj == int((tm.keys != tho.EMPTY_KEY).sum()) > 600
+
+
+def test_insert_sequence_of_sizes():
+    """A run of inserts whose key counts M grow and shrink (the sizes K5b's
+    persistent scratch must serve one after another), each against JAX on
+    the map the last left."""
+    jc, tc = _cfgs(max_new_per_frame=1024)
+    rng = np.random.default_rng(60)
+    jm, tm = _maps(jc, tc, rng)
+    for U in (900, 40, 2500, 7):
+        _, cand = _random_keys(rng, U)
+        jm, tm, nj, nt = _insert_both(jc, tc, jm, tm, cand, stamp=U)
+        _assert_maps_equal(tm, jm)
+        assert nt == nj
+
+
+def test_insert_scratch_size_and_growth():
+    """K5b's scratch: the capacity the next power of two >= M (at least
+    INSERT_MIN_CAPACITY), a set of twice that, the int count csrc/alloc.cu
+    lays out; one scratch a device and stream, made with its set empty
+    and its header 0, kept while M fits, replaced when M outgrows it, the
+    replaced one kept alive."""
+    lo = tho.INSERT_MIN_CAPACITY
+    assert tho.insert_scratch_size(0)[:2] == (lo, lo.bit_length())
+    assert tho.insert_scratch_size(lo)[0] == lo
+    cap, bits, ints = tho.insert_scratch_size(102720)
+    assert cap == 131072 and 1 << bits == 2 * cap
+    assert ints == tho.INSERT_HDR_INTS + 5 * cap + (1 << bits) + tho.MAX_NEW
+    assert tho.insert_scratch_size(lo + 1)[0] == 2 * lo
+    dev = torch.device("cpu")
+    saved = dict(tho._INSERT_SCRATCH), list(tho._INSERT_RETIRED)
+    try:
+        tho._INSERT_SCRATCH.clear()
+        a = tho._insert_scratch(dev, 11, 100)
+        assert tho._insert_scratch(dev, 11, lo) is a
+        hdr, st = tho.insert_scratch_parts(*a)
+        assert a[0].numel() == tho.insert_scratch_size(100)[2]
+        assert not hdr.any() and bool((st == tho.EMPTY_KEY).all())
+        b = tho._insert_scratch(dev, 12, 100)
+        assert b[0] is not a[0]
+        c = tho._insert_scratch(dev, 11, 5000)
+        assert c[1] == 8192 and tho._INSERT_SCRATCH[(dev.index, 11)] is c
+        assert tho._INSERT_RETIRED[-1] is a[0]
+        assert tho._insert_scratch(dev, 11, 300) is c
+    finally:
+        tho._INSERT_SCRATCH.clear()
+        tho._INSERT_SCRATCH.update(saved[0])
+        tho._INSERT_RETIRED[:] = saved[1]
+
+
+def test_insert_scratch_during_capture(monkeypatch):
+    """While the stream is being captured into a CUDA graph, a scratch
+    that exists and fits is the persistent one; one that is missing or
+    too small is the capture's own, made empty (set EMPTY_KEY, counts 0)
+    and neither kept nor replacing the persistent one."""
+    dev = torch.device("cpu")
+    saved = dict(tho._INSERT_SCRATCH), list(tho._INSERT_RETIRED)
+    try:
+        tho._INSERT_SCRATCH.clear()
+        kept = tho._insert_scratch(dev, 21, 3000)
+        monkeypatch.setattr(tho, "_capturing", lambda d: True)
+        assert tho._insert_scratch(dev, 21, 100) is kept
+        retired = list(tho._INSERT_RETIRED)
+        for stream, M in ((21, 5000), (22, 100)):
+            own = tho._insert_scratch(dev, stream, M)
+            hdr, st = tho.insert_scratch_parts(*own)
+            assert own[1] >= M and own[0] is not kept[0]
+            assert not hdr.any() and bool((st == tho.EMPTY_KEY).all())
+        assert tho._INSERT_SCRATCH == {(dev.index, 21): kept}
+        assert tho._INSERT_RETIRED == retired
+        monkeypatch.setattr(tho, "_capturing", lambda d: False)
+        grown = tho._insert_scratch(dev, 21, 5000)
+        assert tho._INSERT_SCRATCH[(dev.index, 21)] is grown
+        assert tho._INSERT_RETIRED[-1] is kept[0]
+    finally:
+        tho._INSERT_SCRATCH.clear()
+        tho._INSERT_SCRATCH.update(saved[0])
+        tho._INSERT_RETIRED[:] = saved[1]
+
+
+def test_kernel_scratch_layout_matches_the_source():
+    """The scratch header, the rows list and the fill limit the wrapper
+    counts with are the kernel's (csrc/alloc.cu)."""
+    src = (Path(kernels.SRC_DIR) / "alloc.cu").read_text()
+    hdr = re.search(r"kHdrEpoch = (\d+),\s+kHdrInfo = \d+, kHdrInts = (\d+);",
+                    src)
+    assert int(hdr.group(1)) == tho.INSERT_HDR_ZERO
+    assert int(hdr.group(2)) == tho.INSERT_HDR_INTS
+    assert re.search(r"S > (\d+)", src).group(1) == str(tho.MAX_BUCKET_SIZE)
+    assert "uint16_t fill[kMaxNew]" in src

@@ -43,9 +43,15 @@ map field and n_alloc after an insert of the step's keys at four poses
 and 4), of random key sets of 100 to 60 000 distinct keys (the cap path
 above 4 096; three runs equal), of the sharded step's owner-routed keys
 with ``BucketHash(num_buckets, 2)``; the stamp as an int and as a 0-d
-tensor alike (K5b and K7); ``allocate_from_frame`` and ``fuse_frame``
-make no host sync, and K5a + K5b replay from a CUDA graph; what they do
-not take and a refused launch raise, and no plain version runs instead.
+tensor alike (K5b and K7); consecutive K5b launches on one stream
+sharing its persistent scratch while M shrinks and grows (the cap path
+and a frame of no key among them), the scratch clean after each and
+after a graph of two of them replayed twice; ``allocate_from_frame`` and
+``fuse_frame`` make no host sync, and K5a + K5b replay from a CUDA graph;
+what they do not take and a refused launch raise, and no plain version
+runs instead.  K3a bit for bit on each of its stage sets (radius 0-7,
+outlier on and off, the bilateral off; depth_min 0 too) at 640x480 and
+97 x 61.
 """
 
 import dataclasses
@@ -1085,6 +1091,59 @@ def test_preprocess_frame_matches_plain(cuda, which, outlier, bilateral,
     _assert_k3_equal(got, pre.preprocess_reference(raw, cam, front), "K3a")
 
 
+@pytest.mark.parametrize("size", ["sweep", "odd97"])
+@pytest.mark.parametrize("outlier", [True, False])
+@pytest.mark.parametrize("radius", [None, 0, 1, 2, 3, 4, 5, 6, 7])
+def test_preprocess_frame_every_instantiation(cuda, size, outlier, radius):
+    """K3a bit for bit against the plain version on each stage set (the
+    bilateral off (None) or at radius 0-7, the outlier stage on and off;
+    depth_min > 0), at 640x480 and
+    on a 97 x 61 frame (no multiple of the 32 x 20 tile) with depth edges
+    across the border and dropouts along it: interior tiles that skip the
+    wrap, border tiles that wrap, ragged tiles."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from torch_port_helpers import depth_scene
+
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    if size == "sweep":
+        raw, cam = _k3_frame(cuda, "sweep")
+    else:
+        cam = dataclasses.replace(flagship_config().camera, width=97,
+                                  height=61, cx=48.2, cy=30.4)
+        d = depth_scene(61, 97, seed=13).astype(np.int32)
+        d[0, ::2] = d[-1, 1::3] = d[::3, 0] = d[1::2, -1] = 0
+        raw = torch.as_tensor(d, device=cuda)
+    front = dataclasses.replace(
+        flagship_config().frontend, outlier_reject=outlier,
+        bilateral=radius is not None,
+        bilateral_radius=2 if radius is None else radius)
+    before = pre.LAUNCHES_FRAME
+    got = pre.preprocess(raw, cam, front)
+    assert pre.LAUNCHES_FRAME == before + 1
+    _assert_k3_equal(got, pre.preprocess_reference(raw, cam, front),
+                     f"K3a {size} outlier {outlier} radius {radius}")
+
+
+@pytest.mark.parametrize("radius", [2, 3])
+@pytest.mark.parametrize("size", ["sweep", "odd"])
+def test_preprocess_frame_masked_taps(cuda, size, radius):
+    """K3a's bilateral without the outlier stage at depth_min 0, the
+    range gate's edge (its invalid pixels are exactly 0 there, as the
+    unmasked taps need), bit for bit against the plain version."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    raw, cam = _k3_frame(cuda, size)
+    cam = dataclasses.replace(cam, depth_min=0.0)
+    front = dataclasses.replace(flagship_config().frontend,
+                                outlier_reject=False, bilateral=True,
+                                bilateral_radius=radius)
+    got = pre.preprocess(raw, cam, front)
+    _assert_k3_equal(got, pre.preprocess_reference(raw, cam, front),
+                     f"K3a masked {size} radius {radius}")
+
+
 def _k3_levels_case(cuda, case: str):
     """(depth_src_m, depth_tgt_m, cam, icp config, keywords) of a K3b
     case: the flagship pyramid on a preprocessed sweep frame against a
@@ -1188,6 +1247,10 @@ def test_k3_no_sync_graph_replay_and_refusals(cuda, monkeypatch):
     with pytest.raises(ValueError, match="radius"):
         pre.preprocess(raw, cam, dataclasses.replace(cfg.frontend,
                                                      bilateral_radius=8))
+    with pytest.raises(ValueError, match="depth_min >= 0"):
+        pre.preprocess(raw, dataclasses.replace(cam, depth_min=-0.1),
+                       dataclasses.replace(cfg.frontend,
+                                           outlier_reject=False))
     with pytest.raises(ValueError, match="one CUDA device"):
         pre.pyramid_inputs(d_src, d_tgt.cpu(), cam, icfg)
     with pytest.raises(ValueError, match="float32"):
@@ -1860,6 +1923,148 @@ def test_insert_blocks_random_keys(cuda, unique):
         assert int(n_got) == int(n_want)
         _assert_all_fields_equal(got, runs[0][0], "repeat")
     assert int(runs[0][3]) > 0
+
+
+def _scratch_clean(cuda) -> bool:
+    """Every K5b scratch as each launch leaves it: header 0, set empty."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    torch.cuda.synchronize()
+    for t, capacity, set_bits in hash_ops._INSERT_SCRATCH.values():
+        hdr, st = hash_ops.insert_scratch_parts(t, capacity, set_bits)
+        if hdr.any() or not bool((st == hash_ops.EMPTY_KEY).all()):
+            return False
+    return True
+
+
+def _random_cand(rng, unique: int, device):
+    """``unique`` distinct random keys (a tenth negative), each 1-4 times,
+    shuffled with EMPTY_KEY, on ``device``."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    keys = rng.choice(2 ** 30, unique, replace=False).astype(np.int64)
+    neg = rng.random(unique) < 0.1
+    keys[neg] = -keys[neg] - 1
+    cand = np.concatenate([np.repeat(keys.astype(np.int32),
+                                     rng.integers(1, 5, unique)),
+                           np.full(unique // 3 + 1, hash_ops.EMPTY_KEY,
+                                   np.int32)])
+    rng.shuffle(cand)
+    return torch.as_tensor(cand, device=device)
+
+
+def test_insert_blocks_shared_scratch(cuda):
+    """Consecutive K5b launches on one stream share its persistent
+    scratch while M shrinks and grows (a larger M replaces it; the
+    replaced one stays alive), across the cap path (U above max_new) and
+    a frame with no key: each bit for bit against the plain version on
+    the map the last one left, and the scratch clean after each.  Then
+    two inserts of different M captured in one CUDA graph on that stream
+    replay bit for bit, twice, and leave the scratch clean."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hcfg = flagship_config().hash
+    rng = np.random.default_rng(7)
+    got = hash_ops.create(hcfg, device="cuda")
+    want = _map_clone(got)
+    stream = torch.cuda.Stream()
+    key = (torch.cuda.current_device(), stream.cuda_stream)
+    seen = []
+    with torch.cuda.stream(stream):
+        for step, unique in enumerate((3000, 40, 30000, 6000, 0, 500)):
+            cand = _random_cand(rng, unique, cuda)
+            _, n_got = hash_ops.insert_blocks(got, hcfg, cand, step)
+            _, n_want = hash_ops.insert_blocks_reference(want, hcfg, cand,
+                                                         step)
+            stream.synchronize()
+            _assert_all_fields_equal(got, want, f"U={unique}")
+            assert int(n_got) == int(n_want), unique
+            assert _scratch_clean(cuda), unique
+            seen.append(hash_ops._INSERT_SCRATCH[key])
+    assert seen[1] is seen[0] and seen[2] is not seen[1]
+    assert seen[3] is seen[2] and seen[5] is seen[2]
+    assert any(t is seen[0][0] for t in hash_ops._INSERT_RETIRED)
+    assert int(n_want) > 0
+
+    a = _random_cand(rng, 2000, cuda)
+    b = _random_cand(rng, 9000, cuda)
+    base = _map_clone(got)
+    g = _map_clone(got)
+    with torch.cuda.stream(stream):
+        hash_ops.insert_blocks(_map_clone(got), hcfg, b, 9)    # warm
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            hash_ops.insert_blocks(g, hcfg, a, 8)
+            hash_ops.insert_blocks(g, hcfg, b, 9)
+    hash_ops.insert_blocks_reference(want, hcfg, a, 8)
+    hash_ops.insert_blocks_reference(want, hcfg, b, 9)
+    for _ in range(2):
+        for fld in ALL_FIELDS:
+            getattr(g, fld).copy_(getattr(base, fld))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_all_fields_equal(g, want, "graph")
+        assert _scratch_clean(cuda)
+
+
+def test_insert_blocks_graphs_on_a_fresh_stream(cuda):
+    """Two K5b launches captured into two CUDA graphs on a stream that has
+    no scratch yet each take a scratch of their own (none is kept for the
+    stream); an eager launch on that stream before either graph has run
+    makes the stream's scratch; then the second graph replays before the
+    first, and a third graph captured on the stream's scratch replays
+    twice: each bit for bit against the plain version, every scratch
+    left clean."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hcfg = flagship_config().hash
+    rng = np.random.default_rng(11)
+    base = hash_ops.create(hcfg, device="cuda")
+    hash_ops.insert_blocks_reference(base, hcfg,
+                                     _random_cand(rng, 4000, cuda), 1)
+    a, b = _random_cand(rng, 2500, cuda), _random_cand(rng, 9000, cuda)
+    hash_ops.insert_blocks(_map_clone(base), hcfg, a, 2)   # built, loaded
+    want = {}
+    for name, cand in (("a", a), ("b", b)):
+        want[name] = _map_clone(base)
+        hash_ops.insert_blocks_reference(want[name], hcfg, cand, 2)
+    stream = torch.cuda.Stream()
+    key = (torch.cuda.current_device(), stream.cuda_stream)
+    stream.wait_stream(torch.cuda.current_stream())
+    maps, graphs = {}, {}
+    with torch.cuda.stream(stream):
+        for name, cand in (("a", a), ("b", b)):
+            maps[name] = _map_clone(base)
+            graphs[name] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[name], stream=stream):
+                hash_ops.insert_blocks(maps[name], hcfg, cand, 2)
+        assert key not in hash_ops._INSERT_SCRATCH
+        eager = _map_clone(base)
+        hash_ops.insert_blocks(eager, hcfg, b, 2)
+        assert key in hash_ops._INSERT_SCRATCH
+        for name in ("b", "a"):
+            graphs[name].replay()
+    stream.synchronize()
+    _assert_all_fields_equal(eager, want["b"], "eager")
+    for name in ("b", "a"):
+        _assert_all_fields_equal(maps[name], want[name], f"graph {name}")
+    assert _scratch_clean(cuda)
+
+    third = _map_clone(base)
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            hash_ops.insert_blocks(third, hcfg, a, 2)
+    for _ in range(2):
+        with torch.cuda.stream(stream):
+            for fld in ALL_FIELDS:
+                getattr(third, fld).copy_(getattr(base, fld))
+            graph.replay()
+        stream.synchronize()
+        _assert_all_fields_equal(third, want["a"], "graph on the scratch")
+        assert _scratch_clean(cuda)
 
 
 def test_insert_blocks_sharded_bucket(fuse_case):

@@ -3,7 +3,8 @@ version of K3b ``pyramid_levels``) and the depth frontend (``preprocess``,
 the plain version of K3a ``preprocess_frame``) against the JAX package at
 80x60, on numpy frames from a seed: a tilted wall with a box in front, depth
 edges across the image border (which the stencils' wrap reaches), dropouts
-and flying pixels.
+and flying pixels; and each stage set K3a instantiates on a 97 x 61 frame
+with dropouts along its border.
 
 Tolerances (PERF.md's "Float map / pixel maps" tier): the range gate and
 min pooling are exact; mean-pooled depth, bilateral depth, vertices and
@@ -358,3 +359,110 @@ def test_level_layout():
     assert len(floats) == 6 * len(jobs)
     with pytest.raises(ValueError, match="factor 4"):
         tpre._layout(jobs, ((3, 640),) * 6)
+
+
+def _border_dropouts(raw: np.ndarray) -> np.ndarray:
+    """``raw`` with dropouts (0) along the border rows and columns: the
+    pixels a wrapped stencil reads across the edge."""
+    raw = raw.copy()
+    raw[0, ::2] = 0
+    raw[-1, 1::3] = 0
+    raw[::3, 0] = 0
+    raw[1::2, -1] = 0
+    raw[1, :5] = 0
+    return raw
+
+
+@pytest.mark.parametrize("outlier", [True, False])
+@pytest.mark.parametrize("radius", [None, 0, 1, 3, 7])
+def test_preprocess_stage_sets_match_jax(outlier, radius):
+    """The plain frontend against JAX's on each stage set K3a instantiates
+    (the bilateral off (None), or at radius 0, 1, 3 or 7; the outlier
+    stage on and off), on a 97 x 61 frame (no multiple of K3a's 32 x 20
+    tile) with depth edges across the border and dropouts along it."""
+    jc, tc = _cfgs("flagship")
+    H, W = 61, 97
+
+    def cfg(c):
+        cam = dataclasses.replace(c.camera, width=W, height=H, cx=48.2,
+                                  cy=30.4)
+        front = dataclasses.replace(
+            c.frontend, outlier_reject=outlier, bilateral=radius is not None,
+            bilateral_radius=2 if radius is None else radius)
+        return cam, front
+
+    raw = _border_dropouts(depth_scene(H, W, seed=13))
+    jcam, jfront = cfg(jc)
+    tcam, tfront = cfg(tc)
+    fj = J_PRE(jnp.asarray(raw), jcam, jfront)
+    ft = tpre.preprocess(tt(raw.astype(np.int32)), tcam, tfront)
+    assert_frame_close(ft, fj, f"outlier {outlier} radius {radius}",
+                       NORMAL_ATOL_BILATERAL if radius else ATOL)
+    assert (ft.depth.numpy()[0] == 0).any() and (ft.depth.numpy() > 0).any()
+
+
+def test_kernel_arguments_match_the_sources():
+    """K3a's and K3b's ctypes argument lists (kernels.KERNELS) have as
+    many entries as their C entry points in csrc/preprocess.cu have
+    parameters: pointers where it takes pointers, floats where it takes
+    floats; the radius K3a takes is the kernel's."""
+    import re
+    from pathlib import Path
+
+    from voxelhashing_demo_tpu_torch import kernels
+
+    src = (Path(kernels.SRC_DIR) / "preprocess.cu").read_text()
+    for name in ("preprocess_frame", "pyramid_levels"):
+        assert kernels.source_of(name) == "preprocess"
+        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+        params = [p.strip() for p in m.group(1).split(",")]
+        types = kernels.KERNELS[name]
+        assert len(params) == len(types), name
+        for p, t in zip(params, types):
+            assert ("*" in p) == (t is kernels._P), (name, p)
+            if "*" not in p:
+                assert p.startswith("float") == (t is kernels._F), (name, p)
+    assert re.search(r"constexpr int kMaxRadius = (\d+);", src).group(1) == \
+        str(tpre.MAX_RADIUS)
+    assert src.count("K3A_ROW(") == tpre.MAX_RADIUS + 2   # the macro, 0..7
+
+
+@pytest.mark.parametrize("case,ok", [
+    ({}, True),
+    ({"depth_min": 0.0}, True),
+    ({"depth_max": float("inf")}, True),
+    ({"depth_min": -0.1, "outlier_reject": True}, True),
+    ({"depth_min": -0.1, "bilateral": False}, True),
+    ({"depth_min": -0.1}, False),
+    ({"depth_min": 0.0, "depth_scale": -1000.0}, False),
+    ({"depth_min": 0.0, "depth_scale": float("inf")}, False),
+    ({"bilateral_sigma_depth": 1e30}, False),
+    ({"depth_scale": 1e-25, "depth_max": float("inf")}, False),
+])
+def test_bilateral_settings_the_card_takes(case, ok):
+    """K3a's host tables (built only for CUDA tensors) refuse a bilateral
+    whose taps the kernel cannot take unmasked: an invalid pixel that is
+    not exactly 0 (a negative depth_min or a depth_scale <= 0 without the
+    outlier stage), a 1 / (2 sigma_depth^2) that is 0 in float32, or
+    depths that reach MAX_DEPTH; the flagship settings and depth_min 0
+    pass.  The bound the kernel checks is MAX_DEPTH."""
+    import re
+    from pathlib import Path
+
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+
+    cfg = flagship_config()
+    cam = dataclasses.replace(cfg.camera, **{
+        k: v for k, v in case.items() if hasattr(cfg.camera, k)})
+    front = dataclasses.replace(cfg.frontend, **{
+        "outlier_reject": False,
+        **{k: v for k, v in case.items() if hasattr(cfg.frontend, k)}})
+    if ok:
+        tpre._frame_plan(cam, front)
+    else:
+        with pytest.raises(ValueError, match="bilateral filter"):
+            tpre._frame_plan(cam, front)
+    src = (Path(kernels.SRC_DIR) / "preprocess.cu").read_text()
+    assert float(re.search(r"kMaxDepth = ([0-9e.]+)f;", src).group(1)) == \
+        tpre.MAX_DEPTH

@@ -19,35 +19,52 @@
 // pass.  Each thread reads its pixel's depth and vertex, and writes
 // band_steps keys at (band, ray), so the writes of a warp are coalesced.
 //
-// K5b.  One cooperative launch of four phases with a grid barrier between
-// each two:
-//   1. the grid clears a scratch open-addressing set of P >= 2M slots
-//      (a power of two; EMPTY_KEY marks a free slot) and the distinct
-//      counter;
-//   2. the grid puts the M keys into the set with atomicCAS (a warp
-//      first merges its equal keys with __match_any_sync) and appends each
-//      key it is first to insert to a list of the U distinct keys.  The
-//      set's contents do not depend on the order of the atomics, so
-//      neither does anything below;
-//   3. one CTA: if U > max_new, a radix select (4 passes of 8 bits over
-//      the list, keys compared as signed int32, as torch.sort does) finds
-//      the max_new-th smallest key and keeps the keys up to it; it probes
-//      each kept key's bucket (all bucket_size slots), packs each new one
-//      as the 64-bit (bucket, key) and sorts them in shared memory (a
-//      bitonic sort over the next power of two of their count: the
-//      stable argsort of the bucket over the key-sorted unique keys is
-//      this order, since the keys are distinct); ranks each in its bucket
-//      by looking back over at most bucket_size entries; counts alloc_rank
-//      over the entries that fit by a block scan; and writes each kept
-//      entry's key and row (free_list[free_top - 1 - alloc_rank]) at
-//      bucket * S + slot, adds to bucket_fill, and lists the new rows;
-//   4. the grid resets the new rows: tsdf and weight 0, band_min inf,
-//      last_seen and born the stamp (an int, or read from a 0-d device
-//      int through a pointer).
-// A dropped key (past the cap, its bucket full, the heap empty) writes
-// nothing: the kernel skips it.  Integers throughout, so the state is
-// bit-exact against the plain version and repeats from run to run.  The
-// count n_alloc stays on the device; free_top drops by it.
+// K5b.  One cooperative launch over a persistent scratch (its layout in
+// the K5b section) that every launch leaves as it found it: the set
+// empty, the counts 0.  No grid barrier: one arrival count and one flag.
+// What bounds it is a chain of dependent round trips to L2, so each phase
+// keeps its loads in flight together:
+//   A. the grid puts the M keys into an open-addressing set of 2^set_bits
+//      >= 2 M slots (EMPTY_KEY free; a warp first merges its equal keys
+//      with __match_any_sync).  Each inserting thread sends its atomicCAS
+//      and loads its key's bucket (all bucket_size slots, and the fill) in
+//      the same round trip; the thread that put a key there lists it (key
+//      and slot) among the U distinct keys, and a key the table lacks
+//      among the new keys as the 64-bit (bucket, key ^ sign) with its
+//      bucket's fill, one atomic on a 64-bit pair of counts appending to
+//      both lists for the warp.  The set's contents, and so everything
+//      below, do not depend on the atomics' order;
+//   B. the last CTA to arrive (an acq_rel atomic count) allocates: one
+//      round trip brings the counts and the first 1 024 entries and slots
+//      (it empties those set slots at once).  If U > max_new, a radix
+//      select (4 passes of 8 bits over the distinct list, keys compared as
+//      signed int32, as torch.sort does) finds the max_new-th smallest key
+//      and only new keys up to it are kept (the plain version keeps the
+//      max_new smallest distinct keys and drops the ones it finds).  It
+//      sorts the kept new entries by (bucket, key) (the stable argsort of
+//      the bucket over the key-sorted unique keys is this order, since the
+//      keys are distinct): one warp in registers when they are at most 32,
+//      else a bitonic sort in shared memory; ranks each in its bucket (the
+//      warp's matching lanes, or a look-back over at most bucket_size
+//      entries); counts alloc_rank over the entries that fit (a ballot,
+//      or a block scan); writes each kept entry's key and row
+//      (free_list[free_top - 1 - alloc_rank], read ahead during A) at
+//      bucket * S + slot, adds to bucket_fill and lists the new rows; then
+//      n_alloc and free_top, zeroes the counts, and raises the epoch (a
+//      release store);
+//   C. the new rows are reset (tsdf and weight 0, band_min inf, last_seen
+//      and born the stamp: an int, or read from a 0-d device int through a
+//      pointer): by the last CTA alone when there are at most kSmallRows
+//      of them, else by every CTA; the other CTAs wait for the epoch
+//      (acquire), and empty the set's slots past the first 1 024 with it.
+// So the serial part (B) handles only the new keys: the probe of every
+// distinct key runs in A, spread over the grid.  A dropped key (past the
+// cap, its bucket full, the heap empty) writes nothing: the kernel skips
+// it.  Integers throughout, so the state is bit-exact against the plain
+// version and repeats from run to run.  The count n_alloc stays on the
+// device; free_top drops by it.  Launches that share a scratch must be
+// ordered (one stream, or a CUDA graph on it): the wrapper keeps one
+// scratch a device and stream.
 //
 // Rounding (K5a): every product, sum and quotient of the plain PyTorch
 // version (ops/hash_ops.py frame_candidate_keys_reference) on the card is
@@ -70,17 +87,15 @@
 // bucket slots and fills, the heap rows it pops, and write each new
 // entry (key, ptr, fill) and row (2 x 2 KB at 8^3 voxels): ~0.4-2 MB on
 // the step's frames (chip_smoke.py counts them from its run's data), so
-// its least time is the launch floor plus its three grid barriers.  What
-// the pair replaces is ~60 eager launches and ~16 host reads a frame.
+// its least time is the launch floor plus one grid-wide arrival (a
+// barrier's cost).  What the pair replaces is ~60 eager launches and ~16
+// host reads a frame.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -197,7 +212,23 @@ constexpr int kThreadsB = 1024;
 constexpr int kWarpsB = kThreadsB / 32;
 constexpr int kMaxNew = 4096;                     // max_new_per_frame at most
 constexpr int kItemsB = kMaxNew / kThreadsB;      // sorted entries a thread
+constexpr int kSmallRows = 64;   // new rows the allocating CTA resets alone
+constexpr int kProbe = 8;        // bucket slots a probe loads at once
 constexpr uint64_t kPad = ~0ull;                  // sorts after every entry
+
+// The persistent scratch, in ints: a header, then for a capacity of C
+// keys the new entries (C uint64), the set (2^set_bits), the distinct
+// keys and their slots (C each), the new entries' fills (C) and the new
+// rows (kMaxNew).  The header's lines (128 bytes each): the counts of the
+// distinct and the new keys (one uint64, so one atomic appends to both),
+// the arrival count, the epoch (the flag: the allocating CTA raises it by
+// one), and what the waiting CTAs read after it (n_alloc, and the distinct
+// keys whose set slots they empty).  Between launches the set holds
+// EMPTY_KEY and the counts are 0 (the wrapper makes it so; each launch
+// restores it); the epoch runs on.  hash_ops.insert_scratch_size counts
+// the ints.
+constexpr int kHdrCounts = 0, kHdrArrive = 32, kHdrEpoch = 64,
+              kHdrInfo = 96, kHdrInts = 128;
 
 struct InsertParams {
   const int* cand;         // (M,) keys; EMPTY_KEY none
@@ -213,14 +244,38 @@ struct InsertParams {
   int* born;               // (N,)
   int* n_alloc;            // () out
   const int* stamp_ptr;    // () the stamp on the device, or null: `stamp`
-  int* set;                // (P,) scratch: the open-addressing set
-  int* distinct;           // (M,) scratch: the distinct keys, any order
-  int* rows;               // (max_new,) scratch: the new rows by alloc_rank
-  int* n_distinct;         // () scratch: U
+  int* hdr;                // scratch: the header
+  unsigned long long* new_entry;   // scratch: (bucket, key ^ kSign)
+  int* set;                // scratch: the open-addressing set
+  int* distinct;           // scratch: the distinct keys, any order
+  int* slot_of;            // scratch: each distinct key's set slot
+  int* new_fill;           // scratch: each new entry's bucket fill
+  int* rows;               // scratch: the new rows by alloc_rank
   int M, set_bits, nb, S, N, V, key_bits;
   int hash_buckets, divisor;   // BucketHash: spatial_hash(b, hash_buckets) // divisor
   int max_new, stamp;
 };
+
+// gpu-scope acquire / release (the flag and the arrival), relaxed reads
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.add.s32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
 
 // the bucket of a packed key: BucketHash (ops/hash_ops.py) of the unpacked
 // block, int32 products wrapping, the floor modulo, then the floor
@@ -234,18 +289,6 @@ __device__ __forceinline__ int bucket_of(const InsertParams& P, int key) {
   int m = h % P.hash_buckets;
   if (m < 0) m += P.hash_buckets;
   return min(max(m / P.divisor, 0), P.nb - 1);
-}
-
-// put `key` in the set; true if this call put it there first
-__device__ __forceinline__ bool set_insert(const InsertParams& P, int key) {
-  const unsigned mask = (1u << P.set_bits) - 1u;
-  unsigned s = (static_cast<unsigned>(key) * 2654435761u) >> (32 - P.set_bits);
-  while (true) {
-    const int prev = atomicCAS(P.set + s, kEmptyKey, key);
-    if (prev == kEmptyKey) return true;
-    if (prev == key) return false;
-    s = (s + 1u) & mask;
-  }
 }
 
 // exclusive prefix sum of x over the CTA; `total` gets the sum.  red holds
@@ -277,98 +320,192 @@ __device__ __forceinline__ int cta_exclusive_sum(int x, int* red, int& total) {
 }
 
 struct AllocShared {
-  uint64_t entry[kMaxNew];   // (bucket, key ^ kSign) of the new keys, sorted
+  unsigned long long entry[kMaxNew];   // the kept new entries, sorted
+  uint16_t fill[kMaxNew];    // their buckets' fills (bucket_size < 2^16)
+  int rows[kSmallRows];      // the new rows, when at most kSmallRows
   int hist[256];
   int red[kWarpsB];
-  int n_new, digit, rank_left;
+  int n_new, digit, rank_left, last, n_alloc, top, info[2];
 };
 
-// phase 3, one CTA: select, probe, sort, rank, pop and scatter
-__device__ void allocate_cta(const InsertParams& P, AllocShared& sh) {
+// the cap: the max_new-th smallest of the U distinct keys (as key ^
+// kSign), by 8 bits a pass; every thread of the CTA calls it
+__device__ unsigned radix_cap(const InsertParams& P, AllocShared& sh, int U) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int U = __ldcg(P.n_distinct);
-  if (tid == 0) sh.n_new = 0;
-  __syncthreads();
-
-  // the cap: the max_new-th smallest distinct key, by 8 bits a pass
-  const bool capped = U > P.max_new;
-  unsigned cap = 0xffffffffu, prefix = 0, pmask = 0;
-  if (capped && P.max_new > 0) {
-    if (tid == 0) sh.rank_left = P.max_new;
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      for (int i = tid; i < 256; i += kThreadsB) sh.hist[i] = 0;
-      __syncthreads();
-      for (int i = tid; i < U; i += kThreadsB) {
-        const unsigned u = static_cast<unsigned>(__ldcg(P.distinct + i)) ^ kSign;
-        if ((u & pmask) == prefix) atomicAdd(&sh.hist[(u >> shift) & 255u], 1);
-      }
-      __syncthreads();
-      if (warp == 0) {                   // the digit holding rank_left
-        const int k = sh.rank_left;
-        int mine = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mine += sh.hist[8 * lane + j];
-        int incl = mine;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int o = __shfl_up_sync(kFull, incl, d);
-          if (lane >= d) incl += o;
-        }
-        const int excl = incl - mine;
-        if (excl < k && k <= incl) {
-          int c = excl, j = 0;
-          while (c + sh.hist[8 * lane + j] < k) c += sh.hist[8 * lane + j++];
-          sh.digit = 8 * lane + j;
-          sh.rank_left = k - c;
-        }
-      }
-      __syncthreads();
-      prefix |= static_cast<unsigned>(sh.digit) << shift;
-      pmask |= 255u << shift;
+  unsigned prefix = 0, pmask = 0;
+  if (tid == 0) sh.rank_left = P.max_new;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = tid; i < 256; i += kThreadsB) sh.hist[i] = 0;
+    __syncthreads();
+    for (int i = tid; i < U; i += kThreadsB) {
+      const unsigned u = static_cast<unsigned>(__ldcg(P.distinct + i)) ^ kSign;
+      if ((u & pmask) == prefix) atomicAdd(&sh.hist[(u >> shift) & 255u], 1);
     }
-    cap = prefix;
-  }
-
-  // the kept keys' probe; the new ones packed as (bucket, key)
-  if (!capped || P.max_new > 0) {
-    for (int i0 = warp * 32; i0 < U; i0 += kThreadsB) {
-      const int i = i0 + lane;
-      bool fresh = false;
-      uint64_t e = kPad;
-      if (i < U) {
-        const int key = __ldcg(P.distinct + i);
-        if ((static_cast<unsigned>(key) ^ kSign) <= cap) {
-          const int b = bucket_of(P, key);
-          bool found = false;
-          for (int s = 0; s < P.S; ++s) found |= P.keys[b * P.S + s] == key;
-          fresh = !found;
-          e = (static_cast<uint64_t>(b) << 32) | (static_cast<unsigned>(key) ^ kSign);
-        }
+    __syncthreads();
+    if (warp == 0) {                     // the digit holding rank_left
+      const int k = sh.rank_left;
+      int mine = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mine += sh.hist[8 * lane + j];
+      int incl = mine;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += o;
       }
-      const unsigned put = __ballot_sync(kFull, fresh);
+      const int excl = incl - mine;
+      if (excl < k && k <= incl) {
+        int c = excl, j = 0;
+        while (c + sh.hist[8 * lane + j] < k) c += sh.hist[8 * lane + j++];
+        sh.digit = 8 * lane + j;
+        sh.rank_left = k - c;
+      }
+    }
+    __syncthreads();
+    prefix |= static_cast<unsigned>(sh.digit) << shift;
+    pmask |= 255u << shift;
+  }
+  return prefix;
+}
+
+// write one kept entry: key and row at its slot, the fill, the row list
+__device__ __forceinline__ void put_entry(const InsertParams& P,
+                                          AllocShared& sh,
+                                          unsigned long long e, int slot,
+                                          int alloc_rank, int row) {
+  const int b = static_cast<int>(e >> 32);
+  P.keys[b * P.S + slot] = static_cast<int>(static_cast<unsigned>(e) ^ kSign);
+  P.ptrs[b * P.S + slot] = row;
+  atomicAdd(P.bucket_fill + b, 1);
+  P.rows[alloc_rank] = row;
+  if (alloc_rank < kSmallRows) sh.rows[alloc_rank] = row;
+}
+
+__device__ __forceinline__ int free_row(const InsertParams& P, int top, int r) {
+  return __ldcg(P.free_list + min(max(top - 1 - r, 0), P.N - 1));
+}
+
+// at most 32 kept new entries, one a lane of warp 0 (valid where `valid`):
+// a register bitonic sort of (entry, fill), each one's rank in its bucket
+// from the lanes of the same bucket, alloc_rank from a ballot, its row
+// from the lane that read it ahead (pre = free_list[top - 1 - lane])
+__device__ void allocate_warp(const InsertParams& P, AllocShared& sh,
+                              unsigned long long e, int f, bool valid,
+                              int top, int pre) {
+  const int lane = threadIdx.x & 31;
+  if (!valid) e = kPad;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const unsigned long long oe = __shfl_xor_sync(kFull, e, j);
+      const int of = __shfl_xor_sync(kFull, f, j);
+      const bool take = ((lane & j) == 0) == ((lane & k) == 0) ? oe < e : oe > e;
+      if (take) {
+        e = oe;
+        f = of;
+      }
+    }
+  }
+  valid = e != kPad;
+  const unsigned lt = (1u << lane) - 1u;
+  const unsigned same = __match_any_sync(kFull, static_cast<unsigned>(e >> 32));
+  const int slot = f + __popc(same & lt);
+  const bool fits = valid && slot < P.S;
+  const unsigned fit_mask = __ballot_sync(kFull, fits);
+  const int alloc_rank = __popc(fit_mask & lt);
+  const int row = __shfl_sync(kFull, pre, alloc_rank & 31);
+  if (fits && alloc_rank < top) put_entry(P, sh, e, slot, alloc_rank, row);
+  if (lane == 0) {
+    const int n_alloc = min(__popc(fit_mask), max(top, 0));
+    *P.n_alloc = n_alloc;
+    *P.free_top = top - n_alloc;
+    sh.n_alloc = n_alloc;
+  }
+}
+
+// phase B, the CTA that arrived last: cap, sort, rank, pop and scatter
+// the new keys; returns U.  Thread 0 holds the epoch, warp 0 free_top and
+// its read-ahead rows
+__device__ int allocate_cta(const InsertParams& P, AllocShared& sh, int top,
+                            int pre) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // one round trip: the counts, and the first kThreadsB entries, fills
+  // and set slots on the chance that the counts cover them
+  const unsigned long long counts =
+      __ldcg(reinterpret_cast<const unsigned long long*>(P.hdr + kHdrCounts));
+  const unsigned long long e0 = __ldcg(P.new_entry + tid);
+  const int f0 = __ldcg(P.new_fill + tid);
+  const int s0 = __ldcg(P.slot_of + tid);
+  const int U = static_cast<int>(counts & 0xffffffffu);
+  const int n_new = static_cast<int>(counts >> 32);
+  if (U <= kThreadsB && tid < U) P.set[s0] = kEmptyKey;   // more: the grid's
+  if (tid == 0) {
+    sh.top = top;
+    sh.n_new = 0;
+  }
+  const bool capped = U > P.max_new;
+  if (!capped && n_new <= 32) {          // the frame step's case
+    if (warp == 0) allocate_warp(P, sh, e0, f0, lane < n_new, top, pre);
+    return U;
+  }
+  unsigned cap = 0xffffffffu;
+  if (capped && P.max_new > 0) cap = radix_cap(P, sh, U);
+  __syncthreads();
+  top = sh.top;
+
+  // the kept new entries and their fills into shared memory
+  if (!capped || P.max_new > 0) {
+    for (int i0 = warp * 32; i0 < n_new; i0 += kThreadsB) {
+      const int i = i0 + lane;
+      unsigned long long e = kPad;
+      int f = 0;
+      if (i < n_new) {
+        e = i < kThreadsB ? e0 : __ldcg(P.new_entry + i);
+        f = i < kThreadsB ? f0 : __ldcg(P.new_fill + i);
+      }
+      const bool keep = i < n_new && static_cast<unsigned>(e) <= cap;
+      const unsigned m = __ballot_sync(kFull, keep);
       int base = 0;
-      if (lane == 0 && put) base = atomicAdd(&sh.n_new, __popc(put));
+      if (lane == 0 && m) base = atomicAdd(&sh.n_new, __popc(m));
       base = __shfl_sync(kFull, base, 0);
-      if (fresh) sh.entry[base + __popc(put & ((1u << lane) - 1u))] = e;
+      if (keep) {
+        const int at = base + __popc(m & ((1u << lane) - 1u));
+        sh.entry[at] = e;
+        sh.fill[at] = static_cast<uint16_t>(f);
+      }
     }
   }
   __syncthreads();
   const int n = sh.n_new;
+  if (n <= 32) {
+    if (warp == 0)
+      allocate_warp(P, sh, lane < n ? sh.entry[lane] : kPad,
+                    lane < n ? sh.fill[lane] : 0, lane < n, top, pre);
+    return U;
+  }
+
+  // the CTA: a bitonic sort of (entry, fill)[0, n2) in shared memory
   int n2 = 1;
   while (n2 < n) n2 <<= 1;
   for (int i = n + tid; i < n2; i += kThreadsB) sh.entry[i] = kPad;
+  int ahead[kItemsB];                                 // read ahead
+#pragma unroll
+  for (int q = 0; q < kItemsB; ++q)
+    ahead[q] = tid * kItemsB + q < n ? free_row(P, top, tid * kItemsB + q) : 0;
   __syncthreads();
-
-  // bitonic sort of entry[0, n2)
   for (int k = 2; k <= n2; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int i = tid; i < n2; i += kThreadsB) {
         const int ixj = i ^ j;
         if (ixj > i) {
-          const uint64_t a = sh.entry[i], b = sh.entry[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            sh.entry[i] = b;
+          const unsigned long long a = sh.entry[i], c = sh.entry[ixj];
+          if ((a > c) == ((i & k) == 0)) {
+            sh.entry[i] = c;
             sh.entry[ixj] = a;
+            const uint16_t t = sh.fill[i];   // the fill moves with it
+            sh.fill[i] = sh.fill[ixj];
+            sh.fill[ixj] = t;
           }
         }
       }
@@ -388,84 +525,167 @@ __device__ void allocate_cta(const InsertParams& P, AllocShared& sh) {
     for (int j = i - 1; j >= 0 && rank < P.S &&
                         static_cast<unsigned>(sh.entry[j] >> 32) == b; --j)
       ++rank;
-    slot[q] = P.bucket_fill[b] + rank;
+    slot[q] = sh.fill[i] + rank;
     fits += slot[q] < P.S;
   }
   int n_fit = 0;
   int alloc_rank = cta_exclusive_sum(fits, sh.red, n_fit);
-  const int top = *P.free_top;
-  __syncthreads();                       // every fill and free_top read
 #pragma unroll
   for (int q = 0; q < kItemsB; ++q) {
     const int i = tid * kItemsB + q;
     if (i >= n || slot[q] >= P.S) continue;
-    if (alloc_rank < top) {
-      const uint64_t e = sh.entry[i];
-      const int b = static_cast<int>(e >> 32);
-      const int key = static_cast<int>(static_cast<unsigned>(e) ^ kSign);
-      const int row = P.free_list[min(max(top - 1 - alloc_rank, 0), P.N - 1)];
-      P.keys[b * P.S + slot[q]] = key;
-      P.ptrs[b * P.S + slot[q]] = row;
-      atomicAdd(P.bucket_fill + b, 1);
-      P.rows[alloc_rank] = row;
-    }
+    if (alloc_rank < top)
+      put_entry(P, sh, sh.entry[i], slot[q], alloc_rank,
+                alloc_rank == i ? ahead[q] : free_row(P, top, alloc_rank));
     ++alloc_rank;
   }
   if (tid == 0) {
     const int n_alloc = min(n_fit, max(top, 0));
     *P.n_alloc = n_alloc;
     *P.free_top = top - n_alloc;
+    sh.n_alloc = n_alloc;
   }
+  return U;
 }
 
-__global__ void __launch_bounds__(kThreadsB, 1)
-insert_blocks_kernel(const __grid_constant__ InsertParams P) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ AllocShared sh;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int gtid = blockIdx.x * kThreadsB + tid, gsize = gridDim.x * kThreadsB;
-
-  // 1. clear the set and the count
-  const int n_set = 1 << P.set_bits;
-  int4* set4 = reinterpret_cast<int4*>(P.set);
-  const int4 empty4 = make_int4(kEmptyKey, kEmptyKey, kEmptyKey, kEmptyKey);
-  for (int i = gtid; i < n_set / 4; i += gsize) set4[i] = empty4;
-  if (gtid == 0) *P.n_distinct = 0;
-  grid.sync();
-
-  // 2. the distinct keys: a warp merges its equal keys, its leaders insert
-  for (int i0 = gtid - lane; i0 < P.M; i0 += gsize) {
-    const int i = i0 + lane;
-    const int key = i < P.M ? __ldg(P.cand + i) : kEmptyKey;
-    const unsigned peers = __match_any_sync(kFull, key);
-    const bool first = key != kEmptyKey && (__ffs(peers) - 1) == lane &&
-                       set_insert(P, key);
-    const unsigned put = __ballot_sync(kFull, first);
-    int base = 0;
-    if (lane == 0 && put) base = atomicAdd(P.n_distinct, __popc(put));
-    base = __shfl_sync(kFull, base, 0);
-    if (first) P.distinct[base + __popc(put & ((1u << lane) - 1u))] = key;
-  }
-  grid.sync();
-
-  // 3. one CTA allocates
-  if (blockIdx.x == 0) allocate_cta(P, sh);
-  grid.sync();
-
-  // 4. the new rows reset, a CTA a row
-  const int n_alloc = __ldcg(P.n_alloc);
-  const int stamp = P.stamp_ptr ? __ldg(P.stamp_ptr) : P.stamp;
-  for (int r = blockIdx.x; r < n_alloc; r += gridDim.x) {
-    const int row = __ldcg(P.rows + r);
+// reset rows[r] for r = first, first + step, ... < n_alloc, `group`
+// threads a row (this thread `t` of them); the list in shared memory, or
+// in the scratch (written by another CTA: read from L2)
+template <bool kSharedRows>
+__device__ __forceinline__ void reset_rows(const InsertParams& P,
+                                           const int* rows, int n_alloc,
+                                           int first, int step, int t,
+                                           int group, int stamp) {
+  const bool vec = (P.V & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(P.tsdf) |
+                     reinterpret_cast<uintptr_t>(P.weight)) & 15) == 0;
+  for (int r = first; r < n_alloc; r += step) {
+    const int row = kSharedRows ? rows[r] : __ldcg(rows + r);
     const int64_t o = static_cast<int64_t>(row) * P.V;
-    for (int v = tid; v < 2 * P.V; v += kThreadsB)
-      (v < P.V ? P.tsdf : P.weight)[o + (v < P.V ? v : v - P.V)] = 0.0f;
-    if (tid == 0) {
+    if (vec) {
+      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4* a = reinterpret_cast<float4*>(P.tsdf + o);
+      float4* b = reinterpret_cast<float4*>(P.weight + o);
+      for (int v = t; v < P.V / 4; v += group) {
+        a[v] = z;
+        b[v] = z;
+      }
+    } else {
+      for (int v = t; v < P.V; v += group) {
+        P.tsdf[o + v] = 0.0f;
+        P.weight[o + v] = 0.0f;
+      }
+    }
+    if (t == 0) {
       P.band_min[row] = INFINITY;
       P.last_seen[row] = stamp;
       P.born[row] = stamp;
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreadsB, 1)
+insert_blocks_kernel(const __grid_constant__ InsertParams P) {
+  __shared__ AllocShared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gtid = blockIdx.x * kThreadsB + tid, gsize = gridDim.x * kThreadsB;
+  // read ahead, for the CTA that will allocate: the epoch, the stamp and
+  // free_top now, the top 32 rows of the free stack after phase A
+  const int epoch = tid == 0 ? load_relaxed(P.hdr + kHdrEpoch) : 0;
+  const int stamp = P.stamp_ptr ? __ldg(P.stamp_ptr) : P.stamp;
+  const int top = warp == 0 ? __ldcg(P.free_top) : 0;
+
+  // A. the distinct keys, each probed by the thread that inserts it: its
+  // bucket's slots and fill loaded, and the set's atomicCAS sent, at once
+  for (int i0 = gtid - lane; i0 < P.M; i0 += gsize) {
+    const int i = i0 + lane;
+    const int key = i < P.M ? __ldg(P.cand + i) : kEmptyKey;
+    const unsigned peers = __match_any_sync(kFull, key);
+    const bool leader = key != kEmptyKey && (__ffs(peers) - 1) == lane;
+    int slot = -1, b = 0, fill = 0;
+    bool found = false;
+    if (leader) {
+      b = bucket_of(P, key);
+      const int* bk = P.keys + b * P.S;
+      int k[kProbe];
+#pragma unroll
+      for (int s = 0; s < kProbe; ++s) k[s] = s < P.S ? bk[s] : ~key;
+      fill = P.bucket_fill[b];
+      const unsigned mask = (1u << P.set_bits) - 1u;
+      unsigned s = (static_cast<unsigned>(key) * 2654435761u) >> (32 - P.set_bits);
+      int prev = atomicCAS(P.set + s, kEmptyKey, key);
+#pragma unroll
+      for (int q = 0; q < kProbe; ++q) found |= k[q] == key;
+      for (int q = kProbe; q < P.S; ++q) found |= bk[q] == key;
+      while (prev != kEmptyKey && prev != key) {
+        s = (s + 1u) & mask;
+        prev = atomicCAS(P.set + s, kEmptyKey, key);
+      }
+      if (prev == kEmptyKey) slot = static_cast<int>(s);
+    }
+    // one atomic appends the warp's distinct and new keys
+    const bool first = slot >= 0, fresh = first && !found;
+    const unsigned mf = __ballot_sync(kFull, first);
+    const unsigned mn = __ballot_sync(kFull, fresh);
+    unsigned long long base = 0;
+    if (lane == 0 && mf)
+      base = atomicAdd(reinterpret_cast<unsigned long long*>(P.hdr + kHdrCounts),
+                       static_cast<unsigned long long>(__popc(mf)) |
+                           (static_cast<unsigned long long>(__popc(mn)) << 32));
+    base = __shfl_sync(kFull, base, 0);
+    const unsigned lt = (1u << lane) - 1u;
+    if (first) {
+      const int at = static_cast<int>(base & 0xffffffffu) + __popc(mf & lt);
+      P.distinct[at] = key;
+      P.slot_of[at] = slot;
+    }
+    if (fresh) {
+      const int at = static_cast<int>(base >> 32) + __popc(mn & lt);
+      P.new_entry[at] = (static_cast<unsigned long long>(b) << 32) |
+                        (static_cast<unsigned>(key) ^ kSign);
+      P.new_fill[at] = fill;
+    }
+  }
+  const int pre = warp == 0 ? free_row(P, top, lane) : 0;
+
+  // B. the CTA that arrives last allocates, then raises the epoch
+  __syncthreads();
+  if (tid == 0)
+    sh.last = atomic_add_acq_rel(P.hdr + kHdrArrive, 1) ==
+              static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  const bool last = sh.last;
+  if (last) {
+    const int U = allocate_cta(P, sh, top, pre);
+    __syncthreads();
+    if (tid == 0) {               // every thread has read the counts
+      *reinterpret_cast<unsigned long long*>(P.hdr + kHdrCounts) = 0ull;
+      P.hdr[kHdrArrive] = 0;
+      sh.info[0] = sh.n_alloc;
+      sh.info[1] = U > kThreadsB ? U : 0;
+      P.hdr[kHdrInfo] = sh.info[0];
+      P.hdr[kHdrInfo + 1] = sh.info[1];
+      store_release(P.hdr + kHdrEpoch, epoch + 1);
+    }
+  } else if (tid == 0) {
+    while (load_acquire(P.hdr + kHdrEpoch) == epoch) __nanosleep(32);
+    sh.info[0] = __ldcg(P.hdr + kHdrInfo);
+    sh.info[1] = __ldcg(P.hdr + kHdrInfo + 1);
+  }
+  __syncthreads();
+
+  // C. the new rows reset: by the last CTA alone when few, else by the
+  // grid; the set's slots past the last CTA's kThreadsB by the grid
+  const int n_alloc = sh.info[0], U_grid = sh.info[1];
+  if (n_alloc <= kSmallRows) {
+    if (last)
+      reset_rows<true>(P, sh.rows, n_alloc, warp, kWarpsB, lane, 32, stamp);
+  } else {
+    reset_rows<false>(P, P.rows, n_alloc, blockIdx.x, gridDim.x, tid,
+                      kThreadsB, stamp);
+  }
+  for (int i = gtid; i < U_grid; i += gsize)
+    P.set[__ldcg(P.slot_of + i)] = kEmptyKey;
 }
 
 // co-resident CTAs of `kernel` at `threads` on the current device (asked
@@ -531,41 +751,50 @@ extern "C" int alloc_candidates(const float* verts, const float* depth,
 // K5b.  Insert the distinct keys of cand (M,) into the table (nb buckets of
 // S slots) with BucketHash(hash_buckets, divisor), at most max_new of them
 // (the smallest); reset the new rows with the stamp (*stamp_ptr when it is
-// not null); n_alloc = the rows taken.  scratch: 2^set_bits + M + max_new
-// + 1 ints, 2^set_bits >= 2 M, set_bits >= 2.  One cooperative launch,
-// refused (cudaErrorCooperativeLaunchTooLarge) when its grid cannot be
-// co-resident.
-extern "C" int insert_blocks(const int* cand, int* keys, int* ptrs,
-                             int* bucket_fill, const int* free_list,
-                             int* free_top, float* tsdf, float* weight,
-                             int* last_seen, float* band_min, int* born,
-                             int* n_alloc, const int* stamp_ptr, int* scratch,
-                             int M, int set_bits, int nb, int S, int N, int V,
-                             int key_bits, int hash_buckets, int divisor,
-                             int max_new, int stamp, void* stream) {
-  if (M < 0 || set_bits < 2 || set_bits > 30 ||
-      (static_cast<int64_t>(1) << set_bits) < 2 * static_cast<int64_t>(M) ||
-      nb < 1 || S < 1 || N < 1 || V < 0 || key_bits < 1 || key_bits > 10 ||
-      hash_buckets < 1 || divisor < 1 || max_new < 0 || max_new > kMaxNew)
+// not null); n_alloc = the rows taken.  scratch: kHdrInts + 5 capacity +
+// 2^set_bits + kMaxNew ints for up to `capacity` keys (2^set_bits >= 2
+// capacity, set_bits >= 2), its set EMPTY_KEY and its counts 0, as every
+// launch leaves them.  Host tables (built once a map and configuration):
+// map = the HashMap's tensors in field order (keys, ptrs, bucket_fill,
+// free_list, free_top, tsdf, weight, last_seen, band_min, born); ints = nb,
+// S, N, V, key_bits, hash_buckets, divisor, max_new.  One cooperative
+// launch, refused (cudaErrorCooperativeLaunchTooLarge) when its grid
+// cannot be co-resident.
+extern "C" int insert_blocks(const int* cand, int M, int* n_alloc,
+                             const int* stamp_ptr, int stamp, int* scratch,
+                             int capacity, int set_bits,
+                             void* const* map, const int* ints,
+                             void* stream) {
+  const int nb = ints[0], S = ints[1], N = ints[2], V = ints[3],
+            key_bits = ints[4], hash_buckets = ints[5], divisor = ints[6],
+            max_new = ints[7];
+  if (M < 0 || M > capacity || set_bits < 2 || set_bits > 30 ||
+      (static_cast<int64_t>(1) << set_bits) < 2 * static_cast<int64_t>(capacity) ||
+      nb < 1 || S < 1 || S > 65535 || N < 1 || V < 0 || key_bits < 1 ||
+      key_bits > 10 || hash_buckets < 1 || divisor < 1 || max_new < 0 ||
+      max_new > kMaxNew)
     return static_cast<int>(cudaErrorInvalidValue);
   InsertParams P = {};
   P.cand = cand;
-  P.keys = keys;
-  P.ptrs = ptrs;
-  P.bucket_fill = bucket_fill;
-  P.free_list = free_list;
-  P.free_top = free_top;
-  P.tsdf = tsdf;
-  P.weight = weight;
-  P.last_seen = last_seen;
-  P.band_min = band_min;
-  P.born = born;
+  P.keys = static_cast<int*>(map[0]);
+  P.ptrs = static_cast<int*>(map[1]);
+  P.bucket_fill = static_cast<int*>(map[2]);
+  P.free_list = static_cast<const int*>(map[3]);
+  P.free_top = static_cast<int*>(map[4]);
+  P.tsdf = static_cast<float*>(map[5]);
+  P.weight = static_cast<float*>(map[6]);
+  P.last_seen = static_cast<int*>(map[7]);
+  P.band_min = static_cast<float*>(map[8]);
+  P.born = static_cast<int*>(map[9]);
   P.n_alloc = n_alloc;
   P.stamp_ptr = stamp_ptr;
-  P.set = scratch;
-  P.distinct = scratch + (1 << set_bits);
-  P.rows = P.distinct + M;
-  P.n_distinct = P.rows + max_new;
+  P.hdr = scratch;
+  P.new_entry = reinterpret_cast<unsigned long long*>(scratch + kHdrInts);
+  P.set = scratch + kHdrInts + 2 * static_cast<int64_t>(capacity);
+  P.distinct = P.set + (static_cast<int64_t>(1) << set_bits);
+  P.slot_of = P.distinct + capacity;
+  P.new_fill = P.slot_of + capacity;
+  P.rows = P.new_fill + capacity;
   P.M = M;
   P.set_bits = set_bits;
   P.nb = nb;
@@ -577,10 +806,10 @@ extern "C" int insert_blocks(const int* cand, int* keys, int* ptrs,
   P.divisor = divisor;
   P.max_new = max_new;
   P.stamp = stamp;
-  int capacity = 0;
-  cudaError_t err = capacity_of(insert_blocks_kernel, kThreadsB, &capacity);
+  int resident = 0;
+  cudaError_t err = capacity_of(insert_blocks_kernel, kThreadsB, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ctas = min(capacity, max(1, (M + kThreadsB - 1) / kThreadsB));
+  const int ctas = min(resident, max(1, (M + kThreadsB - 1) / kThreadsB));
   if (ctas < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(ctas);

@@ -16,21 +16,35 @@
 //
 // No Pallas kernel; no PyTorch call computes either.
 //
-// K3a.  A CTA owns a 32 x 16 tile of outputs and stages its raw depth with
-// a halo of R = (outlier ? 1 : 0) + (bilateral ? radius : 0) + 1 in shared
-// memory: 1 for the flying-pixel support, radius for the bilateral, 1 for
-// the normals.  The stages then run one after another in shared memory,
-// each over a region one stage's reach smaller than the last:
+// K3a.  A CTA of 256 threads owns a 32 x 20 tile of outputs and stages its
+// raw depth with a halo of R = (outlier ? 1 : 0) + (bilateral ? radius :
+// 0) + 1 in shared memory: 1 for the flying-pixel support, radius for the
+// bilateral, 1 for the normals.  The stages then run one after another in
+// shared memory, each over a region one stage's reach smaller than the
+// last:
 //   1. metres and the range gate (halo R);
 //   2. the 8-neighbour support count, reject_outliers (halo R - 1);
 //   3. the bilateral filter (halo 1);
 //   4. back-projection and central-difference normals (the tile).
+// The stages and the radius are template parameters (18 instantiations;
+// the host picks one), so each region's shape is a constant and the
+// bilateral's (2r + 1)^2 taps unroll with constant offsets and weights.
+// A tap is neither branched on (a branch a tap cost more than the expf it
+// saved: 98 % of the step's pixels are valid) nor masked: at the
+// bilateral's input an invalid pixel holds a value whose weight underflows
+// to 0.  That needs every invalid pixel to be exactly 0 in the plain
+// version, so the card takes the bilateral only with the outlier stage
+// or a range gate that passes no negative depth and no -0 (depth_min >= 0
+// and depth_scale > 0), a 1 / (2 sigma_depth^2) > 0 and depths below
+// 1e29 (the host refuses the rest).  The centre tap needs no expf, and an
+// invalid centre skips its taps.
 // The halo reads wrap modulo H and W, as torch.roll (jnp.roll) does, so a
 // stage computed at a halo position equals the stage at the wrapped pixel
-// (no stage before the vertices depends on where a pixel lies).  The
-// normals need no wrap: compute_normals' interior mask zeroes the border
-// rows and columns.  The (2r + 1)^2 spatial weights are the plain
-// version's float32 constants, computed on the host and passed by value.
+// (no stage before the vertices depends on where a pixel lies); only a CTA
+// whose halo crosses the border pays for the wrap.  The normals need no
+// wrap: compute_normals' interior mask zeroes the border rows and columns.
+// The (2r + 1)^2 spatial weights are the plain version's float32
+// constants, computed on the host and passed by value.
 //
 // K3b.  A job is one level input of one image (the frame's metric depth or
 // the model's).  Each job has a kind:
@@ -70,14 +84,18 @@
 // on the card bit for bit; on the CPU the plain version rounds as the CPU
 // does.
 //
-// Bound: bytes.  At 640 x 480, K3a reads 1.2 MB of int32 depth and writes
-// 28 bytes a pixel (8.6 MB); K3b reads the frame's and the model's depth
+// Bound: K3a at 640 x 480 reads 1.2 MB of int32 depth and writes 28
+// bytes a pixel (8.6 MB): 2.93 us at 3.35 TB/s.  Its arithmetic, not its
+// bytes, is what it cannot go below, and the stores overlap it: a
+// bilateral tap is ~16 instructions (a subtract, two products, expf's
+// eight, the weight, the product and two sums) on each of the 34 x 22 items of a 32 x 20 tile, ~550 a
+// pixel with the other stages at radius 2, ~5-6 us on the card's FP32
+// pipes at 1.6-1.98 GHz.  K3b reads the frame's and the model's depth
 // and the model's normals (~6 MB) and writes ~8 MB of sources and packed
-// targets: 3-4 us each at 3.35 TB/s, the launch floor's order.  The bilateral
-// (25 expf a pixel at radius 2) is ~40 float operations a tap: ~0.3 GFLOP a
-// frame, far below the card's float32 rate.  What both replace is ~780
-// eager launches a frame and their host work, not bytes: the design is one
-// launch each, every intermediate kept in shared memory or registers.
+// targets: 3-4 us at 3.35 TB/s, the launch floor's order.  What both
+// replace is ~780 eager launches a frame and their host work: the design
+// is one launch each, every intermediate kept in shared memory or
+// registers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -180,8 +198,8 @@ __device__ __forceinline__ float2 pack(float d, Normal n) {
 // ---------------------------------------------------------------------------
 
 constexpr int kTileW = 32;        // K3a's output tile
-constexpr int kTileH = 16;
-constexpr int kThreads = 256;
+constexpr int kTileH = 20;
+constexpr int kThreadsA = 256;
 constexpr int kMaxRadius = 7;     // the bilateral's largest radius
 constexpr int kTaps = (2 * kMaxRadius + 1) * (2 * kMaxRadius + 1);
 
@@ -193,43 +211,66 @@ struct FrameParams {
   float* normals;         // (H, W, 3)
   int H, W;
   float rscale, dmin, dmax, cx, cy, rfx, rfy;
-  int outlier, min_support;
+  int min_support;
   float band_base, band_quad;
-  int bilateral, radius;
   float inv2sd;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// what an invalid pixel (exactly 0 in the plain version) holds at the
+// bilateral's input: a tap reading it weighs ws * expf(-inf) = 0, as the
+// plain version's mask makes it, and adds 0 * kInvalid = 0
+constexpr float kInvalid = 1e30f;
+constexpr float kMaxDepth = 1e29f;   // the valid depths the taps take
+
+// i wrapped into [0, n), as torch.roll wraps an index
+__device__ __forceinline__ int wrap_into(int i, int n) {
+  return (i >= 0 && i < n) ? i : wrap(i, n);
+}
+
+// The stages are template parameters: the radius unrolls the taps, and a
+// stage that is off costs nothing.  With the bilateral, the pixels that
+// are not > 0 hold kInvalid at its input.  Shared memory: ma holds the
+// metres, then (with both filters) the bilateral's output; mb the stage
+// after the metres.
+template <int RADIUS, bool OUTLIER, bool BILATERAL>
+__global__ void __launch_bounds__(kThreadsA)
 preprocess_frame_kernel(const __grid_constant__ FrameParams P) {
-  extern __shared__ float smem[];
-  const int R = (P.outlier ? 1 : 0) + (P.bilateral ? P.radius : 0) + 1;
-  const int sw = kTileW + 2 * R;              // every stage's row pitch
-  const int size = (kTileH + 2 * R) * sw;
-  float* m0 = smem;                           // metres, halo R
-  float* m1 = P.outlier ? m0 + size : m0;     // after the support count
-  float* m2 = P.bilateral ? m1 + size : m1;   // after the bilateral
+  constexpr int R = (OUTLIER ? 1 : 0) + (BILATERAL ? RADIUS : 0) + 1;
+  constexpr int SW = kTileW + 2 * R;          // every stage's row pitch
+  constexpr int SIZE = (kTileH + 2 * R) * SW;
+  __shared__ float ma[SIZE];
+  __shared__ float mb[(OUTLIER || BILATERAL) ? SIZE : 1];
+  float* const m0 = ma;                             // metres, halo R
+  float* const m1 = OUTLIER ? mb : ma;              // after the support count
+  float* const m2 = BILATERAL ? (OUTLIER ? ma : mb) : m1;   // after the filter
   const int y0 = blockIdx.y * kTileH - R;     // global row of smem row 0
   const int x0 = blockIdx.x * kTileW - R;
   const int tid = threadIdx.x;
 
-  // 1. metres and the range gate, halo R (wrapped reads)
-  for (int i = tid; i < size; i += kThreads) {
-    const int ly = i / sw, lx = i - ly * sw;
-    const int gy = wrap(y0 + ly, P.H), gx = wrap(x0 + lx, P.W);
+  // 1. metres and the range gate, halo R; only a tile at the border wraps
+  const bool inside = y0 >= 0 && x0 >= 0 && y0 + kTileH + 2 * R <= P.H &&
+                      x0 + SW <= P.W;
+  for (int i = tid; i < SIZE; i += kThreadsA) {
+    const int ly = i / SW, lx = i - ly * SW;
+    int gy = y0 + ly, gx = x0 + lx;
+    if (!inside) {
+      gy = wrap_into(gy, P.H);
+      gx = wrap_into(gx, P.W);
+    }
     const float d = mul(static_cast<float>(__ldg(P.raw + gy * P.W + gx)),
                         P.rscale);
-    m0[i] = gate(d, P.dmin, P.dmax);
+    const float g = gate(d, P.dmin, P.dmax);
+    m0[i] = (BILATERAL && !OUTLIER && !(g > 0.0f)) ? kInvalid : g;
   }
   __syncthreads();
 
   // 2. reject_outliers, halo R - 1
-  int h = R;
-  if (P.outlier) {
-    --h;
-    const int rw = kTileW + 2 * h, n_out = (kTileH + 2 * h) * rw;
-    for (int i = tid; i < n_out; i += kThreads) {
-      const int ry = i / rw, rx = i - ry * rw;
-      const int c = (ry + R - h) * sw + (rx + R - h);
+  if (OUTLIER) {
+    constexpr int h = R - 1, RW = kTileW + 2 * h;
+    constexpr int N_OUT = (kTileH + 2 * h) * RW;
+    for (int i = tid; i < N_OUT; i += kThreadsA) {
+      const int ry = i / RW, rx = i - ry * RW;
+      const int c = (ry + 1) * SW + (rx + 1);
       const float d = m0[c];
       const float band = add(P.band_base, mul(mul(P.band_quad, d), d));
       int support = 0;
@@ -238,50 +279,62 @@ preprocess_frame_kernel(const __grid_constant__ FrameParams P) {
 #pragma unroll
         for (int dx = -1; dx <= 1; ++dx) {
           if (dy == 0 && dx == 0) continue;
-          const float n = m0[c + dy * sw + dx];
+          const float n = m0[c + dy * SW + dx];
           support += (n > 0.0f && fabsf(sub(n, d)) < band) ? 1 : 0;
         }
       }
-      m1[c] = (d > 0.0f && support >= P.min_support) ? d : 0.0f;
+      m1[c] = (d > 0.0f && support >= P.min_support)
+                  ? d
+                  : (BILATERAL ? kInvalid : 0.0f);
     }
     __syncthreads();
   }
 
   // 3. bilateral_filter, halo 1: tap (dy, dx) reads the pixel that
-  // torch.roll(depth, (dy, dx)) brings here, depth[y - dy, x - dx]
-  if (P.bilateral) {
-    const int r = P.radius;
-    const int rw = kTileW + 2, n_out = (kTileH + 2) * rw;
-    for (int i = tid; i < n_out; i += kThreads) {
-      const int ry = i / rw, rx = i - ry * rw;
-      const int c = (ry + R - 1) * sw + (rx + R - 1);
+  // torch.roll(depth, (dy, dx)) brings here, depth[y - dy, x - dx].  An
+  // invalid centre keeps its depth (0) and skips its taps; the
+  // centre tap's dz is 0, so its weight is the spatial one (expf(-0) = 1,
+  // exactly)
+  if (BILATERAL) {
+    constexpr int RW = kTileW + 2, N_OUT = (kTileH + 2) * RW;
+    constexpr int T = 2 * RADIUS + 1;
+    for (int i = tid; i < N_OUT; i += kThreadsA) {
+      const int ry = i / RW, rx = i - ry * RW;
+      const int c = (ry + R - 1) * SW + (rx + R - 1);
       const float d = m1[c];
-      float acc = 0.0f, wacc = 0.0f;
-      int k = 0;
-      for (int dy = -r; dy <= r; ++dy) {
-        for (int dx = -r; dx <= r; ++dx, ++k) {
-          const float n = m1[c - dy * sw - dx];
-          const float dz = sub(n, d);
-          float w = mul(P.wspace[k], expf(mul(mul(-dz, dz), P.inv2sd)));
-          w = n > 0.0f ? w : 0.0f;
-          acc = add(acc, mul(w, n));
-          wacc = add(wacc, w);
+      float out = 0.0f;
+      if (d != kInvalid) {
+        out = d;
+        float acc = 0.0f, wacc = 0.0f;
+#pragma unroll
+        for (int dy = -RADIUS; dy <= RADIUS; ++dy) {
+#pragma unroll
+          for (int dx = -RADIUS; dx <= RADIUS; ++dx) {
+            const float ws = P.wspace[(dy + RADIUS) * T + (dx + RADIUS)];
+            const float n = m1[c - dy * SW - dx];
+            const float dz = sub(n, d);
+            const float w = (dy == 0 && dx == 0)
+                          ? ws
+                          : mul(ws, expf(mul(mul(-dz, dz), P.inv2sd)));
+            acc = add(acc, mul(w, n));
+            wacc = add(wacc, w);
+          }
         }
+        if (wacc > 0.0f) out = dvd(acc, fmaxf(wacc, 1e-12f));
       }
-      const float out = dvd(acc, fmaxf(wacc, 1e-12f));
-      m2[c] = (d > 0.0f && wacc > 0.0f) ? out : d;
+      m2[c] = out;
     }
     __syncthreads();
   }
 
   // 4. depth, vertices and normals of the tile
-  for (int i = tid; i < kTileW * kTileH; i += kThreads) {
+  for (int i = tid; i < kTileW * kTileH; i += kThreadsA) {
     const int ty = i / kTileW, tx = i - ty * kTileW;
     const int v = blockIdx.y * kTileH + ty, u = blockIdx.x * kTileW + tx;
     if (v >= P.H || u >= P.W) continue;
-    const int c = (ty + R) * sw + (tx + R);
+    const int c = (ty + R) * SW + (tx + R);
     const float d = m2[c];
-    const float du = m2[c - sw], dd = m2[c + sw];
+    const float du = m2[c - SW], dd = m2[c + SW];
     const float dl = m2[c - 1], dr = m2[c + 1];
     const bool ok = v > 0 && v < P.H - 1 && u > 0 && u < P.W - 1 &&
                     d != 0.0f && du != 0.0f && dd != 0.0f && dl != 0.0f &&
@@ -299,12 +352,28 @@ preprocess_frame_kernel(const __grid_constant__ FrameParams P) {
   }
 }
 
+using FrameKernel = void (*)(FrameParams);
+
+#define K3A_ROW(r)                                                       \
+  {preprocess_frame_kernel<r, false, true>,                              \
+   preprocess_frame_kernel<r, true, true>}
+
+// the instantiation for the stages: [bilateral ? 1 + radius : 0][outlier]
+const FrameKernel kFrameKernels[kMaxRadius + 2][2] = {
+    {preprocess_frame_kernel<0, false, false>,
+     preprocess_frame_kernel<0, true, false>},
+    K3A_ROW(0), K3A_ROW(1), K3A_ROW(2), K3A_ROW(3),
+    K3A_ROW(4), K3A_ROW(5), K3A_ROW(6), K3A_ROW(7)};
+
+#undef K3A_ROW
+
 // ---------------------------------------------------------------------------
 // K3b
 // ---------------------------------------------------------------------------
 
 constexpr int kJobTileW = 32;     // K3b's output tile, one pixel a thread
 constexpr int kJobTileH = 8;
+constexpr int kThreads = kJobTileW * kJobTileH;
 constexpr int kMaxJobs = 8;
 constexpr int kKindSource = 0, kKindTarget = 1, kKindPack = 2;
 constexpr int kPoolNone = 0, kPoolMin = 1, kPoolMean = 2;
@@ -423,48 +492,52 @@ pyramid_levels_kernel(const __grid_constant__ JobTable T) {
 // and returns cudaGetLastError() as an int (0 = launched); an argument the
 // kernel does not take returns cudaErrorInvalidValue and launches nothing.
 
-// K3a.  raw (H, W) int32 -> depth (H, W), vertices and normals (H, W, 3),
-// float32.  wspace: (2 radius + 1)^2 host floats (read when bilateral).
-extern "C" int preprocess_frame(const int* raw, float* depth, float* vertices,
-                                float* normals, int H, int W, float rscale,
-                                float dmin, float dmax, float cx, float cy,
-                                float rfx, float rfy, int outlier,
-                                float band_base, float band_quad,
-                                int min_support, int bilateral, int radius,
-                                float inv2sd, const float* wspace,
+// K3a.  raw (H, W) int32 -> out: the depth (H, W), then the vertices and
+// the normals (H, W, 3), float32, in one buffer of 7 H W floats.  Host
+// tables (built once a configuration): ints = outlier, min_support,
+// bilateral, radius; floats = 1/depth_scale, depth_min, depth_max, cx, cy,
+// 1/fx, 1/fy, band_base, band_quad, 1/(2 sigma_depth^2), then the
+// (2 radius + 1)^2 spatial weights (read when bilateral).
+extern "C" int preprocess_frame(const int* raw, float* out, int H, int W,
+                                const int* ints, const float* floats,
                                 void* stream) {
+  const int outlier = ints[0], min_support = ints[1], bilateral = ints[2],
+            radius = ints[3];
   if (H <= 0 || W <= 0 || (bilateral && (radius < 0 || radius > kMaxRadius)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the bilateral's taps take no mask (kInvalid), which needs every invalid
+  // pixel the filter reads to be exactly 0 in the plain version: refuse the
+  // rest (the host says why)
+  const float rscale = floats[0], dmin = floats[1], inv2sd = floats[9];
+  const float vmax = fminf(floats[2], 2147483648.0f * fabsf(rscale));
+  if (bilateral && (!(outlier || (dmin >= 0.0f && rscale > 0.0f)) ||
+                    !(inv2sd > 0.0f) || !(vmax < kMaxDepth)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = static_cast<int64_t>(H) * W;
   FrameParams P = {};
   const int taps = bilateral ? (2 * radius + 1) * (2 * radius + 1) : 0;
-  for (int k = 0; k < taps; ++k) P.wspace[k] = wspace[k];
+  for (int k = 0; k < taps; ++k) P.wspace[k] = floats[10 + k];
   P.raw = raw;
-  P.depth = depth;
-  P.vertices = vertices;
-  P.normals = normals;
+  P.depth = out;
+  P.vertices = out + n;
+  P.normals = out + 4 * n;
   P.H = H;
   P.W = W;
-  P.rscale = rscale;
-  P.dmin = dmin;
-  P.dmax = dmax;
-  P.cx = cx;
-  P.cy = cy;
-  P.rfx = rfx;
-  P.rfy = rfy;
-  P.outlier = outlier != 0;
-  P.band_base = band_base;
-  P.band_quad = band_quad;
+  P.rscale = floats[0];
+  P.dmin = floats[1];
+  P.dmax = floats[2];
+  P.cx = floats[3];
+  P.cy = floats[4];
+  P.rfx = floats[5];
+  P.rfy = floats[6];
   P.min_support = min_support;
-  P.bilateral = bilateral != 0;
-  P.radius = bilateral ? radius : 0;
-  P.inv2sd = inv2sd;
-  const int R = (P.outlier ? 1 : 0) + P.radius + 1;
-  const int stages = 1 + P.outlier + P.bilateral;
-  const size_t smem = sizeof(float) * stages * (kTileH + 2 * R) *
-                      (kTileW + 2 * R);
+  P.band_base = floats[7];
+  P.band_quad = floats[8];
+  P.inv2sd = floats[9];
+  const FrameKernel kernel =
+      kFrameKernels[bilateral ? radius + 1 : 0][outlier ? 1 : 0];
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
-  preprocess_frame_kernel<<<grid, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(P);
+  kernel<<<grid, kThreadsA, 0, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -145,12 +145,11 @@ KERNELS = {
     # 1/fy, normal and distance gates, Huber delta, CTAs, partials, out
     "icp_sums": [_P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I,
                  _P, _P, _P],
-    # K3a (csrc/preprocess.cu): raw, depth, vertices, normals, H, W,
-    # 1/depth_scale, depth_min, depth_max, cx, cy, 1/fx, 1/fy, outlier,
-    # band base, band quad, min support, bilateral, radius,
-    # 1/(2 sigma_depth^2), spatial weights (host)
-    "preprocess_frame": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
-                         _F, _I, _F, _F, _I, _I, _I, _F, _P, _P],
+    # K3a (csrc/preprocess.cu): raw, the output buffer, H, W, the host
+    # tables of ints (outlier, min support, bilateral, radius) and floats
+    # (1/depth_scale, depth_min, depth_max, cx, cy, 1/fx, 1/fy, band base,
+    # band quad, 1/(2 sigma_depth^2), the spatial weights)
+    "preprocess_frame": [_P, _P, _I, _I, _P, _P, _P],
     # K3b: job pointers, ints and floats (host, 6 each a job), jobs,
     # edge band
     "pyramid_levels": [_P, _P, _P, _I, _F, _P],
@@ -183,13 +182,12 @@ KERNELS = {
     # recip(voxel size)
     "alloc_candidates": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                          _F, _P],
-    # K5b: candidate keys, table keys, ptrs, bucket_fill, free_list,
-    # free_top, tsdf, weight, last_seen, band_min, born, n_alloc out, the
-    # stamp on the device (or None), scratch, keys, set bits, buckets,
-    # slots a bucket, map rows, voxels a row, key bits, the hash's buckets
-    # and divisor, max_new, stamp
-    "insert_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # K5b: candidate keys, their count, n_alloc out, the stamp on the
+    # device (or None), the stamp, the persistent scratch, its capacity
+    # and set bits, the host tables of the map's pointers (HashMap order)
+    # and ints (buckets, slots a bucket, map rows, voxels a row, key bits,
+    # the hash's buckets and divisor, max_new)
+    "insert_blocks": [_P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
 }
 # C function -> its source under csrc/, where the two names differ
 SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",

@@ -42,7 +42,8 @@ the window gather K1 on the frame step) count the launches.
 Two more (``csrc/alloc.cu``) allocate: K5a ``alloc_candidates`` (the
 frame's candidate keys) and K5b ``insert_blocks`` (unique, cap, probe,
 bucket rank, free-list pop and scatter in one cooperative launch, the
-count left on the device).  On CUDA tensors ``frame_candidate_keys`` is
+count left on the device, on a scratch that persists from call to call,
+one a device and stream).  On CUDA tensors ``frame_candidate_keys`` is
 K5a and ``insert_blocks`` K5b, so ``allocate_from_frame`` is two launches
 and no host read, and ``fuse_frame`` four; CPU tensors run the plain
 versions ``frame_candidate_keys_reference`` and
@@ -55,9 +56,11 @@ card, read by the kernel.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
+import weakref
 from typing import NamedTuple, Tuple
 
 import torch
@@ -85,6 +88,19 @@ MAX_VOXELS = 1024       # the voxels a block K7 takes (kMaxVoxels)
 COMPACT_TILE = 2048     # table entries a K6 tile (kTile)
 MAX_KEY_BITS = 10       # three coordinates in a non-negative int32 key
 MAX_NEW = 4096          # the new keys K5b sorts in one CTA (kMaxNew)
+MAX_BUCKET_SIZE = 65535    # a bucket's fill as K5b keeps it (uint16)
+INSERT_HDR_INTS = 128      # K5b's scratch header (kHdrInts)
+INSERT_HDR_ZERO = 64       # its counts' and arrival's lines (kHdrEpoch)
+INSERT_MIN_CAPACITY = 1024     # the keys of K5b's smallest scratch
+
+# K5b's persistent scratch: (device index, raw stream) -> (tensor,
+# capacity, set_bits), and the scratches it replaced (a captured graph may
+# use one); a capture that finds none makes its own (_insert_scratch)
+_INSERT_SCRATCH: dict = {}
+_INSERT_RETIRED: list = []
+# maps K5b checked: id(keys) -> (weak references to the tensors, the
+# configuration, the bucket function, the host tables)
+_MAP_CHECKED: dict = {}
 
 
 class HashMap(NamedTuple):
@@ -1126,8 +1142,8 @@ def _launch_candidates(frame: Frame, T_wc: torch.Tensor, cfg: HashConfig,
 
 
 def _insert_plan(cfg: HashConfig, bucket_fn) -> tuple:
-    """K5b's constant arguments after the map rows' sizes: key bits, the
-    hash's buckets and divisor, max_new; or raise."""
+    """K5b's configuration ints after the map's rows: key bits, the hash's
+    buckets and divisor, max_new; or raise."""
     fn = bucket_fn or default_bucket_fn(cfg)
     if not isinstance(fn, BucketHash):
         raise ValueError("insert_blocks: on the card the bucket function "
@@ -1143,17 +1159,87 @@ def _insert_plan(cfg: HashConfig, bucket_fn) -> tuple:
     if not 1 <= cfg.key_bits <= MAX_KEY_BITS:
         raise ValueError(f"insert_blocks: key bits 1..{MAX_KEY_BITS} "
                          f"expected, got {cfg.key_bits}")
+    if not 1 <= cfg.bucket_size <= MAX_BUCKET_SIZE:
+        raise ValueError(f"insert_blocks: bucket_size 1..{MAX_BUCKET_SIZE} "
+                         f"expected, got {cfg.bucket_size}")
     return (cfg.key_bits, fn.num_buckets, fn.divisor, cfg.max_new_per_frame)
 
 
-def _launch_insert(hmap: HashMap, cfg: HashConfig, cand_keys: torch.Tensor,
-                   frame_idx, bucket_fn) -> Tuple[HashMap, torch.Tensor]:
-    """K5b on the current stream, the map updated in place: (map, a fresh
-    0-d int32 n_alloc); or raise."""
+def insert_scratch_size(M: int) -> tuple:
+    """(capacity, set_bits, ints) of a K5b scratch that takes ``M`` keys:
+    the capacity the next power of two >= M (at least
+    ``INSERT_MIN_CAPACITY``), a set of 2 x capacity slots, and the int32
+    count that csrc/alloc.cu lays out (kHdrInts + 5 capacity + 2^set_bits
+    + kMaxNew)."""
+    capacity = max(INSERT_MIN_CAPACITY, 1 << max(M - 1, 0).bit_length())
+    set_bits = capacity.bit_length()            # 2^set_bits = 2 capacity
+    return (capacity, set_bits,
+            INSERT_HDR_INTS + 5 * capacity + (1 << set_bits) + MAX_NEW)
+
+
+def _capturing(dev: torch.device) -> bool:
+    """Whether ``dev``'s current stream is being captured into a CUDA
+    graph."""
+    return dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _insert_scratch(dev: torch.device, stream: int, M: int) -> tuple:
+    """K5b's scratch for ``M`` keys on ``dev`` and ``stream`` (a raw
+    stream handle): (tensor, capacity, set_bits), its set EMPTY_KEY and
+    its counts 0 (every launch leaves them so).  One persists a device and
+    stream: made at first use, replaced by a larger one when M outgrows
+    it; a replaced one is kept alive, since a CUDA graph captured with it
+    still runs on it.  A persistent scratch is never made while the stream
+    is being captured (its fill would run only in the graph): a capture
+    that finds none large enough takes a scratch of its own, filled in the
+    graph before each replay's launch and kept nowhere else."""
+    key = (dev.index, stream)
+    got = _INSERT_SCRATCH.get(key)
+    if got is not None and got[1] >= M:
+        return got
+    capacity, set_bits, ints = insert_scratch_size(M)
+    fresh = (torch.empty((ints,), dtype=torch.int32, device=dev), capacity,
+             set_bits)
+    hdr, st = insert_scratch_parts(*fresh)
+    hdr.zero_()
+    st.fill_(EMPTY_KEY)
+    if _capturing(dev):
+        return fresh
+    if got is not None:
+        _INSERT_RETIRED.append(got[0])
+    _INSERT_SCRATCH[key] = fresh
+    return fresh
+
+
+def insert_scratch_parts(scratch: torch.Tensor, capacity: int,
+                         set_bits: int) -> tuple:
+    """(counts, set) views of a K5b scratch: the header's key counts and
+    arrival count, and the set; between launches both as the wrapper made
+    them, 0 and EMPTY_KEY (the header's epoch and what it hands the
+    waiting CTAs, past them, run on)."""
+    s0 = INSERT_HDR_INTS + 2 * capacity
+    return scratch[:INSERT_HDR_ZERO], scratch[s0:s0 + (1 << set_bits)]
+
+
+def _insert_tables(hmap: HashMap, cfg: HashConfig, bucket_fn) -> tuple:
+    """K5b's host tables for this map, configuration and bucket function:
+    (the map's tensors' addresses in HashMap order, the ints nb, S, N, V,
+    key bits, the hash's buckets and divisor, max_new) as ctypes arrays,
+    after checking the map against what K5b takes (one CUDA device, int32
+    integer state, float32 rows, the table's shapes, contiguous), or
+    raise.  Built once: a map whose tensors are the same objects, with the
+    same configuration and bucket function, is not checked again (the map
+    is updated in place; nothing in the port swaps a tensor's storage)."""
+    got = _MAP_CHECKED.get(id(hmap.keys))
+    if got is not None:
+        refs, c, fn, tables = got
+        if (c is cfg and fn == bucket_fn
+                and all(r() is t for r, t in zip(refs, hmap))):
+            return tables
     plan = _insert_plan(cfg, bucket_fn)
     dev = hmap.keys.device
     ints = (hmap.keys, hmap.ptrs, hmap.bucket_fill, hmap.free_list,
-            hmap.free_top, hmap.last_seen, hmap.born, cand_keys)
+            hmap.free_top, hmap.last_seen, hmap.born)
     floats = (hmap.tsdf, hmap.weight, hmap.band_min)
     if not _on_cuda(dev, *ints, *floats):
         raise ValueError("insert_blocks: the map and the keys must lie on "
@@ -1164,7 +1250,7 @@ def _launch_insert(hmap: HashMap, cfg: HashConfig, cand_keys: torch.Tensor,
                          "and float32 map rows expected")
     S, nb = cfg.bucket_size, cfg.num_buckets
     N, V = hmap.tsdf.shape[0], cfg.voxels_per_block
-    if (cand_keys.dim() != 1 or tuple(hmap.keys.shape) != (nb * S,)
+    if (tuple(hmap.keys.shape) != (nb * S,)
             or hmap.ptrs.shape != hmap.keys.shape
             or tuple(hmap.bucket_fill.shape) != (nb,)
             or hmap.free_top.numel() != 1
@@ -1176,24 +1262,43 @@ def _launch_insert(hmap: HashMap, cfg: HashConfig, cand_keys: torch.Tensor,
             f"insert_blocks: (M,) keys, a ({nb * S},) table, ({nb},) "
             f"bucket_fill, one free_top and (N, {V}) map rows with (N,) "
             f"free_list, last_seen, band_min and born expected")
-    if not all(t.is_contiguous() for t in ints[:-1] + floats):
+    if not all(t.is_contiguous() for t in ints + floats):
         raise ValueError("insert_blocks: the map must be contiguous (it is "
                          "updated in place)")
+    ptrs = tuple(t.data_ptr() for t in hmap)
+    key_bits, hash_buckets, divisor, max_new = plan
+    tables = ((ctypes.c_void_p * len(ptrs))(*ptrs),
+              (ctypes.c_int * 8)(nb, S, N, V, key_bits, hash_buckets,
+                                 divisor, max_new))
+    if len(_MAP_CHECKED) >= 16:
+        _MAP_CHECKED.clear()
+    _MAP_CHECKED[id(hmap.keys)] = (tuple(weakref.ref(t) for t in hmap),
+                                   cfg, bucket_fn, tables)
+    return tables
+
+
+def _launch_insert(hmap: HashMap, cfg: HashConfig, cand_keys: torch.Tensor,
+                   frame_idx, bucket_fn) -> Tuple[HashMap, torch.Tensor]:
+    """K5b on the current stream, the map updated in place: (map, a fresh
+    0-d int32 n_alloc); or raise.  The scratch persists (one a device and
+    stream); n_alloc stays a fresh tensor, since callers keep it a frame
+    (``StepInfo.blocks_allocated``)."""
+    map_ptrs, ints = _insert_tables(hmap, cfg, bucket_fn)
+    dev = hmap.keys.device
+    if cand_keys.device != dev:
+        raise ValueError("insert_blocks: the map and the keys must lie on "
+                         "one CUDA device (or all on the CPU)")
+    if cand_keys.dtype != torch.int32 or cand_keys.dim() != 1:
+        raise ValueError("insert_blocks: (M,) int32 keys expected")
     stamp_ptr, stamp_int = _stamp_arg(frame_idx, dev, "insert_blocks")
     M = cand_keys.shape[0]
-    set_bits = max(2, (2 * M - 1).bit_length())     # 2^bits >= 2 M
     cand = cand_keys.contiguous()
-    scratch = torch.empty((1 << set_bits) + M + cfg.max_new_per_frame + 1,
-                          dtype=torch.int32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    scratch, capacity, set_bits = _insert_scratch(dev, stream, M)
     n_alloc = torch.empty((), dtype=torch.int32, device=dev)
-    kernels.launch("insert_blocks", dev.index, cand.data_ptr(),
-                   hmap.keys.data_ptr(), hmap.ptrs.data_ptr(),
-                   hmap.bucket_fill.data_ptr(), hmap.free_list.data_ptr(),
-                   hmap.free_top.data_ptr(), hmap.tsdf.data_ptr(),
-                   hmap.weight.data_ptr(), hmap.last_seen.data_ptr(),
-                   hmap.band_min.data_ptr(), hmap.born.data_ptr(),
-                   n_alloc.data_ptr(), stamp_ptr, scratch.data_ptr(), M,
-                   set_bits, nb, S, N, V, *plan, stamp_int)
+    kernels.launch("insert_blocks", dev.index, cand.data_ptr(), M,
+                   n_alloc.data_ptr(), stamp_ptr, stamp_int,
+                   scratch.data_ptr(), capacity, set_bits, map_ptrs, ints)
     global LAUNCHES_INSERT
     LAUNCHES_INSERT += 1
     return hmap, n_alloc

@@ -36,8 +36,13 @@ LAUNCHES_FRAME = 0      # K3a preprocess_frame
 LAUNCHES_LEVELS = 0     # K3b pyramid_levels
 
 MAX_RADIUS = 7          # the bilateral radius K3a takes (kMaxRadius)
+MAX_DEPTH = 1e29        # the depths K3a's bilateral takes (kMaxDepth)
 MAX_JOBS = 8            # level inputs a K3b launch (kMaxJobs)
 EDGE_BAND = 0.05        # downsample_depth_mean's default edge band
+
+# K3a's host tables: (id(camera), id(frontend)) -> (camera, frontend,
+# (ints, floats))
+_FRAME_PLANS: dict = {}
 
 
 class Frame(NamedTuple):
@@ -363,15 +368,63 @@ def _spatial_weight(dy: int, dx: int, inv_2ss: float) -> float:
                                         dtype=torch.float32)))
 
 
-@functools.lru_cache(maxsize=None)
-def _spatial_weights(radius: int, sigma_space: float) -> ctypes.Array:
-    """K3a's (2r + 1)^2 spatial weights in (dy, dx) order, as a host
-    array."""
+def _spatial_weights(radius: int, sigma_space: float) -> list:
+    """K3a's (2r + 1)^2 spatial weights in (dy, dx) order."""
     inv_2ss = 1.0 / (2.0 * sigma_space * sigma_space)
-    w = [_spatial_weight(dy, dx, inv_2ss)
-         for dy in range(-radius, radius + 1)
-         for dx in range(-radius, radius + 1)]
-    return (ctypes.c_float * len(w))(*w)
+    return [_spatial_weight(dy, dx, inv_2ss)
+            for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1)]
+
+
+def _unmasked_taps(outlier: bool, floats) -> bool:
+    """Whether K3a's bilateral can take its taps unmasked on these float32
+    tables (csrc/preprocess.cu): every pixel it reads that is not > 0 is
+    exactly 0 in the plain version (the outlier stage makes it so, or a
+    range gate that passes no negative depth and no -0), 1 / (2
+    sigma_depth^2) > 0, and no depth reaches MAX_DEPTH."""
+    rscale, dmin, dmax, inv2sd = floats[0], floats[1], floats[2], floats[9]
+    cap = 2.0 ** 31 * abs(rscale)
+    vmax = cap if math.isnan(dmax) else min(dmax, cap)    # as fminf
+    return ((outlier or (dmin >= 0 and rscale > 0)) and inv2sd > 0
+            and vmax < MAX_DEPTH)
+
+
+def _frame_plan(cam: CameraConfig, frontend) -> tuple:
+    """K3a's host tables (ctypes arrays of ints and floats) for the camera
+    and the frontend's stages, built once a configuration (kept by the
+    objects' identity, which costs less than hashing them), or raise."""
+    got = _FRAME_PLANS.get((id(cam), id(frontend)))
+    if got is not None and got[0] is cam and got[1] is frontend:
+        return got[2]
+    f = frontend
+    outlier = f is not None and f.outlier_reject
+    bilateral = f is not None and f.bilateral
+    radius = f.bilateral_radius if bilateral else 0
+    if not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"preprocess: bilateral radius {radius} outside "
+                         f"the kernel's 0..{MAX_RADIUS}")
+    ints = [int(outlier), f.outlier_min_support if outlier else 0,
+            int(bilateral), radius]
+    floats = [recip(cam.depth_scale), cam.depth_min, cam.depth_max, cam.cx,
+              cam.cy, recip(cam.fx), recip(cam.fy),
+              f.outlier_band_base if outlier else 0.0,
+              f.outlier_band_quad if outlier else 0.0,
+              1.0 / (2.0 * f.bilateral_sigma_depth * f.bilateral_sigma_depth)
+              if bilateral else 0.0]
+    if bilateral:
+        floats += _spatial_weights(radius, f.bilateral_sigma_space)
+    plan = ((ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(floats))(*floats))
+    if bilateral and not _unmasked_taps(outlier, plan[1]):
+        raise ValueError(
+            "preprocess: on the card the bilateral filter takes the outlier "
+            "stage or depth_min >= 0 and depth_scale > 0, a sigma_depth "
+            "whose 1 / (2 sigma^2) is a positive float32, and depths below "
+            f"{MAX_DEPTH:g}")
+    if len(_FRAME_PLANS) >= 64:
+        _FRAME_PLANS.clear()
+    _FRAME_PLANS[(id(cam), id(frontend))] = (cam, frontend, plan)
+    return plan
 
 
 def _launch_frame(depth_raw: torch.Tensor, cam: CameraConfig,
@@ -384,36 +437,18 @@ def _launch_frame(depth_raw: torch.Tensor, cam: CameraConfig,
             f"preprocess: an int32 (H, W) depth image on a CUDA device (or "
             f"any on the CPU) expected, got {depth_raw.dtype} "
             f"{tuple(depth_raw.shape)} on {depth_raw.device}")
-    f = frontend
-    outlier = f is not None and f.outlier_reject
-    bilateral = f is not None and f.bilateral
-    radius = f.bilateral_radius if bilateral else 0
-    if not 0 <= radius <= MAX_RADIUS:
-        raise ValueError(f"preprocess: bilateral radius {radius} outside "
-                         f"the kernel's 0..{MAX_RADIUS}")
+    ints, floats = _frame_plan(cam, frontend)
     raw = depth_raw.contiguous()
     H, W = raw.shape
     n = H * W
     buf = torch.empty(7 * n, dtype=torch.float32, device=raw.device)
-    frame = Frame(vertices=buf.as_strided((H, W, 3), (3 * W, 3, 1), n),
-                  normals=buf.as_strided((H, W, 3), (3 * W, 3, 1), 4 * n),
-                  depth=buf.as_strided((H, W), (W, 1), 0))
-    kernels.launch(
-        "preprocess_frame", raw.get_device(), raw.data_ptr(),
-        frame.depth.data_ptr(), frame.vertices.data_ptr(),
-        frame.normals.data_ptr(), H, W, recip(cam.depth_scale),
-        cam.depth_min, cam.depth_max, cam.cx, cam.cy, recip(cam.fx),
-        recip(cam.fy), int(outlier),
-        f.outlier_band_base if outlier else 0.0,
-        f.outlier_band_quad if outlier else 0.0,
-        f.outlier_min_support if outlier else 0, int(bilateral), radius,
-        1.0 / (2.0 * f.bilateral_sigma_depth * f.bilateral_sigma_depth)
-        if bilateral else 0.0,
-        _spatial_weights(radius, f.bilateral_sigma_space)
-        if bilateral else None)
+    kernels.launch("preprocess_frame", raw.get_device(), raw.data_ptr(),
+                   buf.data_ptr(), H, W, ints, floats)
     global LAUNCHES_FRAME
     LAUNCHES_FRAME += 1
-    return frame
+    return Frame(vertices=buf.as_strided((H, W, 3), (3 * W, 3, 1), n),
+                 normals=buf.as_strided((H, W, 3), (3 * W, 3, 1), 4 * n),
+                 depth=buf.as_strided((H, W), (W, 1), 0))
 
 
 @functools.lru_cache(maxsize=64)
