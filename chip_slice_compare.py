@@ -13,12 +13,13 @@ builds its kernels, runs its own ``chip_smoke.py`` ``slice`` phase (12
 flagship 640x480 frames through ``HashSLAM(flagship_gather_config())``:
 ATE, p50 and max frame ms) and its own ``tools/roofline.measure_stages``
 under ``flagship_gather_config()`` (host ms of each stage of the step
-after 24 noisy sweep frames), then its own ``preprocess`` and ``alloc``
-phases (K3a ``preprocess_frame`` and K5b ``insert_blocks`` on the step's
-own inputs: warm and L2-cold device µs, each checked bit for bit against
-its plain version by the phase: device µs of a CUDA-graph replay over
-its launches) and, measured by the same code in both trees
-(``WRAPPERS``), the two wrappers' host µs to issue a call and the two
+after 24 noisy sweep frames), then its own ``preprocess``, ``splat``,
+``fuse`` and ``alloc`` phases (K3a ``preprocess_frame``, K9
+``splat_finalize``, K7 ``integrate_rows`` and K5b ``insert_blocks`` on
+the step's own inputs: warm and L2-cold device µs, each checked bit for
+bit against its plain version by the phase: device µs of a CUDA-graph
+replay over its launches) and, measured by the same code in both trees
+(``WRAPPERS``), the four wrappers' host µs to issue a call and the four
 kernels' own device µs a launch by torch.profiler, launched one by one,
 queued back to back and from a CUDA graph.  One JSON
 line a turn, then the summary as the last line: each tree's ATEs (equal
@@ -37,13 +38,15 @@ import numpy as np
 
 TURNS = ("parent", "this", "this", "parent")
 TIMEOUT_S = 900
-KERNELS = ("preprocess_frame", "insert_blocks")    # K3a, K5b
+KERNELS = ("preprocess_frame", "insert_blocks", "splat_finalize",
+           "integrate_rows")                       # K3a, K5b, K9, K7
 
 # on the step's inputs, by the same code for every tree (only the APIs
 # that both trees have): the wrappers' host µs to issue one call (the
 # median of 50, synchronised before each), and each kernel's own device
 # µs a launch (torch.profiler, min and median over 8 launches; K5b's each
-# on a copy of the map's integer state, restored first) in three modes:
+# on a copy of the map's integer state, K7's on a copy of its float rows
+# and last_seen, restored first) in three modes:
 # "isolated" (the queue drained before each call, as the host-bound step
 # launches them), "queued" (every call queued behind a ~1 ms sleep kernel,
 # so the launches run back to back) and "graph" (one CUDA graph of the 8,
@@ -51,7 +54,9 @@ KERNELS = ("preprocess_frame", "insert_blocks")    # K3a, K5b
 # count; and K5b's keys there (M, the distinct U, the new ones).  These
 # inputs are frame N_STEP_FRAMES's depth at the pose the step starts it
 # from, on the map before it: not the step's own allocation, whose pose
-# ICP has moved (that is the ``alloc`` phase's)
+# ICP has moved (that is the ``alloc`` phase's).  K9 finalizes the splat
+# buffer of that map, visible set and pose; K7 fuses the frame into that
+# map after its allocation, on the set K6 gives
 WRAPPERS = r"""
 def _own_us(torch, name, fn, restore):
     from torch.autograd import DeviceType
@@ -112,6 +117,7 @@ def wrapper_us(torch, cs, sweep):
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.ops import hash_ops
     from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+    from voxelhashing_demo_tpu_torch.ops import splat
     from voxelhashing_demo_tpu_torch.tools import probe
 
     cfg = flagship_gather_config()
@@ -124,12 +130,38 @@ def wrapper_us(torch, cs, sweep):
     cand = hash_ops.frame_candidate_keys(frame, slam.state.pose, cam,
                                          cfg.hash, cfg.fusion)
     m = probe.map_copy(slam.state.hmap)
+    pose, rc, fus = slam.state.pose, cfg.raycast, cfg.fusion
+    visible = hash_ops.compact_visible(slam.state.hmap, cfg.hash, pose, cam,
+                                       fus)
+    zbuf = splat.splat_depth_from_map(slam.state.hmap, visible, cfg.hash,
+                                      pose, cam, rc, fus)
+    fused = probe.map_copy(slam.state.hmap)
+    hash_ops.allocate_from_frame(fused, frame, pose, cam, cfg.hash, fus,
+                                 frame_idx=cs.N_STEP_FRAMES)
+    active = hash_ops.compact_visible(fused, cfg.hash, pose, cam, fus)
+    rows = ("tsdf", "weight", "band_min", "last_seen")
+    copies = [probe.map_copy(fused, rows) for _ in range(8)]
+
+    def k7(x):
+        return lambda: hash_ops.integrate(x, active, cfg.hash, frame.depth,
+                                          pose, cam, fus,
+                                          stamp=cs.N_STEP_FRAMES)
+
+    def restore_rows():
+        for x in copies:
+            for f in rows:
+                getattr(x, f).copy_(getattr(fused, f))
+
     reps = 50
     issue = {"preprocess_frame": cs.host_issue_us(
                  lambda: pre.preprocess(raw, cam, front), reps=reps),
              "insert_blocks": cs.host_issue_us(
                  lambda: hash_ops.insert_blocks(m, cfg.hash, cand, 7),
-                 reps=reps)}
+                 reps=reps),
+             "splat_finalize": cs.host_issue_us(
+                 lambda: splat.finalize_depth(zbuf, cam, rc, fus),
+                 reps=reps),
+             "integrate_rows": cs.host_issue_us(k7(copies[0]), reps=reps)}
     ints = ("keys", "ptrs", "bucket_fill", "free_top")    # rows shared
     maps = [probe.map_copy(slam.state.hmap, ints) for _ in range(8)]
 
@@ -145,7 +177,14 @@ def wrapper_us(torch, cs, sweep):
            "insert_blocks": _modes(
                torch, "insert_blocks",
                [lambda x=x: hash_ops.insert_blocks(x, cfg.hash, cand, 7)
-                for x in maps], restore)}
+                for x in maps], restore),
+           "splat_finalize": _modes(
+               torch, "splat_finalize",
+               [lambda: splat.finalize_depth(zbuf, cam, rc, fus)] * 8,
+               lambda: None),
+           "integrate_rows": _modes(
+               torch, "integrate_rows", [k7(x) for x in copies],
+               restore_rows)}
     uniq = torch.unique(cand[cand != hash_ops.EMPTY_KEY])
     _, found = hash_ops.lookup_keys(slam.state.hmap, cfg.hash, uniq)
     keys = {"M": cand.numel(), "U": uniq.numel(),
@@ -170,9 +209,12 @@ print(json.dumps({"phase": "roofline_stages", "stages_ms": stages,
                   "n_active_blocks": n_active}), flush=True)
 sweep = cs.room_sweep()[1]
 k3 = cs.phase_preprocess(torch, "", sweep)
+k9 = cs.phase_splat(torch, "", sweep)
+k7 = cs.phase_fuse(torch, "", sweep)
 k5 = cs.phase_alloc(torch, "", sweep)
 us = {k: {"us": 1e3 * d[k]["ms"], "cold_us": 1e3 * d[k]["cold_ms"]}
-      for k, d in (("preprocess_frame", k3), ("insert_blocks", k5))}
+      for k, d in (("preprocess_frame", k3), ("insert_blocks", k5),
+                   ("splat_finalize", k9), ("integrate_rows", k7))}
 """ + WRAPPERS + r"""
 issue, own, keys = wrapper_us(torch, cs, sweep)
 us["insert_blocks"]["keys"] = keys
@@ -181,7 +223,7 @@ for k in us:
     us[k]["queued_events_us"] = own[k].pop("queued_events")
     for mode, v in own[k].items():
         us[k][mode + "_us"] = v["median"]
-print(json.dumps({"phase": "k3a_k5b", "kernels": us}), flush=True)
+print(json.dumps({"phase": "kernels", "kernels": us}), flush=True)
 """
 
 
@@ -203,7 +245,7 @@ def _turn(tree: str) -> dict:
             "frame_ms_max": s["frame_ms_max"],
             "blocks_allocated": s["blocks_allocated"],
             "stages_ms": lines["roofline_stages"]["stages_ms"],
-            "kernels": lines["k3a_k5b"]["kernels"],
+            "kernels": lines["kernels"]["kernels"],
             "k5b_graph_copies": lines.get("alloc", {}).get(
                 "insert_blocks", {}).get("graph_copies")}
 

@@ -353,6 +353,7 @@ same paths: they must launch on every path and rank.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -1434,6 +1435,23 @@ def barrier_floor_ms(torch, kernels, ctas: int) -> float:
     return (t[1] - t[0]) / BARRIER_SYNCS
 
 
+KERNEL_INFO_KEYS = ("registers", "spilled_bytes", "resident_ctas",
+                    "threads", "shared_bytes")
+
+
+def kernel_info(name: str, arg: int) -> dict:
+    """What the CUDA runtime says of the instantiation that the C function
+    ``name`` (``splat_finalize_info``: fill rounds; ``integrate_rows_info``:
+    block size) picks for ``arg``: registers and spilled bytes a thread,
+    resident CTAs a multiprocessor, threads and shared bytes a CTA."""
+    from voxelhashing_demo_tpu_torch import kernels
+
+    out = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
+    err = kernels.function(name)(arg, out)
+    _require(err == 0, f"{name}({arg}) answers (CUDA error {err})")
+    return dict(zip(KERNEL_INFO_KEYS, out))
+
+
 def host_issue_us(fn, reps: int = 20) -> float:
     """Median host µs to issue one call of ``fn`` (perf_counter around the
     call, no synchronisation inside; the queue drains after each)."""
@@ -1938,6 +1956,7 @@ def phase_splat(torch, card: str, sweep) -> dict:
     k9["bound_ms"], k9["bound_by"] = _probe_bound(
         px * (4 + 4 + 12 + 12 + 1),
         px * (K9_OPS_PER_PIXEL + K9_OPS_PER_ROUND * rc.splat_fill_rounds))
+    k9["info"] = kernel_info("splat_finalize_info", rc.splat_fill_rounds)
     for k in (k8, k9):
         k["floor_ms"] = floor_ms
         k["least_ms"] = max(k["bound_ms"], floor_ms)
@@ -2168,16 +2187,18 @@ def phase_fuse(torch, card: str, sweep) -> dict:
     k6["barrier_floor_ms"] = barrier_floor_ms(torch, kernels, tiles)
     k6["least_ms"] = max(k6["bound_ms"], floor_ms + k6["barrier_floor_ms"])
 
-    head, tail = hash_ops._integrate_plan(hcfg, cam, fusion)
+    head, (falloff, *tail) = hash_ops._integrate_plan(hcfg, cam, fusion)
+    floats7 = (ctypes.c_float * len(tail))(*tail)
 
     def k7_alone(blocks, ptrs, count, tsdf, weight, band_min, born,
                  last_seen, d, pose):
+        rows7 = (ctypes.c_void_p * 5)(*(t.data_ptr() for t in (
+            tsdf, weight, band_min, born, last_seen)))
+        ints7 = (ctypes.c_int * 8)(tsdf.shape[0], *head, falloff)
         kernels.launch("integrate_rows", index, blocks.data_ptr(),
-                       ptrs.data_ptr(), count.data_ptr(), tsdf.data_ptr(),
-                       weight.data_ptr(), band_min.data_ptr(),
-                       born.data_ptr(), last_seen.data_ptr(), d.data_ptr(),
-                       pose.data_ptr(), A, tsdf.shape[0], *head, 1, 0, 0, 1,
-                       frame_idx, None, *tail)
+                       ptrs.data_ptr(), count.data_ptr(), rows7,
+                       d.data_ptr(), pose.data_ptr(), None, A, 1, 0, 0, 1,
+                       frame_idx, ints7, floats7)
 
     m = probe.map_copy(base)
     on_map = (active.blocks, active.ptrs, active.count, m.tsdf, m.weight,
@@ -2203,6 +2224,7 @@ def phase_fuse(torch, card: str, sweep) -> dict:
                                   fusion, frame_idx)
     k7["bound_ms"], k7["bound_by"] = _probe_bound(
         k7["bound_bytes"], n * V * K7_OPS_PER_VOXEL)
+    k7["info"] = kernel_info("integrate_rows_info", hcfg.block_size)
     for k in (k6, k7):
         k["floor_ms"] = floor_ms
     k7["least_ms"] = max(k7["bound_ms"], floor_ms)

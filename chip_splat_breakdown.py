@@ -1,10 +1,18 @@
 #!/usr/bin/env python3
-"""Where the splat kernels' device time goes, on the flagship step's own
-splat (csrc/splat.cu: K8 ``splat_zbuffer``, K9 ``splat_finalize``).
+"""Where the splat kernels' and the integrate kernel's device time goes,
+on the flagship step's own splat and fuse (csrc/splat.cu: K8
+``splat_zbuffer``, K9 ``splat_finalize``; csrc/fuse.cu: K7
+``integrate_rows``).
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_splat_breakdown.py
+    python3 chip_splat_breakdown.py [--tree NAME=DIR ...]
+
+``--tree`` times design trees too (copies of the package with a ``.cu``
+edited, e.g. under the git-ignored ``_trees/``): each tree, then this one,
+in a fresh process of its own started in the tree (the tree's package
+first on ``sys.path``, this repository second for ``chip_smoke.py``), one
+JSON line each with its name.
 
 It runs the first N_STEP_FRAMES + 1 frames of chip_smoke.py's room sweep
 through ``HashSLAM(flagship_gather_config())``, keeps the arguments of the
@@ -13,17 +21,95 @@ last frame's ``splat_raycast`` call and times, each by CUDA-graph replay
 
 - K8 as the step runs it (band filter on), without the filter, and with
   the row count 0 (its grid's launch and exit alone);
-- K9 on the step's raw buffer with 0, 1 and 2 fill rounds, and on a
-  buffer with no hole (the fill's fast path everywhere);
-- the empty kernel (the launch floor).
+- K9 on the step's raw buffer with 0, 1, 2 and 3 fill rounds, and on
+  a buffer with no hole (the fill's fast path everywhere) and one with
+  no estimate (every cell a hole);
+- K7 on the step's own fuse (the map after the step's allocation, the
+  visible set K6 gives): as the step runs it (window gather, stamp),
+  without the window, de-integrating, and with the row count cut to
+  one wave's worth (the multiprocessors) and to 1, and on every live row
+  of the map at once (more rows than the step's);
+- the empty kernel (the launch floor);
+
+and what ptxas says of every kernel of splat.cu and fuse.cu (registers,
+spills: ``kernels.ptxas_report``).
 
 One JSON line, with the card's name and power limit first.
 """
 
+import argparse
 import json
 import os
 import subprocess
 import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TREE_TIMEOUT_S = 600
+CHILD = ("import sys; sys.path[:0] = [{tree!r}, {root!r}]; "
+         "import chip_splat_breakdown as b; sys.exit(b.measure())")
+
+
+def _k7_breakdown(torch, sweep, us) -> dict:
+    """K7's µs a launch (``us``) on the step's fuse of frame
+    N_STEP_FRAMES: the map before it with the step's allocation applied,
+    the visible set of K6, each variant on a copy of the map's rows."""
+    import dataclasses
+
+    import chip_smoke
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.geometry import coords
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    slam = hash_slam.HashSLAM(flagship_gather_config())
+    for d in sweep[:chip_smoke.N_STEP_FRAMES]:
+        slam.process(d)
+    last = []
+
+    def record(real):
+        def fn(hmap, frame, T_wc, cam, hcfg, fusion, frame_idx=0):
+            last[:] = [probe.map_copy(hmap), frame, T_wc, cam, hcfg, fusion,
+                       frame_idx]
+            return real(hmap, frame, T_wc, cam, hcfg, fusion,
+                        frame_idx=frame_idx)
+        return fn
+
+    with chip_smoke._wrapped(hash_ops, "fuse_frame", record):
+        slam.process(sweep[chip_smoke.N_STEP_FRAMES])
+    base, frame, T_wc, cam, hcfg, fusion, frame_idx = last
+    hash_ops.allocate_from_frame(base, frame, T_wc, cam, hcfg, fusion,
+                                 frame_idx=frame_idx)
+    active = hash_ops.compact_visible(base, hcfg, T_wc, cam, fusion)
+    n = int(active.count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plain = dataclasses.replace(hcfg, use_pallas_gather=False)
+
+    def k7(h=hcfg, act=active, sign=1, stamp=frame_idx):
+        m = probe.map_copy(base, probe.MAP_FIELDS)
+        return lambda: hash_ops.integrate(m, act, h, frame.depth, T_wc, cam,
+                                          fusion, sign=sign, stamp=stamp)
+
+    def cut(k):
+        return active._replace(count=torch.tensor(
+            k, dtype=torch.int32, device=T_wc.device))
+
+    # every live row of the map as one set (more rows than the step's)
+    live = (base.ptrs != hash_ops.FREE_PTR).nonzero().flatten()
+    live = live[:hcfg.max_active]
+    n_all = live.numel()
+    every = hash_ops.ActiveSet(
+        blocks=torch.zeros_like(active.blocks),
+        ptrs=torch.full_like(active.ptrs, hash_ops.FREE_PTR),
+        count=torch.tensor(n_all, dtype=torch.int32, device=T_wc.device))
+    every.blocks[:n_all] = coords.unpack_block_key(base.keys[live],
+                                                   hcfg.key_bits)
+    every.ptrs[:n_all] = base.ptrs[live]
+    return {"rows": n, "sms": sms, "rows_all": n_all,
+            "step": us(k7()), "no_window": us(k7(h=plain)),
+            "deintegrate": us(k7(sign=-1, stamp=None)),
+            f"rows_{sms}": us(k7(act=cut(min(sms, n)))),
+            "rows_1": us(k7(act=cut(1))), "all_rows": us(k7(act=every))}
 
 
 def main() -> int:
@@ -32,8 +118,38 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_splat_breakdown.py needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", action="append", default=[],
+                    metavar="NAME=DIR")
+    args = ap.parse_args()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    if not args.tree:
+        return measure()
+    trees = [t.split("=", 1) for t in args.tree] + [["this", ROOT]]
+    for name, tree in trees:
+        tree = os.path.abspath(tree)
+        proc = subprocess.run(
+            [sys.executable, "-c", CHILD.format(tree=tree, root=ROOT)],
+            cwd=tree, capture_output=True, text=True,
+            timeout=TREE_TIMEOUT_S)
+        lines = [x for x in proc.stdout.splitlines() if x.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            print(json.dumps({"tree": name, "rc": proc.returncode,
+                              "err": proc.stderr[-3000:]}), flush=True)
+            continue
+        print(json.dumps({"tree": name, **json.loads(lines[-1])}),
+              flush=True)
+    return 0
+
+
+def measure() -> int:
+    """The breakdown in this process, one JSON line; the package is the
+    one first on ``sys.path``."""
     import dataclasses
+
+    import torch
 
     import chip_smoke
     from voxelhashing_demo_tpu_torch import kernels
@@ -42,9 +158,7 @@ def main() -> int:
     from voxelhashing_demo_tpu_torch.ops import splat
     from voxelhashing_demo_tpu_torch.tools import probe
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    kernels.build_all()
     _, sweep, _ = chip_smoke.room_sweep()
     slam = hash_slam.HashSLAM(flagship_gather_config())
     last = []
@@ -72,6 +186,7 @@ def main() -> int:
 
     raw = splat.splat_depth_from_map_reference(*last)
     full = torch.where(raw > 0, raw, raw[raw > 0].median())
+    empty = torch.zeros_like(raw)
     out = {"rows": active.ptrs.shape[0], "count": int(active.count),
            "live_rows": int(splat.surface_filter(
                hmap, active, rc.splat_band * fusion.voxel_size).count),
@@ -81,12 +196,17 @@ def main() -> int:
                      "unfiltered": us(k8(active.count, 0)),
                      "count_0": us(k8(none, 1))},
            "k9_us": {}}
-    for rounds in (0, 1, 2):
+    for rounds in (0, 1, 2, 3):
         rcr = dataclasses.replace(rc, splat_fill_rounds=rounds)
         out["k9_us"][f"rounds_{rounds}"] = us(
             lambda r=rcr: splat.finalize_depth(raw, cam, r, fusion))
     out["k9_us"]["no_hole"] = us(
         lambda: splat.finalize_depth(full, cam, rc, fusion))
+    out["k9_us"]["no_estimate"] = us(
+        lambda: splat.finalize_depth(empty, cam, rc, fusion))
+    out["k7_us"] = _k7_breakdown(torch, sweep, us)
+    out["ptxas"] = {src: kernels.ptxas_report(src)
+                    for src in ("splat", "fuse")}
     out["floor_us_after"] = 1e3 * probe.launch_floor_ms()
     print(json.dumps(out), flush=True)
     return 0

@@ -24,15 +24,18 @@ counts in 3 launches; a level makes no host sync and replays from a CUDA
 graph bit for bit; a refused launch raises.  The splat kernels (K8
 ``splat_zbuffer``, K9 ``splat_finalize``) equal their plain versions bit
 for bit on every field (maps with FREE_PTR rows, band cuts and rows past
-``count``, 48 poses, the near / far gates, fill rounds 0-5, odd sizes,
-the ``pmin``-ed buffer), make no host sync and replay from a CUDA graph.
+``count``, 48 poses, the near / far gates, fill rounds 0-5 and 16, odd
+sizes, an image smaller than one tile, buffers with no hole, no estimate
+and negative values, the ``pmin``-ed buffer), make no host sync and
+replay from a CUDA graph; each K9 and K7 instantiation reports its
+registers and resident CTAs.
 The fuse kernels (K6 ``compact_visible``, K7 ``integrate_rows``) equal
 their plain versions bit for bit: the visible set, its order and count
 from 48 poses of a room sweep, on a set that overflows ``max_active`` and
 on a table of more tiles than the card holds CTAs; tsdf, weight,
 band_min, born and last_seen after an update in both gather modes and
 both signs (the ``max_born`` gate, rows at the weight cap, near-range
-rows the window clips, block size 4); the frame's compact -> touch ->
+rows the window clips, block sizes 3, 4 and 5); the frame's compact -> touch ->
 integrate makes no host sync, ``fuse_frame`` none outside allocation, and
 both replay from a CUDA graph; a refused build or launch raises.  The
 allocation kernels (K5a ``alloc_candidates``, K5b ``insert_blocks``) equal
@@ -1411,6 +1414,74 @@ def test_splat_finalize_matches_plain(cuda, hw, rounds, pmin):
                                              cfg.fusion), got, "+inf")
 
 
+SPLAT_BUFFERS = ("no_hole", "no_estimate", "signed", "smaller_than_a_tile",
+                 "width_228")
+
+
+def _splat_buffer(case: str):
+    """(h, w, raw float32 numpy buffer) of a K9 instantiation case: the
+    640x480 buffer with every hole filled ("no_hole") or all holes
+    ("no_estimate"); negative values among its holes ("signed": no fill
+    round keeps them, and the normals take them); a 9 x 13 image (smaller
+    than one tile: every staged cell wraps, some more than once) and a
+    36 x 228 one (a multiple of 4 wide, not of the tile)."""
+    from torch_port_helpers import splat_depth_case
+
+    h, w = {"smaller_than_a_tile": (9, 13), "width_228": (36, 228)}.get(
+        case, (480, 640))
+    raw = splat_depth_case(h, w, seed=4)
+    if case == "no_hole":
+        raw = np.where(raw > 0, raw, np.float32(1.4))
+    elif case == "no_estimate":
+        raw = np.zeros_like(raw)
+    elif case == "signed":
+        rng = np.random.default_rng(5)
+        neg = (raw == 0) & (rng.random(raw.shape) < 0.5)
+        raw = np.where(neg, -rng.random(raw.shape).astype(np.float32), raw)
+    return h, w, raw.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", SPLAT_BUFFERS)
+@pytest.mark.parametrize("rounds", [0, 1, 2, 3, 4, 16])
+def test_splat_finalize_instantiations(cuda, rounds, case):
+    """K9's instantiations (fill rounds 0-3, and the one that reads the
+    count at run time: 4, 16) bit for bit against
+    ``finalize_depth_reference``, every field, on buffers with no hole, no
+    estimate and negative values, and on images smaller than one tile and
+    not a multiple of its width (the interior and border tiles, the 16-byte
+    and the scalar stores)."""
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    h, w, raw = _splat_buffer(case)
+    cfg = _splat_cfg("full", splat_fill_rounds=rounds)
+    cam = dataclasses.replace(cfg.camera, height=h, width=w,
+                              cx=(w - 1) / 2 + 0.3, cy=(h - 1) / 2 - 0.2)
+    raw = torch.as_tensor(raw, device=cuda)
+    got = splat.finalize_depth(raw, cam, cfg.raycast, cfg.fusion)
+    _assert_splat_equal(got, splat.finalize_depth_reference(
+        raw, cam, cfg.raycast, cfg.fusion), f"{case} rounds {rounds}")
+
+
+def test_kernel_info(cuda):
+    """Each K9 and K7 instantiation reports its registers, spills and
+    resident CTAs (``splat_finalize_info``, ``integrate_rows_info``): at
+    least one CTA fits a multiprocessor."""
+    import ctypes
+
+    from voxelhashing_demo_tpu_torch import kernels
+
+    for name, args in (("splat_finalize_info", range(17)),
+                       ("integrate_rows_info", (2, 3, 4, 5, 8, 10))):
+        for a in args:
+            out = (ctypes.c_int * 5)()
+            assert kernels.function(name)(a, out) == 0, (name, a)
+            regs, spill, resident, threads, smem = out
+            assert 0 < regs <= 255 and resident >= 1, (name, a, list(out))
+            assert threads % 32 == 0 and smem <= 48 * 1024, (name, a)
+    assert kernels.function("splat_finalize_info")(17, out) != 0
+    assert kernels.function("integrate_rows_info")(11, out) != 0
+
+
 def test_splat_no_sync_graph_replay_and_refusals(cuda, monkeypatch):
     """The stage reads nothing back to the host and replays from a CUDA
     graph bit for bit; what the kernels do not take raises, a refused
@@ -1624,6 +1695,39 @@ def test_integrate_small_blocks(cuda):
                                             max_born, stamp)
         _assert_map_equal(got, want, f"block size 4, sign {sign}")
         assert int(active.count) > 0
+
+
+@pytest.mark.parametrize("block_size", [3, 5])
+def test_integrate_blocks_not_a_multiple_of_four(cuda, block_size):
+    """K7's instantiation of one voxel a thread (V = 27, 125: no 16-byte
+    rows) bit for bit against the plain integrate, both signs, the born
+    gate and the stamp as a 0-d tensor on the card, on a map grown on the
+    card at that block size; window on and off."""
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre_ops
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    base = _tiny_gather_config()
+    cfg = dataclasses.replace(base, hash=dataclasses.replace(
+        base.hash, block_size=block_size))
+    depths, _ = synthetic.make_sequence(cfg.camera, 4, trans_amp=0.05,
+                                        rot_amp_deg=2.5, device="cpu")
+    slam = hash_slam.HashSLAM(cfg, device=cuda)
+    for d in depths[:3]:
+        slam.process(d)
+    depth = pre_ops.preprocess(hash_slam.depth_tensor(depths[3], cuda),
+                               cfg.camera, cfg.frontend).depth
+    stamp = torch.tensor(6, dtype=torch.int32, device=cuda)
+    for window in (True, False):
+        c = dataclasses.replace(cfg, hash=dataclasses.replace(
+            cfg.hash, use_pallas_gather=window))
+        for sign, max_born, st in ((1, None, stamp), (-1, 1, None)):
+            got, want, active = _integrate_pair(
+                c, slam.state.hmap, slam.state.pose, depth, sign, max_born,
+                st)
+            _assert_map_equal(got, want, f"block size {block_size}, "
+                                         f"window {window}, sign {sign}")
+            assert int(active.count) > 0
 
 
 def _integrate_pair(cfg, hmap, pose, depth, sign, max_born, stamp):

@@ -363,12 +363,13 @@ def test_public_functions_run_plain_on_cpu():
 
 
 def test_kernel_arguments_match_the_sources():
-    """Each fuse kernel's ctypes argument list (kernels.KERNELS) has as
-    many entries as its C entry point in csrc/fuse.cu has parameters, the
-    pointers where the C function takes pointers, ints where it takes
-    ints."""
+    """Each fuse kernel's ctypes argument list (kernels.KERNELS), and K7's
+    instantiation report's, has as many entries as its C entry point in
+    csrc/fuse.cu has parameters, the pointers where the C function takes
+    pointers, ints where it takes ints."""
     src = (Path(kernels.SRC_DIR) / "fuse.cu").read_text()
-    for name in ("compact_visible", "integrate_rows"):
+    for name in ("compact_visible", "integrate_rows",
+                 "integrate_rows_info"):
         assert kernels.source_of(name) == "fuse"
         m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
         assert m, name
@@ -405,3 +406,19 @@ def test_plans_hold_the_plain_constants():
         tho._compact_plan(dataclasses.replace(h, key_bits=11), cam, fus)
     with pytest.raises(ValueError, match="voxels a block"):
         tho._integrate_plan(dataclasses.replace(h, block_size=16), cam, fus)
+
+
+def test_integrate_tables_refuse_what_k7_does_not_take():
+    """K7's host tables are built from the plan (a block of more than
+    MAX_VOXELS voxels raises first) and only for map rows on a CUDA device:
+    CPU rows raise before any launch, and nothing is kept for them."""
+    _, tc = _cfgs()
+    hmap = tho.create(tc.hash, device="cpu")
+    before = dict(tho._INTEGRATE_TABLES)
+    with pytest.raises(ValueError, match="voxels a block"):
+        tho._integrate_tables(hmap, dataclasses.replace(
+            tc.hash, block_size=16), tc.camera, tc.fusion)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tho._integrate_tables(hmap, tc.hash, tc.camera, tc.fusion)
+    assert tho._INTEGRATE_TABLES == before
+

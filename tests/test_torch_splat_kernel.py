@@ -255,11 +255,13 @@ def test_public_functions_run_plain_on_cpu(case):
 
 
 def test_kernel_arguments_match_the_sources():
-    """Each splat kernel's ctypes argument list (kernels.KERNELS) has as
-    many entries as its C entry point in csrc/splat.cu has parameters, the
-    pointers where the C function takes pointers."""
+    """Each splat kernel's ctypes argument list (kernels.KERNELS), and K9's
+    instantiation report's, has as many entries as its C entry point in
+    csrc/splat.cu has parameters, the pointers where the C function takes
+    pointers."""
     src = (Path(kernels.SRC_DIR) / "splat.cu").read_text()
-    for name in ("splat_zbuffer", "splat_finalize"):
+    for name in ("splat_zbuffer", "splat_finalize",
+                 "splat_finalize_info"):
         assert kernels.source_of(name) == "splat"
         m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
         assert m, name
@@ -286,3 +288,20 @@ def test_wrapper_plans_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="voxels a block"):
         tsp._zbuffer_plan(dataclasses.replace(tc.hash, block_size=16),
                           tc.camera, rc, tc.fusion)
+
+
+def test_finalize_tables_are_kept_by_identity():
+    """K9's host tables are built once a configuration and kept by the
+    objects' identity: the same table for the same objects, a new one for
+    an equal copy; the fill rounds are the plan's and the floats its
+    constants as float32."""
+    _, tc = _cfgs("flagship")
+    cam, rc, fus = tc.camera, tc.raycast, tc.fusion
+    rounds, floats = tsp._finalize_tables(cam, rc, fus)
+    assert tsp._finalize_tables(cam, rc, fus)[1] is floats
+    plan = tsp._finalize_plan(cam, rc, fus)
+    assert rounds == plan[0] == rc.splat_fill_rounds
+    assert list(floats) == [float(np.float32(x)) for x in plan[1:]]
+    assert tsp._finalize_tables(cam, dataclasses.replace(rc), fus)[1] \
+        is not floats
+

@@ -35,20 +35,36 @@
 // 128 CTAs through flags in memory; two launches would cost a launch and
 // a host-side ordering point.  The barrier is the simplest exact form.
 //
-// K7.  A grid of resident CTAs (as many as the card holds at once, no more
-// than there are rows) strides over the rows below the DEVICE count, K8's
-// layout (csrc/splat.cu): a grid of one CTA a row would launch max_active
-// CTAs of which most exit.  A CTA of 512 threads takes a row, one voxel a
-// thread at block size 8 (two at most), neighbouring threads on
-// neighbouring voxels, and per voxel, in the plain version's order:
-// projects it (project_rows), in the window mode reduces the row's minimum
-// (v, u) over its in-image voxels in the CTA and applies the window's
-// coverage (K1, csrc/window_gather.cu: integers, exact), reads the depth,
-// applies the update (both signs, the max_born row gate), writes tsdf and
-// weight for every voxel of the row, reduces band_min (min |fused| over
-// voxels with weight > 0, rewritten for every row, as the plain version
-// does) and, with a stamp, writes last_seen.  A FREE_PTR row is skipped
-// whole.  Rows are distinct, so no two CTAs touch one map row.
+// K7.  A row group takes a row, each thread 4 neighbouring voxels
+// (16-byte loads and stores of tsdf and weight; voxel i = lx + bs (ly + bs
+// lz), so voxels 4k..4k+3 are contiguous), 128 threads at block size 8; a
+// V that is not a multiple of 4 takes an instantiation of one voxel a
+// thread.  A CTA holds several row groups (512 threads: 4 at block size
+// 8), each with a named barrier of its own, so they run apart.  Group g of
+// CTA b takes rows b + g gridDim.x, then G gridDim.x on: the rows spread
+// evenly over the CTAs and the multiprocessors.  The grid is as many CTAs
+// as the card holds at once (264 at block size 8), no more than the rows
+// need, so the step's ~770 rows are all in flight in one wave.  The CTAs
+// launched cost time of their own, those that find no row too (PERF.md
+// section 6: a grid of 1 056 CTAs of a row each was ~1.2 us slower at the
+// step's rows than one of 792; a group of consecutive rows a CTA bunched
+// the rows on a third of the multiprocessors).  A row is a chain of
+// dependent reads; the design shortens it: the first row's ptr and block
+// are read before the count, the row's tsdf, weight and born right after
+// its ptr (they depend on nothing else, so their round trip overlaps the
+// projection and the window's reduction), and the depth under each voxel
+// in the image before that reduction, which only decides which reads
+// count.  At most 64 registers a thread keep two CTAs a multiprocessor.  Per voxel, in the plain
+// version's order: project it (project_rows), in the window mode reduce
+// the row's minimum (v, u) over its in-image voxels in the group and apply
+// the window's coverage (K1, csrc/window_gather.cu: integers, exact), read
+// the depth, apply the update (both signs, the max_born row gate), store
+// tsdf and weight only where their bits change (a voxel that takes no
+// sample keeps its bits, but for the inverse update's clamp), reduce
+// band_min (min |fused| over voxels with weight > 0, rewritten for every
+// row, as the plain version does) and, with a stamp, write last_seen.  A
+// FREE_PTR row is skipped whole.  Rows are distinct, so no two groups
+// touch one map row.
 //
 // Rounding: every product, sum and quotient of the plain PyTorch versions
 // (ops/hash_ops.py block_in_frustum, project_rows, _integrate_rows; ops/
@@ -71,7 +87,9 @@
 // read each live voxel's tsdf and weight (8 B), write the values the
 // update changes, and read the depth pixels that covered voxels reach
 // (L2-resident): ~1.8 us at the step's ~770 rows (chip_smoke.py counts
-// both from its run's data).  What the pair replaces is ~130 eager
+// both from its run's data); its time is the launch and one row's chain
+// of dependent reads and two CTA reductions, since every row is in
+// flight at once.  What the pair replaces is ~130 eager
 // launches and ~14 host reads a frame.
 
 #include <cooperative_groups.h>
@@ -307,10 +325,15 @@ compact_visible_kernel(const __grid_constant__ CompactParams P) {
 // K7
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads7 = 512;
-constexpr int kWarps7 = kThreads7 / 32;
-constexpr int kPerThread = 2;                      // voxels a thread at most
-constexpr int kMaxVoxels = kThreads7 * kPerThread;
+constexpr int kMaxVoxels = 1024;                   // voxels a block at most
+constexpr int kMaxWarps7 = 32;
+constexpr int kCtaThreads7 = 512;    // a CTA's threads: row groups of a row each
+constexpr int kMaxGroups7 = 8;       // row groups a CTA (named barriers 1..8)
+
+// threads of a K7 CTA for V voxels, vpt a thread: whole warps, at least one
+__host__ __device__ constexpr int threads7(int V, int vpt) {
+  return ((V + vpt - 1) / vpt + 31) / 32 * 32;
+}
 
 struct IntegrateParams {
   const int* blocks;       // (A, 3) block coords
@@ -323,12 +346,13 @@ struct IntegrateParams {
   int* last_seen;          // (N,)
   const float* depth;      // (H, W) metric depth
   const float* T_wc;       // (4, 4) row-major camera-to-world
+  const int* stamp_ptr;    // () the stamp on the device, or null: `stamp`
   int rows, n_map_rows, bs, V, H, W, wh, ww;
+  int groups, group_threads;   // row groups a CTA, threads a group
   int window;              // the window gather's coverage (K1's mode)
   int sign;                // +1 integrate, -1 de-integrate
   int gate_born, max_born; // rows with born > max_born take no sample
   int stamp_on, stamp;     // last_seen[ptr] = stamp
-  const int* stamp_ptr;    // () the stamp on the device, or null: `stamp`
   int falloff;             // FusionConfig.depth_weight_falloff
   // float32 of the plain version's Python doubles: voxel size, camera,
   // truncation and its depth scale, weight_sample, weight_sample * 1.5,
@@ -346,137 +370,269 @@ __device__ __forceinline__ float sample_weight(const IntegrateParams& P,
   return clamp_min(mul(P.w_sample15, sub(1.0f, d01)), 1.0f);
 }
 
-__global__ void __launch_bounds__(kThreads7)
-integrate_rows_kernel(const __grid_constant__ IntegrateParams P) {
-  __shared__ int red_v[2][kWarps7], red_u[2][kWarps7];   // by row parity
-  __shared__ float red_b[2][kWarps7];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int count = min(__ldg(P.count), P.rows);
-  const int stamp = P.stamp_ptr ? __ldg(P.stamp_ptr) : P.stamp;
-  const Pose pose = load_pose(P.T_wc);
-  const float fW1 = static_cast<float>(P.W - 1), fH1 = static_cast<float>(P.H - 1);
-  int parity = 0;
-  for (int r = blockIdx.x; r < count; r += gridDim.x, parity ^= 1) {
-    const int ptr = __ldg(P.ptrs + r);
-    if (ptr == kFreePtr) continue;
-    const int row = min(max(ptr, 0), P.n_map_rows - 1);
-    const bool born_ok = !P.gate_born || __ldg(P.born + row) <= P.max_born;
-    const int* b = P.blocks + 3 * r;
-    const int bx = __ldg(b) * P.bs, by = __ldg(b + 1) * P.bs,
-              bz = __ldg(b + 2) * P.bs;
-
-    // project_rows: the voxel's camera depth and clamped pixel
-    float z[kPerThread];
-    int vi[kPerThread], ui[kPerThread];
-    bool in_img[kPerThread];
-    int mv = P.H, mu = P.W;
+// VPT values of a row at voxel i0 (16-byte loads and stores at VPT 4)
+template <int VPT>
+__device__ __forceinline__ void load_vals(const float* p, float (&v)[VPT]) {
+  if constexpr (VPT == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int i = tid + k * kThreads7;
-      in_img[k] = false;
-      vi[k] = 0;
-      ui[k] = 0;
-      z[k] = 0.0f;
-      if (i >= P.V) continue;
-      const int lx = i % P.bs, ly = (i / P.bs) % P.bs, lz = i / (P.bs * P.bs);
-      const float w0 = mul(static_cast<float>(bx + lx), P.voxel_size);
-      const float w1 = mul(static_cast<float>(by + ly), P.voxel_size);
-      const float w2 = mul(static_cast<float>(bz + lz), P.voxel_size);
-      const float x = to_camera(pose, 0, w0, w1, w2);
-      const float y = to_camera(pose, 1, w0, w1, w2);
-      const float zz = to_camera(pose, 2, w0, w1, w2);
-      // camera.project_nearest
-      const float safe_z = fabsf(zz) > 1e-12f ? zz : 1e-12f;
-      const float u = add(mul(dvd(x, safe_z), P.fx), P.cx);
-      const float v = add(mul(dvd(y, safe_z), P.fy), P.cy);
-      const int iu = static_cast<int>(rintf(u)), iv = static_cast<int>(rintf(v));
-      in_img[k] = zz > 0.0f && u >= 0.0f && u <= fW1 && v >= 0.0f && v <= fH1 &&
-                  iu >= 0 && iu < P.W && iv >= 0 && iv < P.H;
-      ui[k] = min(max(iu, 0), P.W - 1);
-      vi[k] = min(max(iv, 0), P.H - 1);
-      z[k] = zz;
-      if (in_img[k]) {
-        mv = min(mv, vi[k]);
-        mu = min(mu, ui[k]);
-      }
+    for (int k = 0; k < VPT; ++k) v[k] = p[k];
+  }
+}
+
+template <int VPT>
+__device__ __forceinline__ void store_vals(float* p, const float (&v)[VPT]) {
+  if constexpr (VPT == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) p[k] = v[k];
+  }
+}
+
+// A thread's voxels' offsets in the block (the same for every row):
+// voxel i = lx + bs (ly + bs lz)
+template <int VPT>
+struct Local {
+  int lx[VPT], ly[VPT], lz[VPT];
+};
+
+template <int VPT>
+__device__ __forceinline__ Local<VPT> local_offsets(int i0, int bs) {
+  Local<VPT> L;
+  if (VPT > 1 && bs % VPT == 0) {     // one row of the block: one division
+    const int t = i0 / bs;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      L.lx[k] = i0 - t * bs + k;
+      L.ly[k] = t % bs;
+      L.lz[k] = t / bs;
     }
-
-    // K1's window: the row's minimum (v, u) over its in-image voxels,
-    // clamped, then coverage replaces the in-image flag
-    if (P.window) {
-      mv = __reduce_min_sync(kFull, mv);
-      mu = __reduce_min_sync(kFull, mu);
-      if (lane == 0) {
-        red_v[parity][warp] = mv;
-        red_u[parity][warp] = mu;
-      }
-      __syncthreads();
+  } else {
 #pragma unroll
-      for (int w = 0; w < kWarps7; ++w) {
-        mv = min(mv, red_v[parity][w]);
-        mu = min(mu, red_u[parity][w]);
-      }
-      const int v0 = min(max(mv, 0), max(P.H - P.wh, 0));
-      const int u0 = min(max(mu, 0), max(P.W - P.ww, 0));
-#pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        const int dv = vi[k] - v0, du = ui[k] - u0;
-        in_img[k] = in_img[k] && dv >= 0 && dv < P.wh && du >= 0 && du < P.ww;
-      }
-    }
-
-    // the gather and the update
-    float bmin = INFINITY;
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int i = tid + k * kThreads7;
-      if (i >= P.V) continue;
-      // a voxel outside the image (or window) takes no sample, whatever
-      // its depth: the read is skipped
-      const float d = in_img[k] ? __ldg(P.depth + vi[k] * P.W + ui[k]) : 0.0f;
-      const float sdf = sub(d, z[k]);
-      const float trunc = add(mul(d, P.trunc_scale), P.trunc);
-      const bool valid = in_img[k] && born_ok && d > 0.0f && z[k] > 0.0f &&
-                         sdf > -trunc;
-      const float s = fminf(fmaxf(sdf, -trunc), trunc);
-      const float w_new = valid ? sample_weight(P, d) : 0.0f;
-      const int64_t o = static_cast<int64_t>(row) * P.V + i;
-      const float old_sdf = P.tsdf[o], old_w = P.weight[o];
-      float fused, new_w;
-      if (P.sign > 0) {
-        const float w_sum = add(old_w, w_new);
-        fused = w_new > 0.0f
-            ? dvd(add(mul(old_sdf, old_w), mul(s, w_new)), clamp_min(w_sum, 1e-12f))
-            : old_sdf;
-        new_w = w_new > 0.0f ? clamp(w_sum, -INFINITY, P.max_weight) : old_w;
-      } else {
-        const float w_rem = clamp_min(sub(old_w, w_new), 0.0f);
-        fused = w_new > 0.0f
-            ? (w_rem > 1e-6f ? dvd(sub(mul(old_sdf, old_w), mul(s, w_new)),
-                                   clamp_min(w_rem, 1e-12f))
-                             : 0.0f)
-            : old_sdf;
-        new_w = w_new > 0.0f ? w_rem : old_w;
-        fused = clamp(fused, -P.tmax, P.tmax);
-      }
-      P.tsdf[o] = fused;
-      P.weight[o] = new_w;
-      if (new_w > 0.0f) bmin = fminf(bmin, fabsf(fused));
-    }
-
-    // band_min of the row, and the stamp
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      bmin = fminf(bmin, __shfl_xor_sync(kFull, bmin, d));
-    if (lane == 0) red_b[parity][warp] = bmin;
-    __syncthreads();
-    if (tid == 0) {
-#pragma unroll
-      for (int w = 0; w < kWarps7; ++w) bmin = fminf(bmin, red_b[parity][w]);
-      P.band_min[row] = bmin;
-      if (P.stamp_on) P.last_seen[row] = stamp;
+    for (int k = 0; k < VPT; ++k) {
+      const int i = i0 + k;
+      L.lx[k] = i % bs;
+      L.ly[k] = (i / bs) % bs;
+      L.lz[k] = i / (bs * bs);
     }
   }
+  return L;
+}
+
+// A row group's barrier: a warp's own, or named barrier 1 + g over the
+// group's threads (barrier 0 is __syncthreads')
+__device__ __forceinline__ void group_sync(int g, int threads) {
+  if (threads == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(threads) : "memory");
+}
+
+// One row of the active set for row group g (its threads' ids gtid, VPT
+// neighbouring voxels each; its warps wf .. wf + warps - 1 of the CTA);
+// parity picks the reduction slots (two rows in flight at most).
+template <int VPT>
+__device__ __forceinline__ void integrate_row(const IntegrateParams& P,
+                                              const Pose& pose,
+                                              const Local<VPT>& L, int ptr,
+                                              int bx, int by, int bz,
+                                              int stamp, int parity, int g,
+                                              int gtid,
+                                              int (&red_v)[2][kMaxWarps7],
+                                              int (&red_u)[2][kMaxWarps7],
+                                              float (&red_b)[2][kMaxWarps7]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = P.group_threads >> 5, wf = warp - (gtid >> 5);
+  const int row = min(max(ptr, 0), P.n_map_rows - 1);
+  const int i0 = gtid * VPT;
+  const bool act = i0 < P.V;            // V is a multiple of VPT
+  const int64_t o = static_cast<int64_t>(row) * P.V + i0;
+
+  // the row's values and its born gate first: they depend on the row alone
+  float old_s[VPT], old_w[VPT];
+  if (act) {
+    load_vals<VPT>(P.tsdf + o, old_s);
+    load_vals<VPT>(P.weight + o, old_w);
+  }
+  const bool born_ok = !P.gate_born || __ldg(P.born + row) <= P.max_born;
+
+  // project_rows: the voxel's camera depth and clamped pixel
+  const float fW1 = static_cast<float>(P.W - 1), fH1 = static_cast<float>(P.H - 1);
+  float z[VPT];
+  int vi[VPT], ui[VPT];
+  bool in_img[VPT];
+  int mv = P.H, mu = P.W;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    in_img[k] = false;
+    vi[k] = 0;
+    ui[k] = 0;
+    z[k] = 0.0f;
+    if (!act) continue;
+    const float w0 = mul(static_cast<float>(bx + L.lx[k]), P.voxel_size);
+    const float w1 = mul(static_cast<float>(by + L.ly[k]), P.voxel_size);
+    const float w2 = mul(static_cast<float>(bz + L.lz[k]), P.voxel_size);
+    const float x = to_camera(pose, 0, w0, w1, w2);
+    const float y = to_camera(pose, 1, w0, w1, w2);
+    const float zz = to_camera(pose, 2, w0, w1, w2);
+    // camera.project_nearest
+    const float safe_z = fabsf(zz) > 1e-12f ? zz : 1e-12f;
+    const float u = add(mul(dvd(x, safe_z), P.fx), P.cx);
+    const float v = add(mul(dvd(y, safe_z), P.fy), P.cy);
+    // u in [0, W - 1] puts rint(u) there too: the pixel needs no test
+    in_img[k] = zz > 0.0f && u >= 0.0f && u <= fW1 && v >= 0.0f && v <= fH1;
+    ui[k] = min(max(static_cast<int>(rintf(u)), 0), P.W - 1);
+    vi[k] = min(max(static_cast<int>(rintf(v)), 0), P.H - 1);
+    z[k] = zz;
+    if (in_img[k]) {
+      mv = min(mv, vi[k]);
+      mu = min(mu, ui[k]);
+    }
+  }
+
+  // the depth under each voxel in the image, read before the window's
+  // reduction (which only decides which of these reads count), so that
+  // the round trip overlaps it
+  float d[VPT];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k)
+    d[k] = in_img[k] ? __ldg(P.depth + vi[k] * P.W + ui[k]) : 0.0f;
+
+  // K1's window: the row's minimum (v, u) over its in-image voxels,
+  // clamped, then coverage replaces the in-image flag
+  if (P.window) {
+    mv = __reduce_min_sync(kFull, mv);
+    mu = __reduce_min_sync(kFull, mu);
+    if (lane == 0) {
+      red_v[parity][warp] = mv;
+      red_u[parity][warp] = mu;
+    }
+    group_sync(g, P.group_threads);
+    for (int w = wf; w < wf + warps; ++w) {
+      mv = min(mv, red_v[parity][w]);
+      mu = min(mu, red_u[parity][w]);
+    }
+    const int v0 = min(max(mv, 0), max(P.H - P.wh, 0));
+    const int u0 = min(max(mu, 0), max(P.W - P.ww, 0));
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int dv = vi[k] - v0, du = ui[k] - u0;
+      in_img[k] = in_img[k] && dv >= 0 && dv < P.wh && du >= 0 && du < P.ww;
+    }
+  }
+
+  // the update; a value is stored only where its bits
+  // change (a voxel with no sample keeps them, but for the inverse
+  // update's clamp)
+  float bmin = INFINITY;
+  if (act) {
+#pragma unroll
+    for (int k = 0; k < VPT; ++k)   // a voxel the window leaves out: no sample
+      if (!in_img[k]) d[k] = 0.0f;
+    float fused[VPT], new_w[VPT];
+    bool ch_s = false, ch_w = false;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const float sdf = sub(d[k], z[k]);
+      const float trunc = add(mul(d[k], P.trunc_scale), P.trunc);
+      const bool valid = in_img[k] && born_ok && d[k] > 0.0f && z[k] > 0.0f &&
+                         sdf > -trunc;
+      const float sc = fminf(fmaxf(sdf, -trunc), trunc);
+      const float w_new = valid ? sample_weight(P, d[k]) : 0.0f;
+      if (P.sign > 0) {
+        const float w_sum = add(old_w[k], w_new);
+        fused[k] = w_new > 0.0f
+            ? dvd(add(mul(old_s[k], old_w[k]), mul(sc, w_new)),
+                  clamp_min(w_sum, 1e-12f))
+            : old_s[k];
+        new_w[k] = w_new > 0.0f ? clamp(w_sum, -INFINITY, P.max_weight)
+                                : old_w[k];
+      } else {
+        const float w_rem = clamp_min(sub(old_w[k], w_new), 0.0f);
+        float f = w_new > 0.0f
+            ? (w_rem > 1e-6f ? dvd(sub(mul(old_s[k], old_w[k]), mul(sc, w_new)),
+                                   clamp_min(w_rem, 1e-12f))
+                             : 0.0f)
+            : old_s[k];
+        fused[k] = clamp(f, -P.tmax, P.tmax);
+        new_w[k] = w_new > 0.0f ? w_rem : old_w[k];
+      }
+      ch_s |= __float_as_int(fused[k]) != __float_as_int(old_s[k]);
+      ch_w |= __float_as_int(new_w[k]) != __float_as_int(old_w[k]);
+      if (new_w[k] > 0.0f) bmin = fminf(bmin, fabsf(fused[k]));
+    }
+    if (ch_s) store_vals<VPT>(P.tsdf + o, fused);
+    if (ch_w) store_vals<VPT>(P.weight + o, new_w);
+  }
+
+  // band_min of the row, and the stamp
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    bmin = fminf(bmin, __shfl_xor_sync(kFull, bmin, s));
+  if (lane == 0) red_b[parity][warp] = bmin;
+  group_sync(g, P.group_threads);
+  if (gtid == 0) {
+    for (int w = wf; w < wf + warps; ++w) bmin = fminf(bmin, red_b[parity][w]);
+    P.band_min[row] = bmin;
+    if (P.stamp_on) P.last_seen[row] = stamp;
+  }
+}
+
+// Row group g of CTA b takes rows b + g gridDim.x, then G gridDim.x on,
+// ... below the device count: the rows spread over the CTAs (and so over
+// the multiprocessors) evenly, each in flight at once when the grid holds
+// them all; a FREE_PTR row is skipped whole.  The first row's ptr and
+// block are read before the count; a group that finds no row leaves.
+template <int VPT>
+__global__ void __launch_bounds__(VPT == 1 ? kMaxVoxels : kCtaThreads7,
+                                  VPT == 1 ? 1 : 2)
+integrate_rows_kernel(const __grid_constant__ IntegrateParams P) {
+  __shared__ int red_v[2][kMaxWarps7], red_u[2][kMaxWarps7];   // by parity
+  __shared__ float red_b[2][kMaxWarps7];
+  const int g = threadIdx.x / P.group_threads;
+  const int gtid = threadIdx.x - g * P.group_threads;
+  int r = blockIdx.x + g * gridDim.x;
+  int ptr = kFreePtr, bx = 0, by = 0, bz = 0;
+  if (r < P.rows) {
+    ptr = __ldg(P.ptrs + r);
+    bx = __ldg(P.blocks + 3 * r);
+    by = __ldg(P.blocks + 3 * r + 1);
+    bz = __ldg(P.blocks + 3 * r + 2);
+  }
+  const int count = min(__ldg(P.count), P.rows);
+  if (r >= count) return;
+  const int stamp = P.stamp_ptr ? __ldg(P.stamp_ptr) : P.stamp;
+  const Pose pose = load_pose(P.T_wc);
+  const Local<VPT> L = local_offsets<VPT>(gtid * VPT, P.bs);
+  for (int parity = 0; r < count; parity ^= 1) {
+    if (ptr != kFreePtr)
+      integrate_row<VPT>(P, pose, L, ptr, bx * P.bs, by * P.bs, bz * P.bs,
+                         stamp, parity, g, gtid, red_v, red_u, red_b);
+    r += gridDim.x * P.groups;
+    if (r < count) {
+      ptr = __ldg(P.ptrs + r);
+      bx = __ldg(P.blocks + 3 * r);
+      by = __ldg(P.blocks + 3 * r + 1);
+      bz = __ldg(P.blocks + 3 * r + 2);
+    }
+  }
+}
+
+// the instantiations: 4 voxels a thread (16-byte rows) where V is a
+// multiple of 4, 1 elsewhere
+using IntegrateKernel = void (*)(IntegrateParams);
+
+__host__ __forceinline__ int integrate_vpt(int V) { return V % 4 == 0 ? 4 : 1; }
+
+__host__ __forceinline__ IntegrateKernel integrate_kernel(int V) {
+  return integrate_vpt(V) == 4 ? integrate_rows_kernel<4>
+                               : integrate_rows_kernel<1>;
 }
 
 }  // namespace
@@ -559,81 +715,115 @@ extern "C" int compact_visible(const int* keys, const int* ptrs,
 
 // K7.  Fuse depth (H, W) at pose T_wc into the map rows of
 // active[:count] (sign +1) or take it out (sign -1), rows born after
-// max_born gated out when gate_born; window: K1's coverage rule with a
-// (wh, ww) window; stamp_on: last_seen[ptr] = stamp (*stamp_ptr when it is
-// not null).  rows: the active
+// max_born gated out when gate_born; stamp_on: last_seen[ptr] = stamp
+// (*stamp_ptr when it is not null).  map: a host table of the map's
+// pointers (tsdf, weight, band_min, born, last_seen); ints: a host table
+// (map rows, block size, H, W, the window's h and w, window, falloff);
+// floats: a host table (voxel size, fx, fy, cx, cy, truncation, its depth
+// scale, weight_sample, weight_sample * 1.5, depth_min, 1 / (depth_max -
+// depth_min), max_weight, the inverse update's clamp).  rows: the active
 // set's padded length (the grid is launched before the count is known).
-extern "C" int integrate_rows(
-    const int* blocks, const int* ptrs, const int* count, float* tsdf,
-    float* weight, float* band_min, const int* born, int* last_seen,
-    const float* depth, const float* T_wc, int rows, int n_map_rows,
-    int block_size, int H, int W, int wh, int ww, int window, int sign,
-    int gate_born, int max_born, int stamp_on, int stamp,
-    const int* stamp_ptr, int falloff,
-    float voxel_size, float fx, float fy, float cx, float cy, float trunc,
-    float trunc_scale, float w_sample, float w_sample15, float dmin,
-    float rdrange, float max_weight, float tmax, void* stream) {
-  const int V = block_size * block_size * block_size;
-  if (rows < 0 || n_map_rows < 1 || block_size < 1 || V > kMaxVoxels ||
-      H < 1 || W < 1 || wh < 1 || ww < 1 || (sign != 1 && sign != -1))
+extern "C" int integrate_rows(const int* blocks, const int* ptrs,
+                              const int* count, void* const* map,
+                              const float* depth, const float* T_wc,
+                              const int* stamp_ptr, int rows, int sign,
+                              int gate_born, int max_born, int stamp_on,
+                              int stamp, const int* ints, const float* floats,
+                              void* stream) {
+  const int bs = ints[1], V = bs * bs * bs;
+  if (rows < 0 || ints[0] < 1 || bs < 1 || V > kMaxVoxels || ints[2] < 1 ||
+      ints[3] < 1 || ints[4] < 1 || ints[5] < 1 || (sign != 1 && sign != -1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaGetLastError());
   IntegrateParams P = {};
   P.blocks = blocks;
   P.ptrs = ptrs;
   P.count = count;
-  P.tsdf = tsdf;
-  P.weight = weight;
-  P.band_min = band_min;
-  P.born = born;
-  P.last_seen = last_seen;
+  P.tsdf = static_cast<float*>(map[0]);
+  P.weight = static_cast<float*>(map[1]);
+  P.band_min = static_cast<float*>(map[2]);
+  P.born = static_cast<const int*>(map[3]);
+  P.last_seen = static_cast<int*>(map[4]);
   P.depth = depth;
   P.T_wc = T_wc;
+  P.stamp_ptr = stamp_ptr;
   P.rows = rows;
-  P.n_map_rows = n_map_rows;
-  P.bs = block_size;
+  P.n_map_rows = ints[0];
+  P.bs = bs;
   P.V = V;
-  P.H = H;
-  P.W = W;
-  P.wh = wh;
-  P.ww = ww;
-  P.window = window != 0;
+  P.H = ints[2];
+  P.W = ints[3];
+  P.wh = ints[4];
+  P.ww = ints[5];
+  P.window = ints[6] != 0;
+  P.falloff = ints[7] != 0;
   P.sign = sign;
   P.gate_born = gate_born != 0;
   P.max_born = max_born;
   P.stamp_on = stamp_on != 0;
   P.stamp = stamp;
-  P.stamp_ptr = stamp_ptr;
-  P.falloff = falloff != 0;
-  P.voxel_size = voxel_size;
-  P.fx = fx;
-  P.fy = fy;
-  P.cx = cx;
-  P.cy = cy;
-  P.trunc = trunc;
-  P.trunc_scale = trunc_scale;
-  P.w_sample = w_sample;
-  P.w_sample15 = w_sample15;
-  P.dmin = dmin;
-  P.rdrange = rdrange;
-  P.max_weight = max_weight;
-  P.tmax = tmax;
-  // as many CTAs as the card holds at once, no more than there are rows
-  static int capacity[kMaxDevices] = {};
+  P.voxel_size = floats[0];
+  P.fx = floats[1];
+  P.fy = floats[2];
+  P.cx = floats[3];
+  P.cy = floats[4];
+  P.trunc = floats[5];
+  P.trunc_scale = floats[6];
+  P.w_sample = floats[7];
+  P.w_sample15 = floats[8];
+  P.dmin = floats[9];
+  P.rdrange = floats[10];
+  P.max_weight = floats[11];
+  P.tmax = floats[12];
+  // row groups of a row each, as many CTAs as the card holds at once, no
+  // more than the rows need
+  const IntegrateKernel kernel = integrate_kernel(V);
+  const int group = threads7(V, integrate_vpt(V));
+  const int groups = max(1, min(kMaxGroups7, kCtaThreads7 / group));
+  const int threads = groups * group;
+  P.groups = groups;
+  P.group_threads = group;
+  static int capacity[kMaxDevices][kMaxVoxels / 32 + 1][2] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (capacity[dev] == 0) {
+  int& cap = capacity[dev][group / 32][integrate_vpt(V) == 4];
+  if (cap == 0) {
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, integrate_rows_kernel, kThreads7, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    capacity[dev] = max(per_sm, 1) * sms;
+    cap = max(per_sm, 1) * sms;
   }
-  integrate_rows_kernel<<<min(rows, capacity[dev]), kThreads7, 0,
-                          static_cast<cudaStream_t>(stream)>>>(P);
+  kernel<<<min((rows + groups - 1) / groups, cap), threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7's instantiation for block size bs on the current device: out[0]
+// registers a thread, out[1] local (spilled) bytes a thread, out[2]
+// resident CTAs a multiprocessor, out[3] threads a CTA, out[4] shared
+// memory bytes a CTA.
+extern "C" int integrate_rows_info(int bs, int* out) {
+  const int V = bs * bs * bs;
+  if (bs < 1 || V > kMaxVoxels) return static_cast<int>(cudaErrorInvalidValue);
+  const IntegrateKernel kernel = integrate_kernel(V);
+  const int group = threads7(V, integrate_vpt(V));
+  const int threads = max(1, min(kMaxGroups7, kCtaThreads7 / group)) * group;
+  cudaFuncAttributes fa = {};
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = per_sm;
+  out[3] = threads;
+  out[4] = static_cast<int>(fa.sharedSizeBytes);
+  return 0;
 }

@@ -29,22 +29,44 @@
 // buffer's reset value, orders above every finite positive float.  A voxel
 // that fails a gate writes nothing, so the buffer has no drop slot.
 //
-// K9.  A CTA owns a 32 x 16 tile of outputs and stages the raw depth with
-// a halo of R = fill_rounds + 2 in shared memory; the stages then run one
-// after another there, each over a region one stage's reach smaller:
-//   1. the raw buffer (not finite -> 0: "no estimate"), halo R;
-//   2. each round of the 3 x 3 valid-min hole fill, halo R - 1 ... 2;
-//   3. the edge-preserving smooth, halo 1;
-//   4. points, normals, depth and hit of the tile.
-// The border is where the two stencils differ.  The smooth reads the
-// filled depth of the wrapped pixel (torch.roll), but the fill does not
-// wrap: reduce_window's SAME padding (max_pool2d's) puts +inf outside the
-// image.  So every halo cell holds the wrapped pixel, and a fill reads a
-// neighbour only if it lies inside the image in the cell's own, wrapped,
-// coordinates; the cell beside it in the tile may lie across the border
-// and is never read then.  Each stage computed at a halo cell therefore
-// equals the stage at the wrapped pixel.  The normals need no wrap:
-// compute_normals' interior mask zeroes the border rows and columns.
+// K9.  A CTA of 512 threads stages 64 columns by 16 + 2R rows of the raw
+// depth in shared memory, R = fill_rounds + 2, and writes the tile of
+// 64 - 2R columns (down to a multiple of 4) by 16 rows inside them; the
+// stages run there one after another, a __syncthreads between two:
+//   1. the raw buffer (not finite -> 0: "no estimate");
+//   2. each round of the 3 x 3 valid-min hole fill, over the whole staged
+//      region: a cell within `round` of its edge reads the padding, is
+//      wrong and is never read by an output (the halo is the rounds plus
+//      the smooth and the normals' reach);
+//   3. the edge-preserving smooth, over the tile and a halo of 1;
+//   4. points, normals, depth and hit of each pixel of the tile, into a
+//      staging area laid out as the outputs lie in memory;
+//   5. the staged outputs to memory, each warp's stores on neighbouring
+//      addresses: 16 bytes a thread where the width is a multiple of 4,
+//      4 or 1 elsewhere.  (Each thread writing its own pixels' 12-byte
+//      points and normals, as 16-byte stores 48 bytes apart or 4-byte
+//      stores 12 bytes apart, took the card's write rate down to
+//      ~1.4 TB/s: chip_splat_breakdown.py's design trees, PERF.md.)
+// In stages 1-3 a thread owns one column of a strip of rows (64 columns x
+// 8 strips): it reads the strip's rows and the two beside it into
+// registers once, then writes its outputs, so a stencil reads three
+// shared values a cell, not nine, and every read is in flight at once.
+// The fill is a minimum, so it is taken as the rows' 3-wide minima, each
+// once, then their minimum over three rows, with holes held as +inf
+// (exact: a min in any order).  The border is
+// where the two stencils differ.  The smooth reads the filled depth of the
+// wrapped pixel (torch.roll), but the fill does not wrap: reduce_window's
+// SAME padding (max_pool2d's) puts +inf outside the image.  So every
+// staged cell holds the wrapped pixel, and a fill reads a neighbour only
+// if it lies inside the image in the cell's own, wrapped, coordinates;
+// the cell beside it may lie across the border and is never read then.
+// Each stage computed at a halo cell therefore equals the stage at the
+// wrapped pixel.  The normals need no wrap: compute_normals' interior mask
+// zeroes the border rows and columns.  A tile whose staged region lies
+// inside the image, one pixel in from each edge, takes an instantiation
+// without the wrap and the in-image tests (at 640 x 480, 280 of 360
+// tiles).  One instantiation a fill-round count up to 3, then one that
+// reads the count at run time: every count 0..16 is taken.
 //
 // Rounding: every product, sum and quotient of the plain PyTorch version
 // (ops/splat.py) on the card is written with the round-to-nearest
@@ -64,7 +86,9 @@
 // ~930 visible rows, K8 reads each live row's tsdf and weight (4 KB) and
 // the active set's ptrs and band_min (~4 MB) and scatters into the 1.2 MB
 // buffer: ~1.5 us at 3.35 TB/s.  K9 reads the 1.2 MB buffer and writes
-// depth, points, normals and hit (~9.5 MB): ~3 us.  What the pair
+// depth, points, normals and hit (~9.5 MB): ~3 us; its arithmetic, the
+// smooth's nine taps and the normal's cross product, square root and
+// three divides a pixel, takes about as long at the card's issue rate.  What the pair
 // replaces is ~200 eager launches and 5 host reads a frame: the design is
 // one launch each and no host read, every intermediate in shared memory
 // or registers.
@@ -89,13 +113,6 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i;
 }
 
-// i / n for 0 <= i < 2^16 and 0 < n <= 128, by the float reciprocal
-// rn = 1 / n: (i + 0.5) / n lies at least 1 / 256 from an integer, far
-// beyond the product's rounding, so truncating it is exact
-__device__ __forceinline__ int div_small(int i, float rn) {
-  return __float2int_rz(__fmul_rn(static_cast<float>(i) + 0.5f, rn));
-}
-
 // a0 b0 + a1 b1 + a2 b2 as the card's (N, 3) @ (3, 3) matmul sums it
 __device__ __forceinline__ float dot_mm(float a0, float b0, float a1, float b1,
                                         float a2, float b2) {
@@ -110,15 +127,6 @@ __device__ __forceinline__ float dot_inv(float a0, float b0, float a1,
   return add(__fmaf_rn(a1, b1, mul(a0, b0)), mul(a2, b2));
 }
 
-// ((u - c) * rf) * d: a point coordinate from the pixel's ray
-__device__ __forceinline__ float ray(int u, float c, float rf, float d) {
-  return mul(mul(sub(static_cast<float>(u), c), rf), d);
-}
-
-struct Normal {
-  float x, y, z;
-};
-
 // x0 + x1 + x2 as torch.sum adds a last axis of three on the card
 __device__ __forceinline__ float sum3(float x0, float x1, float x2) {
   return add(add(x0, x2), x1);
@@ -127,36 +135,6 @@ __device__ __forceinline__ float sum3(float x0, float x1, float x2) {
 // a_i b_j - a_j b_i as torch.linalg.cross computes it on the card
 __device__ __forceinline__ float cross1(float ai, float bj, float aj, float bi) {
   return __fmaf_rn(ai, bj, -mul(aj, bi));
-}
-
-// compute_normals at one pixel from its four neighbours' depths (the
-// interior mask and the validity of all five are the caller's `ok`):
-// cross(down - up, right - left), normalised; zero when not ok.  A copy of
-// csrc/preprocess.cu's, so that each source's hash covers what it runs.
-__device__ __forceinline__ Normal normal_at(bool ok, int u, int v, float d_up,
-                                            float d_down, float d_left,
-                                            float d_right, float cx, float cy,
-                                            float rfx, float rfy) {
-  Normal n = {0.0f, 0.0f, 0.0f};
-  if (!ok) return n;
-  const float ax = sub(ray(u, cx, rfx, d_down), ray(u, cx, rfx, d_up));
-  const float ay = sub(ray(v + 1, cy, rfy, d_down), ray(v - 1, cy, rfy, d_up));
-  const float az = sub(d_down, d_up);
-  const float bx = sub(ray(u + 1, cx, rfx, d_right), ray(u - 1, cx, rfx, d_left));
-  const float by = sub(ray(v, cy, rfy, d_right), ray(v, cy, rfy, d_left));
-  const float bz = sub(d_right, d_left);
-  const float cx_ = cross1(ay, bz, az, by);
-  const float cy_ = cross1(az, bx, ax, bz);
-  const float cz_ = cross1(ax, by, ay, bx);
-  const float len = __fsqrt_rn(sum3(mul(cx_, cx_), mul(cy_, cy_),
-                                    mul(cz_, cz_)));
-  if (len > 1e-12f) {
-    const float l = fmaxf(len, 1e-12f);
-    n.x = dvd(cx_, l);
-    n.y = dvd(cy_, l);
-    n.z = dvd(cz_, l);
-  }
-  return n;
 }
 
 // ---------------------------------------------------------------------------
@@ -251,10 +229,18 @@ splat_zbuffer_kernel(const __grid_constant__ ZbufferParams P) {
 // K9
 // ---------------------------------------------------------------------------
 
-constexpr int kTileW = 32;        // K9's output tile
-constexpr int kTileH = 16;
-constexpr int kThreads = 256;
+constexpr int kCols = 64;                 // staged columns a CTA: two warps
+constexpr int kStrips = 8;                // row strips: 64 columns x 8 strips
+constexpr int kThreads = kCols * kStrips;
+constexpr int kTileH = 16;                // output rows a tile
+constexpr int kPitch = kCols + 2;         // a padding column on each side
 constexpr int kMaxFillRounds = 16;
+constexpr int kGeneric = -1;              // ROUNDS that reads the rounds at run time
+constexpr int kSpan = 64;                 // stage 5: threads a row (>= 3 TW / 4)
+
+// output columns a tile for halo R: what the 64 staged columns leave, a
+// multiple of 4 (a thread of the epilogue owns 4 neighbouring pixels)
+__host__ __device__ constexpr int tile_w(int R) { return (kCols - 2 * R) & ~3; }
 
 struct FinalizeParams {
   const float* raw;        // (H, W) raw depth: not finite or 0 = none
@@ -266,116 +252,312 @@ struct FinalizeParams {
   float sigma, cx, cy, rfx, rfy;
 };
 
+// the staged cell (row, col), row -1..SH and col -1..kCols (padding)
+__device__ __forceinline__ int cell(int row, int col) {
+  return (row + 1) * kPitch + col + 1;
+}
+
+// rows a strip takes of a staged region of n rows
+__host__ __device__ constexpr int strip_rows(int n) {
+  return (n + kStrips - 1) / kStrips;
+}
+
+// the halo and the strips' register arrays of an instantiation: the
+// generic one sizes them for the most fill rounds
+template <int ROUNDS>
+struct Shape {
+  static constexpr int kR = (ROUNDS == kGeneric ? kMaxFillRounds : ROUNDS) + 2;
+  static constexpr int kStrip = strip_rows(kTileH + 2 * kR);     // stages 1-2
+  static constexpr int kSmooth = strip_rows(kTileH + 2);         // stage 3
+};
+
+// the fill's 3-wide minimum of one staged row at column c (holes hold
+// +inf), the columns outside the image left out (BORDER); and the centre
+__device__ __forceinline__ float hmin(const float* a, int row, int c,
+                                      bool left, bool right, float* centre) {
+  const float m = a[cell(row, c)];
+  float h = m;
+  if (left) h = fminf(h, a[cell(row, c - 1)]);
+  if (right) h = fminf(h, a[cell(row, c + 1)]);
+  *centre = m;
+  return h;
+}
+
+// one smooth tap: n counts when it is an estimate within sigma of d
+template <bool ZERO_HOLES>
+__device__ __forceinline__ void tap(float n, float d, float sigma, float& acc,
+                                    float& cnt) {
+  const bool ok = (!ZERO_HOLES || n > 0.0f) && fabsf(sub(n, d)) < sigma;
+  if (ok) {
+    acc = add(acc, n);
+    cnt = add(cnt, 1.0f);
+  }
+}
+
+struct Row3 {
+  float l, c, r;
+};
+
+__device__ __forceinline__ Row3 row3(const float* a, int row, int c) {
+  return {a[cell(row, c - 1)], a[cell(row, c)], a[cell(row, c + 1)]};
+}
+
+// _edge_preserving_smooth at one cell from its 3 x 3 neighbourhood: tap
+// (dy, dx) reads the pixel that torch.roll(depth, (dy, dx)) brings here,
+// depth[y - dy, x - dx], in the plain order.  After a fill round a hole
+// is +inf, which no tap takes (|inf - d| is not below sigma), and becomes
+// 0 again; without one, holes are 0 or below and the taps test n > 0
+__device__ __forceinline__ float smooth_at(const Row3& up, const Row3& mid,
+                                           const Row3& dn, float sigma,
+                                           bool filled) {
+  const float d = mid.c;
+  if (!(filled ? d < INFINITY : d > 0.0f)) return filled ? 0.0f : d;
+  float acc = 0.0f, cnt = 0.0f;
+  if (filled) {
+    tap<false>(dn.r, d, sigma, acc, cnt);
+    tap<false>(dn.c, d, sigma, acc, cnt);
+    tap<false>(dn.l, d, sigma, acc, cnt);
+    tap<false>(mid.r, d, sigma, acc, cnt);
+    tap<false>(mid.c, d, sigma, acc, cnt);
+    tap<false>(mid.l, d, sigma, acc, cnt);
+    tap<false>(up.r, d, sigma, acc, cnt);
+    tap<false>(up.c, d, sigma, acc, cnt);
+    tap<false>(up.l, d, sigma, acc, cnt);
+  } else {
+    tap<true>(dn.r, d, sigma, acc, cnt);
+    tap<true>(dn.c, d, sigma, acc, cnt);
+    tap<true>(dn.l, d, sigma, acc, cnt);
+    tap<true>(mid.r, d, sigma, acc, cnt);
+    tap<true>(mid.c, d, sigma, acc, cnt);
+    tap<true>(mid.l, d, sigma, acc, cnt);
+    tap<true>(up.r, d, sigma, acc, cnt);
+    tap<true>(up.c, d, sigma, acc, cnt);
+    tap<true>(up.l, d, sigma, acc, cnt);
+  }
+  return cnt > 0.0f ? dvd(acc, fmaxf(cnt, 1.0f)) : d;
+}
+
+// the staging area of a tile's outputs, laid out as they lie in memory:
+// points and normals (kTileH rows of 3 TW floats), depth (kTileH x TW) and
+// hit (kTileH x TW bytes)
+__host__ __device__ constexpr int staged_floats(int TW) {
+  return 7 * kTileH * TW + kTileH * TW / 4;
+}
+
+// A tile: stage, fill, smooth, outputs (see the notes at the top).
+// BORDER: the staged region reaches past the image's first or last row or
+// column (wrapped reads, the fill's in-image tests); otherwise neither is
+// needed.
+template <int ROUNDS, bool BORDER>
+__device__ __forceinline__ void finalize_tile(const FinalizeParams& P,
+                                              float* smem, int rounds) {
+  using S = Shape<ROUNDS>;
+  const int R = rounds + 2;
+  const int TW = tile_w(R), SH = kTileH + 2 * R;
+  const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * kTileH;
+  const int x0 = tx0 - R, y0 = ty0 - R;       // pixel of staged (0, 0)
+  const int H = P.H, W = P.W;
+  const int tid = threadIdx.x, c = tid % kCols, s = tid / kCols;
+  const int size = kPitch * (SH + 2);
+  float* a = smem;
+  float* b = smem + size;
+  float* pts = smem + 2 * size;
+  float* nrm = pts + 3 * kTileH * TW;
+  float* dep = nrm + 3 * kTileH * TW;
+  uint8_t* hits = reinterpret_cast<uint8_t*>(dep + kTileH * TW);
+
+  // 1. the raw buffer, halo R: thread (c, s) a column of strip s, every
+  // load in flight at once; holes as +inf for the fill (0 without a fill
+  // round: the smooth and the normals read the buffer as it is then)
+  const int r0 = s * strip_rows(SH), r1 = min(r0 + strip_rows(SH), SH);
+  const int gx = BORDER ? wrap(x0 + c, W) : x0 + c;
+#pragma unroll
+  for (int j = 0; j < S::kStrip; ++j) {
+    const int row = r0 + j;
+    if (row < r1) {
+      const int gy = BORDER ? wrap(y0 + row, H) : y0 + row;
+      const float d = __ldg(P.raw + gy * W + gx);
+      const float v = isfinite(d) ? d : 0.0f;
+      a[cell(row, c)] = rounds == 0 ? v : (v > 0.0f ? v : INFINITY);
+    }
+  }
+  __syncthreads();
+
+  // 2. _min_fill, each round over the whole staged region (a cell within
+  // `round` of its edge reads the padding and is never used): a hole
+  // takes the minimum of the estimates among its 3 x 3 neighbours inside
+  // the image in its own (wrapped) coordinates, as the rows' 3-wide
+  // minima, each computed once, then their minimum over 3 rows.  A strip's
+  // rows r0 - 1 .. r1 are read into registers first, then its outputs
+  // written
+  const bool left = !BORDER || gx > 0, right = !BORDER || gx < W - 1;
+  for (int round = 0; round < rounds; ++round) {
+    float h[S::kStrip + 2], centre[S::kStrip + 2];
+#pragma unroll
+    for (int j = 0; j < S::kStrip + 2; ++j)
+      if (r0 - 1 + j <= r1) h[j] = hmin(a, r0 - 1 + j, c, left, right, &centre[j]);
+#pragma unroll
+    for (int j = 0; j < S::kStrip; ++j) {
+      const int row = r0 + j;
+      if (row < r1) {
+        float m = h[j + 1];
+        if (BORDER) {
+          const int gy = wrap(y0 + row, H);
+          if (gy > 0) m = fminf(m, h[j]);
+          if (gy < H - 1) m = fminf(m, h[j + 2]);
+        } else {
+          m = fminf(fminf(m, h[j]), h[j + 2]);
+        }
+        b[cell(row, c)] = centre[j + 1] < INFINITY ? centre[j + 1] : m;
+      }
+    }
+    __syncthreads();
+    float* t = a;
+    a = b;
+    b = t;
+  }
+
+  // 3. the smooth over rows R - 1 .. R + kTileH (halo 1), every column
+  {
+    const int q0 = R - 1 + s * S::kSmooth;
+    const int q1 = min(q0 + S::kSmooth, R + kTileH + 1);
+    Row3 rows[S::kSmooth + 2];
+#pragma unroll
+    for (int j = 0; j < S::kSmooth + 2; ++j)
+      if (q0 - 1 + j <= q1) rows[j] = row3(a, q0 - 1 + j, c);
+#pragma unroll
+    for (int j = 0; j < S::kSmooth; ++j)
+      if (q0 + j < q1)
+        b[cell(q0 + j, c)] = smooth_at(rows[j], rows[j + 1], rows[j + 2],
+                                       P.sigma, rounds > 0);
+  }
+  __syncthreads();
+
+  // 4. depth, points, normals and hit a pixel into the staging area
+  for (int p = tid; p < kTileH * TW; p += kThreads) {
+    const int ty = p / TW, tx = p - ty * TW;
+    const int v = ty0 + ty, u = tx0 + tx;
+    if (v >= H || u >= W) continue;
+    const int sr = R + ty, sc = R + tx;
+    const float d = b[cell(sr, sc)];
+    const float du = b[cell(sr - 1, sc)], dd = b[cell(sr + 1, sc)];
+    const float dl = b[cell(sr, sc - 1)], dr = b[cell(sr, sc + 1)];
+    // (u - cx) * (1 / fx) of a column: a ray's first factor
+    const float cf = mul(sub(static_cast<float>(u), P.cx), P.rfx);
+    const float rf = mul(sub(static_cast<float>(v), P.cy), P.rfy);
+    const bool ok = (!BORDER || (v > 0 && v < H - 1 && u > 0 && u < W - 1)) &&
+                    d != 0.0f && du != 0.0f && dd != 0.0f && dl != 0.0f &&
+                    dr != 0.0f;
+    // compute_normals: cross(down - up, right - left), normalised
+    float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+    if (ok) {
+      const float cfl = mul(sub(static_cast<float>(u - 1), P.cx), P.rfx);
+      const float cfr = mul(sub(static_cast<float>(u + 1), P.cx), P.rfx);
+      const float rfu = mul(sub(static_cast<float>(v - 1), P.cy), P.rfy);
+      const float rfd = mul(sub(static_cast<float>(v + 1), P.cy), P.rfy);
+      const float ax = sub(mul(cf, dd), mul(cf, du));
+      const float ay = sub(mul(rfd, dd), mul(rfu, du));
+      const float az = sub(dd, du);
+      const float bx = sub(mul(cfr, dr), mul(cfl, dl));
+      const float by = sub(mul(rf, dr), mul(rf, dl));
+      const float bz = sub(dr, dl);
+      const float cx_ = cross1(ay, bz, az, by);
+      const float cy_ = cross1(az, bx, ax, bz);
+      const float cz_ = cross1(ax, by, ay, bx);
+      const float len = __fsqrt_rn(sum3(mul(cx_, cx_), mul(cy_, cy_),
+                                        mul(cz_, cz_)));
+      if (len > 1e-12f) {
+        const float l = fmaxf(len, 1e-12f);
+        nx = dvd(cx_, l);
+        ny = dvd(cy_, l);
+        nz = dvd(cz_, l);
+      }
+    }
+    const bool hit = d > 0.0f;
+    float* pp = pts + ty * 3 * TW + 3 * tx;
+    float* pn = nrm + ty * 3 * TW + 3 * tx;
+    pp[0] = hit ? mul(cf, d) : 0.0f;
+    pp[1] = hit ? mul(rf, d) : 0.0f;
+    pp[2] = hit ? d : 0.0f;
+    pn[0] = nx;
+    pn[1] = ny;
+    pn[2] = nz;
+    dep[ty * TW + tx] = d;
+    hits[ty * TW + tx] = hit ? 1 : 0;
+  }
+  __syncthreads();
+
+  // 5. the staged outputs to memory, each warp on neighbouring addresses:
+  // 16-byte stores where the width is a multiple of 4 (every staged row
+  // then starts 16-byte aligned, here and in memory), 4- and 1-byte
+  // stores elsewhere
+  // kSpan threads a row, kThreads / kSpan rows at once
+  const int vw = min(TW, W - tx0), vh = min(kTileH, H - ty0);
+  const int j = tid % kSpan;
+  if ((W & 3) == 0) {
+    const int f4 = 3 * vw / 4, d4 = vw / 4;
+    for (int ty = tid / kSpan; ty < vh; ty += kThreads / kSpan) {
+      const int o = (ty0 + ty) * W + tx0;
+      if (j < f4) {
+        reinterpret_cast<float4*>(P.points + 3 * o)[j] =
+            reinterpret_cast<const float4*>(pts + ty * 3 * TW)[j];
+        reinterpret_cast<float4*>(P.normals + 3 * o)[j] =
+            reinterpret_cast<const float4*>(nrm + ty * 3 * TW)[j];
+      }
+      if (j < d4) {
+        reinterpret_cast<float4*>(P.depth + o)[j] =
+            reinterpret_cast<const float4*>(dep + ty * TW)[j];
+        reinterpret_cast<uint32_t*>(P.hit + o)[j] =
+            reinterpret_cast<const uint32_t*>(hits + ty * TW)[j];
+      }
+    }
+  } else {
+    for (int ty = tid / kSpan; ty < vh; ty += kThreads / kSpan) {
+      const int o = (ty0 + ty) * W + tx0;
+      for (int e = j; e < 3 * vw; e += kSpan) {
+        P.points[3 * o + e] = pts[ty * 3 * TW + e];
+        P.normals[3 * o + e] = nrm[ty * 3 * TW + e];
+      }
+      for (int e = j; e < vw; e += kSpan) {
+        P.depth[o + e] = dep[ty * TW + e];
+        P.hit[o + e] = hits[ty * TW + e];
+      }
+    }
+  }
+}
+
+template <int ROUNDS>
 __global__ void __launch_bounds__(kThreads)
 splat_finalize_kernel(const __grid_constant__ FinalizeParams P) {
   extern __shared__ float smem[];
-  const int R = P.rounds + 2;
-  const int sw = kTileW + 2 * R;              // every stage's row pitch
-  const int size = (kTileH + 2 * R) * sw;
-  float* src = smem;                          // the fill's ping-pong pair
-  float* dst = smem + size;
-  float* smooth = smem + 2 * size;
-  const int y0 = blockIdx.y * kTileH - R;     // unwrapped row of smem row 0
-  const int x0 = blockIdx.x * kTileW - R;
-  const int tid = threadIdx.x;
+  const int rounds = ROUNDS == kGeneric ? P.rounds : ROUNDS;
+  const int R = rounds + 2;
+  const int x0 = blockIdx.x * tile_w(R) - R, y0 = blockIdx.y * kTileH - R;
+  const bool interior = x0 >= 1 && x0 + kCols <= P.W - 1 && y0 >= 1 &&
+                        y0 + kTileH + 2 * R <= P.H - 1;
+  if (interior)
+    finalize_tile<ROUNDS, false>(P, smem, rounds);
+  else
+    finalize_tile<ROUNDS, true>(P, smem, rounds);
+}
 
-  // 1. the raw buffer, halo R (wrapped reads)
-  const float rsw = 1.0f / static_cast<float>(sw);
-  for (int i = tid; i < size; i += kThreads) {
-    const int ly = div_small(i, rsw), lx = i - ly * sw;
-    const float d =
-        __ldg(P.raw + wrap(y0 + ly, P.H) * P.W + wrap(x0 + lx, P.W));
-    src[i] = isfinite(d) ? d : 0.0f;
-  }
-  __syncthreads();
+// the instantiations: one a fill-round count up to 3 (the flagship takes
+// 2), then one that reads the count at run time
+using FinalizeKernel = void (*)(FinalizeParams);
+constexpr int kSpecialised = 4;
+const FinalizeKernel kFinalizeKernels[kSpecialised + 1] = {
+    splat_finalize_kernel<0>, splat_finalize_kernel<1>,
+    splat_finalize_kernel<2>, splat_finalize_kernel<3>,
+    splat_finalize_kernel<kGeneric>};
 
-  // 2. _min_fill: round r writes halo R - r from halo R - r + 1; a
-  // neighbour counts only inside the image, in the cell's own (wrapped)
-  // coordinates (+inf padding)
-  for (int r = 1; r <= P.rounds; ++r) {
-    const int h = R - r;
-    const int rw = kTileW + 2 * h, n_out = (kTileH + 2 * h) * rw;
-    const float rrw = 1.0f / static_cast<float>(rw);
-    for (int i = tid; i < n_out; i += kThreads) {
-      const int ry = div_small(i, rrw), rx = i - ry * rw;
-      const int ly = ry + R - h, lx = rx + R - h;
-      const int c = ly * sw + lx;
-      const float d = src[c];
-      if (d > 0.0f) {
-        dst[c] = d;
-        continue;
-      }
-      const int gy = wrap(y0 + ly, P.H), gx = wrap(x0 + lx, P.W);
-      // which of the rows and columns dy, dx = -1, 0, 1 lie in the image
-      const bool row_ok[3] = {gy > 0, true, gy < P.H - 1};
-      const bool col_ok[3] = {gx > 0, true, gx < P.W - 1};
-      float m = INFINITY;
-#pragma unroll
-      for (int dy = -1; dy <= 1; ++dy) {
-#pragma unroll
-        for (int dx = -1; dx <= 1; ++dx) {
-          const float n = src[c + dy * sw + dx];
-          const bool in = row_ok[dy + 1] && col_ok[dx + 1] && n > 0.0f;
-          m = fminf(m, in ? n : INFINITY);
-        }
-      }
-      dst[c] = isfinite(m) ? m : 0.0f;
-    }
-    __syncthreads();
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
-  }
+__host__ __forceinline__ FinalizeKernel finalize_kernel(int rounds) {
+  return kFinalizeKernels[rounds < kSpecialised ? rounds : kSpecialised];
+}
 
-  // 3. _edge_preserving_smooth, halo 1: tap (dy, dx) reads the pixel that
-  // torch.roll(depth, (dy, dx)) brings here, depth[y - dy, x - dx]
-  {
-    const int rw = kTileW + 2, n_out = (kTileH + 2) * rw;
-    for (int i = tid; i < n_out; i += kThreads) {
-      const int ry = i / (kTileW + 2), rx = i - ry * rw;
-      const int c = (ry + R - 1) * sw + (rx + R - 1);
-      const float d = src[c];
-      float acc = 0.0f, cnt = 0.0f;
-#pragma unroll
-      for (int dy = -1; dy <= 1; ++dy) {
-#pragma unroll
-        for (int dx = -1; dx <= 1; ++dx) {
-          const float n = src[c - dy * sw - dx];
-          const bool ok = n > 0.0f && fabsf(sub(n, d)) < P.sigma;
-          acc = add(acc, ok ? n : 0.0f);
-          cnt = add(cnt, ok ? 1.0f : 0.0f);
-        }
-      }
-      smooth[c] = (d > 0.0f && cnt > 0.0f) ? dvd(acc, fmaxf(cnt, 1.0f)) : d;
-    }
-  }
-  __syncthreads();
-
-  // 4. depth, points, normals and hit of the tile
-  for (int i = tid; i < kTileW * kTileH; i += kThreads) {
-    const int ty = i / kTileW, tx = i - ty * kTileW;
-    const int v = blockIdx.y * kTileH + ty, u = blockIdx.x * kTileW + tx;
-    if (v >= P.H || u >= P.W) continue;
-    const int c = (ty + R) * sw + (tx + R);
-    const float d = smooth[c];
-    const float du = smooth[c - sw], dd = smooth[c + sw];
-    const float dl = smooth[c - 1], dr = smooth[c + 1];
-    const bool ok = v > 0 && v < P.H - 1 && u > 0 && u < P.W - 1 &&
-                    d != 0.0f && du != 0.0f && dd != 0.0f && dl != 0.0f &&
-                    dr != 0.0f;
-    const Normal n = normal_at(ok, u, v, du, dd, dl, dr, P.cx, P.cy, P.rfx,
-                               P.rfy);
-    const bool hit = d > 0.0f;
-    const int o = v * P.W + u;
-    P.depth[o] = d;
-    P.points[3 * o] = hit ? ray(u, P.cx, P.rfx, d) : 0.0f;
-    P.points[3 * o + 1] = hit ? ray(v, P.cy, P.rfy, d) : 0.0f;
-    P.points[3 * o + 2] = hit ? d : 0.0f;
-    P.normals[3 * o] = n.x;
-    P.normals[3 * o + 1] = n.y;
-    P.normals[3 * o + 2] = n.z;
-    P.hit[o] = hit ? 1 : 0;
-  }
+__host__ __forceinline__ size_t finalize_smem(int rounds) {
+  const int R = rounds + 2;
+  return sizeof(float) * (2 * kPitch * (kTileH + 2 * R + 2) +
+                          staged_floats(tile_w(R)));
 }
 
 }  // namespace
@@ -440,34 +622,56 @@ extern "C" int splat_zbuffer(const int* blocks, const int* ptrs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9.  raw (H, W) -> depth (H, W), points and normals (H, W, 3) float32,
-// hit (H, W) bool; rounds of hole fill 0..kMaxFillRounds, sigma the
-// smooth's depth gate (metres).
-extern "C" int splat_finalize(const float* raw, float* depth, float* points,
-                              float* normals, uint8_t* hit, int H, int W,
-                              int rounds, float sigma, float cx, float cy,
-                              float rfx, float rfy, void* stream) {
+// K9.  raw (H, W) -> out: depth (H, W), then points and normals (H, W, 3)
+// float32 (one buffer of 7 H W floats), and hit (H, W) bool; rounds of
+// hole fill 0..kMaxFillRounds; floats, a host table: the smooth's depth
+// gate sigma (metres), cx, cy, 1/fx, 1/fy.
+extern "C" int splat_finalize(const float* raw, float* out, uint8_t* hit,
+                              int H, int W, int rounds, const float* floats,
+                              void* stream) {
   if (H < 1 || W < 1 || rounds < 0 || rounds > kMaxFillRounds)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = static_cast<int64_t>(H) * W;
   FinalizeParams P = {};
   P.raw = raw;
-  P.depth = depth;
-  P.points = points;
-  P.normals = normals;
+  P.depth = out;
+  P.points = out + n;
+  P.normals = out + 4 * n;
   P.hit = hit;
   P.H = H;
   P.W = W;
   P.rounds = rounds;
-  P.sigma = sigma;
-  P.cx = cx;
-  P.cy = cy;
-  P.rfx = rfx;
-  P.rfy = rfy;
-  const int R = rounds + 2;
-  const size_t smem =
-      sizeof(float) * 3 * (kTileH + 2 * R) * (kTileW + 2 * R);
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
-  splat_finalize_kernel<<<grid, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(P);
+  P.sigma = floats[0];
+  P.cx = floats[1];
+  P.cy = floats[2];
+  P.rfx = floats[3];
+  P.rfy = floats[4];
+  const int tw = tile_w(rounds + 2);
+  const dim3 grid((W + tw - 1) / tw, (H + kTileH - 1) / kTileH);
+  finalize_kernel(rounds)<<<grid, kThreads, finalize_smem(rounds),
+                            static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K9's instantiation for `rounds` fill rounds on the current device:
+// out[0] registers a thread, out[1] local (spilled) bytes a thread, out[2]
+// resident CTAs a multiprocessor, out[3] threads a CTA, out[4] shared
+// memory bytes a CTA.
+extern "C" int splat_finalize_info(int rounds, int* out) {
+  if (rounds < 0 || rounds > kMaxFillRounds)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FinalizeKernel kernel = finalize_kernel(rounds);
+  cudaFuncAttributes fa = {};
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kThreads, finalize_smem(rounds));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = per_sm;
+  out[3] = kThreads;
+  out[4] = static_cast<int>(finalize_smem(rounds) + fa.sharedSizeBytes);
+  return 0;
 }

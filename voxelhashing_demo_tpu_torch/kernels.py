@@ -104,6 +104,42 @@ def build(name: str) -> Path:
                     lambda tmp: [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)])
 
 
+def ptxas_report(name: str) -> dict:
+    """What ptxas says of each kernel of ``csrc/<name>.cu`` when it is
+    built as ``build`` builds it, plus ``-Xptxas -v`` (into a temporary
+    file): {mangled kernel name: {"registers", "spill_stores",
+    "spill_loads", "stack", "smem"}} (bytes but the registers)."""
+    import re
+
+    src = SRC_DIR / f"{name}.cu"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               str(Path(tmp) / "report.so"), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed for {src.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    out, fn = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn is not None:
+            fn.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                      spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            fn["smem"] = int(s.group(1)) if s else 0
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
 def build_host(name: str) -> Path:
     """Compile ``csrc/<name>.cpp`` with the host C++ compiler unless its
     library is already built; returns the library path."""
@@ -158,25 +194,32 @@ KERNELS = {
     # cx, cy, near, far, band, band filter
     "splat_zbuffer": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
-    # K9: raw depth, depth, points, normals, hit, H, W, fill rounds, smooth
-    # sigma, cx, cy, 1/fx, 1/fy
-    "splat_finalize": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
-                       _P],
+    # K9: raw depth, the output buffer (depth, points, normals), hit, H,
+    # W, fill rounds, the host table of floats (smooth sigma, cx, cy, 1/fx,
+    # 1/fy)
+    "splat_finalize": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # K9's instantiation for a fill-round count: registers, spilled bytes,
+    # resident CTAs, threads and shared bytes into an int[5] (no stream)
+    "splat_finalize_info": [_I, _P],
     # K6 (csrc/fuse.cu): keys, ptrs, T_wc, blocks, ptrs and count out,
     # scratch, table size, max_active, key bits, block size, voxel size,
     # half a block, fx, fy, cx, cy, width, height, margin, radius * fx,
     # radius * fy, near, far
     "compact_visible": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                         _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    # K7: blocks, ptrs, count, tsdf, weight, band_min, born, last_seen,
-    # depth, T_wc, rows, map rows, block size, H, W, window h and w,
-    # window, sign, born gate, max_born, stamp on, stamp, the stamp on the
-    # device (or None), falloff, voxel size, fx, fy, cx, cy, truncation,
-    # its depth scale, weight_sample, weight_sample * 1.5, depth_min,
-    # 1 / (depth_max - depth_min), max_weight, the inverse update's clamp
-    "integrate_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _F,
-                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # K7: blocks, ptrs, count, the host table of the map's row pointers
+    # (tsdf, weight, band_min, born, last_seen), depth, T_wc, the stamp on
+    # the device (or None), rows, sign, born gate, max_born, stamp on,
+    # stamp, the host tables of ints (map rows, block size, H, W, window h
+    # and w, window, falloff) and floats (voxel size, fx, fy, cx, cy,
+    # truncation, its depth scale, weight_sample, weight_sample * 1.5,
+    # depth_min, 1 / (depth_max - depth_min), max_weight, the inverse
+    # update's clamp)
+    "integrate_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P],
+    # K7's instantiation for a block size: registers, spilled bytes,
+    # resident CTAs, threads and shared bytes into an int[5] (no stream)
+    "integrate_rows_info": [_I, _P],
     # K5a (csrc/alloc.cu): vertices, depth, T_wc, keys out, H, W, stride,
     # band steps, key bits, block size, truncation, its depth scale,
     # recip(voxel size)
@@ -194,7 +237,9 @@ SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
            "grid_sync_floor": "launch_floor",
            "preprocess_frame": "preprocess", "pyramid_levels": "preprocess",
            "splat_zbuffer": "splat", "splat_finalize": "splat",
+           "splat_finalize_info": "splat",
            "compact_visible": "fuse", "integrate_rows": "fuse",
+           "integrate_rows_info": "fuse",
            "alloc_candidates": "alloc", "insert_blocks": "alloc"}
 
 

@@ -101,6 +101,9 @@ _INSERT_RETIRED: list = []
 # maps K5b checked: id(keys) -> (weak references to the tensors, the
 # configuration, the bucket function, the host tables)
 _MAP_CHECKED: dict = {}
+# maps K7 checked: id(tsdf) -> (weak references to the row tensors, the
+# configuration, camera and fusion settings, the host tables)
+_INTEGRATE_TABLES: dict = {}
 
 
 class HashMap(NamedTuple):
@@ -1033,61 +1036,100 @@ def _integrate_plan(cfg: HashConfig, cam: CameraConfig,
     return head, tail
 
 
+def _integrate_tables(hmap: HashMap, cfg: HashConfig, cam: CameraConfig,
+                      fusion: FusionConfig) -> tuple:
+    """K7's host tables for this map and configuration: (the row tensors'
+    addresses: tsdf, weight, band_min, born, last_seen; the ints: map
+    rows, block size, H, W, the window's h and w, window mode, falloff;
+    the floats of ``_integrate_plan``'s tail) as ctypes arrays, after
+    checking the rows against what K7 takes (one CUDA device, float32
+    tsdf, weight and band_min, int32 born and last_seen, (N, V) and (N,),
+    contiguous), or raise.  Built once: a map whose row tensors are the
+    same objects, with the same configuration objects, is not checked
+    again (the map is updated in place)."""
+    rows = (hmap.tsdf, hmap.weight, hmap.band_min, hmap.born,
+            hmap.last_seen)
+    got = _INTEGRATE_TABLES.get(id(hmap.tsdf))
+    if got is not None:
+        refs, c, cm, fu, tables = got
+        if (c is cfg and cm is cam and fu is fusion
+                and all(r() is t for r, t in zip(refs, rows))):
+            return tables
+    head, tail = _integrate_plan(cfg, cam, fusion)
+    dev = hmap.tsdf.device
+    if not _on_cuda(dev, *rows):
+        raise ValueError("integrate: the map, the active set, the depth and "
+                         "the pose must lie on one CUDA device (or all on "
+                         "the CPU)")
+    if (any(t.dtype != torch.float32 for t in rows[:3])
+            or any(t.dtype != torch.int32 for t in rows[3:])):
+        raise ValueError("integrate: an int32 active set, born and "
+                         "last_seen, and float32 map rows, depth and pose "
+                         "expected")
+    N, V = hmap.tsdf.shape[0], cfg.voxels_per_block
+    if (hmap.tsdf.dim() != 2 or hmap.tsdf.shape[1] != V
+            or hmap.weight.shape != hmap.tsdf.shape
+            or any(tuple(t.shape) != (N,) for t in rows[2:])):
+        raise ValueError(
+            f"integrate: (N, {V}) map rows with (N,) band_min, born and "
+            f"last_seen expected")
+    if not all(t.is_contiguous() for t in rows):
+        raise ValueError("integrate: the map's rows must be contiguous (they "
+                         "are updated in place)")
+    block_size, H, W, wh, ww, window = head
+    falloff, *floats = tail
+    tables = ((ctypes.c_void_p * 5)(*(t.data_ptr() for t in rows)),
+              (ctypes.c_int * 8)(N, block_size, H, W, wh, ww, window,
+                                 falloff),
+              (ctypes.c_float * len(floats))(*floats), window)
+    if len(_INTEGRATE_TABLES) >= 16:
+        _INTEGRATE_TABLES.clear()
+    _INTEGRATE_TABLES[id(hmap.tsdf)] = (
+        tuple(weakref.ref(t) for t in rows), cfg, cam, fusion, tables)
+    return tables
+
+
 def _launch_integrate(hmap: HashMap, active: ActiveSet, cfg: HashConfig,
                       depth_m: torch.Tensor, T_wc: torch.Tensor,
                       cam: CameraConfig, fusion: FusionConfig, sign: int,
                       max_born: int | None,
                       stamp: int | torch.Tensor | None) -> HashMap:
     """K7 on the current stream, the map updated in place; or raise."""
-    ints = (active.blocks, active.ptrs, active.count)
-    floats = (depth_m, T_wc)
-    rows_f = (hmap.tsdf, hmap.weight, hmap.band_min)
-    rows_i = (hmap.born, hmap.last_seen)
+    map_ptrs, ints, floats, window = _integrate_tables(hmap, cfg, cam,
+                                                       fusion)
+    blocks, ptrs, count = active
     dev = hmap.tsdf.device
-    if not _on_cuda(dev, *ints, *floats, *rows_f, *rows_i):
+    if not _on_cuda(dev, blocks, ptrs, count, depth_m, T_wc):
         raise ValueError("integrate: the map, the active set, the depth and "
                          "the pose must lie on one CUDA device (or all on "
                          "the CPU)")
-    if (any(t.dtype != torch.int32 for t in ints + rows_i)
-            or any(t.dtype != torch.float32 for t in floats + rows_f)):
+    if (blocks.dtype != torch.int32 or ptrs.dtype != torch.int32
+            or count.dtype != torch.int32 or depth_m.dtype != torch.float32
+            or T_wc.dtype != torch.float32):
         raise ValueError("integrate: an int32 active set, born and "
                          "last_seen, and float32 map rows, depth and pose "
                          "expected")
-    head, tail = _integrate_plan(cfg, cam, fusion)
-    rows, V, N = active.ptrs.shape[0], cfg.voxels_per_block, \
-        hmap.tsdf.shape[0]
-    if (active.ptrs.dim() != 1 or tuple(active.blocks.shape) != (rows, 3)
-            or active.count.numel() != 1 or tuple(T_wc.shape) != (4, 4)
-            or tuple(depth_m.shape) != (cam.height, cam.width)
-            or hmap.tsdf.dim() != 2 or hmap.tsdf.shape[1] != V
-            or hmap.weight.shape != hmap.tsdf.shape
-            or any(tuple(t.shape) != (N,) for t in (hmap.band_min,)
-                   + rows_i)):
+    rows = ptrs.shape[0]
+    if (ptrs.dim() != 1 or tuple(blocks.shape) != (rows, 3)
+            or count.numel() != 1 or tuple(T_wc.shape) != (4, 4)
+            or tuple(depth_m.shape) != (cam.height, cam.width)):
         raise ValueError(
-            f"integrate: blocks (A, 3), ptrs (A,), one count, a (4, 4) pose, "
-            f"a {(cam.height, cam.width)} depth and (N, {V}) map rows with "
-            f"(N,) band_min, born and last_seen expected")
-    if not all(t.is_contiguous() for t in rows_f + rows_i):
-        raise ValueError("integrate: the map's rows must be contiguous (they "
-                         "are updated in place)")
+            f"integrate: blocks (A, 3), ptrs (A,), one count, a (4, 4) pose "
+            f"and a {(cam.height, cam.width)} depth expected")
     if sign not in (1, -1):
         raise ValueError(f"integrate: sign +1 or -1 expected, got {sign}")
     stamp_ptr, stamp_int = _stamp_arg(stamp, dev, "integrate")
-    ints = [t.contiguous() for t in ints]
-    floats = [t.contiguous() for t in floats]
-    blocks, ptrs, count = ints
-    depth, pose = floats
+    blocks, ptrs, depth, pose = (t.contiguous() for t in (blocks, ptrs,
+                                                          depth_m, T_wc))
     kernels.launch(
         "integrate_rows", dev.index, blocks.data_ptr(), ptrs.data_ptr(),
-        count.data_ptr(), hmap.tsdf.data_ptr(), hmap.weight.data_ptr(),
-        hmap.band_min.data_ptr(), hmap.born.data_ptr(),
-        hmap.last_seen.data_ptr(), depth.data_ptr(), pose.data_ptr(), rows,
-        N, *head, sign, int(max_born is not None),
+        count.data_ptr(), map_ptrs, depth.data_ptr(), pose.data_ptr(),
+        stamp_ptr, rows, sign, int(max_born is not None),
         0 if max_born is None else int(max_born), int(stamp is not None),
-        stamp_int, stamp_ptr, *tail)
+        stamp_int, ints, floats)
     global LAUNCHES_INTEGRATE, LAUNCHES_INTEGRATE_WINDOW
     LAUNCHES_INTEGRATE += 1
-    LAUNCHES_INTEGRATE_WINDOW += head[-1]
+    LAUNCHES_INTEGRATE_WINDOW += window
     return hmap
 
 

@@ -24,6 +24,7 @@ launches.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -44,6 +45,10 @@ LAUNCHES_FINALIZE = 0   # K9 splat_finalize
 
 MAX_FILL_ROUNDS = 16    # the hole-fill rounds K9 takes (kMaxFillRounds)
 MAX_VOXELS = 1024       # the voxels a block K8 takes (kMaxVoxels)
+
+# K9's host tables a configuration: (id(cam), id(rc), id(fusion)) -> (cam,
+# rc, fusion, tables), kept by the objects' identity (``_finalize_tables``)
+_FINALIZE_TABLES: dict = {}
 
 
 def _min_fill(depth: torch.Tensor, rounds: int) -> torch.Tensor:
@@ -349,6 +354,25 @@ def _finalize_plan(cam: CameraConfig, rc: RaycastConfig,
             cam.cy, recip(cam.fx), recip(cam.fy))
 
 
+def _finalize_tables(cam: CameraConfig, rc: RaycastConfig,
+                     fusion: FusionConfig) -> tuple:
+    """K9's arguments after the pointers and the image size: (fill rounds,
+    a host table of floats: smooth sigma, cx, cy, 1/fx, 1/fy), built once a
+    configuration and kept by the objects' identity (which costs less than
+    hashing them); or raise."""
+    key = (id(cam), id(rc), id(fusion))
+    got = _FINALIZE_TABLES.get(key)
+    if (got is not None and got[0] is cam and got[1] is rc
+            and got[2] is fusion):
+        return got[3]
+    rounds, *floats = _finalize_plan(cam, rc, fusion)
+    tables = (rounds, (ctypes.c_float * len(floats))(*floats))
+    if len(_FINALIZE_TABLES) >= 64:
+        _FINALIZE_TABLES.clear()
+    _FINALIZE_TABLES[key] = (cam, rc, fusion, tables)
+    return tables
+
+
 def _launch_finalize(depth: torch.Tensor, cam: CameraConfig,
                      rc: RaycastConfig,
                      fusion: FusionConfig) -> RaycastOutput:
@@ -361,19 +385,16 @@ def _launch_finalize(depth: torch.Tensor, cam: CameraConfig,
             f"splat: a float32 {(H, W)} depth buffer on a CUDA device (or "
             f"any on the CPU) expected, got {depth.dtype} "
             f"{tuple(depth.shape)} on {depth.device}")
-    plan = _finalize_plan(cam, rc, fusion)
+    rounds, floats = _finalize_tables(cam, rc, fusion)
     raw = depth.contiguous()
     n = H * W
     buf = torch.empty(7 * n, dtype=torch.float32, device=raw.device)
-    maps = ((H, W, 3), (3 * W, 3, 1))
-    out = RaycastOutput(depth=buf.as_strided((H, W), (W, 1), 0),
-                        points=buf.as_strided(*maps, n),
-                        normals=buf.as_strided(*maps, 4 * n),
-                        hit=torch.empty((H, W), dtype=torch.bool,
-                                        device=raw.device))
+    hit = torch.empty((H, W), dtype=torch.bool, device=raw.device)
     kernels.launch("splat_finalize", raw.get_device(), raw.data_ptr(),
-                   out.depth.data_ptr(), out.points.data_ptr(),
-                   out.normals.data_ptr(), out.hit.data_ptr(), H, W, *plan)
+                   buf.data_ptr(), hit.data_ptr(), H, W, rounds, floats)
     global LAUNCHES_FINALIZE
     LAUNCHES_FINALIZE += 1
-    return out
+    maps = ((H, W, 3), (3 * W, 3, 1))
+    return RaycastOutput(depth=buf.as_strided((H, W), (W, 1), 0),
+                         points=buf.as_strided(*maps, n),
+                         normals=buf.as_strided(*maps, 4 * n), hit=hit)
