@@ -14,14 +14,15 @@ flagship 640x480 frames through ``HashSLAM(flagship_gather_config())``:
 ATE, p50 and max frame ms) and its own ``tools/roofline.measure_stages``
 under ``flagship_gather_config()`` (host ms of each stage of the step
 after 24 noisy sweep frames), then its own ``preprocess``, ``splat``,
-``fuse`` and ``alloc`` phases (K3a ``preprocess_frame``, K9
-``splat_finalize``, K7 ``integrate_rows`` and K5b ``insert_blocks`` on
-the step's own inputs: warm and L2-cold device µs, each checked bit for
-bit against its plain version by the phase: device µs of a CUDA-graph
-replay over its launches) and, measured by the same code in both trees
-(``WRAPPERS``), the four wrappers' host µs to issue a call and the four
-kernels' own device µs a launch by torch.profiler, launched one by one,
-queued back to back and from a CUDA graph.  One JSON
+``fuse`` and ``alloc`` phases (K3a ``preprocess_frame``, K3b
+``pyramid_levels``, K9 ``splat_finalize``, K6 ``compact_visible``, K7
+``integrate_rows`` and K5b ``insert_blocks`` on the step's own inputs:
+warm and L2-cold device µs, each checked bit for bit against its plain
+version by the phase: device µs of a CUDA-graph replay over its
+launches) and, measured by the same code in both trees (``WRAPPERS``),
+the six wrappers' host µs to issue a call and the six kernels' own
+device µs a launch by torch.profiler, launched one by one, queued back
+to back and from a CUDA graph.  One JSON
 line a turn, then the summary as the last line: each tree's ATEs (equal
 bit for bit between the trees when their kernels are bit-exact against
 the same plain versions), and its p50, stage ms and kernel µs as min /
@@ -39,7 +40,8 @@ import numpy as np
 TURNS = ("parent", "this", "this", "parent")
 TIMEOUT_S = 900
 KERNELS = ("preprocess_frame", "insert_blocks", "splat_finalize",
-           "integrate_rows")                       # K3a, K5b, K9, K7
+           "integrate_rows", "pyramid_levels",
+           "compact_visible")                # K3a, K5b, K9, K7, K3b, K6
 
 # on the step's inputs, by the same code for every tree (only the APIs
 # that both trees have): the wrappers' host µs to issue one call (the
@@ -56,7 +58,10 @@ KERNELS = ("preprocess_frame", "insert_blocks", "splat_finalize",
 # from, on the map before it: not the step's own allocation, whose pose
 # ICP has moved (that is the ``alloc`` phase's).  K9 finalizes the splat
 # buffer of that map, visible set and pose; K7 fuses the frame into that
-# map after its allocation, on the set K6 gives
+# map after its allocation, on the set K6 gives; K3b makes the level inputs
+# of that frame against the map's model (both full-resolution Frames
+# given, as the step's pyramid does); K6 compacts the map after that
+# allocation at that pose
 WRAPPERS = r"""
 def _own_us(torch, name, fn, restore):
     from torch.autograd import DeviceType
@@ -152,8 +157,19 @@ def wrapper_us(torch, cs, sweep):
             for f in rows:
                 getattr(x, f).copy_(getattr(fused, f))
 
+    model, icfg = slam.state.model, cfg.icp
+
+    def k3b():
+        return pre.pyramid_inputs(frame.depth, model.depth, cam, icfg,
+                                  src_full=frame, tgt_full=model)
+
+    def k6():
+        return hash_ops.compact_visible(fused, cfg.hash, pose, cam, fus)
+
     reps = 50
-    issue = {"preprocess_frame": cs.host_issue_us(
+    issue = {"pyramid_levels": cs.host_issue_us(k3b, reps=reps),
+             "compact_visible": cs.host_issue_us(k6, reps=reps),
+             "preprocess_frame": cs.host_issue_us(
                  lambda: pre.preprocess(raw, cam, front), reps=reps),
              "insert_blocks": cs.host_issue_us(
                  lambda: hash_ops.insert_blocks(m, cfg.hash, cand, 7),
@@ -170,7 +186,11 @@ def wrapper_us(torch, cs, sweep):
             for f in ints:
                 getattr(x, f).copy_(getattr(slam.state.hmap, f))
 
-    own = {"preprocess_frame": _modes(
+    own = {"pyramid_levels": _modes(torch, "pyramid_levels", [k3b] * 8,
+                                    lambda: None),
+           "compact_visible": _modes(torch, "compact_visible", [k6] * 8,
+                                     lambda: None),
+           "preprocess_frame": _modes(
                torch, "preprocess_frame",
                [lambda: pre.preprocess(raw, cam, front)] * len(maps),
                lambda: None),
@@ -214,7 +234,8 @@ k7 = cs.phase_fuse(torch, "", sweep)
 k5 = cs.phase_alloc(torch, "", sweep)
 us = {k: {"us": 1e3 * d[k]["ms"], "cold_us": 1e3 * d[k]["cold_ms"]}
       for k, d in (("preprocess_frame", k3), ("insert_blocks", k5),
-                   ("splat_finalize", k9), ("integrate_rows", k7))}
+                   ("splat_finalize", k9), ("integrate_rows", k7),
+                   ("pyramid_levels", k3), ("compact_visible", k7))}
 """ + WRAPPERS + r"""
 issue, own, keys = wrapper_us(torch, cs, sweep)
 us["insert_blocks"]["keys"] = keys

@@ -89,8 +89,9 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    (``preprocess_reference``; ``_pyramid_reference``, the chain of plain
    functions) bit for bit, field by field and level by level.
    Times as ``icp``'s (CUDA-graph replay warm and L2-cold, wrapper,
-   plain, the bytes bound, launch floor and least time), and K3a's host
-   µs to issue a call; the step's preprocess and ICP stages, kernels
+   plain, the bytes bound, launch floor and least time), K3a's host
+   µs to issue a call and K3b's wrapper piece by piece
+   (``k3b_wrapper_pieces``); the step's preprocess and ICP stages, kernels
    against the plain versions: host ms and device kernels
    (torch.profiler), the preprocess stage one kernel,
    the ICP stage at most 20; one K3a and one K3b launch a step.
@@ -114,7 +115,8 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    K9) and host reads (none); one K8 and one K9 launch a step.
 3f. ``fuse``: visible-set compaction and integration (csrc/fuse.cu: K6
    ``compact_visible``, the frustum test of the whole table and the
-   compaction in table order in one cooperative launch; K7
+   compaction in table order in one launch, a decoupled look-back over
+   its tiles on a scratch that persists a stream; K7
    ``integrate_rows``, the update of the visible rows with the window
    gather's coverage and ``touch_active``'s stamp fused in) on the
    flagship step's own inputs: the map, frame and pose of the step's
@@ -127,8 +129,9 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    band_min, last_seen and born.  Times as ``splat``'s (K6 warm and
    L2-cold; K7 warm on the map, L2-cold on its live rows gathered into a
    map of their own; wrappers; plain versions; bounds from this run's
-   table and rows; K6's least time the launch floor plus one grid
-   barrier at its grid); the stage (compact -> touch -> integrate) kernel
+   table and rows; K6's least time the launch floor, beside it what one
+   grid barrier among its tiles would cost; every K6 scratch left clean);
+   the stage (compact -> touch -> integrate) kernel
    against plain in turns plain / kernel / kernel / plain: host ms, host
    µs to issue, device kernels (exactly 2) and host reads (none); one K6
    and one K7 launch a step.
@@ -1715,6 +1718,81 @@ def _k3_compare(probe, got: list, plain: list) -> dict:
             "max_abs_err": max(x["max_abs_err"] for x in parts)}
 
 
+def _loop_us(fn, iters: int = 200) -> float:
+    """Host µs a call of ``fn`` (perf_counter around a loop; the device is
+    not waited for), the median of five loops."""
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) / iters * 1e6)
+    return float(np.median(times))
+
+
+def k3b_wrapper_pieces(torch, frame, model, cam, icfg) -> dict:
+    """What K3b's wrapper (``pyramid_inputs`` on the step's inputs, both
+    full-resolution Frames given) spends its host µs on, piece by piece:
+    the whole call; the plan and layout lookups (by identity and shapes);
+    the checks of the inputs; the output buffer; the 12 output views; the
+    C call and launch with its arguments built (the whole call and the
+    launch with the queue drained before each, as ``host_issue_us``).
+    Then what the wrapper no longer does: hashing the camera and ICP
+    configuration for the plan's cache, hashing the jobs and shapes for
+    the layout's, and building a 36-pointer argument array."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    def whole():
+        return pre.pyramid_inputs(frame.depth, model.depth, cam, icfg,
+                                  src_full=frame, tgt_full=model)
+
+    whole()
+    torch.cuda.synchronize()
+    jobs, _ = pre._plan(cam, icfg, True, True, True)
+    inputs = (frame.depth, model.depth, model.depth, model.normals)
+    lay = pre._LAYOUTS[(id(jobs), *(t.shape for t in inputs))][1]
+    dev = frame.depth.device
+    buf = torch.empty(lay.total, dtype=torch.float32, device=dev)
+    fn = kernels.function("pyramid_levels")
+    stream = torch._C._cuda_getCurrentRawStream(buf.get_device())
+    args = (*(t.data_ptr() for t in inputs), buf.data_ptr(), lay.ints,
+            lay.floats, len(jobs), pre.EDGE_BAND, stream)
+    shapes = tuple((t.shape[0], t.shape[1]) for t in inputs)
+    ptrs = [buf.data_ptr()] * 36
+
+    def checks():
+        read = list(inputs)
+        return (dev.type != "cuda" or any(t.device != dev for t in read)
+                or any(t.dtype != torch.float32 for t in read),
+                [t.contiguous().data_ptr() for t in read])
+
+    def views():
+        return [buf.as_strided(*v) if job.kind != pre._SOURCE
+                else pre.Frame(*(buf.as_strided(*x) for x in v))
+                for job, v in zip(jobs, lay.views)]
+
+    pieces = {
+        "whole": host_issue_us(whole, reps=WRAPPER_REPS),
+        "plan_lookup": _loop_us(lambda: pre._LEVEL_PLANS.get(
+            (id(cam), id(icfg), True, True, True))),
+        "layout_lookup": _loop_us(lambda: pre._LAYOUTS.get(
+            (id(jobs), *(t.shape for t in inputs)))),
+        "checks": _loop_us(checks),
+        "empty": _loop_us(lambda: torch.empty(
+            lay.total, dtype=torch.float32, device=dev)),
+        "views_12": _loop_us(views),
+        "c_call_and_launch": host_issue_us(lambda: fn(*args),
+                                           reps=WRAPPER_REPS),
+        "cut_plan_hash": _loop_us(lambda: hash((cam, icfg))),
+        "cut_layout_hash": _loop_us(lambda: hash((jobs, shapes))),
+        "cut_pointer_array_36": _loop_us(
+            lambda: (ctypes.c_void_p * 36)(*ptrs)),
+    }
+    torch.cuda.synchronize()
+    return pieces
+
+
 def phase_preprocess(torch, card: str, sweep) -> dict:
     """K3a ``preprocess_frame`` and K3b ``pyramid_levels`` on the flagship
     step's own inputs: frame N_STEP_FRAMES of the room sweep and the model
@@ -1766,7 +1844,9 @@ def phase_preprocess(torch, card: str, sweep) -> dict:
     k3b = {**probe.timings(levels, (frame.depth, st.model.depth,
                                     st.model.normals)),
            "plain_ms": probe.host_ms(lambda: pre._pyramid_reference(
-               frame.depth, st.model.depth, cam, icfg, **kw), iters=10)}
+               frame.depth, st.model.depth, cam, icfg, **kw), iters=10),
+           "wrapper_pieces_us": k3b_wrapper_pieces(torch, frame, st.model,
+                                                   cam, icfg)}
     level_hw = ([s.depth.shape for s in srcs]
                 + [t.shape[:2] for t in tgts])
     out_bytes = 4 * (sum(7 * s.depth.numel() for s in srcs)
@@ -2164,15 +2244,16 @@ def phase_fuse(torch, card: str, sweep) -> dict:
     index = torch.cuda.current_device()
     T, A, V = base.keys.shape[0], hcfg.max_active, hcfg.voxels_per_block
     tiles = -(-T // hash_ops.COMPACT_TILE)
-    plan6 = hash_ops._compact_plan(hcfg, cam, fusion)
-    out6 = torch.empty(4 * A + 1 + tiles, dtype=torch.int32,
-                       device=T_wc.device)
-    p6 = out6.data_ptr()
-    outs6 = (p6, p6 + 4 * 3 * A, p6 + 4 * 4 * A, p6 + 4 * (4 * A + 1))
+    ints6, floats6 = hash_ops._compact_plan(hcfg, cam, fusion)
+    out6 = torch.empty(4 * A + 1, dtype=torch.int32, device=T_wc.device)
+    # a scratch of its own, zeroed once: each launch leaves it clean
+    words6 = hash_ops.COMPACT_STATUS_WORDS * tiles
+    scratch6 = torch.zeros(1 + words6, dtype=torch.int64, device=T_wc.device)
 
     def k6_alone(keys, ptrs, pose):
         kernels.launch("compact_visible", index, keys.data_ptr(),
-                       ptrs.data_ptr(), pose.data_ptr(), *outs6, T, *plan6)
+                       ptrs.data_ptr(), pose.data_ptr(), out6.data_ptr(),
+                       scratch6.data_ptr(), words6, T, ints6, floats6)
 
     k6 = {**probe.timings(k6_alone, (base.keys, base.ptrs, T_wc)),
           "wrapper_ms": probe.host_ms(
@@ -2180,12 +2261,21 @@ def phase_fuse(torch, card: str, sweep) -> dict:
           "plain_ms": probe.host_ms(
               lambda: hash_ops.compact_visible_reference(base, *args6),
               iters=10)}
+    # every launch leaves its scratch as the next one needs it: the epoch
+    # word's low half 0
+    torch.cuda.synchronize()
+    k6["scratch_clean"] = all(
+        int(t[0]) & 0xFFFFFFFF == 0
+        for t in [scratch6] + [x for x, _ in
+                               hash_ops._COMPACT_SCRATCH.values()])
     live = int((base.ptrs != hash_ops.FREE_PTR).sum())
     k6["bound_bytes"] = _k6_bytes(base) + A * K6_ROW_BYTES + 4
     k6["bound_ms"], k6["bound_by"] = _probe_bound(
         k6["bound_bytes"], live * K6_OPS_PER_ENTRY + T)
+    # what a grid barrier among the step's tiles would cost (the design
+    # before the look-back paid one); K6's least is its bound or the floor
     k6["barrier_floor_ms"] = barrier_floor_ms(torch, kernels, tiles)
-    k6["least_ms"] = max(k6["bound_ms"], floor_ms + k6["barrier_floor_ms"])
+    k6["least_ms"] = max(k6["bound_ms"], floor_ms)
 
     head, (falloff, *tail) = hash_ops._integrate_plan(hcfg, cam, fusion)
     floats7 = (ctypes.c_float * len(tail))(*tail)
@@ -2267,6 +2357,8 @@ def phase_fuse(torch, card: str, sweep) -> dict:
            "stage": stage, "seconds": time.perf_counter() - t0})
     _require(k6_exact, "K6 == its plain version bit for bit (the visible "
                        "set, its order and count)")
+    _require(k6["scratch_clean"], "every K6 launch leaves its scratch "
+                                  "clean")
     _require(k7_exact, "K7 == the plain integrate (+ touch_active) bit for "
                        "bit, every field, both gather modes and both signs")
     _require(per_frame == [1, 1], "one K6 and one K7 launch a frame")

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the splat kernels' and the integrate kernel's device time goes,
-on the flagship step's own splat and fuse (csrc/splat.cu: K8
-``splat_zbuffer``, K9 ``splat_finalize``; csrc/fuse.cu: K7
-``integrate_rows``).
+"""Where the device time of the flagship step's kernels goes, on the
+step's own inputs: the splat kernels (csrc/splat.cu: K8
+``splat_zbuffer``, K9 ``splat_finalize``), the pyramid's level inputs
+(csrc/preprocess.cu: K3b ``pyramid_levels``) and the fuse kernels
+(csrc/fuse.cu: K6 ``compact_visible``, K7 ``integrate_rows``).
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -29,10 +30,24 @@ last frame's ``splat_raycast`` call and times, each by CUDA-graph replay
   without the window, de-integrating, and with the row count cut to
   one wave's worth (the multiprocessors) and to 1, and on every live row
   of the map at once (more rows than the step's);
+- K3b on the step's level inputs (the frame's depth after
+  ``preprocess``, the model after the first N_STEP_FRAMES frames, both
+  full-resolution Frames given, as ``icp_align_pyramid`` calls it): the
+  whole launch of the plan's 6 jobs, and each job alone;
+- K6 through its wrapper on the step's table (the map after the step's
+  allocation, the step's pose), on an all-free table of the same size, on
+  the step's table tiled 8 times (2^21 entries, 1 024 tiles of 2 048;
+  the set overflows max_active), and on a one-entry free table with no
+  set row (the launch and its fixed cost, nothing to test or write);
+  beside them the empty kernel on the step's grid of 128 CTAs, without
+  and with one grid barrier (csrc/launch_floor.cu), what a cooperative
+  launch and its barrier cost; K6 is timed from a CUDA graph captured on
+  a stream that has already run it (a kernel that keeps a persistent
+  scratch a stream replays on it, as the step's would);
 - the empty kernel (the launch floor);
 
-and what ptxas says of every kernel of splat.cu and fuse.cu (registers,
-spills: ``kernels.ptxas_report``).
+and what ptxas says of every kernel of splat.cu, preprocess.cu and
+fuse.cu (registers, spills: ``kernels.ptxas_report``).
 
 One JSON line, with the card's name and power limit first.
 """
@@ -49,15 +64,12 @@ CHILD = ("import sys; sys.path[:0] = [{tree!r}, {root!r}]; "
          "import chip_splat_breakdown as b; sys.exit(b.measure())")
 
 
-def _k7_breakdown(torch, sweep, us) -> dict:
-    """K7's µs a launch (``us``) on the step's fuse of frame
-    N_STEP_FRAMES: the map before it with the step's allocation applied,
-    the visible set of K6, each variant on a copy of the map's rows."""
-    import dataclasses
-
+def _fuse_inputs(sweep) -> tuple:
+    """The step's fuse of frame N_STEP_FRAMES: (the map before it with the
+    step's allocation applied, frame, pose, camera, hash, fusion, frame
+    index) as ``fuse_frame`` takes them."""
     import chip_smoke
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
-    from voxelhashing_demo_tpu_torch.geometry import coords
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.ops import hash_ops
     from voxelhashing_demo_tpu_torch.tools import probe
@@ -80,6 +92,121 @@ def _k7_breakdown(torch, sweep, us) -> dict:
     base, frame, T_wc, cam, hcfg, fusion, frame_idx = last
     hash_ops.allocate_from_frame(base, frame, T_wc, cam, hcfg, fusion,
                                  frame_idx=frame_idx)
+    return base, frame, T_wc, cam, hcfg, fusion, frame_idx
+
+
+def _side_us(torch, fn) -> float:
+    """Device µs a call of ``fn`` from a CUDA graph of WARM_CALLS calls
+    captured on a side stream that ran ``fn`` first (so that a kernel
+    keeping a persistent scratch a stream replays on it), replayed 10
+    times between CUDA events."""
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(probe.WARM_CALLS):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(10):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return 1e3 * a.elapsed_time(b) / (10 * probe.WARM_CALLS)
+
+
+def _k6_breakdown(torch, inputs, us) -> dict:
+    """K6's µs a launch (its wrapper, ``_side_us``) on the step's table
+    and the variants the module docstring lists, beside the empty kernel
+    on the step's grid (``us``)."""
+    import dataclasses
+
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    base, _, T_wc, cam, hcfg, fusion, _ = inputs
+    index = torch.cuda.current_device()
+    T = base.keys.shape[0]
+    tiles = -(-T // 2048)
+
+    def table(keys, ptrs):
+        return hash_ops.HashMap(keys=keys, ptrs=ptrs, **{
+            f: None for f in hash_ops.HashMap._fields
+            if f not in ("keys", "ptrs")})
+
+    def k6(m, h=hcfg):
+        return _side_us(torch, lambda: hash_ops.compact_visible(
+            m, h, T_wc, cam, fusion))
+
+    free = table(torch.full_like(base.keys, hash_ops.EMPTY_KEY),
+                 torch.full_like(base.ptrs, hash_ops.FREE_PTR))
+    tiled = table(base.keys.repeat(8), base.ptrs.repeat(8))
+    one = table(free.keys[:1].clone(), free.ptrs[:1].clone())
+    return {"table": T, "tiles": tiles,
+            "live": int((base.ptrs != hash_ops.FREE_PTR).sum()),
+            "count": int(hash_ops.compact_visible(base, hcfg, T_wc, cam,
+                                                  fusion).count),
+            "step": k6(base), "all_free": k6(free),
+            "tiled_x8": k6(tiled),
+            "one_free_entry_no_rows": k6(one, dataclasses.replace(
+                hcfg, max_active=0)),
+            "empty_grid_128": us(lambda: kernels.launch(
+                "grid_sync_floor", index, tiles, 0)),
+            "empty_grid_128_one_barrier": us(lambda: kernels.launch(
+                "grid_sync_floor", index, tiles, 1))}
+
+
+def _k3b_breakdown(torch, sweep, us) -> dict:
+    """K3b's µs a launch (``us``) on the step's level inputs: the whole
+    plan in one launch and each job alone."""
+    import chip_smoke
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    cfg = flagship_gather_config()
+    slam = hash_slam.HashSLAM(cfg)
+    for d in sweep[:chip_smoke.N_STEP_FRAMES]:
+        slam.process(d)
+    cam = cfg.camera
+    raw = hash_slam.depth_tensor(sweep[chip_smoke.N_STEP_FRAMES],
+                                 slam.device)
+    frame = pre.preprocess(raw, cam, cfg.frontend)
+    model = slam.state.model
+    jobs, _ = pre._plan(cam, cfg.icp, True, True, True)
+    images = {"src": frame.depth, "tgt": model.depth}
+    kinds = {pre._SOURCE: "source", pre._TARGET: "target",
+             pre._PACK: "pack"}
+    pools = {pre._NONE: "", pre._MIN: "min", pre._MEAN: "mean"}
+    out = {"whole": us(lambda: pre._launch_levels(jobs, images, model))}
+    H, W = frame.depth.shape
+    for k, job in enumerate(jobs):
+        name = (f"{k}_{kinds[job.kind]}_{pools[job.pool]}{job.factor}_"
+                f"{H // job.factor}x{W // job.factor}")
+        out[name] = us(lambda j=job: pre._launch_levels((j,), images, model))
+    return out
+
+
+def _k7_breakdown(torch, inputs, us) -> dict:
+    """K7's µs a launch (``us``) on the step's fuse of frame
+    N_STEP_FRAMES: the map before it with the step's allocation applied,
+    the visible set of K6, each variant on a copy of the map's rows."""
+    import dataclasses
+
+    from voxelhashing_demo_tpu_torch.geometry import coords
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    base, frame, T_wc, cam, hcfg, fusion, frame_idx = inputs
     active = hash_ops.compact_visible(base, hcfg, T_wc, cam, fusion)
     n = int(active.count)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -204,9 +331,12 @@ def measure() -> int:
         lambda: splat.finalize_depth(full, cam, rc, fusion))
     out["k9_us"]["no_estimate"] = us(
         lambda: splat.finalize_depth(empty, cam, rc, fusion))
-    out["k7_us"] = _k7_breakdown(torch, sweep, us)
+    inputs = _fuse_inputs(sweep)
+    out["k7_us"] = _k7_breakdown(torch, inputs, us)
+    out["k6_us"] = _k6_breakdown(torch, inputs, us)
+    out["k3b_us"] = _k3b_breakdown(torch, sweep, us)
     out["ptxas"] = {src: kernels.ptxas_report(src)
-                    for src in ("splat", "fuse")}
+                    for src in ("splat", "preprocess", "fuse")}
     out["floor_us_after"] = 1e3 * probe.launch_floor_ms()
     print(json.dumps(out), flush=True)
     return 0

@@ -31,8 +31,13 @@ replay from a CUDA graph; each K9 and K7 instantiation reports its
 registers and resident CTAs.
 The fuse kernels (K6 ``compact_visible``, K7 ``integrate_rows``) equal
 their plain versions bit for bit: the visible set, its order and count
-from 48 poses of a room sweep, on a set that overflows ``max_active`` and
-on a table of more tiles than the card holds CTAs; tsdf, weight,
+from 48 poses of a room sweep, on a set that overflows ``max_active``, on
+tables of 1, 2, 127, 128, 129, 1 024 and 2 048 tiles (T a multiple of the
+tile or not; the last more than the card holds CTAs), an all-free table
+and one whose every entry is visible (capped; max_active 0); two launches
+agree, a CUDA graph replays on its stream's persistent scratch and a
+capture on a fresh stream on a scratch of its own, every scratch left
+clean; tsdf, weight,
 band_min, born and last_seen after an update in both gather modes and
 both signs (the ``max_born`` gate, rows at the weight cap, near-range
 rows the window clips, block sizes 3, 4 and 5); the frame's compact -> touch ->
@@ -54,7 +59,10 @@ after a graph of two of them replayed twice; ``allocate_from_frame`` and
 what they do not take and a refused launch raise, and no plain version
 runs instead.  K3a bit for bit on each of its stage sets (radius 0-7,
 outlier on and off, the bilateral off; depth_min 0 too) at 640x480 and
-97 x 61.
+97 x 61.  K3b bit for bit on the flagship, plain, sharded, two-level and
+odd-sized plans, with 1 and 8 jobs, at pool factor 3, on inputs 641 and
+642 wide and 4 bytes off an alignment (no vector rows), on an all-zero
+frame and on one whose every mean-pooled window the edge band rejects.
 """
 
 import dataclasses
@@ -1191,6 +1199,140 @@ def test_pyramid_levels_match_plain(cuda, case):
         _assert_k3_equal(t, pt[k], f"{case} target {k}")
 
 
+def _k3b_job(kind: int, pool: int, factor: int, cam, image: str = "src"):
+    """A K3b job of the level image pooled by ``factor`` (its camera
+    scaled so)."""
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    return pre._Job(kind, image, pool, factor,
+                    cam.scaled(factor) if factor > 1 else cam)
+
+
+def _k3b_images(cuda, width: int = 640):
+    """(source depth, target depth, target Frame, camera) at 480 x
+    ``width``: the preprocessed sweep frame (its first columns repeated
+    past 640) and a model Frame of it rolled by (3, -5)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    cfg = flagship_config()
+    raw, cam = _k3_frame(cuda, "sweep")
+    raw = torch.cat([raw, raw[:, :width - 640]], 1) if width > 640 else raw
+    cam = dataclasses.replace(cam, width=width)
+    frame = pre.preprocess(raw, cam, cfg.frontend)
+    model = pre.preprocess_reference(torch.roll(raw, (3, -5), (0, 1)), cam,
+                                     cfg.frontend)
+    return frame.depth, model.depth, model, cam
+
+
+def _k3b_check(jobs, src, tgt, full, what: str):
+    """One K3b launch of ``jobs`` against each job's plain version, bit
+    for bit."""
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    images = {"src": src, "tgt": tgt}
+    before = pre.LAUNCHES_LEVELS
+    got = pre._launch_levels(tuple(jobs), images, full)
+    assert pre.LAUNCHES_LEVELS == before + 1
+    assert len(got) == len(jobs)
+    for k, job in enumerate(jobs):
+        _assert_k3_equal(got[k], pre._job_reference(job, images, full),
+                         f"{what} job {k}")
+
+
+@pytest.mark.parametrize("n_jobs", [1, 8])
+def test_pyramid_levels_job_counts(cuda, n_jobs):
+    """K3b with one job (a mean-pooled source) and with the most a launch
+    takes, 8: sources pooled min 2, mean 2, min 4, mean 4 and not at all,
+    targets min 2 and not pooled, the target Frame packed."""
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    src, tgt, model, cam = _k3b_images(cuda)
+    S, T, P = pre._SOURCE, pre._TARGET, pre._PACK
+    spec = [(S, pre._MEAN, 2, "src"), (S, pre._MIN, 2, "src"),
+            (S, pre._MIN, 4, "src"), (S, pre._MEAN, 4, "src"),
+            (S, pre._NONE, 1, "src"), (T, pre._MIN, 2, "tgt"),
+            (T, pre._NONE, 1, "tgt"), (P, pre._NONE, 1, "tgt")][:n_jobs]
+    jobs = [_k3b_job(k, p, f, cam, i) for k, p, f, i in spec]
+    assert len(jobs) == n_jobs <= pre.MAX_JOBS
+    _k3b_check(jobs, src, tgt, model, f"{n_jobs} jobs")
+
+
+def test_pyramid_levels_factor_three(cuda):
+    """K3b at pool factor 3 (no vector rows: one float a load), min and
+    mean sources and a min target, on the sweep frame (640 / 3 leaves a
+    ragged column)."""
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    src, tgt, model, cam = _k3b_images(cuda)
+    jobs = [_k3b_job(pre._SOURCE, pre._MIN, 3, cam),
+            _k3b_job(pre._SOURCE, pre._MEAN, 3, cam),
+            _k3b_job(pre._TARGET, pre._MIN, 3, cam, "tgt")]
+    _k3b_check(jobs, src, tgt, model, "factor 3")
+
+
+@pytest.mark.parametrize("case", ["w641", "w642", "offset"])
+def test_pyramid_levels_unaligned_inputs(cuda, case):
+    """K3b where the vector rows do not apply: an input 641 wide (no
+    float2 or float4 row), 642 wide (float2 rows at factor 2, none at 4;
+    levels 321 and 160 wide, the first storing a float at a time), and
+    640-wide inputs that start 4 bytes past an alignment (every job on
+    its scalar loads, the pack job on one pixel at a time): the flagship's
+    six kinds of job."""
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    width = {"w641": 641, "w642": 642, "offset": 640}[case]
+    src, tgt, model, cam = _k3b_images(cuda, width)
+    if case == "offset":
+        def shifted(t):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            out = flat[1:].view(t.shape)
+            out.copy_(t)
+            assert out.data_ptr() % 16 != 0
+            return out
+
+        src, tgt = shifted(src), shifted(tgt)
+        model = pre.Frame(model.vertices, shifted(model.normals),
+                          shifted(model.depth))
+    S, T = pre._SOURCE, pre._TARGET
+    jobs = [_k3b_job(S, pre._MIN, 4, cam), _k3b_job(T, pre._MIN, 4, cam,
+                                                     "tgt"),
+            _k3b_job(S, pre._MIN, 2, cam), _k3b_job(T, pre._MIN, 2, cam,
+                                                     "tgt"),
+            _k3b_job(S, pre._MEAN, 2, cam),
+            _k3b_job(pre._PACK, pre._NONE, 1, cam, "tgt")]
+    _k3b_check(jobs, src, tgt, model, case)
+
+
+@pytest.mark.parametrize("case", ["zero", "edge_band"])
+def test_pyramid_levels_degenerate_frames(cuda, case):
+    """K3b's flagship plan on an all-zero frame and model (every output 0)
+    and on a checkerboard of 1.0 m and 1.2 m (every 2 x 2 window spans
+    more than the mean pool's edge band, so every mean-pooled pixel is
+    rejected while the min pools keep theirs)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    cfg = flagship_config()
+    cam = cfg.camera
+    if case == "zero":
+        d = torch.zeros((480, 640), device=cuda)
+    else:
+        yy, xx = torch.meshgrid(torch.arange(480, device=cuda),
+                                torch.arange(640, device=cuda),
+                                indexing="ij")
+        d = torch.where((yy + xx) % 2 == 0, 1.0, 1.2).float()
+    model = pre.preprocess_metric_reference(d, cam)
+    kw = dict(src_full=None, tgt_full=model)
+    srcs, tgts = pre.pyramid_inputs(d, d.clone(), cam, cfg.icp, **kw)
+    ps, pt = pre._pyramid_reference(d, d.clone(), cam, cfg.icp, **kw)
+    for k, (a, b) in enumerate(zip(srcs + tgts, ps + pt)):
+        _assert_k3_equal(a, b, f"{case} output {k}")
+    assert not bool(srcs[2].depth.any())     # L1's source: mean-pooled
+    if case == "edge_band":
+        assert bool(srcs[0].depth.all())
+
+
 @pytest.mark.parametrize("factor", [1, 2, 3, 4])
 def test_preprocess_metric_one_job(cuda, factor):
     """``preprocess_metric`` on the card: one K3b job, min-pooled by
@@ -1639,10 +1781,9 @@ def test_compact_visible_overflow(fuse_case):
 
 
 def test_compact_visible_table_larger_than_the_grid(fuse_case):
-    """A table of 2^21 entries is 1 024 tiles, more than the card holds
-    CTAs at once: each CTA tests its tiles again after the grid barrier
-    instead of keeping them in registers.  Bit for bit against the plain
-    version, and overflowing max_active."""
+    """A table of 2^21 entries is 1 024 tiles, about as many as the card
+    holds CTAs at once, 70 % of them live (most entries visible): bit for
+    bit against the plain version, and overflowing max_active."""
     from voxelhashing_demo_tpu_torch.ops import hash_ops
 
     cfg, _, pose, _, _ = fuse_case
@@ -1669,6 +1810,155 @@ def test_compact_visible_table_larger_than_the_grid(fuse_case):
         want = hash_ops.compact_visible_reference(*args)
         _assert_active_equal(got, want, f"max_active {A}")
         assert int(want.count) == A, A
+
+
+def _compact_scratch_clean() -> bool:
+    """Every K6 scratch as each launch leaves it: its epoch word's low
+    half 0 (the epoch in the high half)."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    torch.cuda.synchronize()
+    return all(int(t[0]) & 0xFFFFFFFF == 0
+               for t, _ in hash_ops._COMPACT_SCRATCH.values())
+
+
+def _k6_table(fuse_case, T: int, live: int, seed: int = 0):
+    """A table of T entries (keys and ptrs only), ``live`` of them at
+    random places holding the fuse case's live entries (cycled; most are
+    visible from its pose), the rest free."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    _, hmap, _, _, _ = fuse_case
+    rng = np.random.default_rng(seed)
+    src = (hmap.ptrs != hash_ops.FREE_PTR).nonzero().flatten().cpu().numpy()
+    at = torch.as_tensor(rng.choice(T, live, replace=False), device="cuda")
+    pick = torch.as_tensor(src[np.arange(live) % src.size], device="cuda")
+    keys = torch.full((T,), hash_ops.EMPTY_KEY, dtype=torch.int32,
+                      device="cuda")
+    ptrs = torch.full((T,), hash_ops.FREE_PTR, dtype=torch.int32,
+                      device="cuda")
+    keys[at] = hmap.keys[pick]
+    ptrs[at] = hmap.ptrs[pick]
+    return hash_ops.HashMap(keys=keys, ptrs=ptrs, **{
+        f: None for f in hash_ops.HashMap._fields if f not in ("keys",
+                                                                "ptrs")})
+
+
+def _k6_pair(hmap, hcfg, pose, cfg, what: str):
+    """K6 against the plain version bit for bit on ``hmap``, one launch;
+    every row past the count padding; the scratch left clean."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    args = (hmap, hcfg, pose, cfg.camera, cfg.fusion)
+    before = hash_ops.LAUNCHES_COMPACT
+    got = hash_ops.compact_visible(*args)
+    assert hash_ops.LAUNCHES_COMPACT == before + 1
+    want = hash_ops.compact_visible_reference(*args)
+    _assert_active_equal(got, want, what)
+    n = int(got.count)
+    assert bool((got.ptrs[n:] == hash_ops.FREE_PTR).all()), what
+    assert not bool(got.blocks[n:].any()), what
+    assert _compact_scratch_clean(), what
+    return got
+
+
+@pytest.mark.parametrize("T", [1, 2048, 4089, 127 * 2048, 128 * 2048,
+                               128 * 2048 + 5, 1024 * 2048, 2048 * 2048],
+                         ids=["tiles1_T1", "tiles1", "tiles2_ragged",
+                              "tiles127", "tiles128", "tiles129_ragged",
+                              "tiles1024", "tiles2048"])
+def test_compact_visible_tile_counts(fuse_case, T):
+    """K6 on tables of 1, 2, 127, 128, 129, 1 024 and 2 048 tiles (the
+    last more than the card holds CTAs at once, so the CTAs take tiles in
+    a loop), T a multiple of the 2 048-entry tile or not, ~800 live
+    entries (one in a one-entry table): bit for bit against the plain
+    version, the pad rows, the scratch clean."""
+    cfg, _, pose, _, _ = fuse_case
+    hmap = _k6_table(fuse_case, T, min(T, 800), seed=T % 97)
+    got = _k6_pair(hmap, cfg.hash, pose, cfg, f"T {T}")
+    if T > 1:
+        assert 0 < int(got.count) < cfg.hash.max_active
+
+
+def test_compact_visible_all_free(fuse_case):
+    """An all-free table: count 0, every row padding (the step's table
+    size and one tile)."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, _, _ = fuse_case
+    for T in (hmap.keys.shape[0], 2048):
+        free = _k6_table(fuse_case, T, 0)
+        got = _k6_pair(free, cfg.hash, pose, cfg, f"free T {T}")
+        assert int(got.count) == 0
+        assert bool((got.ptrs == hash_ops.FREE_PTR).all())
+
+
+def test_compact_visible_every_entry_visible(fuse_case):
+    """Every entry of a 3-tile table live and visible, more than
+    max_active: the count is capped and the set holds the first
+    max_active entries in table order; at max_active 0 no row at all."""
+    from voxelhashing_demo_tpu_torch.geometry import coords
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, _, _ = fuse_case
+    h = cfg.hash
+    mask = (hmap.ptrs != hash_ops.FREE_PTR) & hash_ops.block_in_frustum(
+        coords.unpack_block_key(hmap.keys, h.key_bits), pose, cfg.camera, h,
+        cfg.fusion)
+    idx = mask.nonzero().flatten()
+    T = 3 * 2048 - 100
+    idx = idx[torch.arange(T, device="cuda") % idx.numel()]
+    table = hash_ops.HashMap(keys=hmap.keys[idx].contiguous(),
+                             ptrs=hmap.ptrs[idx].contiguous(), **{
+                                 f: None for f in hash_ops.HashMap._fields
+                                 if f not in ("keys", "ptrs")})
+    for A in (h.max_active, 0):
+        got = _k6_pair(table, dataclasses.replace(h, max_active=A), pose,
+                       cfg, f"every entry, A {A}")
+        assert int(got.count) == A, A
+
+
+def test_compact_visible_repeats_replays_and_scratch(fuse_case):
+    """Two launches give the same set bit for bit; a CUDA graph captured
+    on a stream that ran K6 replays on that stream's persistent scratch
+    and equals the eager launch, twice; one captured on a fresh stream
+    takes a scratch of its own (no persistent one is made for it) and
+    equals it too; every persistent scratch is clean after each."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, pose, _, _ = fuse_case
+    args = (hmap, cfg.hash, pose, cfg.camera, cfg.fusion)
+    eager = hash_ops.compact_visible(*args)
+    again = hash_ops.compact_visible(*args)
+    _assert_active_equal(again, eager, "repeat")
+    assert _compact_scratch_clean()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hash_ops.compact_visible(*args)
+    torch.cuda.synchronize()
+    n_scratch = len(hash_ops._COMPACT_SCRATCH)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = hash_ops.compact_visible(*args)
+    assert len(hash_ops._COMPACT_SCRATCH) == n_scratch
+    for k in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_active_equal(captured, eager, f"graph replay {k}")
+        assert _compact_scratch_clean()
+    fresh = torch.cuda.Stream()
+    fresh.wait_stream(torch.cuda.current_stream())
+    g2 = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g2, stream=fresh):
+        own = hash_ops.compact_visible(*args)
+    key = (torch.cuda.current_device(), fresh.cuda_stream)
+    assert key not in hash_ops._COMPACT_SCRATCH
+    for k in range(2):
+        g2.replay()
+        torch.cuda.synchronize()
+        _assert_active_equal(own, eager, f"fresh-stream replay {k}")
+    assert _compact_scratch_clean()
 
 
 def test_integrate_small_blocks(cuda):

@@ -384,18 +384,19 @@ def test_kernel_arguments_match_the_sources():
 
 def test_plans_hold_the_plain_constants():
     """The wrappers' constant arguments are the plain versions' Python
-    doubles (block_in_frustum's margin, planes and radius; the update's
-    truncations and weights), and the plans raise on what the kernels do
-    not take."""
+    doubles (block_in_frustum's margin, planes and radius, in K6's host
+    table as their float32; the update's truncations and weights), and the
+    plans raise on what the kernels do not take."""
     _, tc = _cfgs("tiny")
     cam, fus, h = tc.camera, tc.fusion, tc.hash
-    plan = tho._compact_plan(h, cam, fus)
+    ints, floats = tho._compact_plan(h, cam, fus)
     half = 0.5 * h.block_size * fus.voxel_size
-    assert plan[:5] == (h.max_active, h.key_bits, h.block_size,
-                        fus.voxel_size, half)
-    assert plan[-4:] == (half * 1.7320508 * cam.fx, half * 1.7320508 * cam.fy,
-                         cam.depth_min - 2.0 * half,
-                         cam.depth_max + 2.0 * half)
+    assert list(ints) == [h.max_active, h.key_bits, h.block_size]
+    assert list(floats)[:2] == [np.float32(fus.voxel_size), np.float32(half)]
+    np.testing.assert_array_equal(
+        np.asarray(list(floats)[-4:], np.float32),
+        np.float32([half * 1.7320508 * cam.fx, half * 1.7320508 * cam.fy,
+                    cam.depth_min - 2.0 * half, cam.depth_max + 2.0 * half]))
     head, tail = tho._integrate_plan(h, cam, fus)
     assert head == (h.block_size, cam.height, cam.width, 60, 80, 1)
     assert tail[-1] == fus.truncation + fus.trunc_scale * cam.depth_max
@@ -422,3 +423,63 @@ def test_integrate_tables_refuse_what_k7_does_not_take():
         tho._integrate_tables(hmap, tc.hash, tc.camera, tc.fusion)
     assert tho._INTEGRATE_TABLES == before
 
+
+
+def test_compact_tables_hold_the_float32_of_block_in_frustums_doubles():
+    """K6's host table of floats holds, in CompactParams' order, the
+    float32 of each Python double that ``block_in_frustum`` meets a
+    float32 tensor with (the voxel size, half a block, the camera, the
+    pixel margin, radius * fx and radius * fy, the near and far planes),
+    on both test cameras; the tables are built once a configuration (the
+    same objects give the same tables; an equal configuration made anew
+    gets equal tables; another max_active other ints)."""
+    for cam_name in ("tiny", "wide"):
+        _, tc = _cfgs(cam_name)
+        cam, fus, h = tc.camera, tc.fusion, tc.hash
+        ints, floats = tho._compact_plan(h, cam, fus)
+        half = 0.5 * h.block_size * fus.voxel_size
+        radius = half * 1.7320508
+        want = [fus.voxel_size, half, cam.fx, cam.fy, cam.cx, cam.cy,
+                cam.width, cam.height, tho.FRUSTUM_MARGIN_PX,
+                radius * cam.fx, radius * cam.fy,
+                cam.depth_min - 2.0 * half, cam.depth_max + 2.0 * half]
+        got = list(floats)
+        assert len(got) == len(want) == 13
+        for g, w in zip(got, want):
+            assert g == float(np.float32(w)), (cam_name, g, w)
+        assert tho._compact_plan(h, cam, fus)[1] is floats
+        again = tho._compact_plan(dataclasses.replace(h), cam, fus)
+        assert again[1] is not floats and list(again[1]) == got
+        other = tho._compact_plan(dataclasses.replace(h, max_active=7), cam,
+                                  fus)[0]
+        assert list(other) == [7, h.key_bits, h.block_size]
+
+
+def test_compact_scratch_sizes():
+    """K6's persistent scratch a device and stream: zeroed when made, the
+    epoch word and at least COMPACT_MIN_TILES statuses (a power of two),
+    COMPACT_STATUS_WORDS words each; the same one while a
+    table fits it; a larger one when a table outgrows it, the old one kept
+    alive (a CUDA graph captured with it may still run on it).  Made here
+    on the CPU device, which only a test hands it.  The words a status
+    takes are csrc/fuse.cu's kStatusStride."""
+    src = (Path(kernels.SRC_DIR) / "fuse.cu").read_text()
+    assert int(re.search(r"constexpr int kStatusStride = (\d+);",
+                         src).group(1)) == tho.COMPACT_STATUS_WORDS
+    dev, stream = torch.device("cpu"), 12345
+    key = (dev.index, stream)
+    retired = len(tho._COMPACT_RETIRED)
+    try:
+        t, n = tho._compact_scratch(dev, stream, 1)
+        assert n == tho.COMPACT_MIN_TILES and t.dtype == torch.int64
+        assert t.shape == (1 + tho.COMPACT_STATUS_WORDS * n,)
+        assert not bool(t.any())
+        assert tho._compact_scratch(dev, stream, 128)[0] is t
+        t2, n2 = tho._compact_scratch(dev, stream, 129)
+        assert n2 == 256 and t2 is not t
+        assert tho._COMPACT_RETIRED[-1] is t
+        assert tho._compact_scratch(dev, stream, 1024)[1] == 1024
+        assert tho._compact_scratch(dev, stream, 5)[1] == 1024
+    finally:
+        tho._COMPACT_SCRATCH.pop(key, None)
+        del tho._COMPACT_RETIRED[retired:]

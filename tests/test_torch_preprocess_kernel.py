@@ -336,29 +336,40 @@ def test_level_plan_shares_jobs():
 
 def test_level_layout():
     """K3b's output layout for the flagship plan at 640x480: one buffer,
-    the packed targets first at even offsets (8-byte aligned), every
-    view inside the buffer and none overlapping; an image smaller than a
-    level's factor raises."""
+    the packed targets first, every job's outputs at a multiple of 4
+    floats (16-byte aligned, as K3b's vector stores need), every view
+    inside the buffer and none overlapping; the host table holds each
+    job's image and first float; an image smaller than a level's factor,
+    or a target Frame that is not given, raises."""
     from voxelhashing_demo_tpu_torch.config import flagship_config
 
     cfg = flagship_config()
     jobs, _ = tpre._plan(cfg.camera, cfg.icp, False, True, True)
-    total, views, ints, floats = tpre._layout(jobs, ((480, 640),) * 6)
+    shapes = ((480, 640), (480, 640), (480, 640), (480, 640, 3))
+    total, views, reads, ints, floats = tpre._layout(jobs, shapes)
+    assert reads == (0, 1, 2, 3)
     spans = []
-    for job, view in zip(jobs, views):
+    for k, (job, view) in enumerate(zip(jobs, views)):
+        view = (view,) if job.kind != tpre._SOURCE else view
+        first = min(offset for _, _, offset in view)
+        assert first % 4 == 0 and list(ints)[8 * k + 7] == first
+        assert list(ints)[8 * k + 6] == (2 if job.kind == tpre._PACK else
+                                         {"src": 0, "tgt": 1}[job.image])
         for size, stride, offset in view:
             n = int(np.prod(size))
             assert stride[-1] == 1 and offset + n <= total
             spans.append((offset, offset + n))
             if job.kind != tpre._SOURCE:
-                assert offset % 2 == 0 and size[-1] == 2
+                assert size[-1] == 2
     spans.sort()
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
     assert sum(b - a for a, b in spans) == total
     assert list(ints)[:6] == [tpre._SOURCE, tpre._MIN, 4, 640, 120, 160]
-    assert len(floats) == 6 * len(jobs)
+    assert len(ints) == 8 * len(jobs) and len(floats) == 6 * len(jobs)
     with pytest.raises(ValueError, match="factor 4"):
-        tpre._layout(jobs, ((3, 640),) * 6)
+        tpre._layout(jobs, ((3, 640), (3, 640), (3, 640), (3, 640, 3)))
+    with pytest.raises(ValueError, match="not given"):
+        tpre._layout(jobs, shapes[:2] + (None, None))
 
 
 def _border_dropouts(raw: np.ndarray) -> np.ndarray:
@@ -466,3 +477,36 @@ def test_bilateral_settings_the_card_takes(case, ok):
     src = (Path(kernels.SRC_DIR) / "preprocess.cu").read_text()
     assert float(re.search(r"kMaxDepth = ([0-9e.]+)f;", src).group(1)) == \
         tpre.MAX_DEPTH
+
+
+def test_level_tables_hold_the_float32_of_the_plain_doubles():
+    """K3b's host table of floats holds, for each job of the flagship
+    plan and for ``preprocess_metric``'s one job, the float32 of the
+    Python doubles its level's plain version meets a float32 tensor with:
+    the level camera's cx and cy, ``recip`` of fx and fy (as
+    ``pixel_rays`` takes them) and the range gate's depth_min and
+    depth_max; its ints hold the job's kind, pool, factor, the input's
+    width and the level's size.  ``preprocess_metric``'s job tuple is one
+    object for equal arguments (K3b keeps layouts by its identity)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_config
+    from voxelhashing_demo_tpu_torch.geometry.f32 import recip
+
+    cfg = flagship_config()
+    shapes = ((480, 640), (480, 640), (480, 640), (480, 640, 3))
+    jobs, _ = tpre._plan(cfg.camera, cfg.icp, False, True, True)
+    metric = tpre._metric_jobs(cfg.camera.scaled(2), 2)
+    assert tpre._metric_jobs(cfg.camera.scaled(2), 2) is metric
+    for js in (jobs, metric):
+        lay = tpre._layout(js, shapes)
+        for k, job in enumerate(js):
+            c = job.cam
+            want = [c.cx, c.cy, recip(c.fx), recip(c.fy), c.depth_min,
+                    c.depth_max]
+            got = list(lay.floats)[6 * k:6 * k + 6]
+            assert got == [float(np.float32(w)) for w in want], (k, job)
+            h, w = 480 // job.factor, 640 // job.factor
+            assert list(lay.ints)[8 * k:8 * k + 6] == [
+                job.kind, job.pool, job.factor, 640, h, w]
+            assert (c.width, c.height) == (w, h)
+    assert metric[0].pool == tpre._MIN and metric[0].factor == 2
+    assert tpre._metric_jobs(cfg.camera, 1)[0].pool == tpre._NONE

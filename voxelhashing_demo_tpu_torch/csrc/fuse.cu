@@ -15,25 +15,46 @@
 //
 // No PyTorch call computes either.
 //
-// K6.  One cooperative launch.  The table is cut into tiles of kTile
-// entries; item k of thread t in a tile is entry k * kThreads + t, so
-// every load is coalesced.  Each CTA tests its tile's entries (the keys
-// unpacked, the block centre moved into the camera, the z-adaptive pixel
-// margin) and writes the tile's visible count; one grid barrier; then each
-// CTA sums the counts of the tiles before its own (the tiles are few:
-// 128 at the flagship's 262 144 entries) and ranks its tile's entries by
-// warp ballots: the exclusive rank of a visible entry is the sum of the
-// counts before its tile, of the (item, warp) segments before its own, and
-// of the lanes below it in its ballot.  Integers throughout, so the order
-// is exact and repeats.  Entries ranked at or past max_active are dropped;
-// the grid then writes the pad rows [count, max_active) itself (zero
-// blocks, FREE_PTR), so that every row past `count` is padding, as
-// touch_active and splat's row skip assume.  A grid of one tile a CTA
-// keeps its entries in registers across the barrier; a table of more
-// tiles than the card holds CTAs re-tests its tiles after it.  A single
-// pass with decoupled look-back would save the barrier (~1 us) but chains
-// 128 CTAs through flags in memory; two launches would cost a launch and
-// a host-side ordering point.  The barrier is the simplest exact form.
+// K6.  One launch, no grid barrier.  The table is cut into tiles of
+// kTile entries, CTA b taking tiles b, b + gridDim.x, ...; the grid is one
+// CTA a tile up to the CTAs the card holds at once, so every CTA runs and
+// a CTA only ever waits for tiles that running CTAs hold.  Item k of
+// thread t in a tile is entry k * kThreads + t, so every load is
+// coalesced; the keys are loaded with the ptrs, in the same round trip,
+// and warp 0 reads the launch's epoch under them.  Each CTA tests its
+// entries (the keys unpacked, the block centre moved into the camera, the
+// z-adaptive pixel margin), counts the visible ones of each (item, warp)
+// segment by warp ballots, and warp 0 scans the 64 segments (their
+// exclusive offsets and the tile's count) and publishes the count as the
+// tile's status.  Then the counts of the tiles before it:
+//   - a table of at most kSnapTiles tiles (the step's 262 144 entries are
+//     128) takes one snapshot of every tile's status (4 a lane, loaded
+//     together), polled until all carry this launch's tag: the tiles
+//     before and the set's size in one round trip, so every CTA writes
+//     its share of the pad rows [count, max_active) at once;
+//   - a larger one looks back (a decoupled look-back): 32 predecessors'
+//     statuses a round, summed up to the nearest one that holds its
+//     inclusive prefix, then publishes its own; after its last tile every
+//     CTA waits for the last tile's inclusive prefix, the set's size, and
+//     writes its share of the pad rows.
+// The exclusive rank of a visible entry is the sum of the tiles before its
+// own, of the segments before its own, and of the lanes below it in its
+// ballot.  Integers throughout, so the order is exact and repeats.
+// Entries ranked at or past max_active are dropped; the pad rows (zero
+// blocks, FREE_PTR, 16-byte stores) make every row past `count` padding,
+// as touch_active and splat's row skip assume; the CTA of the last tile
+// writes the count.  A status is one 64-bit word (the launch's tag, an
+// inclusive flag, a value), written and read whole, so no fence orders
+// it; statuses lie kStatusStride words (128 bytes) apart, since 128 CTAs
+// polling one status line were slower by ~0.8 us on an H100 (PERF.md
+// section 6).  The tag is the launch's epoch, which the CTA of the last
+// tile raises once every tile has published: a status left by an earlier
+// launch never passes for this one's, and nothing clears the scratch.
+// The earlier design ran the same tiles and ranks as one cooperative
+// launch with a grid barrier between the counts and the ranks, then two
+// reads of every tile's count (~1.2 us of the barrier alone on an H100);
+// one with a tile counter (an atomic ticket a tile) was slower, its 128
+// atomics on one word in series.
 //
 // K7.  A row group takes a row, each thread 4 neighbouring voxels
 // (16-byte loads and stores of tsdf and weight; voxel i = lx + bs (ly + bs
@@ -83,7 +104,9 @@
 // Bound: bytes, far below the launches they replace.  K6 must read every
 // ptr (4 B an entry: 1.05 MB at the flagship) and the keys of the live
 // entries only, and write the set (16 B a row): ~0.34 us at 3.35 TB/s,
-// below the launch floor and its one grid barrier (~1 us each).  K7 must
+// below the launch floor (~1 us); what it cannot go below is the launch,
+// one load round trip and the round trip that exchanges the tiles'
+// counts.  K7 must
 // read each live voxel's tsdf and weight (8 B), write the values the
 // update changes, and read the depth pixels that covered voxels reach
 // (L2-resident): ~1.8 us at the step's ~770 rows (chip_smoke.py counts
@@ -92,14 +115,11 @@
 // flight at once.  What the pair replaces is ~130 eager
 // launches and ~14 host reads a frame.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -168,15 +188,29 @@ constexpr int kItems = 8;                    // entries a thread in a tile
 constexpr int kTile = kThreads6 * kItems;    // entries a tile
 constexpr int kSegments = kItems * kWarps6;  // (item, warp) segments a tile
 
+// K6's scratch, persistent a device and stream (ops/hash_ops.py keeps
+// it): 64-bit words, word 0 the epoch word (the epoch in the high half, 0
+// in the low half), then a status every kStatusStride words (the launch's
+// tag << 32 | inclusive << 31 | value: the tile's count, or with the flag
+// the visible entries of tiles 0..t).  The tag is 0x80000000 | the
+// epoch's low 31 bits, never 0, so a zeroed scratch holds no status; an
+// epoch's tag comes back after 2^31 launches, and every launch rewrites
+// the statuses of its own tiles.
+constexpr unsigned long long kInclusive = 1ull << 31;
+constexpr unsigned kValueMask = 0x7fffffffu;
+constexpr int kBackoffNs = 32;    // the sleep between polls of the statuses
+constexpr int kSnapTiles = 128;   // tables of at most this many tiles: one
+                                  // snapshot of every tile's count
+constexpr int kStatusStride = 16; // 64-bit words from a status to the next
+
 struct CompactParams {
   const int* keys;         // (T,) packed block keys
   const int* ptrs;         // (T,) map rows; FREE_PTR free
   const float* T_wc;       // (4, 4) row-major camera-to-world
-  int* blocks;             // (A, 3) out
-  int* out_ptrs;           // (A,) out
-  int* count;              // () out: min(visible, A)
-  int* tile_counts;        // (n_tiles,) scratch
+  int* out;                // blocks (A, 3), then ptrs (A,), then the count
+  unsigned long long* scratch;   // the epoch word, then n_tiles statuses
   int T, A, n_tiles, key_bits, bs;
+  int snap;                // one CTA a tile and at most kSnapTiles tiles
   // block_in_frustum's constants, each the float32 of the plain version's
   // Python double: voxel size, half a block, the camera, the pixel margin,
   // radius * fx and radius * fy, the near and far planes
@@ -211,10 +245,10 @@ __device__ __forceinline__ bool visible(const CompactParams& P,
 }
 
 // the tile's entries of this thread (item k: entry k * kThreads6 + t) and
-// their visible flags as bits
+// their visible flags as bits; the pose is read after the entries' loads
+// are sent, so that its round trip and its arithmetic run under theirs
 __device__ __forceinline__ unsigned test_tile(const CompactParams& P,
-                                              const Pose& pose, int tile,
-                                              int* key, int* ptr) {
+                                              int tile, int* key, int* ptr) {
   const int base = tile * kTile + threadIdx.x;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
@@ -222,6 +256,7 @@ __device__ __forceinline__ unsigned test_tile(const CompactParams& P,
     key[k] = i < P.T ? __ldg(P.keys + i) : 0;
     ptr[k] = i < P.T ? __ldg(P.ptrs + i) : kFreePtr;
   }
+  const Pose pose = load_pose(P.T_wc);
   unsigned bits = 0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k)
@@ -229,96 +264,227 @@ __device__ __forceinline__ unsigned test_tile(const CompactParams& P,
   return bits;
 }
 
-// the CTA's sum of x (every thread gets it); red holds kWarps6 ints
-__device__ __forceinline__ int cta_sum(int x, int* red) {
-  x = __reduce_add_sync(kFull, x);
-  __syncthreads();                     // red's previous readers are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  int s = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps6; ++w) s += red[w];
-  return s;
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// sum of tile_counts[0, n) over the CTA (written by other CTAs before the
-// grid barrier: read through L2)
-__device__ __forceinline__ int counts_before(const CompactParams& P, int n,
-                                             int* red) {
-  int s = 0;
-  for (int j = threadIdx.x; j < n; j += kThreads6) s += __ldcg(P.tile_counts + j);
-  return cta_sum(s, red);
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.b64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long make_status(unsigned tag,
+                                                          bool inclusive,
+                                                          int value) {
+  return (static_cast<unsigned long long>(tag) << 32) |
+         (inclusive ? kInclusive : 0ull) | static_cast<unsigned>(value);
+}
+
+// The visible entries of the tiles before `tile` (tables of more than
+// kSnapTiles tiles): warp-wide, 32 predecessors' statuses a round (lane l
+// the one l + 1 tiles back; one past tile 0 reads as an inclusive 0),
+// waiting until all carry this launch's tag, summed up to the nearest that
+// holds its inclusive prefix.
+__device__ __forceinline__ int look_back(const unsigned long long* status,
+                                         int tile, unsigned tag, int lane) {
+  int sum = 0;
+  for (int top = tile - 1;; top -= 32) {
+    const int k = top - lane;
+    unsigned long long s;
+    for (;;) {
+      s = k >= 0 ? load_status(status + kStatusStride * k)
+                 : make_status(tag, true, 0);
+      if (__all_sync(kFull, static_cast<unsigned>(s >> 32) == tag)) break;
+      __nanosleep(kBackoffNs);
+    }
+    const unsigned inc = __ballot_sync(kFull, (s & kInclusive) != 0ull);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    sum += __reduce_add_sync(
+        kFull, lane <= stop ? static_cast<int>(s & kValueMask) : 0);
+    if (inc) return sum;
+  }
+}
+
+// Tables of at most kSnapTiles tiles, one CTA a tile (all co-resident):
+// every tile's count from one snapshot of all the statuses (4 a lane,
+// loaded together), polled until all carry this launch's tag: the
+// visible entries of the tiles before `tile` and of all of them.
+__device__ __forceinline__ int2 snapshot(const unsigned long long* status,
+                                         int n_tiles, int tile, unsigned tag,
+                                         int lane) {
+  constexpr int kPer = kSnapTiles / 32;
+  for (;;) {
+    unsigned long long s[kPer];
+    bool ready = true;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int k = lane + 32 * q;
+      s[q] = k < n_tiles ? load_status(status + kStatusStride * k)
+                         : make_status(tag, false, 0);
+      ready &= static_cast<unsigned>(s[q] >> 32) == tag;
+    }
+    if (__all_sync(kFull, ready)) {
+      int before = 0, all = 0;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int v = static_cast<int>(s[q] & kValueMask);
+        all += v;
+        if (lane + 32 * q < tile) before += v;
+      }
+      return make_int2(__reduce_add_sync(kFull, before),
+                       __reduce_add_sync(kFull, all));
+    }
+    __nanosleep(kBackoffNs);
+  }
+}
+
+// p[lo, hi) = v over the grid: 16-byte stores over the aligned middle
+// (p is 16-byte aligned), ints at the ends
+__device__ __forceinline__ void fill_ints(int* p, int lo, int hi, int v,
+                                          int gtid, int gsize) {
+  const int a = min(hi, (lo + 3) & ~3), b = max(a, hi & ~3);
+  for (int i = lo + gtid; i < a; i += gsize) p[i] = v;
+  for (int i = b + gtid; i < hi; i += gsize) p[i] = v;
+  const int4 q = make_int4(v, v, v, v);
+  for (int i = a / 4 + gtid; i < b / 4; i += gsize)
+    reinterpret_cast<int4*>(p)[i] = q;
+}
+
+// Tile `tile` of a launch whose statuses carry `tag`: its entries tested,
+// ranked and written; returns the visible entries of tiles 0..tile (its
+// inclusive prefix), or of every tile where the table takes a snapshot.
+// Every thread of the CTA calls it; seg and sh (2 ints) are the CTA's
+// shared scratch.
+__device__ __forceinline__ int compact_tile(const CompactParams& P,
+                                            int tile, unsigned tag,
+                                            unsigned long long* status,
+                                            int* seg, int* sh) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int key[kItems], ptr[kItems];
+  const unsigned bits = test_tile(P, tile, key, ptr);
+  unsigned ballot[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    ballot[k] = __ballot_sync(kFull, (bits >> k) & 1u);
+    if (lane == 0) seg[k * kWarps6 + warp] = __popc(ballot[k]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // exclusive scan of the 64 segments: their offsets, the tile's count
+    static_assert(kSegments == 64, "two segments a lane");
+    const int a = seg[2 * lane], b = seg[2 * lane + 1];
+    int incl = a + b;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += o;
+    }
+    const int excl = incl - a - b;
+    seg[2 * lane] = excl;
+    seg[2 * lane + 1] = excl + a;
+    const int n = __shfl_sync(kFull, incl, 31);
+    int before = 0, through = 0;
+    if (P.snap) {
+      if (lane == 0)
+        store_status(status + kStatusStride * tile, make_status(tag, false, n));
+      const int2 c = snapshot(status, P.n_tiles, tile, tag, lane);
+      before = c.x;
+      through = c.y;             // every tile's: the set's size
+    } else {
+      if (tile > 0) {
+        if (lane == 0)
+        store_status(status + kStatusStride * tile, make_status(tag, false, n));
+        before = look_back(status, tile, tag, lane);
+      }
+      if (lane == 0)
+        store_status(status + kStatusStride * tile,
+                     make_status(tag, true, before + n));
+      through = before + n;
+    }
+    if (lane == 0) {
+      sh[0] = before;
+      sh[1] = through;
+    }
+  }
+  __syncthreads();
+  const int base = sh[0], total = sh[1];
+  if (P.snap) {
+    // every CTA knows the set's size: its share of the pad rows now
+    const int count = min(total, P.A);
+    const int gtid = blockIdx.x * kThreads6 + tid;
+    const int gsize = gridDim.x * kThreads6;
+    fill_ints(P.out, 3 * count, 3 * P.A, 0, gtid, gsize);
+    fill_ints(P.out, 3 * P.A + count, 4 * P.A, kFreePtr, gtid, gsize);
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (!((bits >> k) & 1u)) continue;
+    const int pos = base + seg[k * kWarps6 + warp] + __popc(ballot[k] & below);
+    if (pos >= P.A) continue;
+    const int mask = (1 << P.key_bits) - 1, bias = 1 << (P.key_bits - 1);
+    P.out[3 * pos] = ((key[k] >> (2 * P.key_bits)) & mask) - bias;
+    P.out[3 * pos + 1] = ((key[k] >> P.key_bits) & mask) - bias;
+    P.out[3 * pos + 2] = (key[k] & mask) - bias;
+    P.out[3 * P.A + pos] = ptr[k];
+  }
+  __syncthreads();                     // seg and sh are rewritten next
+  return total;
 }
 
 __global__ void __launch_bounds__(kThreads6)
 compact_visible_kernel(const __grid_constant__ CompactParams P) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ int red[kWarps6];
   __shared__ int seg[kSegments];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const Pose pose = load_pose(P.T_wc);
-  const bool keep = P.n_tiles <= static_cast<int>(gridDim.x);
-  int key[kItems], ptr[kItems];
-  unsigned bits = 0;
-
-  // 1. each tile's visible count
+  __shared__ int sh[2];
+  __shared__ int sh_count;
+  const int tid = threadIdx.x;
+  unsigned long long* status = P.scratch + 1;
+  // warp 0 (which alone publishes and looks back) reads the epoch, its
+  // round trip under the table's loads
+  unsigned tag = 0;
+  if (tid < 32)
+    tag = 0x80000000u |
+          (static_cast<unsigned>(load_status(P.scratch) >> 32) & kValueMask);
+  int total = -1;              // known to the CTA that ranked the last tile
+  // tile b, b + gridDim.x, ...: the grid is co-resident at most, so the
+  // tiles a snapshot or look-back waits for are held by CTAs that run; the
+  // CTA of the last tile raises the epoch once every tile has published
   for (int tile = blockIdx.x; tile < P.n_tiles; tile += gridDim.x) {
-    bits = test_tile(P, pose, tile, key, ptr);
-    const int n = cta_sum(__popc(bits), red);
-    if (tid == 0) P.tile_counts[tile] = n;
-  }
-  grid.sync();
-
-  // 2. rank and write: the tiles before, the segments before, the lanes below
-  const int count = min(counts_before(P, P.n_tiles, red), P.A);
-  const unsigned below = (1u << lane) - 1u;
-  for (int tile = blockIdx.x; tile < P.n_tiles; tile += gridDim.x) {
-    if (!keep) bits = test_tile(P, pose, tile, key, ptr);
-    const int base = counts_before(P, tile, red);
-    unsigned ballot[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      ballot[k] = __ballot_sync(kFull, (bits >> k) & 1u);
-      if (lane == 0) seg[k * kWarps6 + warp] = __popc(ballot[k]);
-    }
-    __syncthreads();
-    if (warp == 0) {                   // exclusive scan of the 64 segments
-      static_assert(kSegments == 64, "two segments a lane");
-      const int a = seg[2 * lane], b = seg[2 * lane + 1];
-      int incl = a + b;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int o = __shfl_up_sync(kFull, incl, d);
-        if (lane >= d) incl += o;
+    const int t = compact_tile(P, tile, tag, status, seg, sh);
+    if (tile == P.n_tiles - 1) {
+      total = t;
+      if (tid == 0) {
+        store_status(P.scratch,
+                     static_cast<unsigned long long>((tag & kValueMask) + 1)
+                         << 32);
+        P.out[4 * P.A] = min(total, P.A);
       }
-      const int excl = incl - a - b;
-      seg[2 * lane] = excl;
-      seg[2 * lane + 1] = excl + a;
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (!((bits >> k) & 1u)) continue;
-      const int pos = base + seg[k * kWarps6 + warp] + __popc(ballot[k] & below);
-      if (pos >= P.A) continue;
-      const int mask = (1 << P.key_bits) - 1, bias = 1 << (P.key_bits - 1);
-      P.blocks[3 * pos] = ((key[k] >> (2 * P.key_bits)) & mask) - bias;
-      P.blocks[3 * pos + 1] = ((key[k] >> P.key_bits) & mask) - bias;
-      P.blocks[3 * pos + 2] = (key[k] & mask) - bias;
-      P.out_ptrs[pos] = ptr[k];
-    }
-    __syncthreads();                   // seg is rewritten by the next tile
   }
 
-  // 3. the pad rows [count, A) and the count
-  for (int r = count + blockIdx.x * kThreads6 + tid; r < P.A;
-       r += gridDim.x * kThreads6) {
-    P.blocks[3 * r] = 0;
-    P.blocks[3 * r + 1] = 0;
-    P.blocks[3 * r + 2] = 0;
-    P.out_ptrs[r] = kFreePtr;
+  if (P.snap) return;           // the pad rows are written
+  // the count and the pad rows: every tile is held by a running CTA, so
+  // the last tile's inclusive prefix comes
+  if (tid == 0) {
+    if (total < 0) {
+      unsigned long long s;
+      while (static_cast<unsigned>(
+                 (s = load_status(status + kStatusStride * (P.n_tiles - 1))) >>
+                 32) != tag ||
+             !(s & kInclusive))
+        __nanosleep(32);
+      total = static_cast<int>(s & kValueMask);
+    }
+    sh_count = min(total, P.A);
   }
-  if (blockIdx.x == 0 && tid == 0) *P.count = count;
+  __syncthreads();
+  const int count = sh_count;
+  const int gtid = blockIdx.x * kThreads6 + tid, gsize = gridDim.x * kThreads6;
+  fill_ints(P.out, 3 * count, 3 * P.A, 0, gtid, gsize);
+  fill_ints(P.out, 3 * P.A + count, 4 * P.A, kFreePtr, gtid, gsize);
 }
 
 // ---------------------------------------------------------------------------
@@ -642,47 +808,50 @@ __host__ __forceinline__ IntegrateKernel integrate_kernel(int V) {
 // kernel does not take returns cudaErrorInvalidValue and launches nothing.
 
 // K6.  The visible entries of the (T,) table at pose T_wc in table order
-// into blocks (A, 3) and out_ptrs (A,), the rows past the count padded,
-// count = min(visible, A); scratch: one int a tile of kTile (2048)
-// entries.  One cooperative launch, refused
-// (cudaErrorCooperativeLaunchTooLarge) when its grid cannot be co-resident.
+// into out (16-byte aligned): blocks (A, 3), then ptrs (A,), then the
+// count min(visible, A); the rows past the count padded.  scratch: K6's
+// persistent scratch (the epoch word, then scratch_words words of
+// statuses) as the previous launch left it, or zeroed.  Host tables:
+// ints = A, key bits, block size; floats = block_in_frustum's constants
+// in CompactParams' order.  The grid is one CTA a tile of kTile (2048)
+// entries, at most as many as the card holds at once.
 
 extern "C" int compact_visible(const int* keys, const int* ptrs,
-                               const float* T_wc, int* blocks, int* out_ptrs,
-                               int* count, int* scratch, int T, int A,
-                               int key_bits, int block_size, float voxel_size,
-                               float half, float fx, float fy, float cx,
-                               float cy, float width, float height,
-                               float margin, float rfx, float rfy,
-                               float znear, float zfar, void* stream) {
-  if (T < 1 || A < 0 || key_bits < 1 || key_bits > 10 || block_size < 1)
+                               const float* T_wc, int* out,
+                               unsigned long long* scratch, int scratch_words,
+                               int T, const int* ints, const float* floats,
+                               void* stream) {
+  const int A = ints[0], key_bits = ints[1], block_size = ints[2];
+  const int n_tiles = T < 1 ? 0 : (T - 1) / kTile + 1;
+  if (T < 1 || A < 0 || A > (INT32_MAX - 1) / 4 || key_bits < 1 ||
+      key_bits > 10 || block_size < 1 ||
+      n_tiles > scratch_words / kStatusStride ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CompactParams P = {};
   P.keys = keys;
   P.ptrs = ptrs;
   P.T_wc = T_wc;
-  P.blocks = blocks;
-  P.out_ptrs = out_ptrs;
-  P.count = count;
-  P.tile_counts = scratch;
+  P.out = out;
+  P.scratch = scratch;
   P.T = T;
   P.A = A;
-  P.n_tiles = (T + kTile - 1) / kTile;
+  P.n_tiles = n_tiles;
   P.key_bits = key_bits;
   P.bs = block_size;
-  P.voxel_size = voxel_size;
-  P.half = half;
-  P.fx = fx;
-  P.fy = fy;
-  P.cx = cx;
-  P.cy = cy;
-  P.width = width;
-  P.height = height;
-  P.margin = margin;
-  P.rfx = rfx;
-  P.rfy = rfy;
-  P.znear = znear;
-  P.zfar = zfar;
+  P.voxel_size = floats[0];
+  P.half = floats[1];
+  P.fx = floats[2];
+  P.fy = floats[3];
+  P.cx = floats[4];
+  P.cy = floats[5];
+  P.width = floats[6];
+  P.height = floats[7];
+  P.margin = floats[8];
+  P.rfx = floats[9];
+  P.rfy = floats[10];
+  P.znear = floats[11];
+  P.zfar = floats[12];
   static int capacity[kMaxDevices] = {};   // co-resident CTAs; 0: not asked
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -698,18 +867,10 @@ extern "C" int compact_visible(const int* keys, const int* ptrs,
     capacity[dev] = per_sm * sms;
   }
   const int ctas = min(P.n_tiles, capacity[dev]);
-  if (ctas < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(ctas);
-  config.blockDim = dim3(kThreads6);
-  config.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, compact_visible_kernel, P);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  P.snap = P.n_tiles <= kSnapTiles && ctas == P.n_tiles;
+  if (ctas < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  compact_visible_kernel<<<ctas, kThreads6, 0,
+                           static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 

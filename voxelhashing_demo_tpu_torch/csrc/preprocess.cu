@@ -57,15 +57,34 @@
 //     normals at factor 1);
 // a pool mode (none, min: downsample_depth, mean: downsample_depth_mean)
 // and a factor f (VALID pooling: h = H / f, w = W / f, the ragged edge
-// cropped).  The grid is the jobs' tiles of 32 x 8 outputs end to end; a
-// CTA finds its job in the table (passed by value), pools its tile and a
-// halo of 1 into shared memory (a pixel's normal needs its 4 pooled
+// cropped).  The grid is the jobs' CTAs end to end; a CTA finds its job
+// from the table's packed first-CTA array (one constant line; a lookup
+// that read each job's own line took a CTA longer, PERF.md section 6).
+// A source or
+// target CTA owns a tile of 64 x 8 outputs, 2 a thread: it pools the tile
+// and a halo of 1 into shared memory (a pixel's normal needs its 4 pooled
 // neighbours; the halo outside the level image is never read for a normal
-// that survives the interior mask), then writes its outputs.  The min pool
-// takes the smallest positive depth of the window (0 when none); the mean
-// pool sums the window in row-major order, as reduce_window and the plain
-// version do, and rejects a window with no valid pixel or whose depths
-// span more than edge_band.
+// that survives the interior mask), each thread loading all of its 3
+// level pixels' windows before it pools any, a window row as one float2
+// (f = 2) or float4 (f = 4) where the rows allow (in_w a multiple of f,
+// the image aligned), one float at a time otherwise.  It then computes
+// its outputs; a target stores its packed pixels directly (8 bytes a
+// pixel, neighbouring threads on neighbouring pixels), a source its
+// depth, and stages its vertices and normals in shared memory as they lie
+// in memory (3 floats a pixel), then stores each tile row with
+// neighbouring threads on neighbouring addresses, 16 bytes a thread where
+// the level's width is a multiple of 4.  A pack CTA packs 512 consecutive
+// pixels, 2 a thread (8-byte loads of the depth and the normals and a
+// 16-byte store).  The tile, the pixels a pack thread takes and the
+// registers (at most 64: 4 CTAs a multiprocessor) were chosen by timing
+// the whole launch on the step's inputs: 64 x 16 tiles of 4 outputs a
+// thread, 32 x 8 of one, 4 or 1 pack pixels a thread, the pack CTAs
+// interleaved with the others, ahead of them or paired with their tiles
+// in one CTA all took longer (PERF.md section 6).
+// The min pool takes the smallest positive depth of the window (0 when
+// none); the mean pool sums the window in row-major order, as
+// reduce_window and the plain version do, and rejects a window with no
+// valid pixel or whose depths span more than edge_band.
 //
 // Rounding: every product, sum, quotient and square root that the plain
 // PyTorch version (ops/preprocess.py and icp.pack_target) computes on the
@@ -92,7 +111,10 @@
 // pixel with the other stages at radius 2, ~5-6 us on the card's FP32
 // pipes at 1.6-1.98 GHz.  K3b reads the frame's and the model's depth
 // and the model's normals (~6 MB) and writes ~8 MB of sources and packed
-// targets: 3-4 us at 3.35 TB/s, the launch floor's order.  What both
+// targets: 3-4 us at 3.35 TB/s, the launch floor's order; its stores are
+// most of those bytes, so the design writes whole sectors: each warp's
+// stores cover neighbouring addresses, where a pixel a thread at a
+// 12-byte stride touched three times the sectors it filled.  What both
 // replace is ~780 eager launches a frame and their host work: the design
 // is one launch each, every intermediate kept in shared memory or
 // registers.
@@ -371,9 +393,16 @@ const FrameKernel kFrameKernels[kMaxRadius + 2][2] = {
 // K3b
 // ---------------------------------------------------------------------------
 
-constexpr int kJobTileW = 32;     // K3b's output tile, one pixel a thread
+constexpr int kJobTileW = 64;     // K3b's output tile
 constexpr int kJobTileH = 8;
-constexpr int kThreads = kJobTileW * kJobTileH;
+constexpr int kThreadsB = 256;
+constexpr int kMinBlocksB = 4;    // CTAs a multiprocessor (launch bounds)
+constexpr int kLevelW = kJobTileW + 2;    // the level tile and its halo
+constexpr int kLevelH = kJobTileH + 2;
+constexpr int kLevelN = kLevelW * kLevelH;
+constexpr int kLevelItems = (kLevelN + kThreadsB - 1) / kThreadsB;
+constexpr int kTileN = kJobTileW * kJobTileH;
+constexpr int kPackPixels = 2 * kThreadsB;   // a pack CTA's, 2 a thread
 constexpr int kMaxJobs = 8;
 constexpr int kKindSource = 0, kKindTarget = 1, kKindPack = 2;
 constexpr int kPoolNone = 0, kPoolMin = 1, kPoolMean = 2;
@@ -388,20 +417,73 @@ struct Job {
   int kind, pool, factor, in_w, h, w;
   float cx, cy, rfx, rfy, dmin, dmax;
   int first_cta, tiles_x;
+  // the pool's windows read as float2 (factor 2) or float4 (factor 4)
+  // rows; the outputs stored 16 bytes at a time (pack: 2 pixels a thread)
+  int vec_in, vec_out;
 };
 
 struct JobTable {
-  Job job[kMaxJobs];
+  int first_cta[kMaxJobs];   // each job's first CTA (one constant line)
   int n_jobs;
   float edge_band;
+  Job job[kMaxJobs];
 };
 
-// the level image's pixel (y, x) of a job: pooled, then range-gated
-__device__ __forceinline__ float level_depth(const Job& J, float edge_band,
+// the pooled value of a window's n depths in row-major order: the
+// smallest positive one (0 when none), or the mean of the positive ones
+// (0 when none, or when they span more than edge_band), summed in that
+// order as reduce_window and the plain version sum them
+template <int N>
+__device__ __forceinline__ float reduce_window(const float (&a)[N], int pool,
+                                               float edge_band) {
+  if (pool == kPoolMin) {
+    float m = INFINITY;
+#pragma unroll
+    for (int k = 0; k < N; ++k) m = fminf(m, a[k] > 0.0f ? a[k] : INFINITY);
+    return isfinite(m) ? m : 0.0f;
+  }
+  float s = 0.0f, c = 0.0f, mn = INFINITY, mx = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const bool valid = a[k] > 0.0f;
+    s = add(s, valid ? a[k] : 0.0f);
+    c = add(c, valid ? 1.0f : 0.0f);
+    mn = fminf(mn, valid ? a[k] : INFINITY);
+    mx = fmaxf(mx, valid ? a[k] : -INFINITY);
+  }
+  return (c > 0.0f && sub(mx, mn) <= edge_band) ? dvd(s, fmaxf(c, 1.0f))
+                                                : 0.0f;
+}
+
+// the level image's pixel (y, x) of a job, pooled by a factor F window
+// read as F vector rows (F = 2, 4; the job's vec_in)
+template <int F>
+__device__ __forceinline__ float pool_vec(const Job& J, float edge_band,
+                                          int y, int x) {
+  const float* row = J.in + static_cast<int64_t>(y) * F * J.in_w + x * F;
+  float a[F * F];
+#pragma unroll
+  for (int i = 0; i < F; ++i) {
+    if constexpr (F == 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(row + i * J.in_w));
+      a[4 * i] = q.x;
+      a[4 * i + 1] = q.y;
+      a[4 * i + 2] = q.z;
+      a[4 * i + 3] = q.w;
+    } else {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(row + i * J.in_w));
+      a[2 * i] = q.x;
+      a[2 * i + 1] = q.y;
+    }
+  }
+  return reduce_window(a, J.pool, edge_band);
+}
+
+// the same, any factor, one scalar load a depth (pool none: the pixel)
+__device__ __forceinline__ float pool_scalar(const Job& J, float edge_band,
                                              int y, int x) {
   const int f = J.factor;
   const float* row = J.in + static_cast<int64_t>(y) * f * J.in_w + x * f;
-  float d;
   if (J.pool == kPoolMin) {
     float m = INFINITY;
     for (int i = 0; i < f; ++i)
@@ -409,8 +491,9 @@ __device__ __forceinline__ float level_depth(const Job& J, float edge_band,
         const float a = __ldg(row + i * J.in_w + j);
         m = fminf(m, a > 0.0f ? a : INFINITY);
       }
-    d = isfinite(m) ? m : 0.0f;
-  } else if (J.pool == kPoolMean) {
+    return isfinite(m) ? m : 0.0f;
+  }
+  if (J.pool == kPoolMean) {
     float s = 0.0f, c = 0.0f, mn = INFINITY, mx = -INFINITY;
     for (int i = 0; i < f; ++i)
       for (int j = 0; j < f; ++j) {
@@ -421,69 +504,161 @@ __device__ __forceinline__ float level_depth(const Job& J, float edge_band,
         mn = fminf(mn, valid ? a : INFINITY);
         mx = fmaxf(mx, valid ? a : -INFINITY);
       }
-    d = (c > 0.0f && sub(mx, mn) <= edge_band) ? dvd(s, fmaxf(c, 1.0f))
-                                                : 0.0f;
-  } else {
-    d = __ldg(row);
+    return (c > 0.0f && sub(mx, mn) <= edge_band) ? dvd(s, fmaxf(c, 1.0f))
+                                                  : 0.0f;
   }
-  return gate(d, J.dmin, J.dmax);
+  return __ldg(row);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The level tile of a source or target CTA: the level image over its
+// kJobTileW x kJobTileH outputs and a halo of 1, 0 outside the image (a
+// normal that survives the interior mask never reads it).  Every item of
+// a thread is loaded before any is pooled (kLevelItems a thread), so the
+// CTA's loads are in flight together.
+template <int F>
+__device__ __forceinline__ void level_tile_vec(const Job& J, float edge_band,
+                                               int ty0, int tx0,
+                                               float* tile) {
+  float v[kLevelItems];
+#pragma unroll
+  for (int k = 0; k < kLevelItems; ++k) {
+    const int i = threadIdx.x + k * kThreadsB;
+    const int ly = i / kLevelW, lx = i - ly * kLevelW;
+    const int y = ty0 - 1 + ly, x = tx0 - 1 + lx;
+    v[k] = (i < kLevelN && y >= 0 && y < J.h && x >= 0 && x < J.w)
+               ? pool_vec<F>(J, edge_band, y, x) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kLevelItems; ++k) {
+    const int i = threadIdx.x + k * kThreadsB;
+    if (i < kLevelN) tile[i] = gate(v[k], J.dmin, J.dmax);
+  }
+}
+
+__device__ __forceinline__ void level_tile_scalar(const Job& J,
+                                                  float edge_band, int ty0,
+                                                  int tx0, float* tile) {
+  for (int i = threadIdx.x; i < kLevelN; i += kThreadsB) {
+    const int ly = i / kLevelW, lx = i - ly * kLevelW;
+    const int y = ty0 - 1 + ly, x = tx0 - 1 + lx;
+    tile[i] = (y >= 0 && y < J.h && x >= 0 && x < J.w)
+                  ? gate(pool_scalar(J, edge_band, y, x), J.dmin, J.dmax)
+                  : 0.0f;
+  }
+}
+
+// rows [0, rows) of n floats each, staged at a pitch of `pitch` floats,
+// to dst (row r at dst + r * stride): neighbouring threads on
+// neighbouring addresses, 16 bytes a thread when vec (n, stride and dst
+// multiples of 4 floats)
+__device__ __forceinline__ void store_rows(float* dst, int64_t stride,
+                                           const float* stage, int pitch,
+                                           int rows, int n, bool vec) {
+  if (vec) {
+    const int n4 = n / 4;
+    for (int i = threadIdx.x; i < rows * n4; i += kThreadsB) {
+      const int r = i / n4, k = i - r * n4;
+      reinterpret_cast<float4*>(dst + r * stride)[k] =
+          reinterpret_cast<const float4*>(stage + r * pitch)[k];
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * n; i += kThreadsB) {
+      const int r = i / n, k = i - r * n;
+      dst[r * stride + k] = stage[r * pitch + k];
+    }
+  }
+}
+
+// a pack CTA: pack_target of kPackPixels consecutive pixels of the frame,
+// 2 a thread (8-byte loads of the depth and the normals and a 16-byte
+// store when vec_out; one pixel at a time at the ragged end)
+__device__ __forceinline__ void pack_pixels(const Job& J, int t) {
+  const int64_t n = static_cast<int64_t>(J.h) * J.w;
+  const int64_t p0 = static_cast<int64_t>(t) * kPackPixels + 2 * threadIdx.x;
+  if (J.vec_out && p0 + 2 <= n) {
+    const float2 d = __ldg(reinterpret_cast<const float2*>(J.in + p0));
+    const float2* nq = reinterpret_cast<const float2*>(J.in_normals + 3 * p0);
+    const float2 a = __ldg(nq), b = __ldg(nq + 1), c = __ldg(nq + 2);
+    const float2 o0 = pack(d.x, {a.x, a.y, b.x});
+    const float2 o1 = pack(d.y, {b.y, c.x, c.y});
+    reinterpret_cast<float4*>(J.packed + 2 * p0)[0] =
+        make_float4(o0.x, o0.y, o1.x, o1.y);
+    return;
+  }
+  const int64_t end = p0 + 2 < n ? p0 + 2 : n;
+  for (int64_t p = p0; p < end; ++p) {
+    const float* nrm = J.in_normals + 3 * p;
+    const Normal q = {__ldg(nrm), __ldg(nrm + 1), __ldg(nrm + 2)};
+    reinterpret_cast<float2*>(J.packed)[p] = pack(__ldg(J.in + p), q);
+  }
+}
+
+// registers capped so that kMinBlocksB CTAs fit a multiprocessor
+// whichever path a CTA takes (the factor-4 windows' loads would take more)
+__global__ void __launch_bounds__(kThreadsB, kMinBlocksB)
 pyramid_levels_kernel(const __grid_constant__ JobTable T) {
-  __shared__ float tile[(kJobTileH + 2) * (kJobTileW + 2)];
+  __shared__ float tile[kLevelN];
+  // a source's vertices, then its normals, as they lie in memory (3
+  // floats a pixel, kJobTileW pixels a row)
+  __shared__ __align__(16) float stage[2 * 3 * kTileN];
   int j = 0;
   while (j + 1 < T.n_jobs && static_cast<int>(blockIdx.x) >=
-                                  T.job[j + 1].first_cta)
+                                  T.first_cta[j + 1])
     ++j;
   const Job& J = T.job[j];
   const int t = blockIdx.x - J.first_cta;
+  if (J.kind == kKindPack) {
+    pack_pixels(J, t);
+    return;
+  }
   const int ty0 = (t / J.tiles_x) * kJobTileH;
   const int tx0 = (t % J.tiles_x) * kJobTileW;
-  const int tid = threadIdx.x;
-  const int v = ty0 + tid / kJobTileW, u = tx0 + tid % kJobTileW;
-  const bool inside = v < J.h && u < J.w;
-  const int o = v * J.w + u;
-
-  if (J.kind == kKindPack) {
-    if (!inside) return;
-    const float* nrm = J.in_normals + 3 * static_cast<int64_t>(o);
-    const Normal n = {__ldg(nrm), __ldg(nrm + 1), __ldg(nrm + 2)};
-    reinterpret_cast<float2*>(J.packed)[o] =
-        pack(__ldg(J.in + static_cast<int64_t>(v) * J.in_w + u), n);
-    return;
-  }
-
-  // the level image over the tile and a halo of 1 (0 outside the image)
-  constexpr int sw = kJobTileW + 2;
-  for (int i = tid; i < (kJobTileH + 2) * sw; i += kThreads) {
-    const int ly = i / sw, lx = i - ly * sw;
-    const int y = ty0 - 1 + ly, x = tx0 - 1 + lx;
-    tile[i] = (y >= 0 && y < J.h && x >= 0 && x < J.w)
-                  ? level_depth(J, T.edge_band, y, x) : 0.0f;
-  }
+  if (J.vec_in && J.factor == 4)
+    level_tile_vec<4>(J, T.edge_band, ty0, tx0, tile);
+  else if (J.vec_in)
+    level_tile_vec<2>(J, T.edge_band, ty0, tx0, tile);
+  else
+    level_tile_scalar(J, T.edge_band, ty0, tx0, tile);
   __syncthreads();
-  if (!inside) return;
-  const int c = (v - ty0 + 1) * sw + (u - tx0 + 1);
-  const float d = tile[c];
-  const float du = tile[c - sw], dd = tile[c + sw];
-  const float dl = tile[c - 1], dr = tile[c + 1];
-  const bool ok = v > 0 && v < J.h - 1 && u > 0 && u < J.w - 1 &&
-                  d != 0.0f && du != 0.0f && dd != 0.0f && dl != 0.0f &&
-                  dr != 0.0f;
-  const Normal n = normal_at(ok, u, v, du, dd, dl, dr, J.cx, J.cy, J.rfx,
-                             J.rfy);
-  if (J.kind == kKindTarget) {
-    reinterpret_cast<float2*>(J.packed)[o] = pack(d, n);
-    return;
+
+  const int rows = min(kJobTileH, J.h - ty0), cols = min(kJobTileW, J.w - tx0);
+#pragma unroll
+  for (int k = 0; k < kTileN / kThreadsB; ++k) {
+    const int i = threadIdx.x + k * kThreadsB;
+    const int ly = i / kJobTileW, lx = i - ly * kJobTileW;
+    const int v = ty0 + ly, u = tx0 + lx;
+    if (ly >= rows || lx >= cols) continue;
+    const int c = (ly + 1) * kLevelW + lx + 1;
+    const float d = tile[c];
+    const float du = tile[c - kLevelW], dd = tile[c + kLevelW];
+    const float dl = tile[c - 1], dr = tile[c + 1];
+    const bool ok = v > 0 && v < J.h - 1 && u > 0 && u < J.w - 1 &&
+                    d != 0.0f && du != 0.0f && dd != 0.0f && dl != 0.0f &&
+                    dr != 0.0f;
+    const Normal n = normal_at(ok, u, v, du, dd, dl, dr, J.cx, J.cy, J.rfx,
+                               J.rfy);
+    const int64_t o = static_cast<int64_t>(v) * J.w + u;
+    if (J.kind == kKindTarget) {
+      reinterpret_cast<float2*>(J.packed)[o] = pack(d, n);
+      continue;
+    }
+    J.depth[o] = d;
+    float* sv = stage + 3 * i;
+    float* sn = stage + 3 * kTileN + 3 * i;
+    sv[0] = ray(u, J.cx, J.rfx, d);
+    sv[1] = ray(v, J.cy, J.rfy, d);
+    sv[2] = d;
+    sn[0] = n.x;
+    sn[1] = n.y;
+    sn[2] = n.z;
   }
-  J.depth[o] = d;
-  J.vertices[3 * o] = ray(u, J.cx, J.rfx, d);
-  J.vertices[3 * o + 1] = ray(v, J.cy, J.rfy, d);
-  J.vertices[3 * o + 2] = d;
-  J.normals[3 * o] = n.x;
-  J.normals[3 * o + 1] = n.y;
-  J.normals[3 * o + 2] = n.z;
+  if (J.kind == kKindTarget) return;
+  __syncthreads();
+  const int64_t first = 3 * (static_cast<int64_t>(ty0) * J.w + tx0);
+  store_rows(J.vertices + first, 3 * static_cast<int64_t>(J.w), stage,
+             3 * kJobTileW, rows, 3 * cols, J.vec_out);
+  store_rows(J.normals + first, 3 * static_cast<int64_t>(J.w),
+             stage + 3 * kTileN, 3 * kJobTileW, rows, 3 * cols, J.vec_out);
 }
 
 }  // namespace
@@ -541,48 +716,79 @@ extern "C" int preprocess_frame(const int* raw, float* out, int H, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3b.  Per job: ptrs[6 j ..] = in, in_normals, depth, vertices, normals,
-// packed; ints[6 j ..] = kind, pool, factor, in_w, h, w; floats[6 j ..] =
-// cx, cy, 1/fx, 1/fy, depth_min, depth_max.
-extern "C" int pyramid_levels(const void* const* ptrs, const int* ints,
-                              const float* floats, int n_jobs,
-                              float edge_band, void* stream) {
-  if (n_jobs < 1 || n_jobs > kMaxJobs)
+// K3b.  images: the source depth, the target depth, the target Frame's
+// depth and normals (each may be null where no job reads it); out: the
+// one output buffer.  Per job, ints[8 j ..] = kind, pool, factor, in_w,
+// h, w, image (0 source, 1 target, 2 the target Frame's), the job's first
+// float in out (a source's depth there, its vertices h w floats on, its
+// normals 4 h w floats on; a target's packed (h, w, 2) there, an even
+// offset); floats[6 j ..] = cx, cy, 1/fx, 1/fy, depth_min, depth_max.
+extern "C" int pyramid_levels(const float* src, const float* tgt,
+                              const float* tgt_depth,
+                              const float* tgt_normals, float* out,
+                              const int* ints, const float* floats,
+                              int n_jobs, float edge_band, void* stream) {
+  if (n_jobs < 1 || n_jobs > kMaxJobs || out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const float* const images[3] = {src, tgt, tgt_depth};
+  const auto aligned = [](const void* p, uintptr_t bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+  };
   JobTable T = {};
   T.n_jobs = n_jobs;
   T.edge_band = edge_band;
   int ctas = 0;
   for (int j = 0; j < n_jobs; ++j) {
     Job& J = T.job[j];
-    J.in = static_cast<const float*>(ptrs[6 * j]);
-    J.in_normals = static_cast<const float*>(ptrs[6 * j + 1]);
-    J.depth = static_cast<float*>(const_cast<void*>(ptrs[6 * j + 2]));
-    J.vertices = static_cast<float*>(const_cast<void*>(ptrs[6 * j + 3]));
-    J.normals = static_cast<float*>(const_cast<void*>(ptrs[6 * j + 4]));
-    J.packed = static_cast<float*>(const_cast<void*>(ptrs[6 * j + 5]));
-    J.kind = ints[6 * j];
-    J.pool = ints[6 * j + 1];
-    J.factor = ints[6 * j + 2];
-    J.in_w = ints[6 * j + 3];
-    J.h = ints[6 * j + 4];
-    J.w = ints[6 * j + 5];
-    J.cx = floats[6 * j];
-    J.cy = floats[6 * j + 1];
-    J.rfx = floats[6 * j + 2];
-    J.rfy = floats[6 * j + 3];
-    J.dmin = floats[6 * j + 4];
-    J.dmax = floats[6 * j + 5];
+    const int* I = ints + 8 * j;
+    J.kind = I[0];
+    J.pool = I[1];
+    J.factor = I[2];
+    J.in_w = I[3];
+    J.h = I[4];
+    J.w = I[5];
+    const int image = I[6];
     if (J.kind < kKindSource || J.kind > kKindPack || J.pool < kPoolNone ||
         J.pool > kPoolMean || J.factor < 1 || J.h < 1 || J.w < 1 ||
-        (J.kind == kKindPack && (J.pool != kPoolNone || J.factor != 1)) ||
-        (J.pool == kPoolNone && J.factor != 1) || J.in_w < J.w * J.factor)
+        image < 0 || image > 2 || I[7] < 0 || images[image] == nullptr ||
+        (J.kind == kKindPack &&
+         (J.pool != kPoolNone || J.factor != 1 || image != 2 ||
+          tgt_normals == nullptr || J.in_w != J.w)) ||
+        (J.pool == kPoolNone && J.factor != 1) || J.in_w < J.w * J.factor ||
+        (J.kind != kKindSource && I[7] % 2 != 0))
       return static_cast<int>(cudaErrorInvalidValue);
-    J.first_cta = ctas;
+    const int64_t hw = static_cast<int64_t>(J.h) * J.w;
+    float* o = out + I[7];
+    J.in = images[image];
+    J.in_normals = J.kind == kKindPack ? tgt_normals : nullptr;
+    J.depth = J.kind == kKindSource ? o : nullptr;
+    J.vertices = J.kind == kKindSource ? o + hw : nullptr;
+    J.normals = J.kind == kKindSource ? o + 4 * hw : nullptr;
+    J.packed = J.kind == kKindSource ? nullptr : o;
+    const float* F = floats + 6 * j;
+    J.cx = F[0];
+    J.cy = F[1];
+    J.rfx = F[2];
+    J.rfy = F[3];
+    J.dmin = F[4];
+    J.dmax = F[5];
+    J.vec_in = (J.factor == 2 || J.factor == 4) && J.in_w % J.factor == 0 &&
+               aligned(J.in, 4 * J.factor);
+    if (J.kind == kKindPack) {
+      J.vec_out = aligned(J.in, 16) && aligned(J.in_normals, 16) &&
+                  aligned(J.packed, 16);
+      J.tiles_x = 1;
+      J.first_cta = T.first_cta[j] = ctas;
+      ctas += static_cast<int>((hw + kPackPixels - 1) / kPackPixels);
+      continue;
+    }
+    J.vec_out = J.kind == kKindSource && J.w % 4 == 0 &&
+                aligned(J.vertices, 16) && aligned(J.normals, 16);
+    J.first_cta = T.first_cta[j] = ctas;
     J.tiles_x = (J.w + kJobTileW - 1) / kJobTileW;
     ctas += J.tiles_x * ((J.h + kJobTileH - 1) / kJobTileH);
   }
-  pyramid_levels_kernel<<<ctas, kThreads, 0,
+  pyramid_levels_kernel<<<ctas, kThreadsB, 0,
                           static_cast<cudaStream_t>(stream)>>>(T);
   return static_cast<int>(cudaGetLastError());
 }

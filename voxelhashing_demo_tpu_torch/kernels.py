@@ -186,9 +186,10 @@ KERNELS = {
     # (1/depth_scale, depth_min, depth_max, cx, cy, 1/fx, 1/fy, band base,
     # band quad, 1/(2 sigma_depth^2), the spatial weights)
     "preprocess_frame": [_P, _P, _I, _I, _P, _P, _P],
-    # K3b: job pointers, ints and floats (host, 6 each a job), jobs,
-    # edge band
-    "pyramid_levels": [_P, _P, _P, _I, _F, _P],
+    # K3b: the source depth, the target depth, the target Frame's depth
+    # and normals, the output buffer, the host tables of ints (8 a job)
+    # and floats (6 a job), jobs, edge band
+    "pyramid_levels": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P],
     # K8 (csrc/splat.cu): blocks, ptrs, count, tsdf, weight, band_min,
     # T_wc, z-buffer, rows, map rows, block size, H, W, voxel size, fx, fy,
     # cx, cy, near, far, band, band filter
@@ -201,12 +202,12 @@ KERNELS = {
     # K9's instantiation for a fill-round count: registers, spilled bytes,
     # resident CTAs, threads and shared bytes into an int[5] (no stream)
     "splat_finalize_info": [_I, _P],
-    # K6 (csrc/fuse.cu): keys, ptrs, T_wc, blocks, ptrs and count out,
-    # scratch, table size, max_active, key bits, block size, voxel size,
-    # half a block, fx, fy, cx, cy, width, height, margin, radius * fx,
-    # radius * fy, near, far
-    "compact_visible": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # K6 (csrc/fuse.cu): keys, ptrs, T_wc, the output buffer (blocks,
+    # ptrs, count), the persistent scratch and its status words, table size,
+    # the host tables of ints (max_active, key bits, block size) and floats
+    # (voxel size, half a block, fx, fy, cx, cy, width, height, margin,
+    # radius * fx, radius * fy, near, far)
+    "compact_visible": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # K7: blocks, ptrs, count, the host table of the map's row pointers
     # (tsdf, weight, band_min, born, last_seen), depth, T_wc, the stamp on
     # the device (or None), rows, sign, born gate, max_born, stamp on,

@@ -26,9 +26,11 @@ is the same.
 
 Two hand-written kernels (``csrc/fuse.cu``) serve CUDA tensors: K6
 ``compact_visible`` (the frustum test of the whole table and the
-compaction in table order, one cooperative launch, the count left on the
-device) and K7 ``integrate_rows`` (the update of ``active[:count]`` with
-the window gather's coverage and ``touch_active``'s stamp fused in).  On
+compaction in table order in one launch, its tiles' counts exchanged
+without a grid barrier through a scratch that persists from call to call,
+one a device and stream; the count left on the device) and K7
+``integrate_rows`` (the update of ``active[:count]`` with the window
+gather's coverage and ``touch_active``'s stamp fused in).  On
 CUDA tensors ``compact_visible`` is K6 and ``integrate`` K7, so the frame's
 compact -> touch -> integrate (``fuse_frame``: ``integrate(...,
 stamp=frame_idx)``) is two launches and no host read; CPU tensors run the
@@ -86,6 +88,8 @@ LAUNCHES_INSERT = 0             # K5b insert_blocks
 
 MAX_VOXELS = 1024       # the voxels a block K7 takes (kMaxVoxels)
 COMPACT_TILE = 2048     # table entries a K6 tile (kTile)
+COMPACT_MIN_TILES = 128    # the statuses of K6's smallest scratch
+COMPACT_STATUS_WORDS = 16  # 64-bit words a K6 status takes (kStatusStride)
 MAX_KEY_BITS = 10       # three coordinates in a non-negative int32 key
 MAX_NEW = 4096          # the new keys K5b sorts in one CTA (kMaxNew)
 MAX_BUCKET_SIZE = 65535    # a bucket's fill as K5b keeps it (uint16)
@@ -98,6 +102,13 @@ INSERT_MIN_CAPACITY = 1024     # the keys of K5b's smallest scratch
 # use one); a capture that finds none makes its own (_insert_scratch)
 _INSERT_SCRATCH: dict = {}
 _INSERT_RETIRED: list = []
+# K6's persistent scratch: (device index, raw stream) -> (tensor, tiles),
+# and the scratches it replaced (a captured graph may use one)
+_COMPACT_SCRATCH: dict = {}
+_COMPACT_RETIRED: list = []
+# K6's host tables: (id(cfg), id(cam), id(fusion)) -> (the three objects,
+# the tables)
+_COMPACT_PLANS: dict = {}
 # maps K5b checked: id(keys) -> (weak references to the tensors, the
 # configuration, the bucket function, the host tables)
 _MAP_CHECKED: dict = {}
@@ -958,30 +969,71 @@ def _on_cuda(dev: torch.device, *tensors) -> bool:
     return dev.type == "cuda" and all(t.device == dev for t in tensors)
 
 
-@functools.lru_cache(maxsize=64)
 def _compact_plan(cfg: HashConfig, cam: CameraConfig,
                   fusion: FusionConfig) -> tuple:
-    """K6's arguments after the pointers and the table size: max_active,
-    key bits, block size, then ``block_in_frustum``'s constants as the
-    plain version computes them in Python doubles (voxel size, half a
-    block, fx, fy, cx, cy, width, height, margin, radius * fx, radius *
-    fy, near, far); or raise."""
+    """K6's host tables (ctypes arrays): ints (max_active, key bits, block
+    size) and floats (``block_in_frustum``'s constants as the plain
+    version computes them in Python doubles: voxel size, half a block,
+    fx, fy, cx, cy, width, height, margin, radius * fx, radius * fy, near,
+    far), built once a configuration (kept by the objects' identity,
+    which costs less than hashing them); or raise."""
+    key = (id(cfg), id(cam), id(fusion))
+    got = _COMPACT_PLANS.get(key)
+    if (got is not None and got[0] is cfg and got[1] is cam
+            and got[2] is fusion):
+        return got[3]
     if not 1 <= cfg.key_bits <= MAX_KEY_BITS:
         raise ValueError(f"compact_visible: key bits 1..{MAX_KEY_BITS} "
                          f"expected, got {cfg.key_bits}")
     half = 0.5 * cfg.block_size * fusion.voxel_size
     radius = half * 1.7320508
-    return (cfg.max_active, cfg.key_bits, cfg.block_size, fusion.voxel_size,
-            half, cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width),
-            float(cam.height), FRUSTUM_MARGIN_PX, radius * cam.fx,
-            radius * cam.fy, cam.depth_min - 2.0 * half,
-            cam.depth_max + 2.0 * half)
+    floats = (fusion.voxel_size, half, cam.fx, cam.fy, cam.cx, cam.cy,
+              float(cam.width), float(cam.height), FRUSTUM_MARGIN_PX,
+              radius * cam.fx, radius * cam.fy, cam.depth_min - 2.0 * half,
+              cam.depth_max + 2.0 * half)
+    tables = ((ctypes.c_int * 3)(cfg.max_active, cfg.key_bits,
+                                 cfg.block_size),
+              (ctypes.c_float * len(floats))(*floats))
+    if len(_COMPACT_PLANS) >= 64:
+        _COMPACT_PLANS.clear()
+    _COMPACT_PLANS[key] = (cfg, cam, fusion, tables)
+    return tables
+
+
+def _compact_scratch(dev: torch.device, stream: int, tiles: int) -> tuple:
+    """K6's scratch for a table of ``tiles`` tiles on ``dev`` and
+    ``stream`` (a raw stream handle): (int64 tensor, its statuses), zeroed
+    when made: the epoch word, then a status a tile, COMPACT_STATUS_WORDS
+    words apart.  Every launch tags its statuses with the epoch and raises
+    it, so nothing clears the scratch between launches.  One persists a
+    device and stream: made at first use (at least COMPACT_MIN_TILES
+    statuses, a power of two), replaced by a larger one when a table
+    outgrows it; a
+    replaced one is kept alive, since a CUDA graph captured with it still
+    runs on it.  None is made persistent while the stream is being
+    captured (its zeroing would run only in the graph): a capture that
+    finds none large enough takes a scratch of its own, zeroed in the
+    graph before each replay's launch and kept nowhere else."""
+    key = (dev.index, stream)
+    got = _COMPACT_SCRATCH.get(key)
+    if got is not None and got[1] >= tiles:
+        return got
+    n = max(COMPACT_MIN_TILES, 1 << max(tiles - 1, 0).bit_length())
+    fresh = (torch.zeros((1 + COMPACT_STATUS_WORDS * n,), dtype=torch.int64,
+                         device=dev), n)
+    if _capturing(dev):
+        return fresh
+    if got is not None:
+        _COMPACT_RETIRED.append(got[0])
+    _COMPACT_SCRATCH[key] = fresh
+    return fresh
 
 
 def _launch_compact(hmap: HashMap, cfg: HashConfig, T_wc: torch.Tensor,
                     cam: CameraConfig, fusion: FusionConfig) -> ActiveSet:
-    """K6 on the current stream: a fresh ActiveSet (its three tensors and
-    the kernel's per-tile scratch share one allocation), or raise."""
+    """K6 on the current stream: a fresh ActiveSet (its three tensors
+    share one allocation) computed on the stream's persistent scratch, or
+    raise."""
     keys, ptrs = hmap.keys, hmap.ptrs
     dev = keys.device
     if not _on_cuda(dev, ptrs, T_wc):
@@ -996,21 +1048,20 @@ def _launch_compact(hmap: HashMap, cfg: HashConfig, T_wc: torch.Tensor,
             or tuple(T_wc.shape) != (4, 4)):
         raise ValueError("compact_visible: (T,) keys and ptrs and a (4, 4) "
                          "pose expected")
-    plan = _compact_plan(cfg, cam, fusion)
+    ints, floats = _compact_plan(cfg, cam, fusion)
     A = cfg.max_active
     keys, ptrs, pose = keys.contiguous(), ptrs.contiguous(), \
         T_wc.contiguous()
-    buf = torch.empty(4 * A + 1 + -(-T // COMPACT_TILE), dtype=torch.int32,
-                      device=dev)
-    out = ActiveSet(blocks=buf[:3 * A].view(A, 3), ptrs=buf[3 * A:4 * A],
-                    count=buf[4 * A])
-    kernels.launch("compact_visible", keys.get_device(), keys.data_ptr(),
-                   ptrs.data_ptr(), pose.data_ptr(), out.blocks.data_ptr(),
-                   out.ptrs.data_ptr(), out.count.data_ptr(),
-                   buf[4 * A + 1:].data_ptr(), T, *plan)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    scratch, _ = _compact_scratch(dev, stream, -(-T // COMPACT_TILE))
+    buf = torch.empty(4 * A + 1, dtype=torch.int32, device=dev)
+    kernels.launch("compact_visible", dev.index, keys.data_ptr(),
+                   ptrs.data_ptr(), pose.data_ptr(), buf.data_ptr(),
+                   scratch.data_ptr(), scratch.shape[0] - 1, T, ints, floats)
     global LAUNCHES_COMPACT
     LAUNCHES_COMPACT += 1
-    return out
+    return ActiveSet(blocks=buf[:3 * A].view(A, 3), ptrs=buf[3 * A:4 * A],
+                     count=buf[4 * A])
 
 
 @functools.lru_cache(maxsize=64)

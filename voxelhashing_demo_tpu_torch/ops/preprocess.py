@@ -43,6 +43,12 @@ EDGE_BAND = 0.05        # downsample_depth_mean's default edge band
 # K3a's host tables: (id(camera), id(frontend)) -> (camera, frontend,
 # (ints, floats))
 _FRAME_PLANS: dict = {}
+# K3b's plans: (id(camera), id(icp config), src_full given, tgt_full
+# given, mean sources) -> (camera, config, jobs, levels)
+_LEVEL_PLANS: dict = {}
+# K3b's layouts: (id(jobs), the shapes of the source and target depths and
+# of the target Frame's depth and normals) -> (jobs, _Layout)
+_LAYOUTS: dict = {}
 
 
 class Frame(NamedTuple):
@@ -183,11 +189,18 @@ def preprocess_metric(depth_m: torch.Tensor, cam: CameraConfig,
     (``downsample_depth``) and ``cam`` is the pooled image's camera.  One
     K3b job on a CUDA tensor, ``preprocess_metric_reference`` on a CPU
     tensor."""
-    pool = _MIN if pool_factor > 1 else _NONE
-    job = _Job(_SOURCE, "src", pool, max(pool_factor, 1), cam)
+    jobs = _metric_jobs(cam, pool_factor)
     if depth_m.device.type == "cpu":
-        return _job_reference(job, {"src": depth_m}, None)
-    return _launch_levels((job,), {"src": depth_m}, None)[0]
+        return _job_reference(jobs[0], {"src": depth_m}, None)
+    return _launch_levels(jobs, {"src": depth_m}, None)[0]
+
+
+@functools.lru_cache(maxsize=64)
+def _metric_jobs(cam: CameraConfig, pool_factor: int) -> tuple:
+    """``preprocess_metric``'s one K3b job, the same tuple for equal
+    arguments (K3b's layouts are kept by the tuple's identity)."""
+    pool = _MIN if pool_factor > 1 else _NONE
+    return (_Job(_SOURCE, "src", pool, max(pool_factor, 1), cam),)
 
 
 def preprocess_metric_reference(depth_m: torch.Tensor,
@@ -319,11 +332,17 @@ def pyramid_inputs(depth_src_m: torch.Tensor, depth_tgt_m: torch.Tensor,
     if depth_src_m.device.type == "cpu" and depth_tgt_m.device.type == "cpu":
         return _pyramid_reference(depth_src_m, depth_tgt_m, cam, cfg,
                                   src_full, tgt_full, mean_sources)
-    jobs, levels = _plan(cam, cfg, src_full is not None,
-                         tgt_full is not None, mean_sources)
-    out = _launch_levels(jobs, {"src": depth_src_m, "tgt": depth_tgt_m},
+    key = (id(cam), id(cfg), src_full is not None, tgt_full is not None,
+           mean_sources)
+    got = _LEVEL_PLANS.get(key)
+    if got is None or got[0] is not cam or got[1] is not cfg:
+        got = (cam, cfg, *_plan(cam, cfg, *key[2:]))
+        if len(_LEVEL_PLANS) >= 64:
+            _LEVEL_PLANS.clear()
+        _LEVEL_PLANS[key] = got
+    out = _launch_levels(got[2], {"src": depth_src_m, "tgt": depth_tgt_m},
                          tgt_full)
-    return _assemble(levels, out, src_full)
+    return _assemble(got[3], out, src_full)
 
 
 def _pyramid_reference(depth_src_m, depth_tgt_m, cam: CameraConfig, cfg,
@@ -451,87 +470,109 @@ def _launch_frame(depth_raw: torch.Tensor, cam: CameraConfig,
                  depth=buf.as_strided((H, W), (W, 1), 0))
 
 
-@functools.lru_cache(maxsize=64)
-def _layout(jobs, shapes):
-    """K3b's outputs for ``jobs`` on input images of ``shapes`` ((H, W) a
-    job): (floats of the one output buffer, each job's output views as
-    (size, stride, offset), the host tables of ints and floats), or
-    raise.  The packed targets come first: each starts at an even offset,
-    8-byte aligned as K4's gather and K3b's float2 stores need."""
-    sizes = []
-    for job, (H, W) in zip(jobs, shapes):
+class _Layout(NamedTuple):
+    """K3b's outputs and host tables for a plan's jobs on given input
+    shapes: the floats of the one output buffer, each job's output views
+    as (size, stride, offset), the inputs the jobs read (indices into
+    (source depth, target depth, target Frame depth, its normals)), and
+    the host tables of ints (8 a job) and floats (6 a job)."""
+
+    total: int
+    views: tuple
+    reads: tuple
+    ints: object
+    floats: object
+
+
+_IMAGE_INDEX = {"src": 0, "tgt": 1}    # csrc/preprocess.cu's image field
+
+
+def _layout(jobs, shapes) -> _Layout:
+    """K3b's ``_Layout`` for ``jobs`` on inputs of ``shapes`` (of the
+    source depth, the target depth, the target Frame's depth and its
+    normals; None where absent), or raise.  Every job's outputs start at a
+    multiple of 4 floats (16 bytes, as K3b's 16-byte stores need), the
+    packed targets first."""
+    reads, sizes = set(), []
+    for job in jobs:
+        k = 2 if job.kind == _PACK else _IMAGE_INDEX[job.image]
+        reads.update((2, 3) if job.kind == _PACK else (k,))
+        shape = shapes[k]
+        if shape is None or (job.kind == _PACK and shapes[3] is None):
+            raise ValueError("pyramid inputs: a level input reads an image "
+                             "(or a target Frame) that was not given")
+        if len(shape) != 2 or (job.kind == _PACK
+                               and tuple(shapes[3]) != (*shape, 3)):
+            raise ValueError("pyramid inputs: (H, W) depth images (and (H, "
+                             "W, 3) normals) expected")
+        H, W = shape
         h, w = H // job.factor, W // job.factor
         if h < 1 or w < 1:
             raise ValueError(f"pyramid inputs: a depth image of at least "
                              f"the factor {job.factor} a side expected, got "
                              f"{(H, W)}")
-        sizes.append((h, w))
+        sizes.append((k, W, h, w))
     per = [h * w * (7 if job.kind == _SOURCE else 2)
-           for job, (h, w) in zip(jobs, sizes)]
+           for job, (_, _, h, w) in zip(jobs, sizes)]
     starts, at = {}, 0
     for k in sorted(range(len(jobs)), key=lambda k: jobs[k].kind == _SOURCE):
-        starts[k], at = at, at + per[k]
+        starts[k], at = at, -(-(at + per[k]) // 4) * 4
     views, ints, floats = [], [], []
-    for k, (job, (h, w)) in enumerate(zip(jobs, sizes)):
+    for k, (job, (image, W, h, w)) in enumerate(zip(jobs, sizes)):
         o = starts[k]
         maps = ((h, w, 3), (3 * w, 3, 1))
-        views.append([((h, w, 2), (2 * w, 2, 1), o)]
-                     if job.kind != _SOURCE
-                     else [(*maps, o + h * w), (*maps, o + 4 * h * w),
-                           ((h, w), (w, 1), o)])  # vertices, normals, depth
+        views.append(((h, w, 2), (2 * w, 2, 1), o) if job.kind != _SOURCE
+                     else ((*maps, o + h * w), (*maps, o + 4 * h * w),
+                           ((h, w), (w, 1), o)))  # vertices, normals, depth
         c = job.cam
-        ints += [job.kind, job.pool, job.factor, shapes[k][1], h, w]
+        ints += [job.kind, job.pool, job.factor, W, h, w, image, o]
         floats += [c.cx, c.cy, recip(c.fx), recip(c.fy), c.depth_min,
                    c.depth_max]
-    return (at, views, (ctypes.c_int * len(ints))(*ints),
-            (ctypes.c_float * len(floats))(*floats))
+    return _Layout(at, tuple(views), tuple(sorted(reads)),
+                   (ctypes.c_int * len(ints))(*ints),
+                   (ctypes.c_float * len(floats))(*floats))
 
 
-def _launch_levels(jobs, images: dict, tgt_full) -> list:
-    """K3b over ``jobs`` in one launch on the current stream: a Frame a
-    source job, a packed (h, w, 2) target a target or pack job.  Raises on
-    what the kernel does not take."""
-    jobs = tuple(jobs)
+def _launch_levels(jobs: tuple, images: dict, tgt_full) -> list:
+    """K3b over ``jobs`` (a plan's tuple: its layout is kept by the
+    tuple's identity and the inputs' shapes) in one launch on the current
+    stream: a fresh Frame a source job, a fresh packed (h, w, 2) target a
+    target or pack job, all views of one fresh buffer.  Raises on what the
+    kernel does not take."""
     if not 1 <= len(jobs) <= MAX_JOBS:
         raise ValueError(f"pyramid inputs: 1 to {MAX_JOBS} level inputs a "
                          f"launch, got {len(jobs)}")
-    inputs = [(tgt_full.depth, tgt_full.normals) if job.kind == _PACK
-              else (images[job.image], None) for job in jobs]
-    tensors = [t for pair in inputs for t in pair if t is not None]
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    inputs = (images.get("src"), images.get("tgt"),
+              *((None, None) if tgt_full is None
+                else (tgt_full.depth, tgt_full.normals)))
+    key = (id(jobs), *(None if t is None else t.shape for t in inputs))
+    got = _LAYOUTS.get(key)
+    if got is None or got[0] is not jobs:
+        got = (jobs, _layout(jobs, key[1:]))
+        if len(_LAYOUTS) >= 64:
+            _LAYOUTS.clear()
+        _LAYOUTS[key] = got
+    lay = got[1]
+    read = [inputs[k] for k in lay.reads]
+    dev = read[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in read):
         raise ValueError("pyramid inputs: the depth images (and the target "
                          "Frame) must lie on one CUDA device (or all on the "
                          "CPU)")
-    if any(t.dtype != torch.float32 for t in tensors):
+    if any(t.dtype != torch.float32 for t in read):
         raise ValueError("pyramid inputs: float32 depth (and normals) "
                          "expected")
-    if any(d.dim() != 2 or (nrm is not None
-                            and tuple(nrm.shape) != (*d.shape, 3))
-           for d, nrm in inputs):
-        raise ValueError("pyramid inputs: (H, W) depth images (and (H, W, "
-                         "3) normals) expected")
-    total, views, ints, floats = _layout(
-        jobs, tuple((d.shape[0], d.shape[1]) for d, _ in inputs))
-    buf = torch.empty(total, dtype=torch.float32, device=dev)
     # the inputs as the kernel reads them, alive until the launch
-    inputs = [(d.contiguous(), None if nrm is None else nrm.contiguous())
-              for d, nrm in inputs]
-    outs, ptrs = [], []
-    for job, (d, nrm), view in zip(jobs, inputs, views):
-        maps = [buf.as_strided(*v) for v in view]
-        if job.kind == _SOURCE:
-            out = Frame(*maps)
-            ptrs += [d.data_ptr(), None, out.depth.data_ptr(),
-                     out.vertices.data_ptr(), out.normals.data_ptr(), None]
-        else:
-            out = maps[0]
-            ptrs += [d.data_ptr(), None if nrm is None else nrm.data_ptr(),
-                     None, None, None, out.data_ptr()]
-        outs.append(out)
-    kernels.launch("pyramid_levels", dev.index,
-                   (ctypes.c_void_p * len(ptrs))(*ptrs), ints, floats,
-                   len(jobs), EDGE_BAND)
+    read = [t.contiguous() for t in read]
+    ptrs = [None] * 4
+    for k, t in zip(lay.reads, read):
+        ptrs[k] = t.data_ptr()
+    buf = torch.empty(lay.total, dtype=torch.float32, device=dev)
+    outs = [buf.as_strided(*v) if job.kind != _SOURCE
+            else Frame(*(buf.as_strided(*x) for x in v))
+            for job, v in zip(jobs, lay.views)]
+    kernels.launch("pyramid_levels", dev.index, *ptrs, buf.data_ptr(),
+                   lay.ints, lay.floats, len(jobs), EDGE_BAND)
     global LAUNCHES_LEVELS
     LAUNCHES_LEVELS += 1
     return outs
