@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a launch of a flagship-step kernel goes: a phase trace of every
-CTA on one card, for K6 ``compact_visible`` (csrc/fuse.cu) or K3b
-``pyramid_levels`` (csrc/preprocess.cu).
+CTA on one card, for K6 ``compact_visible`` (csrc/fuse.cu), K3b
+``pyramid_levels`` (csrc/preprocess.cu), K8 ``splat_zbuffer``
+(csrc/splat.cu) or K5a ``alloc_candidates`` (csrc/alloc.cu).
 
 Run from the repository root:
 
-    python3 chip_phase_trace.py {k6,k3b} [--out DIR] [--src TREE]
+    python3 chip_phase_trace.py {k6,k3b,k8,k5a} [--out DIR] [--src TREE]
 
 Copies the port's package (this repository's, or the one under ``TREE``:
 a design tree) into ``DIR`` (default ``_trees/<kernel>_trace``, which
@@ -19,12 +20,23 @@ the set's size; its rows written; its end.  K3b's: entry; the
 CTA's job found; thread 0's pool windows loaded and pooled; the level
 tile complete (the barrier); thread 0's outputs computed; the staged
 outputs complete (the barrier); the CTA's stores issued (a target's and
-a pack CTA's at their end), with the CTA's job.  It builds the copy, runs
+a pack CTA's at their end), with the CTA's job.  K8's (of thread 0's
+row group, its last row): entry; the count and its first row's ptr
+tested (the row's loads issued); the band test passed; the pose unpacked
+(the warp's shuffles of it, once); the row's first weight and tsdf
+arrived (a read of them stored to a sink first); its voxels splatted
+(the atomics issued); its end.  K5a's (of lane 0 of the CTA's first warp): entry;
+the depth and vertex arrived, then the pose (a read of each stored to a
+sink first); the last band step's key computed; its store issued.  It builds the copy, runs
 the kernel a few times on the flagship step's own inputs (K6: the table
 after the step's allocation at the step's pose,
 ``chip_splat_breakdown._fuse_inputs``, and an all-free table of its
 size; K3b: the step's level inputs, both full-resolution Frames given, as
-``chip_splat_breakdown._k3b_breakdown`` makes them) and prints one JSON
+``chip_splat_breakdown._k3b_breakdown`` makes them; K8: the step's
+``splat_raycast`` arguments, with the band filter and without; K5a: the
+step's frame and pose, ``chip_splat_breakdown._fuse_inputs``; each also
+with a copy of the pose made just before the launch) and prints
+one JSON
 line a case: for each boundary the spread over the CTAs (min, median,
 max ns after the first CTA's entry) and the median / max ns a CTA spent
 in each phase (K3b: also each job's), with the timer's smallest step
@@ -81,6 +93,49 @@ SPECS = {
              "gsize);\n  MARK(6);\n}\n"),
         ],
     },
+    "k8": {
+        "source": "splat",
+        "anchor": "constexpr int kFreePtr = -1;\n",
+        "bounds": ("entry", "ptr", "band", "pose", "voxels", "atomics",
+                   "end"),
+        "marks": [
+            _after("splat_zbuffer_kernel(const __grid_constant__ "
+                   "ZbufferParams P) {\n", 0),
+            _after("  if (live) load_row<BS, VEC>(P, ptr, lane, V, bm, w, s);"
+                   "\n  Pose T = {};\n", 1),
+            _after("    if (live && (!P.filter || bm < P.band)) {\n", 2,
+                   "      "),
+            ("        T = unpack_pose(mine);\n        posed = true;\n"
+             "      }\n",
+             "        T = unpack_pose(mine);\n        posed = true;\n"
+             "      }\n      MARK(3);\n"
+             "      MARKV(4, w[0] + s[0] + w[S::kN - 1]);\n"),
+            _after("                            s[S::kPer * k + e]);\n"
+                   "        }\n      }\n", 5, "      "),
+            ("    if (live) load_row<BS, VEC>(P, ptr, lane, V, bm, w, s);\n"
+             "  }\n}\n",
+             "    if (live) load_row<BS, VEC>(P, ptr, lane, V, bm, w, s);\n"
+             "  }\n  MARK(6);\n}\n"),
+        ],
+    },
+    "k5a": {
+        "source": "alloc",
+        "anchor": "constexpr int kMaxGridYZ = 65535;\n",
+        "bounds": ("entry", "data", "pose", "computed", "stored"),
+        "marks": [
+            _after("alloc_candidates_kernel(const __grid_constant__ "
+                   "CandidateParams P) {\n", 0),
+            ("    for (int k = 0; k < 12; ++k) T[k] = __ldg(P.T_wc + k);\n",
+             "    for (int k = 0; k < 12; ++k) T[k] = __ldg(P.T_wc + k);\n"
+             "    MARKV(1, d + v0 + v1 + v2);\n"
+             "    MARKV(2, T[0] + T[5] + T[11]);\n"),
+            ("      P.keys[s * R + static_cast<int64_t>(y) * P.w + x] =\n",
+             "      MARKV(3, static_cast<float>(b[0] + b[1] + b[2]));\n"
+             "      P.keys[s * R + static_cast<int64_t>(y) * P.w + x] =\n"),
+            ("              : kEmptyKey;\n    }\n  }\n}\n",
+             "              : kEmptyKey;\n    }\n  }\n  MARK(4);\n}\n"),
+        ],
+    },
     "k3b": {
         "source": "preprocess",
         "anchor": "constexpr int kPoolNone = 0, kPoolMin = 1, kPoolMean = "
@@ -116,9 +171,15 @@ TRACE = (
     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
     "  return t;\n"
     "}\n"
+    "#define TRACE_CTA (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y "
+    "* blockIdx.z))\n"
     "#define MARK(k) do { if (threadIdx.x == 0 && "
-    "blockIdx.x < kTraceCtas) g_trace[blockIdx.x * 8 + (k)] = "
-    "trace_now(); } while (0)\n")
+    "TRACE_CTA < kTraceCtas) g_trace[TRACE_CTA * 8 + (k)] = "
+    "trace_now(); } while (0)\n"
+    "__device__ volatile float g_sink;\n"
+    "#define MARKV(k, v) do { if (threadIdx.x == 0 && "
+    "TRACE_CTA < kTraceCtas) { g_sink = (v); g_trace[TRACE_CTA * 8 + "
+    "(k)] = trace_now(); } } while (0)\n")
 READER = """
 extern "C" int phase_trace_read(unsigned long long* host, int clear) {
   cudaError_t err = cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace));
@@ -245,6 +306,58 @@ def trace_k3b(torch, sweep, kernels) -> list:
                                            for j in jobs], **got}]
 
 
+def _step_splat(sweep) -> list:
+    """The step's ``splat_raycast`` arguments on frame N_STEP_FRAMES of
+    the sweep (after the first N_STEP_FRAMES frames through
+    ``HashSLAM(flagship_gather_config())``)."""
+    from voxelhashing_demo_tpu_torch.config import flagship_gather_config
+    from voxelhashing_demo_tpu_torch.models import hash_slam
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    slam = hash_slam.HashSLAM(flagship_gather_config())
+    last = []
+    for d in sweep[:chip_smoke.N_STEP_FRAMES + 1]:
+        with chip_smoke._wrapped(splat, "splat_raycast",
+                                 chip_smoke._recorded(last)):
+            slam.process(d)
+    return last
+
+
+def trace_k8(torch, sweep, kernels) -> list:
+    splat = importlib.import_module("trace_port.ops.splat")
+    hmap, active, hcfg, T_wc, cam, rc, fusion = _step_splat(sweep)
+    out = []
+    # (a copy of the pose made just before: where the step's pose lies)
+    for name, band_filter, pose in (("step", True, T_wc),
+                                    ("unfiltered", False, T_wc),
+                                    ("pose_copy", True, None)):
+        got = traced(kernels, torch, lambda f=band_filter, p=pose: splat.
+                     _launch_zbuffer(hmap, active, hcfg,
+                                     T_wc.clone() if p is None else p, cam,
+                                     rc, fusion, band_filter=f),
+                     SPECS["k8"]["bounds"], False)
+        out.append({"case": name, "rows": int(active.ptrs.shape[0]),
+                    "count": int(active.count), **got})
+    return out
+
+
+def trace_k5a(torch, sweep, kernels) -> list:
+    hash_ops = importlib.import_module("trace_port.ops.hash_ops")
+    _, frame, T_wc, cam, hcfg, fusion, _ = chip_splat_breakdown._fuse_inputs(
+        sweep)
+    rays = -(-frame.depth.shape[0] // hcfg.candidate_stride) * \
+        -(-frame.depth.shape[1] // hcfg.candidate_stride)
+    out = []
+    for name, pose in (("step", T_wc), ("pose_copy", None)):
+        got = traced(kernels, torch, lambda p=pose: hash_ops.
+                     frame_candidate_keys(frame, T_wc.clone() if p is None
+                                          else p, cam, hcfg, fusion),
+                     SPECS["k5a"]["bounds"], False)
+        out.append({"case": name, "rays": rays,
+                    "band_steps": hcfg.band_steps, **got})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -265,7 +378,8 @@ def main() -> int:
         "trace_port", make_copy(args.kernel, out, args.src).resolve())
     kernels = sys.modules["trace_port.kernels"]
     _, sweep, _ = chip_smoke.room_sweep()
-    run = trace_k6 if args.kernel == "k6" else trace_k3b
+    run = {"k6": trace_k6, "k3b": trace_k3b, "k8": trace_k8,
+           "k5a": trace_k5a}[args.kernel]
     for line in run(torch, sweep, kernels):
         print(json.dumps(line), flush=True)
     return 0

@@ -15,18 +15,21 @@ ATE, p50 and max frame ms) and its own ``tools/roofline.measure_stages``
 under ``flagship_gather_config()`` (host ms of each stage of the step
 after 24 noisy sweep frames), then its own ``preprocess``, ``splat``,
 ``fuse`` and ``alloc`` phases (K3a ``preprocess_frame``, K3b
-``pyramid_levels``, K9 ``splat_finalize``, K6 ``compact_visible``, K7
-``integrate_rows`` and K5b ``insert_blocks`` on the step's own inputs:
-warm and L2-cold device µs, each checked bit for bit against its plain
-version by the phase: device µs of a CUDA-graph replay over its
-launches) and, measured by the same code in both trees (``WRAPPERS``),
-the six wrappers' host µs to issue a call and the six kernels' own
+``pyramid_levels``, K8 ``splat_zbuffer``, K9 ``splat_finalize``, K6
+``compact_visible``, K7 ``integrate_rows``, K5a ``alloc_candidates`` and
+K5b ``insert_blocks`` on the step's own inputs: warm and L2-cold device
+µs, each checked bit for bit against its plain version by the phase:
+device µs of a CUDA-graph replay over its launches) and, measured by the
+same code in both trees (``WRAPPERS``), the eight wrappers' host µs to
+issue a call (K8's with its buffer's reset) and the eight kernels' own
 device µs a launch by torch.profiler, launched one by one, queued back
-to back and from a CUDA graph.  One JSON
+to back and from a CUDA graph; and the whole step's device-busy µs
+(the ``alloc`` phase's ``step_device_kernels``).  One JSON
 line a turn, then the summary as the last line: each tree's ATEs (equal
 bit for bit between the trees when their kernels are bit-exact against
 the same plain versions), and its p50, stage ms and kernel µs as min /
-median over its turns.  ``--log FILE`` keeps every line.
+median over its turns, and its step's busy µs.  ``--log FILE`` keeps
+every line.
 """
 
 import argparse
@@ -40,8 +43,9 @@ import numpy as np
 TURNS = ("parent", "this", "this", "parent")
 TIMEOUT_S = 900
 KERNELS = ("preprocess_frame", "insert_blocks", "splat_finalize",
-           "integrate_rows", "pyramid_levels",
-           "compact_visible")                # K3a, K5b, K9, K7, K3b, K6
+           "integrate_rows", "pyramid_levels", "compact_visible",
+           "splat_zbuffer", "alloc_candidates")
+# K3a, K5b, K9, K7, K3b, K6, K8, K5a
 
 # on the step's inputs, by the same code for every tree (only the APIs
 # that both trees have): the wrappers' host µs to issue one call (the
@@ -61,7 +65,9 @@ KERNELS = ("preprocess_frame", "insert_blocks", "splat_finalize",
 # map after its allocation, on the set K6 gives; K3b makes the level inputs
 # of that frame against the map's model (both full-resolution Frames
 # given, as the step's pyramid does); K6 compacts the map after that
-# allocation at that pose
+# allocation at that pose; K8 splats the map before it on the visible set
+# at that pose, band filter on; K5a makes the frame's candidate keys at
+# that pose
 WRAPPERS = r"""
 def _own_us(torch, name, fn, restore):
     from torch.autograd import DeviceType
@@ -166,6 +172,14 @@ def wrapper_us(torch, cs, sweep):
     def k6():
         return hash_ops.compact_visible(fused, cfg.hash, pose, cam, fus)
 
+    def k8():
+        return splat._launch_zbuffer(slam.state.hmap, visible, cfg.hash,
+                                     pose, cam, rc, fus, band_filter=True)
+
+    def k5a():
+        return hash_ops.frame_candidate_keys(frame, pose, cam, cfg.hash,
+                                             fus)
+
     reps = 50
     issue = {"pyramid_levels": cs.host_issue_us(k3b, reps=reps),
              "compact_visible": cs.host_issue_us(k6, reps=reps),
@@ -177,7 +191,9 @@ def wrapper_us(torch, cs, sweep):
              "splat_finalize": cs.host_issue_us(
                  lambda: splat.finalize_depth(zbuf, cam, rc, fus),
                  reps=reps),
-             "integrate_rows": cs.host_issue_us(k7(copies[0]), reps=reps)}
+             "integrate_rows": cs.host_issue_us(k7(copies[0]), reps=reps),
+             "splat_zbuffer": cs.host_issue_us(k8, reps=reps),
+             "alloc_candidates": cs.host_issue_us(k5a, reps=reps)}
     ints = ("keys", "ptrs", "bucket_fill", "free_top")    # rows shared
     maps = [probe.map_copy(slam.state.hmap, ints) for _ in range(8)]
 
@@ -204,7 +220,11 @@ def wrapper_us(torch, cs, sweep):
                lambda: None),
            "integrate_rows": _modes(
                torch, "integrate_rows", [k7(x) for x in copies],
-               restore_rows)}
+               restore_rows),
+           "splat_zbuffer": _modes(torch, "splat_zbuffer", [k8] * 8,
+                                   lambda: None),
+           "alloc_candidates": _modes(torch, "alloc_candidates", [k5a] * 8,
+                                      lambda: None)}
     uniq = torch.unique(cand[cand != hash_ops.EMPTY_KEY])
     _, found = hash_ops.lookup_keys(slam.state.hmap, cfg.hash, uniq)
     keys = {"M": cand.numel(), "U": uniq.numel(),
@@ -235,7 +255,8 @@ k5 = cs.phase_alloc(torch, "", sweep)
 us = {k: {"us": 1e3 * d[k]["ms"], "cold_us": 1e3 * d[k]["cold_ms"]}
       for k, d in (("preprocess_frame", k3), ("insert_blocks", k5),
                    ("splat_finalize", k9), ("integrate_rows", k7),
-                   ("pyramid_levels", k3), ("compact_visible", k7))}
+                   ("pyramid_levels", k3), ("compact_visible", k7),
+                   ("splat_zbuffer", k9), ("alloc_candidates", k5))}
 """ + WRAPPERS + r"""
 issue, own, keys = wrapper_us(torch, cs, sweep)
 us["insert_blocks"]["keys"] = keys
@@ -268,7 +289,9 @@ def _turn(tree: str) -> dict:
             "stages_ms": lines["roofline_stages"]["stages_ms"],
             "kernels": lines["kernels"]["kernels"],
             "k5b_graph_copies": lines.get("alloc", {}).get(
-                "insert_blocks", {}).get("graph_copies")}
+                "insert_blocks", {}).get("graph_copies"),
+            "step_device": lines.get("alloc", {}).get(
+                "step_device_kernels")}
 
 
 def _spread(xs) -> dict:
@@ -313,6 +336,8 @@ def main() -> int:
             "frame_ms_p50": _spread([r["frame_ms_p50"] for r in rs]),
             "stages_ms": {s: _spread([r["stages_ms"][s] for r in rs])
                           for s in stages},
+            "step_busy_us": _spread([r["step_device"]["busy_us"]
+                                     for r in rs if r["step_device"]]),
             "kernels": {k: {f: _spread([r["kernels"][k][f] for r in rs])
                             for f in ("us", "cold_us", "issue_us",
                                       "isolated_us", "queued_us",

@@ -2003,15 +2003,17 @@ def phase_splat(torch, card: str, sweep) -> dict:
     floor_ms = probe.launch_floor_ms()
     index = torch.cuda.current_device()
     rows = active.ptrs.shape[0]
-    plan = splat._zbuffer_plan(hcfg, cam, rc, fusion)
     zbuf = torch.full((cam.height * cam.width,), float("inf"),
                       device=T_wc.device)
 
     def k8_alone(blocks, ptrs, count, tsdf, weight, band_min, T, zb):
-        kernels.launch("splat_zbuffer", index, blocks.data_ptr(),
-                       ptrs.data_ptr(), count.data_ptr(), tsdf.data_ptr(),
-                       weight.data_ptr(), band_min.data_ptr(), T.data_ptr(),
-                       zb.data_ptr(), rows, tsdf.shape[0], *plan, 1)
+        # the wrapper's arguments on these tensors, launched on ``zb``
+        # without the reset and without counting
+        m = hmap._replace(tsdf=tsdf, weight=weight, band_min=band_min)
+        args, _ = splat._zbuffer_args(m, splat.ActiveSet(blocks, ptrs,
+                                                         count),
+                                      hcfg, T, cam, rc, fusion, True)
+        kernels.launch("splat_zbuffer", index, zb.data_ptr(), *args)
 
     k8 = {**probe.timings(k8_alone, (active.blocks, active.ptrs,
                                      active.count, hmap.tsdf, hmap.weight,
@@ -2606,7 +2608,6 @@ def phase_alloc(torch, card: str, sweep) -> dict:
     fields}."""
     from voxelhashing_demo_tpu_torch import kernels
     from voxelhashing_demo_tpu_torch.config import flagship_gather_config
-    from voxelhashing_demo_tpu_torch.geometry.f32 import recip
     from voxelhashing_demo_tpu_torch.models import hash_slam
     from voxelhashing_demo_tpu_torch.ops import hash_ops
     from voxelhashing_demo_tpu_torch.tools import probe
@@ -2684,13 +2685,12 @@ def phase_alloc(torch, card: str, sweep) -> dict:
     H_, W_ = frame.depth.shape
     s = hcfg.candidate_stride
     out5a = torch.empty_like(cand)
+    ints5a, floats5a = hash_ops._candidate_tables(hcfg, fusion)
 
     def k5a_alone(verts, depth, pose):
         kernels.launch("alloc_candidates", index, verts.data_ptr(),
                        depth.data_ptr(), pose.data_ptr(), out5a.data_ptr(),
-                       H_, W_, s, hcfg.band_steps, hcfg.key_bits,
-                       hcfg.block_size, fusion.truncation,
-                       fusion.trunc_scale, recip(fusion.voxel_size))
+                       H_, W_, ints5a, floats5a)
 
     k5a = {**probe.timings(k5a_alone, (frame.vertices.contiguous(),
                                        frame.depth.contiguous(), T_wc)),

@@ -2,8 +2,9 @@
 """Where the device time of the flagship step's kernels goes, on the
 step's own inputs: the splat kernels (csrc/splat.cu: K8
 ``splat_zbuffer``, K9 ``splat_finalize``), the pyramid's level inputs
-(csrc/preprocess.cu: K3b ``pyramid_levels``) and the fuse kernels
-(csrc/fuse.cu: K6 ``compact_visible``, K7 ``integrate_rows``).
+(csrc/preprocess.cu: K3b ``pyramid_levels``), the fuse kernels
+(csrc/fuse.cu: K6 ``compact_visible``, K7 ``integrate_rows``) and the
+candidate keys (csrc/alloc.cu: K5a ``alloc_candidates``).
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -20,8 +21,10 @@ through ``HashSLAM(flagship_gather_config())``, keeps the arguments of the
 last frame's ``splat_raycast`` call and times, each by CUDA-graph replay
 (``tools/probe.device_ms``, µs a launch, warm L2):
 
-- K8 as the step runs it (band filter on), without the filter, and with
-  the row count 0 (its grid's launch and exit alone);
+- K8 as the step runs it (band filter on), without the filter, with
+  the row count 0 (its grid's launch and exit alone), and on the step's
+  band rows repeated to fill all 4 096 rows of the set (row groups walk
+  several rows);
 - K9 on the step's raw buffer with 0, 1, 2 and 3 fill rounds, and on
   a buffer with no hole (the fill's fast path everywhere) and one with
   no estimate (every cell a hole);
@@ -46,13 +49,18 @@ last frame's ``splat_raycast`` call and times, each by CUDA-graph replay
   scratch a stream replays on it, as the step's would);
 - the empty kernel (the launch floor);
 
-and what ptxas says of every kernel of splat.cu, preprocess.cu and
-fuse.cu (registers, spills: ``kernels.ptxas_report``).
+- K5a on the step's frame and pose (``allocate_from_frame``'s in the
+  step's fuse), through its wrapper: as the step runs it, at stride 1,
+  with 1 and 7 band steps, and on a frame of no valid depth;
+
+and what ptxas says of every kernel of splat.cu, preprocess.cu, fuse.cu
+and alloc.cu (registers, spills: ``kernels.ptxas_report``).
 
 One JSON line, with the card's name and power limit first.
 """
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -239,6 +247,53 @@ def _k7_breakdown(torch, inputs, us) -> dict:
             "rows_1": us(k7(act=cut(1))), "all_rows": us(k7(act=every))}
 
 
+def _k8_band_rows(torch, splat, kernels, last, zbuf):
+    """K8 (band filter on) on a set of ``rows`` rows all in ``count``, all
+    in the band: the step's band rows repeated (so row groups walk
+    several rows); a launch into ``zbuf``."""
+    hmap, active, hcfg, T_wc, cam, rc, fusion = last
+    band = splat.surface_filter(hmap, active,
+                                rc.splat_band * fusion.voxel_size)
+    n = int(band.count)
+    rows = active.ptrs.shape[0]
+    take = torch.arange(rows, device=T_wc.device) % n
+    full = band._replace(blocks=band.blocks[take].contiguous(),
+                         ptrs=band.ptrs[take].contiguous(),
+                         count=torch.tensor(rows, dtype=torch.int32,
+                                            device=T_wc.device))
+    args, keep = splat._zbuffer_args(hmap, full, hcfg, T_wc, cam, rc,
+                                     fusion, True)
+    index = torch.cuda.current_device()
+    return lambda keep=keep: kernels.launch("splat_zbuffer", index,
+                                            zbuf.data_ptr(), *args)
+
+
+def _k5a_breakdown(torch, inputs, us) -> dict:
+    """K5a's µs a launch (``us``, through its wrapper) on the step's frame
+    and pose (``allocate_from_frame``'s in the step's fuse): as the step
+    runs it (stride 3, 3 band steps), at stride 1, with 1 and 7 band
+    steps, and on a frame of no valid depth."""
+    import dataclasses
+
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    _, frame, T_wc, cam, hcfg, fusion, _ = inputs
+
+    def k5a(h=hcfg, f=frame):
+        return lambda: hash_ops.frame_candidate_keys(f, T_wc, cam, h, fusion)
+
+    def cfg(**kw):
+        return dataclasses.replace(hcfg, **kw)
+
+    empty = frame._replace(depth=torch.zeros_like(frame.depth))
+    return {"rays": -(-frame.depth.shape[0] // hcfg.candidate_stride)
+            * -(-frame.depth.shape[1] // hcfg.candidate_stride),
+            "step": us(k5a()), "stride_1": us(k5a(cfg(candidate_stride=1))),
+            "band_steps_1": us(k5a(cfg(band_steps=1))),
+            "band_steps_7": us(k5a(cfg(band_steps=7))),
+            "no_valid_depth": us(k5a(f=empty))}
+
+
 def main() -> int:
     import torch
 
@@ -295,18 +350,16 @@ def measure() -> int:
             slam.process(d)
     hmap, active, hcfg, T_wc, cam, rc, fusion = last
     index = torch.cuda.current_device()
-    plan = splat._zbuffer_plan(hcfg, cam, rc, fusion)
     zbuf = torch.full((cam.height * cam.width,), float("inf"),
                       device=T_wc.device)
     none = torch.zeros((), dtype=torch.int32, device=T_wc.device)
 
     def k8(count, band_filter: int):
-        return lambda: kernels.launch(
-            "splat_zbuffer", index, active.blocks.data_ptr(),
-            active.ptrs.data_ptr(), count.data_ptr(), hmap.tsdf.data_ptr(),
-            hmap.weight.data_ptr(), hmap.band_min.data_ptr(),
-            T_wc.data_ptr(), zbuf.data_ptr(), active.ptrs.shape[0],
-            hmap.tsdf.shape[0], *plan, band_filter)
+        args, keep = splat._zbuffer_args(
+            hmap, active._replace(count=count), hcfg, T_wc, cam, rc, fusion,
+            band_filter)
+        return lambda keep=keep: kernels.launch("splat_zbuffer", index,
+                                                zbuf.data_ptr(), *args)
 
     def us(fn) -> float:
         return 1e3 * probe.device_ms([fn] * probe.WARM_CALLS)
@@ -321,7 +374,9 @@ def measure() -> int:
            "floor_us": 1e3 * probe.launch_floor_ms(),
            "k8_us": {"filtered": us(k8(active.count, 1)),
                      "unfiltered": us(k8(active.count, 0)),
-                     "count_0": us(k8(none, 1))},
+                     "count_0": us(k8(none, 1)),
+                     "band_rows_x4096": us(_k8_band_rows(
+                         torch, splat, kernels, last, zbuf))},
            "k9_us": {}}
     for rounds in (0, 1, 2, 3):
         rcr = dataclasses.replace(rc, splat_fill_rounds=rounds)
@@ -333,10 +388,12 @@ def measure() -> int:
         lambda: splat.finalize_depth(empty, cam, rc, fusion))
     inputs = _fuse_inputs(sweep)
     out["k7_us"] = _k7_breakdown(torch, inputs, us)
+    out["k5a_us"] = _k5a_breakdown(torch, inputs, us)
     out["k6_us"] = _k6_breakdown(torch, inputs, us)
     out["k3b_us"] = _k3b_breakdown(torch, sweep, us)
-    out["ptxas"] = {src: kernels.ptxas_report(src)
-                    for src in ("splat", "preprocess", "fuse")}
+    srcs = ("splat", "preprocess", "fuse", "alloc")
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        out["ptxas"] = dict(zip(srcs, pool.map(kernels.ptxas_report, srcs)))
     out["floor_us_after"] = 1e3 * probe.launch_floor_ms()
     print(json.dumps(out), flush=True)
     return 0

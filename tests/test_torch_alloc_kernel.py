@@ -5,8 +5,10 @@ on numpy inputs made from a seed.
 
 Candidate keys: the 80x60 test camera's preprocessed frames of
 ``depth_scene`` (its dropouts and flying pixels included) at strides 1
-and 3 and band steps 3 and 5, at a pose near the origin and at one 81.7 m
-out along x, where part of the band leaves the 10-bit key range.
+and 3 and band steps 3 and 5, and cut to 79x59 at strides 1-4 and band
+steps 1, 2, 3 and 7, at a pose near the origin and at one 81.7 m out
+along x, where part of the band leaves the 10-bit key range.  K5a's host
+tables: what they refuse, and that they are kept by identity.
 Inserts: an empty map with max_new below the unique count (the cap);
 a 256-bucket table whose buckets a first insert filled to 3 and 4 (the
 in-bucket rank overflows); free_top below the new keys (the heap runs dry
@@ -97,21 +99,40 @@ def _keys(jc, tc, frame: dict, pose: np.ndarray):
     return np.asarray(kj), kt.numpy()
 
 
-@pytest.mark.parametrize("stride,steps", [(1, 3), (3, 3), (1, 5), (3, 5)])
-def test_candidate_keys_match_jax(stride, steps):
+# (stride, band steps, frame cut to ODD_HW: neither side a multiple of
+# strides 2-4)
+ODD_HW = (59, 79)
+
+
+@pytest.mark.parametrize("stride,steps,odd", [
+    pytest.param(1, 3, False, id="1-3"), pytest.param(3, 3, False, id="3-3"),
+    pytest.param(1, 5, False, id="1-5"), pytest.param(3, 5, False, id="3-5"),
+    pytest.param(1, 1, True, id="1-1-odd"),
+    pytest.param(2, 2, True, id="2-2-odd"),
+    pytest.param(3, 7, True, id="3-7-odd"),
+    pytest.param(4, 3, True, id="4-3-odd")])
+def test_candidate_keys_match_jax(stride, steps, odd):
     """Bit-exact keys, in (band, h, w) order, at both poses; the far pose
     gives EMPTY_KEY for part of the band, the dropouts for every band
-    sample of their ray."""
+    sample of their ray.  K5a's edges that a CPU runs: band steps 1, 2
+    and 7, and a 79 x 59 frame (cut from the 80 x 60 one), whose sides no
+    stride from 2 to 4 divides.  (A valid depth with non-finite vertices
+    is a card case only: the CPU's float-to-int32 conversion takes NaN
+    and inf elsewhere than XLA's and the card's.)"""
     jc, tc = _cfgs(candidate_stride=stride, band_steps=steps)
     frame = _frame(jc, seed=stride + steps)
+    if odd:
+        frame = {k: v[:ODD_HW[0], :ODD_HW[1]] for k, v in frame.items()}
     counts = tho.LAUNCHES_ALLOC_CANDIDATES
     near_j, near_t = _keys(jc, tc, frame, _pose())
     far_j, far_t = _keys(jc, tc, frame, _pose(far=True))
     assert tho.LAUNCHES_ALLOC_CANDIDATES == counts
     np.testing.assert_array_equal(near_t, near_j)
     np.testing.assert_array_equal(far_t, far_j)
-    h = -(-tc.camera.height // stride)
-    w = -(-tc.camera.width // stride)
+    H, W = frame["depth"].shape
+    assert not odd or (H % stride and W % stride) or stride == 1
+    h = -(-H // stride)
+    w = -(-W // stride)
     assert near_t.shape == (steps * h * w,)
     invalid = frame["depth"][::stride, ::stride] <= 0
     assert invalid.any()
@@ -334,6 +355,38 @@ def test_public_functions_run_plain_on_cpu():
     assert tho._stamp_arg(7, torch.device("cpu"), "x") == (None, 7)
     assert tho.default_bucket_fn(tc.hash) == tho.BucketHash(
         tc.hash.num_buckets, 1)
+
+
+def test_candidate_tables_refuse_and_are_kept_by_identity():
+    """K5a's host tables raise on key bits outside 1..MAX_KEY_BITS (as
+    its wrapper did on every call); they are built once a configuration
+    and kept by the objects' identity (the same tables for the same
+    objects, new ones for an equal copy): the stride, band steps, key bits
+    and block size, and the truncation, its depth scale, recip(voxel
+    size) and torch.linspace(-1, 1, steps)'s step as float32."""
+    from voxelhashing_demo_tpu_torch.geometry.f32 import recip
+
+    _, tc = _cfgs(candidate_stride=3, band_steps=5)
+    for bits in (0, tho.MAX_KEY_BITS + 1):
+        with pytest.raises(ValueError, match="key bits"):
+            tho._candidate_tables(dataclasses.replace(tc.hash,
+                                                      key_bits=bits),
+                                  tc.fusion)
+    ints, floats = tho._candidate_tables(tc.hash, tc.fusion)
+    assert tho._candidate_tables(tc.hash, tc.fusion)[0] is ints
+    assert list(ints) == [3, 5, tc.hash.key_bits, tc.hash.block_size]
+    fus = tc.fusion
+    assert list(floats) == [float(np.float32(x)) for x in (
+        fus.truncation, fus.trunc_scale, recip(fus.voxel_size))] + [
+        float(np.float32(2.0) / np.float32(4.0))]
+    for n in (2, 3, 7):
+        step = tho._candidate_tables(dataclasses.replace(
+            tc.hash, band_steps=n), fus)[1][3]
+        assert step == float(np.float32(2.0) / np.float32(n - 1))
+    assert tho._candidate_tables(dataclasses.replace(
+        tc.hash, band_steps=1), fus)[1][3] == 0.0
+    again = tho._candidate_tables(dataclasses.replace(tc.hash), fus)
+    assert again[0] is not ints and list(again[0]) == list(ints)
 
 
 def test_kernel_arguments_match_the_sources():

@@ -26,9 +26,11 @@ graph bit for bit; a refused launch raises.  The splat kernels (K8
 for bit on every field (maps with FREE_PTR rows, band cuts and rows past
 ``count``, 48 poses, the near / far gates, fill rounds 0-5 and 16, odd
 sizes, an image smaller than one tile, buffers with no hole, no estimate
-and negative values, the ``pmin``-ed buffer), make no host sync and
-replay from a CUDA graph; each K9 and K7 instantiation reports its
-registers and resident CTAs.
+and negative values, the ``pmin``-ed buffer; K8 also, filter on and
+off, at block sizes 5, 7 and 10, count 0, 4 096 rows all in the band,
+every ptr FREE_PTR and rows off a 16-byte boundary), make no host sync
+and replay from a CUDA graph; K8's host tables are kept by identity;
+each K9 and K7 instantiation reports its registers and resident CTAs.
 The fuse kernels (K6 ``compact_visible``, K7 ``integrate_rows``) equal
 their plain versions bit for bit: the visible set, its order and count
 from 48 poses of a room sweep, on a set that overflows ``max_active``, on
@@ -45,7 +47,9 @@ integrate makes no host sync, ``fuse_frame`` none outside allocation, and
 both replay from a CUDA graph; a refused build or launch raises.  The
 allocation kernels (K5a ``alloc_candidates``, K5b ``insert_blocks``) equal
 their plain versions bit for bit: the candidate keys at 48 poses of a
-room sweep and past the key range, strides 1-3 and band steps 1-7; every
+room sweep and past the key range, strides 1-3 and band steps 1-7, the
+frame cut to 479 x 637 at strides 1-4, valid depths whose vertices are
+not finite; every
 map field and n_alloc after an insert of the step's keys at four poses
 (the step's map, the cap, a heap run dry, a 512-bucket table filled to 3
 and 4), of random key sets of 100 to 60 000 distinct keys (the cap path
@@ -1507,6 +1511,117 @@ def test_splat_zbuffer_over_poses(cuda):
         assert int((got > 0).sum()) > 300, k
 
 
+# K8's edges: block sizes whose rows are not 16-byte multiples (5, 7) and
+# the largest it takes (10: 1 000 voxels); count 0; a set of 4 096 rows,
+# every one in `count` and in the band, so that row groups walk several
+# rows; every ptr FREE_PTR; 8^3 rows 4 bytes off a 16-byte boundary (the
+# scalar instantiation at the flagship's block size)
+K8_EDGES = ("block_size_5", "block_size_7", "block_size_10", "count_0",
+            "every_row_in_band_x4096", "every_ptr_free", "unaligned_rows")
+
+
+def _k8_edge(cuda, which: str) -> tuple:
+    """(config, map, active set, pose) of K8 edge ``which`` at 640x480,
+    from ``torch_port_helpers.splat_map_case``."""
+    from torch_port_helpers import splat_map_case
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    bs = int(which.rsplit("_", 1)[1]) if which.startswith("block_size_") \
+        else 8
+    cfg = _splat_cfg("full")
+    cfg = dataclasses.replace(cfg, hash=dataclasses.replace(cfg.hash,
+                                                            block_size=bs))
+    band = cfg.raycast.splat_band * cfg.fusion.voxel_size
+    c = splat_map_case(cfg.fusion.voxel_size, band, seed=3, block_size=bs)
+    on = {k: torch.as_tensor(np.asarray(v), device=cuda)
+          for k, v in c.items()}
+    tsdf, weight, band_min = on["tsdf"], on["weight"], on["band_min"]
+    blocks, ptrs, count = on["blocks"], on["ptrs"], on["count"]
+    if which == "count_0":
+        count = torch.zeros_like(count)
+    elif which == "every_ptr_free":
+        ptrs = torch.full_like(ptrs, hash_ops.FREE_PTR)
+    elif which == "every_row_in_band_x4096":
+        n = int(count)
+        live = (ptrs[:n] >= 0) & (band_min[ptrs[:n].clamp(min=0).long()]
+                                  < band)
+        idx = live.nonzero().flatten()
+        take = idx[torch.arange(4096, device=cuda) % idx.numel()]
+        blocks, ptrs = blocks[take].contiguous(), ptrs[take].contiguous()
+        count = torch.tensor(4096, dtype=torch.int32, device=cuda)
+    elif which == "unaligned_rows":
+        def shifted(t):
+            out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                              device=cuda)[1:].view(t.shape)
+            out.copy_(t)
+            assert out.is_contiguous() and out.data_ptr() % 16 == 4
+            return out
+
+        tsdf, weight = shifted(tsdf), shifted(weight)
+    hmap = hash_ops.HashMap(*([None] * 5), tsdf=tsdf, weight=weight,
+                            last_seen=None, band_min=band_min, born=None)
+    return cfg, hmap, hash_ops.ActiveSet(blocks=blocks, ptrs=ptrs,
+                                         count=count), on["pose"]
+
+
+@pytest.mark.parametrize("which", K8_EDGES)
+def test_splat_zbuffer_edges(cuda, which):
+    """K8 bit for bit against its plain version on its edges
+    (``K8_EDGES``), with the band filter off and on (against the plain
+    version on ``surface_filter``'s set); one launch a call."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops, splat
+
+    cfg, hmap, active, pose = _k8_edge(cuda, which)
+    cam, rc, fus = cfg.camera, cfg.raycast, cfg.fusion
+    args = (hmap, active, cfg.hash, pose, cam, rc, fus)
+    before = splat.LAUNCHES_ZBUFFER
+    got = splat.splat_depth_from_map(*args)
+    assert splat.LAUNCHES_ZBUFFER == before + 1
+    assert _bits_equal(got, splat.splat_depth_from_map_reference(*args))
+    filtered = torch.nan_to_num(splat._launch_zbuffer(
+        *args, band_filter=True).view(cam.height, cam.width), posinf=0.0)
+    assert splat.LAUNCHES_ZBUFFER == before + 2
+    # surface_filter reads every row: the set padded past `count` with
+    # FREE_PTR, as compact_visible pads it
+    rows = torch.arange(active.ptrs.shape[0], device=cuda)
+    padded = active._replace(ptrs=torch.where(
+        rows < active.count, active.ptrs, hash_ops.FREE_PTR).to(torch.int32))
+    surf = splat.surface_filter(hmap, padded, rc.splat_band * fus.voxel_size)
+    assert _bits_equal(filtered, splat.splat_depth_from_map_reference(
+        hmap, surf, *args[2:]))
+    hits = int((got > 0).sum())
+    if which in ("count_0", "every_ptr_free"):
+        assert hits == 0
+    else:
+        assert hits > 100 and int((filtered > 0).sum()) > 100
+
+
+def test_splat_zbuffer_tables_kept_by_identity(cuda):
+    """K8's host tables are built once a map and configuration: the same
+    tables for the same row tensors and configuration objects, new ones
+    for another row tensor or an equal copy of a configuration, none kept
+    for rows that are not contiguous (read as copies)."""
+    from voxelhashing_demo_tpu_torch.ops import splat
+
+    cfg = _splat_cfg("full")
+    hmap, _, _ = _splat_inputs(cuda, cfg, padded=False)
+    a = (cfg.hash, cfg.camera, cfg.raycast, cfg.fusion)
+    t = splat._zbuffer_tables(hmap, *a)
+    assert splat._zbuffer_tables(hmap, *a) is t and t[4] is None
+    assert list(t[0]) == [x.data_ptr() for x in (hmap.tsdf, hmap.weight,
+                                                   hmap.band_min)]
+    assert list(t[1]) == [hmap.tsdf.shape[0], 8, 480, 640]
+    assert splat._zbuffer_tables(hmap, cfg.hash, cfg.camera,
+                                 dataclasses.replace(cfg.raycast),
+                                 cfg.fusion) is not t
+    other = hmap._replace(weight=hmap.weight.clone())
+    assert splat._zbuffer_tables(other, *a)[0][1] == other.weight.data_ptr()
+    strided = hmap._replace(tsdf=hmap.tsdf.t().contiguous().t())
+    got = splat._zbuffer_tables(strided, *a)
+    assert got[4] is not None and got[4][0].is_contiguous()
+    assert splat._zbuffer_tables(strided, *a) is not got
+
+
 @pytest.mark.parametrize("rounds", [0, 1, 2])
 @pytest.mark.parametrize("size", ["tiny", "full"])
 def test_splat_raycast_matches_plain(cuda, size, rounds):
@@ -2246,6 +2361,52 @@ def test_candidate_keys_match_plain(fuse_case):
         assert torch.equal(got, want), (stride, steps)
     again = hash_ops.frame_candidate_keys(frame, pose, *args)
     assert again.data_ptr() != got.data_ptr()
+
+
+# K5a's edges on the step's frame: cut to 479 x 637 (no side a multiple
+# of strides 2-4) at strides 1-4; band steps 2; valid depths whose
+# vertices are not finite (inf, -inf, NaN in one coordinate or all
+# three); 7 band steps at a pose whose keys leave the key range
+K5A_EDGES = ("stride_1_odd", "stride_2_odd", "stride_3_odd", "stride_4_odd",
+             "band_steps_2", "nonfinite_vertices", "far_pose_steps_7")
+
+
+@pytest.mark.parametrize("which", K5A_EDGES)
+def test_candidate_keys_edges(fuse_case, which):
+    """K5a bit for bit against ``frame_candidate_keys_reference`` on its
+    edges (``K5A_EDGES``); one launch a call."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, _, pose, _, frame = fuse_case
+    h = cfg.hash
+    if which.startswith("stride_"):
+        s = int(which.split("_")[1])
+        h = dataclasses.replace(h, candidate_stride=s)
+        frame = frame._replace(**{f: getattr(frame, f)[:479, :637]
+                                  .contiguous() for f in frame._fields})
+        assert s == 1 or (479 % s and 637 % s)
+    elif which == "band_steps_2":
+        h = dataclasses.replace(h, band_steps=2)
+    elif which == "nonfinite_vertices":
+        v = frame.vertices.clone()
+        at = (frame.depth > 0).nonzero()[::97][:40]
+        v[at[:10, 0], at[:10, 1], 0] = float("inf")
+        v[at[10:20, 0], at[10:20, 1], 1] = -float("inf")
+        v[at[20:30, 0], at[20:30, 1], 2] = float("nan")
+        v[at[30:, 0], at[30:, 1]] = float("nan")
+        frame = frame._replace(vertices=v)
+    else:
+        h = dataclasses.replace(h, band_steps=7)
+        pose = _pose_far(pose)
+    before = hash_ops.LAUNCHES_ALLOC_CANDIDATES
+    got = hash_ops.frame_candidate_keys(frame, pose, cfg.camera, h,
+                                        cfg.fusion)
+    assert hash_ops.LAUNCHES_ALLOC_CANDIDATES == before + 1
+    want = hash_ops.frame_candidate_keys_reference(frame, pose, cfg.camera,
+                                                   h, cfg.fusion)
+    assert got.shape == want.shape and torch.equal(got, want)
+    if which == "far_pose_steps_7":
+        assert bool((got == hash_ops.EMPTY_KEY).any())
 
 
 @pytest.mark.parametrize("case", ["step", "cap", "heap", "full_buckets"])

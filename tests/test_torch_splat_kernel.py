@@ -8,7 +8,10 @@ inputs made from a seed (``torch_port_helpers.splat_map_case`` /
 ``count``, many voxels a pixel, and surface depths on both sides of the
 near and far gates; raw depth buffers with holes along the image border
 and in its corners (where the fill pads with +inf and the smooth wraps),
-fill rounds 0, 1 and 2, and the multi-device path's ``pmin``-ed buffer.
+fill rounds 0, 1 and 2, and the multi-device path's ``pmin``-ed buffer;
+and K8's edges: block sizes 5, 7 and 10, count 0, every row in the band,
+every ptr FREE_PTR.  The plans and K8's host tables refuse what the
+kernels do not take.
 On CPU tensors the public functions run exactly these plain versions.
 
 Tolerances (PERF.md §2's "Float map / pixel maps" tier): the raw z-buffer
@@ -103,16 +106,55 @@ def _voxels_in_band(c, band: float) -> int:
     return int(ok.sum())
 
 
-@pytest.mark.parametrize("gates", list(GATES))
-def test_zbuffer_matches_jax(case, gates):
+# K8's edges that a CPU runs at 80x60: block sizes whose rows are not
+# 16-byte multiples (5, 7) and the largest K8 takes (10: 1 000 voxels);
+# count 0; a set whose every row lies in `count` and in the band; a set
+# whose every ptr is FREE_PTR
+ZBUFFER_EDGES = ("block_size_5", "block_size_7", "block_size_10", "count_0",
+                 "every_row_in_band", "every_ptr_free")
+
+
+def _zbuffer_edge(which: str, voxel_size: float, band: float) -> tuple:
+    """(numpy case, block size) of edge ``which`` (``ZBUFFER_EDGES``)."""
+    if which.startswith("block_size_"):
+        bs = int(which.rsplit("_", 1)[1])
+        return splat_map_case(voxel_size, band, seed=bs,
+                              block_size=bs), bs
+    c = dict(splat_map_case(voxel_size, band, seed=3))
+    n = int(c["count"])
+    if which == "count_0":
+        c["count"] = np.int32(0)
+        c["ptrs_padded"] = np.full_like(c["ptrs"], -1)
+    elif which == "every_ptr_free":
+        c["ptrs"] = np.full_like(c["ptrs"], -1)
+        c["ptrs_padded"] = c["ptrs"].copy()
+    else:
+        ptrs = c["ptrs"][:n]
+        keep = (ptrs >= 0) & (c["band_min"][np.maximum(ptrs, 0)] < band)
+        c["blocks"] = c["blocks_padded"] = c["blocks"][:n][keep]
+        c["ptrs"] = c["ptrs_padded"] = ptrs[keep]
+        c["count"] = np.int32(keep.sum())
+    return c, 8
+
+
+@pytest.mark.parametrize("which", list(GATES) + list(ZBUFFER_EDGES))
+def test_zbuffer_matches_jax(case, which):
     """The raw z-buffer (K8's plain version, no band filter) bit for bit:
     FREE_PTR rows inside ``count`` and rows past it add nothing, stale
-    rows splat, and many voxels land on one pixel."""
-    jc, tc = _cfgs(gates)
-    want = np.asarray(J_FROM_MAP(*_jax_inputs(jc, case)[:2], jc.hash,
-                                 _jax_inputs(jc, case)[2], jc.camera,
+    rows splat, and many voxels land on one pixel; and on K8's edges
+    (``ZBUFFER_EDGES``)."""
+    if which in GATES:
+        jc, tc = _cfgs(which)
+        c = case
+    else:
+        jc, tc = _cfgs("flagship")
+        c, bs = _zbuffer_edge(which, tc.fusion.voxel_size, _band(tc))
+        jc, tc = (dataclasses.replace(x, hash=dataclasses.replace(
+            x.hash, block_size=bs)) for x in (jc, tc))
+    want = np.asarray(J_FROM_MAP(*_jax_inputs(jc, c)[:2], jc.hash,
+                                 _jax_inputs(jc, c)[2], jc.camera,
                                  jc.raycast, jc.fusion))
-    hmap, active, pose = _port_inputs(tc, case)
+    hmap, active, pose = _port_inputs(tc, c)
     got = tsp.splat_depth_from_map(hmap, active, tc.hash, pose, tc.camera,
                                    tc.raycast, tc.fusion)
     assert got.dtype == torch.float32 and got.shape == want.shape
@@ -121,10 +163,17 @@ def test_zbuffer_matches_jax(case, gates):
     assert torch.equal(got, tsp.splat_depth_from_map_reference(
         hmap, active, tc.hash, pose, tc.camera, tc.raycast, tc.fusion))
     hits = int((got > 0).sum())
+    if which in ("count_0", "every_ptr_free"):
+        assert hits == 0
+        return
+    assert hits > 100
+    assert _voxels_in_band(c, _band(tc)) > 2 * hits     # shared pixels
+    if which not in GATES:
+        return
     assert hits > 300
-    assert _voxels_in_band(case, _band(tc)) > 3 * hits     # shared pixels
-    if GATES[gates] is not None:
-        near, far = GATES[gates]
+    assert _voxels_in_band(case, _band(tc)) > 3 * hits
+    if GATES[which] is not None:
+        near, far = GATES[which]
         d = got[got > 0]
         assert bool((d > near).all() and (d < far).all())
         full, _ = _cfgs("flagship")
@@ -272,9 +321,11 @@ def test_kernel_arguments_match_the_sources():
             assert ("*" in p) == (t is kernels._P), (name, p)
 
 
-def test_wrapper_plans_refuse_what_the_kernels_do_not_take():
-    """The plans raise on fill rounds outside 0..MAX_FILL_ROUNDS, a
-    negative near plane and blocks of more than MAX_VOXELS voxels."""
+def test_wrapper_plans_refuse_what_the_kernels_do_not_take(case):
+    """The plans, and the host tables built from them, raise on fill
+    rounds outside 0..MAX_FILL_ROUNDS, a negative near plane and blocks of
+    more than MAX_VOXELS voxels (10^3 = 1 000 is taken); K8's tables also
+    on map rows that do not lie on a CUDA device, and keep nothing."""
     _, tc = _cfgs("flagship")
     rc = tc.raycast
     tsp._finalize_plan(tc.camera, dataclasses.replace(
@@ -282,12 +333,28 @@ def test_wrapper_plans_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="fill rounds"):
         tsp._finalize_plan(tc.camera, dataclasses.replace(
             rc, splat_fill_rounds=tsp.MAX_FILL_ROUNDS + 1), tc.fusion)
+    with pytest.raises(ValueError, match="fill rounds"):
+        tsp._finalize_tables(tc.camera, dataclasses.replace(
+            rc, splat_fill_rounds=-1), tc.fusion)
     with pytest.raises(ValueError, match="near"):
         tsp._zbuffer_plan(tc.hash, tc.camera,
                           dataclasses.replace(rc, near=-0.1), tc.fusion)
     with pytest.raises(ValueError, match="voxels a block"):
         tsp._zbuffer_plan(dataclasses.replace(tc.hash, block_size=16),
                           tc.camera, rc, tc.fusion)
+    assert tsp._zbuffer_plan(dataclasses.replace(tc.hash, block_size=10),
+                             tc.camera, rc, tc.fusion)[0] == 10
+    hmap, _, _ = _port_inputs(tc, case)
+    tables = dict(tsp._ZBUFFER_TABLES)
+    with pytest.raises(ValueError, match="near"):
+        tsp._zbuffer_tables(hmap, tc.hash, tc.camera,
+                            dataclasses.replace(rc, near=-0.1), tc.fusion)
+    with pytest.raises(ValueError, match="voxels a block"):
+        tsp._zbuffer_tables(hmap, dataclasses.replace(tc.hash, block_size=11),
+                            tc.camera, rc, tc.fusion)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tsp._zbuffer_tables(hmap, tc.hash, tc.camera, rc, tc.fusion)
+    assert tsp._ZBUFFER_TABLES == tables
 
 
 def test_finalize_tables_are_kept_by_identity():

@@ -548,10 +548,12 @@ def assert_bits_equal(got, want):
     np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
 
 
-def splat_map_case(voxel_size: float, band: float, seed: int = 0):
+def splat_map_case(voxel_size: float, band: float, seed: int = 0,
+                   block_size: int = 8):
     """numpy inputs of the splat z-buffer (K8 and its plain version): a
     tilted wall 0.7-1.8 m in front of a camera that looks along +z,
-    fused as a projective TSDF into 8^3-voxel rows.
+    fused as a projective TSDF into ``block_size``^3-voxel rows (the
+    candidate blocks span the same space whatever the block size).
 
     Returns {"tsdf", "weight", "band_min"} of the map's rows, {"blocks",
     "ptrs", "count"} of an active set and "pose" (T_wc, float32 4x4).
@@ -565,7 +567,7 @@ def splat_map_case(voxel_size: float, band: float, seed: int = 0):
     FREE_PTR there, as compact_visible pads it (the JAX package reads
     rows past ``count`` in its last chunk)."""
     rng = np.random.default_rng(seed)
-    bs, trunc = 8, 4 * voxel_size
+    bs, trunc = block_size, 4 * voxel_size
     if band > trunc:
         raise ValueError("the empty rows' band_min (the truncation) must "
                          "lie at or past the band")
@@ -583,8 +585,8 @@ def splat_map_case(voxel_size: float, band: float, seed: int = 0):
     local = np.stack(np.meshgrid(np.arange(bs), np.arange(bs),
                                  np.arange(bs), indexing="ij"), -1)
     local = local.transpose(2, 1, 0, 3).reshape(-1, 3)   # x fastest
-    span = np.arange(-8, 8)
-    cand = np.stack(np.meshgrid(span, span, np.arange(2, 14),
+    span = np.arange(-(64 // bs), 64 // bs)
+    cand = np.stack(np.meshgrid(span, span, np.arange(16 // bs, 112 // bs),
                                 indexing="ij"), -1).reshape(-1, 3)
     world = ((cand[:, None, :] * bs + local) * voxel_size)
     pc = (world - t) @ R                    # camera coordinates

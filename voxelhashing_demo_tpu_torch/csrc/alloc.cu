@@ -15,9 +15,23 @@
 //
 // No PyTorch call computes either.
 //
-// K5a.  One thread a strided ray, all its band samples: an elementwise
-// pass.  Each thread reads its pixel's depth and vertex, and writes
-// band_steps keys at (band, ray), so the writes of a warp are coalesced.
+// K5a.  An elementwise pass whose cost at the flagship's size (34 240
+// rays, 3 band steps) is the launch, the round trips a thread waits for
+// and its instructions, not bytes.  So a thread takes one (band step,
+// ray) pair, three times the warps of a thread a ray: CTA (x, y, s) holds
+// 8 warps, each 32 rays of one strided row, at band step s.  At entry
+// each thread loads its pixel's depth, its vertex (whatever the depth
+// says: the address is valid) and the pose together; the arithmetic
+// follows and the key is stored at (band, ray), so the stores of a warp
+// are coalesced.  The ray's position needs no integer division (the
+// grid's x and y) and linspace's step comes from the host, divided there
+// in float32 (no divide a thread); an instantiation for block size 8 (the
+// floor division a shift) beside the generic one.  (PR 17's design, a
+// thread a ray and its band steps, 134 CTAs of 256, waited for the depth,
+// then the vertex, then the pose, one after another.  A warp's span
+// staged in shared memory through coalesced loads, with a thread a ray
+// and its steps or a warp a step, lost: chip_splat_breakdown.py's design
+// trees, PERF.md.)
 //
 // K5b.  One cooperative launch over a persistent scratch (its layout in
 // the K5b section) that every launch leaves as it found it: the set
@@ -128,7 +142,9 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 // K5a
 // ---------------------------------------------------------------------------
 
-constexpr int kThreadsA = 256;
+constexpr int kThreadsA = 256;   // K5a's CTA: 8 warps, 32 rays of a row each
+constexpr int kRowsA = kThreadsA / 32;
+constexpr int kMaxGridYZ = 65535;
 
 struct CandidateParams {
   const float* verts;      // (H, W, 3) camera-space vertices
@@ -137,70 +153,77 @@ struct CandidateParams {
   int* keys;               // (band_steps, h, w) out
   int H, W, stride, h, w, band_steps, key_bits, bs;
   // float32 of the plain version's Python doubles: truncation, its depth
-  // scale, recip(voxel size)
-  float trunc, trunc_scale, inv_voxel;
+  // scale, recip(voxel size); and torch.linspace(-1, 1, band_steps)'s
+  // step, 2 / (band_steps - 1) divided in float32 on the host
+  float trunc, trunc_scale, inv_voxel, step;
 };
 
-// torch.linspace(-1, 1, n)[s] as its CUDA kernel computes it: the step
-// rounded, then start + step * s below the halfway index and end - step *
+// torch.linspace(-1, 1, n)[s] as its CUDA kernel computes it from its
+// step: start + step * s below the halfway index and end - step *
 // (n - 1 - s) from it, each one fused multiply-add
-__device__ __forceinline__ float band_step(int s, int n) {
+__device__ __forceinline__ float band_step(int s, int n, float step) {
   if (n == 1) return -1.0f;
-  const float step = dvd(2.0f, static_cast<float>(n - 1));
   return s < n / 2 ? __fmaf_rn(step, static_cast<float>(s), -1.0f)
                    : __fmaf_rn(-step, static_cast<float>(n - 1 - s), 1.0f);
 }
 
 // world2block of one world coordinate: trunc(p * recip(voxel) +- 0.5) to
-// int32, then floor division by the block size
+// int32, then floor division by the block size (BS, or P.bs when 0)
+template <int BS>
 __device__ __forceinline__ int world_block(const CandidateParams& P, float w) {
   const float p = mul(w, P.inv_voxel);
-  return floor_div(__float2int_rz(add(p, p >= 0.0f ? 0.5f : -0.5f)), P.bs);
+  const int v = __float2int_rz(add(p, p >= 0.0f ? 0.5f : -0.5f));
+  return BS != 0 ? floor_div(v, BS) : floor_div(v, P.bs);
 }
 
+// CTA (x, y, s): rays x 32 .. + 32 (a warp's lanes) of strided rows y
+// kRowsA .. + kRowsA (one a warp) at band step s; rows past the grid's y
+// and steps past its z taken in turn
+template <int BS>
 __global__ void __launch_bounds__(kThreadsA)
 alloc_candidates_kernel(const __grid_constant__ CandidateParams P) {
-  const int R = P.h * P.w;
-  const int r = blockIdx.x * kThreadsA + threadIdx.x;
-  if (r >= R) return;
-  const int y = r / P.w, x = r - (r / P.w) * P.w;
-  const int64_t pix = static_cast<int64_t>(y) * P.stride * P.W +
-                      static_cast<int64_t>(x) * P.stride;
-  const float d = __ldg(P.depth + pix);
-  if (!(d > 0.0f)) {                     // an invalid ray: EMPTY_KEY throughout
-    for (int s = 0; s < P.band_steps; ++s) P.keys[s * R + r] = kEmptyKey;
-    return;
-  }
-  const float v0 = __ldg(P.verts + 3 * pix), v1 = __ldg(P.verts + 3 * pix + 1),
-              v2 = __ldg(P.verts + 3 * pix + 2);
-  // _norm, the reciprocal, the unit ray
-  const float len = __fsqrt_rn(add(add(mul(v0, v0), mul(v2, v2)), mul(v1, v1)));
-  const float inv = dvd(1.0f, clamp_min(len, 1e-9f));
-  const float d0 = mul(v0, inv), d1 = mul(v1, inv), d2 = mul(v2, inv);
-  const float tr = add(mul(d, P.trunc_scale), P.trunc);
-  float R_[3][3], t[3];
+  const int x = blockIdx.x * 32 + (threadIdx.x & 31);
+  if (x >= P.w) return;
+  const int64_t R = static_cast<int64_t>(P.h) * P.w;
+  for (int y = blockIdx.y * kRowsA + (threadIdx.x >> 5); y < P.h;
+       y += gridDim.y * kRowsA) {
+    const int64_t pix = (static_cast<int64_t>(y) * P.W + x) * P.stride;
+    // every load at entry, together: the depth, the vertex (whatever the
+    // depth says: its address is valid), the pose
+    const float d = __ldg(P.depth + pix);
+    const float v0 = __ldg(P.verts + 3 * pix),
+                v1 = __ldg(P.verts + 3 * pix + 1),
+                v2 = __ldg(P.verts + 3 * pix + 2);
+    float T[12];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
+    for (int k = 0; k < 12; ++k) T[k] = __ldg(P.T_wc + k);
+    // _norm, the reciprocal, the unit ray
+    const float len =
+        __fsqrt_rn(add(add(mul(v0, v0), mul(v2, v2)), mul(v1, v1)));
+    const float inv = dvd(1.0f, clamp_min(len, 1e-9f));
+    const float d0 = mul(v0, inv), d1 = mul(v1, inv), d2 = mul(v2, inv);
+    const float tr = add(mul(d, P.trunc_scale), P.trunc);
+    const int bias = 1 << (P.key_bits - 1), lim = (1 << P.key_bits) - 1;
+    for (int s = blockIdx.z; s < P.band_steps; s += gridDim.z) {
+      const float st = mul(band_step(s, P.band_steps, P.step), tr);
+      const float p0 = add(v0, mul(d0, st)), p1 = add(v1, mul(d1, st)),
+                  p2 = add(v2, mul(d2, st));
+      int b[3];
+      bool in_range = true;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) R_[j][k] = __ldg(P.T_wc + 4 * j + k);
-    t[j] = __ldg(P.T_wc + 4 * j + 3);
-  }
-  const int bias = 1 << (P.key_bits - 1), lim = (1 << P.key_bits) - 1;
-  for (int s = 0; s < P.band_steps; ++s) {
-    const float st = mul(band_step(s, P.band_steps), tr);
-    const float p0 = add(v0, mul(d0, st)), p1 = add(v1, mul(d1, st)),
-                p2 = add(v2, mul(d2, st));
-    int b[3];
-    bool in_range = true;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float w = add(dot_mm(p0, R_[j][0], p1, R_[j][1], p2, R_[j][2]), t[j]);
-      b[j] = world_block(P, w) + bias;
-      in_range = in_range && b[j] >= 0 && b[j] <= lim;
+      for (int j = 0; j < 3; ++j) {
+        const float w = add(dot_mm(p0, T[4 * j], p1, T[4 * j + 1], p2,
+                                   T[4 * j + 2]), T[4 * j + 3]);
+        b[j] = world_block<BS>(P, w) + bias;
+        in_range = in_range && b[j] >= 0 && b[j] <= lim;
+      }
+      // an invalid ray (depth not > 0) or a block out of key range:
+      // EMPTY_KEY
+      P.keys[s * R + static_cast<int64_t>(y) * P.w + x] =
+          d > 0.0f && in_range
+              ? (b[0] << (2 * P.key_bits)) | (b[1] << P.key_bits) | b[2]
+              : kEmptyKey;
     }
-    P.keys[s * R + r] = in_range
-        ? (b[0] << (2 * P.key_bits)) | (b[1] << P.key_bits) | b[2]
-        : kEmptyKey;
   }
 }
 
@@ -716,13 +739,16 @@ cudaError_t capacity_of(Kernel kernel, int threads, int* capacity) {
 // kernel does not take returns cudaErrorInvalidValue and launches nothing.
 
 // K5a.  The (band_steps, ceil(H / stride), ceil(W / stride)) packed keys
-// of the frame (vertices (H, W, 3), depth (H, W)) at pose T_wc.
+// of the frame (vertices (H, W, 3), depth (H, W)) at pose T_wc.  Host
+// tables (built once a configuration): ints = stride, band steps, key
+// bits, block size; floats = truncation, its depth scale, recip(voxel
+// size), linspace's step 2 / (band steps - 1) as float32 (0 for one step).
 extern "C" int alloc_candidates(const float* verts, const float* depth,
                                 const float* T_wc, int* keys, int H, int W,
-                                int stride, int band_steps, int key_bits,
-                                int block_size, float trunc,
-                                float trunc_scale, float inv_voxel,
+                                const int* ints, const float* floats,
                                 void* stream) {
+  const int stride = ints[0], band_steps = ints[1], key_bits = ints[2],
+            block_size = ints[3];
   if (H < 1 || W < 1 || stride < 1 || band_steps < 1 || key_bits < 1 ||
       key_bits > 10 || block_size < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -739,12 +765,17 @@ extern "C" int alloc_candidates(const float* verts, const float* depth,
   P.band_steps = band_steps;
   P.key_bits = key_bits;
   P.bs = block_size;
-  P.trunc = trunc;
-  P.trunc_scale = trunc_scale;
-  P.inv_voxel = inv_voxel;
-  const int R = P.h * P.w;
-  alloc_candidates_kernel<<<(R + kThreadsA - 1) / kThreadsA, kThreadsA, 0,
-                            static_cast<cudaStream_t>(stream)>>>(P);
+  P.trunc = floats[0];
+  P.trunc_scale = floats[1];
+  P.inv_voxel = floats[2];
+  P.step = floats[3];
+  const dim3 grid((P.w + 31) / 32,
+                  min((P.h + kRowsA - 1) / kRowsA, kMaxGridYZ),
+                  min(band_steps, kMaxGridYZ));
+  using CandidateKernel = void (*)(CandidateParams);
+  const CandidateKernel kernel = block_size == 8 ? alloc_candidates_kernel<8>
+                                                 : alloc_candidates_kernel<0>;
+  kernel<<<grid, kThreadsA, 0, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 

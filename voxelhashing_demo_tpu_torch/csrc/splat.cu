@@ -13,21 +13,40 @@
 //
 // No Pallas kernel; no PyTorch call computes either.
 //
-// K8.  A CTA takes a row of the active set at a time, its 256 threads a
-// voxel each in turn (two at block size 8), the reference's layout; a
-// grid of eight CTAs a multiprocessor, all resident, strides over the
-// rows, since the row count stays on the device (a grid of one CTA a row,
-// 4 096 at the flagship's max_active, spent 3.6 us launching CTAs that
-// exit; two CTAs a multiprocessor walked ~3 rows each one after another).  Rows at or past `count` are
-// never read; a row whose ptr is FREE_PTR and, with the band filter on, a
-// row whose band_min is not below the band is skipped whole.  That skip is
-// surface_filter: a filtered row holds no voxel with weight > 0 and |sdf|
-// < band, so it adds no update (JAX splat.py:252-262), and no row is
-// compacted or counted on the host.  A
-// voxel's surface depth z + sdf goes into the buffer by atomicMin on the
-// float's int32 bits: exact, since z + sdf > near >= 0 and +inf, the
-// buffer's reset value, orders above every finite positive float.  A voxel
-// that fails a gate writes nothing, so the buffer has no drop slot.
+// K8.  What bounds it at the flagship's size (~770 rows in `count`, ~370 in
+// the band) is not bytes but a chain of dependent round trips to L2 a row,
+// and the launch of a grid sized before the count is known.  So a row group
+// of 128 threads takes a row, 4 voxels a thread as 16-byte loads, kZGroups
+// groups a CTA, and the grid is kZCtasPerSm CTAs a multiprocessor (one
+// wave), each group taking rows g, g + groups, ...  (CTA b's groups rows b,
+// b + grid, ...: the live rows spread over every multiprocessor).  At entry,
+// together, each thread loads what does not depend on its row's pointer: the
+// count, its row's ptr and block coords (readable below `rows`, the padded
+// length, whatever the count), and lanes 0-11 of each warp the pose's twelve
+// floats.  Once the ptr arrives, the row's band_min, weight and tsdf loads
+// go out together; a warp whose row passes the band test then shuffles the
+// pose once and each of its threads computes t_cw (in dot_inv's order), so a
+// skipped row's warps never wait for the pose.  No barrier; every load
+// volatile, so that none is sunk behind a use (a row's voxels behind its
+// band test, its ptr behind the pose).  So a row costs two round trips after
+// the launch's parameter read.  The next row's ptr and coords are loaded
+// while a row is splatted.  Rows at or past `count` are never read; a row
+// whose ptr is FREE_PTR and, with the band filter on, a row whose band_min
+// is not below the band is skipped whole.  That skip is surface_filter: a
+// filtered row holds no voxel with weight > 0 and |sdf| < band, so it adds
+// no update (JAX splat.py:252-262), and no row is compacted or counted on
+// the host.  A ptr is clamped into the map before it indexes it.  Three
+// instantiations: block size 8 (the flagship: one 16-byte load of each a
+// thread, its voxel coordinates by shifts), any block size whose rows are
+// 16-byte aligned (V % 4 == 0, both row arrays aligned: at most two 16-byte
+// loads a thread up to 1 024 voxels) and a scalar one for the rest (at most
+// 8 voxels a thread).  A voxel's surface depth z + sdf goes into the buffer
+// by atomicMin on the float's int32 bits: exact, since z + sdf > near >= 0
+// and +inf, the buffer's reset value, orders above every finite positive
+// float.  A voxel that fails a gate writes nothing, so the buffer has no
+// drop slot.  (PR 15's design, a 256-thread CTA a row and eight CTAs a
+// multiprocessor, paid 1.63 us for its grid alone and five dependent round
+// trips a row.)
 //
 // K9.  A CTA of 512 threads stages 64 columns by 16 + 2R rows of the raw
 // depth in shared memory, R = fill_rounds + 2, and writes the tile of
@@ -82,16 +101,18 @@
 // kernels equal their plain versions on the card bit for bit; on the CPU
 // the plain version rounds as the CPU does.
 //
-// Bound: bytes, far below the launches they replace.  At 640 x 480 with
-// ~930 visible rows, K8 reads each live row's tsdf and weight (4 KB) and
-// the active set's ptrs and band_min (~4 MB) and scatters into the 1.2 MB
-// buffer: ~1.5 us at 3.35 TB/s.  K9 reads the 1.2 MB buffer and writes
-// depth, points, normals and hit (~9.5 MB): ~3 us; its arithmetic, the
-// smooth's nine taps and the normal's cross product, square root and
-// three divides a pixel, takes about as long at the card's issue rate.  What the pair
-// replaces is ~200 eager launches and 5 host reads a frame: the design is
-// one launch each and no host read, every intermediate in shared memory
-// or registers.
+// Bound: bytes, far below the launches they replace.  At 640 x 480, K8
+// reads 20 B of each row in `count` (ptr, block coords, band_min) and the
+// tsdf and weight of each band row (4 KB) and writes the 1.2 MB buffer:
+// ~0.8 us at 3.35 TB/s on the step's 765 rows, 365 in the band, below
+// the launch floor (chip_smoke.py counts it from its run's data).  K9
+// reads the 1.2 MB buffer and writes depth, points, normals and hit
+// (~9.5 MB): ~3 us; its arithmetic, the smooth's nine taps and the
+// normal's cross product, square root and three divides a pixel, takes
+// about as long at the card's issue rate.  What the pair replaces is
+// ~200 eager launches and 5 host reads a frame: the design is one launch
+// each and no host read, every intermediate in shared memory or
+// registers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -143,8 +164,10 @@ __device__ __forceinline__ float cross1(float ai, float bj, float aj, float bi) 
 
 constexpr int kFreePtr = -1;
 constexpr int kMaxVoxels = 1024;     // voxels a block
-constexpr int kZThreads = 256;       // K8's CTA: a thread every 256 voxels
-constexpr int kCtasPerSm = 8;        // K8's grid: CTAs a multiprocessor
+constexpr int kRowThreads = 128;     // K8's row group: a row, 4 voxels a thread
+constexpr int kZGroups = 4;          // row groups a CTA
+constexpr int kZThreads = kRowThreads * kZGroups;
+constexpr int kZCtasPerSm = 2;       // K8's grid: CTAs a multiprocessor
 constexpr int kMaxDevices = 64;
 
 struct ZbufferParams {
@@ -160,38 +183,55 @@ struct ZbufferParams {
   float voxel_size, fx, fy, cx, cy, znear, zfar, band;
 };
 
-// one voxel's surface depth into the z-buffer, if it passes every gate
-__device__ __forceinline__ void splat_voxel(const ZbufferParams& P, int r,
-                                            int row, int i) {
-  const int64_t o = static_cast<int64_t>(row) * P.V + i;
-  const float w = __ldg(P.weight + o);
-  const float sdf = __ldg(P.tsdf + o);
-  if (!(w > 0.0f) || !(fabsf(sdf) < P.band)) return;
+// loads issued where they stand (volatile: the compiler may not sink them
+// into the branch that reads them or past another load's use, so a
+// row's voxels do not wait for its band test, nor its ptr for the pose)
+__device__ __forceinline__ float ld_now(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
 
-  // T_cw = se3.inverse(T_wc): R^T and -(R^T t)
-  const float* T = P.T_wc;
+__device__ __forceinline__ int ld_now(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float4 ld4_now(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// T_cw = se3.inverse(T_wc): R (row-major; R_cw^T = R) and t_cw = -(R^T t)
+struct Pose {
   float R[3][3], t[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R[k][j] = __ldg(T + 4 * k + j);
-    t[k] = __ldg(T + 4 * k + 3);
-  }
+};
+
+// one voxel's surface depth into the z-buffer, if it passes every gate:
+// voxel i of a row whose block coords are (b0, b1, b2)
+template <int BS>
+__device__ __forceinline__ void splat_voxel(const ZbufferParams& P,
+                                            const Pose& T, int b0, int b1,
+                                            int b2, unsigned i, float w,
+                                            float sdf) {
+  if (!(w > 0.0f) || !(fabsf(sdf) < P.band)) return;
   // the voxel's world position: voxel2world(block2voxel(block) + local)
-  const int lx = i % P.bs, ly = (i / P.bs) % P.bs, lz = i / (P.bs * P.bs);
-  const int* b = P.blocks + 3 * r;
-  const float w0 = mul(static_cast<float>(__ldg(b) * P.bs + lx), P.voxel_size);
-  const float w1 = mul(static_cast<float>(__ldg(b + 1) * P.bs + ly),
-                       P.voxel_size);
-  const float w2 = mul(static_cast<float>(__ldg(b + 2) * P.bs + lz),
-                       P.voxel_size);
+  const unsigned bs = BS > 0 ? BS : P.bs;
+  const int lx = i % bs, ly = (i / bs) % bs, lz = i / (bs * bs);
+  const int ibs = static_cast<int>(bs);
+  const float w0 = mul(static_cast<float>(b0 * ibs + lx), P.voxel_size);
+  const float w1 = mul(static_cast<float>(b1 * ibs + ly), P.voxel_size);
+  const float w2 = mul(static_cast<float>(b2 * ibs + lz), P.voxel_size);
   // pc = world @ R_cw^T + t_cw, R_cw^T = R
   float pc[3];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float tcw = -dot_inv(R[0][j], t[0], R[1][j], t[1], R[2][j], t[2]);
-    pc[j] = add(dot_mm(w0, R[0][j], w1, R[1][j], w2, R[2][j]), tcw);
-  }
+  for (int j = 0; j < 3; ++j)
+    pc[j] = add(dot_mm(w0, T.R[0][j], w1, T.R[1][j], w2, T.R[2][j]),
+                T.t[j]);
   const float z = pc[2];
   if (!(z > P.znear && z < P.zfar)) return;
   const float z_surf = add(z, sdf);
@@ -209,20 +249,143 @@ __device__ __forceinline__ void splat_voxel(const ZbufferParams& P, int r,
             __float_as_int(z_surf));
 }
 
-// CTA b takes rows b, b + gridDim.x, ... below the device count; a row
-// whose ptr is FREE_PTR or (filter) whose band_min is not below the band
-// adds nothing and is skipped whole
-__global__ void __launch_bounds__(kZThreads)
-splat_zbuffer_kernel(const __grid_constant__ ZbufferParams P) {
-  const int count = min(__ldg(P.count), P.rows);
-  for (int r = blockIdx.x; r < count; r += gridDim.x) {
-    const int ptr = __ldg(P.ptrs + r);
-    if (ptr == kFreePtr) continue;
-    const int row = min(max(ptr, 0), P.n_map_rows - 1);
-    if (P.filter && !(__ldg(P.band_min + row) < P.band)) continue;
-    for (int i = threadIdx.x; i < P.V; i += kZThreads)
-      splat_voxel(P, r, row, i);
+// what a thread of a row group takes of a row: kSlots loads of kPer
+// voxels, voxels (lane + k kRowThreads) kPer + e
+template <int BS, bool VEC>
+struct RowShape {
+  static constexpr int kPer = VEC ? 4 : 1;
+  static constexpr int kV = BS > 0 ? BS * BS * BS : kMaxVoxels;
+  static constexpr int kSlots =
+      (kV + kPer * kRowThreads - 1) / (kPer * kRowThreads);
+  static constexpr int kN = kSlots * kPer;    // voxels a thread
+};
+
+// a row's band_min, weight and tsdf (this thread's voxels), all loads in
+// flight together
+template <int BS, bool VEC>
+__device__ __forceinline__ void load_row(const ZbufferParams& P, int ptr,
+                                         unsigned lane, unsigned V,
+                                         float& bm, float* w, float* s) {
+  using S = RowShape<BS, VEC>;
+  const int row = min(max(ptr, 0), P.n_map_rows - 1);
+  const float* wrow = P.weight + static_cast<int64_t>(row) * V;
+  const float* srow = P.tsdf + static_cast<int64_t>(row) * V;
+  bm = P.filter ? ld_now(P.band_min + row) : 0.0f;
+#pragma unroll
+  for (int k = 0; k < S::kSlots; ++k) {
+    const unsigned i = (lane + k * kRowThreads) * S::kPer;
+    if (i < V) {
+      if constexpr (VEC) {
+        const float4 a = ld4_now(wrow + i), c = ld4_now(srow + i);
+        w[4 * k] = a.x, w[4 * k + 1] = a.y, w[4 * k + 2] = a.z,
+        w[4 * k + 3] = a.w;
+        s[4 * k] = c.x, s[4 * k + 1] = c.y, s[4 * k + 2] = c.z,
+        s[4 * k + 3] = c.w;
+      } else {
+        w[k] = ld_now(wrow + i);
+        s[k] = ld_now(srow + i);
+      }
+    }
   }
+}
+
+// T_cw of the pose whose float k lane k < 12 of the warp holds: the
+// warp's shuffles, then t_cw in dot_inv's order
+__device__ __forceinline__ Pose unpack_pose(float mine) {
+  Pose T;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      T.R[k][j] = __shfl_sync(0xffffffffu, mine, 4 * k + j);
+  }
+  const float t0 = __shfl_sync(0xffffffffu, mine, 3);
+  const float t1 = __shfl_sync(0xffffffffu, mine, 7);
+  const float t2 = __shfl_sync(0xffffffffu, mine, 11);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    T.t[j] = -dot_inv(T.R[0][j], t0, T.R[1][j], t1, T.R[2][j], t2);
+  return T;
+}
+
+// Row group g of CTA b takes rows b + g grid, then every kZGroups grid
+// rows further, below the device count (see the notes at the top).  BS:
+// the block size (0: read at run time); VEC: 16-byte row loads.
+template <int BS, bool VEC>
+__global__ void __launch_bounds__(kZThreads, kZCtasPerSm)
+splat_zbuffer_kernel(const __grid_constant__ ZbufferParams P) {
+  using S = RowShape<BS, VEC>;
+  const unsigned lane = threadIdx.x % kRowThreads;
+  const int step = gridDim.x * kZGroups;
+  int r = blockIdx.x + static_cast<int>(threadIdx.x / kRowThreads) *
+                           gridDim.x;
+  const unsigned V = BS > 0 ? BS * BS * BS : P.V;
+  // at entry, together: the pose (lane k < 12 of each warp its float k),
+  // the count, the first row's ptr and block coords
+  const unsigned wl = threadIdx.x & 31;
+  const float mine = wl < 12 ? ld_now(P.T_wc + wl) : 0.0f;
+  const int count = min(ld_now(P.count), P.rows);
+  int ptr = kFreePtr, b0 = 0, b1 = 0, b2 = 0;
+  if (r < P.rows) {
+    ptr = ld_now(P.ptrs + r);
+    b0 = ld_now(P.blocks + 3 * r);
+    b1 = ld_now(P.blocks + 3 * r + 1);
+    b2 = ld_now(P.blocks + 3 * r + 2);
+  }
+  // the first row's map loads as soon as its ptr arrives; the pose is
+  // unpacked once, by a warp whose row passes the band test, so no other
+  // warp waits for it
+  float bm = 0.0f, w[S::kN] = {}, s[S::kN] = {};
+  bool live = r < count && ptr != kFreePtr;
+  if (live) load_row<BS, VEC>(P, ptr, lane, V, bm, w, s);
+  Pose T = {};
+  bool posed = false;
+  while (r < count) {
+    const int next = r + step;
+    int nptr = kFreePtr, n0 = 0, n1 = 0, n2 = 0;
+    if (next < count) {
+      nptr = ld_now(P.ptrs + next);
+      n0 = ld_now(P.blocks + 3 * next);
+      n1 = ld_now(P.blocks + 3 * next + 1);
+      n2 = ld_now(P.blocks + 3 * next + 2);
+    }
+    if (live && (!P.filter || bm < P.band)) {
+      if (!posed) {
+        T = unpack_pose(mine);
+        posed = true;
+      }
+#pragma unroll
+      for (int k = 0; k < S::kSlots; ++k) {
+        const unsigned i = (lane + k * kRowThreads) * S::kPer;
+        if (i < V) {
+#pragma unroll
+          for (int e = 0; e < S::kPer; ++e)
+            splat_voxel<BS>(P, T, b0, b1, b2, i + e, w[S::kPer * k + e],
+                            s[S::kPer * k + e]);
+        }
+      }
+    }
+    r = next;
+    ptr = nptr;
+    b0 = n0;
+    b1 = n1;
+    b2 = n2;
+    live = r < count && ptr != kFreePtr;
+    if (live) load_row<BS, VEC>(P, ptr, lane, V, bm, w, s);
+  }
+}
+
+// the instantiations: block size 8 with 16-byte row loads (the flagship),
+// any block size with them, any without
+using ZbufferKernel = void (*)(ZbufferParams);
+
+__host__ __forceinline__ ZbufferKernel zbuffer_kernel(const ZbufferParams& P) {
+  const bool vec = P.V % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(P.tsdf) |
+                     reinterpret_cast<uintptr_t>(P.weight)) & 15) == 0;
+  if (!vec) return splat_zbuffer_kernel<0, false>;
+  return P.bs == 8 ? splat_zbuffer_kernel<8, true>
+                   : splat_zbuffer_kernel<0, true>;
 }
 
 // ---------------------------------------------------------------------------
@@ -568,46 +731,47 @@ __host__ __forceinline__ size_t finalize_smem(int rounds) {
 
 // K8.  Scatter-min the surface depth of active[:count]'s voxels into zbuf
 // (H * W floats, reset to +inf by the caller).  rows: the active set's
-// padded length (the grid); filter: skip rows whose band_min >= band.
-extern "C" int splat_zbuffer(const int* blocks, const int* ptrs,
-                             const int* count, const float* tsdf,
-                             const float* weight, const float* band_min,
-                             const float* T_wc, float* zbuf, int rows,
-                             int n_map_rows, int block_size, int H, int W,
-                             float voxel_size, float fx, float fy, float cx,
-                             float cy, float znear, float zfar, float band,
-                             int filter, void* stream) {
-  const int V = block_size * block_size * block_size;
-  if (rows < 0 || n_map_rows < 1 || block_size < 1 || V > kMaxVoxels ||
-      H < 1 || W < 1 || !(znear >= 0.0f))
+// padded length; filter: skip rows whose band_min >= band.  Host tables
+// (built once a map and configuration): map = the row arrays tsdf,
+// weight (N, V) and band_min (N,); ints = N, block size, H, W; floats =
+// voxel size, fx, fy, cx, cy, near, far, band.
+extern "C" int splat_zbuffer(float* zbuf, const int* blocks,
+                             const int* ptrs, const int* count,
+                             const float* T_wc, int rows, int filter,
+                             const void* const* map, const int* ints,
+                             const float* floats, void* stream) {
+  ZbufferParams P = {};
+  P.n_map_rows = ints[0];
+  P.bs = ints[1];
+  P.H = ints[2];
+  P.W = ints[3];
+  P.znear = floats[5];
+  // (a block of more than kMaxVoxels voxels is refused before its cube
+  // can overflow)
+  P.V = P.bs >= 1 && P.bs <= 10 ? P.bs * P.bs * P.bs : kMaxVoxels + 1;
+  if (rows < 0 || P.n_map_rows < 1 || P.V > kMaxVoxels || P.H < 1 ||
+      P.W < 1 || !(P.znear >= 0.0f))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaGetLastError());
-  ZbufferParams P = {};
   P.blocks = blocks;
   P.ptrs = ptrs;
   P.count = count;
-  P.tsdf = tsdf;
-  P.weight = weight;
-  P.band_min = band_min;
+  P.tsdf = static_cast<const float*>(map[0]);
+  P.weight = static_cast<const float*>(map[1]);
+  P.band_min = static_cast<const float*>(map[2]);
   P.T_wc = T_wc;
   P.zbuf = zbuf;
   P.rows = rows;
-  P.n_map_rows = n_map_rows;
-  P.bs = block_size;
-  P.V = V;
-  P.H = H;
-  P.W = W;
   P.filter = filter != 0;
-  P.voxel_size = voxel_size;
-  P.fx = fx;
-  P.fy = fy;
-  P.cx = cx;
-  P.cy = cy;
-  P.znear = znear;
-  P.zfar = zfar;
-  P.band = band;
-  // enough CTAs to fill the card (kCtasPerSm a multiprocessor), no more
-  // than there are rows: the grid is launched before the count is known
+  P.voxel_size = floats[0];
+  P.fx = floats[1];
+  P.fy = floats[2];
+  P.cx = floats[3];
+  P.cy = floats[4];
+  P.zfar = floats[6];
+  P.band = floats[7];
+  // one wave of kZCtasPerSm CTAs a multiprocessor, no more than the rows
+  // need: the grid is launched before the count is known
   static int sms[kMaxDevices] = {};
   int device = 0;
   cudaGetDevice(&device);
@@ -616,9 +780,10 @@ extern "C" int splat_zbuffer(const int* blocks, const int* ptrs,
   if (sms[device] == 0)
     cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
                            device);
-  const int ctas = min(rows, kCtasPerSm * max(sms[device], 1));
-  splat_zbuffer_kernel<<<ctas, kZThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(P);
+  const int ctas = min((rows + kZGroups - 1) / kZGroups,
+                       kZCtasPerSm * max(sms[device], 1));
+  zbuffer_kernel(P)<<<ctas, kZThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -190,11 +190,11 @@ KERNELS = {
     # and normals, the output buffer, the host tables of ints (8 a job)
     # and floats (6 a job), jobs, edge band
     "pyramid_levels": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P],
-    # K8 (csrc/splat.cu): blocks, ptrs, count, tsdf, weight, band_min,
-    # T_wc, z-buffer, rows, map rows, block size, H, W, voxel size, fx, fy,
-    # cx, cy, near, far, band, band filter
-    "splat_zbuffer": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    # K8 (csrc/splat.cu): z-buffer, blocks, ptrs, count, T_wc, rows, band
+    # filter, the host tables of the map's row pointers (tsdf, weight,
+    # band_min), ints (map rows, block size, H, W) and floats (voxel size,
+    # fx, fy, cx, cy, near, far, band)
+    "splat_zbuffer": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # K9: raw depth, the output buffer (depth, points, normals), hit, H,
     # W, fill rounds, the host table of floats (smooth sigma, cx, cy, 1/fx,
     # 1/fy)
@@ -221,11 +221,10 @@ KERNELS = {
     # K7's instantiation for a block size: registers, spilled bytes,
     # resident CTAs, threads and shared bytes into an int[5] (no stream)
     "integrate_rows_info": [_I, _P],
-    # K5a (csrc/alloc.cu): vertices, depth, T_wc, keys out, H, W, stride,
-    # band steps, key bits, block size, truncation, its depth scale,
-    # recip(voxel size)
-    "alloc_candidates": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                         _F, _P],
+    # K5a (csrc/alloc.cu): vertices, depth, T_wc, keys out, H, W, the host
+    # tables of ints (stride, band steps, key bits, block size) and floats
+    # (truncation, its depth scale, recip(voxel size), linspace's step)
+    "alloc_candidates": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     # K5b: candidate keys, their count, n_alloc out, the stamp on the
     # device (or None), the stamp, the persistent scratch, its capacity
     # and set bits, the host tables of the map's pointers (HashMap order)

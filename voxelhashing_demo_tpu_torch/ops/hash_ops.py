@@ -115,6 +115,8 @@ _MAP_CHECKED: dict = {}
 # maps K7 checked: id(tsdf) -> (weak references to the row tensors, the
 # configuration, camera and fusion settings, the host tables)
 _INTEGRATE_TABLES: dict = {}
+# K5a's host tables: (id(cfg), id(fusion)) -> (the two objects, the tables)
+_CANDIDATE_TABLES: dict = {}
 
 
 class HashMap(NamedTuple):
@@ -1200,6 +1202,32 @@ def _stamp_arg(stamp, dev: torch.device, what: str) -> tuple:
     return stamp.data_ptr(), 0
 
 
+def _candidate_tables(cfg: HashConfig, fusion: FusionConfig) -> tuple:
+    """K5a's host tables (ctypes arrays): ints (stride, band steps, key
+    bits, block size) and floats (truncation, its depth scale,
+    recip(voxel size), and torch.linspace(-1, 1, band steps)'s step
+    2 / (band steps - 1) divided in float32 as linspace divides it; 0 for
+    one step), built once a configuration (kept by the objects' identity,
+    which costs less than hashing them); or raise."""
+    got = _CANDIDATE_TABLES.get((id(cfg), id(fusion)))
+    if got is not None and got[0] is cfg and got[1] is fusion:
+        return got[2]
+    if not 1 <= cfg.key_bits <= MAX_KEY_BITS:
+        raise ValueError(f"frame_candidate_keys: key bits 1..{MAX_KEY_BITS} "
+                         f"expected, got {cfg.key_bits}")
+    n = cfg.band_steps
+    step = float(torch.tensor(2.0) / (n - 1)) if n > 1 else 0.0
+    floats = (fusion.truncation, fusion.trunc_scale,
+              recip(fusion.voxel_size), step)
+    tables = ((ctypes.c_int * 4)(cfg.candidate_stride, cfg.band_steps,
+                                 cfg.key_bits, cfg.block_size),
+              (ctypes.c_float * len(floats))(*floats))
+    if len(_CANDIDATE_TABLES) >= 64:
+        _CANDIDATE_TABLES.clear()
+    _CANDIDATE_TABLES[(id(cfg), id(fusion))] = (cfg, fusion, tables)
+    return tables
+
+
 def _launch_candidates(frame: Frame, T_wc: torch.Tensor, cfg: HashConfig,
                        fusion: FusionConfig) -> torch.Tensor:
     """K5a on the current stream: a fresh (band_steps * h * w,) key array,
@@ -1209,26 +1237,24 @@ def _launch_candidates(frame: Frame, T_wc: torch.Tensor, cfg: HashConfig,
     if not _on_cuda(dev, verts, T_wc):
         raise ValueError("frame_candidate_keys: the frame and the pose must "
                          "lie on one CUDA device (or all on the CPU)")
-    if any(t.dtype != torch.float32 for t in (verts, depth, T_wc)):
+    if (verts.dtype != torch.float32 or depth.dtype != torch.float32
+            or T_wc.dtype != torch.float32):
         raise ValueError("frame_candidate_keys: float32 vertices, depth and "
                          "pose expected")
-    if (depth.dim() != 2 or tuple(verts.shape) != tuple(depth.shape) + (3,)
-            or tuple(T_wc.shape) != (4, 4) or depth.numel() == 0):
+    H, W = depth.shape if depth.dim() == 2 else (0, 0)
+    if (depth.dim() != 2 or verts.shape != (H, W, 3)
+            or T_wc.shape != (4, 4) or H * W == 0):
         raise ValueError("frame_candidate_keys: (H, W, 3) vertices, an (H, "
                          "W) depth and a (4, 4) pose expected")
-    if not 1 <= cfg.key_bits <= MAX_KEY_BITS:
-        raise ValueError(f"frame_candidate_keys: key bits 1..{MAX_KEY_BITS} "
-                         f"expected, got {cfg.key_bits}")
-    H, W = depth.shape
+    ints, floats = _candidate_tables(cfg, fusion)
     s = cfg.candidate_stride
     out = torch.empty(cfg.band_steps * (-(-H // s)) * (-(-W // s)),
                       dtype=torch.int32, device=dev)
-    verts, depth, pose = (t.contiguous() for t in (verts, depth, T_wc))
+    verts, depth, pose = verts.contiguous(), depth.contiguous(), \
+        T_wc.contiguous()
     kernels.launch("alloc_candidates", dev.index, verts.data_ptr(),
                    depth.data_ptr(), pose.data_ptr(), out.data_ptr(), H, W,
-                   s, cfg.band_steps, cfg.key_bits, cfg.block_size,
-                   fusion.truncation, fusion.trunc_scale,
-                   recip(fusion.voxel_size))
+                   ints, floats)
     global LAUNCHES_ALLOC_CANDIDATES
     LAUNCHES_ALLOC_CANDIDATES += 1
     return out

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +37,8 @@ from ..config import CameraConfig, FusionConfig, HashConfig, RaycastConfig
 from ..geometry import camera as cam_geom
 from ..geometry import coords, se3
 from ..geometry.f32 import recip
-from .hash_ops import FREE_PTR, ActiveSet, HashMap, _local_offsets, _set_rows
+from .hash_ops import (FREE_PTR, ActiveSet, HashMap, _local_offsets,
+                       _on_cuda, _set_rows)
 from .preprocess import compute_normals
 from .raycast import RaycastOutput
 
@@ -49,6 +51,10 @@ MAX_VOXELS = 1024       # the voxels a block K8 takes (kMaxVoxels)
 # K9's host tables a configuration: (id(cam), id(rc), id(fusion)) -> (cam,
 # rc, fusion, tables), kept by the objects' identity (``_finalize_tables``)
 _FINALIZE_TABLES: dict = {}
+# K8's host tables a map and configuration: id(tsdf) -> (weak references to
+# the row tensors, the configuration objects, the tables)
+# (``_zbuffer_tables``)
+_ZBUFFER_TABLES: dict = {}
 
 
 def _min_fill(depth: torch.Tensor, rounds: int) -> torch.Tensor:
@@ -280,8 +286,9 @@ _ZBUFFERS: dict = {}    # (device index, stream, pixels) -> K8's z-buffer
 @functools.lru_cache(maxsize=64)
 def _zbuffer_plan(cfg: HashConfig, cam: CameraConfig, rc: RaycastConfig,
                   fusion: FusionConfig) -> tuple:
-    """K8's arguments after the pointers and row counts: block size, H, W,
-    voxel size, fx, fy, cx, cy, near, far, band; or raise."""
+    """K8's constants (``_zbuffer_tables`` makes its host tables of
+    them): block size, H, W, then the floats voxel size, fx, fy, cx, cy,
+    near, far, band; or raise."""
     if cfg.voxels_per_block > MAX_VOXELS:
         raise ValueError(f"splat: at most {MAX_VOXELS} voxels a block, got "
                          f"{cfg.voxels_per_block}")
@@ -293,6 +300,85 @@ def _zbuffer_plan(cfg: HashConfig, cam: CameraConfig, rc: RaycastConfig,
             rc.splat_band * fusion.voxel_size)
 
 
+def _zbuffer_tables(hmap: HashMap, cfg: HashConfig, cam: CameraConfig,
+                    rc: RaycastConfig, fusion: FusionConfig) -> tuple:
+    """K8's host tables for this map and configuration: (the row arrays'
+    addresses: tsdf, weight, band_min; the ints: map rows, block size, H,
+    W; the floats of ``_zbuffer_plan``: voxel size, fx, fy, cx, cy, near,
+    far, band) as ctypes arrays, the map's device, and the rows as the
+    kernel reads them where they are copies (else None), after checking
+    the rows against what K8 takes (float32 (N, V) tsdf and weight and
+    (N,) band_min on one CUDA device), or raise.  Built once: a map whose
+    row tensors are the same objects, with the same configuration
+    objects, is not checked again (the map is updated in place).  Rows
+    that are not contiguous are read as contiguous copies, made again at
+    every call."""
+    rows = (hmap.tsdf, hmap.weight, hmap.band_min)
+    got = _ZBUFFER_TABLES.get(id(hmap.tsdf))
+    if got is not None:
+        refs, c, cm, r, fu, tables = got
+        if (c is cfg and cm is cam and r is rc and fu is fusion
+                and all(x() is t for x, t in zip(refs, rows))):
+            return tables
+    bs, H, W, *floats = _zbuffer_plan(cfg, cam, rc, fusion)
+    dev = hmap.tsdf.device
+    if dev.type != "cuda" or any(t.device != dev for t in rows):
+        raise ValueError("splat: the map, the active set and the pose must "
+                         "lie on one CUDA device (or all on the CPU)")
+    if any(t.dtype != torch.float32 for t in rows):
+        raise ValueError("splat: an int32 active set and a float32 map and "
+                         "pose expected")
+    N, V = hmap.tsdf.shape[0], cfg.voxels_per_block
+    if (hmap.tsdf.dim() != 2 or hmap.tsdf.shape[1] != V
+            or hmap.weight.shape != hmap.tsdf.shape
+            or tuple(hmap.band_min.shape) != (N,)):
+        raise ValueError(
+            f"splat: blocks (A, 3), ptrs (A,), one count, a (4, 4) pose and "
+            f"(N, {V}) map rows with (N,) band_min expected")
+    flat = tuple(t.contiguous() for t in rows)
+    copies = None if all(f is t for f, t in zip(flat, rows)) else flat
+    tables = ((ctypes.c_void_p * 3)(*(t.data_ptr() for t in flat)),
+              (ctypes.c_int * 4)(N, bs, H, W),
+              (ctypes.c_float * len(floats))(*floats), dev, copies)
+    if copies is None:
+        if len(_ZBUFFER_TABLES) >= 16:
+            _ZBUFFER_TABLES.clear()
+        _ZBUFFER_TABLES[id(hmap.tsdf)] = (
+            tuple(weakref.ref(t) for t in rows), cfg, cam, rc, fusion,
+            tables)
+    return tables
+
+
+def _zbuffer_args(hmap: HashMap, active: ActiveSet, cfg: HashConfig,
+                  T_wc: torch.Tensor, cam: CameraConfig, rc: RaycastConfig,
+                  fusion: FusionConfig, band_filter: bool) -> tuple:
+    """(K8's C arguments after the device index and the z-buffer, the
+    tensors they point into) for a launch over ``active[:count]``; or
+    raise on what the kernel does not take.  The tensors must stay alive
+    until the launch."""
+    map_ptrs, ints, floats, dev, copies = _zbuffer_tables(hmap, cfg, cam,
+                                                          rc, fusion)
+    blocks, ptrs, count = active
+    if not _on_cuda(dev, blocks, ptrs, count, T_wc):
+        raise ValueError("splat: the map, the active set and the pose must "
+                         "lie on one CUDA device (or all on the CPU)")
+    if (blocks.dtype != torch.int32 or ptrs.dtype != torch.int32
+            or count.dtype != torch.int32 or T_wc.dtype != torch.float32):
+        raise ValueError("splat: an int32 active set and a float32 map and "
+                         "pose expected")
+    rows = ptrs.shape[0]
+    if (ptrs.dim() != 1 or tuple(blocks.shape) != (rows, 3)
+            or count.numel() != 1 or tuple(T_wc.shape) != (4, 4)):
+        raise ValueError(
+            f"splat: blocks (A, 3), ptrs (A,), one count, a (4, 4) pose and "
+            f"(N, {cfg.voxels_per_block}) map rows with (N,) band_min "
+            f"expected")
+    keep = (blocks.contiguous(), ptrs.contiguous(), count.contiguous(),
+            T_wc.contiguous(), copies)
+    return (*(t.data_ptr() for t in keep[:4]), rows, int(band_filter),
+            map_ptrs, ints, floats), keep
+
+
 def _launch_zbuffer(hmap: HashMap, active: ActiveSet, cfg: HashConfig,
                     T_wc: torch.Tensor, cam: CameraConfig,
                     rc: RaycastConfig, fusion: FusionConfig,
@@ -302,40 +388,17 @@ def _launch_zbuffer(hmap: HashMap, active: ActiveSet, cfg: HashConfig,
     buffer for this device and stream (valid until its next call there);
     ``band_filter`` skips the rows that ``surface_filter`` drops.  Raises
     on what the kernel does not take."""
-    ints = (active.blocks, active.ptrs, active.count)
-    floats = (hmap.tsdf, hmap.weight, hmap.band_min, T_wc)
-    dev = hmap.tsdf.device
-    if dev.type != "cuda" or any(t.device != dev for t in ints + floats):
-        raise ValueError("splat: the map, the active set and the pose must "
-                         "lie on one CUDA device (or all on the CPU)")
-    if (any(t.dtype != torch.int32 for t in ints)
-            or any(t.dtype != torch.float32 for t in floats)):
-        raise ValueError("splat: an int32 active set and a float32 map and "
-                         "pose expected")
-    rows, V = active.ptrs.shape[0], cfg.voxels_per_block
-    if (active.ptrs.dim() != 1 or tuple(active.blocks.shape) != (rows, 3)
-            or active.count.numel() != 1 or tuple(T_wc.shape) != (4, 4)
-            or hmap.tsdf.dim() != 2 or hmap.tsdf.shape[1] != V
-            or hmap.weight.shape != hmap.tsdf.shape
-            or tuple(hmap.band_min.shape) != (hmap.tsdf.shape[0],)):
-        raise ValueError(
-            f"splat: blocks (A, 3), ptrs (A,), one count, a (4, 4) pose and "
-            f"(N, {V}) map rows with (N,) band_min expected")
-    plan = _zbuffer_plan(cfg, cam, rc, fusion)
-    # the inputs as the kernel reads them, alive until the launch
-    ints = [t.contiguous() for t in ints]
-    floats = [t.contiguous() for t in floats]
-    index = dev.index
+    args, keep = _zbuffer_args(hmap, active, cfg, T_wc, cam, rc, fusion,
+                               band_filter)      # keep: alive to the launch
+    index = hmap.tsdf.device.index
     key = (index, torch._C._cuda_getCurrentRawStream(index),
            cam.height * cam.width)
     zbuf = _ZBUFFERS.get(key)
     if zbuf is None:
         zbuf = _ZBUFFERS[key] = torch.empty(key[2], dtype=torch.float32,
-                                            device=dev)
+                                            device=hmap.tsdf.device)
     zbuf.fill_(math.inf)
-    kernels.launch("splat_zbuffer", index,
-                   *(t.data_ptr() for t in ints + floats), zbuf.data_ptr(),
-                   rows, hmap.tsdf.shape[0], *plan, int(band_filter))
+    kernels.launch("splat_zbuffer", index, zbuf.data_ptr(), *args)
     global LAUNCHES_ZBUFFER
     LAUNCHES_ZBUFFER += 1
     return zbuf
