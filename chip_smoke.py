@@ -10,7 +10,8 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    the ICP kernels K4 / K4s in icp.cu, the frontend and pyramid kernels
    K3a / K3b in preprocess.cu, the splat kernels K8 / K9 in splat.cu,
    the fuse kernels K6 / K7 in fuse.cu, the allocation kernels K5a / K5b
-   in alloc.cu, the empty kernels that measure
+   in alloc.cu, the BA kernels K13a-c in pose_graph.cu, the empty
+   kernels that measure
    the launch and barrier floors, and the host codec) for sm_90a into the
    package's _build/ directory, one compiler process each, started
    together.
@@ -198,10 +199,22 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    scratch from the ledger renders like the maintained one; ``optimize``
    on a seeded ring graph at K = 64 (dense) and K = 512 (CG) agrees with
    the CPU within 1e-4 and repeats bit for bit; one relocalization
-   attempt recovers a mid-run frame's pose within 5 cm.  Prints ms per
-   pair-ICP batch, BA solve, rebuild fuse, move, keyframe insert and
-   relocalization, host synchronisations per piece (and the Python lines
-   they come from, for a BA solve and a fuse), peak memory.
+   attempt recovers a mid-run frame's pose within 5 cm.  The BA kernels
+   (``pg_case``) on the run's final graph (K = 32) and on both ring
+   graphs: K13a ``pg_edge_blocks`` in dense, CG and chi2 mode (J, r, the
+   edge rows, b, chi2, H or Hd), K13b ``pg_cg_solve`` (the CG step and its
+   retract, the same iteration count) and K13c ``pg_retract`` (on the
+   library's dense solve) within 1e-6 of each tensor's scale of their
+   plain versions on the card; ``optimize`` within 1e-5 of
+   ``optimize_reference`` on the card, two runs bit for bit, 0 host syncs
+   and returning while a sleep kernel ahead of it still runs; a BA solve
+   and its fetch 1 host sync (``_fetch_ba``).  Their launches made by the
+   checks are not counted.  Prints ms per pair-ICP batch, BA solve,
+   rebuild fuse, move, keyframe insert and relocalization, host
+   synchronisations per piece (and the Python lines they come from, for a
+   BA solve and a fuse), peak memory; each K13 kernel's warm, L2-cold,
+   plain and issue times, bound and least, and cuSOLVER's factor + solve
+   of the same dense system.
 9. ``stream``: out-of-core streaming, BASELINE config 5 (bench.py
    ``_streaming_run``): the 201-frame noisy 170-degree room sweep out and
    back through ``HashSLAM`` with a 2048-block map (``STREAM_HASH``) and
@@ -306,8 +319,10 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    modes, moves, tracked, capacity, saturation) equal on both ranks and
    to a one-rank NCCL mesh's; unaligned ATE below twice the single-card
    ``KeyframeSLAM``'s on the same frames; K7's window-gather launches per
-   rank = frames + rebuild fuses + 2 x moves.  Prints BA ms per solve and the staged
-   collective bytes.
+   rank = frames + rebuild fuses + 2 x moves; K13a and K13c launched on
+   each rank (each rank's ``build_normal_equations`` and
+   ``apply_update``).  Prints BA ms per solve and the staged collective
+   bytes.
 20. ``sharded``, the slice's main path: ``ShardedHashSLAM`` on two Gloo
    ranks sharing the card at ``flagship_gather_config()`` (32 768 blocks
    a rank) over the slice's 12 frames.  Asserts: per-frame allocated and
@@ -350,7 +365,21 @@ phase, counted like K3 on the same paths: they must launch on every path
 and rank; K7's entry also carries ``launches_window_by_path``, its
 window-gather launches on each path (the former K1 gates).  K5a and K5b
 with the times and bound of the ``alloc`` phase, counted like K3 on the
-same paths: they must launch on every path and rank.
+same paths: they must launch on every path and rank.  K13a-c
+(``pg_edge_blocks``, ``pg_cg_solve``, ``pg_retract``) with the times and
+bound of the ``backend`` phase's final graph (the ring graphs under
+``cases``), counted like K3 on every path, and on ``backend_ba_K64_dense``
+and ``backend_ba_K512_cg`` (each ring graph's first ``optimize``: K13a
+each iteration and twice for chi2, K13c or K13b each iteration);
+``launches`` the ``backend`` path's count (K13b's the K = 512 ring's, the
+path that drives it: the backend's capacity 32 takes the dense solver).
+K13a and one of K13b / K13c must launch on every path with a
+BA event (``backend``, ``stream_backend``, ``cli``, ``bench``; K13a and
+K13c on each rank of ``sharded_backend``) and none on the frontend-only
+paths (``parity``, ``slice``, ``march``, ``stream``, ``entry``,
+``roofline``); ``library_ms`` null (no PyTorch call computes them; the
+dense step's cuSOLVER time is ``cusolver_ms``), ``ptxas`` each kernel's
+registers and spills.
   Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
@@ -3177,10 +3206,314 @@ def ring_graph(torch, real: int, cap: int, seed: int, chords: bool, device):
     return graph
 
 
-def phase_backend_ba(torch) -> dict:
+PG_KERNELS = ("pg_edge_blocks", "pg_cg_solve", "pg_retract")
+PG_SUMMARY: dict = {}   # the backend phase's K13 figures, for the kernels line
+# K13 launches of each ring graph's first ``optimize`` (``backend_ba_*``
+# paths) and the path whose count is each kernel's ``launches``
+PG_RING_PATHS: dict = {}
+PG_MAIN_PATH = {"pg_edge_blocks": "backend",
+                "pg_cg_solve": "backend_ba_K512_cg", "pg_retract": "backend"}
+PG_SOURCE = "voxelhashing_demo_tpu_torch/csrc/pose_graph.cu"
+PG_META = {
+    "pg_edge_blocks": {
+        "route": "cuda", "source": PG_SOURCE,
+        "replaces": "voxelhashing_demo_tpu/ops/pose_graph.py:237 "
+                    "(_edge_blocks), voxelhashing_demo_tpu/ops/"
+                    "pose_graph.py:194 (build_normal_equations), "
+                    "voxelhashing_demo_tpu/ops/pose_graph.py:189 (_chi2): "
+                    "fused by XLA, no Pallas kernel",
+    },
+    "pg_cg_solve": {
+        "route": "cuda", "source": PG_SOURCE,
+        "replaces": "voxelhashing_demo_tpu/ops/pose_graph.py:292 "
+                    "(solve_delta_cg, its while_loop :379): fused by XLA, "
+                    "no Pallas kernel",
+    },
+    "pg_retract": {
+        "route": "cuda", "source": PG_SOURCE,
+        "replaces": "voxelhashing_demo_tpu/ops/pose_graph.py:383 "
+                    "(apply_update's guard and retract): fused by XLA, no "
+                    "Pallas kernel",
+    },
+}
+# each C function's kernels in ptxas' report (mangled names)
+PG_PTXAS = {"pg_edge_blocks": ("edge_kernel", "assemble_kernel"),
+            "pg_cg_solve": ("cg_kernel",), "pg_retract": ("retract_kernel",)}
+PG_RTOL = 1e-6        # K13a-c against their plain versions, of each
+                      # tensor's largest magnitude (bit for bit where the
+                      # orders agree)
+PG_POSE_ATOL = 1e-5   # optimize on the card against optimize_reference
+PG_REPS = 20          # queued launches a warm time
+PG_COLD_REPS = 5      # launches a cold time, L2 flushed before each
+PG_SLEEP_CYCLES = 40_000_000   # ~20 ms of sleep kernel ahead of a queue
+# paths that run a BA event (K13a and K13b or K13c must launch) and paths
+# that run none (no K13 launch)
+BA_PATHS = ("backend", "stream_backend", "cli", "bench")
+NO_BA_PATHS = ("parity", "slice", "march", "stream", "entry", "roofline")
+# float operations: an edge with its Jacobian (the value path ~250, twelve
+# tangents ~330 each, 120 six-term sums), one without (chi2 mode); a CG
+# iteration per edge (two 6x6 matvecs each side) and per pose (update,
+# two triangular solves, three dots); a retract per pose
+PG_EDGE_OPS, PG_CHI2_OPS = 5700, 260
+PG_CG_EDGE_OPS, PG_CG_POSE_OPS = 300, 180
+PG_RETRACT_OPS = 150
+FP32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
+
+
+def pg_launches() -> list:
+    """[K13a, K13b, K13c] launches counted since they were last set."""
+    from voxelhashing_demo_tpu_torch.ops import pose_graph
+
+    return [pose_graph.LAUNCHES_EDGE_BLOCKS, pose_graph.LAUNCHES_CG,
+            pose_graph.LAUNCHES_RETRACT]
+
+
+def set_pg_launches(counts=(0, 0, 0)) -> None:
+    from voxelhashing_demo_tpu_torch.ops import pose_graph
+
+    (pose_graph.LAUNCHES_EDGE_BLOCKS, pose_graph.LAUNCHES_CG,
+     pose_graph.LAUNCHES_RETRACT) = counts
+
+
+def _pg_err(got, plain) -> dict:
+    """max |got - plain|, over the plain tensor's largest magnitude (at
+    least 1), and whether the two are equal as values."""
+    got, plain = got.float(), plain.float()
+    err = float((got - plain).abs().max())
+    scale = max(1.0, float(plain.abs().max()))
+    return {"max_abs_err": err, "rel_err": err / scale,
+            "bit_exact": bool(got.equal(plain))}
+
+
+def _queued_ms(torch, fn, reps: int = PG_REPS) -> float:
+    """Device ms a call of ``fn``: ``reps`` calls queued behind a sleep
+    kernel, so they run back to back, CUDA events around them."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(PG_SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _cold_ms(torch, fn, flush, reps: int = PG_COLD_REPS) -> float:
+    """Median device ms of one call of ``fn`` after ``flush`` has written
+    more than the L2 cache, queued behind a sleep kernel."""
+    times = []
+    for _ in range(reps):
+        flush.add_(1.0)
+        torch.cuda._sleep(PG_SLEEP_CYCLES // 4)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _pg_bound(n_bytes: float, n_ops: float) -> dict:
+    b, o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOPS * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(b, o),
+            "bound_by": "bytes" if b >= o else "operations"}
+
+
+def returns_before_device(torch, fn) -> bool:
+    """``fn`` returns while a ~100 ms sleep kernel queued ahead of it still
+    runs: it waited on nothing the card does."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10 * PG_SLEEP_CYCLES)
+    fn()
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    return busy
+
+
+def pg_case(torch, name: str, graph, kcfg, floor_ms: float,
+            barrier_ms: dict) -> dict:
+    """K13a, K13b and K13c on ``graph`` under ``kcfg`` against their plain
+    versions on the card (gnc_delta's first width), their times (warm
+    queued, L2-cold, plain, host µs to issue), bounds and least times;
+    the library's factor + solve of the same dense system; then
+    ``optimize`` against ``optimize_reference`` on the card, two runs, its
+    host syncs and whether it returns before the card is done."""
+    from voxelhashing_demo_tpu_torch.ops import pose_graph as pg
+
+    K, E = graph.poses.shape[0], graph.edges_ij.shape[0]
+    use_cg = kcfg.ba_solver == "cg" or (kcfg.ba_solver == "auto"
+                                        and K > kcfg.ba_dense_max_k)
+    delta, kern = pg.gnc_delta(kcfg, 0), kcfg.ba_robust_kernel
+    flush = torch.zeros(64 << 20, dtype=torch.float32, device="cuda")
+    out = {"K": K, "E": E, "solver": "cg" if use_cg else "dense"}
+
+    # K13a: the step's mode, and the CG operands and chi2 of every graph
+    k13a = {}
+    for mode, kw in (("dense", dict(diag=True, damping=kcfg.ba_damping)),
+                     ("cg", dict(damping=kcfg.ba_damping)),
+                     ("chi2", {})):
+        args = (graph, mode) + ((delta, kern) if mode != "chi2" else ())
+        got = pg.edge_system(*args, **kw)
+        plain = pg.edge_system_reference(*args, **kw)
+        errs = {"r": _pg_err(got.r, plain.r),
+                "chi2": _pg_err(got.chi2, plain.chi2)}
+        if mode != "chi2":
+            errs.update(J=_pg_err(got.J, plain.J),
+                        rows=_pg_err(got.rows[:, :122], plain.rows[:, :122]),
+                        b=_pg_err(got.b, plain.b), H=_pg_err(got.H, plain.H))
+        jac = mode != "chi2"
+        n_bytes = (K * 64 + E * 76 + E * 512 + E * (312 if jac else 24)
+                   + (K * 24 + 4 if jac else 4)
+                   + {"dense": 144 * K * K, "cg": 144 * K, "chi2": 0}[mode]
+                   + (8 * K * -(-E // 32) if jac else 0))
+        case = {"errors": errs,
+                "ms": _queued_ms(torch, lambda: pg.edge_system(*args, **kw)),
+                "cold_ms": _cold_ms(torch, lambda: pg.edge_system(*args,
+                                                                  **kw),
+                                    flush),
+                "plain_ms": median_ms(torch, lambda: pg.edge_system_reference(
+                    *args, **kw)),
+                "issue_us": host_issue_us(lambda: pg.edge_system(*args,
+                                                                 **kw)),
+                **_pg_bound(n_bytes, E * (PG_EDGE_OPS if jac else PG_CHI2_OPS))}
+        case["least_ms"] = max(case["bound_ms"], 2 * floor_ms)
+        k13a[mode] = case
+    out["pg_edge_blocks"] = k13a
+
+    # K13b on the CG operands
+    s = pg.edge_system(graph, "cg", delta, kern, damping=kcfg.ba_damping)
+    got = pg.cg_solve(s, graph, kcfg)
+    plain = pg.cg_reference(s, graph, kcfg)
+    iters = int(got[2])
+    ctas = -(-K // 8)              # a warp a pose (K <= 3 168 on an H100)
+    if ctas not in barrier_ms:
+        from voxelhashing_demo_tpu_torch import kernels
+        barrier_ms[ctas] = barrier_floor_ms(torch, kernels, ctas)
+    k13b = {"errors": {"poses": _pg_err(got[0], plain[0]),
+                       "delta": _pg_err(got[1], plain[1])},
+            "iterations": iters, "iterations_plain": int(plain[2]),
+            "ms": _queued_ms(torch, lambda: pg.cg_solve(s, graph, kcfg)),
+            "cold_ms": _cold_ms(torch, lambda: pg.cg_solve(s, graph, kcfg),
+                                flush),
+            "plain_ms": median_ms(torch, lambda: pg.cg_reference(s, graph,
+                                                                kcfg)),
+            "issue_us": host_issue_us(lambda: pg.cg_solve(s, graph, kcfg)),
+            "ctas": ctas, "barriers": 2 * iters + 2,
+            **_pg_bound(E * 520 + K * (144 + 24 + 64 + 64 + 24)
+                     + 8 * K * -(-E // 32),
+                     iters * (E * PG_CG_EDGE_OPS + K * PG_CG_POSE_OPS))}
+    k13b["least_ms"] = max(k13b["bound_ms"], floor_ms + k13b["barriers"]
+                           * barrier_ms[ctas])
+    out["pg_cg_solve"] = k13b
+
+    # K13c on the dense step of the same graph; the library's factor and
+    # solve timed beside it
+    sd = pg.edge_system(graph, "dense", delta, kern, diag=True,
+                        damping=kcfg.ba_damping)
+
+    def factor_solve():
+        L, info = torch.linalg.cholesky_ex(sd.H)
+        return torch.cholesky_solve(-sd.b.reshape(-1, 1), L)[:, 0], info
+
+    dl, info = factor_solve()
+    dl = dl.contiguous()
+    got = pg.retract(dl, info, graph.poses)
+    plain = pg.retract_reference(dl, info, graph.poses)
+    k13c = {"errors": {"poses": _pg_err(got[0], plain[0]),
+                       "delta": _pg_err(got[1], plain[1])},
+            "info": int(info),
+            "ms": _queued_ms(torch, lambda: pg.retract(dl, info,
+                                                        graph.poses)),
+            "cold_ms": _cold_ms(torch, lambda: pg.retract(dl, info,
+                                                          graph.poses),
+                                flush),
+            "plain_ms": median_ms(torch, lambda: pg.retract_reference(
+                dl, info, graph.poses)),
+            "issue_us": host_issue_us(lambda: pg.retract(dl, info,
+                                                         graph.poses)),
+            "cusolver_ms": _queued_ms(torch, factor_solve, reps=5),
+            **_pg_bound(K * (24 + 64 + 64 + 24) + 4, K * PG_RETRACT_OPS)}
+    k13c["least_ms"] = max(k13c["bound_ms"], floor_ms)
+    k13a["dense"]["cusolver_ms"] = k13c["cusolver_ms"]
+    out["pg_retract"] = k13c
+
+    # optimize against the plain versions on the card
+    a, info_a = pg.optimize(graph, kcfg)
+    b, _ = pg.optimize(graph, kcfg)
+    ref, info_r = pg.optimize_reference(graph, kcfg)
+    torch.cuda.synchronize()
+    out["optimize"] = {
+        "ba_iters": kcfg.ba_iters,
+        "max_pose_diff_vs_plain": float((a.poses - ref.poses).abs().max()),
+        "two_runs_equal_bits": bool(torch.equal(a.poses, b.poses)),
+        "chi2": [float(info_a.chi2_initial), float(info_a.chi2_final)],
+        "chi2_plain": float(info_r.chi2_final),
+        "ms": median_ms(torch, lambda: pg.optimize(graph, kcfg), reps=5),
+        "plain_ms": median_ms(torch, lambda: pg.optimize_reference(
+            graph, kcfg), reps=1),
+        "host_syncs": count_syncs(torch, lambda: pg.optimize(graph, kcfg)),
+        "returns_before_device": returns_before_device(
+            torch, lambda: pg.optimize(graph, kcfg)),
+    }
+    del flush
+    worst = max(e["rel_err"] for c in k13a.values()
+                for e in c["errors"].values())
+    _require(worst <= PG_RTOL, f"K13a within {PG_RTOL} of its plain version "
+                               f"({name})")
+    _require(k13b["iterations"] == k13b["iterations_plain"]
+             and max(e["max_abs_err"] for e in k13b["errors"].values())
+             <= PG_POSE_ATOL, f"K13b == its plain CG within {PG_POSE_ATOL}, "
+                              f"same iterations ({name})")
+    _require(max(e["rel_err"] for e in k13c["errors"].values()) <= PG_RTOL,
+             f"K13c within {PG_RTOL} of its plain version ({name})")
+    o = out["optimize"]
+    _require(o["max_pose_diff_vs_plain"] <= PG_POSE_ATOL,
+             f"optimize within {PG_POSE_ATOL} of optimize_reference on the "
+             f"card ({name})")
+    _require(o["two_runs_equal_bits"], f"optimize repeats bit for bit "
+                                       f"({name})")
+    _require(o["host_syncs"] == 0 and o["returns_before_device"],
+             f"optimize makes no host sync ({name})")
+    return out
+
+
+def pg_summary(cases: dict, main: str) -> dict:
+    """The kernels-line fields of K13a-c: ``main``'s case (K13a in its
+    solver's mode), every case under ``cases``."""
+    out = {}
+    for kname in PG_KERNELS:
+        per = {}
+        for cname, c in cases.items():
+            k = c[kname]
+            if kname == "pg_edge_blocks":
+                k = k[c["solver"]]
+            per[cname] = k
+        m = per[main]
+        out[kname] = {
+            "case": main, "K": cases[main]["K"], "E": cases[main]["E"],
+            "max_abs_err": max(e["max_abs_err"] for c in per.values()
+                               for e in c["errors"].values()),
+            "ms": m["ms"], "cold_ms": m["cold_ms"], "plain_ms": m["plain_ms"],
+            "issue_us": m["issue_us"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "least_ms": m["least_ms"],
+            "library_ms": None,
+            "cusolver_ms": cases[main]["pg_retract"]["cusolver_ms"],
+            "cases": {n: {k: v for k, v in c.items() if k != "errors"}
+                      for n, c in per.items() if n != main},
+        }
+    return out
+
+
+def phase_backend_ba(torch, floor_ms: float, barrier_ms: dict) -> dict:
     """``optimize`` on a seeded ring graph at K = 64 (dense) and K = 512
     (CG): the card against the port on the CPU (poses within 1e-4), and
-    two runs on the card equal bit for bit."""
+    two runs on the card equal bit for bit; K13a-c against their plain
+    versions on each graph (``pg_case``)."""
     from voxelhashing_demo_tpu_torch.config import KeyframeConfig
     from voxelhashing_demo_tpu_torch.ops import pose_graph
 
@@ -3191,7 +3524,15 @@ def phase_backend_ba(torch) -> dict:
         args = (real, cap, 7, solver == "cg")
         cpu, _ = pose_graph.optimize(ring_graph(torch, *args, "cpu"), kcfg)
         g = ring_graph(torch, *args, "cuda")
+        set_pg_launches()
         a, info = pose_graph.optimize(g, kcfg)
+        counts = pg_launches()
+        PG_RING_PATHS[f"backend_ba_{name}"] = counts
+        n = kcfg.ba_iters
+        _require(counts == ([n + 2, n, 0] if solver == "cg"
+                            else [n + 2, 0, n]),
+                 f"optimize {name}: K13a each iteration and twice for "
+                 f"chi2, K13b or K13c each iteration")
         b, _ = pose_graph.optimize(g, kcfg)
         torch.cuda.synchronize()
         diff = float((a.poses.cpu() - cpu.poses).abs().max())
@@ -3211,6 +3552,10 @@ def phase_backend_ba(torch) -> dict:
         _require(same, f"optimize {name}: two card runs equal bit for bit")
         _require(out[name]["chi2_final"] < out[name]["chi2_initial"],
                  f"optimize {name}: chi2 went down")
+        _require(out[name]["host_syncs"] == 0,
+                 f"optimize {name}: no host sync")
+        out[name]["kernels"] = pg_case(torch, name, g, kcfg, floor_ms,
+                                       barrier_ms)
     return out
 
 
@@ -3244,6 +3589,7 @@ def phase_backend(torch, card: str):
     frame_ms = backend_drive(torch, slam, depths)
     traj = slam.trajectory()                  # lands all deferred work
     launches = k7_window()
+    pg_main = pg_launches()                   # the checks below not counted
     peak = int(torch.cuda.max_memory_allocated())
 
     events = slam.ba_events
@@ -3348,6 +3694,8 @@ def phase_backend(torch, card: str):
         "render_model": count_syncs(
             torch, lambda: render(ref_map, slam.state.pose)),
     }
+    syncs["optimize"] = count_syncs(
+        torch, lambda: pose_graph.optimize(slam.graph, kcfg))
     syncs["ba_solve_and_fetch_sites"] = sync_sites(torch, ba_solve)
     syncs["rebuild_fuse_sites"] = sync_sites(torch, one_fuse)
     syncs["per_keyframe_insert"] = (syncs["keyframe_preprocess"]
@@ -3373,7 +3721,16 @@ def phase_backend(torch, card: str):
             if found is not None else None),
     }
 
-    ba = phase_backend_ba(torch)
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    floor_ms, barrier_ms = probe.launch_floor_ms(), {}
+    final = pg_case(torch, "backend", slam.graph, kcfg, floor_ms, barrier_ms)
+    ba = phase_backend_ba(torch, floor_ms, barrier_ms)
+    pg_cases = {"backend": final, **{n: c["kernels"] for n, c in ba.items()}}
+    PG_SUMMARY.update(pg_summary(pg_cases, "backend"))
+    PG_SUMMARY["ptxas"] = kernels.ptxas_report("pose_graph")
+    set_pg_launches(pg_main)
     _emit({
         "phase": "backend", "card": card, "H": H, "W": W,
         "frames": len(depths),
@@ -3400,9 +3757,14 @@ def phase_backend(torch, card: str):
         "deintegration_k7_bit_exact": deint_exact,
         "ledger": ledger, "times": times, "host_syncs": syncs,
         "relocalize": reloc,
-        "optimize": ba, "peak_mem_bytes": peak,
+        "optimize": ba, "pose_graph_final": final,
+        "floor_ms": floor_ms, "barrier_floor_ms": barrier_ms,
+        "pg_launches": pg_main, "peak_mem_bytes": peak,
         "jax_reference": JAX_REFERENCE_BACKEND,
     })
+    _require(syncs["optimize"] == 0, "optimize alone makes no host sync")
+    _require(syncs["ba_solve_and_fetch"] == 1,
+             "a BA solve and its fetch make one host sync (_fetch_ba)")
     _require(state_untouched, "warm_compile leaves the instance's state")
     _require(len(loop_edges) >= 1, ">= 1 accepted loop edge")
     _require(len(events) >= 2, ">= 2 BA events")
@@ -4575,6 +4937,7 @@ def phase_sharded_backend(torch, card: str) -> tuple:
            "icp_launches_per_rank": [o["icp_launches"] for o in two],
            "fuse_launches_per_rank": [o["fuse_launches"] for o in two],
            "alloc_launches_per_rank": [o["alloc_launches"] for o in two],
+           "pg_launches_per_rank": [o["pg_launches"] for o in two],
            "ba_ms_per_solve": ba_ms,
            "collective_host_bytes_per_frame":
                [o["collective_host_bytes_per_frame"] for o in two]})
@@ -4593,9 +4956,12 @@ def phase_sharded_backend(torch, card: str) -> tuple:
              "K6 and K7 launched on each rank")
     _require(all(min(o["alloc_launches"]) > 0 for o in two),
              "K5a and K5b launched on each rank")
+    _require(all(o["pg_launches"][0] > 0 and o["pg_launches"][2] > 0
+                 for o in two),
+             "K13a and K13c launched on each rank (the sharded BA)")
     return (a["launches"], a["icp_launches"] + a["k3_launches"]
             + a["splat_launches"] + a["fuse_launches"]
-            + a["alloc_launches"])
+            + a["alloc_launches"], a["pg_launches"])
 
 
 def main() -> int:
@@ -4645,7 +5011,7 @@ def main() -> int:
     by_path = {k: {"probes": n} for k, n in probe_launches.items()}
     step_kernels = (ICP_KERNELS + K3_KERNELS + SPLAT_KERNELS + FUSE_KERNELS
                     + ALLOC_KERNELS)
-    by_path.update({k: {} for k in step_kernels})
+    by_path.update({k: {} for k in step_kernels + PG_KERNELS})
     window_by_path = {}
 
     def k4(path: str, run):
@@ -4660,11 +5026,20 @@ def main() -> int:
         zero_splat_launches()
         zero_fuse_launches()
         zero_alloc_launches()
+        set_pg_launches()
         out = run()
         counts = (icp_launches() + k3_launches() + splat_launches()
                   + fuse_launches() + alloc_launches())
         for kname, n in zip(step_kernels, counts):
             by_path[kname][path] = n
+        pg = pg_launches()
+        for kname, n in zip(PG_KERNELS, pg):
+            by_path[kname][path] = n
+        if path in BA_PATHS:
+            _require(pg[0] > 0 and pg[1] + pg[2] > 0,
+                     f"K13a and K13b or K13c launched on {path}")
+        elif path in NO_BA_PATHS:
+            _require(pg == [0, 0, 0], f"no K13 launch on {path}")
         _require(counts[0] > 0, f"K4 launched on {path}")
         _require(counts[2] > 0 and counts[3] > 0,
                  f"K3a and K3b launched on {path}")
@@ -4686,6 +5061,9 @@ def main() -> int:
     del slam
     window_by_path["backend"] = k4("backend",
                                    lambda: phase_backend(torch, smi))
+    for path, counts in PG_RING_PATHS.items():
+        for kname, n in zip(PG_KERNELS, counts):
+            by_path[kname][path] = n
     launches, ate_stream = k4("stream", lambda: phase_stream(torch, smi))
     window_by_path["stream"] = launches
     window_by_path["stream_backend"] = k4(
@@ -4711,8 +5089,10 @@ def main() -> int:
     k4_ranks = {"nccl": one["icp_launches"] + one["k3_launches"]
                 + one["splat_launches"] + one["fuse_launches"]
                 + one["alloc_launches"]}
-    window_by_path["sharded_backend"], k4_ranks["sharded_backend"] = (
-        phase_sharded_backend(torch, smi))
+    (window_by_path["sharded_backend"], k4_ranks["sharded_backend"],
+     pg_sharded) = phase_sharded_backend(torch, smi)
+    for kname, n in zip(PG_KERNELS, pg_sharded):
+        by_path[kname]["sharded_backend"] = n
     # the slice's main path, last: "launches" is rank 0's count
     window_by_path["sharded"], k4_ranks["sharded"] = (
         phase_sharded(torch, smi, frames, gt, one))
@@ -4774,7 +5154,14 @@ def main() -> int:
         "launches": list(by_path[kname].values())[-1],
         "launches_by_path": by_path[kname],
         **alloc_summary[kname],
-    } for kname in ALLOC_KERNELS]})
+    } for kname in ALLOC_KERNELS] + [{
+        "name": kname, **PG_META[kname],
+        "launches": by_path[kname][PG_MAIN_PATH[kname]],
+        "launches_by_path": by_path[kname],
+        "ptxas": {k: v for k, v in PG_SUMMARY["ptxas"].items()
+                  if any(part in k for part in PG_PTXAS[kname])},
+        **PG_SUMMARY[kname],
+    } for kname in PG_KERNELS]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0

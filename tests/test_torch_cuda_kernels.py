@@ -67,6 +67,13 @@ outlier on and off, the bilateral off; depth_min 0 too) at 640x480 and
 odd-sized plans, with 1 and 8 jobs, at pool factor 3, on inputs 641 and
 642 wide and 4 bytes off an alignment (no vector rows), on an all-zero
 frame and on one whose every mean-pooled window the edge band rejects.
+The pose-graph kernels (K13a ``pg_edge_blocks``, K13b ``pg_cg_solve``,
+K13c ``pg_retract``) within 1e-6 of each tensor's scale of their plain
+versions (J, r, the edge rows, b, chi2, the dense H and Hd; the retract),
+the CG step within 1e-5 with the same iteration count (an early stop, all
+64, capacity 512); ``optimize`` makes no host sync, repeats bit for bit
+and lands within 1e-5 of ``optimize_reference`` on the card; ``se3.exp``
+and ``inverse`` make no host sync; what the kernels do not take raises.
 """
 
 import dataclasses
@@ -2747,3 +2754,222 @@ def test_alloc_refusals(fuse_case, monkeypatch):
                                       cfg.fusion)
     with pytest.raises(RuntimeError, match="insert_blocks kernel launch"):
         hash_ops.insert_blocks(hmap, cfg.hash, cand, 1)
+
+
+# --------------------------------------------------------------------------
+# K13: pose-graph bundle adjustment (K13a pg_edge_blocks, K13b pg_cg_solve,
+# K13c pg_retract)
+# --------------------------------------------------------------------------
+
+def _pg_ring(device, real: int, cap: int, seed: int = 3, chords: bool = True,
+             false_edge: bool = False):
+    """A seeded ring pose graph of ``real`` poses in capacity ``cap`` (edges
+    2 cap): noisy-odometry estimates, the true odometry and closure, a
+    chord every 8 poses and, with ``false_edge``, a closure wrong by ~0.5 m
+    and 0.3 rad."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+    from voxelhashing_demo_tpu_torch.ops import pose_graph
+
+    rng = np.random.RandomState(seed)
+    ang = 2 * np.pi * np.arange(real) / real
+    xi = np.zeros((real, 6), np.float32)
+    xi[:, 0], xi[:, 2], xi[:, 4] = np.cos(ang), np.sin(ang), ang
+    gt = se3.exp(torch.from_numpy(xi)).numpy().astype(np.float64)
+    noise = np.concatenate([rng.normal(0, 0.02, (real, 3)),
+                            rng.normal(0, 0.01, (real, 3))], 1).astype(
+                                np.float32)
+    est = (gt.astype(np.float32) @ se3.exp(torch.from_numpy(noise)).numpy())
+    g = pose_graph.create(cap, 2 * cap, device=device)
+    for T in est:
+        g = pose_graph.add_pose(g, T)
+    pairs = [(i, (i + 1) % real) for i in range(real)]
+    pairs += [(i, (i + real // 2) % real) for i in range(0, real, 8)]
+    for i, j in pairs if chords else pairs[:real]:
+        g = pose_graph.add_edge(
+            g, i, j, (np.linalg.inv(gt[i]) @ gt[j]).astype(np.float32),
+            float(rng.uniform(0.5, 2.0)))
+    if false_edge:
+        bad = se3.exp(torch.tensor([0.5, -0.3, 0.2, 0.0, 0.3, 0.0])).numpy()
+        g = pose_graph.add_edge(g, 2, real // 2, bad, 1.0)
+    return g
+
+
+def _pg_close(got, plain, what: str, rtol: float = 1e-6):
+    """Within ``rtol`` of the plain tensor's largest magnitude (bit for bit
+    where the orders agree)."""
+    assert got.shape == plain.shape, what
+    scale = max(1.0, float(plain.abs().max()))
+    err = float((got.float() - plain.float()).abs().max())
+    assert err <= rtol * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("robust", [(None, "gm"), (0.1, "gm"),
+                                    (np.float32(0.3), "gm"), (0.1, "huber")])
+@pytest.mark.parametrize("mode", ["chi2", "dense", "cg"])
+def test_pg_edge_blocks_match_plain(cuda, mode, robust):
+    """K13a against its plain version on the same graph: J, r, the rows
+    (blocks, gradients, w |r|^2, w), b, chi2 and the dense H (with and
+    without the diagonal) or Hd, within 1e-6 of each tensor's scale; a pad
+    edge (weight 0) adds nothing."""
+    from voxelhashing_demo_tpu_torch.ops import pose_graph as pg
+
+    g = _pg_ring(cuda, 24, 32, false_edge=True)
+    for diag in ((False, True) if mode == "dense" else (False,)):
+        got = pg.edge_system(g, mode, *robust, diag=diag, damping=1e-4)
+        plain = pg.edge_system_reference(g, mode, *robust, diag=diag,
+                                         damping=1e-4)
+        torch.cuda.synchronize()
+        _pg_close(got.r, plain.r, "r")
+        _pg_close(got.chi2, plain.chi2, "chi2")
+        cols = [pg._T] if mode == "chi2" else list(range(pg._EW + 1))
+        _pg_close(got.rows[:, cols], plain.rows[:, cols], "rows")
+        if mode != "chi2":
+            _pg_close(got.J, plain.J, "J")
+            _pg_close(got.b, plain.b, "b")
+            _pg_close(got.H, plain.H, f"H diag={diag}")
+            assert torch.isfinite(got.J).all()
+
+
+@pytest.mark.parametrize("case", ["early_stop", "all_iterations",
+                                  "capacity_512"])
+def test_pg_cg_solve_matches_plain(cuda, case):
+    """K13b against the plain CG on the same K13a system: the retracted
+    poses and the step within 1e-5, the same iteration count (an early
+    stop by the tolerance, or every one of ba_cg_iters), two launches
+    equal bit for bit, and no host sync."""
+    from voxelhashing_demo_tpu_torch.config import KeyframeConfig
+    from voxelhashing_demo_tpu_torch.ops import pose_graph as pg
+
+    real, cap = (128, 512) if case == "capacity_512" else (48, 64)
+    kcfg = KeyframeConfig(ba_cg_tol={"early_stop": 1e-3,
+                                     "all_iterations": 0.0}.get(case, 1e-6),
+                          ba_cg_iters=64)
+    g = _pg_ring(cuda, real, cap)
+    s = pg.edge_system(g, "cg", 0.1, "gm", damping=kcfg.ba_damping)
+    pg.cg_solve(s, g, kcfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, delta, iters = pg.cg_solve(s, g, kcfg)
+        out2, _, _ = pg.cg_solve(s, g, kcfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    p_out, p_delta, p_iters = pg.cg_reference(s, g, kcfg)
+    assert torch.equal(out, out2)
+    assert int(iters) == int(p_iters)
+    if case != "capacity_512":
+        assert (int(iters) == 64) == (case == "all_iterations")
+    _pg_close(delta, p_delta, "delta", 1e-5)
+    _pg_close(out, p_out, "poses", 1e-5)
+    assert float(delta.abs().max()) > 1e-3
+
+
+def test_pg_retract_matches_plain(cuda):
+    """K13c against its plain version: the retract bit for bit (within
+    1e-6), and no update when info != 0 or a delta is not finite."""
+    from voxelhashing_demo_tpu_torch.ops import pose_graph as pg
+
+    g = _pg_ring(cuda, 24, 32)
+    rng = np.random.RandomState(1)
+    delta = torch.from_numpy(rng.normal(0, 0.05, 32 * 6).astype(
+        np.float32)).to(cuda)
+    for info, d in ((0, delta), (2, delta),
+                    (0, torch.where(torch.arange(192, device=cuda) == 7,
+                                    float("nan"), delta))):
+        info_t = torch.full((), info, dtype=torch.int32, device=cuda)
+        out, used = pg.retract(d, info_t, g.poses)
+        p_out, p_used = pg.retract_reference(d, info_t, g.poses)
+        _pg_close(out, p_out, "poses")
+        assert torch.equal(used, p_used)
+        if info or not torch.isfinite(d).all():
+            assert torch.equal(out, g.poses) and not used.any()
+
+
+@pytest.mark.parametrize("solver,real,cap", [("dense", 24, 32),
+                                             ("auto", 48, 64),
+                                             ("cg", 128, 512)])
+def test_optimize_on_the_card_no_sync_matches_plain(cuda, solver, real,
+                                                     cap):
+    """``optimize`` on the card makes no host sync (sync-debug "error"),
+    launches K13a and K13b or K13c each iteration, repeats bit for bit,
+    moves the poses and lands within 1e-5 of ``optimize_reference`` on the
+    card (a false closure and GNC: the robust cost falls, chi2 of the base
+    weights need not)."""
+    from voxelhashing_demo_tpu_torch.config import KeyframeConfig
+    from voxelhashing_demo_tpu_torch.ops import pose_graph as pg
+
+    kcfg = KeyframeConfig(ba_iters=8, ba_solver=solver,
+                          ba_gnc_init_scale=4.0)
+    g = _pg_ring(cuda, real, cap, false_edge=True)
+    pg.optimize(g, kcfg)
+    torch.cuda.synchronize()
+    before = (pg.LAUNCHES_EDGE_BLOCKS, pg.LAUNCHES_CG, pg.LAUNCHES_RETRACT)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, info = pg.optimize(g, kcfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = (pg.LAUNCHES_EDGE_BLOCKS, pg.LAUNCHES_CG, pg.LAUNCHES_RETRACT)
+    use_cg = solver == "cg"
+    assert [y - x for x, y in zip(before, after)] == [
+        8 + 2, 8 if use_cg else 0, 0 if use_cg else 8]
+    b, _ = pg.optimize(g, kcfg)
+    plain, p_info = pg.optimize_reference(g, kcfg)
+    assert torch.equal(a.poses, b.poses)
+    _pg_close(a.poses, plain.poses, "poses", 1e-5)
+    _pg_close(info.chi2_final, p_info.chi2_final, "chi2", 1e-5)
+    assert float((a.poses - g.poses).abs().max()) > 1e-3
+
+
+def test_se3_exp_and_inverse_make_no_host_sync(cuda):
+    """``se3.exp`` / ``se3.inverse`` build their bottom row on the card:
+    no upload, so no host sync."""
+    from voxelhashing_demo_tpu_torch.geometry import se3
+
+    xi = torch.tensor([[0.1, -0.2, 0.3, 0.2, 0.1, -0.3]], device=cuda)
+    se3.exp(xi)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T = se3.exp(xi)
+        Ti = se3.inverse(T)
+        se3.log(Ti @ T)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.allclose(Ti @ T, torch.eye(4, device=cuda), atol=1e-6)
+
+
+def test_pg_refused_inputs_raise(cuda, monkeypatch):
+    """What K13a-c do not take raises (a dense H past MAX_DENSE_POSES,
+    int64 indices, tensors on two devices, a CG step without a CG-mode
+    system); a refused launch raises; no plain version runs instead."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.config import KeyframeConfig
+    from voxelhashing_demo_tpu_torch.ops import pose_graph as pg
+
+    g = _pg_ring(cuda, 8, 16)
+    big = pg.create(pg.MAX_DENSE_POSES + 1, 4, device=cuda)
+    with pytest.raises(ValueError, match="dense H"):
+        pg.edge_system(big, "dense")
+    pg.edge_system(big, "chi2")                     # other modes take it
+    with pytest.raises(ValueError, match="int32"):
+        pg.edge_system(g._replace(edges_ij=g.edges_ij.long()), "cg")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pg.edge_system(g._replace(edges_w=g.edges_w.cpu()), "cg")
+    with pytest.raises(ValueError, match="CG-mode"):
+        pg.cg_solve(pg.edge_system(g, "dense"), g, KeyframeConfig())
+    with pytest.raises(ValueError, match="pg_retract"):
+        pg.retract(torch.zeros(6, device=cuda),
+                   torch.zeros((), dtype=torch.int32, device=cuda), g.poses)
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("edge_system_reference", "cg_reference",
+                 "retract_reference"):
+        monkeypatch.setattr(pg, name, no_plain)
+    pg.optimize(g, KeyframeConfig(ba_iters=2, ba_solver="cg"))
+    pg.optimize(g, KeyframeConfig(ba_iters=2, ba_solver="dense"))
+    monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="pg_edge_blocks kernel launch"):
+        pg.optimize(g, KeyframeConfig(ba_iters=2))

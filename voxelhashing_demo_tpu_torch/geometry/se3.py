@@ -52,8 +52,9 @@ def _sinc_factors(theta2: torch.Tensor):
 
 
 def _bottom_row(top: torch.Tensor) -> torch.Tensor:
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                       device=top.device)
+    """[0, 0, 0, 1] under ``top``, made on its device (row 3 of an eye):
+    no upload from the host, so no host sync on the card."""
+    row = torch.eye(4, dtype=top.dtype, device=top.device)[3:]
     return row.expand(top.shape[:-2] + (1, 4))
 
 

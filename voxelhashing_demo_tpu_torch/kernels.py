@@ -231,6 +231,17 @@ KERNELS = {
     # and ints (buckets, slots a bucket, map rows, voxels a row, key bits,
     # the hash's buckets and divisor, max_new)
     "insert_blocks": [_P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    # K13a (csrc/pose_graph.cu): poses, edges_ij, edges_T, edges_w, K, E,
+    # robust kernel, rho, mode, diag, damping, rows, J, r, bitmaps, b,
+    # chi2, H
+    "pg_edge_blocks": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P, _P,
+                       _P, _P, _P, _P, _P, _P],
+    # K13b: rows, edges_ij, bitmaps, Hd, b, poses, K, E, CG iterations,
+    # damping, tol^2, float scratch, flags, out poses, delta, iterations
+    "pg_cg_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P,
+                    _P, _P, _P],
+    # K13c: delta, info, poses, K, out poses, delta applied
+    "pg_retract": [_P, _P, _P, _I, _P, _P, _P],
 }
 # C function -> its source under csrc/, where the two names differ
 SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
@@ -240,7 +251,9 @@ SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
            "splat_finalize_info": "splat",
            "compact_visible": "fuse", "integrate_rows": "fuse",
            "integrate_rows_info": "fuse",
-           "alloc_candidates": "alloc", "insert_blocks": "alloc"}
+           "alloc_candidates": "alloc", "insert_blocks": "alloc",
+           "pg_edge_blocks": "pose_graph", "pg_cg_solve": "pose_graph",
+           "pg_retract": "pose_graph"}
 
 
 def source_of(name: str) -> str:

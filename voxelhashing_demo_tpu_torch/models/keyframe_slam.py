@@ -620,9 +620,11 @@ class KeyframeSLAM:
 
     def _dispatch_ba(self) -> None:
         """Async BA (``ba_async``): solve now, fetch nothing; the
-        correction lands at the next drain (``_complete_ba``).  Poses and
-        edges appended meanwhile sit at rows >= n0 of the optimized graph
-        and are re-based on completion."""
+        correction lands at the next drain (``_complete_ba``).  On the
+        card ``optimize`` reads nothing back, so this returns once the
+        solve's launches are queued, without waiting on the card.  Poses
+        and edges appended meanwhile sit at rows >= n0 of the optimized
+        graph and are re-based on completion."""
         last_idx = self.keyframes[-1].index
         old_last = self._poses_np[last_idx].copy()
         n0 = self._n_poses

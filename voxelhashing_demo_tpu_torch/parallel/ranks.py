@@ -14,7 +14,7 @@ import torch
 
 from .. import convert
 from ..device import host_array
-from ..ops import hash_ops, icp
+from ..ops import hash_ops, icp, pose_graph
 from ..ops import preprocess as pre_ops
 from ..ops import splat as splat_ops
 from . import distributed, sharded
@@ -131,7 +131,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     saturation), the trajectory, the graph poses, this rank's map shard,
     K7's window-gather launches, the kernels' launches (``icp_launches``:
     K4, K4s; ``k3_launches``: K3a, K3b; ``splat_launches``: K8, K9;
-    ``fuse_launches``: K6, K7; ``alloc_launches``: K5a, K5b), with
+    ``fuse_launches``: K6, K7; ``alloc_launches``: K5a, K5b;
+    ``pg_launches``: K13a, K13b, K13c), with
     streaming the store counters
     (evicted, restored, stored) summed over the ranks, and, with
     ``timed``, the host seconds of
@@ -144,6 +145,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
+    pose_graph.LAUNCHES_EDGE_BLOCKS = pose_graph.LAUNCHES_CG = 0
+    pose_graph.LAUNCHES_RETRACT = 0
     bytes0, coll0 = mesh.collective_host_bytes, mesh.collectives
     slam = keyframe_slam.KeyframeSLAM(config, mesh=mesh)
     for i, d in enumerate(frames):
@@ -174,6 +177,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
                           hash_ops.LAUNCHES_INTEGRATE],
         "alloc_launches": [hash_ops.LAUNCHES_ALLOC_CANDIDATES,
                            hash_ops.LAUNCHES_INSERT],
+        "pg_launches": [pose_graph.LAUNCHES_EDGE_BLOCKS,
+                        pose_graph.LAUNCHES_CG, pose_graph.LAUNCHES_RETRACT],
         "rebuild_fuses": sum(e["keyframes"] for e in slam.ba_events
                              if e["rebuild_mode"] == "full"),
     }
