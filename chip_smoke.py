@@ -10,7 +10,8 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    the ICP kernels K4 / K4s in icp.cu, the frontend and pyramid kernels
    K3a / K3b in preprocess.cu, the splat kernels K8 / K9 in splat.cu,
    the fuse kernels K6 / K7 in fuse.cu, the allocation kernels K5a / K5b
-   in alloc.cu, the BA kernels K13a-c in pose_graph.cu, the empty
+   in alloc.cu, the BA kernels K13a-c in pose_graph.cu, the map's free
+   and restore kernels K10 / K14 / K15 in maintain.cu, the empty
    kernels that measure
    the launch and barrier floors, and the host codec) for sm_90a into the
    package's _build/ directory, one compiler process each, started
@@ -160,11 +161,18 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    set empty); the stage (``allocate_from_frame``) kernel against plain in
    turns plain / kernel / kernel / plain: host ms, host µs to issue, device
    kernels (exactly 2) and host reads (none); ``fuse_frame``'s host reads
-   (none; 16 before K5); one K5a and one K5b launch a step.  Then K10's
-   work before it is written: ``garbage_collect`` on the flagship's GC
-   frame (frame 15 of the sweep), its device kernels, device µs and host
-   ms; and the whole step's host reads and device kernels on the next
-   frame (what stands between the step and a CUDA graph).
+   (none; 16 before K5); one K5a and one K5b launch a step.  Then K10
+   (csrc/maintain.cu ``gc_free``, ``garbage_collect`` on the card)
+   against ``garbage_collect_reference`` bit for bit on the flagship's GC
+   frame's own map (frame 15 of the sweep: the age gate keeps every row)
+   and on the same map 16 frames later (the weight test runs, blocks are
+   freed); the call's device kernels (at most MAINT_GC_KERNELS), device
+   µs, host ms and host reads (none); K10 alone warm and L2-cold (a CUDA
+   graph of 8 and 32 launches on copies of the map's integer state, its
+   own µs by the profiler), its wrapper, the plain version, the bound from
+   the map and the least (the floor and one status exchange); and the
+   whole step's host reads and device kernels on the next frame (what
+   stands between the step and a CUDA graph).
 4. ``parity``: the port on the card (kernel) against the port on the CPU
    (plain gather) over 10 frames at 80x60: per-frame pose translation
    within 1e-4 m.
@@ -230,8 +238,15 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    Prints frame ms by class (the frame that runs the cycle's dispatch, the
    one that runs its completion, the rest), evict / restore ms (CUDA
    events), the copies' bytes and device µs per batch, host syncs of the
-   eviction scan, a restore, a dispatch and a completion (``sync_sites``),
-   peak device memory and pinned host bytes.
+   eviction scan, a restore, a dispatch and a completion (``sync_sites``;
+   none in the eviction and the restore), peak device memory and pinned
+   host bytes.  K14 (``evict_free``) and K15 (``restore_rows``,
+   csrc/maintain.cu) against ``evict_stale_reference`` and
+   ``restore_blocks_reference`` bit for bit on every call the run made,
+   on copies of the call's own map and batch (``CallRecorder``); then
+   each on the call that moved the most rows: warm and L2-cold (CUDA-graph
+   copies, as K10), wrapper, plain, the bound from that call's data, the
+   least (the floor and one status exchange or arrival).
 10. ``stream_backend``: the same frames through the streaming
    ``KeyframeSLAM`` (bench.py ``_streaming_backend_run``: interval 12,
    age 24, ``STREAM_BACKEND_KEYFRAMES`` over the flagship's keyframe
@@ -379,7 +394,15 @@ K13c on each rank of ``sharded_backend``) and none on the frontend-only
 paths (``parity``, ``slice``, ``march``, ``stream``, ``entry``,
 ``roofline``); ``library_ms`` null (no PyTorch call computes them; the
 dense step's cuSOLVER time is ``cusolver_ms``), ``ptxas`` each kernel's
-registers and spills.
+registers and spills.  K10, K14 and K15 (``gc_free``, ``evict_free``,
+``restore_rows``) with the times and bound of the ``alloc`` phase's GC
+frame (K10) and of the ``stream`` phase's largest call (K14, K15),
+counted like K3 on every path (rank 0's on the multi-rank paths): on
+each path one launch a ``garbage_collect``, ``evict_stale`` or
+``restore_blocks`` call on the card (``MaintCalls``; the checks' own
+launches are not counted), K10 on ``march``, ``backend``, ``stream``,
+``stream_backend`` and each rank of ``sharded_backend``, K14 and K15 on
+``stream`` and ``stream_backend``; ``launches`` the ``stream`` path's.
   Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
@@ -2442,6 +2465,121 @@ K5A_PIXEL_BYTES, K5A_OPS = 16, 45
 K5B_KEY_OPS, K5B_KEPT_OPS = 30, 60
 
 
+MAINT_KERNELS = ("gc_free", "evict_free", "restore_rows")
+MAINT_SOURCE = "voxelhashing_demo_tpu_torch/csrc/maintain.cu"
+MAINT_META = {
+    "gc_free": {
+        "route": "cuda", "source": MAINT_SOURCE,
+        "replaces": "voxelhashing_demo_tpu/ops/hash_ops.py:613 "
+                    "(garbage_collect), voxelhashing_demo_tpu/ops/"
+                    "hash_ops.py:566 (_free_marked): fused by XLA, no Pallas "
+                    "kernel",
+    },
+    "evict_free": {
+        "route": "cuda", "source": MAINT_SOURCE,
+        "replaces": "voxelhashing_demo_tpu/ops/hash_ops.py:663 "
+                    "(evict_stale), voxelhashing_demo_tpu/ops/hash_ops.py:566 "
+                    "(_free_marked): fused by XLA, no Pallas kernel",
+    },
+    "restore_rows": {
+        "route": "cuda", "source": MAINT_SOURCE,
+        "replaces": "voxelhashing_demo_tpu/ops/hash_ops.py:715 "
+                    "(restore_blocks), voxelhashing_demo_tpu/ops/"
+                    "hash_ops.py:118 (lookup_keys): fused by XLA, no Pallas "
+                    "kernel",
+    },
+}
+# the public function each stands behind
+MAINT_PUBLIC = ("garbage_collect", "evict_stale", "restore_blocks")
+# the paths on which each must launch (flagship GC every 16 frames on runs
+# of 24 frames and more; the streaming cycle)
+MAINT_REQUIRED = {"gc_free": ("march", "backend", "stream",
+                              "stream_backend"),
+                  "evict_free": ("stream", "stream_backend"),
+                  "restore_rows": ("stream", "stream_backend")}
+GC_FIELDS = ("keys", "ptrs", "bucket_fill", "free_list", "free_top")
+MAINT_GC_KERNELS = 2        # the GC frame's garbage_collect: K10 at most + 1
+MAINT_SLOT_OPS = 12         # integer operations a table slot (K10, K14)
+
+
+def maint_launches() -> list:
+    """[K10, K14, K15] launches counted since they were last set to 0."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    return [hash_ops.LAUNCHES_GC, hash_ops.LAUNCHES_EVICT,
+            hash_ops.LAUNCHES_RESTORE]
+
+
+def zero_maint_launches() -> None:
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hash_ops.LAUNCHES_GC = hash_ops.LAUNCHES_EVICT = 0
+    hash_ops.LAUNCHES_RESTORE = 0
+
+
+def set_maint_launches(counts) -> None:
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    (hash_ops.LAUNCHES_GC, hash_ops.LAUNCHES_EVICT,
+     hash_ops.LAUNCHES_RESTORE) = counts
+
+
+_MAINT_CALLS: list = []     # the MaintCalls installed
+
+
+class MaintCalls:
+    """While installed, counts the calls of ``garbage_collect``,
+    ``evict_stale`` and ``restore_blocks`` (called by module attribute)
+    on a map on the card (a restore only with keys): each must be one
+    launch of its kernel."""
+
+    def __init__(self, hash_ops):
+        self.ops = hash_ops
+        self.counts = dict.fromkeys(MAINT_PUBLIC, 0)
+
+    def __enter__(self):
+        _MAINT_CALLS.append(self)
+        self.real = {k: getattr(self.ops, k) for k in MAINT_PUBLIC}
+
+        def counted(name):
+            fn = self.real[name]
+
+            def wrapper(hmap, cfg, *a, **k):
+                keys = (a[0] if a else k["keys"]) if \
+                    name == "restore_blocks" else None
+                if hmap.keys.is_cuda and (keys is None or keys.numel()):
+                    self.counts[name] += 1
+                return fn(hmap, cfg, *a, **k)
+            return wrapper
+
+        for k in MAINT_PUBLIC:
+            setattr(self.ops, k, counted(k))
+        return self
+
+    def __exit__(self, *exc):
+        _MAINT_CALLS.remove(self)
+        for k, fn in self.real.items():
+            setattr(self.ops, k, fn)
+
+    def list(self) -> list:
+        return [self.counts[k] for k in MAINT_PUBLIC]
+
+
+@contextlib.contextmanager
+def uncounted_maint():
+    """K10's, K14's and K15's launches, and the calls MaintCalls counts,
+    left as they were before the block: the checks against the plain
+    versions and the timings do not count as a path's launches."""
+    launches = maint_launches()
+    calls = [dict(c.counts) for c in _MAINT_CALLS]
+    try:
+        yield
+    finally:
+        set_maint_launches(launches)
+        for c, saved in zip(_MAINT_CALLS, calls):
+            c.counts = saved
+
+
 def alloc_launches() -> list:
     """[K5a, K5b] launches counted since they were last set to 0."""
     from voxelhashing_demo_tpu_torch.ops import hash_ops
@@ -2531,16 +2669,17 @@ def _kernel_us(torch, fn, name: str) -> dict:
             "median_us": float(np.median(us)) if us else None}
 
 
-def _k5b_graph(torch, launch, base, rows, copies: int, reps: int) -> dict:
-    """K5b alone: ``copies`` launches, each on its own copy of ``base``'s
-    integer state (``rows``' rows shared), captured into one CUDA graph;
-    the copies restored before each of ``reps`` replays.  Returns {"ms":
-    device ms per launch (CUDA events around one replay, over
-    ``copies``), "kernel_us": K5b's own device µs a launch in one replay,
-    and "eager_kernel_us" in the same launches made one by one (the
+def _k5b_graph(torch, launch, base, rows, copies: int, reps: int,
+               fields=ALLOC_INT_FIELDS, name: str = "insert_blocks") -> dict:
+    """A map kernel alone (K5b unless ``name`` says otherwise): ``copies``
+    launches, each on its own copy of ``base``'s ``fields`` (``rows``'
+    other fields shared), captured into one CUDA graph; the copies
+    restored before each of ``reps`` replays.  Returns {"ms": device ms
+    per launch (CUDA events around one replay, over ``copies``),
+    "kernel_us": the kernel's own device µs a launch in one replay, and
+    "eager_kernel_us" in the same launches made one by one (the
     profiler's), "replayed": the first copy after the last replay}."""
-    maps = [rows._replace(**{f: getattr(base, f).clone()
-                             for f in ALLOC_INT_FIELDS})
+    maps = [rows._replace(**{f: getattr(base, f).clone() for f in fields})
             for _ in range(copies)]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -2556,28 +2695,78 @@ def _k5b_graph(torch, launch, base, rows, copies: int, reps: int) -> dict:
 
     def prep():
         for m in maps:
-            _restore(m, base)
+            _restore(m, base, fields)
 
     ms = _prepped_ms(torch, graph.replay, prep, reps) / copies
     prep()
-    kernel_us = _kernel_us(torch, graph.replay, "insert_blocks")
+    kernel_us = _kernel_us(torch, graph.replay, name)
     prep()
-    eager_us = _kernel_us(torch, lambda: [launch(m) for m in maps],
-                          "insert_blocks")
+    eager_us = _kernel_us(torch, lambda: [launch(m) for m in maps], name)
     prep()
     graph.replay()
     return {"ms": ms, "kernel_us": kernel_us, "eager_kernel_us": eager_us,
             "replayed": maps[0]}
 
 
-def _gc_cost(torch, slam, sweep) -> dict:
-    """K10's work before it is written: ``garbage_collect`` as the step
-    calls it on the run's first GC frame (frame ``interval - 1``), on the
-    map as the step handed it over, its integer state restored before
-    each call: device
-    kernels and their busy µs (torch.profiler), host ms (CUDA events
-    around the call), host reads, the blocks it frees and the bytes it
-    must move."""
+def _maps_equal(torch, got, want) -> dict:
+    """{field: bit for bit} of two HashMaps (floats by their bits)."""
+    def same(a, b):
+        if a.dtype == torch.float32:
+            return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+        return bool(torch.equal(a, b))
+    return {f: same(getattr(got, f), getattr(want, f)) for f in got._fields}
+
+
+def _changed_slots(base, after) -> int:
+    """Table slots whose key or ptr differ between two maps."""
+    return int(((base.keys != after.keys) | (base.ptrs != after.ptrs)).sum())
+
+
+def _k10_case(torch, base, hcfg, min_weight, max_free, frame, min_age):
+    """K10 against ``garbage_collect_reference`` on copies of ``base``:
+    {"fields", "bit_exact", "n_freed", "live", "gated_rows", "changed",
+    "bound_bytes"} (the bytes K10 must move: every slot's key and ptr, the
+    live rows' last_seen, the weight rows of the live rows the age gate
+    passes, the fills, the changed slots, the pushed stack entries)."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    got, want = probe.map_copy(base), probe.map_copy(base)
+    _, n_got = hash_ops.garbage_collect(got, hcfg, min_weight, max_free,
+                                        frame, min_age)
+    _, n_want = hash_ops.garbage_collect_reference(
+        want, hcfg, min_weight, max_free, frame, min_age)
+    fields = _maps_equal(torch, got, want)
+    fields["n_freed"] = int(n_got) == int(n_want)
+    live_ptrs = base.ptrs[base.ptrs != hash_ops.FREE_PTR].long()
+    gated = live_ptrs.numel()
+    if frame is not None and min_age > 0:
+        gated = int(((frame - base.last_seen[live_ptrs]) >= min_age).sum())
+    n = int(n_want)
+    changed = _changed_slots(base, want)
+    nbytes = (8 * base.keys.numel() + 4 * live_ptrs.numel()
+              + 4 * hcfg.voxels_per_block * gated + 4 * hcfg.num_buckets
+              + 8 * changed + 4 * n + 8)
+    return {"fields": fields, "bit_exact": all(fields.values()),
+            "n_freed": n, "live": int(live_ptrs.numel()),
+            "gated_rows": gated, "changed_slots": changed,
+            "bound_bytes": nbytes}
+
+
+def _k10_check(torch, slam, sweep, floor_ms: float) -> dict:
+    """K10 (``garbage_collect`` on the card) on the run's first GC frame
+    (frame ``interval - 1``), on the map as the step handed it over: bit
+    for bit against ``garbage_collect_reference`` there (the age gate
+    keeps every row: nothing freed) and 16 frames later on the same map
+    (every row past the gate: the weight test runs, blocks freed); the
+    call's device kernels (torch.profiler), host ms (CUDA events) and host
+    reads; the kernel alone warm and L2-cold (a CUDA graph of 8 and 32
+    launches on copies of the map's integer state, restored before each
+    replay; its own µs a launch by the profiler), its wrapper's host ms
+    and µs to issue, the plain version's ms, the bound from this run's
+    map, the least (the launch floor and one status exchange, a grid
+    barrier's cost)."""
+    from voxelhashing_demo_tpu_torch import kernels
     from voxelhashing_demo_tpu_torch.ops import hash_ops
     from voxelhashing_demo_tpu_torch.tools import probe
 
@@ -2597,12 +2786,15 @@ def _gc_cost(torch, slam, sweep) -> dict:
     with _wrapped(hash_ops, "garbage_collect", record):
         slam.process(sweep[frame])
     base, hcfg, min_weight, max_free = last[:4]
-    fields = ALLOC_INT_FIELDS + ("free_list",)
+    args = (hcfg, min_weight, max_free, frame, gc.min_age)
+    cases = {"step": _k10_case(torch, base, *args),
+             "aged_16": _k10_case(torch, base, hcfg, min_weight, max_free,
+                                  frame + 16, gc.min_age)}
+    fields = GC_FIELDS
     work = base._replace(**{f: getattr(base, f).clone() for f in fields})
 
     def run():
-        return hash_ops.garbage_collect(work, hcfg, min_weight, max_free,
-                                        frame_idx=frame, min_age=gc.min_age)
+        return hash_ops.garbage_collect(work, *args)
 
     def prep():
         _restore(work, base, fields)
@@ -2613,18 +2805,45 @@ def _gc_cost(torch, slam, sweep) -> dict:
     prep()
     reads = sync_sites(torch, run)
     prep()
-    n_freed = int(run()[1])
-    # every ptr and key read, the weight rows and last_seen of the live
-    # entries; the table, the fills and the pushed free-list entries written
-    live = int((base.ptrs != hash_ops.FREE_PTR).sum())
-    T = base.keys.numel()
-    nbytes = (16 * T + live * (4 * hcfg.voxels_per_block + 4)
-              + 4 * hcfg.num_buckets + 4 * n_freed + 4)
-    return {"frame": frame, "live_entries": live, "freed": n_freed,
-            "host_ms": host_ms, "device_kernels": kern["kernels"],
-            "device_us": kern["busy_us"], "host_reads": reads,
-            "bound_bytes": nbytes,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+    def k10_alone(m):
+        hash_ops.garbage_collect(m, *args)
+
+    rows = probe.map_copy(base, probe.MAP_FIELDS)
+    graphs = {n: _k5b_graph(torch, k10_alone, base, rows, n,
+                            probe.WARM_CALLS // 2 if n < 32 else 5,
+                            fields, "free_kernel")
+              for n in (1, ALLOC_WARM_COPIES, ALLOC_COLD_COPIES)}
+    want = probe.map_copy(base, fields)
+    hash_ops.garbage_collect_reference(want, *args)
+    replay_exact = all(bool(torch.equal(getattr(g["replayed"], f),
+                                        getattr(want, f)))
+                       for g in graphs.values() for f in fields)
+    step = cases["step"]
+    out = {"frame": frame, "cases": cases,
+           "ms": graphs[ALLOC_WARM_COPIES]["ms"],
+           "cold_ms": graphs[ALLOC_COLD_COPIES]["ms"],
+           "graph_copies": {str(n): {k: g[k] for k in (
+               "ms", "kernel_us", "eager_kernel_us")}
+               for n, g in graphs.items()},
+           "graph_replay_bit_exact": replay_exact,
+           "wrapper_ms": probe.host_ms(run),
+           "host_issue_us": host_issue_us(run, reps=WRAPPER_REPS),
+           "plain_ms": _prepped_ms(torch, lambda: hash_ops.
+                                   garbage_collect_reference(work, *args),
+                                   prep),
+           "call_host_ms": host_ms, "device_kernels": kern["kernels"],
+           "device_us": kern["busy_us"], "host_reads": reads,
+           "bound_bytes": step["bound_bytes"]}
+    prep()
+    out["bound_ms"], out["bound_by"] = _probe_bound(
+        step["bound_bytes"], MAINT_SLOT_OPS * base.keys.numel())
+    tiles = -(-hcfg.num_buckets // hash_ops.MAINTAIN_TILE)
+    out["barrier_floor_ms"] = barrier_floor_ms(torch, kernels, tiles)
+    out["floor_ms"] = floor_ms
+    out["least_ms"] = max(out["bound_ms"],
+                          floor_ms + out["barrier_floor_ms"])
+    return out
 
 
 def phase_alloc(torch, card: str, sweep) -> dict:
@@ -2808,7 +3027,7 @@ def phase_alloc(torch, card: str, sweep) -> dict:
     whole = probe.map_copy(base)
     fuse_reads = sync_sites(torch, lambda: hash_ops.fuse_frame(
         whole, *cargs, frame_idx=frame_idx))
-    gc_cost = _gc_cost(torch, slam, sweep)
+    k10 = _k10_check(torch, slam, sweep, floor_ms)
     # what stands between the whole step and a CUDA graph: its host reads
     # and device kernels on the next sweep frame
     depth_next = hash_slam.depth_tensor(sweep[slam.state.frame_idx],
@@ -2829,7 +3048,7 @@ def phase_alloc(torch, card: str, sweep) -> dict:
            "insert_blocks": {"cases": cases, **k5b},
            "launches_per_frame": dict(zip(ALLOC_KERNELS, per_frame)),
            "stage": stage, "fuse_frame_host_reads": fuse_reads,
-           "garbage_collect": gc_cost, "step_host_reads": step_reads,
+           "gc_free": k10, "step_host_reads": step_reads,
            "step_device_kernels": step_kernels, "k5b_scratch": scratch,
            "seconds": time.perf_counter() - t0})
     _require(k5a_cmp["bit_exact"], "K5a == frame_candidate_keys_reference "
@@ -2855,7 +3074,22 @@ def phase_alloc(torch, card: str, sweep) -> dict:
     _require(not stage["host_reads"], "allocate_from_frame reads nothing on "
                                       "the host")
     _require(not fuse_reads, "fuse_frame reads nothing on the host")
-    return {"alloc_candidates": {"case": "step", **k5a,
+    _require(all(c["bit_exact"] for c in k10["cases"].values()),
+             "K10 == garbage_collect_reference bit for bit on the GC "
+             "frame's map, at its frame and 16 frames later")
+    _require(k10["cases"]["aged_16"]["n_freed"] > 0,
+             "K10's aged case frees blocks")
+    _require(k10["graph_replay_bit_exact"], "K10 replayed from a CUDA graph "
+                                            "== the plain GC")
+    _require(k10["device_kernels"] <= MAINT_GC_KERNELS,
+             f"the GC frame's garbage_collect runs <= {MAINT_GC_KERNELS} "
+             f"device kernels")
+    _require(not k10["host_reads"], "garbage_collect reads nothing on the "
+                                    "host")
+    return {"gc_free": {"case": "step", **{
+                k: v for k, v in k10.items() if k != "cases"},
+                "max_abs_err": 0.0, "library_ms": None},
+            "alloc_candidates": {"case": "step", **k5a,
                                  "max_abs_err": k5a_cmp["max_abs_err"],
                                  "library_ms": None},
             "insert_blocks": {"case": "step", **k5b,
@@ -3908,17 +4142,18 @@ def stream_report(torch, inner, last_depth, by_class, timers,
     # host syncs: the eviction scan and a restore alone (on clones of the
     # map), then one more dispatch and completion of the live cycle
     hm = hash_ops.HashMap(*(t.clone() for t in inner.state.hmap))
-    evict = sync_sites(torch, lambda: hash_ops.evict_stale(
-        hm, inner.config.hash, inner.state.frame_idx + 1, s.max_age,
-        s.max_evict))
     keys = np.asarray(sorted(inner.store._index)[: s.max_restore],
                       np.int32)
     rows = [torch.as_tensor(a, device=inner.device)
             for a in (keys,) + inner.store.rows_for(keys)]
-    restore = sync_sites(torch, lambda: hash_ops.restore_blocks(
-        hm, inner.config.hash, rows[0], rows[1], rows[2],
-        inner.state.frame_idx, max_weight=inner.config.fusion.max_weight,
-        born_rows=rows[3]))
+    with uncounted_maint():
+        evict = sync_sites(torch, lambda: hash_ops.evict_stale(
+            hm, inner.config.hash, inner.state.frame_idx + 1, s.max_age,
+            s.max_evict))
+        restore = sync_sites(torch, lambda: hash_ops.restore_blocks(
+            hm, inner.config.hash, rows[0], rows[1], rows[2],
+            inner.state.frame_idx, max_weight=inner.config.fusion.max_weight,
+            born_rows=rows[3]))
     inner._cycle_complete()
     dispatch = sync_sites(torch, inner._cycle_dispatch)
     complete = sync_sites(torch, inner._cycle_complete)
@@ -3943,6 +4178,189 @@ def stream_report(torch, inner, last_depth, by_class, timers,
     }
 
 
+class CallRecorder:
+    """While installed, every call of ``evict_stale`` and
+    ``restore_blocks`` (called by module attribute) is kept: its map
+    copied and its tensor arguments cloned before the call, outside any
+    timer installed before this."""
+
+    NAMES = ("evict_stale", "restore_blocks")
+
+    def __init__(self, torch, hash_ops):
+        self.torch, self.ops = torch, hash_ops
+        self.calls = {k: [] for k in self.NAMES}
+
+    def __enter__(self):
+        from voxelhashing_demo_tpu_torch.tools import probe
+
+        torch = self.torch
+        self.real = {k: getattr(self.ops, k) for k in self.NAMES}
+
+        def clone(x):
+            return x.clone() if torch.is_tensor(x) else x
+
+        def recorded(name):
+            fn = self.real[name]
+
+            def wrapper(hmap, *a, **k):
+                self.calls[name].append((
+                    probe.map_copy(hmap), tuple(clone(x) for x in a),
+                    {key: clone(v) for key, v in k.items()}))
+                return fn(hmap, *a, **k)
+            return wrapper
+
+        for k in self.NAMES:
+            setattr(self.ops, k, recorded(k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.ops, k, fn)
+
+
+def _evict_bytes(hcfg, base, after, n: int, max_evict: int) -> int:
+    """The bytes K14 must move: every slot's key and ptr and the live
+    rows' last_seen read; the evicted rows' tsdf, weight and born read;
+    max_evict output rows (keys, born, tsdf, weight, padding included),
+    the fills, the changed slots and the pushed stack entries written."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    V = hcfg.voxels_per_block
+    live = int((base.ptrs != hash_ops.FREE_PTR).sum())
+    changed = _changed_slots(base, after)
+    return (8 * base.keys.numel() + 4 * live + n * (8 * V + 4)
+            + max_evict * (8 * V + 8) + 4 * hcfg.num_buckets + 8 * changed
+            + 4 * n + 8)
+
+
+def _restore_bytes(hcfg, keys, found: int, inserted: int, born) -> int:
+    """The bytes K15 must move: the R keys; each key's bucket (slots,
+    ptrs, fill); the input rows of the found and inserted keys (tsdf,
+    weight, born); each found row read and written with its band_min and
+    born; each inserted row, its last_seen, band_min, born, key, ptr and
+    fill written; accepted."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    V, S = hcfg.voxels_per_block, hcfg.bucket_size
+    R = keys.numel()
+    K = int((keys != hash_ops.EMPTY_KEY).sum())
+    row_in = 8 * V + (4 if born is not None else 0)
+    return (4 * R + K * 4 * (2 * S + 1) + (found + inserted) * row_in
+            + found * (16 * V + 8) + inserted * (8 * V + 24) + R + 8)
+
+
+def _maint_stream_checks(torch, rec: CallRecorder, floor_ms: float) -> dict:
+    """K14 and K15 against ``evict_stale_reference`` and
+    ``restore_blocks_reference``, bit for bit (every map field and every
+    output), on every call the streaming run made, each on copies of the
+    call's own map and batch; then the kernel on the call that evicted
+    the most rows (K14) and the batch that restored the most (K15):
+    warm and L2-cold (a CUDA graph of 8 and 32 launches on copies of the
+    map, restored before each replay; the kernel's own µs by the
+    profiler), wrapper host ms and µs to issue, the plain version's ms,
+    the bound from that call's data and the least (the launch floor and
+    one status exchange or arrival, a grid barrier's cost).  Returns
+    {kernel: its kernels-line fields}."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    out = {}
+    cases = []
+    for m, a, k in rec.calls["evict_stale"]:
+        got, want = probe.map_copy(m), probe.map_copy(m)
+        res = hash_ops.evict_stale(got, *a, **k)
+        ref = hash_ops.evict_stale_reference(want, *a, **k)
+        ok = all(_maps_equal(torch, got, want).values()) and all(
+            bool(torch.equal(x, y)) for x, y in zip(res[1:], ref[1:]))
+        cases.append({"n": int(ref[-1]), "bit_exact": ok, "after": want})
+    i_ev = int(np.argmax([c["n"] for c in cases]))
+    ev = {"calls": len(cases), "bit_exact": all(c["bit_exact"]
+                                                for c in cases),
+          "evicted_per_call": [c["n"] for c in cases]}
+    re_cases = []
+    for m, a, k in rec.calls["restore_blocks"]:
+        got, want = probe.map_copy(m), probe.map_copy(m)
+        _, acc = hash_ops.restore_blocks(got, *a, **k)
+        _, ref = hash_ops.restore_blocks_reference(want, *a, **k)
+        ok = all(_maps_equal(torch, got, want).values()) and bool(
+            torch.equal(acc, ref))
+        _, found = hash_ops.lookup_keys(m, a[0], a[1])
+        re_cases.append({"R": int(a[1].numel()),
+                         "keys": int((a[1] != hash_ops.EMPTY_KEY).sum()),
+                         "found": int(found.sum()),
+                         "accepted": int(ref.sum()), "bit_exact": ok})
+    i_re = int(np.argmax([c["accepted"] for c in re_cases]))
+    rs = {"calls": len(re_cases), "bit_exact": all(c["bit_exact"]
+                                                   for c in re_cases),
+          "accepted_per_call": [c["accepted"] for c in re_cases]}
+    for name, summary, call, kern in (
+            ("evict_free", ev, rec.calls["evict_stale"][i_ev],
+             "free_kernel"),
+            ("restore_rows", rs, rec.calls["restore_blocks"][i_re],
+             "restore_rows")):
+        m, a, k = call
+        fn = getattr(hash_ops, "evict_stale" if name == "evict_free"
+                     else "restore_blocks")
+        plain = getattr(hash_ops, "evict_stale_reference"
+                        if name == "evict_free"
+                        else "restore_blocks_reference")
+        fields = GC_FIELDS if name == "evict_free" else m._fields
+        graphs = {n: _k5b_graph(torch, lambda mm: fn(mm, *a, **k), m, m,
+                                n, probe.WARM_CALLS // 2 if n < 32 else 5,
+                                fields, kern)
+                  for n in (1, ALLOC_WARM_COPIES, ALLOC_COLD_COPIES)}
+        want = probe.map_copy(m, fields)
+        plain(want, *a, **k)
+        work = probe.map_copy(m)
+
+        def prep(work=work, m=m):
+            _restore(work, m, m._fields)
+
+        summary.update({
+            "case": "largest_call", "ms": graphs[ALLOC_WARM_COPIES]["ms"],
+            "cold_ms": graphs[ALLOC_COLD_COPIES]["ms"],
+            "graph_copies": {str(n): {key: g[key] for key in (
+                "ms", "kernel_us", "eager_kernel_us")}
+                for n, g in graphs.items()},
+            "graph_replay_bit_exact": all(
+                all(_maps_equal(torch, g["replayed"], want).values())
+                for g in graphs.values()),
+            "wrapper_ms": probe.host_ms(lambda: fn(work, *a, **k)),
+            "host_issue_us": host_issue_us(lambda: fn(work, *a, **k),
+                                           reps=WRAPPER_REPS),
+            "plain_ms": _prepped_ms(torch, lambda: plain(work, *a, **k),
+                                    prep)})
+        prep()
+        if name == "evict_free":
+            c = cases[i_ev]
+            nbytes = _evict_bytes(a[0], m, c["after"], c["n"], a[3])
+            ops = MAINT_SLOT_OPS * m.keys.numel()
+            ctas = max(-(-a[0].num_buckets // hash_ops.MAINTAIN_TILE),
+                       hash_ops.EVICT_MIN_TILES)
+            summary["evicted"] = c["n"]
+        else:
+            c = re_cases[i_re]
+            born = k.get("born_rows", a[7] if len(a) > 7 else None)
+            nbytes = _restore_bytes(a[0], a[1], c["found"],
+                                    c["accepted"] - c["found"], born)
+            ops = 40 * c["keys"] + 8 * a[0].voxels_per_block * c["found"]
+            ctas = min(-(-c["R"] // 32), torch.cuda.get_device_properties(
+                torch.cuda.current_device()).multi_processor_count)
+            summary.update({k2: c[k2] for k2 in ("R", "keys", "found",
+                                                 "accepted")})
+        summary["bound_bytes"] = nbytes
+        summary["bound_ms"], summary["bound_by"] = _probe_bound(nbytes, ops)
+        summary["barrier_floor_ms"] = barrier_floor_ms(torch, kernels, ctas)
+        summary["floor_ms"] = floor_ms
+        summary["least_ms"] = max(summary["bound_ms"],
+                                  floor_ms + summary["barrier_floor_ms"])
+        out[name] = summary
+    for c in cases:
+        del c["after"]
+    return out
+
+
 def phase_stream(torch, card: str):
     """The streaming HashSLAM on the 201-frame out-and-back (BASELINE
     config 5, bench.py ``_streaming_run``), and its non-streaming twin."""
@@ -3961,7 +4379,8 @@ def phase_stream(torch, card: str):
     slam = hash_slam.HashSLAM(cfg)
     zero_k7_window()
     with StreamTimers(torch, hash_ops) as timers:
-        by_class = stream_drive(torch, slam, slam, depths)
+        with CallRecorder(torch, hash_ops) as rec:
+            by_class = stream_drive(torch, slam, slam, depths)
         launches = k7_window()
         slam.stream_sync()
         times = timers.ms()
@@ -3977,6 +4396,11 @@ def phase_stream(torch, card: str):
     report = stream_report(torch, slam, depths[-1], by_class, times,
                            launches)
     del slam
+    from voxelhashing_demo_tpu_torch.tools import probe
+
+    with uncounted_maint():
+        maint = _maint_stream_checks(torch, rec, probe.launch_floor_ms())
+    del rec
 
     twin_cfg = dataclasses.replace(
         cfg, stream=dataclasses.replace(cfg.stream, enabled=False))
@@ -3995,6 +4419,8 @@ def phase_stream(torch, card: str):
            **report, "twin": {"ate_mm": ate_twin, "tracked": twin_tracked,
                               "min_free_blocks": twin_free,
                               "tracks_worse": ate_twin > ate},
+           "evict_free": maint["evict_free"],
+           "restore_rows": maint["restore_rows"],
            "jax_reference": JAX_REFERENCE_STREAM})
     _require(tracked >= JAX_REFERENCE_STREAM["tracked"] - 2,
              "tracked frames within 2 of the JAX run's")
@@ -4011,7 +4437,22 @@ def phase_stream(torch, card: str):
     _require(launches == n,
              "K7 (window gather) launched once per streamed frame")
     _require(report["k7_bit_exact"], "K7 == plain integrate on this run")
-    return launches, ate
+    _require(maint["evict_free"]["bit_exact"]
+             and maint["restore_rows"]["bit_exact"],
+             "K14 and K15 == their plain versions bit for bit on every "
+             "call of the run")
+    _require(maint["evict_free"]["evicted"] > 0
+             and maint["restore_rows"]["accepted"] > 0,
+             "the run's largest eviction and restore move rows")
+    _require(maint["evict_free"]["graph_replay_bit_exact"]
+             and maint["restore_rows"]["graph_replay_bit_exact"],
+             "K14 and K15 replayed from a CUDA graph == their plain versions")
+    _require(not report["host_syncs"]["evict_stale"]
+             and not report["host_syncs"]["restore_blocks"],
+             "evict_stale and restore_blocks read nothing on the host")
+    return launches, ate, {
+        k: {"case": v.pop("case"), **v, "max_abs_err": 0.0,
+            "library_ms": None} for k, v in maint.items()}
 
 
 def phase_stream_backend(torch, card: str, ate_stream: float):
@@ -4880,7 +5321,7 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
              "K5a and K5b launched on each rank")
     return (launches[0], a["icp_launches"] + a["k3_launches"]
             + a["splat_launches"] + a["fuse_launches"]
-            + a["alloc_launches"])
+            + a["alloc_launches"] + a["maint_launches"])
 
 
 def phase_sharded_backend(torch, card: str) -> tuple:
@@ -4959,9 +5400,11 @@ def phase_sharded_backend(torch, card: str) -> tuple:
     _require(all(o["pg_launches"][0] > 0 and o["pg_launches"][2] > 0
                  for o in two),
              "K13a and K13c launched on each rank (the sharded BA)")
+    _require(all(o["maint_launches"][0] > 0 for o in two),
+             "K10 launched on each rank (GC at frame 15)")
     return (a["launches"], a["icp_launches"] + a["k3_launches"]
             + a["splat_launches"] + a["fuse_launches"]
-            + a["alloc_launches"], a["pg_launches"])
+            + a["alloc_launches"] + a["maint_launches"], a["pg_launches"])
 
 
 def main() -> int:
@@ -4973,6 +5416,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
     from voxelhashing_demo_tpu_torch.ops import window_gather as wg
 
     name = torch.cuda.get_device_name(0)
@@ -5010,7 +5454,7 @@ def main() -> int:
     # gathers are K7's window-mode launches (``window_by_path``)
     by_path = {k: {"probes": n} for k, n in probe_launches.items()}
     step_kernels = (ICP_KERNELS + K3_KERNELS + SPLAT_KERNELS + FUSE_KERNELS
-                    + ALLOC_KERNELS)
+                    + ALLOC_KERNELS + MAINT_KERNELS)
     by_path.update({k: {} for k in step_kernels + PG_KERNELS})
     window_by_path = {}
 
@@ -5026,10 +5470,12 @@ def main() -> int:
         zero_splat_launches()
         zero_fuse_launches()
         zero_alloc_launches()
+        zero_maint_launches()
         set_pg_launches()
-        out = run()
+        with MaintCalls(hash_ops) as calls:
+            out = run()
         counts = (icp_launches() + k3_launches() + splat_launches()
-                  + fuse_launches() + alloc_launches())
+                  + fuse_launches() + alloc_launches() + maint_launches())
         for kname, n in zip(step_kernels, counts):
             by_path[kname][path] = n
         pg = pg_launches()
@@ -5049,6 +5495,12 @@ def main() -> int:
             _require(min(counts[4:6]) > 0, f"K8 and K9 launched on {path}")
         _require(min(counts[6:8]) > 0, f"K6 and K7 launched on {path}")
         _require(min(counts[8:10]) > 0, f"K5a and K5b launched on {path}")
+        _require(counts[10:13] == calls.list(),
+                 f"K10, K14 and K15 once a garbage_collect, evict_stale "
+                 f"and restore_blocks call on the card on {path}")
+        for kname, n in zip(MAINT_KERNELS, counts[10:13]):
+            if path in MAINT_REQUIRED[kname]:
+                _require(n > 0, f"{kname} launched on {path}")
         return out
 
     k4("parity", lambda: phase_parity(torch))
@@ -5064,7 +5516,8 @@ def main() -> int:
     for path, counts in PG_RING_PATHS.items():
         for kname, n in zip(PG_KERNELS, counts):
             by_path[kname][path] = n
-    launches, ate_stream = k4("stream", lambda: phase_stream(torch, smi))
+    launches, ate_stream, maint_summary = k4(
+        "stream", lambda: phase_stream(torch, smi))
     window_by_path["stream"] = launches
     window_by_path["stream_backend"] = k4(
         "stream_backend",
@@ -5088,7 +5541,7 @@ def main() -> int:
     window_by_path["nccl"] = sum(one["launches"])
     k4_ranks = {"nccl": one["icp_launches"] + one["k3_launches"]
                 + one["splat_launches"] + one["fuse_launches"]
-                + one["alloc_launches"]}
+                + one["alloc_launches"] + one["maint_launches"]}
     (window_by_path["sharded_backend"], k4_ranks["sharded_backend"],
      pg_sharded) = phase_sharded_backend(torch, smi)
     for kname, n in zip(PG_KERNELS, pg_sharded):
@@ -5155,6 +5608,11 @@ def main() -> int:
         "launches_by_path": by_path[kname],
         **alloc_summary[kname],
     } for kname in ALLOC_KERNELS] + [{
+        "name": kname, **MAINT_META[kname],
+        "launches": by_path[kname]["stream"],
+        "launches_by_path": by_path[kname],
+        **(alloc_summary if kname == "gc_free" else maint_summary)[kname],
+    } for kname in MAINT_KERNELS] + [{
         "name": kname, **PG_META[kname],
         "launches": by_path[kname][PG_MAIN_PATH[kname]],
         "launches_by_path": by_path[kname],

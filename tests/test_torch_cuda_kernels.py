@@ -74,6 +74,17 @@ the CG step within 1e-5 with the same iteration count (an early stop, all
 64, capacity 512); ``optimize`` makes no host sync, repeats bit for bit
 and lands within 1e-5 of ``optimize_reference`` on the card; ``se3.exp``
 and ``inverse`` make no host sync; what the kernels do not take raises.
+The map-maintenance kernels (K10 ``gc_free``, K14 ``evict_free``, K15
+``restore_rows``) equal their plain versions bit for bit on every map
+field and output (merged rows too): GC and eviction on the flagship map
+after the sweep and on random maps, at the caps, with the age gates, on
+tables of 129 and 300 tiles (the look-back), free_top near the stack's
+end, the frame as a 0-d tensor; restores of 1 to 4 096 keys (found keys
+merged, evicted keys back, full buckets, a heap cut short, padding only,
+no born rows, the sharded BucketHash); the three make no host sync and
+replay from CUDA graphs captured on a fresh stream and on a warm one;
+more than 4 096 keys, a bucket function that is not a BucketHash and a
+refused launch raise, and no plain version runs instead.
 """
 
 import dataclasses
@@ -2973,3 +2984,357 @@ def test_pg_refused_inputs_raise(cuda, monkeypatch):
     monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
     with pytest.raises(RuntimeError, match="pg_edge_blocks kernel launch"):
         pg.optimize(g, KeyframeConfig(ba_iters=2))
+
+
+# --------------------------------------------------------------------------
+# K10 gc_free, K14 evict_free, K15 restore_rows (csrc/maintain.cu)
+# --------------------------------------------------------------------------
+
+GC_MIN_WEIGHT = 0.5
+
+
+def _maint_map(hcfg, seed: int, live: int, stamp_hi: int = 40):
+    """A map on the card with ``live`` random keys inserted by the plain
+    insert (capped by their buckets and the heap), then a random payload:
+    a third of the rows with every weight below GC_MIN_WEIGHT (zeros among
+    them), the rest with some above; last_seen in 0..stamp_hi, born below
+    it."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    rng = np.random.default_rng(seed)
+    hmap = hash_ops.create(hcfg, device="cuda")
+    big = dataclasses.replace(hcfg, max_new_per_frame=4096)
+    left = live
+    while left > 0:
+        cand = _random_cand(rng, min(left, 4096), "cuda")
+        hash_ops.insert_blocks_reference(hmap, big, cand, 0)
+        left -= 4096
+    N, V = hmap.tsdf.shape
+    w = rng.uniform(0.0, 3.0, (N, V)).astype(np.float32)
+    low = rng.random(N) < 1 / 3
+    w[low] = rng.uniform(0.0, 0.49, (int(low.sum()), V))
+    w[low, :7] = 0.0
+    seen = rng.integers(0, stamp_hi + 1, N).astype(np.int32)
+    for name, a in (("tsdf", rng.uniform(-1, 1, (N, V)).astype(np.float32)),
+                    ("weight", w), ("last_seen", seen), ("born", seen // 2),
+                    ("band_min", rng.uniform(0, 0.1, N).astype(np.float32))):
+        getattr(hmap, name).copy_(torch.as_tensor(a))
+    return hmap
+
+
+def _maint_case(fuse_case, which: str):
+    """(hash config, map): the fuse case's flagship map, or a random one
+    at the flagship's size, or on a table of 129 or 300 tiles of 512
+    buckets (past one snapshot: the look-back)."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, *_ = fuse_case
+    h = cfg.hash
+    if which == "flagship":
+        return h, hmap
+    if which == "random":
+        return h, _maint_map(h, 21, 30000)
+    tiles = {"tiles129": 129, "tiles300": 300}[which]
+    small = dataclasses.replace(h, num_buckets=tiles * hash_ops.MAINTAIN_TILE,
+                                num_blocks=8192, block_size=4)
+    return small, _maint_map(small, 22 + tiles, 12000)
+
+
+# (map, max_free, frame, min_age)
+GC_CARD_CASES = [("flagship", 1024, None, 0), ("flagship", 3, None, 0),
+                 ("flagship", 1024, 30, 16), ("random", 100, 35, 16),
+                 ("random", 10 ** 6, None, 0), ("tiles129", 500, 30, 8),
+                 ("tiles300", 10 ** 6, None, 0)]
+
+
+@pytest.mark.parametrize("which,max_free,frame,min_age", GC_CARD_CASES)
+def test_gc_matches_plain(fuse_case, which, max_free, frame, min_age):
+    """K10 against garbage_collect_reference bit for bit on every map
+    field and n_freed: the flagship map after the sweep and random maps,
+    the cap, the age gate, tables that take the look-back; one launch."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hcfg, base = _maint_case(fuse_case, which)
+    got, want = _map_clone(base), _map_clone(base)
+    before = hash_ops.LAUNCHES_GC
+    _, n_got = hash_ops.garbage_collect(got, hcfg, GC_MIN_WEIGHT, max_free,
+                                        frame, min_age)
+    assert hash_ops.LAUNCHES_GC == before + 1
+    _, n_want = hash_ops.garbage_collect_reference(
+        want, hcfg, GC_MIN_WEIGHT, max_free, frame, min_age)
+    torch.cuda.synchronize()
+    _assert_all_fields_equal(got, want, which)
+    assert int(n_got) == int(n_want), which
+    if which != "flagship" or max_free == 3:
+        assert int(n_want) > 0, which
+
+
+def test_gc_stack_drop_and_tensor_stamp(fuse_case):
+    """K10 with free_top near the stack's end (the late pushes dropped)
+    and with the frame as a 0-d int32 tensor, bit for bit."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hcfg, base = _maint_case(fuse_case, "random")
+    base = _map_clone(base)
+    base.free_top.fill_(base.free_list.shape[0] - 5)
+    for stamp in (35, torch.tensor(35, dtype=torch.int32, device="cuda")):
+        got, want = _map_clone(base), _map_clone(base)
+        _, n_got = hash_ops.garbage_collect(got, hcfg, GC_MIN_WEIGHT, 4000,
+                                            stamp, 16)
+        _, n_want = hash_ops.garbage_collect_reference(
+            want, hcfg, GC_MIN_WEIGHT, 4000, 35, 16)
+        _assert_all_fields_equal(got, want, "stack drop")
+        assert int(n_got) == int(n_want) > 5
+
+
+def _evict_pair(hcfg, base, frame, max_age, max_evict):
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    got, want = _map_clone(base), _map_clone(base)
+    before = hash_ops.LAUNCHES_EVICT
+    out = hash_ops.evict_stale(got, hcfg, frame, max_age, max_evict)
+    assert hash_ops.LAUNCHES_EVICT == before + 1
+    ref = hash_ops.evict_stale_reference(want, hcfg, frame, max_age,
+                                         max_evict)
+    torch.cuda.synchronize()
+    _assert_all_fields_equal(got, want, "evict map")
+    for name, a, b in zip(("keys", "tsdf", "weight", "born", "n"), out[1:],
+                          ref[1:]):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a, b), name
+    return out
+
+
+# (map, frame, max_age, max_evict)
+EVICT_CARD_CASES = [("flagship", 30, 24, 2048), ("flagship", 6, 2, 100),
+                    ("random", 40, 16, 64), ("random", 40, 16, 20000),
+                    ("random", 40, 40, 2048), ("tiles129", 40, 12, 3000),
+                    ("tiles300", 40, 20, 512)]
+
+
+@pytest.mark.parametrize("which,frame,max_age,max_evict", EVICT_CARD_CASES)
+def test_evict_matches_plain(fuse_case, which, frame, max_age, max_evict):
+    """K14 against evict_stale_reference bit for bit: every map field and
+    the six outputs (the evicted rows in table order, padding past n), on
+    the flagship map and random maps, the cap, nothing stale (max_age
+    40), tables that take the look-back; one launch."""
+    hcfg, base = _maint_case(fuse_case, which)
+    out = _evict_pair(hcfg, base, frame, max_age, max_evict)
+    n = int(out[-1])
+    assert (n == 0) == (max_age >= 40), which
+
+
+def _restore_pair(hcfg, base, keys, tsdf, weight, frame, born, fn=None):
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    got, want = _map_clone(base), _map_clone(base)
+    before = hash_ops.LAUNCHES_RESTORE
+    _, acc = hash_ops.restore_blocks(got, hcfg, keys, tsdf, weight, frame,
+                                     fn, 255.0, born)
+    assert hash_ops.LAUNCHES_RESTORE == before + 1
+    _, ref = hash_ops.restore_blocks_reference(want, hcfg, keys, tsdf,
+                                               weight, frame, fn, 255.0,
+                                               born)
+    torch.cuda.synchronize()
+    _assert_all_fields_equal(got, want, "restore map")
+    assert torch.equal(acc, ref)
+    return got, acc
+
+
+def _restore_batch(hcfg, base, seed: int, R: int, found: int):
+    """(map, keys, tsdf, weight, born): ``base`` after a plain eviction
+    of up to R / 2 rows (frame 40, age 30), and R rows for it: ``found``
+    of its keys (to merge), the evicted keys (new again), random keys
+    (some into full buckets), then EMPTY_KEY padding, shuffled; random
+    payload (a fifth of the weights 0) and born stamps."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    rng = np.random.default_rng(seed)
+    hmap = _map_clone(base)
+    gone = hash_ops.evict_stale_reference(hmap, hcfg, 40, 30, R // 2)[1]
+    gone = gone[gone != hash_ops.EMPTY_KEY]
+    live = hmap.keys[hmap.keys != hash_ops.EMPTY_KEY]
+    pick = live[torch.as_tensor(rng.choice(
+        live.numel(), min(found, live.numel()), replace=False),
+        device="cuda")]
+    extra = _random_cand(rng, R, "cuda").unique()
+    extra = extra[extra != hash_ops.EMPTY_KEY]
+    keys = torch.cat([pick, gone, extra])[:R - R // 8]
+    keys = torch.cat([keys, torch.full((R - keys.numel(),),
+                                       hash_ops.EMPTY_KEY,
+                                       dtype=torch.int32, device="cuda")])
+    keys = keys[torch.as_tensor(rng.permutation(R), device="cuda")]
+    V = hcfg.voxels_per_block
+    w = rng.uniform(0, 4, (R, V)).astype(np.float32)
+    w[rng.random((R, V)) < 0.2] = 0.0
+    rows = [torch.as_tensor(a, device="cuda") for a in (
+        rng.uniform(-1, 1, (R, V)).astype(np.float32), w,
+        rng.integers(0, 30, R).astype(np.int32))]
+    return hmap, keys.contiguous(), *rows
+
+
+# (map, R, found keys, free_top cut, born rows, bucket function divisor)
+RESTORE_CARD_CASES = [("flagship", 2048, 300, None, True, 1),
+                      ("flagship", 4096, 1000, None, False, 1),
+                      ("random", 2048, 200, 150, True, 1),
+                      ("random", 1, 1, None, True, 1),
+                      ("random", 700, 0, None, True, 2),
+                      ("tiles129", 4096, 2000, None, True, 1)]
+
+
+@pytest.mark.parametrize("which,R,found,top,born,divisor",
+                         RESTORE_CARD_CASES)
+def test_restore_matches_plain(fuse_case, which, R, found, top, born,
+                               divisor):
+    """K15 against restore_blocks_reference bit for bit on every map field
+    (merged rows too: the merge rounds as the plain version on the card)
+    and accepted: found keys merged, evicted keys back, random keys (some
+    into full buckets), EMPTY_KEY padding, a heap cut below the new keys,
+    born rows or none, the sharded BucketHash(num_buckets, 2) over half
+    the buckets, R from 1 to MAX_RESTORE; one launch."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hcfg, base = _maint_case(fuse_case, which)
+    fn = None
+    if divisor != 1:
+        fn = hash_ops.BucketHash(hcfg.num_buckets * divisor, divisor)
+    base, keys, tsdf, weight, b = _restore_batch(hcfg, base, 31 + R, R,
+                                                 found)
+    if top is not None:
+        base.free_top.fill_(top)
+    got, acc = _restore_pair(hcfg, base, keys, tsdf, weight, 41,
+                             b if born else None, fn)
+    assert bool(acc.any())
+    if top is not None:
+        assert int(got.free_top) == 0
+
+
+def test_restore_padding_only_and_tensor_stamp(fuse_case):
+    """K15 on EMPTY_KEY padding writes nothing and accepts nothing (the
+    warm-up's restore); a batch with the frame as a 0-d int32 tensor
+    equals the int's."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hcfg, base = _maint_case(fuse_case, "flagship")
+    V = hcfg.voxels_per_block
+    pad = torch.full((512,), hash_ops.EMPTY_KEY, dtype=torch.int32,
+                     device="cuda")
+    z = torch.zeros((512, V), device="cuda")
+    got, acc = _restore_pair(hcfg, base, pad, z, z, 3,
+                             torch.zeros(512, dtype=torch.int32,
+                                         device="cuda"))
+    assert not bool(acc.any())
+    _assert_all_fields_equal(got, base, "padding")
+    base, keys, tsdf, weight, born = _restore_batch(hcfg, base, 5, 1024, 100)
+    a, b = _map_clone(base), _map_clone(base)
+    hash_ops.restore_blocks(a, hcfg, keys, tsdf, weight, 41, born_rows=born)
+    hash_ops.restore_blocks(b, hcfg, keys, tsdf, weight, torch.tensor(
+        41, dtype=torch.int32, device="cuda"), born_rows=born)
+    _assert_all_fields_equal(a, b, "tensor stamp")
+
+
+def test_maintain_no_sync_and_graphs(fuse_case):
+    """garbage_collect, evict_stale and restore_blocks read nothing on the
+    host; the three captured in one CUDA graph on a fresh stream (each on
+    a scratch of its own) and on a stream that ran them (its persistent
+    scratches) replay bit for bit, twice, what they do eagerly."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hcfg, base = _maint_case(fuse_case, "random")
+    batch = _restore_batch(hcfg, base, 8, 2048, 300)[1:]
+
+    def run(m):
+        hash_ops.garbage_collect(m, hcfg, GC_MIN_WEIGHT, 500, 35, 16)
+        out = hash_ops.evict_stale(m, hcfg, 38, 20, 2048)
+        _, acc = hash_ops.restore_blocks(m, hcfg, *batch[:3], 39,
+                                         born_rows=batch[3])
+        return out[1:], acc
+
+    eager = _map_clone(base)
+    want_out, want_acc = run(eager)
+    torch.cuda.synchronize()
+    quiet = _map_clone(base)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(quiet)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_all_fields_equal(quiet, eager, "no-sync run")
+    for warm in (False, True):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        g = _map_clone(base)
+        with torch.cuda.stream(side):
+            if warm:
+                run(_map_clone(base))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                got_out, got_acc = run(g)
+        for _ in range(2):
+            with torch.cuda.stream(side):
+                for fld in ALL_FIELDS:
+                    getattr(g, fld).copy_(getattr(base, fld))
+                graph.replay()
+            side.synchronize()
+            _assert_all_fields_equal(g, eager, f"graph warm={warm}")
+            for a, b in zip(got_out, want_out):
+                assert torch.equal(a, b)
+            assert torch.equal(got_acc, want_acc)
+
+
+def test_maintain_refusals(fuse_case, monkeypatch):
+    """What K10, K14 and K15 do not take raises (more than MAX_RESTORE
+    keys, a bucket function that is not a BucketHash, rows on two
+    devices, a stamp tensor of another type); a refused build and a
+    refused launch raise; the plain versions never run in their place."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    hcfg, base = _maint_case(fuse_case, "flagship")
+    m = _map_clone(base)
+    V = hcfg.voxels_per_block
+    R = hash_ops.MAX_RESTORE + 1
+    keys = torch.full((R,), hash_ops.EMPTY_KEY, dtype=torch.int32,
+                      device="cuda")
+    rows = torch.zeros((R, V), device="cuda")
+    with pytest.raises(ValueError, match=f"at most {hash_ops.MAX_RESTORE}"):
+        hash_ops.restore_blocks(m, hcfg, keys, rows, rows, 1)
+    with pytest.raises(ValueError, match="BucketHash"):
+        hash_ops.restore_blocks(m, hcfg, keys[:8], rows[:8], rows[:8], 1,
+                                lambda b: b[..., 0])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        hash_ops.restore_blocks(m, hcfg, keys[:8], rows[:8].cpu(), rows[:8],
+                                1)
+    with pytest.raises(ValueError, match="stamp"):
+        hash_ops.evict_stale(m, hcfg, torch.tensor(1, device="cuda"), 2, 8)
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("garbage_collect_reference", "evict_stale_reference",
+                 "restore_blocks_reference", "_free_marked", "lookup_keys",
+                 "_scatter_drop", "_segment_rank"):
+        monkeypatch.setattr(hash_ops, name, no_plain)
+    hash_ops.garbage_collect(m, hcfg, GC_MIN_WEIGHT, 100, 30, 16)
+    hash_ops.evict_stale(m, hcfg, 30, 24, 64)
+    hash_ops.restore_blocks(m, hcfg, keys[:8], rows[:8], rows[:8], 31)
+    torch.cuda.synchronize()
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(kernels, "_FUNCTIONS", {})
+    monkeypatch.setattr(kernels, "build", no_build)
+    for call in (lambda: hash_ops.garbage_collect(m, hcfg, GC_MIN_WEIGHT, 9),
+                 lambda: hash_ops.evict_stale(m, hcfg, 30, 24, 64),
+                 lambda: hash_ops.restore_blocks(m, hcfg, keys[:8], rows[:8],
+                                                 rows[:8], 31)):
+        with pytest.raises(RuntimeError, match="nvcc failed for maintain"):
+            call()
+    monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="gc_free kernel launch"):
+        hash_ops.garbage_collect(m, hcfg, GC_MIN_WEIGHT, 100)
+    with pytest.raises(RuntimeError, match="evict_free kernel launch"):
+        hash_ops.evict_stale(m, hcfg, 30, 24, 64)
+    with pytest.raises(RuntimeError, match="restore_rows kernel launch"):
+        hash_ops.restore_blocks(m, hcfg, keys[:8], rows[:8], rows[:8], 31)

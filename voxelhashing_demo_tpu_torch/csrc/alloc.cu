@@ -109,7 +109,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hash_table.cuh"
+
 namespace {
+
+using hash_table::atomic_add_acq_rel;
+using hash_table::cta_exclusive_sum;
+using hash_table::kEmptyKey;
+using hash_table::kFull;
+using hash_table::load_acquire;
+using hash_table::load_relaxed;
+using hash_table::store_release;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -127,9 +137,7 @@ __device__ __forceinline__ float dot_mm(float a0, float b0, float a1, float b1,
   return __fmaf_rn(a2, b2, __fmaf_rn(a1, b1, mul(a0, b0)));
 }
 
-constexpr int kEmptyKey = 0x7FFFFFFF;
 constexpr int kMaxDevices = 64;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kSign = 0x80000000u;   // key ^ kSign: signed order as unsigned
 
 // floor division by a positive divisor (C's / truncates)
@@ -279,67 +287,12 @@ struct InsertParams {
   int max_new, stamp;
 };
 
-// gpu-scope acquire / release (the flag and the arrival), relaxed reads
-__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
-  int old;
-  asm volatile("atom.acq_rel.gpu.add.s32 %0, [%1], %2;"
-               : "=r"(old) : "l"(p), "r"(v) : "memory");
-  return old;
-}
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
-}
-__device__ __forceinline__ int load_relaxed(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
 // the bucket of a packed key: BucketHash (ops/hash_ops.py) of the unpacked
 // block, int32 products wrapping, the floor modulo, then the floor
 // division by the divisor; clamped into the table
 __device__ __forceinline__ int bucket_of(const InsertParams& P, int key) {
-  const int mask = (1 << P.key_bits) - 1, bias = 1 << (P.key_bits - 1);
-  const unsigned x = static_cast<unsigned>(((key >> (2 * P.key_bits)) & mask) - bias);
-  const unsigned y = static_cast<unsigned>(((key >> P.key_bits) & mask) - bias);
-  const unsigned z = static_cast<unsigned>((key & mask) - bias);
-  const int h = static_cast<int>((x * 73856093u) ^ (y * 19349669u) ^ (z * 83492791u));
-  int m = h % P.hash_buckets;
-  if (m < 0) m += P.hash_buckets;
-  return min(max(m / P.divisor, 0), P.nb - 1);
-}
-
-// exclusive prefix sum of x over the CTA; `total` gets the sum.  red holds
-// kWarpsB ints and is free again when this returns
-__device__ __forceinline__ int cta_exclusive_sum(int x, int* red, int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += o;
-  }
-  if (lane == 31) red[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = red[lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int o = __shfl_up_sync(kFull, w, d);
-      if (lane >= d) w += o;
-    }
-    red[lane] = w;                       // inclusive over the warps
-  }
-  __syncthreads();
-  const int before = warp ? red[warp - 1] : 0;
-  total = red[kWarpsB - 1];
-  __syncthreads();
-  return before + incl - x;
+  return min(hash_table::spatial_bucket(key, P.key_bits, P.hash_buckets,
+                                        P.divisor), P.nb - 1);
 }
 
 struct AllocShared {
@@ -405,7 +358,7 @@ __device__ __forceinline__ void put_entry(const InsertParams& P,
 }
 
 __device__ __forceinline__ int free_row(const InsertParams& P, int top, int r) {
-  return __ldcg(P.free_list + min(max(top - 1 - r, 0), P.N - 1));
+  return hash_table::free_row(P.free_list, P.N, top, r);
 }
 
 // at most 32 kept new entries, one a lane of warp 0 (valid where `valid`):
@@ -517,24 +470,7 @@ __device__ int allocate_cta(const InsertParams& P, AllocShared& sh, int top,
   for (int q = 0; q < kItemsB; ++q)
     ahead[q] = tid * kItemsB + q < n ? free_row(P, top, tid * kItemsB + q) : 0;
   __syncthreads();
-  for (int k = 2; k <= n2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < n2; i += kThreadsB) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = sh.entry[i], c = sh.entry[ixj];
-          if ((a > c) == ((i & k) == 0)) {
-            sh.entry[i] = c;
-            sh.entry[ixj] = a;
-            const uint16_t t = sh.fill[i];   // the fill moves with it
-            sh.fill[i] = sh.fill[ixj];
-            sh.fill[ixj] = t;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  hash_table::sort_pairs<kThreadsB>(sh.entry, sh.fill, n2);
 
   // rank in the bucket, slot, fit; alloc_rank over the entries that fit
   int slot[kItemsB], fits = 0;
@@ -552,7 +488,7 @@ __device__ int allocate_cta(const InsertParams& P, AllocShared& sh, int top,
     fits += slot[q] < P.S;
   }
   int n_fit = 0;
-  int alloc_rank = cta_exclusive_sum(fits, sh.red, n_fit);
+  int alloc_rank = cta_exclusive_sum<kWarpsB>(fits, sh.red, n_fit);
 #pragma unroll
   for (int q = 0; q < kItemsB; ++q) {
     const int i = tid * kItemsB + q;
@@ -711,27 +647,6 @@ insert_blocks_kernel(const __grid_constant__ InsertParams P) {
     P.set[__ldcg(P.slot_of + i)] = kEmptyKey;
 }
 
-// co-resident CTAs of `kernel` at `threads` on the current device (asked
-// once a device); 0 with the error set on failure
-template <typename Kernel>
-cudaError_t capacity_of(Kernel kernel, int threads, int* capacity) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  static int cached[kMaxDevices] = {};
-  if (cached[dev] == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    cached[dev] = per_sm * sms;
-  }
-  *capacity = cached[dev];
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each launches on ``stream``
@@ -837,8 +752,10 @@ extern "C" int insert_blocks(const int* cand, int M, int* n_alloc,
   P.divisor = divisor;
   P.max_new = max_new;
   P.stamp = stamp;
+  static int cached[kMaxDevices] = {};   // co-resident CTAs; 0: not asked
   int resident = 0;
-  cudaError_t err = capacity_of(insert_blocks_kernel, kThreadsB, &resident);
+  cudaError_t err = hash_table::capacity_of(insert_blocks_kernel, kThreadsB,
+                                            cached, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int ctas = min(resident, max(1, (M + kThreadsB - 1) / kThreadsB));
   if (ctas < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);

@@ -119,7 +119,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tile_status.cuh"
+
 namespace {
+
+using tile_status::kBackoffNs;
+using tile_status::kInclusive;
+using tile_status::kValueMask;
+using tile_status::load_status;
+using tile_status::make_status;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -190,15 +198,10 @@ constexpr int kSegments = kItems * kWarps6;  // (item, warp) segments a tile
 
 // K6's scratch, persistent a device and stream (ops/hash_ops.py keeps
 // it): 64-bit words, word 0 the epoch word (the epoch in the high half, 0
-// in the low half), then a status every kStatusStride words (the launch's
-// tag << 32 | inclusive << 31 | value: the tile's count, or with the flag
-// the visible entries of tiles 0..t).  The tag is 0x80000000 | the
-// epoch's low 31 bits, never 0, so a zeroed scratch holds no status; an
-// epoch's tag comes back after 2^31 launches, and every launch rewrites
-// the statuses of its own tiles.
-constexpr unsigned long long kInclusive = 1ull << 31;
-constexpr unsigned kValueMask = 0x7fffffffu;
-constexpr int kBackoffNs = 32;    // the sleep between polls of the statuses
+// in the low half), then a status every kStatusStride words
+// (csrc/tile_status.cuh: the tile's count, or with the flag the visible
+// entries of tiles 0..t).  An epoch's tag comes back after 2^31
+// launches, and every launch rewrites the statuses of its own tiles.
 constexpr int kSnapTiles = 128;   // tables of at most this many tiles: one
                                   // snapshot of every tile's count
 constexpr int kStatusStride = 16; // 64-bit words from a status to the next
@@ -264,81 +267,9 @@ __device__ __forceinline__ unsigned test_tile(const CompactParams& P,
   return bits;
 }
 
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
 __device__ __forceinline__ void store_status(unsigned long long* p,
                                              unsigned long long v) {
   asm volatile("st.relaxed.gpu.b64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long make_status(unsigned tag,
-                                                          bool inclusive,
-                                                          int value) {
-  return (static_cast<unsigned long long>(tag) << 32) |
-         (inclusive ? kInclusive : 0ull) | static_cast<unsigned>(value);
-}
-
-// The visible entries of the tiles before `tile` (tables of more than
-// kSnapTiles tiles): warp-wide, 32 predecessors' statuses a round (lane l
-// the one l + 1 tiles back; one past tile 0 reads as an inclusive 0),
-// waiting until all carry this launch's tag, summed up to the nearest that
-// holds its inclusive prefix.
-__device__ __forceinline__ int look_back(const unsigned long long* status,
-                                         int tile, unsigned tag, int lane) {
-  int sum = 0;
-  for (int top = tile - 1;; top -= 32) {
-    const int k = top - lane;
-    unsigned long long s;
-    for (;;) {
-      s = k >= 0 ? load_status(status + kStatusStride * k)
-                 : make_status(tag, true, 0);
-      if (__all_sync(kFull, static_cast<unsigned>(s >> 32) == tag)) break;
-      __nanosleep(kBackoffNs);
-    }
-    const unsigned inc = __ballot_sync(kFull, (s & kInclusive) != 0ull);
-    const int stop = inc ? __ffs(inc) - 1 : 31;
-    sum += __reduce_add_sync(
-        kFull, lane <= stop ? static_cast<int>(s & kValueMask) : 0);
-    if (inc) return sum;
-  }
-}
-
-// Tables of at most kSnapTiles tiles, one CTA a tile (all co-resident):
-// every tile's count from one snapshot of all the statuses (4 a lane,
-// loaded together), polled until all carry this launch's tag: the
-// visible entries of the tiles before `tile` and of all of them.
-__device__ __forceinline__ int2 snapshot(const unsigned long long* status,
-                                         int n_tiles, int tile, unsigned tag,
-                                         int lane) {
-  constexpr int kPer = kSnapTiles / 32;
-  for (;;) {
-    unsigned long long s[kPer];
-    bool ready = true;
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int k = lane + 32 * q;
-      s[q] = k < n_tiles ? load_status(status + kStatusStride * k)
-                         : make_status(tag, false, 0);
-      ready &= static_cast<unsigned>(s[q] >> 32) == tag;
-    }
-    if (__all_sync(kFull, ready)) {
-      int before = 0, all = 0;
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        const int v = static_cast<int>(s[q] & kValueMask);
-        all += v;
-        if (lane + 32 * q < tile) before += v;
-      }
-      return make_int2(__reduce_add_sync(kFull, before),
-                       __reduce_add_sync(kFull, all));
-    }
-    __nanosleep(kBackoffNs);
-  }
 }
 
 // p[lo, hi) = v over the grid: 16-byte stores over the aligned middle
@@ -390,14 +321,16 @@ __device__ __forceinline__ int compact_tile(const CompactParams& P,
     if (P.snap) {
       if (lane == 0)
         store_status(status + kStatusStride * tile, make_status(tag, false, n));
-      const int2 c = snapshot(status, P.n_tiles, tile, tag, lane);
+      const int2 c = tile_status::snapshot<kStatusStride, kSnapTiles>(
+          status, P.n_tiles, tile, tag, lane);
       before = c.x;
       through = c.y;             // every tile's: the set's size
     } else {
       if (tile > 0) {
         if (lane == 0)
         store_status(status + kStatusStride * tile, make_status(tag, false, n));
-        before = look_back(status, tile, tag, lane);
+        before = tile_status::look_back<kStatusStride>(status, tile, tag,
+                                                        lane);
       }
       if (lane == 0)
         store_status(status + kStatusStride * tile,

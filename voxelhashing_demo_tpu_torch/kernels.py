@@ -57,8 +57,12 @@ def host_compiler() -> str:
 
 
 def _library(src: Path, flags) -> Path:
-    """Content-hashed library name of ``src`` built with ``flags``."""
-    digest = hashlib.sha256(src.read_bytes()
+    """Content-hashed library name of ``src`` built with ``flags`` (a CUDA
+    source's hash covers the headers under csrc/ too, which it may
+    include)."""
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh"))
+                       ) if src.suffix == ".cu" else b""
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
@@ -231,6 +235,21 @@ KERNELS = {
     # and ints (buckets, slots a bucket, map rows, voxels a row, key bits,
     # the hash's buckets and divisor, max_new)
     "insert_blocks": [_P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    # K10 (csrc/maintain.cu): the host tables of the map's pointers
+    # (HashMap order) and ints (buckets, slots a bucket, map rows, voxels a
+    # row), n_freed out, the frame on the device (or None), the frame, age
+    # gate, min_age, max_free, min_weight, tiles, the persistent scratch
+    # and its status words
+    "gc_free": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _P],
+    # K14: the map and ints, n out, the frame on the device (or None), the
+    # frame, max_age, max_evict, the outputs (keys and born; tsdf and
+    # weight), tiles, the persistent scratch and its status words
+    "evict_free": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _P],
+    # K15: the map and ints (buckets, slots a bucket, map rows, voxels a
+    # row, key bits, the hash's buckets and divisor), keys, tsdf rows,
+    # weight rows, born rows (or None), accepted out, R, the frame on the
+    # device (or None), the frame, max_weight, the persistent scratch
+    "restore_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _F, _P, _P],
     # K13a (csrc/pose_graph.cu): poses, edges_ij, edges_T, edges_w, K, E,
     # robust kernel, rho, mode, diag, damping, rows, J, r, bitmaps, b,
     # chi2, H
@@ -252,6 +271,8 @@ SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
            "compact_visible": "fuse", "integrate_rows": "fuse",
            "integrate_rows_info": "fuse",
            "alloc_candidates": "alloc", "insert_blocks": "alloc",
+           "gc_free": "maintain", "evict_free": "maintain",
+           "restore_rows": "maintain",
            "pg_edge_blocks": "pose_graph", "pg_cg_solve": "pose_graph",
            "pg_retract": "pose_graph"}
 

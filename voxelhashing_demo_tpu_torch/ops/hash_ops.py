@@ -54,6 +54,21 @@ versions ``frame_candidate_keys_reference`` and
 ``LAUNCHES_ALLOC_CANDIDATES`` and ``LAUNCHES_INSERT`` count the launches.
 K5b and K7 take their stamp as an int or as a 0-d int32 tensor on the
 card, read by the kernel.
+
+Three more (``csrc/maintain.cu``) free and restore blocks: K10
+``gc_free`` (``garbage_collect``) and K14 ``evict_free``
+(``evict_stale``), one body instantiated twice: the stale test, the rank
+in table order, the free-stack push and the stable re-compaction of every
+bucket in one launch, K6's tile scan, on a scratch of K6's layout that
+persists a device and stream; K14 also copies the evicted rows out.  K15
+``restore_rows`` (``restore_blocks``): probe, merge, the new keys' bucket
+rank, free-stack pop and payload copy in one cooperative launch, K5b's
+structure.  Their plain versions are ``garbage_collect_reference``,
+``evict_stale_reference`` and ``restore_blocks_reference`` (with
+``_free_marked`` the first two's shared tail).  The frame is an int or a
+0-d int32 tensor on the card; no host read, the counts stay on the device.
+``LAUNCHES_GC``, ``LAUNCHES_EVICT`` and ``LAUNCHES_RESTORE`` count the
+launches.
 """
 
 from __future__ import annotations
@@ -85,6 +100,9 @@ LAUNCHES_INTEGRATE = 0          # K7 integrate_rows, either gather mode
 LAUNCHES_INTEGRATE_WINDOW = 0   # K7 in the window-gather mode
 LAUNCHES_ALLOC_CANDIDATES = 0   # K5a alloc_candidates
 LAUNCHES_INSERT = 0             # K5b insert_blocks
+LAUNCHES_GC = 0                 # K10 gc_free
+LAUNCHES_EVICT = 0              # K14 evict_free
+LAUNCHES_RESTORE = 0            # K15 restore_rows
 
 MAX_VOXELS = 1024       # the voxels a block K7 takes (kMaxVoxels)
 COMPACT_TILE = 2048     # table entries a K6 tile (kTile)
@@ -96,6 +114,15 @@ MAX_BUCKET_SIZE = 65535    # a bucket's fill as K5b keeps it (uint16)
 INSERT_HDR_INTS = 128      # K5b's scratch header (kHdrInts)
 INSERT_HDR_ZERO = 64       # its counts' and arrival's lines (kHdrEpoch)
 INSERT_MIN_CAPACITY = 1024     # the keys of K5b's smallest scratch
+MAX_SLOTS = 8           # the bucket_size K10 and K14 take (kMaxSlots)
+MAINTAIN_TILE = 512     # buckets a K10 / K14 tile (kTileBuckets)
+EVICT_MIN_TILES = 128   # K14's tiles at least: all CTAs share the padding
+MAX_RESTORE = 4096      # the keys K15 takes in one launch (kMaxRestore)
+RESTORE_HDR_INTS = 128  # K15's scratch header (kHdrInts)
+# K15's scratch in ints: the header, the new entries (uint64), their
+# fills, the inserted rows and their input positions, the found keys' rows
+# and their input positions
+RESTORE_SCRATCH_INTS = RESTORE_HDR_INTS + 7 * MAX_RESTORE
 
 # K5b's persistent scratch: (device index, raw stream) -> (tensor,
 # capacity, set_bits), and the scratches it replaced (a captured graph may
@@ -106,6 +133,11 @@ _INSERT_RETIRED: list = []
 # and the scratches it replaced (a captured graph may use one)
 _COMPACT_SCRATCH: dict = {}
 _COMPACT_RETIRED: list = []
+# K10's and K14's persistent scratch (K6's layout), as K6's
+_MAINTAIN_SCRATCH: dict = {}
+_MAINTAIN_RETIRED: list = []
+# K15's persistent scratch: (device index, raw stream) -> tensor
+_RESTORE_SCRATCH: dict = {}
 # K6's host tables: (id(cfg), id(cam), id(fusion)) -> (the three objects,
 # the tables)
 _COMPACT_PLANS: dict = {}
@@ -117,6 +149,12 @@ _MAP_CHECKED: dict = {}
 _INTEGRATE_TABLES: dict = {}
 # K5a's host tables: (id(cfg), id(fusion)) -> (the two objects, the tables)
 _CANDIDATE_TABLES: dict = {}
+# maps K10, K14 and K15 checked: id(keys) -> (weak references to the
+# tensors, the configuration, the host tables)
+_MAINTAIN_TABLES: dict = {}
+# K15's ints: (id(cfg), bucket function, map rows) -> (the configuration,
+# the ints)
+_RESTORE_PLANS: dict = {}
 
 
 class HashMap(NamedTuple):
@@ -707,12 +745,31 @@ def garbage_collect(
     cfg: HashConfig,
     min_weight: float,
     max_free: int,
-    frame_idx: int | None = None,
+    frame_idx: int | torch.Tensor | None = None,
     min_age: int = 0,
 ) -> Tuple[HashMap, torch.Tensor]:
     """Free blocks whose maximum voxel weight is below ``min_weight``
-    (blocks seen within the last ``min_age`` frames are kept).  Returns
-    (map, n_freed)."""
+    (blocks seen within the last ``min_age`` frames before ``frame_idx``,
+    an int or a 0-d int32 tensor, are kept), in place.  Returns (map,
+    n_freed as a 0-d int32 tensor).  One K10 launch on CUDA tensors (no
+    host read); ``garbage_collect_reference`` on CPU tensors."""
+    if hmap.keys.device.type == "cpu":
+        return garbage_collect_reference(hmap, cfg, min_weight, max_free,
+                                         frame_idx, min_age)
+    return _launch_gc(hmap, cfg, min_weight, max_free, frame_idx, min_age)
+
+
+def garbage_collect_reference(
+    hmap: HashMap,
+    cfg: HashConfig,
+    min_weight: float,
+    max_free: int,
+    frame_idx: int | torch.Tensor | None = None,
+    min_age: int = 0,
+) -> Tuple[HashMap, torch.Tensor]:
+    """Plain version of ``garbage_collect``, on any device: the row maxima
+    of every map row, the stale mask of every table entry, then
+    ``_free_marked``."""
     allocated = hmap.ptrs != FREE_PTR
     safe_ptr = torch.clamp(hmap.ptrs, 0, hmap.tsdf.shape[0] - 1).long()
     row_max_w = hmap.weight.amax(dim=-1)
@@ -739,7 +796,7 @@ def touch_active(hmap: HashMap, active: ActiveSet, frame_idx: int) -> HashMap:
 def evict_stale(
     hmap: HashMap,
     cfg: HashConfig,
-    frame_idx: int,
+    frame_idx: int | torch.Tensor,
     max_age: int,
     max_evict: int,
 ) -> Tuple[HashMap, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -756,7 +813,24 @@ def evict_stale(
     keeps born-gated incremental reintegration (models/keyframe_slam) exact
     across evict / restore cycles.  Unlike garbage_collect this keeps
     well-observed geometry: weight does not gate eviction, only recency
-    does.  No host synchronization."""
+    does.  ``frame_idx`` is an int or a 0-d int32 tensor.  No host
+    synchronization: one K14 launch on CUDA tensors (its outputs views of
+    two fresh buffers), ``evict_stale_reference`` on CPU tensors."""
+    if hmap.keys.device.type == "cpu":
+        return evict_stale_reference(hmap, cfg, frame_idx, max_age,
+                                     max_evict)
+    return _launch_evict(hmap, cfg, frame_idx, max_age, max_evict)
+
+
+def evict_stale_reference(
+    hmap: HashMap,
+    cfg: HashConfig,
+    frame_idx: int | torch.Tensor,
+    max_age: int,
+    max_evict: int,
+) -> Tuple[HashMap, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """Plain version of ``evict_stale``, on any device."""
     allocated = hmap.ptrs != FREE_PTR
     safe_ptr = torch.clamp(hmap.ptrs, 0, hmap.tsdf.shape[0] - 1).long()
     age = frame_idx - hmap.last_seen[safe_ptr]
@@ -790,7 +864,7 @@ def restore_blocks(
     keys: torch.Tensor,          # (R,) unique packed keys; EMPTY_KEY pad
     tsdf_rows: torch.Tensor,     # (R, V)
     weight_rows: torch.Tensor,   # (R, V)
-    frame_idx: int,
+    frame_idx: int | torch.Tensor,
     bucket_fn=None,
     max_weight: float = 255.0,
     born_rows: torch.Tensor | None = None,   # (R,) original born stamps
@@ -827,7 +901,31 @@ def restore_blocks(
     reintegration across streaming is therefore exact only up to
     restore-lag frames, not bit-exact in every interleaving.  Callers that
     need strict exactness use a full rebuild (which re-fuses from the
-    durable keyframe depths and re-stamps everything)."""
+    durable keyframe depths and re-stamps everything).
+
+    One K15 launch on CUDA tensors (R at most ``MAX_RESTORE``, ``bucket_fn``
+    a ``BucketHash``, ``frame_idx`` an int or a 0-d int32 tensor);
+    ``restore_blocks_reference`` on CPU tensors."""
+    if hmap.keys.device.type == "cpu":
+        return restore_blocks_reference(hmap, cfg, keys, tsdf_rows,
+                                        weight_rows, frame_idx, bucket_fn,
+                                        max_weight, born_rows)
+    return _launch_restore(hmap, cfg, keys, tsdf_rows, weight_rows,
+                           frame_idx, bucket_fn, max_weight, born_rows)
+
+
+def restore_blocks_reference(
+    hmap: HashMap,
+    cfg: HashConfig,
+    keys: torch.Tensor,
+    tsdf_rows: torch.Tensor,
+    weight_rows: torch.Tensor,
+    frame_idx: int | torch.Tensor,
+    bucket_fn=None,
+    max_weight: float = 255.0,
+    born_rows: torch.Tensor | None = None,
+) -> Tuple[HashMap, torch.Tensor]:
+    """Plain version of ``restore_blocks``, on any device."""
     bucket_fn = bucket_fn or default_bucket_fn(cfg)
     R = keys.shape[0]
     N = hmap.tsdf.shape[0]
@@ -1003,7 +1101,21 @@ def _compact_plan(cfg: HashConfig, cam: CameraConfig,
 
 
 def _compact_scratch(dev: torch.device, stream: int, tiles: int) -> tuple:
-    """K6's scratch for a table of ``tiles`` tiles on ``dev`` and
+    """K6's scratch (``_status_scratch``) for ``tiles`` tiles."""
+    return _status_scratch(_COMPACT_SCRATCH, _COMPACT_RETIRED, dev, stream,
+                           tiles)
+
+
+def _maintain_scratch(dev: torch.device, stream: int, tiles: int) -> tuple:
+    """K10's and K14's scratch (``_status_scratch``, K6's layout, a
+    scratch of their own) for ``tiles`` tiles."""
+    return _status_scratch(_MAINTAIN_SCRATCH, _MAINTAIN_RETIRED, dev, stream,
+                           tiles)
+
+
+def _status_scratch(kept: dict, retired: list, dev: torch.device,
+                    stream: int, tiles: int) -> tuple:
+    """A tile-status scratch for a table of ``tiles`` tiles on ``dev`` and
     ``stream`` (a raw stream handle): (int64 tensor, its statuses), zeroed
     when made: the epoch word, then a status a tile, COMPACT_STATUS_WORDS
     words apart.  Every launch tags its statuses with the epoch and raises
@@ -1015,9 +1127,11 @@ def _compact_scratch(dev: torch.device, stream: int, tiles: int) -> tuple:
     runs on it.  None is made persistent while the stream is being
     captured (its zeroing would run only in the graph): a capture that
     finds none large enough takes a scratch of its own, zeroed in the
-    graph before each replay's launch and kept nowhere else."""
+    graph before each replay's launch and kept nowhere else.  ``kept`` and
+    ``retired`` are the kernel's dict of scratches and list of replaced
+    ones."""
     key = (dev.index, stream)
-    got = _COMPACT_SCRATCH.get(key)
+    got = kept.get(key)
     if got is not None and got[1] >= tiles:
         return got
     n = max(COMPACT_MIN_TILES, 1 << max(tiles - 1, 0).bit_length())
@@ -1026,8 +1140,8 @@ def _compact_scratch(dev: torch.device, stream: int, tiles: int) -> tuple:
     if _capturing(dev):
         return fresh
     if got is not None:
-        _COMPACT_RETIRED.append(got[0])
-    _COMPACT_SCRATCH[key] = fresh
+        retired.append(got[0])
+    kept[key] = fresh
     return fresh
 
 
@@ -1260,27 +1374,34 @@ def _launch_candidates(frame: Frame, T_wc: torch.Tensor, cfg: HashConfig,
     return out
 
 
+def _bucket_hash(cfg: HashConfig, bucket_fn, what: str) -> BucketHash:
+    """The bucket function K5b and K15 take (a ``BucketHash``; None: the
+    table's), after checking it and the table's key bits and bucket size
+    against what they take; or raise."""
+    fn = bucket_fn or default_bucket_fn(cfg)
+    if not isinstance(fn, BucketHash):
+        raise ValueError(f"{what}: on the card the bucket function must be "
+                         f"a hash_ops.BucketHash, got {type(fn).__name__}")
+    if fn.num_buckets < 1 or fn.divisor < 1:
+        raise ValueError(f"{what}: {fn}: num_buckets and divisor must be "
+                         f"positive")
+    if not 1 <= cfg.key_bits <= MAX_KEY_BITS:
+        raise ValueError(f"{what}: key bits 1..{MAX_KEY_BITS} expected, got "
+                         f"{cfg.key_bits}")
+    if not 1 <= cfg.bucket_size <= MAX_BUCKET_SIZE:
+        raise ValueError(f"{what}: bucket_size 1..{MAX_BUCKET_SIZE} "
+                         f"expected, got {cfg.bucket_size}")
+    return fn
+
+
 def _insert_plan(cfg: HashConfig, bucket_fn) -> tuple:
     """K5b's configuration ints after the map's rows: key bits, the hash's
     buckets and divisor, max_new; or raise."""
-    fn = bucket_fn or default_bucket_fn(cfg)
-    if not isinstance(fn, BucketHash):
-        raise ValueError("insert_blocks: on the card the bucket function "
-                         "must be a hash_ops.BucketHash, got "
-                         f"{type(fn).__name__}")
-    if fn.num_buckets < 1 or fn.divisor < 1:
-        raise ValueError(f"insert_blocks: {fn}: num_buckets and divisor "
-                         f"must be positive")
+    fn = _bucket_hash(cfg, bucket_fn, "insert_blocks")
     if not 0 <= cfg.max_new_per_frame <= MAX_NEW:
         raise ValueError(f"insert_blocks: max_new_per_frame 0..{MAX_NEW} "
                          f"(one CTA's shared memory), got "
                          f"{cfg.max_new_per_frame}")
-    if not 1 <= cfg.key_bits <= MAX_KEY_BITS:
-        raise ValueError(f"insert_blocks: key bits 1..{MAX_KEY_BITS} "
-                         f"expected, got {cfg.key_bits}")
-    if not 1 <= cfg.bucket_size <= MAX_BUCKET_SIZE:
-        raise ValueError(f"insert_blocks: bucket_size 1..{MAX_BUCKET_SIZE} "
-                         f"expected, got {cfg.bucket_size}")
     return (cfg.key_bits, fn.num_buckets, fn.divisor, cfg.max_new_per_frame)
 
 
@@ -1340,6 +1461,42 @@ def insert_scratch_parts(scratch: torch.Tensor, capacity: int,
     return scratch[:INSERT_HDR_ZERO], scratch[s0:s0 + (1 << set_bits)]
 
 
+def _check_map(hmap: HashMap, cfg: HashConfig, what: str,
+               inputs: str = "") -> None:
+    """Raise unless ``hmap`` is what the table kernels take: one CUDA
+    device, int32 integer state and float32 rows, the table's shapes,
+    contiguous (``inputs`` names the call's other tensors in the
+    message)."""
+    dev = hmap.keys.device
+    ints = (hmap.keys, hmap.ptrs, hmap.bucket_fill, hmap.free_list,
+            hmap.free_top, hmap.last_seen, hmap.born)
+    floats = (hmap.tsdf, hmap.weight, hmap.band_min)
+    if not _on_cuda(dev, *ints, *floats):
+        raise ValueError(f"{what}: the map and its inputs must lie on one "
+                         f"CUDA device (or all on the CPU)")
+    if (any(t.dtype != torch.int32 for t in ints)
+            or any(t.dtype != torch.float32 for t in floats)):
+        raise ValueError(f"{what}: int32 keys and integer map state and "
+                         f"float32 map rows expected")
+    S, nb = cfg.bucket_size, cfg.num_buckets
+    N, V = hmap.tsdf.shape[0], cfg.voxels_per_block
+    if (tuple(hmap.keys.shape) != (nb * S,)
+            or hmap.ptrs.shape != hmap.keys.shape
+            or tuple(hmap.bucket_fill.shape) != (nb,)
+            or hmap.free_top.numel() != 1
+            or tuple(hmap.tsdf.shape) != (N, V) or N < 1
+            or hmap.weight.shape != hmap.tsdf.shape
+            or any(tuple(t.shape) != (N,) for t in (
+                hmap.free_list, hmap.last_seen, hmap.band_min, hmap.born))):
+        raise ValueError(
+            f"{what}: {inputs}a ({nb * S},) table, ({nb},) bucket_fill, one "
+            f"free_top and (N, {V}) map rows with (N,) free_list, last_seen, "
+            f"band_min and born expected")
+    if not all(t.is_contiguous() for t in ints + floats):
+        raise ValueError(f"{what}: the map must be contiguous (it is "
+                         f"updated in place)")
+
+
 def _insert_tables(hmap: HashMap, cfg: HashConfig, bucket_fn) -> tuple:
     """K5b's host tables for this map, configuration and bucket function:
     (the map's tensors' addresses in HashMap order, the ints nb, S, N, V,
@@ -1356,34 +1513,9 @@ def _insert_tables(hmap: HashMap, cfg: HashConfig, bucket_fn) -> tuple:
                 and all(r() is t for r, t in zip(refs, hmap))):
             return tables
     plan = _insert_plan(cfg, bucket_fn)
-    dev = hmap.keys.device
-    ints = (hmap.keys, hmap.ptrs, hmap.bucket_fill, hmap.free_list,
-            hmap.free_top, hmap.last_seen, hmap.born)
-    floats = (hmap.tsdf, hmap.weight, hmap.band_min)
-    if not _on_cuda(dev, *ints, *floats):
-        raise ValueError("insert_blocks: the map and the keys must lie on "
-                         "one CUDA device (or all on the CPU)")
-    if (any(t.dtype != torch.int32 for t in ints)
-            or any(t.dtype != torch.float32 for t in floats)):
-        raise ValueError("insert_blocks: int32 keys and integer map state "
-                         "and float32 map rows expected")
+    _check_map(hmap, cfg, "insert_blocks", "(M,) keys, ")
     S, nb = cfg.bucket_size, cfg.num_buckets
     N, V = hmap.tsdf.shape[0], cfg.voxels_per_block
-    if (tuple(hmap.keys.shape) != (nb * S,)
-            or hmap.ptrs.shape != hmap.keys.shape
-            or tuple(hmap.bucket_fill.shape) != (nb,)
-            or hmap.free_top.numel() != 1
-            or tuple(hmap.tsdf.shape) != (N, V) or N < 1
-            or hmap.weight.shape != hmap.tsdf.shape
-            or any(tuple(t.shape) != (N,) for t in (
-                hmap.free_list, hmap.last_seen, hmap.band_min, hmap.born))):
-        raise ValueError(
-            f"insert_blocks: (M,) keys, a ({nb * S},) table, ({nb},) "
-            f"bucket_fill, one free_top and (N, {V}) map rows with (N,) "
-            f"free_list, last_seen, band_min and born expected")
-    if not all(t.is_contiguous() for t in ints + floats):
-        raise ValueError("insert_blocks: the map must be contiguous (it is "
-                         "updated in place)")
     ptrs = tuple(t.data_ptr() for t in hmap)
     key_bits, hash_buckets, divisor, max_new = plan
     tables = ((ctypes.c_void_p * len(ptrs))(*ptrs),
@@ -1421,3 +1553,178 @@ def _launch_insert(hmap: HashMap, cfg: HashConfig, cand_keys: torch.Tensor,
     global LAUNCHES_INSERT
     LAUNCHES_INSERT += 1
     return hmap, n_alloc
+
+
+# --------------------------------------------------------------------------
+# the maintenance kernels' wrappers (csrc/maintain.cu)
+# --------------------------------------------------------------------------
+
+def _maintain_tables(hmap: HashMap, cfg: HashConfig, what: str) -> tuple:
+    """K10's, K14's and K15's host tables for this map: (the map's tensors'
+    addresses in HashMap order, the ints nb, S, N, V) as ctypes arrays,
+    after ``_check_map``, or raise.  Built once a map and configuration
+    (kept by the tensors' identity, as K5b's)."""
+    got = _MAINTAIN_TABLES.get(id(hmap.keys))
+    if got is not None:
+        refs, c, tables = got
+        if c is cfg and all(r() is t for r, t in zip(refs, hmap)):
+            return tables
+    _check_map(hmap, cfg, what)
+    tables = ((ctypes.c_void_p * len(hmap))(*(t.data_ptr() for t in hmap)),
+              (ctypes.c_int * 4)(cfg.num_buckets, cfg.bucket_size,
+                                 hmap.tsdf.shape[0], cfg.voxels_per_block))
+    if len(_MAINTAIN_TABLES) >= 16:
+        _MAINTAIN_TABLES.clear()
+    _MAINTAIN_TABLES[id(hmap.keys)] = (tuple(weakref.ref(t) for t in hmap),
+                                       cfg, tables)
+    return tables
+
+
+def _free_tables(hmap: HashMap, cfg: HashConfig, what: str) -> tuple:
+    """K10's and K14's map tables and the current stream's handle, or
+    raise where the buckets are larger than they take."""
+    if not 1 <= cfg.bucket_size <= MAX_SLOTS:
+        raise ValueError(f"{what}: bucket_size 1..{MAX_SLOTS} on the card, "
+                         f"got {cfg.bucket_size}")
+    tables = _maintain_tables(hmap, cfg, what)
+    return tables, torch._C._cuda_getCurrentRawStream(hmap.keys.device.index)
+
+
+def _int32(x: int) -> int:
+    """``x`` clamped into int32 (a count or an age past it means all)."""
+    return max(min(int(x), 2 ** 31 - 1), -2 ** 31)
+
+
+def _launch_gc(hmap: HashMap, cfg: HashConfig, min_weight: float,
+               max_free: int, frame_idx, min_age: int
+               ) -> Tuple[HashMap, torch.Tensor]:
+    """K10 on the current stream, the map updated in place: (map, a fresh
+    0-d int32 n_freed); or raise."""
+    (map_ptrs, ints), stream = _free_tables(hmap, cfg, "garbage_collect")
+    dev = hmap.keys.device
+    gate = frame_idx is not None and min_age > 0
+    stamp_ptr, stamp = _stamp_arg(frame_idx if gate else None, dev,
+                                  "garbage_collect")
+    tiles = -(-cfg.num_buckets // MAINTAIN_TILE)
+    scratch, _ = _maintain_scratch(dev, stream, tiles)
+    n_freed = torch.empty((), dtype=torch.int32, device=dev)
+    kernels.launch("gc_free", dev.index, map_ptrs, ints, n_freed.data_ptr(),
+                   stamp_ptr, stamp, int(gate), _int32(min_age) if gate else 0,
+                   _int32(max_free), float(min_weight), tiles,
+                   scratch.data_ptr(), scratch.shape[0] - 1)
+    global LAUNCHES_GC
+    LAUNCHES_GC += 1
+    return hmap, n_freed
+
+
+def _launch_evict(hmap: HashMap, cfg: HashConfig, frame_idx, max_age: int,
+                  max_evict: int) -> tuple:
+    """K14 on the current stream, the map updated in place: (map, keys,
+    tsdf, weight, born, n) as ``evict_stale`` returns them, views of two
+    fresh buffers (n a 0-d int32); or raise."""
+    (map_ptrs, ints), stream = _free_tables(hmap, cfg, "evict_stale")
+    dev = hmap.keys.device
+    if not 0 <= max_evict < 2 ** 30:
+        raise ValueError(f"evict_stale: max_evict 0..2^30 expected, got "
+                         f"{max_evict}")
+    stamp_ptr, stamp = _stamp_arg(frame_idx, dev, "evict_stale")
+    tiles = max(-(-cfg.num_buckets // MAINTAIN_TILE), EVICT_MIN_TILES)
+    scratch, _ = _maintain_scratch(dev, stream, tiles)
+    E, V = max_evict, cfg.voxels_per_block
+    ibuf = torch.empty((2 * E + 1,), dtype=torch.int32, device=dev)
+    fbuf = torch.empty((2 * E * V,), dtype=torch.float32, device=dev)
+    n = ibuf[2 * E]
+    kernels.launch("evict_free", dev.index, map_ptrs, ints, n.data_ptr(),
+                   stamp_ptr, stamp, _int32(max_age), E, ibuf.data_ptr(),
+                   fbuf.data_ptr(), tiles, scratch.data_ptr(),
+                   scratch.shape[0] - 1)
+    global LAUNCHES_EVICT
+    LAUNCHES_EVICT += 1
+    return (hmap, ibuf[:E], fbuf[:E * V].view(E, V),
+            fbuf[E * V:].view(E, V), ibuf[E:2 * E], n)
+
+
+def _restore_scratch(dev: torch.device, stream: int) -> torch.Tensor:
+    """K15's scratch on ``dev`` and ``stream`` (a raw stream handle):
+    RESTORE_SCRATCH_INTS ints, its header 0 when made (every launch leaves
+    its count and arrival 0; the epoch runs on).  One persists a device
+    and stream, made at first use; none is made persistent while the
+    stream is being captured (its zeroing would run only in the graph): a
+    capture that finds none takes a scratch of its own, zeroed in the
+    graph, kept nowhere else."""
+    key = (dev.index, stream)
+    got = _RESTORE_SCRATCH.get(key)
+    if got is not None:
+        return got
+    fresh = torch.zeros((RESTORE_SCRATCH_INTS,), dtype=torch.int32,
+                        device=dev)
+    if not _capturing(dev):
+        _RESTORE_SCRATCH[key] = fresh
+    return fresh
+
+
+def _restore_plan(cfg: HashConfig, bucket_fn, N: int) -> ctypes.Array:
+    """K15's ints (buckets, slots a bucket, map rows, voxels a row, key
+    bits, the hash's buckets and divisor) for this configuration, bucket
+    function and ``N`` map rows, or raise."""
+    got = _RESTORE_PLANS.get((id(cfg), bucket_fn, N))
+    if got is not None and got[0] is cfg:
+        return got[1]
+    fn = _bucket_hash(cfg, bucket_fn, "restore_blocks")
+    ints = (ctypes.c_int * 7)(cfg.num_buckets, cfg.bucket_size, N,
+                              cfg.voxels_per_block, cfg.key_bits,
+                              fn.num_buckets, fn.divisor)
+    if len(_RESTORE_PLANS) >= 64:
+        _RESTORE_PLANS.clear()
+    _RESTORE_PLANS[(id(cfg), bucket_fn, N)] = (cfg, ints)
+    return ints
+
+
+def _launch_restore(hmap: HashMap, cfg: HashConfig, keys: torch.Tensor,
+                    tsdf_rows: torch.Tensor, weight_rows: torch.Tensor,
+                    frame_idx, bucket_fn, max_weight: float,
+                    born_rows: torch.Tensor | None
+                    ) -> Tuple[HashMap, torch.Tensor]:
+    """K15 on the current stream, the map updated in place: (map, a fresh
+    (R,) bool accepted); or raise."""
+    if keys.dim() == 1 and keys.shape[0] > MAX_RESTORE:
+        raise ValueError(f"restore_blocks: at most {MAX_RESTORE} keys a call "
+                         f"on the card (one CTA sorts the new ones), got "
+                         f"{keys.shape[0]}")
+    ints = _restore_plan(cfg, bucket_fn, hmap.tsdf.shape[0])
+    map_ptrs, _ = _maintain_tables(hmap, cfg, "restore_blocks")
+    dev = hmap.keys.device
+    rows = (keys, tsdf_rows, weight_rows) + (
+        () if born_rows is None else (born_rows,))
+    if not _on_cuda(dev, *rows):
+        raise ValueError("restore_blocks: the map and the keys must lie on "
+                         "one CUDA device (or all on the CPU)")
+    R, V = keys.shape[0] if keys.dim() == 1 else -1, cfg.voxels_per_block
+    if (keys.dtype != torch.int32 or tsdf_rows.dtype != torch.float32
+            or weight_rows.dtype != torch.float32
+            or (born_rows is not None and born_rows.dtype != torch.int32)):
+        raise ValueError("restore_blocks: int32 keys and born rows and "
+                         "float32 tsdf and weight rows expected")
+    if (R < 0 or tuple(tsdf_rows.shape) != (R, V)
+            or tuple(weight_rows.shape) != (R, V)
+            or (born_rows is not None and tuple(born_rows.shape) != (R,))):
+        raise ValueError(f"restore_blocks: (R,) keys, (R, {V}) tsdf and "
+                         f"weight rows and (R,) born rows expected")
+    stamp_ptr, stamp = _stamp_arg(frame_idx, dev, "restore_blocks")
+    accepted = torch.empty((R,), dtype=torch.bool, device=dev)
+    if R == 0:
+        return hmap, accepted
+    keys, tsdf_rows, weight_rows = (t.contiguous() for t in (
+        keys, tsdf_rows, weight_rows))
+    born = None if born_rows is None else born_rows.contiguous()
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    scratch = _restore_scratch(dev, stream)
+    kernels.launch("restore_rows", dev.index, map_ptrs, ints,
+                   keys.data_ptr(), tsdf_rows.data_ptr(),
+                   weight_rows.data_ptr(),
+                   None if born is None else born.data_ptr(),
+                   accepted.data_ptr(), R, stamp_ptr, stamp,
+                   float(max_weight), scratch.data_ptr())
+    global LAUNCHES_RESTORE
+    LAUNCHES_RESTORE += 1
+    return hmap, accepted

@@ -53,13 +53,16 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
     launches per frame), ``icp_launches`` (the ICP kernels' K4 and K4s
     launches over the run), ``k3_launches`` (K3a and K3b's),
     ``splat_launches`` (K8 and K9's), ``fuse_launches`` (K6 and K7's),
-    ``alloc_launches`` (K5a and K5b's) and, with ``timed``, per-frame
+    ``alloc_launches`` (K5a and K5b's), ``maint_launches`` (K10, K14 and
+    K15's) and, with ``timed``, per-frame
     host ms on a synchronised clock, the peak device memory, the
     collective counters, the live render's hit mask (this rank's rows)
     and ``kernel_check`` on the last frame."""
     hash_ops.LAUNCHES_INTEGRATE_WINDOW = 0
     hash_ops.LAUNCHES_COMPACT = hash_ops.LAUNCHES_INTEGRATE = 0
     hash_ops.LAUNCHES_ALLOC_CANDIDATES = hash_ops.LAUNCHES_INSERT = 0
+    hash_ops.LAUNCHES_GC = hash_ops.LAUNCHES_EVICT = 0
+    hash_ops.LAUNCHES_RESTORE = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
@@ -97,7 +100,9 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
            "fuse_launches": [hash_ops.LAUNCHES_COMPACT,
                              hash_ops.LAUNCHES_INTEGRATE],
            "alloc_launches": [hash_ops.LAUNCHES_ALLOC_CANDIDATES,
-                              hash_ops.LAUNCHES_INSERT]}
+                              hash_ops.LAUNCHES_INSERT],
+           "maint_launches": [hash_ops.LAUNCHES_GC, hash_ops.LAUNCHES_EVICT,
+                              hash_ops.LAUNCHES_RESTORE]}
     if fed_poses is None:
         out["state"] = convert.state_to_numpy(slam.state)
         hmap = slam.state.hmap
@@ -132,6 +137,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     K7's window-gather launches, the kernels' launches (``icp_launches``:
     K4, K4s; ``k3_launches``: K3a, K3b; ``splat_launches``: K8, K9;
     ``fuse_launches``: K6, K7; ``alloc_launches``: K5a, K5b;
+    ``maint_launches``: K10, K14, K15;
     ``pg_launches``: K13a, K13b, K13c), with
     streaming the store counters
     (evicted, restored, stored) summed over the ranks, and, with
@@ -142,6 +148,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     hash_ops.LAUNCHES_INTEGRATE_WINDOW = 0
     hash_ops.LAUNCHES_COMPACT = hash_ops.LAUNCHES_INTEGRATE = 0
     hash_ops.LAUNCHES_ALLOC_CANDIDATES = hash_ops.LAUNCHES_INSERT = 0
+    hash_ops.LAUNCHES_GC = hash_ops.LAUNCHES_EVICT = 0
+    hash_ops.LAUNCHES_RESTORE = 0
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
@@ -177,6 +185,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
                           hash_ops.LAUNCHES_INTEGRATE],
         "alloc_launches": [hash_ops.LAUNCHES_ALLOC_CANDIDATES,
                            hash_ops.LAUNCHES_INSERT],
+        "maint_launches": [hash_ops.LAUNCHES_GC, hash_ops.LAUNCHES_EVICT,
+                           hash_ops.LAUNCHES_RESTORE],
         "pg_launches": [pose_graph.LAUNCHES_EDGE_BLOCKS,
                         pose_graph.LAUNCHES_CG, pose_graph.LAUNCHES_RETRACT],
         "rebuild_fuses": sum(e["keyframes"] for e in slam.ba_events
