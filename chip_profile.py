@@ -20,7 +20,8 @@ noise_seed=1)``, the frames of chip_smoke's ``march`` phase) through
   (median of 5 runs, CUDA events, synchronised): preprocess, ICP, fuse
   (allocate / compact + touch / integrate), and the surface prediction
   (splat, or cache build + march through chip_smoke's
-  ``march_stage_ms``, the one timer of that stage), with the
+  ``march_stage_ms``, the one timer of that stage: K12 and K11 beside
+  their plain versions on the same state), with the
   window-gather launches made by one fuse.
 
 ``backend`` drives chip_smoke's backend scenario (48 noisy room-sweep

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """How PyTorch's CUDA ops round the float32 arithmetic that the splat
-kernel K8 (csrc/splat.cu) and the fuse kernels K6 / K7 (csrc/fuse.cu)
-repeat, bit for bit, on the card.
+kernel K8 (csrc/splat.cu), the fuse kernels K6 / K7 (csrc/fuse.cu) and
+the sphere tracer K11 (csrc/raycast.cu) repeat, bit for bit, on the card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -18,7 +18,11 @@ the truncation band, ``sample_weight`` and the running-average update and
 its inverse) and of the candidate keys of allocation (``alloc_ops``: the
 ray's norm on a strided frame, its reciprocal, ``torch.linspace``, the
 band sample, ``se3.apply``'s product at the candidate counts of the
-configs, ``world2voxel``) it prints
+configs, ``world2voxel``) and of the sphere tracer (``march_ops``:
+``rays_cam @ R.T`` with its transposed right operand on the whole image
+and on a row slice, ``1.0 / _norm(dirs)`` and ``torch.reciprocal``,
+``n_world @ R``, each also on axis-aligned rows and rotations whose
+exact zeros show the sign a zero sum takes) it prints
 the share of outputs that each candidate order of float32 operations
 reproduces bit for bit, over ``rows`` x 512 voxels (2^20 at the default).
 A candidate is evaluated in float64 on the card and rounded to float32
@@ -183,6 +187,8 @@ def main() -> int:
     result.update(fuse_ops(torch, dev, rng, se3, _local_offsets, share, dots,
                            mul, add, fma, dvd, f32))
     result.update(alloc_ops(torch, dev, rng, se3, share, dots, mul, add, fma,
+                            dvd, f32))
+    result.update(march_ops(torch, dev, rng, se3, share, dots, mul, add, fma,
                             dvd, f32))
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -420,6 +426,92 @@ def alloc_ops(torch, dev, rng, se3, share, dots, mul, add, fma, dvd,
                                 for c, v in shares.items()}
     return out
 
+
+def march_ops(torch, dev, rng, se3, share, dots, mul, add, fma, dvd,
+              f32) -> dict:
+    """The ops of ``raycast_rays_reference`` (ops/raycast.py) that K11
+    repeats: ``rays_cam @ R.T`` (the right operand a transposed view of
+    the pose's rotation) on the flagship's pixel rays and on a row slice
+    of them (the sharded shape), ``1.0 / _norm(dirs)`` and
+    ``torch.reciprocal``, and ``n_world @ R``; on random poses, on the
+    identity and on axis permutations with signs (exact zeros in R), and
+    for ``n_world`` on random unit vectors and on axis-aligned ones.
+    Beside the matmul's candidate orders, ``fma0_012`` starts the sum from
+    fma(a0, b0, +0) instead of the rounded product: it differs only in
+    the sign of an exact zero.  {op: {candidate: share}}."""
+    from voxelhashing_demo_tpu_torch.config import CameraConfig
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+    from voxelhashing_demo_tpu_torch.ops.preprocess import _norm
+
+    out = {}
+    zero = torch.zeros((), device=dev)
+    rays = cam_geom.pixel_rays(CameraConfig(), device=dev)   # (480, 640, 3)
+    poses = [torch.eye(4, device=dev)]
+    for perm, signs in (((1, 2, 0), (1, -1, -1)), ((0, 2, 1), (-1, 1, 1)),
+                        ((2, 0, 1), (-1, -1, 1))):
+        T = torch.zeros(4, 4, device=dev)
+        for i, (j, sgn) in enumerate(zip(perm, signs)):
+            T[i, j] = sgn
+        T[3, 3] = 1.0
+        if torch.linalg.det(T[:3, :3]) < 0:
+            T[2] = -T[2]
+            T[3, 3] = 1.0
+        poses.append(T)
+    for _ in range(12):
+        xi = rng.normal(size=6) * np.array([1.5, 1.5, 1.5, 0.8, 0.8, 0.8])
+        poses.append(se3.exp(torch.as_tensor(xi, dtype=torch.float32,
+                                             device=dev)))
+
+    def candidates(a, b, j):
+        """every order of a_k b_kj, plus fma0_012"""
+        cands = dots([a[..., k] for k in range(3)], [b[k] for k in range(3)])
+        cands["fma0_012"] = fma(a[..., 2], b[2], fma(a[..., 1], b[1], fma(
+            a[..., 0], b[0], zero)))
+        return cands
+
+    for name, r in (("rays_RT", rays), ("rays_RT_slice", rays[120:360])):
+        shares = {}
+        for T in poses:
+            R = T[:3, :3]
+            got = r @ R.T
+            for j in range(3):
+                for cname, c in candidates(r, [R[j, k] for k in range(3)],
+                                           j).items():
+                    shares.setdefault(cname, []).append(
+                        share(got[..., j], c))
+        out[name] = {c: float(np.mean(v)) for c, v in shares.items()}
+
+    # the inverse ray length: 1.0 / _norm(dirs) (Tensor.__rtruediv__) and
+    # torch.reciprocal, against an IEEE divide of the float32 norm
+    inv, rcp = [], []
+    for T in poses:
+        dirs = rays @ T[:3, :3].T
+        n = _norm(dirs)
+        inv.append(share(1.0 / n, dvd(torch.ones_like(n), n)))
+        rcp.append(share(torch.reciprocal(n), dvd(torch.ones_like(n), n)))
+    out["march_inv_len"] = {"ieee_div": float(np.mean(inv))}
+    out["reciprocal"] = {"ieee_div": float(np.mean(rcp))}
+
+    # n_world @ R on random unit vectors and on axis-aligned ones (exact
+    # zeros; signs both ways), the row count of a 640 x 480 image
+    g = f32(torch.randn(480 * 640, 3, device=dev, dtype=torch.float64))
+    units = g / _norm(g, keepdim=True)
+    axes = torch.zeros(480 * 640, 3, device=dev)
+    pick = torch.randint(0, 3, (480 * 640,), device=dev)
+    sign = torch.where(torch.rand(480 * 640, device=dev) < 0.5, -1.0, 1.0)
+    axes[torch.arange(480 * 640, device=dev), pick] = sign
+    for name, nw in (("n_world_R", units), ("n_world_R_axes", axes)):
+        shares = {}
+        for T in poses:
+            R = T[:3, :3]
+            got = nw @ R
+            for j in range(3):
+                for cname, c in candidates(nw, [R[k, j] for k in range(3)],
+                                           j).items():
+                    shares.setdefault(cname, []).append(
+                        share(got[..., j], c))
+        out[name] = {c: float(np.mean(v)) for c, v in shares.items()}
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

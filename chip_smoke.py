@@ -187,8 +187,23 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    fraction inside bounds set from the JAX package on the same frames;
    then ``render`` from the last pose, the surface point cloud and the
    mesh of the card's map (non-empty, finite, points on the room's
-   surface).  Prints per-frame times, the march stage alone at the final
-   state (``march_stage_ms``) beside the frame, peak memory.
+   surface).  The march kernels (csrc/raycast.cu): one K12
+   ``densify_cache`` and one K11 ``raycast_march`` launch a frame; K12
+   against ``densify_active_reference`` (sdf, weight, origin, voxel
+   size) and K11 against ``raycast_rays_reference`` on the plain cache
+   (depth, points, normals, hit), and ``raycast_hash`` against the plain
+   chain, bit for bit, on the final map and pose, on the final map from
+   the identity pose (a render at another pose) and on a copy of the map,
+   set and pose of frame 12's prediction; the stage (``raycast_hash``)
+   makes no host read and runs at most the pixel rays' kernels, K12's two
+   device kernels and K11's; each kernel alone warm and L2-cold (CUDA-graph
+   replay into buffers of its own), its wrapper, its plain version, the
+   bound from this run's data (K12: the cache written and the rows in it
+   read; K11: its outputs and the 32-byte cache sectors its samples
+   reach, or its float operations a step, counted by ``_march_work``),
+   registers and spills.  Prints per-frame times, the march stage alone
+   at the final state (``march_stage_ms``: kernels and plain versions)
+   beside the frame, peak memory.
 7. ``streamed_entry``: the streamed gather's public entry point on the
    frame step's own gather inputs (the last sweep frame's visible rows,
    any row count), with its launch count set to 0 just before.
@@ -403,6 +418,11 @@ each path one launch a ``garbage_collect``, ``evict_stale`` or
 launches are not counted), K10 on ``march``, ``backend``, ``stream``,
 ``stream_backend`` and each rank of ``sharded_backend``, K14 and K15 on
 ``stream`` and ``stream_backend``; ``launches`` the ``stream`` path's.
+K11 and K12 (``raycast_march``, ``densify_cache``) with the times and
+bound of the ``march`` phase's final state, counted like K3 on every
+path (rank 0's on the multi-rank paths): both on ``march``, neither on
+any other path (they predict by splatting); ``launches`` the ``march``
+path's; library none.
   Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
 """
@@ -3228,19 +3248,34 @@ def median_ms(torch, fn, reps: int = 5) -> float:
 
 def march_stage_ms(torch, cfg, state, active) -> dict:
     """The march prediction alone on ``state``: the cache build, and the
-    cache build plus the sphere trace.  chip_profile.py times the same
-    stage through this function."""
+    cache build plus the sphere trace, through the kernels (K12, K11) and
+    through their plain versions on the same state.  chip_profile.py times
+    the same stage through this function."""
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
     from voxelhashing_demo_tpu_torch.ops import hash_raycast
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
 
     dims = cfg.raycast.cache_dims
-    return {
-        "densify": median_ms(torch, lambda: hash_raycast.densify_active(
-            state.hmap, active, cfg.hash, cfg.fusion, state.pose, dims)),
-        "densify_and_march": median_ms(
-            torch, lambda: hash_raycast.raycast_hash(
-                state.hmap, active, cfg.hash, state.pose, cfg.camera,
-                cfg.raycast, cfg.fusion, cache_dims=dims)),
-    }
+    args = (state.hmap, active, cfg.hash, cfg.fusion, state.pose, dims)
+
+    def plain_march():
+        cache = hash_raycast.densify_active_reference(*args)
+        rays = cam_geom.pixel_rays(cfg.camera, device=state.pose.device)
+        return rc_ops.raycast_rays_reference(cache, state.pose, rays,
+                                             cfg.raycast)
+
+    with uncounted_march():
+        return {
+            "densify": median_ms(
+                torch, lambda: hash_raycast.densify_active(*args)),
+            "densify_and_march": median_ms(
+                torch, lambda: hash_raycast.raycast_hash(
+                    state.hmap, active, cfg.hash, state.pose, cfg.camera,
+                    cfg.raycast, cfg.fusion, cache_dims=dims)),
+            "densify_plain": median_ms(
+                torch, lambda: hash_raycast.densify_active_reference(*args)),
+            "densify_and_march_plain": median_ms(torch, plain_march),
+        }
 
 
 def room_sweep():
@@ -3257,16 +3292,294 @@ def room_sweep():
     return cfg, depths, gt
 
 
-def phase_march(torch, cfg, depths, gt):
+# The march kernels (csrc/raycast.cu): K12 builds the view-local cache,
+# K11 sphere-traces it.
+MARCH_KERNELS = ("raycast_march", "densify_cache")
+MARCH_SOURCE = "voxelhashing_demo_tpu_torch/csrc/raycast.cu"
+MARCH_META = {
+    "raycast_march": {
+        "route": "cuda", "source": MARCH_SOURCE,
+        "replaces": "voxelhashing_demo_tpu/ops/raycast.py:52 "
+                    "(raycast_rays, its lax.fori_loop :111), "
+                    "voxelhashing_demo_tpu/ops/tsdf.py:120 "
+                    "(trilinear_sample), voxelhashing_demo_tpu/ops/tsdf.py:"
+                    "165 (sdf_gradient): fused by XLA, no Pallas kernel",
+    },
+    "densify_cache": {
+        "route": "cuda", "source": MARCH_SOURCE,
+        "replaces": "voxelhashing_demo_tpu/ops/hash_raycast.py:117 "
+                    "(densify_rows), voxelhashing_demo_tpu/ops/"
+                    "hash_raycast.py:87 (densify_active): fused by XLA, no "
+                    "Pallas kernel",
+    },
+}
+# float operations K11 does: a step (the sample's position, voxel
+# coordinate, floor and fractions, 8 corner weights and the two sums, the
+# step), a hit's gradient normal (6 samples, the norm, the divide, the
+# rotation and the flip), a ray's set-up and outputs
+K11_OPS_PER_STEP, K11_OPS_GRADIENT, K11_OPS_RAY = 80, 460, 40
+K11_OUT_BYTES = 4 + 12 + 12 + 1      # depth, points, normals, hit a ray
+MARCH_SECTOR_BYTES = 32               # bytes a sector
+
+
+def march_launches() -> list:
+    """[K11, K12] launches counted since they were last set to 0."""
+    from voxelhashing_demo_tpu_torch.ops import hash_raycast
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+
+    return [rc_ops.LAUNCHES_MARCH, hash_raycast.LAUNCHES_DENSIFY]
+
+
+def set_march_launches(counts=(0, 0)) -> None:
+    from voxelhashing_demo_tpu_torch.ops import hash_raycast
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+
+    rc_ops.LAUNCHES_MARCH, hash_raycast.LAUNCHES_DENSIFY = counts
+
+
+@contextlib.contextmanager
+def uncounted_march():
+    """K11's and K12's launches left as they were before the block: the
+    checks against the plain versions and the timings are not a path's
+    launches."""
+    saved = march_launches()
+    try:
+        yield
+    finally:
+        set_march_launches(saved)
+
+
+def _march_work(torch, state, T_wc, rays, rc) -> dict:
+    """What K11 must do on these inputs, counted by a plain replay of the
+    march (the reference's arithmetic, ops/tsdf.py's sampler): the
+    distinct 32-byte sectors of the cache that the samples a ray takes
+    reach (a sample inside the volume, before the ray's hit or its exit
+    from the volume, and the 6 gradient samples of a hit), the steps the
+    rays take, and the hits."""
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+    from voxelhashing_demo_tpu_torch.ops.preprocess import _norm
+
+    X, Y, Z = state.sdf.shape
+    per_sector = MARCH_SECTOR_BYTES // 4
+    marked = torch.zeros(X * Y * Z // per_sector + 2, dtype=torch.bool,
+                         device=T_wc.device)
+    dims = torch.tensor([X, Y, Z], device=T_wc.device)
+    offs = torch.tensor([(dx * Y + dy) * Z + dz for dx in (0, 1)
+                         for dy in (0, 1) for dz in (0, 1)],
+                        device=T_wc.device)
+
+    def mark(pos, live):
+        g = (pos - state.origin) / state.voxel_size
+        base = torch.floor(g).to(torch.int64)
+        inside = torch.all((base >= 0) & (base + 1 <= dims - 1), dim=-1)
+        use = live & inside
+        b = base[use]
+        flat0 = (b[:, 0] * Y + b[:, 1]) * Z + b[:, 2]
+        marked[((flat0[:, None] + offs) // per_sector).reshape(-1)] = True
+        return base, inside
+
+    R, origin = T_wc[:3, :3], T_wc[:3, 3]
+    dirs = rays @ R.T
+    inv_len = 1.0 / _norm(dirs)
+    vox = state.voxel_size
+    min_step, coarse_step = rc.min_step * vox, rc.coarse_step * vox
+    shape = rays.shape[:2]
+    t = torch.zeros(shape, device=T_wc.device) + rc.near
+    t_hit = torch.zeros_like(t)
+    hit = torch.zeros(shape, dtype=torch.bool, device=T_wc.device)
+    gone = torch.zeros_like(hit)
+    prev_sdf, prev_t = torch.full_like(t, float("inf")), t
+    steps = torch.zeros(shape, dtype=torch.int64, device=T_wc.device)
+    for _ in range(rc.max_steps):
+        live = ~hit & ~gone
+        steps += live.to(torch.int64)
+        pos = origin + dirs * t[..., None]
+        base, inside = mark(pos, live)
+        s, w = rc_ops.trilinear_sample(state, pos)
+        known = w > 0
+        crossed = known & (s <= 0) & (prev_sdf > 0)
+        diff = prev_sdf - s
+        denom = torch.where(torch.abs(diff) > 1e-12, diff, 1e-12)
+        t_ref = prev_t + (t - prev_t) * (prev_sdf / denom)
+        t_hit = torch.where(crossed & ~hit, t_ref, t_hit)
+        hit = hit | crossed
+        step_m = torch.where(known, torch.maximum(
+            rc.step_scale * torch.abs(s), min_step), coarse_step)
+        prev_sdf = torch.where(known, s, prev_sdf)
+        prev_t = torch.where(known, t, prev_t)
+        t = torch.where(hit, t, t + step_m * inv_len)
+        away = (((base < 0) & (dirs <= 0))
+                | ((base > dims - 2) & (dirs >= 0))).any(dim=-1)
+        gone = gone | (~inside & ~known & away)
+    hit = hit & (t_hit > rc.near) & (t_hit < rc.far)
+    p = origin + dirs * t_hit[..., None]
+    for axis in range(3):
+        e = torch.zeros(3, device=T_wc.device)
+        e[axis] = vox
+        mark(p + e, hit)
+        mark(p - e, hit)
+    return {"sectors": int(marked.sum()), "steps": int(steps.sum()),
+            "hits": int(hit.sum()), "rays": int(hit.numel())}
+
+
+def _k11_bound(work: dict) -> tuple:
+    n = work["rays"]
+    n_bytes = (2 * work["sectors"] * MARCH_SECTOR_BYTES + n * 12
+               + n * K11_OUT_BYTES + 64 + 16)
+    n_ops = (work["steps"] * K11_OPS_PER_STEP
+             + work["hits"] * K11_OPS_GRADIENT + n * K11_OPS_RAY)
+    return _probe_bound(n_bytes, n_ops)
+
+
+def _march_case(torch, probe, name, hmap, active, cfg, pose) -> dict:
+    """K12 against ``densify_active_reference`` and K11 against
+    ``raycast_rays_reference`` (on the plain cache) on one state, every
+    field bit for bit, and ``raycast_hash`` against the plain chain."""
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+    from voxelhashing_demo_tpu_torch.ops import hash_raycast
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+
+    dims = cfg.raycast.cache_dims
+    dargs = (hmap, active, cfg.hash, cfg.fusion, pose, dims)
+    plain_cache = hash_raycast.densify_active_reference(*dargs)
+    k12 = probe.compare(tuple(hash_raycast.densify_active(*dargs)),
+                        tuple(plain_cache))
+    rays = cam_geom.pixel_rays(cfg.camera, device=pose.device)
+    plain = rc_ops.raycast_rays_reference(plain_cache, pose, rays,
+                                          cfg.raycast)
+    k11 = {f: probe.compare(getattr(got, f), getattr(plain, f))
+           for got in [rc_ops.raycast_rays(plain_cache, pose, rays,
+                                           cfg.raycast)]
+           for f in got._fields}
+    chain = probe.compare(tuple(hash_raycast.raycast_hash(
+        hmap, active, cfg.hash, pose, cfg.camera, cfg.raycast, cfg.fusion,
+        cache_dims=dims)), tuple(plain))
+    return {"case": name, "count": int(active.count),
+            "hit_fraction": float(plain.hit.float().mean()),
+            "densify_cache": k12, "raycast_march": k11, "chain": chain,
+            "bit_exact": (k12["bit_exact"] and chain["bit_exact"]
+                          and all(c["bit_exact"] for c in k11.values()))}
+
+
+def _march_timings(torch, probe, kernels, hmap, active, cfg, pose,
+                   floor_ms: float) -> dict:
+    """K11 and K12 alone on the final state (CUDA-graph replay, warm and
+    L2-cold, into buffers of their own), their wrappers, their plain
+    versions, their wrappers' host µs to issue a call, the bounds from
+    this run's data (``_march_work``; K12: the cache written and the rows
+    in it read), registers and spills."""
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+    from voxelhashing_demo_tpu_torch.ops import hash_raycast
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+
+    dev = pose.device
+    index = dev.index
+    dims = cfg.raycast.cache_dims
+    X, Y, Z = dims
+    B = cfg.hash.block_size
+    rc = cfg.raycast
+    dargs = (hmap, active, cfg.hash, cfg.fusion, pose, dims)
+    cache = hash_raycast.densify_active_reference(*dargs)
+    rays = cam_geom.pixel_rays(cfg.camera, device=dev)
+    h, w = rays.shape[:2]
+    ints, floats = hash_raycast._densify_tables(cfg.hash, cfg.fusion, dims)
+    grid = torch.empty(-(-X // B) * -(-Y // B) * -(-Z // B),
+                       dtype=torch.int32, device=dev)
+    out_sdf = torch.empty(dims, device=dev)
+    out_w = torch.empty(dims, device=dev)
+    out_origin = torch.empty(3, device=dev)
+
+    def k12_alone(blocks, ptrs, count, tsdf, weight, T):
+        kernels.launch("densify_cache", index, blocks.data_ptr(),
+                       ptrs.data_ptr(), count.data_ptr(), None,
+                       T.data_ptr(), tsdf.data_ptr(), weight.data_ptr(),
+                       grid.data_ptr(), out_sdf.data_ptr(), out_w.data_ptr(),
+                       out_origin.data_ptr(), blocks.shape[0],
+                       tsdf.shape[0], ints, floats)
+
+    mints, mfloats = rc_ops._march_tables(rc, dims)
+    buf = torch.empty(7 * h * w, device=dev)
+    hit = torch.empty((h, w), dtype=torch.bool, device=dev)
+
+    def k11_alone(r, T, sdf, weight, origin, vox):
+        kernels.launch("raycast_march", index, r.data_ptr(), T.data_ptr(),
+                       sdf.data_ptr(), weight.data_ptr(), origin.data_ptr(),
+                       vox.data_ptr(), buf.data_ptr(), hit.data_ptr(), h, w,
+                       mints, mfloats)
+
+    k12 = {**probe.timings(k12_alone, (active.blocks, active.ptrs,
+                                       active.count, hmap.tsdf, hmap.weight,
+                                       pose)),
+           "wrapper_ms": probe.host_ms(
+               lambda: hash_raycast.densify_active(*dargs)),
+           "issue_us": host_issue_us(
+               lambda: hash_raycast.densify_active(*dargs)),
+           "plain_ms": probe.host_ms(
+               lambda: hash_raycast.densify_active_reference(*dargs),
+               iters=10)}
+    # the rows K12 reads: the walked rows with a map row whose block lies
+    # in the cache
+    n = int(active.count)
+    ob = torch.round(cache.origin / cfg.fusion.voxel_size).to(
+        torch.int64) // B
+    rb = active.blocks[:n].to(torch.int64) - ob
+    in_grid = torch.all((rb >= 0) & (rb < torch.tensor(
+        [-(-X // B), -(-Y // B), -(-Z // B)], device=dev)), dim=-1)
+    live = int(((active.ptrs[:n] != -1) & in_grid).sum())
+    V = cfg.hash.voxels_per_block
+    k12["bound_ms"], k12["bound_by"] = _probe_bound(
+        2 * X * Y * Z * 4 + live * V * 8 + n * 16 + 76, X * Y * Z * 4)
+    k12["rows_in_cache"] = live
+    k11 = {**probe.timings(k11_alone, (rays, pose, *cache)),
+           "wrapper_ms": probe.host_ms(
+               lambda: rc_ops.raycast_rays(cache, pose, rays, rc)),
+           "issue_us": host_issue_us(
+               lambda: rc_ops.raycast_rays(cache, pose, rays, rc)),
+           "plain_ms": probe.host_ms(
+               lambda: rc_ops.raycast_rays_reference(cache, pose, rays, rc),
+               iters=5)}
+    work = _march_work(torch, cache, pose, rays, rc)
+    k11["bound_ms"], k11["bound_by"] = _k11_bound(work)
+    k11["work"] = work
+    ptxas = kernels.ptxas_report("raycast")
+    for k, part in ((k11, "march_kernel"), (k12, "densify")):
+        k["floor_ms"] = floor_ms
+        k["least_ms"] = max(k["bound_ms"], floor_ms)
+        k["ptxas"] = {n: v for n, v in ptxas.items() if part in n}
+        k["library_ms"] = None
+    return {"raycast_march": k11, "densify_cache": k12}
+
+
+MARCH_SUMMARY: dict = {}   # the march phase's K11 / K12 figures
+
+
+def phase_march(torch, card, cfg, depths, gt):
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
     from voxelhashing_demo_tpu_torch.models import hash_slam
-    from voxelhashing_demo_tpu_torch.ops import hash_ops
+    from voxelhashing_demo_tpu_torch.ops import hash_ops, hash_raycast
+    from voxelhashing_demo_tpu_torch.tools import probe
     from voxelhashing_demo_tpu_torch.utils import (meshing, pointcloud,
                                                    synthetic)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     slam = hash_slam.HashSLAM(cfg)
-    frame_ms, launches = _drive(torch, slam, depths)
+    # the step's march arguments on a frame mid-run, the map copied then
+    mid, calls, kept = N_MARCH // 2, [0], {}
+
+    def keep_mid(real):
+        def fn(hmap, active, *a, **k):
+            if calls[0] == mid:
+                kept["args"] = (probe.map_copy(hmap), hash_ops.ActiveSet(
+                    *(t.clone() for t in active)), a[1].clone())
+            calls[0] += 1
+            return real(hmap, active, *a, **k)
+        return fn
+
+    with _wrapped(hash_raycast, "raycast_hash", keep_mid):
+        frame_ms, launches = _drive(torch, slam, depths)
+    per_run = march_launches()
     stats = _run_stats(slam, gt, frame_ms, launches)
     peak = int(torch.cuda.max_memory_allocated())
 
@@ -3276,9 +3589,33 @@ def phase_march(torch, cfg, depths, gt):
                   and torch.isfinite(out.normals).all()),
              "finite render")
     st = slam.state
-    stage_ms = march_stage_ms(
-        torch, cfg, st, hash_ops.compact_visible(
-            st.hmap, cfg.hash, st.pose, cfg.camera, cfg.fusion))
+    active = hash_ops.compact_visible(st.hmap, cfg.hash, st.pose, cfg.camera,
+                                      cfg.fusion)
+    with uncounted_march():
+        cases = [_march_case(torch, probe, "final", st.hmap, active, cfg,
+                             st.pose)]
+        eye = torch.eye(4, device=st.pose.device)
+        cases.append(_march_case(
+            torch, probe, "render_identity", st.hmap,
+            hash_ops.compact_visible(st.hmap, cfg.hash, eye, cfg.camera,
+                                     cfg.fusion), cfg, eye))
+        m_map, m_active, m_pose = kept["args"]
+        cases.append(_march_case(torch, probe, f"frame_{mid}", m_map,
+                                 m_active, cfg, m_pose))
+        stage_ms = march_stage_ms(torch, cfg, st, active)
+        dims = cfg.raycast.cache_dims
+
+        def stage():
+            return hash_raycast.raycast_hash(
+                st.hmap, active, cfg.hash, st.pose, cfg.camera, cfg.raycast,
+                cfg.fusion, cache_dims=dims)
+
+        stage_kernels = _device_kernels(torch, stage)
+        ray_kernels = _device_kernels(torch, lambda: cam_geom.pixel_rays(
+            cfg.camera, device=st.pose.device))["kernels"]
+        stage_reads = sync_sites(torch, stage)
+        timing = _march_timings(torch, probe, kernels, st.hmap, active, cfg,
+                                st.pose, probe.launch_floor_ms())
 
     t0 = time.perf_counter()
     pts, normals, _ = pointcloud.extract_surface_points(
@@ -3294,11 +3631,24 @@ def phase_march(torch, cfg, depths, gt):
     dist = synthetic.room_sdf(
         torch.as_tensor(room_pts, dtype=torch.float32)).abs().numpy()
     median_dist = float(np.median(dist)) if len(dist) else float("nan")
+    worst = {k: max(max(c["densify_cache"]["max_abs_err"]
+                        for c in cases) if k == "densify_cache" else
+                    max(f["max_abs_err"] for c in cases
+                        for f in c["raycast_march"].values()), 0.0)
+             for k in MARCH_KERNELS}
+    MARCH_SUMMARY.update({k: {"case": "march_final", **timing[k],
+                              "max_abs_err": worst[k]}
+                          for k in MARCH_KERNELS})
     _emit({
-        "phase": "march", "H": H, "W": W, **stats, "hit_frac": hit,
-        "stage_ms": stage_ms,
+        "phase": "march", "card": card, "H": H, "W": W, **stats,
+        "hit_frac": hit, "stage_ms": stage_ms,
         "frame_ms_p50_less_march":
             stats["frame_ms_p50"] - stage_ms["densify_and_march"],
+        "march_launches_run": dict(zip(MARCH_KERNELS, per_run)),
+        "stage_device_kernels": stage_kernels,
+        "pixel_ray_kernels": ray_kernels,
+        "stage_host_reads": stage_reads,
+        "checks": cases, "kernels": timing,
         "peak_mem_bytes": peak,
         "points": int(len(pts)), "vertices": int(len(verts)),
         "faces": int(len(faces)),
@@ -3316,6 +3666,15 @@ def phase_march(torch, cfg, depths, gt):
     _require(len(verts) == 3 * len(faces), "triangle soup: V == 3 F")
     _require(median_dist < 3 * cfg.fusion.voxel_size,
              "median point distance to the room's surface < 3 voxels")
+    for c in cases:
+        _require(c["bit_exact"], f"K12 and K11 == their plain versions bit "
+                                 f"for bit, every field ({c['case']})")
+    _require(per_run == [len(depths), len(depths)],
+             "one K11 and one K12 launch a march frame")
+    _require(not stage_reads, "the march stage reads nothing on the host")
+    _require(stage_kernels["kernels"] <= ray_kernels + 3,
+             "the march stage on the card runs at most the pixel rays' "
+             "kernels, K12's two device kernels and K11's one")
     return slam, depths[-1], stats["kernel_launches"]
 
 
@@ -5321,7 +5680,8 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
              "K5a and K5b launched on each rank")
     return (launches[0], a["icp_launches"] + a["k3_launches"]
             + a["splat_launches"] + a["fuse_launches"]
-            + a["alloc_launches"] + a["maint_launches"])
+            + a["alloc_launches"] + a["maint_launches"]
+            + a["march_launches"])
 
 
 def phase_sharded_backend(torch, card: str) -> tuple:
@@ -5404,7 +5764,8 @@ def phase_sharded_backend(torch, card: str) -> tuple:
              "K10 launched on each rank (GC at frame 15)")
     return (a["launches"], a["icp_launches"] + a["k3_launches"]
             + a["splat_launches"] + a["fuse_launches"]
-            + a["alloc_launches"] + a["maint_launches"], a["pg_launches"])
+            + a["alloc_launches"] + a["maint_launches"]
+            + a["march_launches"], a["pg_launches"])
 
 
 def main() -> int:
@@ -5454,7 +5815,7 @@ def main() -> int:
     # gathers are K7's window-mode launches (``window_by_path``)
     by_path = {k: {"probes": n} for k, n in probe_launches.items()}
     step_kernels = (ICP_KERNELS + K3_KERNELS + SPLAT_KERNELS + FUSE_KERNELS
-                    + ALLOC_KERNELS + MAINT_KERNELS)
+                    + ALLOC_KERNELS + MAINT_KERNELS + MARCH_KERNELS)
     by_path.update({k: {} for k in step_kernels + PG_KERNELS})
     window_by_path = {}
 
@@ -5464,18 +5825,21 @@ def main() -> int:
         preprocesses, its pyramid tracks, it allocates and it fuses on
         every path, so K4, K3a, K3b, K5a, K5b, K6 and K7 must launch (K4s
         serves only the sharded level), and K8 and K9 on every path that
-        predicts by splatting (all but ``march``, where neither may)."""
+        predicts by splatting (all but ``march``, where neither may);
+        K11 and K12 on ``march`` and on no other path."""
         zero_icp_launches()
         zero_k3_launches()
         zero_splat_launches()
         zero_fuse_launches()
         zero_alloc_launches()
         zero_maint_launches()
+        set_march_launches()
         set_pg_launches()
         with MaintCalls(hash_ops) as calls:
             out = run()
         counts = (icp_launches() + k3_launches() + splat_launches()
-                  + fuse_launches() + alloc_launches() + maint_launches())
+                  + fuse_launches() + alloc_launches() + maint_launches()
+                  + march_launches())
         for kname, n in zip(step_kernels, counts):
             by_path[kname][path] = n
         pg = pg_launches()
@@ -5491,8 +5855,11 @@ def main() -> int:
                  f"K3a and K3b launched on {path}")
         if path == "march":
             _require(counts[4:6] == [0, 0], "no K8 / K9 launch on march")
+            _require(min(counts[13:15]) > 0, "K11 and K12 launched on march")
         else:
             _require(min(counts[4:6]) > 0, f"K8 and K9 launched on {path}")
+            _require(counts[13:15] == [0, 0],
+                     f"no K11 / K12 launch on {path} (splat mode)")
         _require(min(counts[6:8]) > 0, f"K6 and K7 launched on {path}")
         _require(min(counts[8:10]) > 0, f"K5a and K5b launched on {path}")
         _require(counts[10:13] == calls.list(),
@@ -5505,9 +5872,9 @@ def main() -> int:
 
     k4("parity", lambda: phase_parity(torch))
     window_by_path["slice"] = k4("slice", lambda: phase_slice(torch))
-    slam, last_depth, march_launches = k4("march", lambda: phase_march(
-        torch, march_cfg, sweep, sweep_gt))
-    window_by_path["march"] = march_launches
+    slam, last_depth, march_window = k4("march", lambda: phase_march(
+        torch, smi, march_cfg, sweep, sweep_gt))
+    window_by_path["march"] = march_window
     by_path["gather_depth_window_streamed"]["streamed_entry"] = (
         phase_streamed_entry(torch, wg, slam, last_depth))
     del slam
@@ -5541,7 +5908,8 @@ def main() -> int:
     window_by_path["nccl"] = sum(one["launches"])
     k4_ranks = {"nccl": one["icp_launches"] + one["k3_launches"]
                 + one["splat_launches"] + one["fuse_launches"]
-                + one["alloc_launches"] + one["maint_launches"]}
+                + one["alloc_launches"] + one["maint_launches"]
+                + one["march_launches"]}
     (window_by_path["sharded_backend"], k4_ranks["sharded_backend"],
      pg_sharded) = phase_sharded_backend(torch, smi)
     for kname, n in zip(PG_KERNELS, pg_sharded):
@@ -5560,6 +5928,8 @@ def main() -> int:
                                        f"(rank 0)")
         _require(min(counts[8:10]) > 0, f"K5a and K5b launched on {path} "
                                         f"(rank 0)")
+        _require(counts[13:15] == [0, 0], f"no K11 / K12 launch on {path} "
+                                          f"(rank 0, splat mode)")
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{
@@ -5619,7 +5989,12 @@ def main() -> int:
         "ptxas": {k: v for k, v in PG_SUMMARY["ptxas"].items()
                   if any(part in k for part in PG_PTXAS[kname])},
         **PG_SUMMARY[kname],
-    } for kname in PG_KERNELS]})
+    } for kname in PG_KERNELS] + [{
+        "name": kname, **MARCH_META[kname],
+        "launches": by_path[kname]["march"],
+        "launches_by_path": by_path[kname],
+        **MARCH_SUMMARY[kname],
+    } for kname in MARCH_KERNELS]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -84,7 +84,19 @@ merged, evicted keys back, full buckets, a heap cut short, padding only,
 no born rows, the sharded BucketHash); the three make no host sync and
 replay from CUDA graphs captured on a fresh stream and on a warm one;
 more than 4 096 keys, a bucket function that is not a BucketHash and a
-refused launch raise, and no plain version runs instead.
+refused launch raise, and no plain version runs instead.  The march
+kernels (K11 ``raycast_march``, K12 ``densify_cache``) equal their plain
+versions bit for bit: K11 (depth, points, normals, hit) on the flagship's
+256^3 cache in both normal modes, a non-cubic dense volume (also in image
+mode), rays that start inside the surface (the NaN secant step), rays
+that leave the volume sideways, ``far`` before the surface, max_steps 3
+and 0, and a row slice of the rays; K12 (sdf, weight, origin, voxel size)
+on the visible set, count 0, count = A with every row live, blocks
+outside the cache, rows past the count holding valid rows, FREE_PTR and
+negative ptrs, odd cache dims, another pose, and explicit rows with a
+mask (some, all or no rows invalid); ``raycast_hash`` is one K12 and one
+K11 launch with no host sync; what they do not take and a refused launch
+raise, and no plain version runs instead.
 """
 
 import dataclasses
@@ -3338,3 +3350,273 @@ def test_maintain_refusals(fuse_case, monkeypatch):
         hash_ops.evict_stale(m, hcfg, 30, 24, 64)
     with pytest.raises(RuntimeError, match="restore_rows kernel launch"):
         hash_ops.restore_blocks(m, hcfg, keys[:8], rows[:8], rows[:8], 31)
+
+
+# --------------------------------------------------------------------------
+# the march prediction: K11 raycast_march and K12 densify_cache
+# (csrc/raycast.cu)
+# --------------------------------------------------------------------------
+
+RC_FIELDS = ("depth", "points", "normals", "hit")
+
+
+def _assert_render_bits(got, want, what: str):
+    for f in RC_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        same = _bits_equal(a, b) if a.dtype == torch.float32 else \
+            torch.equal(a, b)
+        assert same, f"{what}: {f}"
+
+
+def _assert_cache_bits(got, want, what: str):
+    for f in ("sdf", "weight", "origin", "voxel_size"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.shape == b.shape and _bits_equal(a, b), f"{what}: {f}"
+
+
+@pytest.fixture(scope="module")
+def march_case(fuse_case):
+    """(config, map, the visible set, pose, the plain cache at that pose,
+    a non-cubic dense volume fused on the card, its config): the flagship
+    map of ``fuse_case`` and a 64 x 56 x 72 volume at 4 cm fused from three
+    80x60 orbit frames."""
+    from voxelhashing_demo_tpu_torch.config import (DenseGridConfig,
+                                                    FusionConfig,
+                                                    tiny_config)
+    from voxelhashing_demo_tpu_torch.ops import hash_ops, hash_raycast
+    from voxelhashing_demo_tpu_torch.ops import tsdf as tsdf_ops
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cfg, hmap, pose, _, _ = fuse_case
+    active = hash_ops.compact_visible(hmap, cfg.hash, pose, cfg.camera,
+                                      cfg.fusion)
+    cache = hash_raycast.densify_active_reference(
+        hmap, active, cfg.hash, cfg.fusion, pose, cfg.raycast.cache_dims)
+    dcfg = dataclasses.replace(
+        tiny_config(), fusion=FusionConfig(voxel_size=0.04, truncation=0.16),
+        grid=DenseGridConfig(dims=(64, 56, 72), origin=(-1.28, -1.0, 0.0)))
+    depths, poses = synthetic.make_sequence(dcfg.camera, 3, as_raw=False,
+                                            device="cuda")
+    vol = tsdf_ops.create_dense(dcfg.grid, dcfg.fusion, device="cuda")
+    for d, T in zip(depths, poses):
+        vol = tsdf_ops.integrate_dense(
+            vol, d, torch.as_tensor(T, dtype=torch.float32, device="cuda"),
+            dcfg.camera, dcfg.fusion)
+    return cfg, hmap, active, pose, cache, vol, dcfg, poses
+
+
+MARCH_CASES = ("hash_gradient", "hash_image", "dense_noncubic",
+               "dense_image", "start_inside", "leave_volume", "past_far",
+               "max_steps_3", "max_steps_0", "row_slice")
+
+
+@pytest.mark.parametrize("case", MARCH_CASES)
+def test_march_matches_plain(march_case, case):
+    """K11 equals ``raycast_rays_reference`` bit for bit (depth, points,
+    normals, hit): on the flagship's 256^3 cache at its pose in both
+    normal modes, on a non-cubic dense volume, with ``near`` past the
+    surface (rays whose first known sample is inside: the NaN secant
+    step), from a pose whose rays leave the volume sideways, with ``far``
+    before the surface, with max_steps 3 and 0, and on a row slice of
+    the rays (the sharded shape)."""
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+
+    cfg, _, _, pose, cache, vol, dcfg, poses = march_case
+    rc, cam, state, T = cfg.raycast, cfg.camera, cache, pose
+    if case.startswith("dense"):
+        rc, cam, state = dcfg.raycast, dcfg.camera, vol
+        T = torch.as_tensor(poses[1], dtype=torch.float32, device="cuda")
+    if case.endswith("image"):
+        rc = dataclasses.replace(rc, normal_mode="image")
+    elif case == "start_inside":
+        rc = dataclasses.replace(rc, near=2.5)
+    elif case == "leave_volume":
+        turn = torch.tensor([[0.0, 0.0, 1.0, 0.0], [0.0, 1.0, 0.0, 0.0],
+                             [-1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0]],
+                            device="cuda")
+        T = T @ turn
+    elif case == "past_far":
+        rc = dataclasses.replace(rc, far=0.6)
+    elif case.startswith("max_steps"):
+        rc = dataclasses.replace(rc, max_steps=int(case.rsplit("_", 1)[1]))
+    rays = cam_geom.pixel_rays(cam, device="cuda")
+    if case == "row_slice":
+        rays = rays[130:370]
+    before = rc_ops.LAUNCHES_MARCH
+    got = rc_ops.raycast_rays(state, T, rays, rc)
+    assert rc_ops.LAUNCHES_MARCH == before + 1
+    want = rc_ops.raycast_rays_reference(state, T, rays, rc)
+    _assert_render_bits(got, want, case)
+    hits = float(want.hit.float().mean())
+    if case in ("hash_gradient", "row_slice"):
+        assert hits > 0.3, hits
+    elif case == "dense_noncubic":
+        assert hits > 0.1, hits
+    elif case == "max_steps_0":
+        assert hits == 0.0
+
+
+def _densify_case(march_case, which):
+    """(the wrapper's arguments, the plain version's) of a K12 case on the
+    flagship map: local (blocks, ptrs, count) or explicit rows."""
+    from voxelhashing_demo_tpu_torch.ops import hash_ops
+
+    cfg, hmap, active, pose, _, _, _, _ = march_case
+    blocks, ptrs, count = (t.clone() for t in active)
+    n, A = int(count), ptrs.shape[0]
+    if which == "count_0":
+        count = torch.zeros_like(count)
+    elif which == "count_all":
+        # every row a live map row: the set's rows repeated with shifted
+        # blocks, so the blocks stay distinct
+        reps = -(-A // n)
+        ptrs = ptrs[:n].repeat(reps)[:A].contiguous()
+        blocks = torch.cat([blocks[:n] + torch.tensor(
+            [40 * k, 0, 0], dtype=torch.int32, device="cuda")
+            for k in range(reps)])[:A].contiguous()
+        count = torch.full_like(count, A)
+    elif which == "outside":
+        blocks[: n // 2] += torch.tensor([0, 1000, 0], dtype=torch.int32,
+                                         device="cuda")
+        blocks[n // 2: n // 2 + 8] = torch.tensor(
+            [-2 ** 20, 2 ** 20, 7], dtype=torch.int32, device="cuda")
+    elif which == "past_count":
+        # rows past the count hold valid-looking rows of in-cache blocks
+        half = n // 2
+        count = torch.full_like(count, half)
+        blocks[n: n + half] = blocks[:half] + torch.tensor(
+            [0, 0, 1], dtype=torch.int32, device="cuda")
+        ptrs[n: n + half] = ptrs[half: 2 * half]
+    elif which == "free_rows":
+        ptrs[::3] = hash_ops.FREE_PTR
+        ptrs[1::7] = -5                    # not FREE_PTR: clamped to row 0
+    return cfg, hmap, hash_ops.ActiveSet(blocks, ptrs, count), pose
+
+
+@pytest.mark.parametrize("which", ["step", "count_0", "count_all",
+                                   "outside", "past_count", "free_rows",
+                                   "odd_dims", "step_pose"])
+def test_densify_active_matches_plain(march_case, which):
+    """K12 (the local form: the map's rows through ``ptrs``, the count on
+    the device) equals ``densify_active_reference`` bit for bit (sdf,
+    weight, origin, voxel size): the visible set at its pose, count 0,
+    count = A with every row live, blocks outside the cache (and far
+    outside the int32 voxel range of a cache-relative index), rows past
+    the count holding valid rows, FREE_PTR and negative ptrs, a cache of
+    odd dims (the scalar fill; not a multiple of the block size), and
+    another pose."""
+    from voxelhashing_demo_tpu_torch.ops import hash_raycast
+
+    case = "step" if which in ("odd_dims", "step_pose") else which
+    cfg, hmap, active, pose = _densify_case(march_case, case)
+    dims = (100, 90, 77) if which == "odd_dims" else cfg.raycast.cache_dims
+    if which == "step_pose":
+        pose = pose.clone()
+        pose[:3, 3] += torch.tensor([0.37, -0.21, 0.55], device="cuda")
+    before = hash_raycast.LAUNCHES_DENSIFY
+    got = hash_raycast.densify_active(hmap, active, cfg.hash, cfg.fusion,
+                                      pose, dims)
+    assert hash_raycast.LAUNCHES_DENSIFY == before + 1
+    want = hash_raycast.densify_active_reference(
+        hmap, active, cfg.hash, cfg.fusion, pose, dims)
+    _assert_cache_bits(got, want, which)
+    if which == "step":
+        assert float((got.weight > 0).float().mean()) > 0.001
+
+
+@pytest.mark.parametrize("which", ["random_mask", "all_invalid", "empty"])
+def test_densify_rows_matches_plain(march_case, which):
+    """K12's explicit form (the sharded path's all-gathered rows and mask)
+    equals ``densify_rows_reference`` bit for bit, with invalid rows that
+    hold valid-looking data, all rows invalid, and no rows."""
+    from voxelhashing_demo_tpu_torch.ops import hash_raycast
+
+    cfg, hmap, active, pose, _, _, _, _ = march_case
+    safe = torch.clamp(active.ptrs, 0, hmap.tsdf.shape[0] - 1).long()
+    blocks, sdf, w = active.blocks, hmap.tsdf[safe], hmap.weight[safe]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    valid = torch.rand(blocks.shape[0], device="cuda", generator=gen) < 0.7
+    if which == "all_invalid":
+        valid = torch.zeros_like(valid)
+    elif which == "empty":
+        blocks, sdf, w, valid = blocks[:0], sdf[:0], w[:0], valid[:0]
+    args = (blocks, sdf, w, valid, cfg.hash, cfg.fusion, pose,
+            cfg.raycast.cache_dims)
+    got = hash_raycast.densify_rows(*args)
+    want = hash_raycast.densify_rows_reference(*args)
+    _assert_cache_bits(got, want, which)
+
+
+def test_raycast_hash_k12_then_k11_no_sync(march_case):
+    """``raycast_hash`` on the card is one K12 and one K11 launch and reads
+    nothing on the host; it equals the plain densify + march bit for
+    bit."""
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+    from voxelhashing_demo_tpu_torch.ops import hash_raycast
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+
+    cfg, hmap, active, pose, cache, _, _, _ = march_case
+    args = (hmap, active, cfg.hash, pose, cfg.camera, cfg.raycast,
+            cfg.fusion, cfg.raycast.cache_dims)
+    hash_raycast.raycast_hash(*args)              # first use: uploads
+    torch.cuda.synchronize()
+    n11, n12 = rc_ops.LAUNCHES_MARCH, hash_raycast.LAUNCHES_DENSIFY
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hash_raycast.raycast_hash(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert rc_ops.LAUNCHES_MARCH == n11 + 1
+    assert hash_raycast.LAUNCHES_DENSIFY == n12 + 1
+    want = rc_ops.raycast_rays_reference(
+        cache, pose, cam_geom.pixel_rays(cfg.camera, device="cuda"),
+        cfg.raycast)
+    _assert_render_bits(got, want, "raycast_hash")
+
+
+def test_march_refusals(march_case, monkeypatch):
+    """What K11 and K12 do not take raises (a volume dimension below 2,
+    float64 rays, mixed devices, block size 11, a cache of 2^31 cells);
+    a refused launch raises; the plain versions never run in their
+    place."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.config import HashConfig
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+    from voxelhashing_demo_tpu_torch.ops import hash_raycast
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+
+    cfg, hmap, active, pose, cache, _, _, _ = march_case
+    rays = cam_geom.pixel_rays(cfg.camera, device="cuda")[:8]
+    flat = cache._replace(sdf=cache.sdf[:, :, :1], weight=cache.weight[:, :, :1])
+    with pytest.raises(ValueError, match=">= 2"):
+        rc_ops.raycast_rays(flat, pose, rays, cfg.raycast)
+    with pytest.raises(ValueError, match="float32"):
+        rc_ops.raycast_rays(cache, pose, rays.double(), cfg.raycast)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rc_ops.raycast_rays(cache, pose.cpu(), rays, cfg.raycast)
+    with pytest.raises(ValueError, match="block sizes"):
+        hash_raycast.densify_active(hmap, active, HashConfig(block_size=11),
+                                    cfg.fusion, pose, (64, 64, 64))
+    with pytest.raises(ValueError, match="2\\^31"):
+        hash_raycast.densify_active(hmap, active, cfg.hash, cfg.fusion, pose,
+                                    (2048, 1024, 1024))
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("raycast_rays_reference", "trilinear_sample",
+                 "sdf_gradient"):
+        monkeypatch.setattr(rc_ops, name, no_plain)
+    for name in ("densify_active_reference", "densify_rows_reference"):
+        monkeypatch.setattr(hash_raycast, name, no_plain)
+    hash_raycast.raycast_hash(hmap, active, cfg.hash, pose, cfg.camera,
+                              cfg.raycast, cfg.fusion,
+                              cfg.raycast.cache_dims)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="densify_cache kernel launch"):
+        hash_raycast.densify_active(hmap, active, cfg.hash, cfg.fusion, pose,
+                                    cfg.raycast.cache_dims)
+    with pytest.raises(RuntimeError, match="raycast_march kernel launch"):
+        rc_ops.raycast_rays(cache, pose, rays, cfg.raycast)

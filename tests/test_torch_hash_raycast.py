@@ -21,6 +21,13 @@ Tolerances:
   gradient's samples into the next voxel, which at the frustum's rim is
   unobserved (normal 0 in one package, (0, 0, -1) in the other).
 - padded ActiveSet rows (ptr -1) and rows outside the cache are dropped.
+- K12's plain versions (``densify_active_reference``, the count compared
+  on the device, and ``densify_rows_reference``) against the jitted JAX
+  ``densify_active`` / ``densify_rows`` on the same numpy inputs, bit for
+  bit: the set's count cut to half with the rows past it left valid (the
+  JAX set's past rows freed), and explicit rows with invalid, padded and
+  far rows.  On CPU tensors the wrappers (``densify_active``,
+  ``densify_rows``, ``raycast_hash``) are the plain versions, bit for bit.
 """
 
 import dataclasses
@@ -206,3 +213,78 @@ def test_cache_centering_far_from_origin():
     th = _compare_renders(jo, to, normal_share=0.99)
     assert th.mean() > 0.8
     assert np.median(np.abs(to.depth.numpy()[th] - 1.5)) < 0.02
+
+
+def test_densify_plain_count_on_device_matches_jax(scene):
+    """The plain cache walks ``active[:count]`` by a mask computed on the
+    device: with the count cut to half and the rows past it still valid,
+    it equals JAX's cache of the same set with those rows freed."""
+    tact, jact = scene["tact"], scene["jact"]
+    half = int(tact.count) // 2
+    cut = tho.ActiveSet(blocks=tact.blocks, ptrs=tact.ptrs,
+                        count=torch.tensor(half, dtype=torch.int32))
+    jptrs = np.asarray(jact.ptrs).copy()
+    jptrs[half:] = -1
+    jc = jax.jit(jhr.densify_active, static_argnames=(
+        "cfg", "fusion", "cache_dims"))(
+            scene["jmap"], jact._replace(ptrs=jnp.asarray(jptrs)), JHASH,
+            JFUS, jse3.identity(), DIMS)
+    tc = thr.densify_active_reference(scene["tmap"], cut, THASH, TFUS,
+                                      torch.eye(4), DIMS)
+    for f in ("sdf", "weight", "origin", "voxel_size"):
+        np.testing.assert_array_equal(getattr(tc, f).numpy(),
+                                      np.asarray(getattr(jc, f)), err_msg=f)
+    full = thr.densify_active_reference(scene["tmap"], tact, THASH, TFUS,
+                                        torch.eye(4), DIMS)
+    assert (full.weight > 0).sum() > (tc.weight > 0).sum() > 0
+
+
+def test_densify_rows_plain_matches_jax(scene):
+    """Explicit rows (the sharded path's form): the set's rows, a padded
+    row marked invalid holding valid-looking data, a valid row far outside
+    the cache and a junk row marked invalid; bit for bit against JAX."""
+    tmap, tact = scene["tmap"], scene["tact"]
+    n = int(tact.count)
+    V = THASH.voxels_per_block
+    rng = np.random.default_rng(7)
+    blocks = np.concatenate([tact.blocks[:n].numpy(),
+                             tact.blocks[:1].numpy(),
+                             [[4000, 0, 0], [1, 2, 3]]]).astype(np.int32)
+    ptrs = tact.ptrs[:n].long()
+    sdf = np.concatenate([tmap.tsdf[ptrs].numpy(),
+                          rng.random((3, V), dtype=np.float32)])
+    w = np.concatenate([tmap.weight[ptrs].numpy(),
+                        rng.random((3, V), dtype=np.float32) + 1])
+    valid = np.concatenate([np.ones(n, bool), [False, True, False]])
+    valid[::5] = False
+    jc = jax.jit(jhr.densify_rows, static_argnames=(
+        "cfg", "fusion", "cache_dims"))(
+            jnp.asarray(blocks), jnp.asarray(sdf), jnp.asarray(w),
+            jnp.asarray(valid), JHASH, JFUS, jse3.identity(), DIMS)
+    tc = thr.densify_rows_reference(tt(blocks), tt(sdf), tt(w),
+                                    torch.as_tensor(valid), THASH, TFUS,
+                                    torch.eye(4), DIMS)
+    for f in ("sdf", "weight", "origin", "voxel_size"):
+        np.testing.assert_array_equal(getattr(tc, f).numpy(),
+                                      np.asarray(getattr(jc, f)), err_msg=f)
+
+
+def test_wrappers_on_cpu_are_the_plain_versions(scene):
+    """On CPU tensors ``densify_active``, ``densify_rows`` and
+    ``raycast_hash`` run the plain versions (K12 and K11 run only on the
+    card): equal bit for bit, no launch counted."""
+    tmap, tact = scene["tmap"], scene["tact"]
+    n12 = thr.LAUNCHES_DENSIFY
+    got = thr.densify_active(tmap, tact, THASH, TFUS, torch.eye(4), DIMS)
+    want = thr.densify_active_reference(tmap, tact, THASH, TFUS,
+                                        torch.eye(4), DIMS)
+    for f in ("sdf", "weight", "origin", "voxel_size"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    safe = torch.clamp(tact.ptrs, 0, tmap.tsdf.shape[0] - 1).long()
+    args = (tact.blocks, tmap.tsdf[safe], tmap.weight[safe],
+            tact.ptrs != tho.FREE_PTR, THASH, TFUS, torch.eye(4), DIMS)
+    got = thr.densify_rows(*args)
+    want = thr.densify_rows_reference(*args)
+    for f in ("sdf", "weight", "origin", "voxel_size"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert thr.LAUNCHES_DENSIFY == n12

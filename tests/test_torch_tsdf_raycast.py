@@ -17,6 +17,10 @@ Tolerances:
 - the NaN secant step of a ray that starts inside the surface is kept: no
   output is NaN and such rays miss in both packages.
 - ``shade``: 1e-5.
+- On CPU tensors ``raycast_rays`` is ``raycast_rays_reference`` bit for
+  bit, in both normal modes (K11 runs only on the card); K11's and K12's
+  ctypes argument lists match their C entry points; what they do not take
+  raises before any launch.
 """
 
 import dataclasses
@@ -210,3 +214,81 @@ def test_ray_starting_inside_the_surface_misses(fused):
         assert not torch.isnan(x.float()).any()
     centre = (tc.camera.height // 2, tc.camera.width // 2)
     assert not th[centre] and not jh[centre]
+
+
+@pytest.mark.parametrize("normal_mode", ["gradient", "image"])
+def test_raycast_rays_on_cpu_is_the_plain_version(fused, normal_mode):
+    from voxelhashing_demo_tpu_torch.geometry import camera as tcam
+
+    tc = fused["tc"]
+    rc = dataclasses.replace(tc.raycast, normal_mode=normal_mode)
+    T = tt(fused["poses"][1])
+    rays = tcam.pixel_rays(tc.camera, device="cpu")[10:40]
+    before = trc.LAUNCHES_MARCH
+    got = trc.raycast_rays(fused["tvol"], T, rays, rc)
+    want = trc.raycast_rays_reference(fused["tvol"], T, rays, rc)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert trc.LAUNCHES_MARCH == before
+    assert want.hit.float().mean() > 0.1
+
+
+def test_march_kernel_arguments_match_the_source():
+    """K11's and K12's ctypes argument lists (kernels.KERNELS) have as
+    many entries as their C entry points in csrc/raycast.cu have
+    parameters, pointers where they take pointers, both built from that
+    one source."""
+    import re
+    from pathlib import Path
+
+    from voxelhashing_demo_tpu_torch import kernels
+
+    src = (Path(kernels.SRC_DIR) / "raycast.cu").read_text()
+    for name in ("raycast_march", "densify_cache"):
+        assert kernels.source_of(name) == "raycast"
+        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+        assert m, name
+        params = [p.strip() for p in m.group(1).split(",")]
+        types = kernels.KERNELS[name]
+        assert len(params) == len(types), name
+        for p, t in zip(params, types):
+            assert ("*" in p) == (t is kernels._P), (name, p)
+            if "*" not in p:
+                assert p.startswith("float") == (t is kernels._F), (name, p)
+
+
+def test_march_wrappers_refuse_before_launch(fused):
+    """What K11 and K12 do not take raises in their wrappers: a volume
+    dimension below 2, a negative max_steps, a block size above 10, a
+    cache of 2^31 cells or more, tensors that are not on a CUDA device."""
+    from voxelhashing_demo_tpu_torch.ops import hash_raycast as thr
+
+    rc = fused["tc"].raycast
+    with pytest.raises(ValueError, match=">= 2"):
+        trc._march_tables(rc, (1, 64, 64))
+    with pytest.raises(ValueError, match="max_steps"):
+        trc._march_tables(dataclasses.replace(rc, max_steps=-1),
+                          (64, 64, 64))
+    ints, floats = trc._march_tables(rc, (64, 56, 72))
+    assert list(ints) == [64, 56, 72, rc.max_steps, 1]
+    assert list(floats) == [np.float32(x) for x in (
+        rc.step_scale, rc.min_step, rc.coarse_step, rc.near, rc.far)]
+    with pytest.raises(ValueError, match="one CUDA device"):
+        trc._launch_march(fused["tvol"], torch.eye(4),
+                          torch.zeros(2, 2, 3), rc)
+    hcfg = tcfg.HashConfig()
+    fus = fused["tc"].fusion
+    with pytest.raises(ValueError, match="block sizes"):
+        thr._densify_tables(dataclasses.replace(hcfg, block_size=11), fus,
+                            (64, 64, 64))
+    with pytest.raises(ValueError, match="2\\^31"):
+        thr._densify_tables(hcfg, fus, (2048, 1024, 1024))
+    ints, floats = thr._densify_tables(hcfg, fus, (64, 56, 72))
+    assert list(ints) == [hcfg.block_size, 64, 56, 72]
+    assert floats[1] == np.float32(1.0) / np.float32(fus.voxel_size)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        thr._launch_densify(torch.zeros(4, 3, dtype=torch.int32),
+                            torch.zeros(4, hcfg.voxels_per_block),
+                            torch.zeros(4, hcfg.voxels_per_block), hcfg, fus,
+                            torch.eye(4), (64, 64, 64),
+                            valid=torch.ones(4, dtype=torch.bool))

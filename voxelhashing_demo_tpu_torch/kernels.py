@@ -261,6 +261,18 @@ KERNELS = {
                     _P, _P, _P],
     # K13c: delta, info, poses, K, out poses, delta applied
     "pg_retract": [_P, _P, _P, _I, _P, _P, _P],
+    # K11 (csrc/raycast.cu): rays, T_wc, the volume's sdf, weight, origin
+    # and voxel size, the output buffer (depth, points, normals), hit, h,
+    # w, the host tables of ints (X, Y, Z, max_steps, gradient mode) and
+    # floats (step_scale, min_step, coarse_step, near, far)
+    "raycast_march": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # K12: blocks, ptrs and count (or None), valid (or None), T_wc, the
+    # source tsdf and weight rows, the block grid scratch, the cache's sdf,
+    # weight and origin, rows, source rows, the host tables of ints (block
+    # size, X, Y, Z) and floats (ahead, 1 / voxel size, voxel size,
+    # truncation)
+    "densify_cache": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                      _P, _P],
 }
 # C function -> its source under csrc/, where the two names differ
 SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
@@ -274,7 +286,8 @@ SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
            "gc_free": "maintain", "evict_free": "maintain",
            "restore_rows": "maintain",
            "pg_edge_blocks": "pose_graph", "pg_cg_solve": "pose_graph",
-           "pg_retract": "pose_graph"}
+           "pg_retract": "pose_graph",
+           "raycast_march": "raycast", "densify_cache": "raycast"}
 
 
 def source_of(name: str) -> str:

@@ -14,8 +14,9 @@ import torch
 
 from .. import convert
 from ..device import host_array
-from ..ops import hash_ops, icp, pose_graph
+from ..ops import hash_ops, hash_raycast, icp, pose_graph
 from ..ops import preprocess as pre_ops
+from ..ops import raycast as rc_ops
 from ..ops import splat as splat_ops
 from . import distributed, sharded
 
@@ -54,7 +55,8 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
     launches over the run), ``k3_launches`` (K3a and K3b's),
     ``splat_launches`` (K8 and K9's), ``fuse_launches`` (K6 and K7's),
     ``alloc_launches`` (K5a and K5b's), ``maint_launches`` (K10, K14 and
-    K15's) and, with ``timed``, per-frame
+    K15's), ``march_launches`` (K11 and K12's) and, with ``timed``,
+    per-frame
     host ms on a synchronised clock, the peak device memory, the
     collective counters, the live render's hit mask (this rank's rows)
     and ``kernel_check`` on the last frame."""
@@ -66,6 +68,7 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
+    rc_ops.LAUNCHES_MARCH = hash_raycast.LAUNCHES_DENSIFY = 0
     launches, frame_ms, infos = [], [], []
     cuda = mesh.device.type == "cuda"
     if cuda:
@@ -102,7 +105,9 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
            "alloc_launches": [hash_ops.LAUNCHES_ALLOC_CANDIDATES,
                               hash_ops.LAUNCHES_INSERT],
            "maint_launches": [hash_ops.LAUNCHES_GC, hash_ops.LAUNCHES_EVICT,
-                              hash_ops.LAUNCHES_RESTORE]}
+                              hash_ops.LAUNCHES_RESTORE],
+           "march_launches": [rc_ops.LAUNCHES_MARCH,
+                              hash_raycast.LAUNCHES_DENSIFY]}
     if fed_poses is None:
         out["state"] = convert.state_to_numpy(slam.state)
         hmap = slam.state.hmap
@@ -137,7 +142,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     K7's window-gather launches, the kernels' launches (``icp_launches``:
     K4, K4s; ``k3_launches``: K3a, K3b; ``splat_launches``: K8, K9;
     ``fuse_launches``: K6, K7; ``alloc_launches``: K5a, K5b;
-    ``maint_launches``: K10, K14, K15;
+    ``maint_launches``: K10, K14, K15; ``march_launches``: K11, K12;
     ``pg_launches``: K13a, K13b, K13c), with
     streaming the store counters
     (evicted, restored, stored) summed over the ranks, and, with
@@ -153,6 +158,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     icp.LAUNCHES_LEVEL = icp.LAUNCHES_SUMS = 0
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
+    rc_ops.LAUNCHES_MARCH = hash_raycast.LAUNCHES_DENSIFY = 0
     pose_graph.LAUNCHES_EDGE_BLOCKS = pose_graph.LAUNCHES_CG = 0
     pose_graph.LAUNCHES_RETRACT = 0
     bytes0, coll0 = mesh.collective_host_bytes, mesh.collectives
@@ -187,6 +193,8 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
                            hash_ops.LAUNCHES_INSERT],
         "maint_launches": [hash_ops.LAUNCHES_GC, hash_ops.LAUNCHES_EVICT,
                            hash_ops.LAUNCHES_RESTORE],
+        "march_launches": [rc_ops.LAUNCHES_MARCH,
+                           hash_raycast.LAUNCHES_DENSIFY],
         "pg_launches": [pose_graph.LAUNCHES_EDGE_BLOCKS,
                         pose_graph.LAUNCHES_CG, pose_graph.LAUNCHES_RETRACT],
         "rebuild_fuses": sum(e["keyframes"] for e in slam.ba_events
