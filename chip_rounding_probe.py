@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """How PyTorch's CUDA ops round the float32 arithmetic that the splat
-kernel K8 (csrc/splat.cu), the fuse kernels K6 / K7 (csrc/fuse.cu) and
-the sphere tracer K11 (csrc/raycast.cu) repeat, bit for bit, on the card.
+kernel K8 (csrc/splat.cu), the fuse kernels K6 / K7 (csrc/fuse.cu), the
+sphere tracer K11 (csrc/raycast.cu) and the dense fusion K20
+(csrc/dense.cu) repeat, bit for bit, on the card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -22,7 +23,12 @@ configs, ``world2voxel``) and of the sphere tracer (``march_ops``:
 ``rays_cam @ R.T`` with its transposed right operand on the whole image
 and on a row slice, ``1.0 / _norm(dirs)`` and ``torch.reciprocal``,
 ``n_world @ R``, each also on axis-aligned rows and rotations whose
-exact zeros show the sign a zero sum takes) it prints
+exact zeros show the sign a zero sum takes) and of the dense fusion
+(``dense_ops``: the voxel centres ``origin + grid * voxel_size`` with a
+0-d voxel size, ``se3.inverse``'s einsum, ``se3.apply``'s product on the
+4-D (X, Y, Z, 3) grid of chip_smoke.py's ``dense`` phase and of a 512^3
+volume, the projection, the truncation band, ``sample_weight``'s chain
+and the running average, on the phase's orbit poses) it prints
 the share of outputs that each candidate order of float32 operations
 reproduces bit for bit, over ``rows`` x 512 voxels (2^20 at the default).
 A candidate is evaluated in float64 on the card and rounded to float32
@@ -189,6 +195,8 @@ def main() -> int:
     result.update(alloc_ops(torch, dev, rng, se3, share, dots, mul, add, fma,
                             dvd, f32))
     result.update(march_ops(torch, dev, rng, se3, share, dots, mul, add, fma,
+                            dvd, f32))
+    result.update(dense_ops(torch, dev, rng, se3, share, dots, mul, add, fma,
                             dvd, f32))
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -512,6 +520,155 @@ def march_ops(torch, dev, rng, se3, share, dots, mul, add, fma, dvd,
                         share(got[..., j], c))
         out[name] = {c: float(np.mean(v)) for c, v in shares.items()}
     return out
+
+
+def dense_ops(torch, dev, rng, se3, share, dots, mul, add, fma,
+              dvd, f32) -> dict:
+    """The ops of ``integrate_dense_reference`` (ops/tsdf.py) that K20
+    repeats, as it writes them, on the grid, fusion settings and camera of
+    chip_smoke.py's ``dense`` phase (``dense_config``) and the orbit's 20
+    poses (its frames' poses) plus 4 random ones: the voxel centres
+    ``origin + grid * voxel_size`` (the voxel size a 0-d tensor),
+    ``se3.inverse``'s translation, ``world @ T_cw[:3, :3].T + t`` on the
+    4-D grid (3 276 800 rows; on the card also on the phase's
+    ``DENSE_BIG``^3 volume, 2^27 rows, only the candidate K20 uses),
+    ``x / z * fx + cx``, ``truncation + trunc_scale * depth``, ``(depth -
+    depth_min) * recip(...)`` and ``weight_sample * 1.5 * (1 - d01)``
+    (the left product in double), and the running average: {op:
+    {candidate: share}}."""
+    import chip_smoke as cs
+    from voxelhashing_demo_tpu_torch.geometry.f32 import recip
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cfg = cs.dense_config()
+    cam, fusion, grid = cfg.camera, cfg.fusion, cfg.grid
+    out = {}
+
+    def c32(x: float):
+        return torch.tensor(np.float32(x), device=dev)
+
+    poses = [torch.as_tensor(synthetic.orbit_pose(i / 19, 0.05, 2.5),
+                             dtype=torch.float32, device=dev)
+             for i in range(20)]
+    for _ in range(4):
+        xi = rng.normal(size=6) * np.array([1.5, 1.5, 1.5, 0.8, 0.8, 0.8])
+        poses.append(se3.exp(torch.as_tensor(xi, dtype=torch.float32,
+                                             device=dev)))
+    state = tsdf.DenseTSDF(
+        sdf=torch.zeros(grid.dims, device=dev),
+        weight=torch.zeros(grid.dims, device=dev),
+        origin=torch.tensor(grid.origin, dtype=torch.float32, device=dev),
+        voxel_size=torch.tensor(fusion.voxel_size, dtype=torch.float32,
+                                device=dev))
+    world = tsdf.voxel_world_positions(state)
+    idx = torch.stack(torch.meshgrid(
+        *(torch.arange(n, device=dev, dtype=torch.float64)
+          for n in grid.dims), indexing="ij"), dim=-1)
+    out["dense_centre"] = {
+        "mul_add": share(world, add(state.origin, mul(
+            idx, state.voxel_size))),
+        "fma": share(world, fma(idx, state.voxel_size, state.origin))}
+
+    # se3.inverse's translation at the phase's poses
+    inv = {}
+    for T in poses:
+        R, t = T[:3, :3], T[:3, 3]
+        want = se3.inverse(T)[:3, 3]
+        for i in range(3):
+            cands = dots([R[k, i] for k in range(3)], [t[k] for k in range(3)])
+            for name, c in cands.items():
+                inv.setdefault(name, []).append(share(want[i], -c))
+    out["dense_inverse_translation"] = {n: float(np.mean(v))
+                                        for n, v in inv.items()}
+
+    # se3.apply on the 4-D grid, then the projection of its camera points
+    mm, proj = {}, {"div_mul_add": [], "div_fma": []}
+    fx, cx = c32(cam.fx), c32(cam.cx)
+    for T in poses:
+        T_cw = se3.inverse(T)
+        pc = se3.apply(T_cw, world)
+        M = T_cw[:3, :3].T
+        for j in range(3):
+            cands = dots([world[..., i] for i in range(3)],
+                         [M[i, j] for i in range(3)])
+            for name, c in cands.items():
+                mm.setdefault(name, []).append(
+                    share(pc[..., j], add(c, T_cw[j, 3])))
+        z = pc[..., 2]
+        safe_z = torch.where(torch.abs(z) > 1e-12, z, 1e-12)
+        u = pc[..., 0] / safe_z * cam.fx + cam.cx
+        q = dvd(pc[..., 0], safe_z)
+        proj["div_mul_add"].append(share(u, add(mul(q, fx), cx)))
+        proj["div_fma"].append(share(u, fma(q, fx, cx)))
+    out["dense_apply_4d"] = {n: float(np.mean(v)) for n, v in mm.items()}
+    out["dense_project"] = {n: float(np.mean(v)) for n, v in proj.items()}
+    del world, idx, pc
+
+    if dev.type == "cuda":
+        # the large volume: the product K20 uses, a column at a time
+        big = cs.DENSE_BIG
+        vs = cs.DENSE_BIG_EDGE_M / big
+        bstate = state._replace(
+            sdf=torch.empty((big, big, big), device=dev),
+            origin=torch.tensor(cs.DENSE_BIG_ORIGIN, dtype=torch.float32,
+                                device=dev),
+            voxel_size=torch.tensor(vs, dtype=torch.float32, device=dev))
+        bworld = tsdf.voxel_world_positions(bstate)
+        shares = []
+        for T in poses[::6]:
+            T_cw = se3.inverse(T)
+            pc = se3.apply(T_cw, bworld)
+            M = T_cw[:3, :3].T
+            for j in range(3):
+                c = fma(bworld[..., 2], M[2, j], fma(
+                    bworld[..., 1], M[1, j],
+                    mul(bworld[..., 0], M[0, j])))
+                shares.append(share(pc[..., j], add(c, T_cw[j, 3])))
+                del c
+            del pc
+        out[f"dense_apply_4d_{big}"] = {"fma_012": float(np.mean(shares))}
+        del bworld, bstate
+
+    # the truncation band, sample_weight's chain and the update, on the
+    # depths of a frame of the orbit
+    depth = synthetic.make_sequence(cam, 1, as_raw=False, device=dev)[0][0]
+    depth = depth.reshape(-1)
+    trunc = fusion.truncation + fusion.trunc_scale * depth
+    out["dense_trunc"] = {
+        "mul_add": share(trunc, add(mul(depth, c32(fusion.trunc_scale)),
+                                    c32(fusion.truncation))),
+        "fma": share(trunc, fma(depth, c32(fusion.trunc_scale),
+                                c32(fusion.truncation)))}
+    one = c32(1.0)
+    d01 = torch.clamp(mul(add(depth, c32(-cam.depth_min)),
+                          c32(recip(cam.depth_max - cam.depth_min))),
+                      0.0, 1.0)
+    got = tsdf.sample_weight(depth, cam, fusion)
+    out["dense_sample_weight"] = {
+        "double_product": share(got, torch.maximum(mul(
+            c32(fusion.weight_sample * 1.5), add(one, -d01)), one)),
+        "f32_products": share(got, torch.maximum(mul(mul(
+            c32(fusion.weight_sample), c32(1.5)), add(one, -d01)), one))}
+    n = depth.numel()
+    old_sdf = f32((torch.rand(n, device=dev, dtype=torch.float64) - 0.5)
+                  * 0.16)
+    old_w = f32(torch.rand(n, device=dev, dtype=torch.float64) * 300)
+    old_w = torch.where(old_w > 255, 255.0, old_w)
+    sdf = torch.clamp(depth - f32(torch.rand(n, device=dev,
+                                             dtype=torch.float64) * 4),
+                      -fusion.truncation, fusion.truncation)
+    w_new = got
+    w_sum = old_w + w_new
+    fused = (old_sdf * old_w + sdf * w_new) / torch.clamp(w_sum, min=1e-12)
+    den = torch.maximum(add(old_w, w_new), c32(1e-12))
+    out["dense_update"] = {
+        "in_order": share(fused, dvd(add(mul(old_sdf, old_w),
+                                         mul(sdf, w_new)), den)),
+        "fma_num": share(fused, dvd(fma(sdf, w_new, mul(old_sdf, old_w)),
+                                    den))}
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -11,7 +11,8 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
    K3a / K3b in preprocess.cu, the splat kernels K8 / K9 in splat.cu,
    the fuse kernels K6 / K7 in fuse.cu, the allocation kernels K5a / K5b
    in alloc.cu, the BA kernels K13a-c in pose_graph.cu, the map's free
-   and restore kernels K10 / K14 / K15 in maintain.cu, the empty
+   and restore kernels K10 / K14 / K15 in maintain.cu, the march kernels
+   K11 / K12 in raycast.cu, the dense fusion K20 in dense.cu, the empty
    kernels that measure
    the launch and barrier floors, and the host codec) for sm_90a into the
    package's _build/ directory, one compiler process each, started
@@ -207,6 +208,25 @@ it exits nonzero and prints no result.  Phases, one JSON line each:
 7. ``streamed_entry``: the streamed gather's public entry point on the
    frame step's own gather inputs (the last sweep frame's visible rows,
    any row count), with its launch count set to 0 just before.
+7b. ``dense``: the dense pipeline, BASELINE config 1: ``DenseSLAM``
+   (preprocess -> ICP against the raycast model -> fuse -> raycast) on
+   the slice's 20-frame orbit at 640x480, 2 cm voxels, truncation 0.08,
+   max_steps 128, on the 160 x 128 x 160 grid at (-1.6, -0.7, 0) of
+   tests/test_dense_pipeline.py (config 1's 128^3 cube does not hold the
+   scene).  Asserts: every frame but frame 0 tracked, unaligned ATE below
+   twice the JAX ``DenseSLAM``'s on the same frames, hit fraction above
+   JAX's - 0.1, a finite render equal to ``raycast_rays_reference`` bit
+   for bit; one K20 ``integrate_dense`` launch a frame and one K11 a frame
+   and the render.  On the step's inputs kept at frames 10 and 19: K3b's
+   pack of the model, K20, K11 and the model bit for bit against their
+   plain versions, K4 against the plain loop (transform 1e-5, equal
+   iterations or a tie at tol2), no host read in a step, at most
+   DENSE_STEP_KERNELS_MAX device kernels.  K20 against
+   ``integrate_dense_reference`` bit for bit and timed (warm, L2-cold,
+   wrapper, plain, the bound from the input's data) on the final volume
+   and on a 512^3 volume over a 3 m cube fused from the room sweep's first
+   two frames.  Prints per-frame ms, the step's ms, device kernels, busy
+   µs and idle share, peak memory.
 
 8. ``backend``: ``KeyframeSLAM(flagship_gather_config())`` with the
    keyframe settings ``BACKEND_KEYFRAMES`` on 48 frames of a noisy
@@ -422,6 +442,10 @@ K11 and K12 (``raycast_march``, ``densify_cache``) with the times and
 bound of the ``march`` phase's final state, counted like K3 on every
 path (rank 0's on the multi-rank paths): both on ``march``, neither on
 any other path (they predict by splatting); ``launches`` the ``march``
+path's; library none.  K20 (``integrate_dense``) with the times and
+bound of the ``dense`` phase's final volume (the 512^3 volume under
+``cases``), counted like K3 on every path (rank 0's on the multi-rank
+paths): on ``dense`` and on no other path; ``launches`` the ``dense``
 path's; library none.
   Last, the contract line
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit 1).
@@ -3704,6 +3728,382 @@ def phase_streamed_entry(torch, wg, slam, depth_raw):
     return launches
 
 
+# The dense pipeline (BASELINE config 1): DenseSLAM on the slice's orbit
+# with the fusion and raycast settings of tests/test_dense_pipeline.py and
+# its grid (config 1's default 128^3 cube at (-1.28, -1.28, 0) does not
+# hold that scene); K20 (csrc/dense.cu) fuses, K11 raycasts the model.
+DENSE_KERNELS = ("integrate_dense",)
+DENSE_SOURCE = "voxelhashing_demo_tpu_torch/csrc/dense.cu"
+DENSE_META = {
+    "integrate_dense": {
+        "route": "cuda", "source": DENSE_SOURCE,
+        "replaces": "voxelhashing_demo_tpu/ops/tsdf.py:80 "
+                    "(integrate_dense, with voxel_world_positions :53 and "
+                    "sample_weight :63): fused by XLA, no Pallas kernel",
+    },
+}
+N_DENSE = 20                  # the whole orbit of JAX_REFERENCE
+DENSE_DIMS, DENSE_ORIGIN = (160, 128, 160), (-1.6, -0.7, 0.0)
+# The JAX DenseSLAM on the CPU on the same 20 frames at the same
+# configuration (tests/torch_port_reference.py dense): accuracy
+# references, not speeds.
+JAX_REFERENCE_DENSE = {"frames": 20, "tracked": 19,
+                       "ate_mm": 1.1225891066715121,
+                       "hit_frac": 0.7464811197916666}
+# K20's second timing case: a 512^3 volume over a 3 m cube (5.86 mm
+# voxels, 1.07 GB of state) in front of the room sweep's first camera,
+# fused from its first two frames
+DENSE_BIG, DENSE_BIG_EDGE_M = 512, 3.0
+DENSE_BIG_ORIGIN = (-1.5, -1.5, 0.0)
+# device kernels a dense step may run: K3a, K3b's pack, K4, K20, K11, the
+# pixel rays and the pose glue (the tracking gate, the motion test, the
+# pose product)
+DENSE_STEP_KERNELS_MAX = 64
+# float operations K20 does: every voxel (its centre, the transform, the
+# projection and its tests), and a voxel in view besides (the pixel, the
+# sdf, the band, the weight and the update)
+K20_OPS_VOXEL, K20_OPS_VIEW = 30, 20
+K20_BYTES_VOXEL = 16          # sdf and weight, each read and written
+DEPTH_SECTOR_BYTES = 32
+
+DENSE_SUMMARY: dict = {}      # the dense phase's K20 figures
+
+
+def dense_launches() -> list:
+    """[K20] launches counted since they were last set to 0."""
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+
+    return [tsdf.LAUNCHES_DENSE]
+
+
+def set_dense_launches(counts=(0,)) -> None:
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+
+    (tsdf.LAUNCHES_DENSE,) = counts
+
+
+@contextlib.contextmanager
+def uncounted_dense():
+    """Every launch count a dense step moves (K3a, K3b, K4, K4s, K11,
+    K12, K20) left as it was before the block: the checks against the
+    plain versions and the timings are not the path's launches."""
+    from voxelhashing_demo_tpu_torch.ops import icp
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+
+    saved = (icp_launches(), k3_launches(), march_launches(),
+             dense_launches())
+    try:
+        yield
+    finally:
+        icp.LAUNCHES_LEVEL, icp.LAUNCHES_SUMS = saved[0]
+        pre.LAUNCHES_FRAME, pre.LAUNCHES_LEVELS = saved[1]
+        set_march_launches(saved[2])
+        set_dense_launches(saved[3])
+
+
+def dense_config():
+    """The dense phase's PipelineConfig: the default camera, frontend and
+    ICP (one level, 20 iterations), 2 cm voxels, truncation 0.08,
+    max_steps 128 and the 160 x 128 x 160 grid
+    (tests/torch_port_reference.py ``dense_config`` in the JAX types)."""
+    from voxelhashing_demo_tpu_torch.config import (DenseGridConfig,
+                                                    FusionConfig,
+                                                    PipelineConfig,
+                                                    RaycastConfig)
+
+    return PipelineConfig(
+        fusion=FusionConfig(voxel_size=0.02, truncation=0.08),
+        grid=DenseGridConfig(dims=DENSE_DIMS, origin=DENSE_ORIGIN),
+        raycast=RaycastConfig(max_steps=128))
+
+
+def _k20_work(torch, state, depth_m, T_wc, cam) -> dict:
+    """What K20 must do on these inputs, counted by the plain projection:
+    the voxels, those inside the image (they read the depth), and the
+    distinct 32-byte sectors of the depth image they read."""
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+    from voxelhashing_demo_tpu_torch.geometry import se3
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+
+    pc = se3.apply(se3.inverse(T_wc), tsdf.voxel_world_positions(state))
+    ij, in_img = cam_geom.project_nearest(pc, cam)
+    del pc
+    pix = (ij[..., 1].to(torch.int64) * cam.width + ij[..., 0])[in_img]
+    per = DEPTH_SECTOR_BYTES // 4
+    return {"voxels": int(state.sdf.numel()), "in_view": int(in_img.sum()),
+            "depth_sectors": int(torch.unique(pix // per).numel())}
+
+
+def _k20_bound(work: dict) -> tuple:
+    n_bytes = (work["voxels"] * K20_BYTES_VOXEL
+               + work["depth_sectors"] * DEPTH_SECTOR_BYTES + 64 + 16)
+    n_ops = work["voxels"] * K20_OPS_VOXEL + work["in_view"] * K20_OPS_VIEW
+    return _probe_bound(n_bytes, n_ops)
+
+
+def _k20_case(torch, probe, kernels, name, state, depth_m, T_wc, cam,
+              fusion, floor_ms: float, timed: bool = True) -> tuple:
+    """(figures, K20's volume): K20 against ``integrate_dense_reference``
+    bit for bit on one input (sdf and weight; the inputs unchanged); then,
+    ``timed``, K20 alone warm and L2-cold (CUDA-graph replay into buffers
+    of its own), its wrapper, its host µs to issue a call, its plain
+    version and the bound from this input's data (``_k20_work``)."""
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+
+    before = (state.sdf.clone(), state.weight.clone())
+    got = tsdf.integrate_dense(state, depth_m, T_wc, cam, fusion)
+    plain = tsdf.integrate_dense_reference(state, depth_m, T_wc, cam,
+                                           fusion)
+    cmp = probe.compare((got.sdf, got.weight), (plain.sdf, plain.weight))
+    untouched = bool(torch.equal(before[0], state.sdf)
+                     and torch.equal(before[1], state.weight))
+    del before, plain
+    out = {"case": name, "dims": list(state.sdf.shape),
+           "voxel_size": float(state.voxel_size),
+           "observed": int((got.weight > 0).sum()),
+           **cmp, "inputs_untouched": untouched}
+    if not timed:
+        return out, got
+    index = T_wc.device.index
+    ints, floats = tsdf._dense_tables(cam, fusion, tuple(state.sdf.shape))
+    o_sdf, o_w = torch.empty_like(state.sdf), torch.empty_like(state.weight)
+
+    def k20_alone(sdf, weight, d, T, origin, vox):
+        kernels.launch("integrate_dense", index, sdf.data_ptr(),
+                       weight.data_ptr(), d.data_ptr(), T.data_ptr(),
+                       origin.data_ptr(), vox.data_ptr(), o_sdf.data_ptr(),
+                       o_w.data_ptr(), ints, floats)
+
+    args = (state.sdf, state.weight, depth_m, T_wc, state.origin,
+            state.voxel_size)
+    out.update(probe.timings(k20_alone, args))
+
+    def wrapper():
+        return tsdf.integrate_dense(state, depth_m, T_wc, cam, fusion)
+
+    out["wrapper_ms"] = probe.host_ms(wrapper)
+    out["issue_us"] = host_issue_us(wrapper)
+    out["plain_ms"] = probe.host_ms(
+        lambda: tsdf.integrate_dense_reference(state, depth_m, T_wc, cam,
+                                               fusion), iters=5)
+    work = _k20_work(torch, state, depth_m, T_wc, cam)
+    out["bound_ms"], out["bound_by"] = _k20_bound(work)
+    out["work"] = work
+    out["floor_ms"] = floor_ms
+    out["least_ms"] = max(out["bound_ms"], floor_ms)
+    out["library_ms"] = None
+    return out, got
+
+
+def _dense_frame_checks(torch, probe, icp, pre, rc_ops, tsdf, dense_slam,
+                        cfg, name, state, depth) -> dict:
+    """One dense step's kernels against their plain versions on a state
+    kept from the run: K3b's pack of the model against ``pack_target``,
+    K4 against the plain loop, K20 against ``integrate_dense_reference``
+    and K11 against ``raycast_rays_reference`` on the fused volume, all
+    bit for bit but K4 (transform 1e-5, equal iterations or a tie at
+    tol2); and the step itself: its host reads, its device kernels, their
+    busy µs and the six costliest by name, and its ms (CUDA events)."""
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+
+    cam = cfg.camera
+    frame = pre.preprocess(depth, cam, cfg.frontend)
+    packed = pre.pack_model(state.model, cam)
+    pack = probe.compare(packed, icp.pack_target(state.model))
+    got = icp.icp_align(frame, None, cam, cfg.icp, tgt_packed=packed)
+    loop = _loop_vs_plain(torch, icp, frame, state.model, cam, cfg.icp,
+                          None, got)
+    new_state, info = dense_slam.step(state, depth, cfg)
+    k20 = probe.compare(tuple(new_state.tsdf[:2]), tuple(
+        tsdf.integrate_dense_reference(state.tsdf, frame.depth, info.pose,
+                                       cam, cfg.fusion)[:2]))
+    rays = cam_geom.pixel_rays(cam, device=depth.device)
+    plain = rc_ops.raycast_rays_reference(new_state.tsdf, info.pose, rays,
+                                          cfg.raycast)
+    k11 = probe.compare(tuple(rc_ops.raycast_dense(
+        new_state.tsdf, info.pose, cam, cfg.raycast, cfg.fusion)),
+        tuple(plain))
+    model = probe.compare(tuple(new_state.model),
+                          (plain.points, plain.normals, plain.depth))
+
+    def step():
+        return dense_slam.step(state, depth, cfg)
+
+    reads = sync_sites(torch, step)
+    events = _cuda_events(torch, step)
+    kern = {"kernels": len(events),
+            "busy_us": sum(e.time_range.elapsed_us() for e in events)}
+    by_name = {}
+    for e in events:
+        kname = e.name[:60]
+        by_name[kname] = by_name.get(kname, 0.0) + e.time_range.elapsed_us()
+    kern["top_us"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    ms = median_ms(torch, step)
+    return {"case": name, "pack": pack, "icp": loop, "integrate_dense": k20,
+            "raycast_march": k11, "model": model,
+            "hit_fraction": float(plain.hit.float().mean()),
+            "step_host_reads": reads, "step_device_kernels": kern,
+            "step_ms": ms,
+            "step_idle_share": 1.0 - kern["busy_us"] / (ms * 1e3),
+            "bit_exact": (pack["bit_exact"] and k20["bit_exact"]
+                          and k11["bit_exact"] and model["bit_exact"])}
+
+
+def phase_dense(torch, card: str, sweep, sweep_gt) -> None:
+    """DenseSLAM (BASELINE config 1) on the card over the orbit, its
+    kernels against their plain versions on states of the run, and K20's
+    timings on the run's grid and on a 512^3 volume."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.geometry import camera as cam_geom
+    from voxelhashing_demo_tpu_torch.models import dense_slam
+    from voxelhashing_demo_tpu_torch.models.hash_slam import depth_tensor
+    from voxelhashing_demo_tpu_torch.ops import icp
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+    from voxelhashing_demo_tpu_torch.tools import probe
+    from voxelhashing_demo_tpu_torch.utils import metrics, synthetic
+
+    cfg = dense_config()
+    cam = cfg.camera
+    depths, gt = synthetic.make_sequence(cam, N_DENSE, trans_amp=0.05,
+                                         rot_amp_deg=2.5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slam = dense_slam.DenseSLAM(cfg)
+    # the step's inputs mid-run and at the last frame (the state is never
+    # written in place, so keeping it is enough)
+    keep, calls, kept = (N_DENSE // 2, N_DENSE - 1), [0], {}
+
+    def keep_steps(real):
+        def fn(state, depth_raw, config):
+            if calls[0] in keep:
+                kept[calls[0]] = (state, depth_raw)
+            calls[0] += 1
+            return real(state, depth_raw, config)
+        return fn
+
+    frame_ms = []
+    with _wrapped(dense_slam, "step", keep_steps):
+        for d in depths:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            slam.process(d)
+            end.record()
+            torch.cuda.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+    poses = [p.cpu().numpy() for p in slam.trajectory]
+    stats = {"frames": len(poses),
+             "tracked": sum(bool(i.tracked) for i in slam.infos),
+             "tracked_flags": [bool(i.tracked) for i in slam.infos],
+             "finite_poses": all(np.isfinite(p).all() for p in poses),
+             "ate_mm": metrics.ate_rmse(poses, gt, align=False) * 1e3,
+             "frame_ms_p50": float(np.percentile(frame_ms, 50)),
+             "frame_ms_max": float(np.max(frame_ms)),
+             "frame_ms": frame_ms}
+    out = slam.render()
+    per_run = dense_launches() + march_launches()[:1]
+    hit = float(out.hit.float().mean())
+    finite = bool(torch.isfinite(out.depth).all()
+                  and torch.isfinite(out.points).all()
+                  and torch.isfinite(out.normals).all())
+    peak = int(torch.cuda.max_memory_allocated())
+
+    floor_ms = probe.launch_floor_ms()
+    with uncounted_dense():
+        frames = [_dense_frame_checks(
+            torch, probe, icp, pre, rc_ops, tsdf, dense_slam, cfg,
+            f"frame_{k}", *kept[k]) for k in keep]
+        st = slam.state
+        # K20 on the final volume with the last frame's depth and pose
+        # again, and K11 on the final state (the render)
+        last_depth = pre.preprocess(kept[N_DENSE - 1][1], cam,
+                                    cfg.frontend).depth
+        grid_case = _k20_case(torch, probe, kernels, "grid_final", st.tsdf,
+                              last_depth, st.pose, cam, cfg.fusion,
+                              floor_ms)[0]
+        render = probe.compare(tuple(out), tuple(
+            rc_ops.raycast_rays_reference(
+                st.tsdf, st.pose, cam_geom.pixel_rays(cam, device="cuda"),
+                cfg.raycast)))
+        # the 512^3 volume, fused from the room sweep's first two frames
+        # (poses relative to the first)
+        big_state = tsdf.DenseTSDF(
+            sdf=torch.full((DENSE_BIG,) * 3, cfg.fusion.truncation,
+                           device="cuda"),
+            weight=torch.zeros((DENSE_BIG,) * 3, device="cuda"),
+            origin=torch.tensor(DENSE_BIG_ORIGIN, device="cuda"),
+            voxel_size=torch.tensor(DENSE_BIG_EDGE_M / DENSE_BIG,
+                                    device="cuda"))
+        g0 = np.linalg.inv(sweep_gt[0])
+        big_in = [(pre.preprocess(depth_tensor(sweep[k], "cuda"), cam,
+                                  cfg.frontend).depth,
+                   torch.as_tensor(g0 @ sweep_gt[k], dtype=torch.float32,
+                                   device="cuda")) for k in (0, 1)]
+        big_first, big_state = _k20_case(
+            torch, probe, kernels, "big_first", big_state, *big_in[0], cam,
+            cfg.fusion, floor_ms, timed=False)
+        big_case = _k20_case(torch, probe, kernels, f"big_{DENSE_BIG}",
+                             big_state, *big_in[1], cam, cfg.fusion,
+                             floor_ms)[0]
+        del big_state
+        torch.cuda.empty_cache()
+        ptxas = kernels.ptxas_report("dense")
+    for c in (grid_case, big_case):
+        c["ptxas"] = ptxas
+    worst = max([c["max_abs_err"] for c in (grid_case, big_first, big_case)]
+                + [f["integrate_dense"]["max_abs_err"] for f in frames])
+    DENSE_SUMMARY["integrate_dense"] = {
+        **grid_case, "max_abs_err": worst,
+        "cases": {big_case["case"]: big_case, "big_first": big_first}}
+    _emit({"phase": "dense", "card": card, "H": cam.height, "W": cam.width,
+           "dims": list(DENSE_DIMS), "origin": list(DENSE_ORIGIN),
+           **stats, "hit_frac": hit, "finite_render": finite,
+           "render_vs_plain": render, "launches_run": dict(zip(
+               ("integrate_dense", "raycast_march"), per_run)),
+           "checks": frames, "kernels": {"integrate_dense": grid_case,
+                                         big_case["case"]: big_case,
+                                         "big_first": big_first},
+           "peak_mem_bytes": peak, "jax_reference": JAX_REFERENCE_DENSE,
+           "step_kernels_max": DENSE_STEP_KERNELS_MAX})
+    n = stats["frames"]
+    _require(stats["tracked_flags"] == [False] + [True] * (n - 1),
+             "dense: every frame but frame 0 tracked")
+    _require(stats["finite_poses"], "dense: finite poses")
+    ate_bound = 2.0 * JAX_REFERENCE_DENSE["ate_mm"]
+    _require(stats["ate_mm"] < ate_bound,
+             f"dense: unaligned ATE < {ate_bound} mm (2 x JAX)")
+    hit_bound = JAX_REFERENCE_DENSE["hit_frac"] - 0.1
+    _require(hit > hit_bound, f"dense: render hit fraction > {hit_bound}")
+    _require(finite, "dense: finite render")
+    _require(render["bit_exact"], "dense: the render (K11) == "
+                                  "raycast_rays_reference bit for bit")
+    for c in (grid_case, big_first, big_case):
+        _require(c["bit_exact"] and c["inputs_untouched"],
+                 f"K20 == integrate_dense_reference bit for bit, inputs "
+                 f"untouched ({c['case']})")
+    for f in frames:
+        _require(f["bit_exact"], f"dense: K3b's pack, K20, K11 and the "
+                                 f"model == their plain versions bit for "
+                                 f"bit ({f['case']})")
+        lp = f["icp"]
+        _require(lp["transform_max_abs_err"] <= ICP_T_ATOL
+                 and (lp["iters"] == lp["iters_plain"]
+                      or lp.get("tie", {}).get("ok", False)),
+                 f"dense: K4 == the plain loop (transform 1e-5, equal "
+                 f"iterations or a tie at tol2; {f['case']})")
+        _require(not f["step_host_reads"],
+                 f"dense: a step reads nothing on the host ({f['case']})")
+        _require(f["step_device_kernels"]["kernels"]
+                 <= DENSE_STEP_KERNELS_MAX,
+                 f"dense: a step runs at most {DENSE_STEP_KERNELS_MAX} "
+                 f"device kernels ({f['case']})")
+    _require(per_run == [n, n + 1],
+             "dense: one K20 launch a frame, one K11 a frame and the "
+             "render")
+
+
 def backend_config():
     """flagship_gather_config() with the backend phase's keyframe
     settings."""
@@ -3842,7 +4242,8 @@ PG_SLEEP_CYCLES = 40_000_000   # ~20 ms of sleep kernel ahead of a queue
 # paths that run a BA event (K13a and K13b or K13c must launch) and paths
 # that run none (no K13 launch)
 BA_PATHS = ("backend", "stream_backend", "cli", "bench")
-NO_BA_PATHS = ("parity", "slice", "march", "stream", "entry", "roofline")
+NO_BA_PATHS = ("parity", "slice", "march", "dense", "stream", "entry",
+               "roofline")
 # float operations: an edge with its Jacobian (the value path ~250, twelve
 # tangents ~330 each, 120 six-term sums), one without (chi2 mode); a CG
 # iteration per edge (two 6x6 matvecs each side) and per pose (update,
@@ -5681,7 +6082,7 @@ def phase_sharded(torch, card: str, frames, gt, one) -> tuple:
     return (launches[0], a["icp_launches"] + a["k3_launches"]
             + a["splat_launches"] + a["fuse_launches"]
             + a["alloc_launches"] + a["maint_launches"]
-            + a["march_launches"])
+            + a["march_launches"] + a["dense_launches"])
 
 
 def phase_sharded_backend(torch, card: str) -> tuple:
@@ -5765,7 +6166,7 @@ def phase_sharded_backend(torch, card: str) -> tuple:
     return (a["launches"], a["icp_launches"] + a["k3_launches"]
             + a["splat_launches"] + a["fuse_launches"]
             + a["alloc_launches"] + a["maint_launches"]
-            + a["march_launches"], a["pg_launches"])
+            + a["march_launches"] + a["dense_launches"], a["pg_launches"])
 
 
 def main() -> int:
@@ -5815,7 +6216,8 @@ def main() -> int:
     # gathers are K7's window-mode launches (``window_by_path``)
     by_path = {k: {"probes": n} for k, n in probe_launches.items()}
     step_kernels = (ICP_KERNELS + K3_KERNELS + SPLAT_KERNELS + FUSE_KERNELS
-                    + ALLOC_KERNELS + MAINT_KERNELS + MARCH_KERNELS)
+                    + ALLOC_KERNELS + MAINT_KERNELS + MARCH_KERNELS
+                    + DENSE_KERNELS)
     by_path.update({k: {} for k in step_kernels + PG_KERNELS})
     window_by_path = {}
 
@@ -5826,7 +6228,10 @@ def main() -> int:
         every path, so K4, K3a, K3b, K5a, K5b, K6 and K7 must launch (K4s
         serves only the sharded level), and K8 and K9 on every path that
         predicts by splatting (all but ``march``, where neither may);
-        K11 and K12 on ``march`` and on no other path."""
+        K11 and K12 on ``march`` and on no other path.  The dense step
+        (``dense``) preprocesses, packs its model (K3b), tracks (K4),
+        fuses (K20) and raycasts (K11): K5a-K10 and K12-K15 must not
+        launch there, and K20 on no other path."""
         zero_icp_launches()
         zero_k3_launches()
         zero_splat_launches()
@@ -5834,12 +6239,13 @@ def main() -> int:
         zero_alloc_launches()
         zero_maint_launches()
         set_march_launches()
+        set_dense_launches()
         set_pg_launches()
         with MaintCalls(hash_ops) as calls:
             out = run()
         counts = (icp_launches() + k3_launches() + splat_launches()
                   + fuse_launches() + alloc_launches() + maint_launches()
-                  + march_launches())
+                  + march_launches() + dense_launches())
         for kname, n in zip(step_kernels, counts):
             by_path[kname][path] = n
         pg = pg_launches()
@@ -5853,6 +6259,13 @@ def main() -> int:
         _require(counts[0] > 0, f"K4 launched on {path}")
         _require(counts[2] > 0 and counts[3] > 0,
                  f"K3a and K3b launched on {path}")
+        if path == "dense":
+            _require(counts[4:13] == [0] * 9 and counts[14] == 0,
+                     "no K5a-K10 or K12-K15 launch on dense (no hash map)")
+            _require(counts[13] > 0 and counts[15] > 0,
+                     "K11 and K20 launched on dense")
+            return out
+        _require(counts[15] == 0, f"no K20 launch on {path}")
         if path == "march":
             _require(counts[4:6] == [0, 0], "no K8 / K9 launch on march")
             _require(min(counts[13:15]) > 0, "K11 and K12 launched on march")
@@ -5878,6 +6291,7 @@ def main() -> int:
     by_path["gather_depth_window_streamed"]["streamed_entry"] = (
         phase_streamed_entry(torch, wg, slam, last_depth))
     del slam
+    k4("dense", lambda: phase_dense(torch, smi, sweep, sweep_gt))
     window_by_path["backend"] = k4("backend",
                                    lambda: phase_backend(torch, smi))
     for path, counts in PG_RING_PATHS.items():
@@ -5909,7 +6323,7 @@ def main() -> int:
     k4_ranks = {"nccl": one["icp_launches"] + one["k3_launches"]
                 + one["splat_launches"] + one["fuse_launches"]
                 + one["alloc_launches"] + one["maint_launches"]
-                + one["march_launches"]}
+                + one["march_launches"] + one["dense_launches"]}
     (window_by_path["sharded_backend"], k4_ranks["sharded_backend"],
      pg_sharded) = phase_sharded_backend(torch, smi)
     for kname, n in zip(PG_KERNELS, pg_sharded):
@@ -5930,6 +6344,7 @@ def main() -> int:
                                         f"(rank 0)")
         _require(counts[13:15] == [0, 0], f"no K11 / K12 launch on {path} "
                                           f"(rank 0, splat mode)")
+        _require(counts[15] == 0, f"no K20 launch on {path} (rank 0)")
 
     full = rows["step_rows"]      # the shape the main path gives them
     _emit({"kernels": [{
@@ -5994,7 +6409,12 @@ def main() -> int:
         "launches": by_path[kname]["march"],
         "launches_by_path": by_path[kname],
         **MARCH_SUMMARY[kname],
-    } for kname in MARCH_KERNELS]})
+    } for kname in MARCH_KERNELS] + [{
+        "name": kname, **DENSE_META[kname],
+        "launches": by_path[kname]["dense"],
+        "launches_by_path": by_path[kname],
+        **DENSE_SUMMARY[kname],
+    } for kname in DENSE_KERNELS]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -66,7 +66,7 @@ _JAX_IMPORT = re.compile(
 ) + ["chip_smoke.py", "chip_profile.py", "chip_gather_compare.py",
    "chip_probe_compare.py", "chip_rounding_probe.py",
    "chip_splat_breakdown.py", "chip_slice_compare.py",
-   "chip_phase_trace.py", "chip_ba_compare.py"])
+   "chip_phase_trace.py", "chip_ba_compare.py", "chip_dense_compare.py"])
 def test_port_imports_no_jax(path):
     src = (ROOT / path).read_text()
     assert not _JAX_IMPORT.search(src), path

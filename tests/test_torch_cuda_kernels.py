@@ -96,7 +96,16 @@ outside the cache, rows past the count holding valid rows, FREE_PTR and
 negative ptrs, odd cache dims, another pose, and explicit rows with a
 mask (some, all or no rows invalid); ``raycast_hash`` is one K12 and one
 K11 launch with no host sync; what they do not take and a refused launch
-raise, and no plain version runs instead.
+raise, and no plain version runs instead.  The dense fusion kernel (K20
+``integrate_dense``) equals ``integrate_dense_reference`` bit for bit
+(sdf and weight; a new volume, the inputs untouched) on a non-cubic
+volume, with the falloff off, a sample weight of 0, the weight cap, Z not
+a multiple of 4, arrays off a 16-byte boundary, inf / NaN / 0 depths, a
+camera turned away, the identity pose and the dense phase's 640x480 grid;
+it makes no host sync and replays from a CUDA graph; ``DenseSLAM`` on the
+card agrees with the CPU (poses 1e-4 m over 6 frames) and a step launches
+K3a, K3b, K4, K20 and K11 once each with no host sync; what K20 does not
+take and a refused launch raise, and no plain version runs instead.
 """
 
 import dataclasses
@@ -3620,3 +3629,222 @@ def test_march_refusals(march_case, monkeypatch):
                                     cfg.raycast.cache_dims)
     with pytest.raises(RuntimeError, match="raycast_march kernel launch"):
         rc_ops.raycast_rays(cache, pose, rays, cfg.raycast)
+
+
+# --------------------------------------------------------------------------
+# the dense fusion: K20 integrate_dense (csrc/dense.cu)
+# --------------------------------------------------------------------------
+
+DENSE_CASES = ("orbit_noncubic", "no_falloff", "zero_sample_weight",
+               "weight_cap", "odd_z", "unaligned", "depth_holes",
+               "facing_away", "identity_pose", "flagship_grid")
+
+
+def _dense_case(case):
+    """(volume, metric depth, pose, camera, fusion) of a K20 case on the
+    card: a non-cubic 64 x 56 x 72 volume at 4 cm with two 80x60 orbit
+    frames fused by the plain version, and the third frame; or the
+    ``dense`` phase's 640x480 camera and 160 x 128 x 160 grid."""
+    from voxelhashing_demo_tpu_torch.config import (CameraConfig,
+                                                    DenseGridConfig,
+                                                    FusionConfig,
+                                                    tiny_config)
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cam = tiny_config().camera
+    fusion = FusionConfig(voxel_size=0.04, truncation=0.16)
+    grid = DenseGridConfig(dims=(64, 56, 72), origin=(-1.28, -1.0, 0.0))
+    if case == "flagship_grid":
+        cam = CameraConfig()
+        fusion = FusionConfig(voxel_size=0.02, truncation=0.08)
+        grid = DenseGridConfig(dims=(160, 128, 160), origin=(-1.6, -0.7, 0.0))
+    elif case == "odd_z":
+        grid = dataclasses.replace(grid, dims=(64, 56, 70))
+    elif case == "no_falloff":
+        fusion = dataclasses.replace(fusion, depth_weight_falloff=False,
+                                     weight_sample=2.5)
+    elif case == "zero_sample_weight":
+        fusion = dataclasses.replace(fusion, depth_weight_falloff=False,
+                                     weight_sample=0.0)
+    elif case == "weight_cap":
+        fusion = dataclasses.replace(fusion, max_weight=2.5)
+    depths, poses = synthetic.make_sequence(cam, 3, as_raw=False,
+                                            device="cuda")
+    poses = [torch.as_tensor(T, dtype=torch.float32, device="cuda")
+             for T in poses]
+    vol = tsdf.create_dense(grid, fusion, device="cuda")
+    for d, T in zip(depths[:2], poses[:2]):
+        vol = tsdf.integrate_dense_reference(vol, d, T, cam, fusion)
+    depth, T = depths[2], poses[2]
+    if case == "unaligned":
+        # every array one element into a buffer: contiguous, off the
+        # 16-byte boundary (the scalar instantiation)
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, device="cuda")
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            return view
+        vol = vol._replace(sdf=shifted(vol.sdf), weight=shifted(vol.weight))
+    elif case == "depth_holes":
+        g = torch.Generator(device="cuda").manual_seed(3)
+        holes = torch.rand(depth.shape, generator=g, device="cuda")
+        depth = torch.where(holes < 0.3, 0.0, depth)
+        depth = torch.where(holes > 0.995, float("inf"), depth)
+        depth = torch.where((holes > 0.99) & (holes <= 0.995),
+                            float("nan"), depth)
+    elif case == "facing_away":
+        turn = torch.tensor([[-1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0],
+                             [0.0, 0.0, -1.0, 1.2], [0.0, 0.0, 0.0, 1.0]],
+                            device="cuda")
+        T = T @ turn
+    elif case == "identity_pose":
+        T = torch.eye(4, device="cuda")
+    return vol, depth, T, cam, fusion
+
+
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_integrate_dense_matches_plain(cuda, case):
+    """K20 equals ``integrate_dense_reference`` bit for bit (sdf and
+    weight), one launch, a new volume, the inputs untouched: a non-cubic
+    volume fused from the orbit, the falloff off, a sample weight of 0
+    (w_sum 0 keeps the old sdf), the weight cap reached, Z not a multiple
+    of 4 and arrays off a 16-byte boundary (the scalar instantiation),
+    depth holes with inf and NaN pixels, a camera turned away (voxels
+    behind it), the identity pose, and the dense phase's 640x480 grid."""
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+
+    vol, depth, T, cam, fusion = _dense_case(case)
+    keep = [t.clone() for t in (*vol, depth, T)]
+    before = tsdf.LAUNCHES_DENSE
+    got = tsdf.integrate_dense(vol, depth, T, cam, fusion)
+    assert tsdf.LAUNCHES_DENSE == before + 1
+    want = tsdf.integrate_dense_reference(vol, depth, T, cam, fusion)
+    torch.cuda.synchronize()
+    assert _bits_equal(got.sdf, want.sdf), case
+    assert _bits_equal(got.weight, want.weight), case
+    assert got.origin is vol.origin and got.voxel_size is vol.voxel_size
+    assert got.sdf.data_ptr() != vol.sdf.data_ptr()
+    for a, b in zip(keep, (*vol, depth, T)):
+        assert _bits_equal(a, b), f"{case}: an input was written"
+    changed = int((got.weight != vol.weight).sum())
+    if case == "zero_sample_weight":
+        assert changed == 0
+    else:
+        assert changed > 100, (case, changed)
+    if case == "weight_cap":
+        assert float(got.weight.max()) == 2.5
+
+
+def test_integrate_dense_makes_no_host_sync_and_replays_in_a_graph(cuda):
+    """K20 reads nothing back (sync-debug "error" mode), and captured into
+    a CUDA graph it replays to the eager result."""
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+
+    vol, depth, T, cam, fusion = _dense_case("orbit_noncubic")
+    want = tsdf.integrate_dense(vol, depth, T, cam, fusion)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tsdf.integrate_dense(vol, depth, T, cam, fusion)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tsdf.integrate_dense(vol, depth, T, cam, fusion)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _bits_equal(got.sdf, want.sdf)
+    assert _bits_equal(got.weight, want.weight)
+
+
+def _dense_slam_config():
+    from voxelhashing_demo_tpu_torch.config import (DenseGridConfig,
+                                                    FusionConfig,
+                                                    tiny_config)
+
+    return dataclasses.replace(
+        tiny_config(), fusion=FusionConfig(voxel_size=0.04, truncation=0.16),
+        grid=DenseGridConfig(dims=(64, 56, 72), origin=(-1.28, -1.0, 0.0)))
+
+
+def test_dense_slam_step_on_the_card(cuda):
+    """``DenseSLAM`` on the card against the port on the CPU over 6 orbit
+    frames at 80x60: tracked flags equal, poses within 1e-4 m; a step
+    makes no host sync and launches K3a, K3b (the model's pack), K4, K20
+    and K11 once each."""
+    from voxelhashing_demo_tpu_torch.models import dense_slam
+    from voxelhashing_demo_tpu_torch.ops import icp
+    from voxelhashing_demo_tpu_torch.ops import preprocess as pre
+    from voxelhashing_demo_tpu_torch.ops import raycast as rc_ops
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+    from voxelhashing_demo_tpu_torch.utils import synthetic
+
+    cfg = _dense_slam_config()
+    depths, _ = synthetic.make_sequence(cfg.camera, 6, trans_amp=0.05,
+                                        rot_amp_deg=2.5, device="cpu")
+    gpu = dense_slam.DenseSLAM(cfg)
+    cpu = dense_slam.DenseSLAM(cfg, device="cpu")
+    for d in depths:
+        gpu.process(d)
+        cpu.process(d)
+    for a, b in zip(gpu.infos, cpu.infos):
+        assert bool(a.tracked) == bool(b.tracked)
+        assert float((a.pose.cpu() - b.pose)[:3, 3].abs().max()) <= 1e-4
+    assert sum(bool(i.tracked) for i in gpu.infos) == len(depths) - 1
+    raw = torch.as_tensor(depths[-1].astype(np.int32), device="cuda")
+    dense_slam.step(gpu.state, raw, cfg)
+    torch.cuda.synchronize()
+    counts = (pre.LAUNCHES_FRAME, pre.LAUNCHES_LEVELS, icp.LAUNCHES_LEVEL,
+              tsdf.LAUNCHES_DENSE, rc_ops.LAUNCHES_MARCH)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dense_slam.step(gpu.state, raw, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = (pre.LAUNCHES_FRAME, pre.LAUNCHES_LEVELS, icp.LAUNCHES_LEVEL,
+             tsdf.LAUNCHES_DENSE, rc_ops.LAUNCHES_MARCH)
+    assert [b - a for a, b in zip(counts, after)] == [1] * 5
+
+
+def test_dense_refusals(cuda, monkeypatch):
+    """What K20 does not take raises before a launch (float64 depth, a
+    pose on the CPU, a non-contiguous depth, a depth of another shape);
+    a refused build and a refused launch raise; the plain version never
+    runs in its place."""
+    from voxelhashing_demo_tpu_torch import kernels
+    from voxelhashing_demo_tpu_torch.ops import tsdf
+
+    vol, depth, T, cam, fusion = _dense_case("orbit_noncubic")
+    before = tsdf.LAUNCHES_DENSE
+    with pytest.raises(ValueError, match="float32"):
+        tsdf.integrate_dense(vol, depth.double(), T, cam, fusion)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tsdf.integrate_dense(vol, depth, T.cpu(), cam, fusion)
+    strided = torch.empty(depth.shape[::-1], device="cuda").t()
+    strided.copy_(depth)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsdf.integrate_dense(vol, strided, T, cam, fusion)
+    with pytest.raises(ValueError, match="expected"):
+        tsdf.integrate_dense(vol, depth[:-1], T, cam, fusion)
+    assert tsdf.LAUNCHES_DENSE == before
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("integrate_dense_reference", "voxel_world_positions",
+                 "sample_weight"):
+        monkeypatch.setattr(tsdf, name, no_plain)
+    tsdf.integrate_dense(vol, depth, T, cam, fusion)
+    torch.cuda.synchronize()
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(kernels, "_FUNCTIONS", {})
+    monkeypatch.setattr(kernels, "build", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed for dense"):
+        tsdf.integrate_dense(vol, depth, T, cam, fusion)
+    monkeypatch.setattr(kernels, "function", lambda name: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="integrate_dense kernel launch"):
+        tsdf.integrate_dense(vol, depth, T, cam, fusion)

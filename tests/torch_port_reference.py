@@ -3,12 +3,15 @@
 Not a test (pytest does not collect it); run it from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_port_reference.py \\
-        [orbit|march|backend|stream|stream_twin|stream_backend|cli|fixture|
-         bench]
+        [orbit|march|dense|backend|stream|stream_twin|stream_backend|cli|
+         fixture|bench]
 
 ``orbit``: the 20-frame noise-free orbit of chip_smoke's ``slice`` phase
 (``JAX_REFERENCE``).  ``march``: the 24-frame noisy room sweep of its
-``march`` phase (``JAX_REFERENCE_MARCH``).  ``backend``: the 48-frame
+``march`` phase (``JAX_REFERENCE_MARCH``).  ``dense``: the same 20-frame
+orbit through the JAX ``DenseSLAM`` (BASELINE.json config 1's pipeline)
+on the 160 x 128 x 160 grid of 2 cm voxels of chip_smoke's ``dense``
+phase (``JAX_REFERENCE_DENSE``; asked for by name).  ``backend``: the 48-frame
 noisy 150-degree room sweep with two injected drifts of its ``backend``
 phase through the JAX ``KeyframeSLAM`` with chip_smoke's keyframe settings
 (``JAX_REFERENCE_BACKEND``: keyframe frame indices, edges, BA event modes,
@@ -84,6 +87,38 @@ def _run(name: str, cfg, depths, gt) -> dict:
         "hit_frac": float(np.asarray(slam.render().hit).mean()),
         "active_blocks": int(slam.infos[-1].blocks_active),
         "blocks_freed": sum(int(i.blocks_freed) for i in slam.infos),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def dense_config():
+    """chip_smoke's ``dense`` configuration in the JAX package's types:
+    the default camera, frontend and ICP, the fusion and raycast settings
+    of tests/test_dense_pipeline.py and its grid, which holds the orbit's
+    scene."""
+    from voxelhashing_demo_tpu import config as jcfg
+
+    return jcfg.PipelineConfig(
+        fusion=jcfg.FusionConfig(voxel_size=0.02, truncation=0.08),
+        grid=jcfg.DenseGridConfig(dims=(160, 128, 160),
+                                  origin=(-1.6, -0.7, 0.0)),
+        raycast=jcfg.RaycastConfig(max_steps=128),
+    )
+
+
+def _run_dense(depths, gt) -> dict:
+    from voxelhashing_demo_tpu.models import dense_slam
+
+    slam = dense_slam.DenseSLAM(dense_config())
+    for i, d in enumerate(depths):
+        slam.process(d)
+        _progress(i)
+    out = {
+        "run": "dense", "frames": len(depths),
+        "tracked": sum(bool(i.tracked) for i in slam.infos),
+        "ate_mm": metrics.ate_rmse(slam.trajectory, gt, align=False) * 1e3,
+        "hit_frac": float(np.asarray(slam.render().hit).mean()),
     }
     print(json.dumps(out), flush=True)
     return out
@@ -365,6 +400,10 @@ def main(which) -> None:
         depths, gt = synthetic.make_sequence(
             cam, 20, trans_amp=0.05, rot_amp_deg=2.5, device="cpu")
         _run("orbit", _config("splat"), depths, gt)
+    if "dense" in which:
+        depths, gt = synthetic.make_sequence(
+            cam, 20, trans_amp=0.05, rot_amp_deg=2.5, device="cpu")
+        _run_dense(depths, gt)
     if "march" in which:
         depths, gt = synthetic.make_room_sweep(
             cam, 24, sweep_deg=40.0, noise_seed=1, device="cpu")

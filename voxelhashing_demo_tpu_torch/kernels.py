@@ -273,6 +273,12 @@ KERNELS = {
     # truncation)
     "densify_cache": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                       _P, _P],
+    # K20 (csrc/dense.cu): the volume's sdf and weight, depth, T_wc, the
+    # volume's origin and voxel size, the new sdf and weight, the host
+    # tables of ints (X, Y, Z, H, W, falloff) and floats (fx, fy, cx, cy,
+    # truncation, its depth scale, weight_sample, weight_sample * 1.5,
+    # depth_min, 1 / (depth_max - depth_min), max_weight)
+    "integrate_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 # C function -> its source under csrc/, where the two names differ
 SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
@@ -287,7 +293,8 @@ SOURCES = {"icp_gn_level": "icp", "icp_sums": "icp",
            "restore_rows": "maintain",
            "pg_edge_blocks": "pose_graph", "pg_cg_solve": "pose_graph",
            "pg_retract": "pose_graph",
-           "raycast_march": "raycast", "densify_cache": "raycast"}
+           "raycast_march": "raycast", "densify_cache": "raycast",
+           "integrate_dense": "dense"}
 
 
 def source_of(name: str) -> str:

@@ -6,6 +6,10 @@ runs
 on one dense TSDF volume.  Frame-to-model tracking (the raycast maps as
 the ICP target) drifts far less than frame-to-frame.  ``frame_idx`` is a
 host integer, as in the port's HashSLAMState.
+
+On the card a step is hand kernels and a little pose glue, with no host
+read: K3a (preprocess), K3b's pack job (the model packed as the ICP
+target), K4 (ICP, one level), K20 (fusion) and K11 (the raycast).
 """
 
 from __future__ import annotations
@@ -67,7 +71,9 @@ def step(state: DenseSLAMState, depth_raw: torch.Tensor,
 
     # --- track (frame-to-model) -------------------------------------------
     model_valid = torch.sum(state.model.depth > 0) > 100
-    result = icp_ops.icp_align(frame, state.model, cam, config.icp)
+    result = icp_ops.icp_align(
+        frame, None, cam, config.icp,
+        tgt_packed=pre_ops.pack_model(state.model, cam))
     # ICP maps new-frame camera coords into last-frame camera coords, so
     # pose_new = pose_prev @ T_icp; constant position when the model is
     # empty (first frame) or tracking failed

@@ -10,8 +10,9 @@ the zero vector.
 Two hand-written kernels (``csrc/preprocess.cu``) serve CUDA tensors:
 ``preprocess`` is one launch of K3a ``preprocess_frame`` (every stage in
 shared memory), ``pyramid_inputs`` one launch of K3b ``pyramid_levels``
-for every pyramid level's source Frame and packed ICP target, and
-``preprocess_metric`` one K3b job.  CPU tensors run the plain versions
+for every pyramid level's source Frame and packed ICP target,
+``preprocess_metric`` one K3b job and ``pack_model`` one K3b pack job
+(a model Frame packed as the ICP target).  CPU tensors run the plain versions
 (``preprocess_reference``, ``preprocess_metric_reference``,
 ``_pyramid_reference``), which the tests and the card checks also call on
 the card.  A launch that the kernel does not take raises; nothing falls
@@ -201,6 +202,23 @@ def _metric_jobs(cam: CameraConfig, pool_factor: int) -> tuple:
     arguments (K3b's layouts are kept by the tuple's identity)."""
     pool = _MIN if pool_factor > 1 else _NONE
     return (_Job(_SOURCE, "src", pool, max(pool_factor, 1), cam),)
+
+
+def pack_model(tgt: Frame, cam: CameraConfig) -> torch.Tensor:
+    """A model Frame (its own normals, e.g. a raycast's) packed as the ICP
+    target, (H, W, 2) in ``icp.pack_target``'s layout: one K3b pack job on
+    CUDA tensors, ``pack_target`` on CPU tensors."""
+    if tgt.depth.device.type == "cpu":
+        from .icp import pack_target    # ops/icp.py imports this module
+
+        return pack_target(tgt)
+    return _launch_levels(_pack_jobs(cam), {}, tgt)[0]
+
+
+@functools.lru_cache(maxsize=64)
+def _pack_jobs(cam: CameraConfig) -> tuple:
+    """``pack_model``'s one K3b job, the same tuple for equal arguments."""
+    return (_Job(_PACK, "tgt", _NONE, 1, cam),)
 
 
 def preprocess_metric_reference(depth_m: torch.Tensor,

@@ -18,19 +18,34 @@ reciprocal multiply, see geometry/f32.py).  A ``floor`` follows, so the
 difference would move samples to the next voxel.
 
 ``integrate_dense`` returns a new volume (the inputs are not written).
+On CUDA tensors it is one launch of the hand-written kernel K20
+``integrate_dense`` (``csrc/dense.cu``): a thread a run of voxels along
+z, the pose's inverse computed in the kernel, no host read.  CPU tensors
+run ``integrate_dense_reference``, the plain version, which the tests and
+the card checks also call on the card.  A launch that the kernel does not
+take raises; nothing falls back.  ``LAUNCHES_DENSE`` counts the launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import kernels
 from ..config import CameraConfig, DenseGridConfig, FusionConfig
 from ..device import resolve
 from ..geometry import camera as cam_geom
 from ..geometry import se3
 from ..geometry.f32 import recip
+
+LAUNCHES_DENSE = 0      # K20 integrate_dense
+
+# K20's host tables a camera, fusion configuration and volume shape:
+# (id(cam), id(fusion), X, Y, Z) -> (cam, fusion, tables), kept by the
+# objects' identity (``_dense_tables``)
+_DENSE_TABLES: dict = {}
 
 
 class DenseTSDF(NamedTuple):
@@ -87,7 +102,21 @@ def integrate_dense(
     fusion: FusionConfig,
 ) -> DenseTSDF:
     """Fuse one metric depth map taken at camera-to-world pose ``T_wc``,
-    over the whole volume at once."""
+    over the whole volume at once: one K20 launch on CUDA tensors,
+    ``integrate_dense_reference`` on CPU tensors."""
+    if all(t.device.type == "cpu" for t in (*state, depth_m, T_wc)):
+        return integrate_dense_reference(state, depth_m, T_wc, cam, fusion)
+    return _launch_dense(state, depth_m, T_wc, cam, fusion)
+
+
+def integrate_dense_reference(
+    state: DenseTSDF,
+    depth_m: torch.Tensor,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    fusion: FusionConfig,
+) -> DenseTSDF:
+    """Plain version of ``integrate_dense``, on any device."""
     world = voxel_world_positions(state)                  # (X, Y, Z, 3)
     pc = se3.apply(se3.inverse(T_wc), world)              # camera frame
     ij, in_img = cam_geom.project_nearest(pc, cam)
@@ -171,3 +200,82 @@ def sdf_gradient(state: DenseTSDF, pos_world: torch.Tensor) -> torch.Tensor:
         sm, _ = trilinear_sample(state, pos_world - e)
         grads.append((sp - sm) / (2.0 * h))
     return torch.stack(grads, dim=-1)
+
+
+# --------------------------------------------------------------------------
+# the kernel's wrapper
+# --------------------------------------------------------------------------
+
+def _dense_tables(cam: CameraConfig, fusion: FusionConfig,
+                  dims: tuple) -> tuple:
+    """K20's host tables for ``cam``, ``fusion`` and a volume of ``dims``:
+    ints (X, Y, Z, H, W, falloff) and floats (fx, fy, cx, cy, truncation,
+    trunc_scale, weight_sample, weight_sample * 1.5, depth_min,
+    recip(depth_max - depth_min), max_weight; ctypes rounds each to its
+    float32, as torch does with a Python double against a float32 tensor),
+    built once and kept by the objects' identity; or raise."""
+    key = (id(cam), id(fusion), *dims)
+    got = _DENSE_TABLES.get(key)
+    if got is not None and got[0] is cam and got[1] is fusion:
+        return got[2]
+    X, Y, Z = dims
+    if min(dims) < 1 or cam.width < 1 or cam.height < 1:
+        raise ValueError(f"integrate_dense: a volume and an image of at "
+                         f"least one voxel and pixel expected, got {dims}, "
+                         f"{(cam.height, cam.width)}")
+    if X * Y * Z >= 2 ** 31:
+        raise ValueError(f"integrate_dense: a volume below 2^31 voxels "
+                         f"expected (32-bit indexing), got {dims}")
+    tables = ((ctypes.c_int * 6)(X, Y, Z, cam.height, cam.width,
+                                 int(fusion.depth_weight_falloff)),
+              (ctypes.c_float * 11)(
+                  cam.fx, cam.fy, cam.cx, cam.cy, fusion.truncation,
+                  fusion.trunc_scale, fusion.weight_sample,
+                  fusion.weight_sample * 1.5, cam.depth_min,
+                  recip(cam.depth_max - cam.depth_min), fusion.max_weight))
+    if len(_DENSE_TABLES) >= 64:
+        _DENSE_TABLES.clear()
+    _DENSE_TABLES[key] = (cam, fusion, tables)
+    return tables
+
+
+def _launch_dense(state: DenseTSDF, depth_m: torch.Tensor,
+                  T_wc: torch.Tensor, cam: CameraConfig,
+                  fusion: FusionConfig) -> DenseTSDF:
+    """K20 on the current stream: the new volume of a float32 volume (sdf
+    and weight (X, Y, Z), origin (3,), voxel_size ()), depth (H, W) and
+    pose (4, 4), all contiguous on one CUDA device; or raise."""
+    sdf, weight, origin, vox = state
+    dev = sdf.device
+    tensors = (sdf, weight, origin, vox, depth_m, T_wc)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("integrate_dense: the volume, the depth and the "
+                         "pose must lie on one CUDA device (or all on the "
+                         "CPU)")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("integrate_dense: float32 volume, depth and pose "
+                         "expected")
+    if (sdf.dim() != 3 or weight.shape != sdf.shape
+            or tuple(origin.shape) != (3,) or vox.numel() != 1
+            or tuple(depth_m.shape) != (cam.height, cam.width)
+            or tuple(T_wc.shape) != (4, 4)):
+        raise ValueError(
+            f"integrate_dense: an (X, Y, Z) sdf and weight, a (3,) origin, "
+            f"a 0-d voxel size, a ({cam.height}, {cam.width}) depth and a "
+            f"(4, 4) pose expected, got {tuple(sdf.shape)}, "
+            f"{tuple(weight.shape)}, {tuple(origin.shape)}, "
+            f"{tuple(vox.shape)}, {tuple(depth_m.shape)}, "
+            f"{tuple(T_wc.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("integrate_dense: contiguous volume, depth and "
+                         "pose expected")
+    ints, floats = _dense_tables(cam, fusion, tuple(sdf.shape))
+    sdf_out = torch.empty_like(sdf)
+    weight_out = torch.empty_like(weight)
+    kernels.launch("integrate_dense", dev.index, sdf.data_ptr(),
+                   weight.data_ptr(), depth_m.data_ptr(), T_wc.data_ptr(),
+                   origin.data_ptr(), vox.data_ptr(), sdf_out.data_ptr(),
+                   weight_out.data_ptr(), ints, floats)
+    global LAUNCHES_DENSE
+    LAUNCHES_DENSE += 1
+    return state._replace(sdf=sdf_out, weight=weight_out)

@@ -18,6 +18,7 @@ from ..ops import hash_ops, hash_raycast, icp, pose_graph
 from ..ops import preprocess as pre_ops
 from ..ops import raycast as rc_ops
 from ..ops import splat as splat_ops
+from ..ops import tsdf as tsdf_ops
 from . import distributed, sharded
 
 
@@ -55,8 +56,8 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
     launches over the run), ``k3_launches`` (K3a and K3b's),
     ``splat_launches`` (K8 and K9's), ``fuse_launches`` (K6 and K7's),
     ``alloc_launches`` (K5a and K5b's), ``maint_launches`` (K10, K14 and
-    K15's), ``march_launches`` (K11 and K12's) and, with ``timed``,
-    per-frame
+    K15's), ``march_launches`` (K11 and K12's), ``dense_launches``
+    (K20's) and, with ``timed``, per-frame
     host ms on a synchronised clock, the peak device memory, the
     collective counters, the live render's hit mask (this rank's rows)
     and ``kernel_check`` on the last frame."""
@@ -69,6 +70,7 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
     rc_ops.LAUNCHES_MARCH = hash_raycast.LAUNCHES_DENSIFY = 0
+    tsdf_ops.LAUNCHES_DENSE = 0
     launches, frame_ms, infos = [], [], []
     cuda = mesh.device.type == "cuda"
     if cuda:
@@ -107,7 +109,8 @@ def run_slam(mesh, config, frames, fed_poses=None, render_poses=(),
            "maint_launches": [hash_ops.LAUNCHES_GC, hash_ops.LAUNCHES_EVICT,
                               hash_ops.LAUNCHES_RESTORE],
            "march_launches": [rc_ops.LAUNCHES_MARCH,
-                              hash_raycast.LAUNCHES_DENSIFY]}
+                              hash_raycast.LAUNCHES_DENSIFY],
+           "dense_launches": [tsdf_ops.LAUNCHES_DENSE]}
     if fed_poses is None:
         out["state"] = convert.state_to_numpy(slam.state)
         hmap = slam.state.hmap
@@ -143,7 +146,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     K4, K4s; ``k3_launches``: K3a, K3b; ``splat_launches``: K8, K9;
     ``fuse_launches``: K6, K7; ``alloc_launches``: K5a, K5b;
     ``maint_launches``: K10, K14, K15; ``march_launches``: K11, K12;
-    ``pg_launches``: K13a, K13b, K13c), with
+    ``dense_launches``: K20; ``pg_launches``: K13a, K13b, K13c), with
     streaming the store counters
     (evicted, restored, stored) summed over the ranks, and, with
     ``timed``, the host seconds of
@@ -159,6 +162,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
     pre_ops.LAUNCHES_FRAME = pre_ops.LAUNCHES_LEVELS = 0
     splat_ops.LAUNCHES_ZBUFFER = splat_ops.LAUNCHES_FINALIZE = 0
     rc_ops.LAUNCHES_MARCH = hash_raycast.LAUNCHES_DENSIFY = 0
+    tsdf_ops.LAUNCHES_DENSE = 0
     pose_graph.LAUNCHES_EDGE_BLOCKS = pose_graph.LAUNCHES_CG = 0
     pose_graph.LAUNCHES_RETRACT = 0
     bytes0, coll0 = mesh.collective_host_bytes, mesh.collectives
@@ -195,6 +199,7 @@ def run_keyframe(mesh, config, frames, inject=None, timed=False) -> dict:
                            hash_ops.LAUNCHES_RESTORE],
         "march_launches": [rc_ops.LAUNCHES_MARCH,
                            hash_raycast.LAUNCHES_DENSIFY],
+        "dense_launches": [tsdf_ops.LAUNCHES_DENSE],
         "pg_launches": [pose_graph.LAUNCHES_EDGE_BLOCKS,
                         pose_graph.LAUNCHES_CG, pose_graph.LAUNCHES_RETRACT],
         "rebuild_fuses": sum(e["keyframes"] for e in slam.ba_events
